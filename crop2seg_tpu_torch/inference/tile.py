@@ -1,0 +1,60 @@
+"""Whole-tile inference: patchify -> batched forward -> softmax -> stitch
+(port of crop2seg_tpu/inference/tile.py:24-77, single device).
+
+The tile is patchified on the device, the 100 patches run in batches of
+``batch_size`` (the last one padded to the same shape), and softmax, stitch
+and argmax happen on the device; only the 1098^2 maps come back to the host.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from crop2seg_tpu_torch.device import resolve_device
+from crop2seg_tpu_torch.nn.temporal import pad_mask_from_lengths
+from crop2seg_tpu_torch.ops.patchify import (
+    patchify_inference_tile, stitch_inference_tile)
+
+
+def make_tile_predictor(model: torch.nn.Module, batch_size: int = 10,
+                        device=None, dtype: torch.dtype | None = None):
+    """Returns predict(tile_ts, dates, length) ->
+    {'proba': (1098, 1098, K) float32, 'classes': (1098, 1098) uint8}.
+
+    tile_ts: (T, 1098, 1098, C) standardized series (numpy or tensor);
+    dates: (T,) day offsets; length: valid series length. ``device``: the
+    CUDA card unless "cpu" is asked for; the model is moved there and set to
+    eval. ``dtype``: compute dtype under autocast (e.g. torch.bfloat16);
+    None runs float32.
+    """
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    amp = dtype is not None and dtype != torch.float32
+
+    def predict(tile_ts, dates, length) -> Dict[str, np.ndarray]:
+        with torch.inference_mode(), torch.autocast(dev.type, dtype=dtype,
+                                                    enabled=amp):
+            tile = torch.as_tensor(tile_ts, dtype=torch.float32, device=dev)
+            t = tile.shape[0]
+            patches = patchify_inference_tile(tile)       # (100, T, 128, 128, C)
+            del tile
+            n_patches = patches.shape[0]
+            db = torch.as_tensor(dates, dtype=torch.float32,
+                                 device=dev)[None].expand(batch_size, t)
+            mb = pad_mask_from_lengths(
+                torch.tensor([int(length)], device=dev), t).expand(batch_size, t)
+            probs = []
+            for start in range(0, n_patches, batch_size):
+                xb = patches[start:start + batch_size]
+                nb = xb.shape[0]
+                if nb < batch_size:  # pad the final batch to the same shape
+                    xb = torch.cat([xb, xb.new_zeros((batch_size - nb,) + xb.shape[1:])])
+                logits = model(xb, db, mb)
+                probs.append(torch.softmax(logits.float(), dim=-1)[:nb])
+            proba = stitch_inference_tile(torch.cat(probs))
+            classes = proba.argmax(dim=-1).to(torch.uint8)
+            return {"proba": proba.cpu().numpy(), "classes": classes.cpu().numpy()}
+
+    return predict

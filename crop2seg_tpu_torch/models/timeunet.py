@@ -1,0 +1,96 @@
+"""TimeUNet_v1, eval (port of crop2seg_tpu/models/timeunet.py:26-168).
+
+    x (B,T,H,W,C) --shared in_conv--> (B,T,H,W,64)
+    --L-TAE at full resolution--> (B,H,W,64)      # collapses T before the UNet
+    --plain UNet encoder/decoder--> logits (B,H,W,K)
+
+On the kernel path (``fused``, the default for a CUDA input) in_conv defers
+its last GroupNorm + ReLU: it returns the raw conv output with the per-frame
+affine ``(sc, sh)``, the pad mask is folded in as zeroed rows, and the fused
+L-TAE kernel applies ``max(z * sc + sh, 0)`` on load. The plain path (the
+default for a CPU input) runs in_conv through ``temporally_shared``. Both
+give the same result.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from crop2seg_tpu_torch.device import eval_only
+from crop2seg_tpu_torch.nn.layers import ConvBlock, DownConvBlock, UpConvBlock
+from crop2seg_tpu_torch.nn.ltae import LTAE
+from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
+
+
+class TimeUNet(nn.Module):
+    def __init__(self, input_dim: int = 10,
+                 encoder_widths: Sequence[int] = (64, 64, 64, 128),
+                 decoder_widths: Sequence[int] = (32, 32, 64, 128),
+                 out_conv: Sequence[int] = (32, 20), str_conv_k: int = 4,
+                 str_conv_s: int = 2, str_conv_p: int = 1,
+                 encoder_norm: str = "group", n_head: int = 16,
+                 d_model: int = 256, d_k: int = 4, pad_value: float = 0.0,
+                 padding_mode: str = "reflect", use_abs_rel_enc: bool = False,
+                 num_queries: int = 1, use_doy: bool = False,
+                 add_linear: bool = False):
+        super().__init__()
+        enc_w, dec_w = tuple(encoder_widths), tuple(decoder_widths)
+        n = len(enc_w)
+        self.pad_value = pad_value
+        self.in_conv = ConvBlock((input_dim, enc_w[0], enc_w[0]),
+                                 norm=encoder_norm, padding_mode=padding_mode)
+        self.down_blocks = nn.ModuleList(
+            DownConvBlock(enc_w[i], enc_w[i + 1], k=str_conv_k, s=str_conv_s,
+                          p=str_conv_p, norm=encoder_norm,
+                          padding_mode=padding_mode)
+            for i in range(n - 1))
+        self.up_blocks = nn.ModuleList(
+            UpConvBlock(dec_w[i], dec_w[i - 1], enc_w[i - 1], k=str_conv_k,
+                        s=str_conv_s, p=str_conv_p, norm="batch",
+                        padding_mode=padding_mode)
+            for i in range(n - 1, 0, -1))
+        self.temporal_encoder = LTAE(
+            in_channels=enc_w[0], d_model=d_model, n_head=n_head, d_k=d_k,
+            mlp=(d_model, enc_w[0]),
+            use_abs_rel_enc=use_abs_rel_enc, num_queries=num_queries,
+            use_doy=False if use_abs_rel_enc else use_doy,
+            add_linear=add_linear)
+        self.out_conv = ConvBlock((dec_w[0],) + tuple(out_conv),
+                                  padding_mode=padding_mode)
+
+    def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,
+                pad_mask: torch.Tensor | None = None, *,
+                fused: bool | None = None) -> torch.Tensor:
+        """x (B, T, H, W, C), batch_positions (B, T), pad_mask (B, T) bool ->
+        logits (B, H, W, K). ``fused``: None picks the kernel path for a CUDA
+        input and the plain path for a CPU input; True/False force one."""
+        eval_only(self)
+        if pad_mask is None:
+            pad_mask = pad_mask_from_input(x, self.pad_value)
+        if fused is None:
+            fused = x.is_cuda
+        b, t = x.shape[:2]
+        if fused:
+            if self.pad_value != 0:
+                raise NotImplementedError(
+                    "the fused path folds pads in as zero rows: pad_value must be 0")
+            z, sc, sh = self.in_conv(x.reshape((b * t,) + tuple(x.shape[2:])),
+                                     defer_tail_norm=True)
+            valid = (~pad_mask).reshape(b * t, 1).to(sc.dtype)
+            tail = ((sc * valid).reshape(b, t, -1), (sh * valid).reshape(b, t, -1))
+            out, _ = self.temporal_encoder(
+                z.reshape((b, t) + tuple(z.shape[1:])), batch_positions,
+                pad_mask, need_attn=False, tail_affine=tail, fused=True)
+        else:
+            out = temporally_shared(self.in_conv, x, pad_mask, self.pad_value)
+            out, _ = self.temporal_encoder(out, batch_positions, pad_mask,
+                                           need_attn=False, fused=False)
+        feature_maps = [out]
+        for down in self.down_blocks:
+            feature_maps.append(down(feature_maps[-1]))
+        out = feature_maps[-1]
+        for i, up in enumerate(self.up_blocks):
+            out = up(out, feature_maps[-(i + 2)])
+        return self.out_conv(out)

@@ -1,0 +1,203 @@
+"""Fused masked L-TAE eval forward: CUDA C++ kernel for Hopper + plain version
+(port of crop2seg_tpu/ops/ltae_pallas.py::ltae_fused_forward).
+
+Per pixel row over T steps (nq = 1):
+
+    [max(x*sc + sh, 0)] -> GroupNorm_G over (T, C/G) -> 1x1 proj C->D + PE
+    -> masked one-query softmax over T -> head-grouped weighted sum
+    -> MLP (eval BN folded) + ReLU -> GroupNorm_G -> affine
+
+``ltae_fused_forward`` does the offline folds in fp32 and launches the kernel
+of ``csrc/ltae_fused_fwd.cu`` on a CUDA tensor; on a CPU tensor it calls
+``ltae_fused_forward_reference``, the plain PyTorch version that materializes
+the projected sequence h. ``ltae_fused_forward.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Mapping, Optional
+
+import torch
+
+from crop2seg_tpu_torch.ops._build import load_library
+
+MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
+MAX_C = 64          # lanes own channels c and c + 32
+MAX_HEADS = 16      # per-head accumulators live in registers
+
+
+def fold_batchnorm(wm, bm, bn_scale, bn_bias, bn_mean, bn_var, eps: float = 1e-5):
+    """Fold eval BatchNorm1d into the MLP Dense: y = (xW + b - m)/s*g + B."""
+    s = bn_scale * torch.rsqrt(bn_var + eps)
+    return wm * s[None, :], (bm - bn_mean) * s + bn_bias
+
+
+def params_from_ltae_variables(sd: Mapping[str, torch.Tensor],
+                               prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The kernel's parameter dict from an LTAE state dict (reference torch
+    names), in the JAX package's layout: in_scale, in_bias (C,), win (C, D),
+    bin, wk (D, G*d_k), bk, q (G, nq, d_k), wm_folded (D, d_out), bm_folded,
+    out_scale, out_bias."""
+    def p(name):
+        return sd[prefix + name].float()
+
+    wm, bm = fold_batchnorm(
+        p("mlp.0.weight").t(), p("mlp.0.bias"), p("mlp.2.weight"),
+        p("mlp.2.bias"), p("mlp.2.running_mean"), p("mlp.2.running_var"))
+    return {
+        "in_scale": p("in_norm.weight"), "in_bias": p("in_norm.bias"),
+        "win": p("inconv.weight")[:, :, 0].t(), "bin": p("inconv.bias"),
+        "wk": p("attention_head.fc1_k.weight").t(),
+        "bk": p("attention_head.fc1_k.bias"),
+        "q": p("attention_head.Q"),
+        "wm_folded": wm, "bm_folded": bm,
+        "out_scale": p("out_norm.weight"), "out_bias": p("out_norm.bias"),
+    }
+
+
+def _query(params, n_head: int) -> torch.Tensor:
+    q = params["q"]
+    if q.dim() == 3:
+        if q.shape[1] != 1:
+            raise NotImplementedError(
+                "num_queries > 1 is not ported to the fused kernel yet "
+                "(ROADMAP.md, open items)")
+        q = q[:, 0]
+    if q.shape[0] != n_head:
+        raise ValueError(f"q has {q.shape[0]} heads, expected {n_head}")
+    return q.float()
+
+
+def ltae_fused_forward_reference(x, pe, pad_mask, params, *, n_head: int = 16,
+                                 d_k: int = 4, eps: float = 1e-5,
+                                 need_attn: bool = True,
+                                 tail_affine: Optional[tuple] = None):
+    """Plain fp32 PyTorch version of the kernel, on the same arguments.
+
+    x (B, T, N, C), pe (B, T, D), pad_mask (B, T) bool. Returns out
+    (B, N, d_out) in x's dtype and attn (B, N, G, T) fp32 or None."""
+    b, t, n, c = x.shape
+    g = n_head
+    xf = x.float()
+    if tail_affine is not None:
+        sc, sh = tail_affine
+        xf = torch.relu(xf * sc.float()[:, :, None, :] + sh.float()[:, :, None, :])
+    xg = xf.reshape(b, t, n, g, c // g)
+    mean = xg.mean(dim=(1, 4), keepdim=True)
+    var = (xg - mean).square().mean(dim=(1, 4), keepdim=True)
+    xn = ((xg - mean) * torch.rsqrt(var + eps)).reshape(b, t, n, c)
+    xn = xn * params["in_scale"].float() + params["in_bias"].float()
+    h = xn @ params["win"].float() + params["bin"].float() + pe.float()[:, :, None, :]
+    d = h.shape[-1]
+    k = (h @ params["wk"].float() + params["bk"].float()).reshape(b, t, n, g, d_k)
+    scores = torch.einsum("btngk,gk->bngt", k, _query(params, g)) / math.sqrt(d_k)
+    scores = scores.masked_fill(pad_mask.to(torch.bool)[:, None, None, :], -1e6)
+    attn = torch.softmax(scores, dim=-1)                          # (B, N, G, T)
+    o = torch.einsum("bngt,btngv->bngv", attn,
+                     h.reshape(b, t, n, g, d // g)).reshape(b, n, d)
+    m = torch.relu(o @ params["wm_folded"].float() + params["bm_folded"].float())
+    mg = m.reshape(b, n, g, -1)
+    mmean = mg.mean(dim=-1, keepdim=True)
+    mvar = (mg - mmean).square().mean(dim=-1, keepdim=True)
+    out = ((mg - mmean) * torch.rsqrt(mvar + eps)).reshape(m.shape)
+    out = out * params["out_scale"].float() + params["out_bias"].float()
+    return out.to(x.dtype), (attn if need_attn else None)
+
+
+def _fold(pe, pad_mask, params, n_head: int, d_k: int):
+    """The offline folds, fp32: in-GN affine into W_in, the query into the key
+    projection (U = W_k q / sqrt(d_k)), U through W_in (Ws = W_in U) and
+    through bias + PE (pes = (b_in + pe) U + cs, -1e6 at pads)."""
+    f = {k: v.float() for k, v in params.items()}
+    d = f["win"].shape[1]
+    win = f["win"] * f["in_scale"][:, None]
+    bin_ = f["bin"] + f["in_bias"] @ f["win"]
+    q = _query(params, n_head)
+    u = torch.einsum("dgk,gk->dg", f["wk"].reshape(d, n_head, d_k), q) / math.sqrt(d_k)
+    cs = torch.einsum("gk,gk->g", f["bk"].reshape(n_head, d_k), q) / math.sqrt(d_k)
+    pes = pe.float() @ u + (bin_ @ u + cs)
+    pes = pes - 1e6 * pad_mask.float()[:, :, None]
+    return {"pe": pe.float(), "win": win, "bin": bin_, "ws": win @ u,
+            "pes": pes.transpose(1, 2), "wm": f["wm_folded"],
+            "bm": f["bm_folded"], "osc": f["out_scale"], "obi": f["out_bias"]}
+
+
+@functools.cache
+def _kernel():
+    lib = load_library("ltae_fused_fwd")
+    fn = lib.ltae_fused_fwd
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci] + [vp] * 13 + [ci] * 7 + [ctypes.c_float, vp]
+    fn.restype = ci
+    return fn
+
+
+def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
+                       pad_mask: torch.Tensor, params: Dict[str, torch.Tensor],
+                       *, n_head: int = 16, d_k: int = 4, eps: float = 1e-5,
+                       need_attn: bool = True,
+                       tail_affine: Optional[tuple] = None):
+    """Fused L-TAE eval forward, nq = 1.
+
+    x: time-major rows (B, T, N, C), fp32 or bf16 (N = H*W, a free reshape of
+    (B, T, H, W, C)); pe (B, T, D); pad_mask (B, T) bool; params as
+    ``params_from_ltae_variables`` returns. tail_affine: optional (sc, sh) of
+    (B, T, C), applied as ``max(x*sc + sh, 0)`` on load.
+    Returns (out (B, N, d_out) in x's dtype, attn (B, N, G, T) fp32 or None).
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    """
+    if x.device.type == "cpu":
+        return ltae_fused_forward_reference(
+            x, pe, pad_mask, params, n_head=n_head, d_k=d_k, eps=eps,
+            need_attn=need_attn, tail_affine=tail_affine)
+    if x.device.type != "cuda":
+        raise ValueError(f"ltae_fused_forward runs on cuda or cpu, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be a contiguous, 16-byte aligned (B, T, N, C) tensor")
+    b, t, n, c = x.shape
+    g = n_head
+    d, d_out = params["win"].shape[1], params["wm_folded"].shape[1]
+    if not (t <= MAX_T and c <= MAX_C and c % 8 == 0 and g <= MAX_HEADS
+            and c % g == 0 and d % g == 0 and d_out % g == 0):
+        raise ValueError(
+            f"unsupported shape T={t} C={c} G={g} D={d} d_out={d_out}: the "
+            f"kernel takes T<={MAX_T}, C<={MAX_C} with C%8==0, "
+            f"G<={MAX_HEADS} dividing C, D and d_out")
+    if pe.shape != (b, t, d) or pad_mask.shape != (b, t):
+        raise ValueError(f"pe {tuple(pe.shape)} / pad_mask {tuple(pad_mask.shape)} "
+                         f"do not match x {tuple(x.shape)}, D={d}")
+    with torch.autocast(x.device.type, enabled=False):
+        f = _fold(pe, pad_mask, params, g, d_k)
+        if tail_affine is not None:
+            tsc, tsh = (a.float() for a in tail_affine)
+            if tsc.shape != (b, t, c) or tsh.shape != (b, t, c):
+                raise ValueError(f"tail_affine must be (B, T, C) = {(b, t, c)}")
+            f["tsc"], f["tsh"] = tsc, tsh
+    f = {k: v.to(x.device).contiguous() for k, v in f.items()}
+    out = torch.empty(b, n, d_out, dtype=x.dtype, device=x.device)
+    attn = (torch.empty(b, n, g, t, dtype=torch.float32, device=x.device)
+            if need_attn else None)
+
+    def ptr(name):
+        return f[name].data_ptr() if name in f else None
+
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                ptr("pe"), ptr("win"), ptr("bin"), ptr("ws"), ptr("pes"),
+                ptr("wm"), ptr("bm"), ptr("osc"), ptr("obi"),
+                ptr("tsc"), ptr("tsh"), out.data_ptr(),
+                None if attn is None else attn.data_ptr(),
+                b, t, n, c, d, g, d_out, eps, stream)
+    if rc != 0:
+        raise RuntimeError(f"ltae_fused_fwd kernel launch failed: cudaError {rc}")
+    ltae_fused_forward.launches += 1
+    return out, attn
+
+
+ltae_fused_forward.launches = 0

@@ -1,0 +1,163 @@
+"""crop2seg_tpu_torch L-TAE: the fused kernel's plain version against the JAX
+Pallas kernel (interpret mode), the LTAE module against the JAX module, and
+the ltae.npz golden. The CUDA kernel itself is held against the plain version
+on the card (tests/test_torch_package.py's ``cuda`` test, and chip_smoke.py).
+
+Shape: B=2, T=9, 8x8 pixels, C=32, G=8, D=64, d_out=16, fp32, with pads.
+Tolerance: rtol 1e-3 / atol 5e-4 on out, as tests/test_ltae_pallas.py holds
+the Pallas kernel to the XLA module. This config's out-GroupNorm has
+2-channel groups whose variance is ~0 for some rows, which amplifies
+accumulation-order noise (tests/test_ltae_pallas.py:99-104); the paths that
+also differ in where the tail affine rounds take 5e-3 as that file does.
+Attention weights have no such degeneracy: 1e-5.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from crop2seg_tpu.nn.ltae import LTAE as JLTAE
+from crop2seg_tpu.ops import ltae_pallas as jk
+from crop2seg_tpu_torch.nn.ltae import LTAE
+from crop2seg_tpu_torch.ops import ltae_fused as tk
+from crop2seg_tpu_torch.utils.convert import ltae_state_dict_from_flax
+from tests.parity_utils import attn_from_torch, from_nhwc, load_fixture, to_nhwc_seq
+
+B, T, H, W, C = 2, 9, 8, 8, 32
+N_HEAD, D_K, D_MODEL, D_OUT = 8, 4, 64, 16
+OUT_TOL = dict(rtol=1e-3, atol=5e-4)
+ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def case():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((B, T, H, W, C)).astype(np.float32)
+    pad = np.zeros((B, T), bool)
+    pad[0, T - 2:] = True
+    x[pad] = 0.0
+    dates = np.tile((np.arange(T) * 7.0 + 20).astype(np.float32), (B, 1))
+    m = JLTAE(in_channels=C, n_head=N_HEAD, d_k=D_K, mlp=(D_MODEL, D_OUT),
+              d_model=D_MODEL)
+    v = jax.jit(lambda x: m.init(jax.random.PRNGKey(1), x, dates, pad_mask=pad,
+                                 train=False))(x)
+    bs = jax.tree_util.tree_map(  # non-trivial BN statistics
+        lambda a: np.abs(np.asarray(a) + 0.3 * rng.standard_normal(a.shape)
+                         ).astype(np.float32), v["batch_stats"])
+    v = {"params": jax.tree_util.tree_map(np.asarray, v["params"]),
+         "batch_stats": bs}
+    pe = np.asarray(m.apply(v, jnp.asarray(dates),
+                            method=lambda mod, d: mod._pe(d)))
+    jparams = jax.tree_util.tree_map(np.asarray,
+                                     jk.params_from_ltae_variables(v, N_HEAD))
+    sc = (1.0 + 0.2 * rng.standard_normal((B, T, C))).astype(np.float32)
+    sh = (0.1 * rng.standard_normal((B, T, C))).astype(np.float32)
+    valid = (~pad).astype(np.float32)[:, :, None]
+    return dict(module=m, variables=v, x=x, pad=pad, dates=dates, pe=pe,
+                jparams=jparams, tail=(sc * valid, sh * valid))
+
+
+def _t(a):
+    return torch.tensor(np.ascontiguousarray(a))
+
+
+def _tparams(jparams):
+    return {k: _t(v) for k, v in jparams.items()}
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("need_attn", [True, False])
+def test_reference_matches_jax_kernel(case, tail, need_attn):
+    rows = case["x"].reshape(B, T, H * W, C)
+    tail_j = tuple(jnp.asarray(a) for a in case["tail"]) if tail else None
+    want, want_attn = jk.ltae_fused_forward(
+        jnp.asarray(rows), jnp.asarray(case["pe"]), jnp.asarray(case["pad"]),
+        case["jparams"], n_head=N_HEAD, d_k=D_K, row_block=32, interpret=True,
+        need_attn=need_attn, tail_affine=tail_j)
+    got, got_attn = tk.ltae_fused_forward_reference(
+        _t(rows), _t(case["pe"]), _t(case["pad"]), _tparams(case["jparams"]),
+        n_head=N_HEAD, d_k=D_K, need_attn=need_attn,
+        tail_affine=tuple(_t(a) for a in case["tail"]) if tail else None)
+    assert got.shape == (B, H * W, D_OUT)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **OUT_TOL)
+    if need_attn:
+        assert got_attn.shape == (B, H * W, N_HEAD, T)
+        np.testing.assert_allclose(got_attn.numpy(), np.asarray(want_attn), **ATTN_TOL)
+    else:
+        assert got_attn is None and want_attn is None
+
+
+def test_params_from_state_dict_match_jax(case):
+    sd = ltae_state_dict_from_flax(case["variables"])
+    got = tk.params_from_ltae_variables(sd)
+    assert set(got) == set(case["jparams"])
+    for k, want in case["jparams"].items():
+        np.testing.assert_allclose(got[k].numpy(), want, rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
+
+
+def _port_ltae(case):
+    m = LTAE(in_channels=C, n_head=N_HEAD, d_k=D_K, mlp=(D_MODEL, D_OUT),
+             d_model=D_MODEL).eval()
+    m.load_state_dict(ltae_state_dict_from_flax(case["variables"]))
+    return m
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_module_matches_jax_module(case, fused):
+    """Plain path and fused path (the wrapper's plain version on the CPU)
+    against JAX LTAE with use_pallas=False."""
+    want, want_attn = case["module"].apply(
+        case["variables"], jnp.asarray(case["x"]), jnp.asarray(case["dates"]),
+        pad_mask=jnp.asarray(case["pad"]), train=False)
+    with torch.inference_mode():
+        got, attn = _port_ltae(case)(_t(case["x"]), _t(case["dates"]),
+                                     _t(case["pad"]), fused=fused)
+    assert got.shape == (B, H, W, D_OUT) and attn.shape == (B, H, W, N_HEAD, T)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT_TOL)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(want_attn), **ATTN_TOL)
+
+
+def test_module_tail_affine_equals_preapplied(case):
+    """tail_affine applied on load equals applying max(x*sc+sh, 0) first."""
+    m = _port_ltae(case)
+    sc, sh = (_t(a) for a in case["tail"])
+    x = _t(case["x"])
+    pre = torch.relu(x * sc[:, :, None, None, :] + sh[:, :, None, None, :])
+    with torch.inference_mode():
+        want, _ = m(pre, _t(case["dates"]), _t(case["pad"]), fused=False)
+        got, _ = m(x, _t(case["dates"]), _t(case["pad"]), tail_affine=(sc, sh),
+                   need_attn=False, fused=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=5e-3, atol=5e-3)
+
+
+def test_ltae_golden():
+    arrays, sd = load_fixture("ltae")
+    m = LTAE(in_channels=32, n_head=8, d_k=4, mlp=(64, 16), d_model=64).eval()
+    m.load_state_dict({k: torch.tensor(v) for k, v in sd.items()})
+    with torch.inference_mode():
+        y, attn = m(_t(to_nhwc_seq(arrays["x"])), _t(arrays["dates"]),
+                    _t(arrays["pad_mask"]))
+    np.testing.assert_allclose(from_nhwc(y.numpy()), arrays["y"], rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(attn.numpy(), attn_from_torch(arrays["attn"]),
+                               rtol=5e-4, atol=5e-4)
+
+
+def test_num_queries_above_one_is_queued():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LTAE(in_channels=16, n_head=4, d_model=16, mlp=(16, 8), num_queries=3)
+    params = {"q": torch.zeros(4, 3, 4)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tk._query(params, 4)
+
+
+def test_wrapper_on_cpu_runs_the_plain_version(case):
+    rows = _t(case["x"].reshape(B, T, H * W, C))
+    args = (rows, _t(case["pe"]), _t(case["pad"]), _tparams(case["jparams"]))
+    before = tk.ltae_fused_forward.launches
+    got, _ = tk.ltae_fused_forward(*args, n_head=N_HEAD, d_k=D_K)
+    want, _ = tk.ltae_fused_forward_reference(*args, n_head=N_HEAD, d_k=D_K)
+    assert tk.ltae_fused_forward.launches == before
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
