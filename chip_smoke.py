@@ -2,17 +2,30 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-1. Builds the fused L-TAE kernel (csrc/ltae_fused_fwd.cu) from the sources.
-2. Holds the kernel against its plain PyTorch version on the card at full
-   width (T=61, N=128*128, C=64, D=256, G=16, d_out=64, with pads), in fp32
-   and bf16, with the tail affine and the attention output each on and off,
-   then times both at the main-path shape (B=10) beside the kernel's bound.
-3. Runs TimeUNet_v1 at the factory defaults (15 classes, weights drawn from a
-   seeded torch.Generator) through make_tile_predictor on one synthetic
-   standardized tile (61, 1098, 1098, 10), length 55, batch 10, in bf16 (the
-   main path, launch counts read around it) and in fp32; checks shapes,
+1. Builds the kernel sources (csrc/ltae_fused_fwd.cu, csrc/ltae_pool.cu),
+   one nvcc process each, started together.
+2. Holds the fused eval L-TAE kernel against its plain PyTorch version on the
+   card at full width (T=61, N=128*128, C=64, D=256, G=16, d_out=64, with
+   pads), in fp32 and bf16, with the tail affine and the attention output
+   each on and off, then times both at the serving shape (B=10) beside the
+   kernel's bound.
+3. Holds the training pooling kernels (ltae_pool forward and backward)
+   against their plain version under autograd at full width (B=2, one sample
+   padded to 55): o and all six gradients, at drop_p 0 and 0.1 with the same
+   seed; then times both and the plain version at the train step's B=4.
+4. Serving path: TimeUNet_v1 at the factory defaults (15 classes, weights
+   drawn from a seeded torch.Generator) through make_tile_predictor on one
+   synthetic standardized tile (61, 1098, 1098, 10), length 55, batch 10, in
+   bf16 (launch counts read around it) and in fp32; checks shapes,
    finiteness, sum-to-1, exactly 10 kernel launches per tile, two patches
    against the same model with the plain L-TAE forced, and pad invariance.
+5. Training path: 5 steps of make_train_step (B=4, T=61, 128x128x10, lengths
+   61/55/43/27, class 14 weighted 0, Adam lr 1e-3, dropout live) on one
+   synthetic batch; checks finite losses, step 5 below step 1, one forward
+   and one backward kernel launch per step, changed BatchNorm statistics,
+   one fused eval kernel launch per make_eval_step call, and at B=2 every
+   parameter's gradient against the same model with the plain ltae_pool
+   forced (dropout on, same generator seed). Prints the warm step time.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -29,9 +42,13 @@ import numpy as np
 import torch
 
 from crop2seg_tpu_torch.inference.tile import make_tile_predictor
+from crop2seg_tpu_torch.learning.losses import cross_entropy
+from crop2seg_tpu_torch.learning.trainer import (
+    StepConfig, make_eval_step, make_train_step)
 from crop2seg_tpu_torch.models.factory import get_model
 from crop2seg_tpu_torch.ops import _build
 from crop2seg_tpu_torch.ops import ltae_fused as lf
+from crop2seg_tpu_torch.ops import ltae_pool as lp
 from crop2seg_tpu_torch.ops.patchify import patchify_inference_tile
 
 # H100 SXM data-sheet peaks (dense): device memory and per-type math rates
@@ -42,6 +59,23 @@ T, HW, C, D, G, D_OUT, D_K = 61, 128 * 128, 64, 256, 16, 64, 4
 MAIN_B, LENGTH = 10, 55
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}   # out, vs plain fp32
 ATTN_TOL = 1e-4
+TRAIN_B, TRAIN_LENGTHS, N_CLASSES = 4, (61, 55, 43, 27), 15
+# ltae_pool kernels vs plain, as max |err| / max |plain|: fp32 sums of up to
+# B*N*T = 2M terms (the weight, PE and bias gradients) taken in another
+# order, the grid-wide ones by atomics in an order that changes per run
+POOL_TOL = 1e-3
+# whole-model gradients, kernel vs plain ltae_pool, as |diff| / |plain| per
+# parameter (2-norms). The train-mode U-Net backward (BatchNorm over batch
+# statistics, ReLU masks) amplifies a 1e-5 change of its input to about 1e-2
+# in every gradient, so the yardstick is measured in the same run: the plain
+# path again with the L-TAE output scaled by (1 + GRAD_EPS * noise), GRAD_EPS
+# above the kernel's own forward error in o (about 7e-6 of its largest
+# value). Kernel vs plain must stay within GRAD_FACTOR times that spread
+# (the parameter's own, or the median over parameters if larger). Gradients
+# that are zero in exact arithmetic (biases feeding a train-mode BatchNorm,
+# the key bias under the softmax) are rounding noise on both paths: below
+# GRAD_ZERO of the model's largest gradient, on both.
+GRAD_EPS, GRAD_FACTOR, GRAD_ZERO = 1e-5, 4.0, 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -163,6 +197,233 @@ def phase_kernel(model, dev):
     return errs, timings
 
 
+def pool_flops(b: int, backward: bool) -> float:
+    """Operations of the ltae_pool kernels, counted per row. Forward: input
+    GroupNorm, scores, softmax, C-space pooling, the projection + PE term.
+    Backward: the forward recomputed up to the softmax, Z and q, p1, the
+    softmax jacobian, pooling, dxhat, the GroupNorm backward and the four
+    sums A, F, E, Dsum."""
+    tc, tcg, tg = T * C, T * C * G, T * G
+    if backward:
+        per_row = 14 * tc + 12 * tcg + 9 * tg + 4 * C * D + 4 * T * D
+    else:
+        per_row = 6 * tc + 4 * tcg + 4 * tg + 2 * C * D + 2 * T * D
+    return float(b * HW * per_row)
+
+
+def pool_bytes(b: int, backward: bool) -> float:
+    """Each input read once, each output written once (fp32)."""
+    n = b * T * HW * C * 4 + b * HW * D * 4        # x; o (fwd) or go (bwd)
+    n += (b * T * D + b * G * T + C * D + C * G) * 4  # bpe, pes, W_f, Ws
+    if backward:
+        n += b * T * HW * C * 4                    # dx
+        n += (C * G + C * D + b * T * G + b * T * D) * 4  # the four sums
+    return float(n)
+
+
+def pool_bound(b: int, backward: bool):
+    t_bytes = pool_bytes(b, backward) / HBM_BYTES_PER_S * 1e3
+    t_ops = pool_flops(b, backward) / PEAK_FLOP_PER_S[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pool_inputs(model, b: int, gen: torch.Generator, dev):
+    """Full-width ltae_pool inputs: the seeded model's folded L-TAE
+    parameters, its PE of real day offsets, sample 1 padded to LENGTH."""
+    te = model.temporal_encoder
+    with torch.no_grad():
+        params = [p.detach().clone() for p in te.pool_params()]
+        pe = te.pe((torch.arange(T, dtype=torch.float32, device=dev) * 5 + 3
+                    )[None].expand(b, T)).contiguous()
+    pad = torch.zeros(b, T, dtype=torch.bool, device=dev)
+    pad[1:, LENGTH:] = True
+    x = torch.randn(b, T, HW, C, generator=gen, device=dev)
+    return x, pe, pad, params
+
+
+def phase_pool_kernel(model, dev):
+    """Kernels 2 and 3 against the plain version under autograd, then timed."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, pe, pad, params = pool_inputs(model, 2, gen, dev)
+    proj = torch.randn(2, HW, D, generator=gen, device=dev)
+    names = ("o", "dx", "dpe", "dwin_f", "dbin_f", "du", "dcs")
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    outs = {}
+    for drop_p in (0.0, 0.1):
+        got, want = [], []
+        for fn, res in ((lp.ltae_pool, got), (lp.ltae_pool_reference, want)):
+            leaves = [a.clone().requires_grad_(True) for a in (x, pe, *params)]
+            xx, pp, wf, bf, uu, cc = leaves
+            o = fn(xx, pp, pad, wf, bf, uu, cc, 1234, n_head=G, drop_p=drop_p)
+            grads = torch.autograd.grad((o * proj).sum(), leaves)
+            res.extend([o.detach()] + [g_.detach() for g_ in grads])
+        torch.cuda.synchronize()
+        outs[drop_p] = got[0]
+        for name, g_, w_ in zip(names, got, want):
+            check(g_.shape == w_.shape and bool(torch.isfinite(g_).all()),
+                  f"ltae_pool {name} drop_p={drop_p}: shape or non-finite")
+            err = (g_ - w_).abs().max().item()
+            # dcs = sum ds is zero in exact arithmetic (sum_t ds = 0: the
+            # softmax ignores a constant shift), so both sides are rounding
+            # noise: hold it against du, the same ds summed with weights h
+            scale = want[names.index("du" if name == "dcs" else name)]
+            rel = err / max(scale.abs().max().item(), 1e-30)
+            print(f"ltae_pool vs plain drop_p={drop_p} {name}: max_abs_err "
+                  f"{err:.3e}, relative {rel:.3e} (tol {POOL_TOL:g})", flush=True)
+            check(rel <= POOL_TOL, f"ltae_pool {name} drop_p={drop_p}: {rel}")
+            key = "fwd" if name == "o" else "bwd"
+            errs[key] = max(errs[key], err)
+    moved = (outs[0.1] - outs[0.0]).abs().max().item()
+    check(moved > 1e-3, f"drop_p=0.1 left o unchanged ({moved})")
+    del x, pe, pad, proj, outs
+    torch.cuda.empty_cache()
+
+    x, pe, pad, params = pool_inputs(model, TRAIN_B, gen, dev)
+    go = torch.randn(TRAIN_B, HW, D, generator=gen, device=dev)
+    timings = {}
+    for name, fn, iters in (("kernel", lp.ltae_pool, 10),
+                            ("plain", lp.ltae_pool_reference, 3)):
+        leaves = [a.clone().requires_grad_(True) for a in (x, pe, *params)]
+        xx, pp, wf, bf, uu, cc = leaves
+
+        def fwd():
+            with torch.no_grad():
+                fn(xx, pp, pad, wf, bf, uu, cc, 99, n_head=G, drop_p=0.1)
+        fwd_ms = cuda_ms(fwd, iters=iters, warmup=1)
+        o = fn(xx, pp, pad, wf, bf, uu, cc, 99, n_head=G, drop_p=0.1)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, go, retain_graph=True),
+                         iters=iters, warmup=1)
+        timings[name] = (fwd_ms, bwd_ms)
+        del o, leaves, xx
+        torch.cuda.empty_cache()
+    for i, key in enumerate(("fwd", "bwd")):
+        bwd = key == "bwd"
+        b_ms, b_by = pool_bound(TRAIN_B, bwd)
+        ms = timings["kernel"][i]
+        flops, nbytes = pool_flops(TRAIN_B, bwd), pool_bytes(TRAIN_B, bwd)
+        print(f"ltae_pool_{key} fp32 B={TRAIN_B} T={T} N={HW} C={C}: kernel "
+              f"{ms:.3f} ms, plain {timings['plain'][i]:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.3f}"
+              f" ms, operations {flops / PEAK_FLOP_PER_S[torch.float32] * 1e3:.3f}"
+              f" ms, {flops / (TRAIN_B * HW) / 1e6:.3f} MFLOP per row), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s",
+              flush=True)
+    del x, pe, pad, go
+    torch.cuda.empty_cache()
+    return errs, timings
+
+
+def train_batch(b: int, gen: torch.Generator, dev):
+    lengths = torch.tensor(TRAIN_LENGTHS[:b], device=dev)
+    pad = torch.arange(T, device=dev)[None] >= lengths[:, None]
+    x = torch.randn(b, T, 128, 128, 10, generator=gen, device=dev)
+    x[pad] = 0.0
+    dates = (torch.arange(T, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(b, T)
+    y = torch.randint(0, N_CLASSES, (b, 128, 128), generator=gen, device=dev)
+    return {"x": x, "dates": dates.contiguous(), "pad_mask": pad, "y": y}
+
+
+def phase_train(dev):
+    """The training path: 5 steps through make_train_step, then the eval
+    step, then one step's gradients against the plain ltae_pool."""
+    cfg = StepConfig(num_classes=N_CLASSES,
+                     class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+    model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(TRAIN_B, torch.Generator(device=dev).manual_seed(4), dev)
+    step = make_train_step(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bn_before = [model.temporal_encoder.mlp[2].running_mean.clone(),
+                 model.up_blocks[0].up[1].running_var.clone()]
+
+    losses, step_ms = [], []
+    lp.ltae_pool.launches_fwd = lp.ltae_pool.launches_bwd = 0   # the main path
+    for i in range(5):
+        before = (lp.ltae_pool.launches_fwd, lp.ltae_pool.launches_bwd)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        aux = step(batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(aux["loss"]))
+        per_step = (lp.ltae_pool.launches_fwd - before[0],
+                    lp.ltae_pool.launches_bwd - before[1])
+        print(f"train step {i + 1}: loss {losses[-1]:.6f}, {step_ms[-1]:.3f} ms, "
+              f"ltae_pool launches fwd/bwd {per_step}, cm sum "
+              f"{int(aux['cm'].sum())}", flush=True)
+        check(per_step == (1, 1), f"step {i + 1} launched the pair {per_step} times")
+        check(np.isfinite(losses[-1]), f"step {i + 1}: loss {losses[-1]}")
+    launches = (lp.ltae_pool.launches_fwd, lp.ltae_pool.launches_bwd)
+    check(losses[-1] < losses[0], f"loss did not fall over 5 steps: {losses}")
+    bn_after = [model.temporal_encoder.mlp[2].running_mean,
+                model.up_blocks[0].up[1].running_var]
+    check(all(not torch.equal(a, b) for a, b in zip(bn_before, bn_after)),
+          "BatchNorm running statistics did not change")
+    warm_ms = float(np.mean(step_ms[1:]))
+    print(f"train step B={TRAIN_B} fp32, warm (steps 2-5): {warm_ms:.3f} ms, "
+          f"{TRAIN_B / warm_ms * 1e3:.2f} samples/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+
+    lf.ltae_fused_forward.launches = 0                 # the eval step's path
+    aux = make_eval_step(model, cfg)(batch)
+    torch.cuda.synchronize()
+    eval_launches = lf.ltae_fused_forward.launches
+    print(f"eval step: loss {float(aux['loss']):.6f}, ltae_fused_fwd launches "
+          f"{eval_launches}", flush=True)
+    check(eval_launches == 1, f"eval step launched the eval kernel {eval_launches} times")
+    del step, aux, model
+    torch.cuda.empty_cache()
+
+    # one step's gradients at B=2: kernel pair vs the plain ltae_pool forced,
+    # and the plain path with its L-TAE output perturbed, as the yardstick
+    small = {k: v[:2] for k, v in batch.items()}
+    grads = {}
+    for name, fused, eps in (("kernel", True, 0.0), ("plain", False, 0.0),
+                             ("perturbed", False, GRAD_EPS)):
+        m = get_model({"model": "timeunet"}, device=dev)
+        m.load_state_dict(fresh)
+        m.train()
+        if eps:
+            noise = torch.Generator(device=dev).manual_seed(12)
+            m.temporal_encoder.register_forward_hook(
+                lambda mod, args, out: (out[0] * (1 + eps * torch.randn(
+                    out[0].shape, generator=noise, device=dev)), out[1]))
+        g2 = torch.Generator(device=dev).manual_seed(11)
+        logits = m(small["x"], small["dates"], small["pad_mask"], fused=fused,
+                   generator=g2)
+        cross_entropy(logits, small["y"], weight=torch.tensor(
+            cfg.class_weights, device=dev)).backward()
+        grads[name] = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+        del m, logits
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    plain = grads["plain"]
+    top = max(g_.abs().max().item() for g_ in plain.values())
+    zero = [k for k, g_ in plain.items() if g_.abs().max().item() <= GRAD_ZERO * top]
+    for k in zero:
+        got = grads["kernel"][k].abs().max().item()
+        check(got <= GRAD_ZERO * top, f"gradient of {k}: {got} where the plain one is 0")
+    live = [k for k in plain if k not in zero]
+    kp = {k: rel(grads["kernel"][k], plain[k]) for k in live}
+    pe_ = {k: rel(grads["perturbed"][k], plain[k]) for k in live}
+    floor = float(np.median(list(pe_.values())))
+    ratio = {k: kp[k] / (GRAD_FACTOR * max(pe_[k], floor)) for k in live}
+    worst = max(ratio, key=ratio.get)
+    print(f"B=2 gradients, |diff|/|plain| over {len(live)} parameters (and "
+          f"{len(zero)} zero up to rounding, within {GRAD_ZERO:g} of the "
+          f"largest on both paths): kernel vs plain median "
+          f"{np.median(list(kp.values())):.3e} max {max(kp.values()):.3e}; plain "
+          f"vs plain with the L-TAE output perturbed by {GRAD_EPS:g}: median "
+          f"{floor:.3e} max {max(pe_.values()):.3e}; worst ratio to the limit "
+          f"{ratio[worst]:.3f} ({worst})", flush=True)
+    check(ratio[worst] <= 1.0, f"gradient of {worst}: kernel vs plain {kp[worst]:.3e}"
+          f" beyond {GRAD_FACTOR:g}x the perturbation spread")
+    return launches, losses, warm_ms
+
+
 def phase_main_path(model, dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     tile = torch.randn(T, 1098, 1098, 10, generator=gen, device=dev)
@@ -243,11 +504,13 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     start = time.perf_counter()
-    lib = _build.build("ltae_fused_fwd")
-    print(f"built {lib.name} in {time.perf_counter() - start:.1f} s", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    libs = _build.build_all(["ltae_fused_fwd", "ltae_pool"])
+    print(f"built {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    for lib in libs.values():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print("  ptxas:", line.strip(), flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -257,7 +520,11 @@ def main() -> int:
 
     model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
     errs, timings = phase_kernel(model, dev)
+    pool_errs, pool_t = phase_pool_kernel(model, dev)
     launches, pps_bf16, pps_fp32 = phase_main_path(model, dev)
+    del model
+    torch.cuda.empty_cache()
+    pool_launches, losses, step_ms = phase_train(dev)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -275,7 +542,21 @@ def main() -> int:
         "bound_by_fp32": b_by32,
         "tile_patches_per_s": pps_bf16, "tile_patches_per_s_fp32": pps_fp32,
     }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    pool = []
+    for i, key in enumerate(("fwd", "bwd")):
+        b_ms, b_by = pool_bound(TRAIN_B, key == "bwd")
+        pool.append({
+            "name": f"ltae_pool_{key}", "route": "cuda",
+            "source": "crop2seg_tpu_torch/csrc/ltae_pool.cu",
+            "replaces": "crop2seg_tpu/ops/ltae_pallas_train.py:"
+                        + ("457" if key == "fwd" else "536"),
+            "launches": pool_launches[i], "max_abs_err": pool_errs[key],
+            "ms": pool_t["kernel"][i], "plain_ms": pool_t["plain"][i],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "dtype": "float32", "shape": [TRAIN_B, T, HW, C],
+        })
+    pool[0].update(train_losses=losses, train_step_ms=step_ms)
+    print(json.dumps({"kernels": [kernel] + pool}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,4 @@
-"""Device resolution for the port's entry points (the CUDA card by default)
-and the eval-only guard of its modules."""
+"""Device resolution for the port's entry points (the CUDA card by default)."""
 from __future__ import annotations
 
 import torch
@@ -15,11 +14,3 @@ def resolve_device(device=None) -> torch.device:
             f"device {str(dev)!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
     return dev
-
-
-def eval_only(module: torch.nn.Module) -> None:
-    """The port serves only: training is slice D of ROADMAP.md."""
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} is eval-only in crop2seg_tpu_torch: "
-            "call .eval() first; the training path is slice D of ROADMAP.md")

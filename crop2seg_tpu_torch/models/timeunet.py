@@ -1,4 +1,4 @@
-"""TimeUNet_v1, eval (port of crop2seg_tpu/models/timeunet.py:26-168).
+"""TimeUNet_v1 (port of crop2seg_tpu/models/timeunet.py:26-168).
 
     x (B,T,H,W,C) --shared in_conv--> (B,T,H,W,64)
     --L-TAE at full resolution--> (B,H,W,64)      # collapses T before the UNet
@@ -10,6 +10,11 @@ affine ``(sc, sh)``, the pad mask is folded in as zeroed rows, and the fused
 L-TAE kernel applies ``max(z * sc + sh, 0)`` on load. The plain path (the
 default for a CPU input) runs in_conv through ``temporally_shared``. Both
 give the same result.
+
+In training mode (``model.train()``) in_conv always runs through
+``temporally_shared`` (plain GroupNorm + ReLU), the L-TAE takes its training
+path (the ``ltae_pool`` kernel pair when ``fused``) and every BatchNorm uses
+batch statistics and updates its running ones.
 """
 from __future__ import annotations
 
@@ -18,7 +23,6 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from crop2seg_tpu_torch.device import eval_only
 from crop2seg_tpu_torch.nn.layers import ConvBlock, DownConvBlock, UpConvBlock
 from crop2seg_tpu_torch.nn.ltae import LTAE
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
@@ -62,17 +66,23 @@ class TimeUNet(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,
                 pad_mask: torch.Tensor | None = None, *,
-                fused: bool | None = None) -> torch.Tensor:
+                fused: bool | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """x (B, T, H, W, C), batch_positions (B, T), pad_mask (B, T) bool ->
         logits (B, H, W, K). ``fused``: None picks the kernel path for a CUDA
-        input and the plain path for a CPU input; True/False force one."""
-        eval_only(self)
+        input and the plain path for a CPU input; True/False force one.
+        ``generator`` draws the L-TAE's dropout masks in training mode."""
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         if fused is None:
             fused = x.is_cuda
         b, t = x.shape[:2]
-        if fused:
+        if self.training:
+            out = temporally_shared(self.in_conv, x, pad_mask, self.pad_value)
+            out, _ = self.temporal_encoder(out, batch_positions, pad_mask,
+                                           need_attn=False, fused=fused,
+                                           generator=generator)
+        elif fused:
             if self.pad_value != 0:
                 raise NotImplementedError(
                     "the fused path folds pads in as zero rows: pad_value must be 0")

@@ -5,8 +5,11 @@ package. Inside, a convolution sees the NCHW view of the same memory
 (``permute(0, 3, 1, 2)``, which PyTorch treats as the channels_last memory
 format), so cuDNN runs its NHWC kernels and no layout copy is made.
 Normalizations are per-channel affines on the NHWC tensor, with statistics in
-fp32. Module and parameter names follow the reference's torch modules, so its
-state dicts load with ``load_state_dict``.
+fp32. In training mode BatchNorm normalizes with the batch statistics and
+updates its running ones as flax ``BatchNorm(momentum=0.9)`` does (see
+``batch_norm``); GroupNorm is the same in both modes. Module and parameter
+names follow the reference's torch modules, so its state dicts load with
+``load_state_dict``.
 """
 from __future__ import annotations
 
@@ -15,8 +18,6 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-from crop2seg_tpu_torch.device import eval_only
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -74,7 +75,6 @@ class GroupNorm(nn.GroupNorm):
         return sc, sh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        eval_only(self)
         return _apply_affine(x, *self.frame_affine(x))
 
 
@@ -84,12 +84,32 @@ def batchnorm_affine(bn: nn.modules.batchnorm._BatchNorm):
     return scale, bn.bias.float() - bn.running_mean.float() * scale
 
 
+def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
+    """BatchNorm of a channels-last tensor (statistics over every dim but the
+    last). Eval: the running statistics. Training: the batch mean and the
+    biased batch variance in fp32, for the output and for the running update
+    ``r = (1 - momentum) * r + momentum * batch`` (flax's ``BatchNorm(
+    momentum=0.9)`` with torch's ``momentum=0.1``). torch's own
+    ``F.batch_norm`` would put the unbiased variance into ``running_var``."""
+    if not bn.training:
+        return _apply_affine(x, *batchnorm_affine(bn))
+    xf = x.float()
+    dims = tuple(range(x.dim() - 1))
+    mean = xf.mean(dims)
+    var = (xf - mean).square().mean(dims)
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
+        bn.num_batches_tracked.add_(1)
+    scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
+    return torch.addcmul(bn.bias.float() - mean * scale, xf, scale).to(x.dtype)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval BatchNorm2d on NHWC (running statistics)."""
+    """BatchNorm2d on NHWC, in either mode (``batch_norm``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        eval_only(self)
-        return _apply_affine(x, *batchnorm_affine(self))
+        return batch_norm(x, self)
 
 
 def make_norm(norm: str, n_groups: int = 4):
@@ -139,7 +159,6 @@ class ConvLayer(nn.Module):
         norm, relu = layers[-2], layers[-1]
         if not (isinstance(norm, GroupNorm) and isinstance(relu, nn.ReLU)):
             raise ValueError("defer_tail_norm needs a GroupNorm+ReLU tail")
-        eval_only(norm)
         for layer in layers[:-2]:
             x = layer(x)
         sc, sh = norm.frame_affine(x)

@@ -1,5 +1,5 @@
-"""Masked lightweight temporal attention encoder, eval path, one query
-(port of crop2seg_tpu/nn/ltae.py:39-277 and :340-352).
+"""Masked lightweight temporal attention encoder, one query
+(port of crop2seg_tpu/nn/ltae.py:39-352).
 
 Per pixel row, T steps, C channels:
 
@@ -9,10 +9,13 @@ Per pixel row, T steps, C channels:
     o   = head-grouped sum_t A h -> MLP + BN + ReLU -> GroupNorm_{n_head}
 
 The input GroupNorm counts pad frames, as the reference does (its torch
-GroupNorm over (C/G, T) sees the zero pad frames). On a CUDA tensor the
-forward runs the fused kernel (ops/ltae_fused.py); on a CPU tensor it runs
-the plain PyTorch ops below. Returns ``(out (B, H, W, d_out),
-attn (B, H, W, head, T))``, the JAX layouts.
+GroupNorm over (C/G, T) sees the zero pad frames). In eval mode a CUDA tensor
+runs the fused eval kernel (ops/ltae_fused.py) and a CPU tensor the plain
+PyTorch ops below; both return ``(out (B, H, W, d_out), attn (B, H, W, head,
+T))``, the JAX layouts. In training mode the pooling runs through
+``ops/ltae_pool.py`` (its kernel pair on a CUDA tensor), as the JAX
+``LTAE._fused_train`` does, with attention dropout after the softmax and the
+MLP tail in training mode; it returns ``(out, None)``.
 """
 from __future__ import annotations
 
@@ -22,9 +25,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from crop2seg_tpu_torch.device import eval_only
+from crop2seg_tpu_torch.nn.layers import batch_norm
 from crop2seg_tpu_torch.nn.positional import (
     AbsolutePositionalEncoder, PositionalEncoder)
+from crop2seg_tpu_torch.ops.ltae_pool import ltae_pool, ltae_pool_reference
 
 
 def _group_norm_btc(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
@@ -80,14 +84,16 @@ class MaskedLightweightAttention(nn.Module):
 
 
 class LTAE(nn.Module):
-    """Lightweight temporal attention encoder, eval, ``num_queries=1``.
+    """Lightweight temporal attention encoder, ``num_queries=1``.
 
     Call: x (B, T, H, W, C), batch_positions (B, T) or (B, T, 2), pad_mask
     (B, T) bool. ``fused`` picks the path: None means the kernel for a CUDA
     tensor and the plain ops for a CPU tensor; True/False force one (the
-    tests and chip_smoke.py compare the two). ``tail_affine`` (fused path
-    only) is the producer's deferred GroupNorm affine ``(sc, sh)`` of shape
-    (B, T, C), applied as ``max(x * sc + sh, 0)``.
+    tests and chip_smoke.py compare the two). ``tail_affine`` (fused eval
+    path only) is the producer's deferred GroupNorm affine ``(sc, sh)`` of
+    shape (B, T, C), applied as ``max(x * sc + sh, 0)``. ``generator``
+    (training only) draws the dropout masks; None uses PyTorch's global RNG.
+    ``dropout`` is the MLP's rate, ``attn_dropout`` the attention's.
     """
 
     def __init__(self, in_channels: int = 128, n_head: int = 16, d_k: int = 4,
@@ -95,7 +101,8 @@ class LTAE(nn.Module):
                  d_model: int = 256, T: float = 1000.0,
                  positional_encoding: bool = True,
                  use_abs_rel_enc: bool = False, use_doy: bool = False,
-                 num_queries: int = 1, add_linear: bool = False):
+                 num_queries: int = 1, add_linear: bool = False,
+                 attn_dropout: float = 0.1):
         super().__init__()
         if num_queries != 1:
             raise NotImplementedError(
@@ -103,6 +110,7 @@ class LTAE(nn.Module):
         if d_model is None or mlp[0] != d_model:
             raise ValueError("the port needs d_model set and mlp[0] == d_model")
         self.n_head, self.d_k, self.d_model = n_head, d_k, d_model
+        self.attn_dropout = attn_dropout
         self.use_abs_rel_enc = use_abs_rel_enc
         self.in_norm = nn.GroupNorm(n_head, in_channels, eps=1e-5)
         self.inconv = nn.Conv1d(in_channels, d_model, 1)
@@ -118,8 +126,8 @@ class LTAE(nn.Module):
                 self.positional_encoder_abs = AbsolutePositionalEncoder(
                     d_model // n_head, repeat=n_head)
         self.attention_head = MaskedLightweightAttention(n_head, d_k, d_model)
-        # index 1 holds no parameters (eval identity); mlp.2 is the BN, as in
-        # the reference state dict
+        # mlp.2 is the BN, as in the reference state dict; index 1 holds the
+        # dropout rate only: _mlp_tail applies it after the ReLU, the JAX order
         self.mlp = nn.Sequential(nn.Linear(mlp[0], mlp[1]), nn.Dropout(dropout),
                                  nn.BatchNorm1d(mlp[1], eps=1e-5), nn.ReLU())
         self.out_norm = nn.GroupNorm(n_head, mlp[1], eps=1e-5)
@@ -132,14 +140,15 @@ class LTAE(nn.Module):
         bp = batch_positions if batch_positions.dim() == 2 else batch_positions[..., 0]
         return self.positional_encoder(bp)
 
-    def _mlp_tail(self, o: torch.Tensor) -> torch.Tensor:
-        """MLP -> eval BN -> ReLU -> out GroupNorm on (..., d_model)."""
-        lin, _, bn, _ = self.mlp
-        m = lin(o)
-        shape = m.shape
-        m = F.batch_norm(m.reshape(-1, shape[-1]), bn.running_mean,
-                         bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
-        m = torch.relu(m).reshape(shape)
+    def _mlp_tail(self, o: torch.Tensor, generator=None) -> torch.Tensor:
+        """MLP -> BN -> ReLU -> Dropout -> out GroupNorm on (..., d_model),
+        the order of crop2seg_tpu/nn/ltae.py:340-352 (BN and dropout in
+        training mode only when the module trains)."""
+        lin, drop, bn, _ = self.mlp
+        m = torch.relu(batch_norm(lin(o), bn))
+        if self.training and drop.p > 0.0:
+            keep = torch.rand(m.shape, generator=generator, device=m.device) >= drop.p
+            m = m * keep / (1.0 - drop.p)
         return _group_norm_channels(m, self.n_head, self.out_norm.weight,
                                     self.out_norm.bias, self.out_norm.eps)
 
@@ -169,12 +178,58 @@ class LTAE(nn.Module):
         return (out.reshape(b, hh, ww, -1),
                 None if attn is None else attn.reshape(b, hh, ww, self.n_head, t))
 
+    def pool_params(self):
+        """``(win_f, bin_f, u, cs)`` of ``ops/ltae_pool.py`` from the raw
+        parameters (crop2seg_tpu/nn/ltae.py:301-311): the input GroupNorm's
+        affine folded into the projection, the query into the keys. Plain
+        torch ops, so autograd reaches the parameters through them."""
+        g, dk, d = self.n_head, self.d_k, self.d_model
+        win = self.inconv.weight[:, :, 0].t()
+        win_f = win * self.in_norm.weight[:, None]
+        bin_f = self.inconv.bias + self.in_norm.bias @ win
+        att = self.attention_head
+        q = att.Q[:, 0]
+        u = torch.einsum("dgk,gk->dg", att.fc1_k.weight.t().reshape(d, g, dk),
+                         q) / math.sqrt(dk)
+        cs = (torch.einsum("gk,gk->g", att.fc1_k.bias.reshape(g, dk), q)
+              / math.sqrt(dk))[None]
+        return win_f, bin_f, u, cs
+
+    def _train(self, x, batch_positions, pad_mask, fused, generator):
+        """Training path (crop2seg_tpu/nn/ltae.py:279-338 with the untailed
+        ``ltae_pool``)."""
+        b, t, hh, ww, c = x.shape
+        pe = (self.pe(batch_positions) if self.positional_encoder is not None
+              else torch.zeros(b, t, self.d_model, device=x.device))
+        if pad_mask is None:
+            pad_mask = torch.zeros(b, t, dtype=torch.bool, device=x.device)
+        seed = 0
+        if self.attn_dropout > 0.0:
+            seed = int(torch.randint(
+                0, 2 ** 31 - 1, (1,), generator=generator,
+                device=generator.device if generator is not None else "cpu"))
+        pool = ltae_pool if fused else ltae_pool_reference
+        o = pool(x.reshape(b, t, hh * ww, c), pe, pad_mask, *self.pool_params(),
+                 seed, n_head=self.n_head, drop_p=self.attn_dropout)
+        return self._mlp_tail(o.reshape(b, hh, ww, self.d_model), generator), None
+
     def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,
                 pad_mask: torch.Tensor | None = None, *, need_attn: bool = True,
-                tail_affine=None, fused: bool | None = None):
-        eval_only(self)
+                tail_affine=None, fused: bool | None = None,
+                generator: torch.Generator | None = None):
         if fused is None:
             fused = x.is_cuda
+        if self.training:
+            if tail_affine is not None:
+                raise NotImplementedError(
+                    "training with the deferred in_conv tail (ltae_pool_tail) "
+                    "is not ported yet (ROADMAP.md, kernels 2 and 3)")
+            if need_attn:
+                raise NotImplementedError(
+                    "the training path returns no attention masks: pass "
+                    "need_attn=False (attention output in training is not "
+                    "ported yet, ROADMAP.md)")
+            return self._train(x, batch_positions, pad_mask, fused, generator)
         if fused:
             return self._fused(x, batch_positions, pad_mask, need_attn,
                                tail_affine)

@@ -1,0 +1,238 @@
+"""Masked L-TAE attention pooling with a hand-written backward, training path:
+two CUDA C++ kernels for Hopper and their plain version (port of
+crop2seg_tpu/ops/ltae_pallas_train.py::ltae_pool, untailed mode, fp32).
+
+Per pixel row, T steps, C channels, G heads of D/G channels (eps 1e-5):
+
+    xhat = GroupNorm_G(x) over (T, C/G), no affine   (folded into win_f, bin_f)
+    h    = xhat @ win_f + bin_f + pe[t]               (T, D)
+    s    = h @ u + cs, -1e6 at pads                   (T, G): the query folded into u
+    a    = softmax_T(s);  a_d = a * keep / (1 - p)    attention dropout after softmax
+    o[d] = sum_t a_d[t, g(d)] h[t, d]                 (D,)
+
+``keep`` is a stateless hash of ``(seed, b, t, n, g)`` (``keep_mask``), so
+the forward and the backward kernel draw the same mask, whatever their block
+shapes, and the plain version draws it too: the kernels and
+``ltae_pool_reference`` agree at any ``drop_p``, not only in distribution.
+
+``ltae_pool`` runs the plain version under torch autograd for a CPU tensor
+and the kernel pair of ``csrc/ltae_pool.cu`` (a ``torch.autograd.Function``)
+for a CUDA tensor. ``ltae_pool.launches_fwd`` / ``.launches_bwd`` count the
+kernels' launches.
+
+The backward kernel never builds h: per row and head it works in C-space
+with ``Z[g] = win_f[:, d in g] @ go[d in g]`` and ``P[g] = sum_t a_d[t, g]
+xhat[t]``, and it sums four row reductions over the whole grid with fp32
+atomics: ``A = sum xhat^T ds`` (C, G), ``F[c, d] = sum P[g(d), c] go[d]``
+(C, D), ``Dsum_b = sum ds`` (B, T, G) and ``E_b[t, d] = sum a_d[t, g(d)]
+go[d]`` (B, T, D). The six gradients follow from those in a few small
+products here (``_finish_backward``):
+
+    dW_f = A u^T + F          du  = W_f^T A + sum_b (bin_f + pe_b)^T Dsum_b
+    dpe  = Dsum u^T + E       db_f = sum_{b,t} dpe      dcs = sum Dsum
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from crop2seg_tpu_torch.ops._build import load_library
+
+MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
+MAX_C = 64          # lanes own channels c and c + 32
+MAX_HEADS = 16      # per-head accumulators live in registers
+EPS = 1e-5          # the input GroupNorm's epsilon
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """32-bit integer hash (xor-shift-multiply; both multipliers < 2**31, so
+    the int64 products below never overflow). The kernels run the same
+    arithmetic on uint32. Works on Python ints and int64 tensors."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _M32
+    return x ^ (x >> 15)
+
+
+def dropout_threshold(drop_p: float) -> int:
+    """Keep an element when its 32-bit hash is >= this threshold."""
+    if not 0.0 <= drop_p < 1.0:
+        raise ValueError(f"drop_p must lie in [0, 1), got {drop_p}")
+    return min(int(drop_p * 2.0 ** 32), _M32)
+
+
+def keep_mask(seed: int, b: int, t: int, n: int, g: int, drop_p: float,
+              device=None) -> torch.Tensor:
+    """The attention-dropout keep mask, bool (B, T, N, G): element
+    ``(b, t, n, g)`` is kept when ``mix32(mix32(i) ^ mix32(seed)) >=
+    dropout_threshold(drop_p)``, with ``i = ((b*T + t)*N + n)*G + g`` mod 2**32."""
+    i = torch.arange(b * t * n * g, dtype=torch.int64, device=device) & _M32
+    h = _mix32(_mix32(i) ^ _mix32(int(seed) & _M32))
+    return (h >= dropout_threshold(drop_p)).reshape(b, t, n, g)
+
+
+def _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head):
+    b, t, n, c = x.shape
+    d = win_f.shape[1]
+    if not (t <= MAX_T and c <= MAX_C and c % 8 == 0 and n_head <= MAX_HEADS
+            and c % n_head == 0 and d % n_head == 0):
+        raise ValueError(
+            f"unsupported shape T={t} C={c} G={n_head} D={d}: the kernels take "
+            f"T<={MAX_T}, C<={MAX_C} with C%8==0, G<={MAX_HEADS} dividing C and D")
+    want = {"pe": (b, t, d), "pad_mask": (b, t), "win_f": (c, d), "bin_f": (d,),
+            "u": (d, n_head), "cs": (1, n_head)}
+    got = {"pe": pe, "pad_mask": pad_mask, "win_f": win_f, "bin_f": bin_f,
+           "u": u, "cs": cs}
+    for k, shape in want.items():
+        if tuple(got[k].shape) != shape:
+            raise ValueError(f"{k} is {tuple(got[k].shape)}, expected {shape}")
+
+
+def ltae_pool_reference(x, pe, pad_mask, win_f, bin_f, u, cs, seed: int = 0, *,
+                        n_head: int = 16, drop_p: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of the kernel pair (differentiable by torch
+    autograd), in fp32 (fp64 for fp64 input): x (B, T, N, C), pe (B, T, D),
+    pad_mask (B, T) bool, win_f (C, D), bin_f (D,), u (D, G), cs (1, G) ->
+    o (B, N, D) in x's dtype."""
+    b, t, n, c = x.shape
+    g = n_head
+    dt = torch.promote_types(x.dtype, torch.float32)   # fp32, or fp64 in tests
+    xg = x.to(dt).reshape(b, t, n, g, c // g)
+    mean = xg.mean(dim=(1, 4), keepdim=True)
+    var = (xg - mean).square().mean(dim=(1, 4), keepdim=True)
+    xhat = ((xg - mean) * torch.rsqrt(var + EPS)).reshape(b, t, n, c)
+    h = xhat @ win_f.to(dt) + bin_f.to(dt) + pe.to(dt)[:, :, None, :]
+    s = h @ u.to(dt) + cs.to(dt)
+    s = s.masked_fill(pad_mask.to(torch.bool)[:, :, None, None], -1e6)
+    a = torch.softmax(s, dim=1)                                 # (B, T, N, G)
+    if drop_p > 0.0:
+        keep = keep_mask(seed, b, t, n, g, drop_p, device=x.device)
+        a = a * keep.to(dt) * (1.0 / (1.0 - drop_p))
+    d = h.shape[-1]
+    o = torch.einsum("btng,btngv->bngv", a, h.reshape(b, t, n, g, d // g))
+    return o.reshape(b, n, d).to(x.dtype)
+
+
+@functools.cache
+def _kernels():
+    lib = load_library("ltae_pool")
+    vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+    fwd, bwd = lib.ltae_pool_fwd, lib.ltae_pool_bwd
+    # x, bpe, win, ws, pes, o | B T N C D G | seed_mix thresh scale eps stream
+    fwd.argtypes = [vp] * 6 + [ci] * 6 + [cu, cu, cf, cf, vp]
+    # x, go, win, ws, pes, bpe, dx, A, F, Dsum, E | B T N C D G | ...
+    bwd.argtypes = [vp] * 11 + [ci] * 6 + [cu, cu, cf, cf, vp]
+    fwd.restype = bwd.restype = ci
+    return fwd, bwd
+
+
+def _folds(pe, pad_mask, win_f, bin_f, u, cs):
+    """Per-call folds in fp32: ws = win_f u (C, G); bpe = bin_f + pe (B, T, D);
+    pes = bpe u + cs, -1e6 at pads, laid out (B, G, T)."""
+    ws = win_f @ u
+    bpe = bin_f + pe
+    pes = bpe @ u + cs - 1e6 * pad_mask.float()[:, :, None]
+    return ws.contiguous(), bpe.contiguous(), pes.transpose(1, 2).contiguous()
+
+
+def _scalars(seed: int, drop_p: float):
+    return (_mix32(int(seed) & _M32), dropout_threshold(drop_p),
+            1.0 / (1.0 - drop_p))
+
+
+class _LtaePool(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, pe, pad_mask, win_f, bin_f, u, cs, seed, n_head, drop_p):
+        b, t, n, c = x.shape
+        d = win_f.shape[1]
+        ws, bpe, pes = _folds(pe, pad_mask, win_f, bin_f, u, cs)
+        o = torch.empty(b, n, d, dtype=torch.float32, device=x.device)
+        fwd, _ = _kernels()
+        with torch.cuda.device(x.device):
+            rc = fwd(x.data_ptr(), bpe.data_ptr(), win_f.data_ptr(),
+                     ws.data_ptr(), pes.data_ptr(), o.data_ptr(),
+                     b, t, n, c, d, n_head, *_scalars(seed, drop_p), EPS,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ltae_pool_fwd kernel launch failed: cudaError {rc}")
+        ltae_pool.launches_fwd += 1
+        ctx.save_for_backward(x, win_f, u, ws, bpe, pes)
+        ctx.seed, ctx.n_head, ctx.drop_p = seed, n_head, drop_p
+        return o
+
+    @staticmethod
+    def backward(ctx, go):
+        x, win_f, u, ws, bpe, pes = ctx.saved_tensors
+        b, t, n, c = x.shape
+        d, g = win_f.shape[1], ctx.n_head
+        go = go.float().contiguous()
+        dx = torch.empty_like(x)
+        acc_a = torch.zeros(c, g, dtype=torch.float32, device=x.device)
+        acc_f = torch.zeros(c, d, dtype=torch.float32, device=x.device)
+        dsum = torch.zeros(b, t, g, dtype=torch.float32, device=x.device)
+        acc_e = torch.zeros(b, t, d, dtype=torch.float32, device=x.device)
+        _, bwd = _kernels()
+        with torch.cuda.device(x.device):
+            rc = bwd(x.data_ptr(), go.data_ptr(), win_f.data_ptr(), ws.data_ptr(),
+                     pes.data_ptr(), bpe.data_ptr(), dx.data_ptr(),
+                     acc_a.data_ptr(), acc_f.data_ptr(), dsum.data_ptr(),
+                     acc_e.data_ptr(), b, t, n, c, d, g,
+                     *_scalars(ctx.seed, ctx.drop_p), EPS,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ltae_pool_bwd kernel launch failed: cudaError {rc}")
+        ltae_pool.launches_bwd += 1
+        dpe, dwin, dbin, du, dcs = _finish_backward(acc_a, acc_f, dsum, acc_e,
+                                                    win_f, u, bpe)
+        return dx, dpe, None, dwin, dbin, du, dcs, None, None, None
+
+
+def _finish_backward(acc_a, acc_f, dsum, acc_e, win_f, u, bpe):
+    """The six gradients but dx from the kernel's grid-wide sums (module
+    docstring): products of (C, G), (B, T, G) and (B, T, D) tensors."""
+    dpe = dsum @ u.t() + acc_e
+    dwin = acc_a @ u.t() + acc_f
+    du = win_f.t() @ acc_a + torch.einsum("btd,btg->dg", bpe, dsum)
+    return dpe, dwin, dpe.sum(dim=(0, 1)), du, dsum.sum(dim=(0, 1))[None]
+
+
+def ltae_pool(x, pe, pad_mask, win_f, bin_f, u, cs, seed: int = 0, *,
+              n_head: int = 16, drop_p: float = 0.0) -> torch.Tensor:
+    """Masked attention pooling ``o = sum_t dropout(softmax_T(h u + cs)) h``
+    with ``h = GN(x) @ win_f + bin_f + pe`` (module docstring), differentiable
+    in x, pe, win_f, bin_f, u and cs.
+
+    x: time-major rows (B, T, N, C) fp32; pe (B, T, D) fp32; pad_mask (B, T)
+    bool; win_f (C, D) with the input GroupNorm's affine folded in; bin_f
+    (D,); u (D, G) with the query folded into the key projection; cs (1, G);
+    seed: int, the dropout mask's key. Returns o (B, N, D) fp32.
+    A CPU tensor runs ``ltae_pool_reference``; a CUDA tensor launches the
+    kernels of ``csrc/ltae_pool.cu``."""
+    _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head)
+    dropout_threshold(drop_p)
+    if x.device.type == "cpu":
+        return ltae_pool_reference(x, pe, pad_mask, win_f, bin_f, u, cs, seed,
+                                   n_head=n_head, drop_p=drop_p)
+    if x.device.type != "cuda":
+        raise ValueError(f"ltae_pool runs on cuda or cpu, got {x.device}")
+    tensors = (x, pe, win_f, bin_f, u, cs)
+    if any(a.dtype != torch.float32 for a in tensors):
+        raise TypeError("the ltae_pool kernels take float32 only (bf16 is queued, "
+                        "ROADMAP.md)")
+    if any(a.device != x.device for a in tensors + (pad_mask,)):
+        raise ValueError("ltae_pool's tensors must all lie on x's device")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    return _LtaePool.apply(x, pe.contiguous(), pad_mask,
+                           win_f.contiguous(), bin_f.contiguous(), u.contiguous(),
+                           cs.contiguous(), int(seed), n_head, float(drop_p))
+
+
+ltae_pool.launches_fwd = 0
+ltae_pool.launches_bwd = 0

@@ -1,0 +1,85 @@
+"""Where the time of one training step goes in crop2seg_tpu_torch, on one card.
+
+    python3 scripts/profile_train_torch.py [--batch 4] [--steps 3] [--trace out.json]
+
+Runs make_train_step on TimeUNet_v1 at the factory defaults (seeded random
+weights, 15 classes, class 14 weighted 0, Adam lr 1e-3, dropout live, fp32)
+with one synthetic batch (T=61, 128x128x10, lengths 61/55/43/27 repeated):
+two warm-up steps, then ``--steps`` steps under torch.profiler. Prints the
+card (nvidia-smi name and power limit), the wall time per step, the device's
+busy share (summed kernel time over wall time), and the kernels that take the
+most device time, grouped by name.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from crop2seg_tpu_torch.learning.trainer import StepConfig, make_train_step  # noqa: E402
+from crop2seg_tpu_torch.models.factory import get_model  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--trace", default=None, help="write a chrome trace here")
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    print(card.splitlines()[0])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    b, t = args.batch, 61
+    gen = torch.Generator(device=dev).manual_seed(4)
+    lengths = torch.tensor([(61, 55, 43, 27)[i % 4] for i in range(b)], device=dev)
+    pad = torch.arange(t, device=dev)[None] >= lengths[:, None]
+    x = torch.randn(b, t, 128, 128, 10, generator=gen, device=dev)
+    x[pad] = 0.0
+    batch = {"x": x, "pad_mask": pad,
+             "dates": (torch.arange(t, dtype=torch.float32, device=dev) * 5 + 3
+                       )[None].expand(b, t).contiguous(),
+             "y": torch.randint(0, 15, (b, 128, 128), generator=gen, device=dev)}
+    model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, StepConfig(num_classes=15,
+                                             class_weights=(1.0,) * 14 + (0.0,)))
+    drop = torch.Generator(device=dev).manual_seed(7)
+    for _ in range(2):                                         # warm-up
+        step(batch, drop)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(args.steps):
+            step(batch, drop)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) / args.steps
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.self_device_time_total for e in events) / args.steps
+    print(f"train step B={b} fp32: wall {wall * 1e3:.3f} ms per step, device busy "
+          f"{busy_us / 1e3:.3f} ms = {busy_us / 1e4 / wall:.1f} % of wall")
+    print(f"{'ms/step':>10} {'share':>6} {'calls':>6}  kernel")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:args.top]:
+        print(f"{e.self_device_time_total / 1e3 / args.steps:10.3f} "
+              f"{100 * e.self_device_time_total / args.steps / max(busy_us, 1):5.1f}% "
+              f"{e.count // args.steps:6d}  {e.key[:110]}")
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

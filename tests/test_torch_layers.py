@@ -186,6 +186,19 @@ def test_defer_tail_norm_needs_group_norm_tail():
 
 
 def test_modules_are_eval_only():
-    m = tl.ConvBlock((4, 8), norm="group")   # nn.Module starts in training mode
-    with pytest.raises(NotImplementedError, match="slice D"):
-        m(torch.randn(1, 4, 4, 4))
+    """Only what is not ported for training stays eval-only: a conv block in
+    training mode (a new nn.Module's default) normalizes with the batch
+    statistics and updates its running ones; instance norm is still queued
+    and raises naming its slice."""
+    m = tl.ConvBlock((4, 8), norm="batch", last_relu=False)
+    with torch.no_grad():
+        m.conv.conv[0].bias.fill_(0.5)
+    y = m(torch.randn(2, 6, 6, 4, generator=torch.Generator().manual_seed(0)))
+    bn = m.conv.conv[1]
+    torch.testing.assert_close(y.mean(dim=(0, 1, 2)), torch.zeros(8), rtol=0, atol=1e-5)
+    torch.testing.assert_close(y.var(dim=(0, 1, 2), unbiased=False), torch.ones(8),
+                               rtol=0, atol=1e-3)
+    assert bn.num_batches_tracked.item() == 1
+    assert (bn.running_mean - 0.05).abs().max() < 0.05   # 0.1 * (0.5 + noise)
+    with pytest.raises(NotImplementedError, match="slice F"):
+        tl.make_norm("instance")

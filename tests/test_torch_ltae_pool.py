@@ -1,0 +1,186 @@
+"""crop2seg_tpu_torch ``ltae_pool`` (ops/ltae_pool.py): its plain version on
+the CPU against the JAX ``ltae_pool`` (Pallas interpret mode, as
+tests/test_ltae_pallas_train.py runs it), the C-space backward formulas that
+the CUDA backward kernel implements against autograd, pads, and the hash
+dropout mask. The CUDA kernels themselves are held against the plain version
+on the card (tests/test_torch_package.py's ``cuda`` tests, chip_smoke.py).
+
+Shape as tests/test_ltae_pallas_train.py:16-17: B=2, T=9, N=32, C=16, G=4,
+D=32, sample 1 padded from T-3. Tolerance rtol 2e-4 / atol 2e-5, as that
+file holds the Pallas gradients to jax.grad (fp32 sums in another order).
+The JAX interpret mode draws its dropout bits from jax.random, so the
+comparison with JAX runs at drop_p = 0.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from crop2seg_tpu.ops.ltae_pallas_train import ltae_pool as jltae_pool
+from crop2seg_tpu_torch.ops import ltae_pool as lp
+
+B, T, N, C, G, D = 2, 9, 32, 16, 4, 32
+TOL = dict(rtol=2e-4, atol=2e-5)
+NAMES = ("dx", "dpe", "dwin_f", "dbin_f", "du", "dcs")
+
+
+def _inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, N, C)).astype(np.float32)
+    pe = rng.standard_normal((B, T, D)).astype(np.float32)
+    pad = np.arange(T)[None, :] >= np.array([T, T - 3])[:, None]
+    win = (rng.standard_normal((C, D)) * 0.3).astype(np.float32)
+    bin_ = (rng.standard_normal(D) * 0.1).astype(np.float32)
+    u = (rng.standard_normal((D, G)) * 0.2).astype(np.float32)
+    cs = (rng.standard_normal((1, G)) * 0.1).astype(np.float32)
+    tgt = np.random.default_rng(seed + 1).standard_normal((B, N, D)).astype(np.float32)
+    return x, pe, pad, win, bin_, u, cs, tgt
+
+
+def _port(x, pe, pad, win, bin_, u, cs, tgt, *, seed=0, drop_p=0.0,
+          fn=lp.ltae_pool):
+    """o and the six gradients of mean((o - tgt)^2) through torch autograd."""
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, pe, win, bin_, u, cs)]
+    xx, pp, ww, bb, uu, cc = leaves
+    o = fn(xx, pp, torch.tensor(pad), ww, bb, uu, cc, seed, n_head=G, drop_p=drop_p)
+    loss = ((o - torch.tensor(tgt)) ** 2).sum() / o.numel()
+    return [o.detach().numpy()] + [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+
+
+def test_plain_version_matches_jax_kernel():
+    """o and all six gradients against the JAX kernel pair (interpret mode)."""
+    x, pe, pad, win, bin_, u, cs, tgt = _inputs()
+    mask = jnp.asarray(pad)
+    seed0 = jnp.zeros((1,), jnp.int32)
+
+    def loss(x, pe, win, bin_, u, cs):
+        o = jltae_pool(x, pe, mask, win, bin_, u, cs, seed0, n_head=G)
+        return jnp.sum((o - tgt) ** 2) / o.size, o
+
+    (_, want_o), want = jax.value_and_grad(loss, argnums=tuple(range(6)), has_aux=True)(
+        *(jnp.asarray(a) for a in (x, pe, win, bin_, u, cs)))
+    got = _port(x, pe, pad, win, bin_, u, cs, tgt)
+    assert got[0].shape == (B, N, D)
+    np.testing.assert_allclose(got[0], np.asarray(want_o), **TOL)
+    for name, a, w in zip(NAMES, got[1:], want):
+        np.testing.assert_allclose(a, np.asarray(w), **TOL, err_msg=name)
+
+
+def test_kernel_backward_formulas_match_autograd():
+    """The C-space backward of csrc/ltae_pool.cu, written out in float64
+    torch ops (Z, q, p1, ds, P, dxhat, the GroupNorm backward and the four
+    grid sums A, F, Dsum, E), then ops/ltae_pool.py::_finish_backward, equals
+    autograd of the plain version, dropout on. Tolerance 1e-10: float64."""
+    x, pe, pad, win, bin_, u, cs, tgt = (torch.tensor(a).double()
+                                         if a.dtype != bool else torch.tensor(a)
+                                         for a in _inputs(3))
+    seed, p, dv = 77, 0.3, D // G
+    go = torch.randn(B, N, D, generator=torch.Generator().manual_seed(0),
+                     dtype=torch.float64)
+    leaves = [a.clone().requires_grad_(True) for a in (x, pe, win, bin_, u, cs)]
+    o = lp.ltae_pool_reference(leaves[0], leaves[1], pad, *leaves[2:], seed,
+                               n_head=G, drop_p=p)
+    want = torch.autograd.grad(o, leaves, go)
+
+    xg = x.reshape(B, T, N, G, C // G)
+    mean = xg.mean((1, 4), keepdim=True)
+    inv = torch.rsqrt((xg - mean).square().mean((1, 4), keepdim=True) + 1e-5)
+    xh = ((xg - mean) * inv).reshape(B, T, N, C)
+    ws, bpe = win @ u, bin_ + pe
+    s = torch.einsum("btnc,cg->btng", xh, ws) + (bpe @ u + cs)[:, :, None]
+    a = torch.softmax(s.masked_fill(pad[:, :, None, None], -1e6), dim=1)
+    ad = a * lp.keep_mask(seed, B, T, N, G, p).double() / (1 - p)
+    gog = go.reshape(B, N, G, dv)
+    z = torch.einsum("cgj,bngj->bngc", win.reshape(C, G, dv), gog)
+    p1 = (torch.einsum("btgj,bngj->btng", bpe.reshape(B, T, G, dv), gog)
+          + torch.einsum("btnc,bngc->btng", xh, z))
+    ds = ad * p1 - a * (ad * p1).sum(1, keepdim=True)
+    pool = torch.einsum("btng,btnc->bngc", ad, xh)
+    dxh = (torch.einsum("btng,cg->btnc", ds, ws)
+           + torch.einsum("btng,bngc->btnc", ad, z)).reshape(B, T, N, G, C // G)
+    xhg = xh.reshape(B, T, N, G, C // G)
+    dx = (inv * (dxh - dxh.mean((1, 4), keepdim=True)
+                 - xhg * (dxh * xhg).mean((1, 4), keepdim=True))).reshape(x.shape)
+    acc_a = torch.einsum("btnc,btng->cg", xh, ds)
+    acc_f = torch.einsum("bngc,bngj->cgj", pool, gog).reshape(C, D)
+    acc_e = torch.einsum("btng,bngj->btgj", ad, gog).reshape(B, T, D)
+    got = (dx,) + lp._finish_backward(acc_a, acc_f, ds.sum(2), acc_e, win, u, bpe)
+    for name, g_, w_ in zip(NAMES, got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-10, atol=1e-10, msg=name)
+
+
+def test_pads_change_nothing_but_the_groupnorm_statistics():
+    """Garbage in the pad frames' PE leaves o and dx unchanged and gets a zero
+    gradient; garbage in the pad frames' x moves only the GroupNorm
+    statistics (the reference's GroupNorm counts pad frames), and everything
+    stays finite. Equal to 1e-6: the masked scores underflow to exactly 0."""
+    x, pe, pad, win, bin_, u, cs, tgt = _inputs(5)
+    rng = np.random.default_rng(9)
+    base = _port(x, pe, pad, win, bin_, u, cs, tgt, seed=3, drop_p=0.1)
+    dirty_pe = pe.copy()
+    dirty_pe[pad] = 50.0 * rng.standard_normal(dirty_pe[pad].shape)
+    got = _port(x, dirty_pe, pad, win, bin_, u, cs, tgt, seed=3, drop_p=0.1)
+    for i in (0, 1):                                # o, dx
+        np.testing.assert_allclose(got[i], base[i], rtol=1e-6, atol=1e-6)
+    assert np.all(got[2][pad] == 0.0) and np.all(base[2][pad] == 0.0)
+    dirty_x = x.copy()
+    dirty_x[pad] = 77.0
+    got = _port(dirty_x, pe, pad, win, bin_, u, cs, tgt, seed=3, drop_p=0.1)
+    assert all(np.isfinite(a).all() for a in got)
+    assert np.all(got[2][pad] == 0.0)
+
+
+def test_hash_mask_is_the_same_when_drawn_twice():
+    """The keep mask is a function of (seed, b, t, n, g): drawn twice it is
+    the same, so the forward and the backward see one mask; another seed
+    draws another; the kept share is 1 - p up to sampling noise (B*T*N*G =
+    2304 draws: 0.03 is five standard deviations)."""
+    m1 = lp.keep_mask(11, B, T, N, G, 0.1)
+    assert torch.equal(m1, lp.keep_mask(11, B, T, N, G, 0.1))
+    assert not torch.equal(m1, lp.keep_mask(12, B, T, N, G, 0.1))
+    assert abs(m1.float().mean().item() - 0.9) < 0.03
+    assert lp.keep_mask(11, B, T, N, G, 0.0).all()
+    args = _inputs(7)
+    first = _port(*args, seed=11, drop_p=0.1)
+    again = _port(*args, seed=11, drop_p=0.1)
+    other = _port(*args, seed=12, drop_p=0.1)
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+    assert np.abs(first[0] - other[0]).max() > 1e-3
+
+
+def test_mix32_matches_uint32_arithmetic():
+    """The int64 emulation of the kernels' uint32 hash, against numpy uint32
+    arithmetic (which wraps as the CUDA code does)."""
+    vals = np.array([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1, 123456789], np.uint64)
+    x = vals.astype(np.uint32)
+    with np.errstate(over="ignore"):
+        x = x ^ (x >> np.uint32(16))
+        x = x * np.uint32(0x21F0AAAD)
+        x = x ^ (x >> np.uint32(15))
+        x = x * np.uint32(0x735A2D97)
+        x = x ^ (x >> np.uint32(15))
+    got = lp._mix32(torch.tensor(vals.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), x.astype(np.int64))
+    assert [lp._mix32(int(v)) for v in vals] == x.astype(np.int64).tolist()
+
+
+def test_wrapper_on_cpu_counts_no_launch_and_checks_shapes():
+    x, pe, pad, win, bin_, u, cs, tgt = (torch.tensor(a) for a in _inputs())
+    before = (lp.ltae_pool.launches_fwd, lp.ltae_pool.launches_bwd)
+    o = lp.ltae_pool(x.requires_grad_(True), pe, pad, win, bin_, u, cs, n_head=G)
+    o.sum().backward()
+    assert (lp.ltae_pool.launches_fwd, lp.ltae_pool.launches_bwd) == before
+    torch.testing.assert_close(
+        o, lp.ltae_pool_reference(x, pe, pad, win, bin_, u, cs, n_head=G),
+        rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        lp.ltae_pool(x[..., :12], pe, pad, win[:12], bin_, u, cs, n_head=G)
+    with pytest.raises(ValueError, match="expected"):
+        lp.ltae_pool(x, pe, pad, win, bin_, u, cs[0], n_head=G)
+    with pytest.raises(ValueError, match="drop_p"):
+        lp.ltae_pool(x, pe, pad, win, bin_, u, cs, n_head=G, drop_p=1.0)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        lp.ltae_pool(*(a.to("meta") for a in (x, pe, pad, win, bin_, u, cs)),
+                     n_head=G)

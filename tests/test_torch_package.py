@@ -11,6 +11,7 @@ import torch
 
 from crop2seg_tpu_torch.ops import _build
 from crop2seg_tpu_torch.ops import ltae_fused as tk
+from crop2seg_tpu_torch.ops import ltae_pool as lp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "crop2seg_tpu")
@@ -88,14 +89,16 @@ def test_wrapper_counts_no_launch_on_cpu():
 def test_build_targets_hopper_into_an_ignored_directory():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
-    assert (_build.CSRC_DIR / "ltae_fused_fwd.cu").exists()
-    lib = _build.library_path("ltae_fused_fwd")
-    assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
     rel = os.path.relpath(_build.BUILD_DIR, REPO).replace(os.sep, "/")
     ignored = open(os.path.join(REPO, ".gitignore")).read().split()
     assert rel + "/" in ignored or rel in ignored
-    src = open(_build.CSRC_DIR / "ltae_fused_fwd.cu").read()
-    assert "crop2seg_tpu/ops/ltae_pallas.py::ltae_fused_forward" in src
+    replaces = {"ltae_fused_fwd": "crop2seg_tpu/ops/ltae_pallas.py::ltae_fused_forward",
+                "ltae_pool": "crop2seg_tpu/ops/ltae_pallas_train.py::ltae_pool"}
+    for name, tpu_kernel in replaces.items():
+        assert (_build.CSRC_DIR / f"{name}.cu").exists()
+        lib = _build.library_path(name)
+        assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
+        assert tpu_kernel in open(_build.CSRC_DIR / f"{name}.cu").read()
 
 
 def _random_params(c, d, g, d_out, gen):
@@ -145,6 +148,46 @@ def test_cuda_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out):
     tol = 5e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
     torch.testing.assert_close(attn, want_attn, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,n,c,d,g", [(2, 9, 301, 32, 64, 8),
+                                         (1, 61, 300, 64, 256, 16)])
+def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g):
+    """The ltae_pool forward and backward kernels against the plain version
+    under autograd on the card, with pads, dropout on and off (the same hash
+    mask on both sides), N not a multiple of the blocks' rows: o and all six
+    gradients, as max |err| / max |plain|, 1e-4 (fp32 sums in another order,
+    the grid-wide ones by atomics). dcs is zero in exact arithmetic, so it
+    is held against the scale of du (the same ds, weighted by h)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+    x, pe, go = r(b, t, n, c), r(b, t, d), r(b, n, d)
+    params = (r(c, d, scale=c ** -0.5), r(d, scale=0.1), r(d, g, scale=0.2),
+              r(1, g, scale=0.1))
+    pad = torch.zeros(b, t, dtype=torch.bool, device=dev)
+    pad[0, t - 3:] = True
+    res = []
+    for fn in (lp.ltae_pool, lp.ltae_pool_reference):
+        leaves = [a.clone().requires_grad_(True) for a in (x, pe) + params]
+        before = (lp.ltae_pool.launches_fwd, lp.ltae_pool.launches_bwd)
+        o = fn(leaves[0], leaves[1], pad, *leaves[2:], 7, n_head=g, drop_p=drop_p)
+        res.append([o] + list(torch.autograd.grad(o, leaves, go)))
+        launched = (lp.ltae_pool.launches_fwd - before[0],
+                    lp.ltae_pool.launches_bwd - before[1])
+        assert launched == ((1, 1) if fn is lp.ltae_pool else (0, 0))
+    torch.cuda.synchronize()
+    got, want = res
+    for i, name in enumerate(("o", "dx", "dpe", "dwin_f", "dbin_f", "du", "dcs")):
+        scale = want[5 if name == "dcs" else i].abs().max().item()
+        err = (got[i] - want[i]).abs().max().item()
+        assert err <= 1e-4 * scale, (name, err, scale)
 
 
 def test_chip_smoke_fails_without_a_card():

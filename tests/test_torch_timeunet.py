@@ -121,9 +121,18 @@ def test_factory_other_models_point_at_roadmap(name):
 
 
 def test_training_mode_raises_naming_slice_d():
-    m = TimeUNet(**KW)
-    with pytest.raises(NotImplementedError, match="slice D"):
-        m(torch.zeros(1, 2, 16, 16, 10), torch.zeros(1, 2))
+    """Training mode runs (slice D's training step) and is differentiable;
+    what its L-TAE still lacks raises and names ROADMAP.md: the deferred
+    in_conv tail (ltae_pool_tail) and the attention output."""
+    m = TimeUNet(**KW)                        # a new module trains
+    out = m(torch.randn(1, 2, 16, 16, 10), torch.zeros(1, 2))
+    assert out.shape == (1, 16, 16, 5) and out.requires_grad
+    te, h = m.temporal_encoder, torch.randn(1, 2, 4, 4, 16)
+    tail = (torch.ones(1, 2, 16), torch.zeros(1, 2, 16))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        te(h, torch.zeros(1, 2), need_attn=False, tail_affine=tail)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        te(h, torch.zeros(1, 2))
 
 
 def test_converter_inverts_the_jax_package_import():
