@@ -9,23 +9,30 @@
    pads), in fp32 and bf16, with the tail affine and the attention output
    each on and off, then times both at the serving shape (B=10) beside the
    kernel's bound.
-3. Holds the training pooling kernels (ltae_pool forward and backward)
-   against their plain version under autograd at full width (B=2, one sample
-   padded to 55): o and all six gradients, at drop_p 0 and 0.1 with the same
-   seed; then times both and the plain version at the train step's B=4.
+3. Holds the training pooling kernels (ltae_pool forward and backward) in
+   each of their four variants (untailed or with the deferred in_conv tail,
+   x in fp32 or bf16) against their plain version under autograd at full
+   width (B=2, one sample padded to 55): o and all gradients (dx or dz, dpe,
+   dW_f, db_f, du, dcs, and dtsc, dtsh in tail mode), at drop_p 0 and 0.1
+   with the same seed; then times each variant and its plain version at the
+   train step's B=4.
 4. Serving path: TimeUNet_v1 at the factory defaults (15 classes, weights
    drawn from a seeded torch.Generator) through make_tile_predictor on one
    synthetic standardized tile (61, 1098, 1098, 10), length 55, batch 10, in
    bf16 (launch counts read around it) and in fp32; checks shapes,
    finiteness, sum-to-1, exactly 10 kernel launches per tile, two patches
    against the same model with the plain L-TAE forced, and pad invariance.
-5. Training path: 5 steps of make_train_step (B=4, T=61, 128x128x10, lengths
+5. Training path: make_train_step (B=4, T=61, 128x128x10, lengths
    61/55/43/27, class 14 weighted 0, Adam lr 1e-3, dropout live) on one
-   synthetic batch; checks finite losses, step 5 below step 1, one forward
-   and one backward kernel launch per step, changed BatchNorm statistics,
-   one fused eval kernel launch per make_eval_step call, and at B=2 every
-   parameter's gradient against the same model with the plain ltae_pool
-   forced (dropout on, same generator seed). Prints the warm step time.
+   synthetic batch from the same weights, 5 steps in fp32 and 5 in bf16
+   (autocast) through the deferred in_conv tail (the JAX train CLI's
+   --use_pallas_train [--bf16]), then 5 of each dtype with the tail not
+   deferred (the untailed pair); checks finite losses that fall, one forward
+   and one backward launch per step of exactly the variant the route and
+   dtype select, changed BatchNorm statistics, one fused eval kernel launch
+   per make_eval_step call, and at B=2 every parameter's gradient against
+   the same model on the plain tail route (dropout on, same generator seed).
+   Prints the warm step times and peak memory.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -33,6 +40,7 @@ check raises, and the exit code is then non-zero.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -64,6 +72,13 @@ TRAIN_B, TRAIN_LENGTHS, N_CLASSES = 4, (61, 55, 43, 27), 15
 # B*N*T = 2M terms (the weight, PE and bias gradients) taken in another
 # order, the grid-wide ones by atomics in an order that changes per run
 POOL_TOL = 1e-3
+# the bf16 variants against the fp32 plain version on the same bf16-rounded
+# input and a bf16-exact upstream gradient: o and dx are stored in bf16, one
+# rounding of 2**-9 of each value, everything else is computed as in fp32
+POOL_TOL_BF16 = 1e-2
+# (tail, dtype) of the four ltae_pool variants, in the report's order
+VARIANTS = [(tail, dtype) for tail in (False, True)
+            for dtype in (torch.float32, torch.bfloat16)]
 # whole-model gradients, kernel vs plain ltae_pool, as |diff| / |plain| per
 # parameter (2-norms). The train-mode U-Net backward (BatchNorm over batch
 # statistics, ReLU masks) amplifies a 1e-5 change of its input to about 1e-2
@@ -197,39 +212,51 @@ def phase_kernel(model, dev):
     return errs, timings
 
 
-def pool_flops(b: int, backward: bool) -> float:
+def pool_flops(b: int, backward: bool, tail: bool = False) -> float:
     """Operations of the ltae_pool kernels, counted per row. Forward: input
-    GroupNorm, scores, softmax, C-space pooling, the projection + PE term.
-    Backward: the forward recomputed up to the softmax, Z and q, p1, the
-    softmax jacobian, pooling, dxhat, the GroupNorm backward and the four
-    sums A, F, E, Dsum."""
+    GroupNorm, scores, softmax, C-space pooling, the projection + PE term,
+    and in tail mode the affine and ReLU (3 per element). Backward: the
+    forward recomputed up to the softmax, Z and q, p1, the softmax jacobian,
+    pooling, dxhat, the GroupNorm backward and the four sums A, F, E, Dsum;
+    in tail mode also the affine and ReLU again, the mask, dz and the two
+    sums dtsc, dtsh (3 + 5 per element)."""
     tc, tcg, tg = T * C, T * C * G, T * G
     if backward:
         per_row = 14 * tc + 12 * tcg + 9 * tg + 4 * C * D + 4 * T * D
+        per_row += 8 * tc if tail else 0
     else:
         per_row = 6 * tc + 4 * tcg + 4 * tg + 2 * C * D + 2 * T * D
+        per_row += 3 * tc if tail else 0
     return float(b * HW * per_row)
 
 
-def pool_bytes(b: int, backward: bool) -> float:
-    """Each input read once, each output written once (fp32)."""
-    n = b * T * HW * C * 4 + b * HW * D * 4        # x; o (fwd) or go (bwd)
+def pool_bytes(b: int, backward: bool, tail: bool = False,
+               dtype: torch.dtype = torch.float32) -> float:
+    """Each input read once, each output written once: x (z), o or go and dx
+    in x's dtype, the rest fp32."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    n = b * T * HW * C * es + b * HW * D * es      # x; o (fwd) or go (bwd)
     n += (b * T * D + b * G * T + C * D + C * G) * 4  # bpe, pes, W_f, Ws
+    if tail:
+        n += 2 * b * T * C * 4                     # tsc, tsh
     if backward:
-        n += b * T * HW * C * 4                    # dx
+        n += b * T * HW * C * es                   # dx
         n += (C * G + C * D + b * T * G + b * T * D) * 4  # the four sums
+        n += 2 * b * T * C * 4 if tail else 0      # dtsc, dtsh
     return float(n)
 
 
-def pool_bound(b: int, backward: bool):
-    t_bytes = pool_bytes(b, backward) / HBM_BYTES_PER_S * 1e3
-    t_ops = pool_flops(b, backward) / PEAK_FLOP_PER_S[torch.float32] * 1e3
+def pool_bound(b: int, backward: bool, tail: bool = False,
+               dtype: torch.dtype = torch.float32):
+    t_bytes = pool_bytes(b, backward, tail, dtype) / HBM_BYTES_PER_S * 1e3
+    t_ops = pool_flops(b, backward, tail) / PEAK_FLOP_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def pool_inputs(model, b: int, gen: torch.Generator, dev):
     """Full-width ltae_pool inputs: the seeded model's folded L-TAE
-    parameters, its PE of real day offsets, sample 1 padded to LENGTH."""
+    parameters, its PE of real day offsets, sample 1 padded to LENGTH, and a
+    deferred tail affine (tsc, tsh) zeroed at the pads."""
     te = model.temporal_encoder
     with torch.no_grad():
         params = [p.detach().clone() for p in te.pool_params()]
@@ -238,77 +265,116 @@ def pool_inputs(model, b: int, gen: torch.Generator, dev):
     pad = torch.zeros(b, T, dtype=torch.bool, device=dev)
     pad[1:, LENGTH:] = True
     x = torch.randn(b, T, HW, C, generator=gen, device=dev)
-    return x, pe, pad, params
+    valid = (~pad).float()[:, :, None]
+    ts = ((1 + 0.2 * torch.randn(b, T, C, generator=gen, device=dev)) * valid,
+          0.1 * torch.randn(b, T, C, generator=gen, device=dev) * valid)
+    return x, ts, pe, pad, params
+
+
+def pool_leaves(tail: bool, x, ts, pe, params):
+    """Fresh leaves of one call: x (or z), in tail mode tsc and tsh, pe, the
+    four folded parameters."""
+    return [a.detach().clone().requires_grad_(True)
+            for a in (x, *(ts if tail else ()), pe, *params)]
+
+
+def pool_apply(tail: bool, plain: bool, leaves, pad, seed: int, drop_p: float):
+    """The wrapper (the kernel pair on the card) or the plain version."""
+    if tail:
+        z, tsc, tsh, pe, *params = leaves
+        fn = lp.ltae_pool_tail_reference if plain else lp.ltae_pool_tail
+        return fn(z, tsc, tsh, pe, pad, *params, seed, n_head=G, drop_p=drop_p)
+    x, pe, *params = leaves
+    fn = lp.ltae_pool_reference if plain else lp.ltae_pool
+    return fn(x, pe, pad, *params, seed, n_head=G, drop_p=drop_p)
 
 
 def phase_pool_kernel(model, dev):
-    """Kernels 2 and 3 against the plain version under autograd, then timed."""
+    """Kernels 2 and 3, each variant against the plain version under
+    autograd, then each timed."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    x, pe, pad, params = pool_inputs(model, 2, gen, dev)
-    proj = torch.randn(2, HW, D, generator=gen, device=dev)
-    names = ("o", "dx", "dpe", "dwin_f", "dbin_f", "du", "dcs")
-    errs = {"fwd": 0.0, "bwd": 0.0}
-    outs = {}
-    for drop_p in (0.0, 0.1):
-        got, want = [], []
-        for fn, res in ((lp.ltae_pool, got), (lp.ltae_pool_reference, want)):
-            leaves = [a.clone().requires_grad_(True) for a in (x, pe, *params)]
-            xx, pp, wf, bf, uu, cc = leaves
-            o = fn(xx, pp, pad, wf, bf, uu, cc, 1234, n_head=G, drop_p=drop_p)
-            grads = torch.autograd.grad((o * proj).sum(), leaves)
-            res.extend([o.detach()] + [g_.detach() for g_ in grads])
-        torch.cuda.synchronize()
-        outs[drop_p] = got[0]
-        for name, g_, w_ in zip(names, got, want):
-            check(g_.shape == w_.shape and bool(torch.isfinite(g_).all()),
-                  f"ltae_pool {name} drop_p={drop_p}: shape or non-finite")
-            err = (g_ - w_).abs().max().item()
-            # dcs = sum ds is zero in exact arithmetic (sum_t ds = 0: the
-            # softmax ignores a constant shift), so both sides are rounding
-            # noise: hold it against du, the same ds summed with weights h
-            scale = want[names.index("du" if name == "dcs" else name)]
-            rel = err / max(scale.abs().max().item(), 1e-30)
-            print(f"ltae_pool vs plain drop_p={drop_p} {name}: max_abs_err "
-                  f"{err:.3e}, relative {rel:.3e} (tol {POOL_TOL:g})", flush=True)
-            check(rel <= POOL_TOL, f"ltae_pool {name} drop_p={drop_p}: {rel}")
-            key = "fwd" if name == "o" else "bwd"
-            errs[key] = max(errs[key], err)
-    moved = (outs[0.1] - outs[0.0]).abs().max().item()
-    check(moved > 1e-3, f"drop_p=0.1 left o unchanged ({moved})")
-    del x, pe, pad, proj, outs
+    x, ts, pe, pad, params = pool_inputs(model, 2, gen, dev)
+    # the upstream gradient, exact in bf16 so that the bf16 variants see it
+    proj = torch.randn(2, HW, D, generator=gen, device=dev).bfloat16().float()
+    errs = {}
+    for tail, dtype in VARIANTS:
+        names = (("o", "dx") + (("dtsc", "dtsh") if tail else ())
+                 + ("dpe", "dwin_f", "dbin_f", "du", "dcs"))
+        tol = POOL_TOL if dtype == torch.float32 else POOL_TOL_BF16
+        fwd_name, bwd_name = (lp.variant(tail, dtype, d) for d in ("fwd", "bwd"))
+        errs[fwd_name] = errs[bwd_name] = 0.0
+        xd = x.to(dtype)
+        outs = {}
+        for drop_p in (0.0, 0.1):
+            res = []
+            for plain, xin in ((False, xd), (True, xd.float())):
+                leaves = pool_leaves(tail, xin, ts, pe, params)
+                o = pool_apply(tail, plain, leaves, pad, 1234, drop_p)
+                grads = torch.autograd.grad((o.float() * proj).sum(), leaves)
+                res.append([o.detach().float()] + [g_.detach().float() for g_ in grads])
+                del o, grads, leaves
+            torch.cuda.synchronize()
+            got, want = res
+            outs[drop_p] = got[0]
+            for name, g_, w_ in zip(names, got, want):
+                key = fwd_name if name == "o" else bwd_name
+                check(g_.shape == w_.shape and bool(torch.isfinite(g_).all()),
+                      f"{key} {name} drop_p={drop_p}: shape or non-finite")
+                err = (g_ - w_).abs().max().item()
+                # dcs = sum ds is zero in exact arithmetic (sum_t ds = 0: the
+                # softmax ignores a constant shift), so both sides are rounding
+                # noise: hold it against du, the same ds summed with weights h
+                scale = want[names.index("du" if name == "dcs" else name)]
+                rel = err / max(scale.abs().max().item(), 1e-30)
+                print(f"{key} vs plain drop_p={drop_p} {name}: max_abs_err "
+                      f"{err:.3e}, relative {rel:.3e} (tol {tol:g})", flush=True)
+                check(rel <= tol, f"{key} {name} drop_p={drop_p}: {rel}")
+                errs[key] = max(errs[key], err)
+            del res, got, want
+        moved = (outs[0.1] - outs[0.0]).abs().max().item()
+        check(moved > 1e-3, f"{fwd_name}: drop_p=0.1 left o unchanged ({moved})")
+        del xd, outs
+        torch.cuda.empty_cache()
+    del x, ts, pe, pad, proj
     torch.cuda.empty_cache()
 
-    x, pe, pad, params = pool_inputs(model, TRAIN_B, gen, dev)
+    x, ts, pe, pad, params = pool_inputs(model, TRAIN_B, gen, dev)
     go = torch.randn(TRAIN_B, HW, D, generator=gen, device=dev)
     timings = {}
-    for name, fn, iters in (("kernel", lp.ltae_pool, 10),
-                            ("plain", lp.ltae_pool_reference, 3)):
-        leaves = [a.clone().requires_grad_(True) for a in (x, pe, *params)]
-        xx, pp, wf, bf, uu, cc = leaves
+    for tail, dtype in VARIANTS:
+        xd = x.to(dtype)
+        per = {}
+        for plain, iters in ((False, 10), (True, 3)):
+            leaves = pool_leaves(tail, xd, ts, pe, params)
 
-        def fwd():
-            with torch.no_grad():
-                fn(xx, pp, pad, wf, bf, uu, cc, 99, n_head=G, drop_p=0.1)
-        fwd_ms = cuda_ms(fwd, iters=iters, warmup=1)
-        o = fn(xx, pp, pad, wf, bf, uu, cc, 99, n_head=G, drop_p=0.1)
-        bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, go, retain_graph=True),
-                         iters=iters, warmup=1)
-        timings[name] = (fwd_ms, bwd_ms)
-        del o, leaves, xx
+            def fwd():
+                with torch.no_grad():
+                    pool_apply(tail, plain, leaves, pad, 99, 0.1)
+            fwd_ms = cuda_ms(fwd, iters=iters, warmup=1)
+            o = pool_apply(tail, plain, leaves, pad, 99, 0.1)
+            god = go.to(o.dtype)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, god, retain_graph=True),
+                             iters=iters, warmup=1)
+            per[plain] = (fwd_ms, bwd_ms)
+            del o, god, leaves
+            torch.cuda.empty_cache()
+        for i, direction in enumerate(("fwd", "bwd")):
+            bwd = direction == "bwd"
+            name = lp.variant(tail, dtype, direction)
+            ms, plain_ms = per[False][i], per[True][i]
+            timings[name] = (ms, plain_ms)
+            b_ms, b_by = pool_bound(TRAIN_B, bwd, tail, dtype)
+            flops, nbytes = pool_flops(TRAIN_B, bwd, tail), pool_bytes(TRAIN_B, bwd, tail, dtype)
+            print(f"{name} B={TRAIN_B} T={T} N={HW} C={C}: kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; bytes "
+                  f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms, operations "
+                  f"{flops / PEAK_FLOP_PER_S[dtype] * 1e3:.3f} ms, "
+                  f"{flops / (TRAIN_B * HW) / 1e6:.3f} MFLOP per row), "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s",
+                  flush=True)
+        del xd
         torch.cuda.empty_cache()
-    for i, key in enumerate(("fwd", "bwd")):
-        bwd = key == "bwd"
-        b_ms, b_by = pool_bound(TRAIN_B, bwd)
-        ms = timings["kernel"][i]
-        flops, nbytes = pool_flops(TRAIN_B, bwd), pool_bytes(TRAIN_B, bwd)
-        print(f"ltae_pool_{key} fp32 B={TRAIN_B} T={T} N={HW} C={C}: kernel "
-              f"{ms:.3f} ms, plain {timings['plain'][i]:.3f} ms, bound "
-              f"{b_ms:.3f} ms ({b_by}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.3f}"
-              f" ms, operations {flops / PEAK_FLOP_PER_S[torch.float32] * 1e3:.3f}"
-              f" ms, {flops / (TRAIN_B * HW) / 1e6:.3f} MFLOP per row), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s",
-              flush=True)
-    del x, pe, pad, go
+    del x, ts, pe, pad, go
     torch.cuda.empty_cache()
     return errs, timings
 
@@ -323,23 +389,27 @@ def train_batch(b: int, gen: torch.Generator, dev):
     return {"x": x, "dates": dates.contiguous(), "pad_mask": pad, "y": y}
 
 
-def phase_train(dev):
-    """The training path: 5 steps through make_train_step, then the eval
-    step, then one step's gradients against the plain ltae_pool."""
-    cfg = StepConfig(num_classes=N_CLASSES,
-                     class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
-    model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
-    fresh = {k: v.clone() for k, v in model.state_dict().items()}
-    batch = train_batch(TRAIN_B, torch.Generator(device=dev).manual_seed(4), dev)
-    step = make_train_step(model, cfg)
+def train_run(label: str, fresh, batch, cfg, dev, *, dtype=None,
+              defer_tail=None, steps: int = 5):
+    """``steps`` steps of make_train_step from the weights ``fresh`` on
+    ``batch``, each path with the pair's launch counts set to 0 just before
+    it and read just after: every step must launch the forward and the
+    backward of exactly the variant its route and dtype select, once each.
+    Returns the model, the counts, the losses, the warm step ms (steps 2 on)
+    and the peak memory in GiB."""
+    model = get_model({"model": "timeunet"}, device=dev)
+    model.load_state_dict(fresh)
+    model.defer_tail = defer_tail
+    step = make_train_step(model, cfg, dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(7)
-    bn_before = [model.temporal_encoder.mlp[2].running_mean.clone(),
-                 model.up_blocks[0].up[1].running_var.clone()]
-
+    tail = defer_tail is not False
+    want = {lp.variant(tail, dtype or torch.float32, d): 1 for d in ("fwd", "bwd")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
-    lp.ltae_pool.launches_fwd = lp.ltae_pool.launches_bwd = 0   # the main path
-    for i in range(5):
-        before = (lp.ltae_pool.launches_fwd, lp.ltae_pool.launches_bwd)
+    lp.ltae_pool.launches.clear()                      # this path's counts
+    for i in range(steps):
+        before = collections.Counter(lp.ltae_pool.launches)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         aux = step(batch, gen)
@@ -347,23 +417,55 @@ def phase_train(dev):
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(end))
         losses.append(float(aux["loss"]))
-        per_step = (lp.ltae_pool.launches_fwd - before[0],
-                    lp.ltae_pool.launches_bwd - before[1])
-        print(f"train step {i + 1}: loss {losses[-1]:.6f}, {step_ms[-1]:.3f} ms, "
-              f"ltae_pool launches fwd/bwd {per_step}, cm sum "
-              f"{int(aux['cm'].sum())}", flush=True)
-        check(per_step == (1, 1), f"step {i + 1} launched the pair {per_step} times")
-        check(np.isfinite(losses[-1]), f"step {i + 1}: loss {losses[-1]}")
-    launches = (lp.ltae_pool.launches_fwd, lp.ltae_pool.launches_bwd)
-    check(losses[-1] < losses[0], f"loss did not fall over 5 steps: {losses}")
-    bn_after = [model.temporal_encoder.mlp[2].running_mean,
-                model.up_blocks[0].up[1].running_var]
-    check(all(not torch.equal(a, b) for a, b in zip(bn_before, bn_after)),
-          "BatchNorm running statistics did not change")
+        per_step = dict(lp.ltae_pool.launches - before)
+        print(f"train {label} step {i + 1}: loss {losses[-1]:.6f}, {step_ms[-1]:.3f} ms, "
+              f"ltae_pool launches {per_step}, cm sum {int(aux['cm'].sum())}", flush=True)
+        check(per_step == want, f"{label} step {i + 1} launched {per_step}, not {want}")
+        check(np.isfinite(losses[-1]), f"{label} step {i + 1}: loss {losses[-1]}")
+    launches = dict(lp.ltae_pool.launches)
+    check(losses[-1] < losses[0], f"{label}: loss did not fall over {steps} steps: {losses}")
     warm_ms = float(np.mean(step_ms[1:]))
-    print(f"train step B={TRAIN_B} fp32, warm (steps 2-5): {warm_ms:.3f} ms, "
-          f"{TRAIN_B / warm_ms * 1e3:.2f} samples/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train step B={TRAIN_B} {label}, warm (steps 2-{steps}): {warm_ms:.3f} ms, "
+          f"{TRAIN_B / warm_ms * 1e3:.2f} samples/s; peak memory {peak:.2f} GiB",
+          flush=True)
+    return model, launches, losses, warm_ms, peak
+
+
+def phase_train(dev):
+    """The training path: 5 steps through make_train_step on the deferred
+    tail route in fp32 and in bf16, and 5 of each dtype on the untailed
+    route, then the eval step, then one step's gradients against the plain
+    tail route."""
+    cfg = StepConfig(num_classes=N_CLASSES,
+                     class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+    model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    batch = train_batch(TRAIN_B, torch.Generator(device=dev).manual_seed(4), dev)
+    bn_before = [fresh["temporal_encoder.mlp.2.running_mean"],
+                 fresh["up_blocks.0.up.1.running_var"]]
+
+    launches, runs = {}, {}
+    for label, dtype, defer_tail, steps in (
+            ("tail fp32", None, None, 5), ("tail bf16", torch.bfloat16, None, 5),
+            ("untailed fp32", None, False, 5),
+            ("untailed bf16", torch.bfloat16, False, 5)):
+        model, counts, losses, warm_ms, peak = train_run(
+            label, fresh, batch, cfg, dev, dtype=dtype, defer_tail=defer_tail,
+            steps=steps)
+        launches.update(counts)
+        runs[label] = {"losses": losses, "warm_ms": warm_ms, "peak_gib": peak}
+        if label == "tail fp32":
+            bn_after = [model.temporal_encoder.mlp[2].running_mean,
+                        model.up_blocks[0].up[1].running_var]
+            check(all(not torch.equal(a, b) for a, b in zip(bn_before, bn_after)),
+                  "BatchNorm running statistics did not change")
+            served = model
+        else:
+            del model
+        torch.cuda.empty_cache()
+    model = served
 
     lf.ltae_fused_forward.launches = 0                 # the eval step's path
     aux = make_eval_step(model, cfg)(batch)
@@ -372,17 +474,19 @@ def phase_train(dev):
     print(f"eval step: loss {float(aux['loss']):.6f}, ltae_fused_fwd launches "
           f"{eval_launches}", flush=True)
     check(eval_launches == 1, f"eval step launched the eval kernel {eval_launches} times")
-    del step, aux, model
+    del aux, model, served
     torch.cuda.empty_cache()
 
-    # one step's gradients at B=2: kernel pair vs the plain ltae_pool forced,
-    # and the plain path with its L-TAE output perturbed, as the yardstick
+    # one step's gradients at B=2: the tail kernel pair vs the plain tail
+    # route (ltae_pool_tail_reference), and the plain tail route with its
+    # L-TAE output perturbed, as the yardstick
     small = {k: v[:2] for k, v in batch.items()}
     grads = {}
     for name, fused, eps in (("kernel", True, 0.0), ("plain", False, 0.0),
                              ("perturbed", False, GRAD_EPS)):
         m = get_model({"model": "timeunet"}, device=dev)
         m.load_state_dict(fresh)
+        m.defer_tail = True
         m.train()
         if eps:
             noise = torch.Generator(device=dev).manual_seed(12)
@@ -421,7 +525,7 @@ def phase_train(dev):
           f"{ratio[worst]:.3f} ({worst})", flush=True)
     check(ratio[worst] <= 1.0, f"gradient of {worst}: kernel vs plain {kp[worst]:.3e}"
           f" beyond {GRAD_FACTOR:g}x the perturbation spread")
-    return launches, losses, warm_ms
+    return launches, runs
 
 
 def phase_main_path(model, dev):
@@ -524,7 +628,7 @@ def main() -> int:
     launches, pps_bf16, pps_fp32 = phase_main_path(model, dev)
     del model
     torch.cuda.empty_cache()
-    pool_launches, losses, step_ms = phase_train(dev)
+    pool_launches, runs = phase_train(dev)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -543,19 +647,26 @@ def main() -> int:
         "tile_patches_per_s": pps_bf16, "tile_patches_per_s_fp32": pps_fp32,
     }
     pool = []
-    for i, key in enumerate(("fwd", "bwd")):
-        b_ms, b_by = pool_bound(TRAIN_B, key == "bwd")
-        pool.append({
-            "name": f"ltae_pool_{key}", "route": "cuda",
-            "source": "crop2seg_tpu_torch/csrc/ltae_pool.cu",
-            "replaces": "crop2seg_tpu/ops/ltae_pallas_train.py:"
-                        + ("457" if key == "fwd" else "536"),
-            "launches": pool_launches[i], "max_abs_err": pool_errs[key],
-            "ms": pool_t["kernel"][i], "plain_ms": pool_t["plain"][i],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "dtype": "float32", "shape": [TRAIN_B, T, HW, C],
-        })
-    pool[0].update(train_losses=losses, train_step_ms=step_ms)
+    for tail, dtype in VARIANTS:
+        for direction in ("fwd", "bwd"):
+            name = lp.variant(tail, dtype, direction)
+            b_ms, b_by = pool_bound(TRAIN_B, direction == "bwd", tail, dtype)
+            pool.append({
+                "name": name, "route": "cuda",
+                "source": "crop2seg_tpu_torch/csrc/ltae_pool.cu",
+                "replaces": "crop2seg_tpu/ops/ltae_pallas_train.py:"
+                            + ("457" if direction == "fwd" else "536"),
+                "launches": pool_launches.get(name, 0),
+                "max_abs_err": pool_errs[name],
+                "ms": pool_t[name][0], "plain_ms": pool_t[name][1],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "dtype": str(dtype)[6:], "shape": [TRAIN_B, T, HW, C],
+            })
+            if tail and direction == "fwd":
+                run = runs[f"tail {'fp32' if dtype == torch.float32 else 'bf16'}"]
+                pool[-1].update(train_losses=run["losses"],
+                                train_step_ms=run["warm_ms"],
+                                train_peak_gib=run["peak_gib"])
     print(json.dumps({"kernels": [kernel] + pool}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,20 @@
-// Masked L-TAE attention pooling, training path, fp32, for NVIDIA Hopper
-// (sm_90a): a forward kernel and a backward kernel.
+// Masked L-TAE attention pooling, training path, for NVIDIA Hopper (sm_90a):
+// a forward kernel and a backward kernel, each in four variants (input fp32
+// or bf16, untailed or tail mode), all from this one source.
 //
-// Replaces crop2seg_tpu/ops/ltae_pallas_train.py::ltae_pool in its untailed
-// mode: the forward `_run_fwd` / `_fwd_kernel` (pallas_call at
+// Replaces crop2seg_tpu/ops/ltae_pallas_train.py::ltae_pool and
+// ::ltae_pool_tail: the forward `_run_fwd` / `_fwd_kernel` (pallas_call at
 // ltae_pallas_train.py:457) and the backward `_run_bwd` / `_bwd_kernel`
-// (pallas_call at :536). Wrapper, folds, the autograd Function and the plain
-// PyTorch version: crop2seg_tpu_torch/ops/ltae_pool.py.
+// (pallas_call at :536), in their fp32 (`exact`) and bf16 modes and with or
+// without the deferred conv tail. Wrapper, folds, the autograd Function and
+// the plain PyTorch versions: crop2seg_tpu_torch/ops/ltae_pool.py.
 //
 // Per pixel row n of batch item b, over T <= 64 steps, C <= 64 channels,
 // G <= 16 heads of dv = D/G channels:
-//   xhat = GroupNorm_G(x) over (T, C/G), no affine (folded into W = win_f)
+//   xf   = x, or in tail mode max(z * tsc[b, t] + tsh[b, t], 0)   (deferred
+//          GroupNorm + ReLU of the producing conv; pads arrive with
+//          tsc = tsh = 0, so their rows are exactly 0)
+//   xhat = GroupNorm_G(xf) over (T, C/G), no affine (folded into W = win_f)
 //   h    = xhat W + bpe[b]            bpe = bin_f + pe          (T, D), never built
 //   s    = xhat Ws + pes[b]           Ws = W u, pes = bpe u + cs, -1e6 at pads
 //   a    = softmax_T(s);  a_d = a * keep(seed, b, t, n, g) / (1 - p)
@@ -19,45 +24,69 @@
 //   p1[t, g] = xhat[t] . Z[g] + sum_{d in g} go[d] bpe[t, d]    (= dL/da_d)
 //   ds       = a_d p1 - a sum_t (a_d p1)                      (softmax jacobian)
 //   dxhat[t] = sum_g ds[t, g] Ws[:, g] + a_d[t, g] Z[g]
-//   dx       = inv (dxhat - mean_grp(dxhat) - xhat mean_grp(dxhat xhat))
+//   dxf      = inv (dxhat - mean_grp(dxhat) - xhat mean_grp(dxhat xhat))
+//   dx       = dxf, or in tail mode, with live = dxf 1[z tsc + tsh > 0]:
+//              dz = live tsc, and dtsc[b, t, c] += sum_rows live z,
+//              dtsh[b, t, c] += sum_rows live
 // and four sums over rows, added into device memory with fp32 atomics:
 //   A[c, g] += sum_t xhat[t, c] ds[t, g]     F[c, d] += P[g(d), c] go[d]
 //   Dsum[b, t, g] += ds[t, g]                E[b, t, d] += a_d[t, g(d)] go[d]
 // from which the wrapper forms dW_f, db_f, du, dcs and dpe in small products.
 // Hopper's blocks run in no order, unlike the TPU grid that carries these sums
-// in VMEM across sequential steps, so each block first sums its R rows in
-// registers and then adds one value per entry: (C*G + C*D + T*G + T*D) atomics
-// per block. The order of those adds changes from run to run, so the
-// gradients of W_f, b_f, u, cs and pe vary in their last bits between runs;
-// dx and o do not (no atomics).
+// (and dtsc, dtsh) in VMEM across sequential steps, so each block first sums
+// its R rows and then adds one value per entry: (C*G + C*D + T*G + T*D)
+// atomics per block, plus 2*T*C in tail mode. The order of those adds changes
+// from run to run, so the gradients of W_f, b_f, u, cs, pe, tsc and tsh vary
+// in their last bits between runs; dx and o do not (no atomics).
+//
+// bf16: x (z), go, o and dx are bf16 in device memory (x and z read with
+// 16-byte loads of 8 values); every sum, the GroupNorm statistics and the
+// softmax are fp32, and xhat, a and the per-row scratch are fp32 in shared
+// memory, so a bf16 variant differs from the fp32 one only by the roundings
+// of its input and outputs. The tail mode's mask and dtsc need the raw z in
+// the backward: it is read again from device memory (just read, so mostly
+// from L2) rather than kept in shared memory, which stays as below.
 //
 // Dropout: keep(seed, b, t, n, g) = mix32(mix32(i) ^ mix32(seed)) >= thresh,
 // i = ((b*T + t)*N + n)*G + g mod 2^32. The mask is a function of the element
-// alone, so the forward and the backward (whatever their row blocks) and the
-// plain version (ops/ltae_pool.py::keep_mask) draw the same one.
+// alone, so the forward and the backward (whatever their row blocks), every
+// variant and the plain version (ops/ltae_pool.py::keep_mask) draw the same one.
 //
-// Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 on the CUDA cores) at the
-// train step's shape B=4, T=61, N=16384, C=64, D=256, G=16:
-//   forward:  x 1.02 GB read, o 67 MB written: 0.33 ms by bytes; ~0.34 MFLOP
-//             per row, 22.4 GFLOP: 0.33 ms by operations -> about even.
-//   backward: x read, go read, dx written: 2.11 GB, 0.63 ms by bytes;
-//             ~0.94 MFLOP per row, ~62 GFLOP: 0.92 ms -> bound by operations.
-// (chip_smoke.py::pool_flops and ::pool_bytes count them.)
+// Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 on the CUDA cores, 989
+// TFLOP/s bf16) at the train step's shape B=4, T=61, N=16384, C=64, D=256,
+// G=16, each input read once and each output written once:
+//   forward fp32:  x 1.02 GB read, o 67 MB written: 0.33 ms by bytes; ~0.34
+//                  MFLOP per row (0.35 in tail mode), 22.4 GFLOP: 0.33 ms
+//                  (0.35) by operations -> about even.
+//   forward bf16:  x 0.51 GB, o 34 MB: 0.16 ms by bytes.
+//   backward fp32: x, go read, dx written: 2.11 GB, 0.63 ms by bytes; ~0.94
+//                  MFLOP per row (0.96 in tail mode), ~62 GFLOP: 0.92 ms
+//                  (0.94) -> bound by operations.
+//   backward bf16: 1.06 GB, 0.32 ms by bytes.
+// (chip_smoke.py::pool_flops and ::pool_bytes count them.) Every variant
+// computes in fp32 on the CUDA cores, so the fp32 operation bound (0.33-0.94
+// ms) is the real floor of this design in bf16 too; the products on the
+// tensor cores are later work.
 // What the design does about it: x is read once per kernel with 16-byte
-// loads into shared memory, and every product of a row runs out of shared
-// memory and registers. The per-d projection (forward) and the per-block
-// sums (backward) run block-wide, so each W / bpe element fetched from L2
-// serves all the block's rows. chip_smoke.py measures both kernels beside
-// their bound.
+// loads into shared memory (the tail affine applied on the way), and every
+// product of a row runs out of shared memory and registers. The per-d
+// projection (forward) and the per-block sums (backward) run block-wide, so
+// each W / bpe element fetched from L2 serves all the block's rows.
+// chip_smoke.py measures every variant beside its bound.
 //
 // Layout: one block = R rows of one batch item, one warp per row for the
-// per-row steps. Shared memory per row, +1 pads against bank conflicts:
+// per-row steps. Shared memory per row (fp32 in every variant), +1 pads
+// against bank conflicts:
 //   forward:  xhat (T, C+1) | a_d (T, G+1) | P (G, C+1) | scratch (C)
 //   backward: xhat, dxhat (T, C+1) | a, a_d, p1->ds (T, G+1) | Z, P (G, C+1)
 //             | go (D) | scratch (2C)
-// At the main-path shape the forward takes R = 8 (195 KiB), the backward
-// R = 4 (215 KiB): one block per SM either way.
+// The tail mode adds none: after the GroupNorm backward a row's dxhat buffer
+// holds live, and the block-wide dtsc sum reads z once more from device
+// memory (L2 as a rule). At the main-path shape the forward takes R = 8
+// (195 KiB), the backward R = 4 (215 KiB), in every variant: one block per SM
+// either way.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -71,21 +100,57 @@ constexpr int kMaxRows = 8;    // rows (= warps) per block
 constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
 
 struct Args {
-  const float* x;     // (B, T, N, C)
-  const float* go;    // (B, N, D), backward only
+  const void* x;      // (B, T, N, C) x's type: the input, in tail mode the raw z
+  const void* go;     // (B, N, D) x's type, backward only
+  const float* tsc;   // (B, T, C), tail mode only
+  const float* tsh;   // (B, T, C), tail mode only
   const float* win;   // (C, D)
   const float* ws;    // (C, G)
   const float* pes;   // (B, G, T)
   const float* bpe;   // (B, T, D)
-  float* o;           // (B, N, D), forward
-  float* dx;          // (B, T, N, C), backward
+  void* o;            // (B, N, D) x's type, forward
+  void* dx;           // (B, T, N, C) x's type, backward
   float* acc_a;       // (C, G)
   float* acc_f;       // (C, D)
   float* dsum;        // (B, T, G)
   float* acc_e;       // (B, T, D)
+  float* dtsc;        // (B, T, C), tail-mode backward
+  float* dtsh;        // (B, T, C), tail-mode backward
   int B, T, N, C, D, G;
   uint32_t seed_mix, thresh;
   float scale, eps;
+};
+
+// Loads and stores of the input type, widened to / narrowed from fp32.
+template <typename Tin> struct Io;
+
+template <> struct Io<float> {
+  static constexpr int kVec = 4;   // values per 16-byte load
+  __device__ static void unpack(const uint4& r, float* v) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  __device__ static float load(const float* p) { return __ldg(p); }
+  __device__ static void store(float* p, float v) { *p = v; }
+};
+
+template <> struct Io<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  __device__ static void unpack(const uint4& r, float* v) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // element 2i sits in the low half
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static float load(const __nv_bfloat16* p) {
+    return __uint_as_float(
+        (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+  }
+  __device__ static void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 };
 
 __host__ __device__ inline int fwd_row_floats(int T, int C, int G) {
@@ -125,25 +190,47 @@ __device__ __forceinline__ float keep_scale(const Args& a, int b, int t, int n, 
   return mix32(mix32(i) ^ a.seed_mix) >= a.thresh ? a.scale : 0.f;
 }
 
-// Stage Ws and the x rows n0 .. n0+R-1 of batch item b (zeros past N).
+// The tail's pre-activation z * tsc + tsh: one expression for the forward's
+// max(., 0) and the backward's mask, rounded after the product and after the
+// sum (no fused multiply-add), as PyTorch's separate multiply and add round
+// it in the plain version, so the ReLU masks of the kernels and of the plain
+// version agree bit for bit and no element's gradient flips between them.
+__device__ __forceinline__ float tail_pre(float z, float sc, float sh) {
+  return __fadd_rn(__fmul_rn(z, sc), sh);
+}
+
+// Stage Ws and the rows n0 .. n0+R-1 of batch item b as fp32 (zeros past N),
+// in tail mode with max(z * tsc + tsh, 0) applied on the way.
+template <typename Tin, bool Tail>
 __device__ void stage(const Args& a, float* ws_s, float* rows, int rf, int R,
                       int b, int n0) {
   const int T = a.T, C = a.C, CP = C + 1, RC = R * C;
   for (int i = threadIdx.x; i < C * a.G; i += blockDim.x) ws_s[i] = a.ws[i];
-  const int nvec = T * RC / 4;   // C % 8 == 0: a vector never straddles rows
+  constexpr int V = Io<Tin>::kVec;
+  const Tin* x = static_cast<const Tin*>(a.x);
+  const int nvec = T * RC / V;   // C % 8 == 0: a vector never straddles rows
   for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    const int e = i * 4;
+    const int e = i * V;
     const int t = e / RC, rem = e - t * RC;
     const int r = rem / C, c = rem - r * C;
     const int n = n0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n < a.N)
-      v = __ldg(reinterpret_cast<const float4*>(a.x + ((size_t)(b * T + t) * a.N + n) * C + c));
+    float v[V];
+    if (n < a.N) {
+      Io<Tin>::unpack(__ldg(reinterpret_cast<const uint4*>(
+                          x + ((size_t)(b * T + t) * a.N + n) * C + c)), v);
+      if constexpr (Tail) {
+        const size_t k = (size_t)(b * T + t) * C + c;
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          v[j] = fmaxf(tail_pre(v[j], __ldg(a.tsc + k + j), __ldg(a.tsh + k + j)), 0.f);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = 0.f;
+    }
     float* dst = rows + r * rf + t * CP + c;
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
+#pragma unroll
+    for (int j = 0; j < V; ++j) dst[j] = v[j];
   }
 }
 
@@ -281,6 +368,7 @@ __device__ void pool_row(const float* xr, const float* adr, float* pr, int T,
   __syncwarp();
 }
 
+template <typename Tin, bool Tail>
 __global__ void __launch_bounds__(32 * kMaxRows)
 ltae_pool_fwd_kernel(const Args a) {
   extern __shared__ float smem[];
@@ -293,7 +381,7 @@ ltae_pool_fwd_kernel(const Args a) {
   float* ws_s = smem;            // (C, G)
   float* rows = smem + C * G;    // R regions of rf floats
 
-  stage(a, ws_s, rows, rf, R, b, n0);
+  stage<Tin, Tail>(a, ws_s, rows, rf, R, b, n0);
   __syncthreads();
 
   float* xr = rows + warp * rf;
@@ -306,6 +394,7 @@ ltae_pool_fwd_kernel(const Args a) {
   // o[d] = P[g(d)] . W[:, d] + sum_t a_d[t, g(d)] bpe[t, d], block-wide: a
   // thread owns d for all R rows, so each W / bpe element read serves R rows.
   const float* bpe = a.bpe + (size_t)b * T * D;
+  Tin* o = static_cast<Tin*>(a.o);
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     const int g = d / dv;
     float acc[kMaxRows];
@@ -325,10 +414,11 @@ ltae_pool_fwd_kernel(const Args a) {
     }
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r)
-      if (r < R && n0 + r < N) a.o[((size_t)b * N + n0 + r) * D + d] = acc[r];
+      if (r < R && n0 + r < N) Io<Tin>::store(o + ((size_t)b * N + n0 + r) * D + d, acc[r]);
   }
 }
 
+template <typename Tin, bool Tail>
 __global__ void __launch_bounds__(32 * kMaxRows)
 ltae_pool_bwd_kernel(const Args a) {
   extern __shared__ float smem[];
@@ -344,11 +434,12 @@ ltae_pool_bwd_kernel(const Args a) {
   float* rows = smem + C * G;
 
   // ---- stage Ws, the x rows and the go rows (zeros past N) ----------------
-  stage(a, ws_s, rows, rf, R, b, n0);
+  stage<Tin, Tail>(a, ws_s, rows, rf, R, b, n0);
+  const Tin* gop = static_cast<const Tin*>(a.go);
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const int r = i / D, d = i - r * D;
     const int n = n0 + r;
-    rows[r * rf + off_go + d] = n < N ? __ldg(a.go + ((size_t)b * N + n) * D + d) : 0.f;
+    rows[r * rf + off_go + d] = n < N ? Io<Tin>::load(gop + ((size_t)b * N + n) * D + d) : 0.f;
   }
   __syncthreads();
 
@@ -425,8 +516,8 @@ ltae_pool_bwd_kernel(const Args a) {
 
   pool_row(xr, adr, xr + off_p, T, C, G);
 
-  // dxhat = ds Ws^T + a_d Z, then the GroupNorm backward into dx (lanes own
-  // c, c + 32).
+  // dxhat = ds Ws^T + a_d Z, and its per-channel sums for the GroupNorm
+  // backward, sum_t dxhat and sum_t dxhat xhat, into vr (lanes own c, c + 32)
   {
     const bool c0 = lane < C, c1 = lane + 32 < C;
     const int ca = c0 ? lane : 0, cb = c1 ? lane + 32 : 0;
@@ -465,7 +556,15 @@ ltae_pool_bwd_kernel(const Args a) {
     if (c0) { vr[lane] = m1[0]; vr[C + lane] = m2[0]; }
     if (c1) { vr[lane + 32] = m1[1]; vr[C + lane + 32] = m2[1]; }
     __syncwarp();
+  }
+
+  // ---- GroupNorm backward into dx (lanes own c, c + 32); in tail mode
+  //      through the ReLU mask and tsc, keeping live in the row's dxhat
+  //      buffer for the dtsc and dtsh sums ------------------------------------
+  {
     const float cnt = (float)(T * cg);
+    const Tin* z = static_cast<const Tin*>(a.x);
+    Tin* dx = static_cast<Tin*>(a.dx);
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       const int c = lane + 32 * k;
@@ -479,9 +578,18 @@ ltae_pool_bwd_kernel(const Args a) {
         s1 /= cnt;
         s2 /= cnt;
         for (int t = 0; t < T; ++t) {
-          const float xh = xr[t * CP + c];
-          a.dx[((size_t)(b * T + t) * N + n) * C + c] =
-              inv_c[k] * (dxr[t * CP + c] - s1 - xh * s2);
+          const size_t at = ((size_t)(b * T + t) * N + n) * C + c;
+          const float dxf = inv_c[k] * (dxr[t * CP + c] - s1 - xr[t * CP + c] * s2);
+          if constexpr (Tail) {
+            const size_t k2 = (size_t)(b * T + t) * C + c;
+            const float sc = __ldg(a.tsc + k2);
+            const float live =
+                tail_pre(Io<Tin>::load(z + at), sc, __ldg(a.tsh + k2)) > 0.f ? dxf : 0.f;
+            Io<Tin>::store(dx + at, live * sc);
+            dxr[t * CP + c] = live;
+          } else {
+            Io<Tin>::store(dx + at, dxf);
+          }
         }
       }
     }
@@ -489,7 +597,8 @@ ltae_pool_bwd_kernel(const Args a) {
   __syncthreads();
 
   // ---- block-wide sums of the R rows, one atomic add per entry -------------
-  // Rows past N hold xhat = 0, ds = 0 and go = 0, so they add nothing.
+  // Rows past N hold xhat = 0, ds = 0, go = 0 and dxhat = 0 (so live = 0),
+  // so they add nothing.
   for (int i = threadIdx.x; i < C * G; i += blockDim.x) {
     const int c = i / G, g = i - c * G;
     float s = 0.f;
@@ -522,10 +631,28 @@ ltae_pool_bwd_kernel(const Args a) {
       s = fmaf(rows[r * rf + off_ad + t * GP + g], rows[r * rf + off_go + d], s);
     atomicAdd(a.acc_e + (size_t)b * T * D + i, s);
   }
+  if constexpr (Tail) {
+    // dtsc[b, t, c] += sum_rows live z (z read once more, from L2 as a rule),
+    // dtsh[b, t, c] += sum_rows live
+    const Tin* z = static_cast<const Tin*>(a.x);
+    const int rv = min(R, N - n0);
+    for (int i = threadIdx.x; i < T * C; i += blockDim.x) {
+      const int t = i / C, c = i - t * C;
+      float s_sc = 0.f, s_sh = 0.f;
+      for (int r = 0; r < rv; ++r) {
+        const float live = rows[r * rf + off_dx + t * CP + c];
+        s_sc = fmaf(live, Io<Tin>::load(z + ((size_t)(b * T + t) * N + n0 + r) * C + c), s_sc);
+        s_sh += live;
+      }
+      atomicAdd(a.dtsc + (size_t)b * T * C + i, s_sc);
+      atomicAdd(a.dtsh + (size_t)b * T * C + i, s_sh);
+    }
+  }
 }
 
-cudaError_t launch(void (*kernel)(const Args), int rf, const Args& a,
-                   cudaStream_t stream) {
+using Kernel = void (*)(const Args);
+
+cudaError_t launch(Kernel kernel, int rf, const Args& a, cudaStream_t stream) {
   int rows = kMaxRows;
   auto bytes = [&](int r) { return (size_t)(a.C * a.G + r * rf) * sizeof(float); };
   while (rows > 1 && bytes(rows) > kSmemLimit) --rows;
@@ -536,6 +663,16 @@ cudaError_t launch(void (*kernel)(const Args), int rf, const Args& a,
   const dim3 grid((a.N + rows - 1) / rows, a.B);
   kernel<<<grid, 32 * rows, bytes(rows), stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename Tin>
+Kernel fwd_kernel(bool tail) {
+  return tail ? &ltae_pool_fwd_kernel<Tin, true> : &ltae_pool_fwd_kernel<Tin, false>;
+}
+
+template <typename Tin>
+Kernel bwd_kernel(bool tail) {
+  return tail ? &ltae_pool_bwd_kernel<Tin, true> : &ltae_pool_bwd_kernel<Tin, false>;
 }
 
 bool bad_shape(int B, int T, int N, int C, int D, int G) {
@@ -556,44 +693,60 @@ Args make_args(int B, int T, int N, int C, int D, int G, unsigned seed_mix,
 
 }  // namespace
 
-// C entries for ctypes. Pointers are device pointers to contiguous fp32
-// tensors; the accumulators of the backward must hold zeros. Each returns the
-// cudaError_t of its launch (0 on success).
-extern "C" int ltae_pool_fwd(const void* x, const void* bpe, const void* win,
+// C entries for ctypes. Pointers are device pointers to contiguous tensors:
+// x, go, o and dx of x's type (fp32, or bf16 when x_is_bf16), every other one
+// fp32. tsc and tsh are null for the untailed mode; in tail mode the backward
+// also needs dtsc and dtsh. The accumulators of the backward (and dtsc,
+// dtsh) must hold zeros. Each returns the cudaError_t of its launch (0 on
+// success).
+extern "C" int ltae_pool_fwd(const void* x, int x_is_bf16, const void* tsc,
+                             const void* tsh, const void* bpe, const void* win,
                              const void* ws, const void* pes, void* o, int B,
                              int T, int N, int C, int D, int G, unsigned seed_mix,
                              unsigned thresh, float scale, float eps, void* stream) {
-  if (bad_shape(B, T, N, C, D, G)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, T, N, C, D, G) || (tsc == nullptr) != (tsh == nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(B, T, N, C, D, G, seed_mix, thresh, scale, eps);
-  a.x = static_cast<const float*>(x);
+  a.x = x;
+  a.tsc = static_cast<const float*>(tsc);
+  a.tsh = static_cast<const float*>(tsh);
   a.bpe = static_cast<const float*>(bpe);
   a.win = static_cast<const float*>(win);
   a.ws = static_cast<const float*>(ws);
   a.pes = static_cast<const float*>(pes);
-  a.o = static_cast<float*>(o);
-  return (int)launch(ltae_pool_fwd_kernel, fwd_row_floats(T, C, G), a,
-                     static_cast<cudaStream_t>(stream));
+  a.o = o;
+  const bool tail = tsc != nullptr;
+  return (int)launch(x_is_bf16 ? fwd_kernel<__nv_bfloat16>(tail) : fwd_kernel<float>(tail),
+                     fwd_row_floats(T, C, G), a, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int ltae_pool_bwd(const void* x, const void* go, const void* win,
+extern "C" int ltae_pool_bwd(const void* x, int x_is_bf16, const void* tsc,
+                             const void* tsh, const void* go, const void* win,
                              const void* ws, const void* pes, const void* bpe,
                              void* dx, void* acc_a, void* acc_f, void* dsum,
-                             void* acc_e, int B, int T, int N, int C, int D, int G,
-                             unsigned seed_mix, unsigned thresh, float scale,
-                             float eps, void* stream) {
-  if (bad_shape(B, T, N, C, D, G)) return (int)cudaErrorInvalidValue;
+                             void* acc_e, void* dtsc, void* dtsh, int B, int T,
+                             int N, int C, int D, int G, unsigned seed_mix,
+                             unsigned thresh, float scale, float eps, void* stream) {
+  const bool tail = tsc != nullptr;
+  if (bad_shape(B, T, N, C, D, G) || (tsh != nullptr) != tail ||
+      (dtsc != nullptr) != tail || (dtsh != nullptr) != tail)
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(B, T, N, C, D, G, seed_mix, thresh, scale, eps);
-  a.x = static_cast<const float*>(x);
-  a.go = static_cast<const float*>(go);
+  a.x = x;
+  a.go = go;
+  a.tsc = static_cast<const float*>(tsc);
+  a.tsh = static_cast<const float*>(tsh);
   a.win = static_cast<const float*>(win);
   a.ws = static_cast<const float*>(ws);
   a.pes = static_cast<const float*>(pes);
   a.bpe = static_cast<const float*>(bpe);
-  a.dx = static_cast<float*>(dx);
+  a.dx = dx;
   a.acc_a = static_cast<float*>(acc_a);
   a.acc_f = static_cast<float*>(acc_f);
   a.dsum = static_cast<float*>(dsum);
   a.acc_e = static_cast<float*>(acc_e);
-  return (int)launch(ltae_pool_bwd_kernel, bwd_row_floats(T, C, D, G), a,
-                     static_cast<cudaStream_t>(stream));
+  a.dtsc = static_cast<float*>(dtsc);
+  a.dtsh = static_cast<float*>(dtsh);
+  return (int)launch(x_is_bf16 ? bwd_kernel<__nv_bfloat16>(tail) : bwd_kernel<float>(tail),
+                     bwd_row_floats(T, C, D, G), a, static_cast<cudaStream_t>(stream));
 }

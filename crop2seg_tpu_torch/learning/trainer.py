@@ -1,7 +1,10 @@
 """The training and eval steps (port of crop2seg_tpu/learning/trainer.py:48-160).
 
 One train step is forward, loss, backward, Adam update and the confusion
-matrices, on the card by default. ``freeze_labels``, ``run_epoch``, the
+matrices, on the card by default, in fp32 or, with ``dtype=torch.bfloat16``,
+under ``torch.autocast`` in bf16 with fp32 parameters, fp32 Adam state and the
+loss taken on fp32 logits (the JAX train CLI's ``--bf16``, train.py:88-89,
+367-372; like it, no loss scaling). ``freeze_labels``, ``run_epoch``, the
 boundary loss and region masking come later (ROADMAP.md), and with them the
 JAX ``StepConfig``'s ``ignore_index``, ``add_boundary_loss``,
 ``boundary_gamma`` and ``test_region``.
@@ -56,9 +59,15 @@ def _weight(cfg: StepConfig, dev: torch.device) -> torch.Tensor | None:
     return torch.tensor(cfg.class_weights, dtype=torch.float32, device=dev)
 
 
+def _autocast(dev: torch.device, dtype: torch.dtype | None):
+    """The forward's compute dtype: autocast to ``dtype`` (bf16), or fp32."""
+    return torch.autocast(dev.type, dtype=dtype,
+                          enabled=dtype is not None and dtype != torch.float32)
+
+
 def make_train_step(model: torch.nn.Module, cfg: StepConfig,
                     optimizer: torch.optim.Optimizer | None = None,
-                    device=None) -> Callable:
+                    device=None, dtype: torch.dtype | None = None) -> Callable:
     """Returns ``step(batch, generator) -> aux``: one training step of
     ``model`` (moved to ``device``, the CUDA card unless "cpu" is asked for,
     and set to training mode at each step). ``batch`` holds x (B, T, H, W, C), dates
@@ -66,8 +75,9 @@ def make_train_step(model: torch.nn.Module, cfg: StepConfig,
     ``generator`` (a ``torch.Generator`` on the model's device) draws every
     dropout mask of the step. ``optimizer`` defaults to
     ``create_train_state(model, 1e-3)`` and is exposed as ``step.optimizer``.
-    ``aux`` holds the loss and the (K, K) confusion matrices ``cm`` and
-    ``cm_top2`` of the step's forward, on the device."""
+    ``dtype``: the forward's compute dtype under autocast (torch.bfloat16);
+    None runs fp32. ``aux`` holds the loss and the (K, K) confusion matrices
+    ``cm`` and ``cm_top2`` of the step's forward, on the device."""
     dev = resolve_device(device)
     model.to(dev)
     if optimizer is None:
@@ -78,8 +88,9 @@ def make_train_step(model: torch.nn.Module, cfg: StepConfig,
         model.train()
         b = _to(batch, dev)
         optimizer.zero_grad(set_to_none=True)
-        logits = model(b["x"], b["dates"], b["pad_mask"], generator=generator)
-        aux = _metrics(cfg, logits, b["y"], weight)
+        with _autocast(dev, dtype):
+            logits = model(b["x"], b["dates"], b["pad_mask"], generator=generator)
+        aux = _metrics(cfg, logits.float(), b["y"], weight)
         aux["loss"].backward()
         optimizer.step()
         aux["loss"] = aux["loss"].detach()
@@ -90,10 +101,10 @@ def make_train_step(model: torch.nn.Module, cfg: StepConfig,
 
 
 def make_eval_step(model: torch.nn.Module, cfg: StepConfig,
-                   device=None) -> Callable:
+                   device=None, dtype: torch.dtype | None = None) -> Callable:
     """Returns ``step(batch) -> aux`` (loss, cm, cm_top2) of ``model`` in
     eval mode on ``device``: the served path, so on the card the fused eval
-    L-TAE kernel runs."""
+    L-TAE kernel runs. ``dtype`` as in ``make_train_step``."""
     dev = resolve_device(device)
     weight = _weight(cfg, dev)
 
@@ -101,7 +112,8 @@ def make_eval_step(model: torch.nn.Module, cfg: StepConfig,
         model.to(dev).eval()
         b = _to(batch, dev)
         with torch.inference_mode():
-            logits = model(b["x"], b["dates"], b["pad_mask"])
-            return _metrics(cfg, logits, b["y"], weight)
+            with _autocast(dev, dtype):
+                logits = model(b["x"], b["dates"], b["pad_mask"])
+            return _metrics(cfg, logits.float(), b["y"], weight)
 
     return step

@@ -6,15 +6,21 @@
 
 On the kernel path (``fused``, the default for a CUDA input) in_conv defers
 its last GroupNorm + ReLU: it returns the raw conv output with the per-frame
-affine ``(sc, sh)``, the pad mask is folded in as zeroed rows, and the fused
-L-TAE kernel applies ``max(z * sc + sh, 0)`` on load. The plain path (the
-default for a CPU input) runs in_conv through ``temporally_shared``. Both
-give the same result.
+affine ``(sc, sh)``, the pad mask is folded in as zeroed rows, and the L-TAE
+kernels apply ``max(z * sc + sh, 0)`` on load: the fused eval kernel in eval
+mode, the ``ltae_pool_tail`` pair in training mode (the JAX package's
+``use_pallas_train`` path, crop2seg_tpu/models/timeunet.py:89-120). The
+plain path (the default for a CPU input), and the kernel path when in_conv
+does not end in GroupNorm + ReLU (``encoder_norm="batch"``), run in_conv
+through ``temporally_shared``; the L-TAE then takes the untailed pair in
+training. ``defer_tail`` forces the choice: True defers the tail on the plain
+path too (training mode: ``ltae_pool_tail``'s plain version), False never
+defers it. All routes give the same result.
 
-In training mode (``model.train()``) in_conv always runs through
-``temporally_shared`` (plain GroupNorm + ReLU), the L-TAE takes its training
-path (the ``ltae_pool`` kernel pair when ``fused``) and every BatchNorm uses
-batch statistics and updates its running ones.
+In training mode (``model.train()``) the L-TAE takes its training path and
+every BatchNorm uses batch statistics and updates its running ones. Under
+``torch.autocast`` every normalization keeps fp32 statistics, and the L-TAE's
+folds and PE stay fp32.
 """
 from __future__ import annotations
 
@@ -38,11 +44,14 @@ class TimeUNet(nn.Module):
                  d_model: int = 256, d_k: int = 4, pad_value: float = 0.0,
                  padding_mode: str = "reflect", use_abs_rel_enc: bool = False,
                  num_queries: int = 1, use_doy: bool = False,
-                 add_linear: bool = False):
+                 add_linear: bool = False, defer_tail: bool | None = None):
         super().__init__()
         enc_w, dec_w = tuple(encoder_widths), tuple(decoder_widths)
         n = len(enc_w)
         self.pad_value = pad_value
+        # None: defer on the kernel path when in_conv ends in GroupNorm + ReLU
+        self.defer_tail = defer_tail
+        self._tail_deferrable = encoder_norm == "group"
         self.in_conv = ConvBlock((input_dim, enc_w[0], enc_w[0]),
                                  norm=encoder_norm, padding_mode=padding_mode)
         self.down_blocks = nn.ModuleList(
@@ -77,12 +86,9 @@ class TimeUNet(nn.Module):
         if fused is None:
             fused = x.is_cuda
         b, t = x.shape[:2]
-        if self.training:
-            out = temporally_shared(self.in_conv, x, pad_mask, self.pad_value)
-            out, _ = self.temporal_encoder(out, batch_positions, pad_mask,
-                                           need_attn=False, fused=fused,
-                                           generator=generator)
-        elif fused:
+        defer = (fused and self._tail_deferrable if self.defer_tail is None
+                 else self.defer_tail)
+        if defer:
             if self.pad_value != 0:
                 raise NotImplementedError(
                     "the fused path folds pads in as zero rows: pad_value must be 0")
@@ -92,11 +98,13 @@ class TimeUNet(nn.Module):
             tail = ((sc * valid).reshape(b, t, -1), (sh * valid).reshape(b, t, -1))
             out, _ = self.temporal_encoder(
                 z.reshape((b, t) + tuple(z.shape[1:])), batch_positions,
-                pad_mask, need_attn=False, tail_affine=tail, fused=True)
+                pad_mask, need_attn=False, tail_affine=tail, fused=fused,
+                generator=generator)
         else:
             out = temporally_shared(self.in_conv, x, pad_mask, self.pad_value)
             out, _ = self.temporal_encoder(out, batch_positions, pad_mask,
-                                           need_attn=False, fused=False)
+                                           need_attn=False, fused=fused,
+                                           generator=generator)
         feature_maps = [out]
         for down in self.down_blocks:
             feature_maps.append(down(feature_maps[-1]))

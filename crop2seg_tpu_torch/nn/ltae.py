@@ -15,7 +15,8 @@ PyTorch ops below; both return ``(out (B, H, W, d_out), attn (B, H, W, head,
 T))``, the JAX layouts. In training mode the pooling runs through
 ``ops/ltae_pool.py`` (its kernel pair on a CUDA tensor), as the JAX
 ``LTAE._fused_train`` does, with attention dropout after the softmax and the
-MLP tail in training mode; it returns ``(out, None)``.
+MLP tail in training mode; it returns ``(out, None)``. Both modes take the
+producer's deferred GroupNorm affine (``tail_affine``) on the kernel path.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from torch import nn
 from crop2seg_tpu_torch.nn.layers import batch_norm
 from crop2seg_tpu_torch.nn.positional import (
     AbsolutePositionalEncoder, PositionalEncoder)
-from crop2seg_tpu_torch.ops.ltae_pool import ltae_pool, ltae_pool_reference
+from crop2seg_tpu_torch.ops.ltae_pool import (
+    ltae_pool, ltae_pool_reference, ltae_pool_tail, ltae_pool_tail_reference)
 
 
 def _group_norm_btc(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
@@ -89,9 +91,10 @@ class LTAE(nn.Module):
     Call: x (B, T, H, W, C), batch_positions (B, T) or (B, T, 2), pad_mask
     (B, T) bool. ``fused`` picks the path: None means the kernel for a CUDA
     tensor and the plain ops for a CPU tensor; True/False force one (the
-    tests and chip_smoke.py compare the two). ``tail_affine`` (fused eval
-    path only) is the producer's deferred GroupNorm affine ``(sc, sh)`` of
-    shape (B, T, C), applied as ``max(x * sc + sh, 0)``. ``generator``
+    tests and chip_smoke.py compare the two). ``tail_affine`` is the
+    producer's deferred GroupNorm affine ``(sc, sh)`` of shape (B, T, C),
+    applied as ``max(x * sc + sh, 0)`` (fused path in eval mode; in training
+    mode ``ltae_pool_tail``, or its plain version when not fused). ``generator``
     (training only) draws the dropout masks; None uses PyTorch's global RNG.
     ``dropout`` is the MLP's rate, ``attn_dropout`` the attention's.
     """
@@ -195,12 +198,17 @@ class LTAE(nn.Module):
               / math.sqrt(dk))[None]
         return win_f, bin_f, u, cs
 
-    def _train(self, x, batch_positions, pad_mask, fused, generator):
-        """Training path (crop2seg_tpu/nn/ltae.py:279-338 with the untailed
-        ``ltae_pool``)."""
+    def _train(self, x, batch_positions, pad_mask, fused, generator,
+               tail_affine):
+        """Training path (crop2seg_tpu/nn/ltae.py:279-338): ``ltae_pool``, or
+        ``ltae_pool_tail`` with the deferred tail. PE and the folds are taken
+        in fp32 with autocast off, as the JAX package takes them from its fp32
+        parameters."""
         b, t, hh, ww, c = x.shape
-        pe = (self.pe(batch_positions) if self.positional_encoder is not None
-              else torch.zeros(b, t, self.d_model, device=x.device))
+        with torch.autocast(x.device.type, enabled=False):
+            pe = (self.pe(batch_positions) if self.positional_encoder is not None
+                  else torch.zeros(b, t, self.d_model, device=x.device))
+            params = self.pool_params()
         if pad_mask is None:
             pad_mask = torch.zeros(b, t, dtype=torch.bool, device=x.device)
         seed = 0
@@ -208,9 +216,14 @@ class LTAE(nn.Module):
             seed = int(torch.randint(
                 0, 2 ** 31 - 1, (1,), generator=generator,
                 device=generator.device if generator is not None else "cpu"))
-        pool = ltae_pool if fused else ltae_pool_reference
-        o = pool(x.reshape(b, t, hh * ww, c), pe, pad_mask, *self.pool_params(),
-                 seed, n_head=self.n_head, drop_p=self.attn_dropout)
+        rows = x.reshape(b, t, hh * ww, c)
+        kw = dict(n_head=self.n_head, drop_p=self.attn_dropout)
+        if tail_affine is None:
+            pool = ltae_pool if fused else ltae_pool_reference
+            o = pool(rows, pe, pad_mask, *params, seed, **kw)
+        else:
+            pool = ltae_pool_tail if fused else ltae_pool_tail_reference
+            o = pool(rows, *tail_affine, pe, pad_mask, *params, seed, **kw)
         return self._mlp_tail(o.reshape(b, hh, ww, self.d_model), generator), None
 
     def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,
@@ -220,16 +233,13 @@ class LTAE(nn.Module):
         if fused is None:
             fused = x.is_cuda
         if self.training:
-            if tail_affine is not None:
-                raise NotImplementedError(
-                    "training with the deferred in_conv tail (ltae_pool_tail) "
-                    "is not ported yet (ROADMAP.md, kernels 2 and 3)")
             if need_attn:
                 raise NotImplementedError(
                     "the training path returns no attention masks: pass "
                     "need_attn=False (attention output in training is not "
                     "ported yet, ROADMAP.md)")
-            return self._train(x, batch_positions, pad_mask, fused, generator)
+            return self._train(x, batch_positions, pad_mask, fused, generator,
+                               tail_affine)
         if fused:
             return self._fused(x, batch_positions, pad_mask, need_attn,
                                tail_affine)

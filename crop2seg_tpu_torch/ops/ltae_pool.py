@@ -1,6 +1,7 @@
 """Masked L-TAE attention pooling with a hand-written backward, training path:
-two CUDA C++ kernels for Hopper and their plain version (port of
-crop2seg_tpu/ops/ltae_pallas_train.py::ltae_pool, untailed mode, fp32).
+two CUDA C++ kernels for Hopper and their plain versions (port of
+crop2seg_tpu/ops/ltae_pallas_train.py::ltae_pool and ::ltae_pool_tail, fp32
+and bf16).
 
 Per pixel row, T steps, C channels, G heads of D/G channels (eps 1e-5):
 
@@ -10,29 +11,44 @@ Per pixel row, T steps, C channels, G heads of D/G channels (eps 1e-5):
     a    = softmax_T(s);  a_d = a * keep / (1 - p)    attention dropout after softmax
     o[d] = sum_t a_d[t, g(d)] h[t, d]                 (D,)
 
+``ltae_pool_tail`` takes the raw output z of the producing conv instead of x,
+with that conv's deferred GroupNorm affine ``(tsc, tsh)`` of shape (B, T, C):
+``x = where(z*tsc + tsh > 0, z*tsc + tsh, 0)``, applied inside the kernels,
+so the normalized copy never reaches device memory in either direction, and
+the backward also returns dtsc and dtsh.
+
 ``keep`` is a stateless hash of ``(seed, b, t, n, g)`` (``keep_mask``), so
 the forward and the backward kernel draw the same mask, whatever their block
-shapes, and the plain version draws it too: the kernels and
+shapes, and the plain versions draw it too: the kernels and
 ``ltae_pool_reference`` agree at any ``drop_p``, not only in distribution.
 
-``ltae_pool`` runs the plain version under torch autograd for a CPU tensor
-and the kernel pair of ``csrc/ltae_pool.cu`` (a ``torch.autograd.Function``)
-for a CUDA tensor. ``ltae_pool.launches_fwd`` / ``.launches_bwd`` count the
-kernels' launches.
+``ltae_pool`` and ``ltae_pool_tail`` run the plain version under torch
+autograd for a CPU tensor and the kernel pair of ``csrc/ltae_pool.cu`` (a
+``torch.autograd.Function``) for a CUDA tensor, with x (z) in fp32 or bf16; o
+and dx come back in x's dtype, every other gradient in fp32.
+``ltae_pool.launches_fwd`` / ``.launches_bwd`` count the kernels' launches,
+and ``ltae_pool.launches`` counts them per variant (``variant``).
+
+The folds and the small products around the kernels run in fp32 with
+autocast off, from fp32 parameters, as the JAX package computes them, whatever
+the caller's autocast state.
 
 The backward kernel never builds h: per row and head it works in C-space
 with ``Z[g] = win_f[:, d in g] @ go[d in g]`` and ``P[g] = sum_t a_d[t, g]
 xhat[t]``, and it sums four row reductions over the whole grid with fp32
 atomics: ``A = sum xhat^T ds`` (C, G), ``F[c, d] = sum P[g(d), c] go[d]``
 (C, D), ``Dsum_b = sum ds`` (B, T, G) and ``E_b[t, d] = sum a_d[t, g(d)]
-go[d]`` (B, T, D). The six gradients follow from those in a few small
-products here (``_finish_backward``):
+go[d]`` (B, T, D); in tail mode also ``dtsc = sum_rows live z`` and ``dtsh =
+sum_rows live`` (B, T, C), with ``live = dxf * 1[z*tsc + tsh > 0]`` and
+``dz = live * tsc``. The six other gradients follow from the four sums in a
+few small products here (``_finish_backward``):
 
     dW_f = A u^T + F          du  = W_f^T A + sum_b (bin_f + pe_b)^T Dsum_b
     dpe  = Dsum u^T + E       db_f = sum_{b,t} dpe      dcs = sum Dsum
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -75,7 +91,14 @@ def keep_mask(seed: int, b: int, t: int, n: int, g: int, drop_p: float,
     return (h >= dropout_threshold(drop_p)).reshape(b, t, n, g)
 
 
-def _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head):
+def variant(tail: bool, dtype: torch.dtype, direction: str) -> str:
+    """A kernel variant's name, the key of ``ltae_pool.launches``:
+    ``ltae_pool[_tail]_{fwd,bwd}[_bf16]``."""
+    return (f"ltae_pool{'_tail' if tail else ''}_{direction}"
+            f"{'_bf16' if dtype == torch.bfloat16 else ''}")
+
+
+def _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head, tail=None):
     b, t, n, c = x.shape
     d = win_f.shape[1]
     if not (t <= MAX_T and c <= MAX_C and c % 8 == 0 and n_head <= MAX_HEADS
@@ -87,6 +110,9 @@ def _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head):
             "u": (d, n_head), "cs": (1, n_head)}
     got = {"pe": pe, "pad_mask": pad_mask, "win_f": win_f, "bin_f": bin_f,
            "u": u, "cs": cs}
+    if tail is not None:
+        want.update(tsc=(b, t, c), tsh=(b, t, c))
+        got.update(tsc=tail[0], tsh=tail[1])
     for k, shape in want.items():
         if tuple(got[k].shape) != shape:
             raise ValueError(f"{k} is {tuple(got[k].shape)}, expected {shape}")
@@ -95,26 +121,44 @@ def _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head):
 def ltae_pool_reference(x, pe, pad_mask, win_f, bin_f, u, cs, seed: int = 0, *,
                         n_head: int = 16, drop_p: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version of the kernel pair (differentiable by torch
-    autograd), in fp32 (fp64 for fp64 input): x (B, T, N, C), pe (B, T, D),
-    pad_mask (B, T) bool, win_f (C, D), bin_f (D,), u (D, G), cs (1, G) ->
-    o (B, N, D) in x's dtype."""
+    autograd), in fp32 (fp64 for fp64 input) with autocast off: x (B, T, N,
+    C), pe (B, T, D), pad_mask (B, T) bool, win_f (C, D), bin_f (D,), u (D,
+    G), cs (1, G) -> o (B, N, D) in x's dtype."""
     b, t, n, c = x.shape
     g = n_head
     dt = torch.promote_types(x.dtype, torch.float32)   # fp32, or fp64 in tests
-    xg = x.to(dt).reshape(b, t, n, g, c // g)
-    mean = xg.mean(dim=(1, 4), keepdim=True)
-    var = (xg - mean).square().mean(dim=(1, 4), keepdim=True)
-    xhat = ((xg - mean) * torch.rsqrt(var + EPS)).reshape(b, t, n, c)
-    h = xhat @ win_f.to(dt) + bin_f.to(dt) + pe.to(dt)[:, :, None, :]
-    s = h @ u.to(dt) + cs.to(dt)
-    s = s.masked_fill(pad_mask.to(torch.bool)[:, :, None, None], -1e6)
-    a = torch.softmax(s, dim=1)                                 # (B, T, N, G)
-    if drop_p > 0.0:
-        keep = keep_mask(seed, b, t, n, g, drop_p, device=x.device)
-        a = a * keep.to(dt) * (1.0 / (1.0 - drop_p))
-    d = h.shape[-1]
-    o = torch.einsum("btng,btngv->bngv", a, h.reshape(b, t, n, g, d // g))
+    with torch.autocast(x.device.type, enabled=False):
+        xg = x.to(dt).reshape(b, t, n, g, c // g)
+        mean = xg.mean(dim=(1, 4), keepdim=True)
+        var = (xg - mean).square().mean(dim=(1, 4), keepdim=True)
+        xhat = ((xg - mean) * torch.rsqrt(var + EPS)).reshape(b, t, n, c)
+        h = xhat @ win_f.to(dt) + bin_f.to(dt) + pe.to(dt)[:, :, None, :]
+        s = h @ u.to(dt) + cs.to(dt)
+        s = s.masked_fill(pad_mask.to(torch.bool)[:, :, None, None], -1e6)
+        a = torch.softmax(s, dim=1)                             # (B, T, N, G)
+        if drop_p > 0.0:
+            keep = keep_mask(seed, b, t, n, g, drop_p, device=x.device)
+            a = a * keep.to(dt) * (1.0 / (1.0 - drop_p))
+        d = h.shape[-1]
+        o = torch.einsum("btng,btngv->bngv", a, h.reshape(b, t, n, g, d // g))
     return o.reshape(b, n, d).to(x.dtype)
+
+
+def ltae_pool_tail_reference(z, tsc, tsh, pe, pad_mask, win_f, bin_f, u, cs,
+                             seed: int = 0, *, n_head: int = 16,
+                             drop_p: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of the tail-mode pair: ``ltae_pool_reference``
+    of ``where(z*tsc + tsh > 0, z*tsc + tsh, 0)`` (the where-form ReLU, whose
+    subgradient at 0 is 0, as the kernels' mask), tsc/tsh (B, T, C) applied to
+    every row of frame (b, t). The product and the sum round one after the
+    other, as the kernels round them. o (B, N, D) in z's dtype."""
+    dt = torch.promote_types(z.dtype, torch.float32)
+    with torch.autocast(z.device.type, enabled=False):
+        pre = z.to(dt) * tsc.to(dt)[:, :, None] + tsh.to(dt)[:, :, None]
+        xf = torch.where(pre > 0, pre, torch.zeros_like(pre))
+    o = ltae_pool_reference(xf, pe, pad_mask, win_f, bin_f, u, cs, seed,
+                            n_head=n_head, drop_p=drop_p)
+    return o.to(z.dtype)
 
 
 @functools.cache
@@ -122,10 +166,12 @@ def _kernels():
     lib = load_library("ltae_pool")
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
     fwd, bwd = lib.ltae_pool_fwd, lib.ltae_pool_bwd
-    # x, bpe, win, ws, pes, o | B T N C D G | seed_mix thresh scale eps stream
-    fwd.argtypes = [vp] * 6 + [ci] * 6 + [cu, cu, cf, cf, vp]
-    # x, go, win, ws, pes, bpe, dx, A, F, Dsum, E | B T N C D G | ...
-    bwd.argtypes = [vp] * 11 + [ci] * 6 + [cu, cu, cf, cf, vp]
+    # x, x_is_bf16 | tsc, tsh, bpe, win, ws, pes, o | B T N C D G |
+    # seed_mix thresh scale eps stream
+    fwd.argtypes = [vp, ci] + [vp] * 7 + [ci] * 6 + [cu, cu, cf, cf, vp]
+    # x, x_is_bf16 | tsc, tsh, go, win, ws, pes, bpe, dx, A, F, Dsum, E,
+    # dtsc, dtsh | B T N C D G | ...
+    bwd.argtypes = [vp, ci] + [vp] * 14 + [ci] * 6 + [cu, cu, cf, cf, vp]
     fwd.restype = bwd.restype = ci
     return fwd, bwd
 
@@ -144,52 +190,77 @@ def _scalars(seed: int, drop_p: float):
             1.0 / (1.0 - drop_p))
 
 
+def _ptr(a):
+    return None if a is None else a.data_ptr()
+
+
+def _count(tail: bool, dtype: torch.dtype, direction: str) -> None:
+    ltae_pool.launches[variant(tail, dtype, direction)] += 1
+    if direction == "fwd":
+        ltae_pool.launches_fwd += 1
+    else:
+        ltae_pool.launches_bwd += 1
+
+
 class _LtaePool(torch.autograd.Function):
+    """The kernel pair; ``tsc``/``tsh`` None selects the untailed mode. The
+    backward runs in the forward's autocast state (``custom_bwd``); the
+    folds and the small products run in fp32 with autocast off either way."""
 
     @staticmethod
-    def forward(ctx, x, pe, pad_mask, win_f, bin_f, u, cs, seed, n_head, drop_p):
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, tsc, tsh, pe, pad_mask, win_f, bin_f, u, cs, seed,
+                n_head, drop_p):
         b, t, n, c = x.shape
         d = win_f.shape[1]
-        ws, bpe, pes = _folds(pe, pad_mask, win_f, bin_f, u, cs)
-        o = torch.empty(b, n, d, dtype=torch.float32, device=x.device)
+        with torch.autocast("cuda", enabled=False):
+            ws, bpe, pes = _folds(pe, pad_mask, win_f, bin_f, u, cs)
+        o = torch.empty(b, n, d, dtype=x.dtype, device=x.device)
         fwd, _ = _kernels()
         with torch.cuda.device(x.device):
-            rc = fwd(x.data_ptr(), bpe.data_ptr(), win_f.data_ptr(),
-                     ws.data_ptr(), pes.data_ptr(), o.data_ptr(),
-                     b, t, n, c, d, n_head, *_scalars(seed, drop_p), EPS,
+            rc = fwd(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc),
+                     _ptr(tsh), bpe.data_ptr(), win_f.data_ptr(), ws.data_ptr(),
+                     pes.data_ptr(), o.data_ptr(), b, t, n, c, d, n_head,
+                     *_scalars(seed, drop_p), EPS,
                      torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ltae_pool_fwd kernel launch failed: cudaError {rc}")
-        ltae_pool.launches_fwd += 1
-        ctx.save_for_backward(x, win_f, u, ws, bpe, pes)
+        _count(tsc is not None, x.dtype, "fwd")
+        ctx.save_for_backward(x, tsc, tsh, win_f, u, ws, bpe, pes)
         ctx.seed, ctx.n_head, ctx.drop_p = seed, n_head, drop_p
         return o
 
     @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, go):
-        x, win_f, u, ws, bpe, pes = ctx.saved_tensors
+        x, tsc, tsh, win_f, u, ws, bpe, pes = ctx.saved_tensors
+        tail = tsc is not None
         b, t, n, c = x.shape
         d, g = win_f.shape[1], ctx.n_head
-        go = go.float().contiguous()
+        go = go.to(x.dtype).contiguous()
         dx = torch.empty_like(x)
-        acc_a = torch.zeros(c, g, dtype=torch.float32, device=x.device)
-        acc_f = torch.zeros(c, d, dtype=torch.float32, device=x.device)
-        dsum = torch.zeros(b, t, g, dtype=torch.float32, device=x.device)
-        acc_e = torch.zeros(b, t, d, dtype=torch.float32, device=x.device)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        acc_a, acc_f = torch.zeros(c, g, **f32), torch.zeros(c, d, **f32)
+        dsum, acc_e = torch.zeros(b, t, g, **f32), torch.zeros(b, t, d, **f32)
+        dtsc, dtsh = ((torch.zeros(b, t, c, **f32), torch.zeros(b, t, c, **f32))
+                      if tail else (None, None))
         _, bwd = _kernels()
         with torch.cuda.device(x.device):
-            rc = bwd(x.data_ptr(), go.data_ptr(), win_f.data_ptr(), ws.data_ptr(),
+            rc = bwd(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc),
+                     _ptr(tsh), go.data_ptr(), win_f.data_ptr(), ws.data_ptr(),
                      pes.data_ptr(), bpe.data_ptr(), dx.data_ptr(),
                      acc_a.data_ptr(), acc_f.data_ptr(), dsum.data_ptr(),
-                     acc_e.data_ptr(), b, t, n, c, d, g,
+                     acc_e.data_ptr(), _ptr(dtsc), _ptr(dtsh), b, t, n, c, d, g,
                      *_scalars(ctx.seed, ctx.drop_p), EPS,
                      torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ltae_pool_bwd kernel launch failed: cudaError {rc}")
-        ltae_pool.launches_bwd += 1
-        dpe, dwin, dbin, du, dcs = _finish_backward(acc_a, acc_f, dsum, acc_e,
-                                                    win_f, u, bpe)
-        return dx, dpe, None, dwin, dbin, du, dcs, None, None, None
+        _count(tail, x.dtype, "bwd")
+        with torch.autocast("cuda", enabled=False):
+            dpe, dwin, dbin, du, dcs = _finish_backward(acc_a, acc_f, dsum, acc_e,
+                                                        win_f, u, bpe)
+        return (dx, dtsc, dtsh, dpe, None, dwin, dbin, du, dcs, None, None,
+                None)
 
 
 def _finish_backward(acc_a, acc_f, dsum, acc_e, win_f, u, bpe):
@@ -201,38 +272,67 @@ def _finish_backward(acc_a, acc_f, dsum, acc_e, win_f, u, bpe):
     return dpe, dwin, dpe.sum(dim=(0, 1)), du, dsum.sum(dim=(0, 1))[None]
 
 
+def _pool(x, tail, pe, pad_mask, win_f, bin_f, u, cs, seed, n_head, drop_p):
+    """``ltae_pool`` (tail None) and ``ltae_pool_tail`` (tail = (tsc, tsh)):
+    the plain version for a CPU tensor, the kernel pair for a CUDA tensor."""
+    _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head, tail)
+    dropout_threshold(drop_p)
+    if x.device.type == "cpu":
+        if tail is None:
+            return ltae_pool_reference(x, pe, pad_mask, win_f, bin_f, u, cs, seed,
+                                       n_head=n_head, drop_p=drop_p)
+        return ltae_pool_tail_reference(x, *tail, pe, pad_mask, win_f, bin_f, u,
+                                        cs, seed, n_head=n_head, drop_p=drop_p)
+    if x.device.type != "cuda":
+        raise ValueError(f"ltae_pool runs on cuda or cpu, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the ltae_pool kernels take float32 or bfloat16 x, got {x.dtype}")
+    params = (pe, win_f, bin_f, u, cs) + (tail or ())
+    if any(a.dtype != torch.float32 for a in params):
+        raise TypeError("pe, the folded weights and the tail affine must be float32")
+    if any(a.device != x.device for a in params + (pad_mask,)):
+        raise ValueError("ltae_pool's tensors must all lie on x's device")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    tsc, tsh = (None, None) if tail is None else (a.contiguous() for a in tail)
+    return _LtaePool.apply(x, tsc, tsh, pe.contiguous(), pad_mask,
+                           win_f.contiguous(), bin_f.contiguous(), u.contiguous(),
+                           cs.contiguous(), int(seed), n_head, float(drop_p))
+
+
 def ltae_pool(x, pe, pad_mask, win_f, bin_f, u, cs, seed: int = 0, *,
               n_head: int = 16, drop_p: float = 0.0) -> torch.Tensor:
     """Masked attention pooling ``o = sum_t dropout(softmax_T(h u + cs)) h``
     with ``h = GN(x) @ win_f + bin_f + pe`` (module docstring), differentiable
     in x, pe, win_f, bin_f, u and cs.
 
-    x: time-major rows (B, T, N, C) fp32; pe (B, T, D) fp32; pad_mask (B, T)
-    bool; win_f (C, D) with the input GroupNorm's affine folded in; bin_f
-    (D,); u (D, G) with the query folded into the key projection; cs (1, G);
-    seed: int, the dropout mask's key. Returns o (B, N, D) fp32.
-    A CPU tensor runs ``ltae_pool_reference``; a CUDA tensor launches the
-    kernels of ``csrc/ltae_pool.cu``."""
-    _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head)
-    dropout_threshold(drop_p)
-    if x.device.type == "cpu":
-        return ltae_pool_reference(x, pe, pad_mask, win_f, bin_f, u, cs, seed,
-                                   n_head=n_head, drop_p=drop_p)
-    if x.device.type != "cuda":
-        raise ValueError(f"ltae_pool runs on cuda or cpu, got {x.device}")
-    tensors = (x, pe, win_f, bin_f, u, cs)
-    if any(a.dtype != torch.float32 for a in tensors):
-        raise TypeError("the ltae_pool kernels take float32 only (bf16 is queued, "
-                        "ROADMAP.md)")
-    if any(a.device != x.device for a in tensors + (pad_mask,)):
-        raise ValueError("ltae_pool's tensors must all lie on x's device")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned")
-    return _LtaePool.apply(x, pe.contiguous(), pad_mask,
-                           win_f.contiguous(), bin_f.contiguous(), u.contiguous(),
-                           cs.contiguous(), int(seed), n_head, float(drop_p))
+    x: time-major rows (B, T, N, C), fp32 or bf16; pe (B, T, D) fp32;
+    pad_mask (B, T) bool; win_f (C, D) with the input GroupNorm's affine
+    folded in; bin_f (D,); u (D, G) with the query folded into the key
+    projection; cs (1, G), all fp32; seed: int, the dropout mask's key.
+    Returns o (B, N, D) in x's dtype. A CPU tensor runs
+    ``ltae_pool_reference``; a CUDA tensor launches the kernels of
+    ``csrc/ltae_pool.cu`` (another dtype raises)."""
+    return _pool(x, None, pe, pad_mask, win_f, bin_f, u, cs, seed, n_head, drop_p)
 
 
+def ltae_pool_tail(z, tsc, tsh, pe, pad_mask, win_f, bin_f, u, cs,
+                   seed: int = 0, *, n_head: int = 16,
+                   drop_p: float = 0.0) -> torch.Tensor:
+    """``ltae_pool`` of ``max(z*tsc + tsh, 0)``, the producing conv's
+    deferred GroupNorm + ReLU applied inside the kernels, differentiable in
+    z, tsc, tsh, pe, win_f, bin_f, u and cs.
+
+    z: the raw conv output as time-major rows (B, T, N, C), fp32 or bf16;
+    tsc/tsh: (B, T, C) fp32, the per-frame affine, zero at pad frames (so
+    their rows are exactly 0); the rest as ``ltae_pool``. Returns o (B, N, D)
+    in z's dtype; dtsc and dtsh come back fp32. A CPU tensor runs
+    ``ltae_pool_tail_reference``."""
+    return _pool(z, (tsc, tsh), pe, pad_mask, win_f, bin_f, u, cs, seed, n_head,
+                 drop_p)
+
+
+ltae_pool.launches = collections.Counter()
 ltae_pool.launches_fwd = 0
 ltae_pool.launches_bwd = 0

@@ -1,14 +1,18 @@
 """Where the time of one training step goes in crop2seg_tpu_torch, on one card.
 
-    python3 scripts/profile_train_torch.py [--batch 4] [--steps 3] [--trace out.json]
+    python3 scripts/profile_train_torch.py [--dtype fp32|bf16] [--untailed]
+                                           [--batch 4] [--steps 3] [--trace out.json]
 
 Runs make_train_step on TimeUNet_v1 at the factory defaults (seeded random
-weights, 15 classes, class 14 weighted 0, Adam lr 1e-3, dropout live, fp32)
-with one synthetic batch (T=61, 128x128x10, lengths 61/55/43/27 repeated):
-two warm-up steps, then ``--steps`` steps under torch.profiler. Prints the
-card (nvidia-smi name and power limit), the wall time per step, the device's
-busy share (summed kernel time over wall time), and the kernels that take the
-most device time, grouped by name.
+weights, 15 classes, class 14 weighted 0, Adam lr 1e-3, dropout live; fp32,
+or bf16 under autocast with ``--dtype bf16``; in_conv's GroupNorm + ReLU
+deferred into the ltae_pool_tail kernels, or with ``--untailed`` applied by
+PyTorch before the untailed pair) with one synthetic batch (T=61,
+128x128x10, lengths 61/55/43/27 repeated): two warm-up steps, then
+``--steps`` steps under torch.profiler. Prints the card (nvidia-smi name and
+power limit), the wall time per step, the device's busy share (summed kernel
+time over wall time), and the kernels that take the most device time,
+grouped by name.
 """
 from __future__ import annotations
 
@@ -29,6 +33,9 @@ from crop2seg_tpu_torch.models.factory import get_model  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
+    ap.add_argument("--untailed", action="store_true",
+                    help="do not defer in_conv's GroupNorm + ReLU into the kernels")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
@@ -55,8 +62,10 @@ def main() -> int:
                        )[None].expand(b, t).contiguous(),
              "y": torch.randint(0, 15, (b, 128, 128), generator=gen, device=dev)}
     model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
+    model.defer_tail = False if args.untailed else None
     step = make_train_step(model, StepConfig(num_classes=15,
-                                             class_weights=(1.0,) * 14 + (0.0,)))
+                                             class_weights=(1.0,) * 14 + (0.0,)),
+                           dtype=torch.bfloat16 if args.dtype == "bf16" else None)
     drop = torch.Generator(device=dev).manual_seed(7)
     for _ in range(2):                                         # warm-up
         step(batch, drop)
@@ -69,8 +78,10 @@ def main() -> int:
         wall = (time.perf_counter() - start) / args.steps
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in events) / args.steps
-    print(f"train step B={b} fp32: wall {wall * 1e3:.3f} ms per step, device busy "
-          f"{busy_us / 1e3:.3f} ms = {busy_us / 1e4 / wall:.1f} % of wall")
+    route = "untailed" if args.untailed else "tail"
+    print(f"train step B={b} {args.dtype} {route}: wall {wall * 1e3:.3f} ms per "
+          f"step, device busy {busy_us / 1e3:.3f} ms = {busy_us / 1e4 / wall:.1f} "
+          f"% of wall")
     print(f"{'ms/step':>10} {'share':>6} {'calls':>6}  kernel")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:args.top]:
         print(f"{e.self_device_time_total / 1e3 / args.steps:10.3f} "

@@ -1,12 +1,14 @@
-"""crop2seg_tpu_torch ``ltae_pool`` (ops/ltae_pool.py): its plain version on
-the CPU against the JAX ``ltae_pool`` (Pallas interpret mode, as
-tests/test_ltae_pallas_train.py runs it), the C-space backward formulas that
-the CUDA backward kernel implements against autograd, pads, and the hash
-dropout mask. The CUDA kernels themselves are held against the plain version
+"""crop2seg_tpu_torch ``ltae_pool`` and ``ltae_pool_tail`` (ops/ltae_pool.py):
+their plain versions on the CPU against the JAX ``ltae_pool`` and
+``ltae_pool_tail`` (Pallas interpret mode, as tests/test_ltae_pallas_train.py
+runs them), the C-space backward formulas that the CUDA backward kernel
+implements (the tail mode's too) against autograd, pads, autocast, and the
+hash dropout mask. The CUDA kernels themselves are held against the plain version
 on the card (tests/test_torch_package.py's ``cuda`` tests, chip_smoke.py).
 
 Shape as tests/test_ltae_pallas_train.py:16-17: B=2, T=9, N=32, C=16, G=4,
-D=32, sample 1 padded from T-3. Tolerance rtol 2e-4 / atol 2e-5, as that
+D=32, sample 1 padded from T-3; the tail affine as its ``_tail_inputs``
+(1 + 0.2 N(0, 1) and 0.1 N(0, 1), zeroed at pads). Tolerance rtol 2e-4 / atol 2e-5, as that
 file holds the Pallas gradients to jax.grad (fp32 sums in another order).
 The JAX interpret mode draws its dropout bits from jax.random, so the
 comparison with JAX runs at drop_p = 0.
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from crop2seg_tpu.ops.ltae_pallas_train import ltae_pool as jltae_pool
+from crop2seg_tpu.ops.ltae_pallas_train import ltae_pool_tail as jltae_pool_tail
 from crop2seg_tpu_torch.ops import ltae_pool as lp
 
 B, T, N, C, G, D = 2, 9, 32, 16, 4, 32
@@ -38,12 +41,39 @@ def _inputs(seed=0):
     return x, pe, pad, win, bin_, u, cs, tgt
 
 
+def _tail_inputs(seed=3):
+    x, pe, pad, win, bin_, u, cs, tgt = _inputs(seed)
+    rng = np.random.default_rng(seed + 100)
+    valid = (~pad).astype(np.float32)[:, :, None]
+    tsc = ((1.0 + 0.2 * rng.standard_normal((B, T, C))) * valid).astype(np.float32)
+    tsh = (0.1 * rng.standard_normal((B, T, C)) * valid).astype(np.float32)
+    return x, tsc, tsh, pe, pad, win, bin_, u, cs, tgt
+
+
+def _port_tail(z, tsc, tsh, pe, pad, win, bin_, u, cs, tgt, *, seed=0,
+               drop_p=0.0, fn=lp.ltae_pool_tail, amp=False):
+    """o and the eight gradients of mean((o - tgt)^2) through torch autograd;
+    ``amp``: the forward under torch.autocast(bfloat16), as a train step runs
+    it (the backward outside)."""
+    leaves = [torch.tensor(a, requires_grad=True)
+              for a in (z, tsc, tsh, pe, win, bin_, u, cs)]
+    zz, sc, sh, pp, ww, bb, uu, cc = leaves
+    with torch.autocast("cpu", dtype=torch.bfloat16, enabled=amp):
+        o = fn(zz, sc, sh, pp, torch.tensor(pad), ww, bb, uu, cc, seed, n_head=G,
+               drop_p=drop_p)
+    loss = ((o - torch.tensor(tgt)) ** 2).sum() / o.numel()
+    return [o.detach().numpy()] + [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+
+
 def _port(x, pe, pad, win, bin_, u, cs, tgt, *, seed=0, drop_p=0.0,
-          fn=lp.ltae_pool):
-    """o and the six gradients of mean((o - tgt)^2) through torch autograd."""
+          fn=lp.ltae_pool, amp=False):
+    """o and the six gradients of mean((o - tgt)^2) through torch autograd
+    (``amp`` as in ``_port_tail``)."""
     leaves = [torch.tensor(a, requires_grad=True) for a in (x, pe, win, bin_, u, cs)]
     xx, pp, ww, bb, uu, cc = leaves
-    o = fn(xx, pp, torch.tensor(pad), ww, bb, uu, cc, seed, n_head=G, drop_p=drop_p)
+    with torch.autocast("cpu", dtype=torch.bfloat16, enabled=amp):
+        o = fn(xx, pp, torch.tensor(pad), ww, bb, uu, cc, seed, n_head=G,
+               drop_p=drop_p)
     loss = ((o - torch.tensor(tgt)) ** 2).sum() / o.numel()
     return [o.detach().numpy()] + [g.numpy() for g in torch.autograd.grad(loss, leaves)]
 
@@ -65,6 +95,59 @@ def test_plain_version_matches_jax_kernel():
     np.testing.assert_allclose(got[0], np.asarray(want_o), **TOL)
     for name, a, w in zip(NAMES, got[1:], want):
         np.testing.assert_allclose(a, np.asarray(w), **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("fn", [lp.ltae_pool_tail_reference, lp.ltae_pool_tail],
+                         ids=["plain", "wrapper"])
+def test_tail_plain_version_matches_jax_kernel(fn):
+    """o and all eight gradients (dz, dtsc, dtsh and the six of ltae_pool)
+    of the tail mode against the JAX ltae_pool_tail (interpret mode), through
+    the plain version and through the wrapper on a CPU tensor."""
+    z, tsc, tsh, pe, pad, win, bin_, u, cs, tgt = _tail_inputs()
+    mask = jnp.asarray(pad)
+    seed0 = jnp.zeros((1,), jnp.int32)
+
+    def loss(z, tsc, tsh, pe, win, bin_, u, cs):
+        o = jltae_pool_tail(z, tsc, tsh, pe, mask, win, bin_, u, cs, seed0,
+                            n_head=G)
+        return jnp.sum((o - tgt) ** 2) / o.size, o
+
+    (_, want_o), want = jax.value_and_grad(loss, argnums=tuple(range(8)), has_aux=True)(
+        *(jnp.asarray(a) for a in (z, tsc, tsh, pe, win, bin_, u, cs)))
+    got = _port_tail(z, tsc, tsh, pe, pad, win, bin_, u, cs, tgt, fn=fn)
+    assert got[0].shape == (B, N, D)
+    np.testing.assert_allclose(got[0], np.asarray(want_o), **TOL)
+    for name, a, w in zip(("dz", "dtsc", "dtsh") + NAMES[1:], got[1:], want):
+        np.testing.assert_allclose(a, np.asarray(w), **TOL, err_msg=name)
+
+
+def test_kernel_tail_backward_formulas_match_autograd():
+    """The tail mode of csrc/ltae_pool.cu's backward, written out in float64
+    torch ops: from dxf, the gradient at the normalized input, ``live = dxf
+    1[z tsc + tsh > 0]``, ``dz = live tsc``, ``dtsc = sum_rows live z`` and
+    ``dtsh = sum_rows live``, equal autograd of ltae_pool_tail_reference,
+    dropout on. dxf comes from autograd of the untailed plain version, whose
+    own kernel formulas the test below holds. Tolerance 1e-10: float64."""
+    z, tsc, tsh, pe, pad, win, bin_, u, cs, _ = (
+        torch.tensor(a).double() if a.dtype != bool else torch.tensor(a)
+        for a in _tail_inputs(4))
+    seed, p = 21, 0.3
+    go = torch.randn(B, N, D, generator=torch.Generator().manual_seed(1),
+                     dtype=torch.float64)
+    leaves = [a.clone().requires_grad_(True) for a in (z, tsc, tsh)]
+    o = lp.ltae_pool_tail_reference(*leaves, pe, pad, win, bin_, u, cs, seed,
+                                    n_head=G, drop_p=p)
+    want = torch.autograd.grad(o, leaves, go)
+
+    pre = z * tsc[:, :, None] + tsh[:, :, None]
+    xf = torch.where(pre > 0, pre, torch.zeros_like(pre)).requires_grad_(True)
+    o2 = lp.ltae_pool_reference(xf, pe, pad, win, bin_, u, cs, seed, n_head=G,
+                                drop_p=p)
+    (dxf,) = torch.autograd.grad(o2, [xf], go)
+    live = dxf * (pre > 0)
+    got = (live * tsc[:, :, None], (live * z).sum(2), live.sum(2))
+    for name, g_, w_ in zip(("dz", "dtsc", "dtsh"), got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-10, atol=1e-10, msg=name)
 
 
 def test_kernel_backward_formulas_match_autograd():
@@ -184,3 +267,40 @@ def test_wrapper_on_cpu_counts_no_launch_and_checks_shapes():
     with pytest.raises(ValueError, match="cuda or cpu"):
         lp.ltae_pool(*(a.to("meta") for a in (x, pe, pad, win, bin_, u, cs)),
                      n_head=G)
+
+
+def test_plain_versions_ignore_autocast():
+    """Under torch.autocast(bfloat16) the plain versions still compute in
+    fp32 (their products would otherwise run in bf16): bit for bit the same o
+    and gradients as without autocast, in both modes."""
+    args = _inputs(8)
+    targs = _tail_inputs(8)
+    want = _port(*args), _port_tail(*targs)
+    got = _port(*args, amp=True), _port_tail(*targs, amp=True)
+    for g_, w_ in zip(got[0] + got[1], want[0] + want[1]):
+        np.testing.assert_array_equal(g_, w_)
+
+
+def test_bf16_input_on_cpu_returns_bf16():
+    """A bf16 x gives o (and dx) in bf16, the rest of the gradients in fp32,
+    and o equals the fp32 plain version on the same bf16-rounded input up to
+    one bf16 rounding (2**-8 of the largest output)."""
+    x, tsc, tsh, pe, pad, win, bin_, u, cs, _ = (torch.tensor(a) for a in _tail_inputs(6))
+    zb = x.bfloat16().requires_grad_(True)
+    sc = tsc.clone().requires_grad_(True)
+    o = lp.ltae_pool_tail(zb, sc, tsh, pe, pad, win, bin_, u, cs, n_head=G)
+    assert o.dtype == torch.bfloat16
+    dz, dsc = torch.autograd.grad(o.float().sum(), [zb, sc])
+    assert dz.dtype == torch.bfloat16 and dsc.dtype == torch.float32
+    want = lp.ltae_pool_tail_reference(zb.detach().float(), tsc, tsh, pe, pad, win,
+                                       bin_, u, cs, n_head=G)
+    assert (o.float() - want).abs().max() <= 2 ** -8 * want.abs().max()
+
+
+def test_tail_wrapper_checks_the_affine_shape():
+    x, tsc, tsh, pe, pad, win, bin_, u, cs, _ = (torch.tensor(a) for a in _tail_inputs())
+    with pytest.raises(ValueError, match="tsc is"):
+        lp.ltae_pool_tail(x, tsc[:, :, :8], tsh, pe, pad, win, bin_, u, cs, n_head=G)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        lp.ltae_pool_tail(*(a.to("meta") for a in (x, tsc, tsh, pe, pad, win,
+                                                   bin_, u, cs)), n_head=G)

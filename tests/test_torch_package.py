@@ -151,16 +151,23 @@ def test_cuda_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tail", [False, True], ids=["untailed", "tail"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
 @pytest.mark.parametrize("b,t,n,c,d,g", [(2, 9, 301, 32, 64, 8),
                                          (1, 61, 300, 64, 256, 16)])
-def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g):
-    """The ltae_pool forward and backward kernels against the plain version
-    under autograd on the card, with pads, dropout on and off (the same hash
-    mask on both sides), N not a multiple of the blocks' rows: o and all six
-    gradients, as max |err| / max |plain|, 1e-4 (fp32 sums in another order,
-    the grid-wide ones by atomics). dcs is zero in exact arithmetic, so it
-    is held against the scale of du (the same ds, weighted by h)."""
+def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
+                                                    dtype, tail):
+    """The ltae_pool forward and backward kernels, in each variant (x fp32
+    or bf16, untailed or tail mode), against the plain version under
+    autograd on the card, with pads (tsc = tsh = 0 there), dropout on and off
+    (the same hash mask on both sides), N not a multiple of the blocks' rows:
+    o and all gradients (dtsc and dtsh too in tail mode), as max |err| / max
+    |plain|. fp32 1e-4 (fp32 sums in another order, the grid-wide ones by
+    atomics); bf16 1e-2 against the fp32 plain version on the same
+    bf16-rounded input and upstream gradient (o and dx are stored in bf16, a
+    rounding of at most 2**-8 of each). dcs is zero in exact arithmetic, so
+    it is held against the scale of du (the same ds, weighted by h)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -168,26 +175,58 @@ def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g):
 
     def r(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen)).to(dev)
-    x, pe, go = r(b, t, n, c), r(b, t, d), r(b, n, d)
+    x, pe = r(b, t, n, c).to(dtype), r(b, t, d)
+    go = r(b, n, d).to(dtype).float()                # exact in x's dtype
     params = (r(c, d, scale=c ** -0.5), r(d, scale=0.1), r(d, g, scale=0.2),
               r(1, g, scale=0.1))
     pad = torch.zeros(b, t, dtype=torch.bool, device=dev)
     pad[0, t - 3:] = True
+    valid = (~pad).float()[:, :, None]
+    ts = (((1 + r(b, t, c, scale=0.2)) * valid, r(b, t, c, scale=0.1) * valid)
+          if tail else ())
+    kernel = lp.ltae_pool_tail if tail else lp.ltae_pool
+    plain = lp.ltae_pool_tail_reference if tail else lp.ltae_pool_reference
     res = []
-    for fn in (lp.ltae_pool, lp.ltae_pool_reference):
-        leaves = [a.clone().requires_grad_(True) for a in (x, pe) + params]
-        before = (lp.ltae_pool.launches_fwd, lp.ltae_pool.launches_bwd)
-        o = fn(leaves[0], leaves[1], pad, *leaves[2:], 7, n_head=g, drop_p=drop_p)
-        res.append([o] + list(torch.autograd.grad(o, leaves, go)))
-        launched = (lp.ltae_pool.launches_fwd - before[0],
-                    lp.ltae_pool.launches_bwd - before[1])
-        assert launched == ((1, 1) if fn is lp.ltae_pool else (0, 0))
+    for fn, xin in ((kernel, x), (plain, x.float())):
+        leaves = [a.clone().requires_grad_(True) for a in (xin,) + ts + (pe,) + params]
+        before = dict(lp.ltae_pool.launches)
+        o = fn(*leaves[:1 + len(ts)], leaves[1 + len(ts)], pad, *leaves[2 + len(ts):],
+               7, n_head=g, drop_p=drop_p)
+        res.append([o.float()] + [a.float() for a in
+                                  torch.autograd.grad(o, leaves, go.to(o.dtype))])
+        launched = {k: v - before.get(k, 0) for k, v in lp.ltae_pool.launches.items()
+                    if v != before.get(k, 0)}
+        names = [lp.variant(tail, dtype, k) for k in ("fwd", "bwd")]
+        assert launched == ({k: 1 for k in names} if fn is kernel else {})
     torch.cuda.synchronize()
     got, want = res
-    for i, name in enumerate(("o", "dx", "dpe", "dwin_f", "dbin_f", "du", "dcs")):
-        scale = want[5 if name == "dcs" else i].abs().max().item()
+    names = (("o", "dx") + (("dtsc", "dtsh") if tail else ())
+             + ("dpe", "dwin_f", "dbin_f", "du", "dcs"))
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for i, name in enumerate(names):
+        scale = want[names.index("du" if name == "dcs" else name)].abs().max().item()
         err = (got[i] - want[i]).abs().max().item()
-        assert err <= 1e-4 * scale, (name, err, scale)
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_ltae_pool_rejects_other_dtypes():
+    """fp16 and fp64 x have no kernel: a CUDA tensor of either raises, it is
+    not sent to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    c, d, g = 16, 32, 4
+    pe, pad = torch.zeros(1, 3, d, device=dev), torch.zeros(1, 3, dtype=torch.bool, device=dev)
+    params = (torch.zeros(c, d, device=dev), torch.zeros(d, device=dev),
+              torch.zeros(d, g, device=dev), torch.zeros(1, g, device=dev))
+    ts = (torch.ones(1, 3, c, device=dev), torch.zeros(1, 3, c, device=dev))
+    for dtype in (torch.float16, torch.float64):
+        x = torch.zeros(1, 3, 8, c, dtype=dtype, device=dev)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            lp.ltae_pool(x, pe, pad, *params, n_head=g)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            lp.ltae_pool_tail(x, *ts, pe, pad, *params, n_head=g)
 
 
 def test_chip_smoke_fails_without_a_card():

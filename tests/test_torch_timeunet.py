@@ -121,16 +121,19 @@ def test_factory_other_models_point_at_roadmap(name):
 
 
 def test_training_mode_raises_naming_slice_d():
-    """Training mode runs (slice D's training step) and is differentiable;
-    what its L-TAE still lacks raises and names ROADMAP.md: the deferred
-    in_conv tail (ltae_pool_tail) and the attention output."""
+    """Training mode runs (slice D's training step) and is differentiable,
+    with the deferred in_conv tail too (ltae_pool_tail, on both the kernel
+    wrapper and the plain version); what its L-TAE still lacks raises and
+    names ROADMAP.md: the attention output."""
     m = TimeUNet(**KW)                        # a new module trains
     out = m(torch.randn(1, 2, 16, 16, 10), torch.zeros(1, 2))
     assert out.shape == (1, 16, 16, 5) and out.requires_grad
     te, h = m.temporal_encoder, torch.randn(1, 2, 4, 4, 16)
     tail = (torch.ones(1, 2, 16), torch.zeros(1, 2, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te(h, torch.zeros(1, 2), need_attn=False, tail_affine=tail)
+    for fused in (True, False):
+        out, attn = te(h, torch.zeros(1, 2), need_attn=False, tail_affine=tail,
+                       fused=fused)
+        assert out.shape == (1, 4, 4, 16) and out.requires_grad and attn is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         te(h, torch.zeros(1, 2))
 

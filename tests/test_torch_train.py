@@ -1,7 +1,10 @@
 """crop2seg_tpu_torch in training mode against the JAX package: the conv
-blocks with train BatchNorm, the L-TAE train path, the loss and metrics, and
-three whole training steps of TimeUNet (make_train_step + Adam) on the same
-converted weights and the same numpy batch.
+blocks with train BatchNorm, the L-TAE train path, the loss and metrics,
+TimeUNet's train step through the deferred in_conv tail (``ltae_pool_tail``,
+the JAX ``--use_pallas_train`` route), three whole training steps of TimeUNet
+(make_train_step + Adam) on the same converted weights and the same numpy
+batch, on the plain and the tail route, and one bf16 step (autocast, the JAX
+``--bf16``).
 
 Dropout is zeroed on both sides wherever the two are compared: JAX draws its
 masks from jax.random, the port from a torch.Generator (attention dropout
@@ -47,6 +50,10 @@ from crop2seg_tpu_torch.nn.ltae import LTAE
 from crop2seg_tpu_torch.utils import convert
 
 TOL = dict(rtol=5e-4, atol=5e-4)
+# a bf16 step's loss against fp32 and against JAX in bf16: the two frameworks
+# round activations to bf16 at other places (ops/ltae_pool.py keeps its folds
+# fp32; flax rounds each Dense's output), a few 1e-3 of the loss at most
+BF16_LOSS_RTOL = 2e-2
 
 
 def _np(tree):
@@ -65,6 +72,23 @@ def _assert_grads(got: dict, want: dict):
     top = max(float(np.abs(w).max()) for w in want.values())
     for k, w in want.items():
         np.testing.assert_allclose(got[k], w, rtol=1e-3, atol=1e-5 * top, err_msg=k)
+
+
+def _assert_model_grads(got: dict, want: dict):
+    """Whole-model gradients in training mode: 1e-3 relative, as
+    ``_assert_grads``, but per parameter in the 2-norm. The train-mode
+    BatchNorms' backward amplifies the frameworks' rounding differences, so
+    single small entries of the in_conv and L-TAE gradients differ by up to
+    ~1e-2 of themselves while each parameter's gradient agrees to ~3e-4 of its
+    norm. Gradients that are zero in exact arithmetic (below 1e-5 of the
+    largest on the JAX side: biases feeding a train-mode BatchNorm, the key
+    bias under the softmax) are held to that floor."""
+    top = max(float(np.abs(w).max()) for w in want.values())
+    for k, w in want.items():
+        if np.abs(w).max() <= 1e-5 * top:
+            assert np.abs(got[k]).max() <= 1e-5 * top, k
+        else:
+            assert np.linalg.norm(got[k] - w) <= 1e-3 * np.linalg.norm(w), k
 
 
 @pytest.mark.parametrize("block", ["conv", "up"])
@@ -234,15 +258,73 @@ def slice_case():
                        "batch_stats": _np(state.batch_stats)})
 
 
-def test_train_steps_match_jax(slice_case):
-    """The port's make_train_step (Adam, lr 1e-3) over the same three steps:
-    the loss sequence, the last step's confusion matrix, and every parameter
-    and BatchNorm statistic after the last step."""
-    c = slice_case
-    model = TimeUNet(**KW)
+def _port_model(c, defer_tail=None):
+    """The port's TimeUNet on the case's converted weights, dropout zeroed."""
+    model = TimeUNet(**KW, defer_tail=defer_tail)
     model.load_state_dict(convert.timeunet_state_dict_from_flax(c["v"]))
     model.temporal_encoder.attn_dropout = 0.0
     model.temporal_encoder.mlp[1].p = 0.0
+    return model
+
+
+@pytest.fixture(scope="module")
+def jax_grads(slice_case):
+    """One JAX train-mode forward of the case's model (dropout zeroed): loss,
+    every parameter gradient and the updated BatchNorm statistics."""
+    c = slice_case
+    b = {k: jnp.asarray(a) for k, a in c["batch"].items()}
+    orig = jtimeunet.LTAE
+    jtimeunet.LTAE = functools.partial(JLTAE, dropout=0.0, attn_dropout=0.0)
+    try:
+        m = jtimeunet.TimeUNet(**KW)
+
+        def loss(params):
+            logits, upd = m.apply({"params": params, "batch_stats": c["v"]["batch_stats"]},
+                                  b["x"], b["dates"], pad_mask=b["pad_mask"],
+                                  train=True, mutable=["batch_stats"])
+            return jlosses.cross_entropy(logits, b["y"], weight=jnp.asarray(
+                c["weights"])), upd["batch_stats"]
+
+        (val, stats), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+            c["v"]["params"])
+    finally:
+        jtimeunet.LTAE = orig
+    return dict(loss=float(val), grads=_np(grads), stats=_np(stats))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tail_route_train_step_matches_jax(slice_case, jax_grads, fused):
+    """TimeUNet in training mode through the deferred in_conv tail (the
+    raw in_conv output and its per-frame GroupNorm affine into
+    ltae_pool_tail, pads folded into the affine as zero rows), by the plain
+    version and by the kernel wrapper on the CPU, against the JAX TimeUNet's
+    train path on the same weights and batch: the loss, every parameter
+    gradient and the updated running statistics."""
+    c, j = slice_case, jax_grads
+    model = _port_model(c, defer_tail=True).train()
+    bt = {k: _t(a) for k, a in c["batch"].items()}
+    logits = model(bt["x"], bt["dates"], bt["pad_mask"], fused=fused)
+    loss = tlosses.cross_entropy(logits, bt["y"], weight=_t(np.asarray(
+        c["weights"], np.float32)))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), j["loss"], **TOL)
+    want = convert.timeunet_state_dict_from_flax({"params": j["grads"],
+                                                  "batch_stats": j["stats"]})
+    _assert_model_grads({k: p.grad.numpy() for k, p in model.named_parameters()},
+                        {k: want[k].numpy() for k, _ in model.named_parameters()})
+    got_sd = model.state_dict()
+    for k, w in _stats(want).items():
+        np.testing.assert_allclose(got_sd[k].numpy(), w.numpy(), **TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("route", ["plain", "tail"])
+def test_train_steps_match_jax(slice_case, route):
+    """The port's make_train_step (Adam, lr 1e-3) over the same three steps:
+    the loss sequence, the last step's confusion matrix, and every parameter
+    and BatchNorm statistic after the last step; through temporally_shared
+    and the untailed pool (plain) or through the deferred in_conv tail."""
+    c = slice_case
+    model = _port_model(c, defer_tail=True if route == "tail" else None)
     step = make_train_step(model, StepConfig(num_classes=5, class_weights=c["weights"]),
                            device="cpu")
     gen = torch.Generator().manual_seed(0)
@@ -275,6 +357,46 @@ def test_train_steps_match_jax(slice_case):
             tol = TOL if "running_" in k else dict(rtol=0, atol=2e-4)
         np.testing.assert_allclose(got[k].numpy(), w.numpy(), **tol, err_msg=k)
     assert got["up_blocks.0.up.1.num_batches_tracked"].item() == N_STEPS
+
+
+@pytest.fixture(scope="module")
+def jax_bf16_loss(slice_case):
+    """The first train-mode loss of the JAX TimeUNet(dtype=bfloat16) (the
+    train CLI's --bf16: bf16 compute, fp32 parameters) on the case."""
+    c = slice_case
+    b = {k: jnp.asarray(a) for k, a in c["batch"].items()}
+    orig = jtimeunet.LTAE
+    jtimeunet.LTAE = functools.partial(JLTAE, dropout=0.0, attn_dropout=0.0)
+    try:
+        m = jtimeunet.TimeUNet(dtype=jnp.bfloat16, **KW)
+        logits, _ = jax.jit(lambda v: m.apply(
+            v, b["x"], b["dates"], pad_mask=b["pad_mask"], train=True,
+            mutable=["batch_stats"]))(c["v"])
+    finally:
+        jtimeunet.LTAE = orig
+    return float(jlosses.cross_entropy(logits.astype(jnp.float32), b["y"],
+                                       weight=jnp.asarray(c["weights"])))
+
+
+@pytest.mark.parametrize("route", ["plain", "tail"])
+def test_bf16_train_step_matches_fp32_and_jax_bf16(slice_case, jax_bf16_loss, route):
+    """make_train_step(dtype=torch.bfloat16) on the CPU (autocast): finite
+    losses over two steps; the first within BF16_LOSS_RTOL of the port's fp32
+    step (which matches JAX's to 1e-5, test above) and of the JAX bf16 model's
+    on the same weights; parameters and Adam's state stay fp32."""
+    c = slice_case
+    model = _port_model(c, defer_tail=True if route == "tail" else None)
+    step = make_train_step(model, StepConfig(num_classes=5, class_weights=c["weights"]),
+                           device="cpu", dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    losses = [float(step(c["batch"], gen)["loss"]) for _ in range(2)]
+    assert np.isfinite(losses).all()
+    for want in (c["losses"][0], jax_bf16_loss):
+        assert abs(losses[0] - want) <= BF16_LOSS_RTOL * abs(want), (losses[0], want)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    states = [v for st in step.optimizer.state.values() for v in st.values()
+              if torch.is_tensor(v) and v.is_floating_point()]
+    assert states and all(v.dtype == torch.float32 for v in states)
 
 
 def test_eval_step_runs_the_served_path(slice_case):
