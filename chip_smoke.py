@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-1. Builds the kernel sources (csrc/ltae_fused_fwd.cu, csrc/ltae_pool.cu),
-   one nvcc process each, started together.
+1. Builds the kernel sources (csrc/ltae_fused_fwd.cu, csrc/ltae_pool.cu,
+   csrc/ltae_stages.cu), one nvcc process each, started together, and prints
+   ptxas's registers and spills per kernel instantiation.
 2. Holds the fused eval L-TAE kernel against its plain PyTorch version on the
    card at full width (T=61, N=128*128, C=64, D=256, G=16, d_out=64, with
    pads), in fp32 and bf16, with the tail affine and the attention output
@@ -33,6 +34,18 @@
    per make_eval_step call, and at B=2 every parameter's gradient against
    the same model on the plain tail route (dropout on, same generator seed).
    Prints the warm step times and peak memory.
+6. The fused eval L-TAE kernel at U-TAE's bottleneck (T=61, N=16*16, C=128,
+   D=256, G=16, d_out=128) against its plain version (B=2, one sample
+   padded to 55, fp32 and bf16, attention on and off), then both timed at
+   the serving batch (B=10, attention on) beside the bound.
+7. The stage-dump path: scripts/debug_ltae_stages_torch.py's run (the stage
+   kernel and its plain version on that script's seeded inputs, B=1, T=61,
+   N=256, C=64), one launch, each stage within tolerance and finite; then
+   both timed beside the bound.
+8. U-TAE serving (the JAX package's default model, factory defaults,
+   seeded weights): the entry forward at (1, 30, 128, 128, 10), length 27
+   (one kernel launch, finite logits), then one tile through
+   make_tile_predictor in bf16 and fp32 with the checks of phase 4.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -41,10 +54,12 @@ check raises, and the exit code is then non-zero.
 from __future__ import annotations
 
 import collections
+import importlib.util
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -54,9 +69,11 @@ from crop2seg_tpu_torch.learning.losses import cross_entropy
 from crop2seg_tpu_torch.learning.trainer import (
     StepConfig, make_eval_step, make_train_step)
 from crop2seg_tpu_torch.models.factory import get_model
+from crop2seg_tpu_torch.nn.temporal import pad_mask_from_lengths
 from crop2seg_tpu_torch.ops import _build
 from crop2seg_tpu_torch.ops import ltae_fused as lf
 from crop2seg_tpu_torch.ops import ltae_pool as lp
+from crop2seg_tpu_torch.ops import ltae_stages as ls
 from crop2seg_tpu_torch.ops.patchify import patchify_inference_tile
 
 # H100 SXM data-sheet peaks (dense): device memory and per-type math rates
@@ -67,6 +84,10 @@ T, HW, C, D, G, D_OUT, D_K = 61, 128 * 128, 64, 256, 16, 64, 4
 MAIN_B, LENGTH = 10, 55
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}   # out, vs plain fp32
 ATTN_TOL = 1e-4
+UTAE_HW, UTAE_C = 16 * 16, 128     # U-TAE's L-TAE: the 16^2 bottleneck, C = d_out
+# the stage kernel vs its plain version: fp32 sums in another order, as a
+# share of each stage's largest |value|; the attention absolutely
+STAGE_TOL, ATTN_TOL_STAGES = 1e-4, 1e-5
 TRAIN_B, TRAIN_LENGTHS, N_CLASSES = 4, (61, 55, 43, 27), 15
 # ltae_pool kernels vs plain, as max |err| / max |plain|: fp32 sums of up to
 # B*N*T = 2M terms (the weight, PE and bias gradients) taken in another
@@ -110,54 +131,81 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def ltae_flops(b: int, tail: bool) -> float:
+def ltae_flops(b: int, tail: bool, n: int = HW, c: int = C,
+               d_out: int = D_OUT) -> float:
     """Operations the fused forward needs (one query), counted per row:
     tail affine, in-GroupNorm, scores, softmax, C-space pooling, the
     projection + PE term, the MLP and the out-GroupNorm."""
-    per_row = ((3 * T * C if tail else 0) + 6 * T * C + 2 * T * C * G
-               + 4 * G * T + 2 * G * T * C + 2 * C * D + 2 * T * D + D
-               + 2 * D * D_OUT + 2 * D_OUT + 8 * D_OUT)
-    return float(b * HW * per_row)
+    per_row = ((3 * T * c if tail else 0) + 6 * T * c + 2 * T * c * G
+               + 4 * G * T + 2 * G * T * c + 2 * c * D + 2 * T * D + D
+               + 2 * D * d_out + 2 * d_out + 8 * d_out)
+    return float(b * n * per_row)
 
 
-def ltae_bytes(b: int, dtype: torch.dtype, tail: bool, need_attn: bool) -> float:
+def ltae_bytes(b: int, dtype: torch.dtype, tail: bool, need_attn: bool,
+               n: int = HW, c: int = C, d_out: int = D_OUT) -> float:
     """Each input read once, each output written once."""
     es = torch.tensor([], dtype=dtype).element_size()
-    n = b * T * HW * C * es + b * HW * D_OUT * es        # x in, out
-    n += b * T * D * 4 + b * G * T * 4                   # pe, pes
-    n += (C * D + D + C * G + D * D_OUT + 3 * D_OUT) * 4  # folded weights
+    nb = b * T * n * c * es + b * n * d_out * es         # x in, out
+    nb += b * T * D * 4 + b * G * T * 4                  # pe, pes
+    nb += (c * D + D + c * G + D * d_out + 3 * d_out) * 4  # folded weights
     if tail:
-        n += 2 * b * T * C * 4
+        nb += 2 * b * T * c * 4
     if need_attn:
-        n += b * HW * G * T * 4
-    return float(n)
+        nb += b * n * G * T * 4
+    return float(nb)
 
 
-def bound(b: int, dtype: torch.dtype, tail: bool, need_attn: bool):
-    t_bytes = ltae_bytes(b, dtype, tail, need_attn) / HBM_BYTES_PER_S * 1e3
-    t_ops = ltae_flops(b, tail) / PEAK_FLOP_PER_S[dtype] * 1e3
+def bound(b: int, dtype: torch.dtype, tail: bool, need_attn: bool, **shape):
+    """The kernel's bound at ``shape`` (n, c, d_out; TimeUNet's by default)."""
+    t_bytes = ltae_bytes(b, dtype, tail, need_attn, **shape) / HBM_BYTES_PER_S * 1e3
+    t_ops = ltae_flops(b, tail, **shape) / PEAK_FLOP_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ltae_inputs(model, b: int, gen: torch.Generator, dev):
+def ltae_inputs(model, b: int, gen: torch.Generator, dev, n: int = HW):
     """Full-width kernel inputs: the seeded model's L-TAE parameters (with
     non-trivial BN statistics), its PE of real day offsets, pads, and a
-    deferred tail affine zeroed at the pads."""
+    deferred tail affine zeroed at the pads; n pixel rows of its width."""
     te = model.temporal_encoder
+    c, d_out = te.in_norm.num_channels, te.out_norm.num_channels
     sd = {k: v.clone() for k, v in te.state_dict().items()}
-    sd["mlp.2.running_mean"] = 0.3 * torch.randn(D_OUT, generator=gen, device=dev)
-    sd["mlp.2.running_var"] = 0.5 + torch.rand(D_OUT, generator=gen, device=dev)
+    sd["mlp.2.running_mean"] = 0.3 * torch.randn(d_out, generator=gen, device=dev)
+    sd["mlp.2.running_var"] = 0.5 + torch.rand(d_out, generator=gen, device=dev)
     params = lf.params_from_ltae_variables(sd)
     dates = (torch.arange(T, dtype=torch.float32) * 5 + 3).to(dev)
     with torch.inference_mode():
         pe = te.pe(dates[None].expand(b, T)).contiguous()
     lengths = torch.tensor([LENGTH, T] * b)[:b].to(dev)
     pad = torch.arange(T, device=dev)[None] >= lengths[:, None]
-    x = torch.randn(b, T, HW, C, generator=gen, device=dev)
+    x = torch.randn(b, T, n, c, generator=gen, device=dev)
     valid = (~pad).float()[:, :, None]
-    sc = (1 + 0.2 * torch.randn(b, T, C, generator=gen, device=dev)) * valid
-    sh = 0.1 * torch.randn(b, T, C, generator=gen, device=dev) * valid
+    sc = (1 + 0.2 * torch.randn(b, T, c, generator=gen, device=dev)) * valid
+    sh = 0.1 * torch.randn(b, T, c, generator=gen, device=dev) * valid
     return x, pe, pad, params, (sc, sh)
+
+
+def check_kernel(name: str, xd, pe, pad, params, need_attn: bool, tail=None) -> float:
+    """Kernel 1 against its plain version (fp32, on the same input rounded
+    to xd's dtype): out within TOL, attention within ATTN_TOL, finite.
+    Returns the largest |err| of out."""
+    got, attn = lf.ltae_fused_forward(xd, pe, pad, params, n_head=G, d_k=D_K,
+                                      need_attn=need_attn, tail_affine=tail)
+    want, want_attn = lf.ltae_fused_forward_reference(
+        xd.float(), pe, pad, params, n_head=G, d_k=D_K, need_attn=need_attn,
+        tail_affine=tail)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and torch.isfinite(got.float()).all().item(),
+          f"{name}: shape or non-finite")
+    err = (got.float() - want).abs().max().item()
+    line = f"kernel vs plain {name}: max_abs_err {err:.3e} (tol {TOL[xd.dtype]:g})"
+    if need_attn:
+        aerr = (attn - want_attn).abs().max().item()
+        line += f", attn {aerr:.3e} (tol {ATTN_TOL:g})"
+        check(aerr <= ATTN_TOL, f"{name}: attn error {aerr}")
+    print(line, flush=True)
+    check(err <= TOL[xd.dtype], f"{name}: out error {err}")
+    return err
 
 
 def phase_kernel(model, dev):
@@ -168,25 +216,9 @@ def phase_kernel(model, dev):
         xd = x.to(dtype)
         for use_tail in (False, True):
             for need_attn in (False, True):
-                ta = tail if use_tail else None
-                got, attn = lf.ltae_fused_forward(
-                    xd, pe, pad, params, n_head=G, d_k=D_K,
-                    need_attn=need_attn, tail_affine=ta)
-                want, want_attn = lf.ltae_fused_forward_reference(
-                    xd.float(), pe, pad, params, n_head=G, d_k=D_K,
-                    need_attn=need_attn, tail_affine=ta)
-                torch.cuda.synchronize()
-                err = (got.float() - want).abs().max().item()
-                name = f"{str(dtype)[6:]} tail={use_tail} attn={need_attn}"
-                check(torch.isfinite(got.float()).all().item(), f"{name}: non-finite")
-                line = f"kernel vs plain {name}: max_abs_err {err:.3e} (tol {TOL[dtype]:g})"
-                if need_attn:
-                    aerr = (attn - want_attn).abs().max().item()
-                    line += f", attn {aerr:.3e} (tol {ATTN_TOL:g})"
-                    check(aerr <= ATTN_TOL, f"{name}: attn error {aerr}")
-                print(line, flush=True)
-                check(err <= TOL[dtype], f"{name}: out error {err}")
-                errs[(dtype, use_tail, need_attn)] = err
+                errs[(dtype, use_tail, need_attn)] = check_kernel(
+                    f"{str(dtype)[6:]} tail={use_tail} attn={need_attn}", xd, pe,
+                    pad, params, need_attn, tail if use_tail else None)
     del x, pe, pad, tail
     torch.cuda.empty_cache()
 
@@ -528,7 +560,10 @@ def phase_train(dev):
     return launches, runs
 
 
-def phase_main_path(model, dev):
+def phase_main_path(model, dev, label: str = ""):
+    """One tile through make_tile_predictor in bf16 and fp32 with its checks;
+    ``label`` prefixes the printed lines. Returns the bf16 tile's kernel
+    launches and patches/s in bf16 and fp32."""
     gen = torch.Generator(device=dev).manual_seed(2)
     tile = torch.randn(T, 1098, 1098, 10, generator=gen, device=dev)
     tile[LENGTH:] = 0.0
@@ -545,17 +580,17 @@ def phase_main_path(model, dev):
     lf.ltae_fused_forward.launches = 0
     res, secs = run(predict_bf16, tile)                     # the main path
     launches = lf.ltae_fused_forward.launches
-    print(f"tile bf16: {secs:.3f} s, {100 / secs:.2f} patches/s, "
+    print(f"{label}tile bf16: {secs:.3f} s, {100 / secs:.2f} patches/s, "
           f"ltae_fused_fwd launches {launches}", flush=True)
-    check(launches == 10, f"bf16 tile launched the kernel {launches} times, not 10")
+    check(launches == 10, f"{label}bf16 tile launched the kernel {launches} times, not 10")
 
     predict_fp32 = make_tile_predictor(model, batch_size=MAIN_B)
     run(predict_fp32, tile)                                 # warm-up
     lf.ltae_fused_forward.launches = 0
     res32, secs32 = run(predict_fp32, tile)
-    print(f"tile fp32: {secs32:.3f} s, {100 / secs32:.2f} patches/s, "
+    print(f"{label}tile fp32: {secs32:.3f} s, {100 / secs32:.2f} patches/s, "
           f"ltae_fused_fwd launches {lf.ltae_fused_forward.launches}", flush=True)
-    check(lf.ltae_fused_forward.launches == 10, "fp32 tile did not launch 10 times")
+    check(lf.ltae_fused_forward.launches == 10, f"{label}fp32 tile did not launch 10 times")
 
     for name, r in (("bf16", res), ("fp32", res32)):
         p, cls = r["proba"], r["classes"]
@@ -566,7 +601,7 @@ def phase_main_path(model, dev):
         check(s_err < 1e-4, f"{name}: proba sums off by {s_err}")
         check(bool((cls == p.argmax(-1)).all()), f"{name}: classes != argmax")
     agree = float((res["classes"] == res32["classes"]).mean())
-    print(f"bf16 vs fp32 tile: max |dproba| "
+    print(f"{label}bf16 vs fp32 tile: max |dproba| "
           f"{np.abs(res['proba'] - res32['proba']).max():.3e}, class agreement "
           f"{agree:.4f}", flush=True)
 
@@ -580,18 +615,134 @@ def phase_main_path(model, dev):
         plain = torch.softmax(logits.float(), -1).cpu().numpy()
     served = np.stack([res32["proba"][:128, :128], res32["proba"][128:256, 128:256]])
     p_err = float(np.abs(served - plain).max())
-    print(f"fp32 tile vs plain L-TAE on patches {idx}: max |dproba| {p_err:.3e} "
+    print(f"{label}fp32 tile vs plain L-TAE on patches {idx}: max |dproba| {p_err:.3e} "
           f"(tol 1e-3)", flush=True)
-    check(p_err <= 1e-3, f"tile differs from the plain L-TAE path by {p_err}")
+    check(p_err <= 1e-3, f"{label}tile differs from the plain L-TAE path by {p_err}")
 
     noisy = tile.clone()
     noisy[LENGTH:] = 10 * torch.randn(noisy[LENGTH:].shape, generator=gen, device=dev)
     res_noisy, _ = run(predict_bf16, noisy)
     inv_err = float(np.abs(res_noisy["proba"] - res["proba"]).max())
-    print(f"pad invariance (garbage in frames {LENGTH}..{T - 1}): max |dproba| "
+    print(f"{label}pad invariance (garbage in frames {LENGTH}..{T - 1}): max |dproba| "
           f"{inv_err:.3e} (tol 1e-6)", flush=True)
-    check(inv_err <= 1e-6, f"pad frames leak into the output: {inv_err}")
+    check(inv_err <= 1e-6, f"{label}pad frames leak into the output: {inv_err}")
     return launches, 100 / secs, 100 / secs32
+
+
+def phase_kernel_utae(model, dev):
+    """Kernel 1 at U-TAE's bottleneck: against its plain version at B=2 (fp32
+    and bf16, attention on and off), then both timed at B=10 with the
+    attention out, as U-TAE serves it."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shape = dict(n=UTAE_HW, c=UTAE_C, d_out=UTAE_C)
+    x, pe, pad, params, _ = ltae_inputs(model, 2, gen, dev, n=UTAE_HW)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        for need_attn in (False, True):
+            errs[(dtype, need_attn)] = check_kernel(
+                f"C={UTAE_C} {str(dtype)[6:]} attn={need_attn}", xd, pe, pad, params,
+                need_attn)
+
+    timings = {}
+    x, pe, pad, params, _ = ltae_inputs(model, MAIN_B, gen, dev, n=UTAE_HW)
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        ms = cuda_ms(lambda: lf.ltae_fused_forward(
+            xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=True), iters=50)
+        plain_ms = cuda_ms(lambda: lf.ltae_fused_forward_reference(
+            xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=True), iters=10)
+        b_ms, b_by = bound(MAIN_B, dtype, False, True, **shape)
+        timings[dtype] = (ms, plain_ms, b_ms, b_by)
+        flops, nbytes = ltae_flops(MAIN_B, False, **shape), ltae_bytes(
+            MAIN_B, dtype, False, True, **shape)
+        print(f"ltae_fused_fwd {str(dtype)[6:]} B={MAIN_B} T={T} N={UTAE_HW} "
+              f"C={UTAE_C} d_out={UTAE_C} attn: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+              f"{flops / (MAIN_B * UTAE_HW) / 1e6:.3f} MFLOP per row), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s",
+              flush=True)
+    return errs, timings
+
+
+def stage_flops(b: int, t: int, n: int, c: int, d: int, g: int) -> float:
+    """Operations of the stage kernel, counted per row: the GroupNorm (sums,
+    squares, normalize), h = xn W_in + b_in + pe, the scores, the softmax
+    and the weighted sum."""
+    per_row = 6 * t * c + 2 * t * c * d + 2 * t * d + 2 * t * d * g + 4 * g * t + 2 * t * d
+    return float(b * n * per_row)
+
+
+def stage_bytes(b: int, t: int, n: int, c: int, d: int, g: int) -> float:
+    """x, pe, mask and the weights read once; h0, scores, attn and o written
+    once; all fp32."""
+    return float(4 * (b * t * n * c + b * t * d + b * t + c * d + d + d * g + g
+                      + 2 * b * n * d + 2 * b * n * g * t))
+
+
+def phase_stages(dev):
+    """Kernel 4: the stage-dump path, scripts/debug_ltae_stages_torch.py's
+    run, with the launch count read around it; each stage against the plain
+    version; then both timed."""
+    spec = importlib.util.spec_from_file_location(
+        "debug_ltae_stages_torch",
+        Path(__file__).resolve().parent / "scripts" / "debug_ltae_stages_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    ls.ltae_stages.launches = 0                        # this path's count
+    res = script.run(dev)
+    launches = ls.ltae_stages.launches
+    print(f"stage-dump path: ltae_stages launches {launches}", flush=True)
+    check(launches == 1, f"the stage-dump path launched its kernel {launches} times")
+    worst = 0.0
+    for name, err, scale, finite in res:
+        tol = ATTN_TOL_STAGES if name == "attn" else STAGE_TOL * scale
+        print(f"ltae_stages vs plain {name}: max_abs_err {err:.3e} (tol {tol:.3e}), "
+              f"finite={finite}", flush=True)
+        check(finite and err <= tol, f"ltae_stages {name}: error {err} or non-finite")
+        worst = max(worst, err)
+    args = [torch.tensor(a, device=dev) for a in script.script_inputs()]
+    b, t, n, c = args[0].shape
+    d, g = args[3].shape[1], script.N_HEAD
+    work = (b, t, n, c, d, g)
+    ms = cuda_ms(lambda: ls.ltae_stages(*args, n_head=g), iters=50)
+    plain_ms = cuda_ms(lambda: ls.ltae_stages_reference(*args, n_head=g), iters=20)
+    t_bytes = stage_bytes(*work) / HBM_BYTES_PER_S * 1e3
+    t_ops = stage_flops(*work) / PEAK_FLOP_PER_S[torch.float32] * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"ltae_stages B={b} T={t} N={n} C={c}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, "
+          f"operations {t_ops:.4f} ms), "
+          f"{stage_flops(*work) / ms / 1e9:.1f} TFLOP/s", flush=True)
+    return {"launches": launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [b, t, n, c]}
+
+
+def phase_utae(model, dev):
+    """U-TAE serving: the entry forward at BASELINE config #1's shape, then
+    the tile of phase 4 with its checks."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(1, 30, 128, 128, 10, generator=gen, device=dev)
+    dates = (torch.arange(30, dtype=torch.float32, device=dev) * 5 + 3)[None]
+    pad = pad_mask_from_lengths(torch.tensor([27], device=dev), 30)
+    with torch.inference_mode():
+        model(x, dates, pad)                                # warm-up
+        torch.cuda.synchronize()
+        lf.ltae_fused_forward.launches = 0
+        start = time.perf_counter()
+        logits = model(x, dates, pad)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+    entry = lf.ltae_fused_forward.launches
+    print(f"utae entry forward (1, 30, 128, 128, 10), length 27: logits "
+          f"{tuple(logits.shape)}, {secs * 1e3:.3f} ms, ltae_fused_fwd launches "
+          f"{entry}", flush=True)
+    check(tuple(logits.shape) == (1, 128, 128, N_CLASSES), f"entry logits {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "entry forward: non-finite logits")
+    check(entry == 1, f"entry forward launched the kernel {entry} times, not 1")
+    del x, logits
+    launches, pps_bf16, pps_fp32 = phase_main_path(model, dev, label="utae ")
+    return entry, launches, pps_bf16, pps_fp32
 
 
 def main() -> int:
@@ -608,12 +759,12 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     start = time.perf_counter()
-    libs = _build.build_all(["ltae_fused_fwd", "ltae_pool"])
+    libs = _build.build_all(["ltae_fused_fwd", "ltae_pool", "ltae_stages"])
     print(f"built {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - start:.1f} s", flush=True)
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("entry function", "registers", "spill", "smem")):
                 print("  ptxas:", line.strip(), flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
@@ -629,6 +780,12 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     pool_launches, runs = phase_train(dev)
+    utae = get_model({"model": "utae"}, generator=torch.Generator().manual_seed(0))
+    utae_errs, utae_t = phase_kernel_utae(utae, dev)
+    stages = phase_stages(dev)
+    entry_launches, utae_launches, utae_pps, utae_pps32 = phase_utae(utae, dev)
+    del utae
+    torch.cuda.empty_cache()
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -667,7 +824,31 @@ def main() -> int:
                 pool[-1].update(train_losses=run["losses"],
                                 train_step_ms=run["warm_ms"],
                                 train_peak_gib=run["peak_gib"])
-    print(json.dumps({"kernels": [kernel] + pool}), flush=True)
+    ms, plain_ms, b_ms, b_by = utae_t[torch.bfloat16]
+    ms32, plain32, b32, b_by32 = utae_t[torch.float32]
+    kernel_utae = {
+        "name": "ltae_fused_fwd_utae", "route": "cuda",
+        "source": "crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu",
+        "replaces": "crop2seg_tpu/ops/ltae_pallas.py:421",
+        "launches": utae_launches,
+        "max_abs_err": max(v for k, v in utae_errs.items() if k[0] == torch.bfloat16),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "dtype": "bfloat16", "shape": [MAIN_B, T, UTAE_HW, UTAE_C], "d_out": UTAE_C,
+        "attn": True, "launches_entry_forward": entry_launches,
+        "max_abs_err_fp32": max(v for k, v in utae_errs.items() if k[0] == torch.float32),
+        "ms_fp32": ms32, "plain_ms_fp32": plain32, "bound_ms_fp32": b32,
+        "bound_by_fp32": b_by32,
+        "tile_patches_per_s": utae_pps, "tile_patches_per_s_fp32": utae_pps32,
+    }
+    kernel_stages = {
+        "name": "ltae_stages", "route": "cuda",
+        "source": "crop2seg_tpu_torch/csrc/ltae_stages.cu",
+        "replaces": "scripts/debug_ltae_stages.py:91", "library_ms": None,
+        "dtype": "float32", **stages,
+    }
+    print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

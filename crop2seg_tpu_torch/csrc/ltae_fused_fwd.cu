@@ -4,7 +4,7 @@
 // body `_kernel`, pallas_call at ltae_pallas.py:421). Wrapper, offline folds
 // and the plain PyTorch version: crop2seg_tpu_torch/ops/ltae_fused.py.
 //
-// Per pixel row n of batch item b, over T <= 64 steps and C <= 64 channels:
+// Per pixel row n of batch item b, over T <= 64 steps and C <= 128 channels:
 //   x      = [max(x * tsc + tsh, 0)]            deferred conv-tail affine
 //   xn     = GroupNorm_G(x) over (T, C/G)       two-pass fp32, no affine
 //   scores = xn @ Ws + pes[b]                   Ws = (s*W_in) U, pes holds
@@ -34,11 +34,18 @@
 // block-wide so each W_in / pe / W_m element fetched from L2 serves all the
 // block's rows. chip_smoke.py measures the kernel beside this bound.
 //
+// At the U-TAE bottleneck (B=10, T=61, N=256, C=128, d_out=128, attention
+// out) the work is 0.70 MFLOP per row over 2,560 rows, ~0.03 ms at the fp32
+// peak; there the launch is too small to fill the card for long.
+//
 // Layout: one block = R <= 8 rows (one warp per row for the per-row steps),
 // all T. Shared memory per row: xs (T, C+1) | a (T, G+1) | P (G, C+1) |
 // o (D) | v (max(C, d_out)); the +1 pads avoid bank conflicts. At the
-// main-path shape R = 8 uses 203 KiB of the 227 KiB a block may have, so
-// one block (8 warps) runs per SM.
+// TimeUNet shape R = 8 uses 203 KiB of the 227 KiB a block may have; at the
+// U-TAE shape (C = 128, d_out = 128) a row takes 45 KiB and R = 4 rows use
+// 185 KiB. One block runs per SM. A lane owns channels c + 32k, k < KC:
+// the kernel is instantiated for KC = 2 (C <= 64) and KC = 4 (C <= 128), so
+// the per-lane channel arrays stay in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,7 +55,7 @@
 namespace {
 
 constexpr int kMaxT = 64;      // lanes own t and t + 32
-constexpr int kMaxC = 64;      // lanes own c and c + 32
+constexpr int kMaxC = 128;     // lanes own c + 32k, k < KC <= 4
 constexpr int kMaxG = 16;      // per-head accumulators held in registers
 constexpr int kMaxRows = 8;    // rows (= warps) per block
 constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
@@ -115,7 +122,7 @@ template <> struct Vec<__nv_bfloat16> {
   __device__ static void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 };
 
-template <typename Tin>
+template <typename Tin, int KC>
 __global__ void __launch_bounds__(32 * kMaxRows)
 ltae_fused_fwd_kernel(const Args a) {
   extern __shared__ float smem[];
@@ -172,9 +179,11 @@ ltae_fused_fwd_kernel(const Args a) {
   float* vr = xr + off_v;
 
   // 1. GroupNorm over (T, C/G): per-channel sums, group mean, then centered
-  //    squares (two passes), then normalize in place. Lanes own c, c + 32.
+  //    squares (two passes), then normalize in place. Lanes own c + 32k.
   const float cnt = (float)(T * cg);
-  float mean_c[2] = {0.f, 0.f}, inv_c[2] = {0.f, 0.f};
+  float mean_c[KC], inv_c[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) mean_c[k] = inv_c[k] = 0.f;
   for (int c = lane; c < C; c += 32) {
     float s = 0.f;
     for (int t = 0; t < T; ++t) s += xr[t * CP + c];
@@ -182,7 +191,7 @@ ltae_fused_fwd_kernel(const Args a) {
   }
   __syncwarp();
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
+  for (int k = 0; k < KC; ++k) {
     const int c = lane + 32 * k;
     if (c < C) {
       const int g0 = (c / cg) * cg;
@@ -193,7 +202,7 @@ ltae_fused_fwd_kernel(const Args a) {
   }
   __syncwarp();
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
+  for (int k = 0; k < KC; ++k) {
     const int c = lane + 32 * k;
     if (c < C) {
       float q = 0.f;
@@ -206,7 +215,7 @@ ltae_fused_fwd_kernel(const Args a) {
   }
   __syncwarp();
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
+  for (int k = 0; k < KC; ++k) {
     const int c = lane + 32 * k;
     if (c < C) {
       const int g0 = (c / cg) * cg;
@@ -264,31 +273,34 @@ ltae_fused_fwd_kernel(const Args a) {
   }
   __syncwarp();
 
-  // 3. P = a @ xn, (G, C): lanes own c, c + 32.
+  // 3. P = a @ xn, (G, C): lanes own c + 32k.
   {
-    const bool c0 = lane < C, c1 = lane + 32 < C;
-    float p0[kMaxG], p1[kMaxG];
+    float p[KC][kMaxG];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) p0[g] = p1[g] = 0.f;
+    for (int k = 0; k < KC; ++k)
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) p[k][g] = 0.f;
     for (int t = 0; t < T; ++t) {
       const float* xt = xr + t * CP;
-      const float x0 = c0 ? xt[lane] : 0.f;
-      const float x1 = c1 ? xt[lane + 32] : 0.f;
+      float xv[KC];
+#pragma unroll
+      for (int k = 0; k < KC; ++k) xv[k] = lane + 32 * k < C ? xt[lane + 32 * k] : 0.f;
       const float* at = ar + t * GP;
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g < G) {
           const float av = at[g];
-          p0[g] = fmaf(av, x0, p0[g]);
-          p1[g] = fmaf(av, x1, p1[g]);
+#pragma unroll
+          for (int k = 0; k < KC; ++k) p[k][g] = fmaf(av, xv[k], p[k][g]);
         }
       }
     }
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g < G) {
-        if (c0) pr[g * CP + lane] = p0[g];
-        if (c1) pr[g * CP + lane + 32] = p1[g];
+#pragma unroll
+        for (int k = 0; k < KC; ++k)
+          if (lane + 32 * k < C) pr[g * CP + lane + 32 * k] = p[k][g];
       }
     }
   }
@@ -351,7 +363,7 @@ ltae_fused_fwd_kernel(const Args a) {
   }
 }
 
-template <typename Tin>
+template <typename Tin, int KC>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int rf = row_floats(a.T, a.C, a.D, a.G, a.DOUT);
   int rows = kMaxRows;
@@ -359,12 +371,17 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   while (rows > 1 && bytes(rows) > kSmemLimit) --rows;
   if (bytes(rows) > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      ltae_fused_fwd_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ltae_fused_fwd_kernel<Tin, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes(rows));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + rows - 1) / rows, a.B);
-  ltae_fused_fwd_kernel<Tin><<<grid, 32 * rows, bytes(rows), stream>>>(a);
+  ltae_fused_fwd_kernel<Tin, KC><<<grid, 32 * rows, bytes(rows), stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename Tin>
+cudaError_t launch_c(const Args& a, cudaStream_t stream) {
+  return a.C <= 64 ? launch<Tin, 2>(a, stream) : launch<Tin, 4>(a, stream);
 }
 
 }  // namespace
@@ -399,5 +416,5 @@ extern "C" int ltae_fused_fwd(
   a.B = B; a.T = T; a.N = N; a.C = C; a.D = D; a.G = G; a.DOUT = DOUT;
   a.eps = eps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(x_is_bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s));
+  return (int)(x_is_bf16 ? launch_c<__nv_bfloat16>(a, s) : launch_c<float>(a, s));
 }

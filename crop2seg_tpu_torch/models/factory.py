@@ -1,5 +1,5 @@
-"""Model factory (port of crop2seg_tpu/models/factory.py:21-69): TimeUNet_v1
-only, with the JAX package's config keys and defaults."""
+"""Model factory (port of crop2seg_tpu/models/factory.py:21-69): U-TAE and
+TimeUNet_v1, with the JAX package's config keys and defaults."""
 from __future__ import annotations
 
 import math
@@ -39,21 +39,20 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
     with the reference train.py flag names) on ``device`` (default: the CUDA
     card). ``generator`` draws the weights (default: PyTorch's global RNG).
     ``use_pallas`` is accepted for config parity: on the card the fused kernel
-    is the only eval path."""
+    is the only eval path. ``remat`` is a training option, accepted and
+    ignored (U-TAE training is not ported yet)."""
     cfg = config if isinstance(config, Mapping) else vars(config)
     name = cfg["model"]
-    if name not in ("timeunet", "timeunet_v1"):
+    if name not in ("utae", "timeunet", "timeunet_v1"):
         raise NotImplementedError(
             f"model {name!r} is not ported yet: crop2seg_tpu_torch has "
-            "TimeUNet_v1 only (ROADMAP.md lists the rest of the zoo)")
+            "U-TAE and TimeUNet_v1 only (ROADMAP.md lists the rest of the zoo)")
     if cfg.get("conv_type", "2d") != "2d" or cfg.get("add_squeeze", False):
         raise NotImplementedError(
             "conv_type != '2d' and add_squeeze are not ported yet (slice F "
             "of ROADMAP.md)")
-    from crop2seg_tpu_torch.models.timeunet import TimeUNet
-
     dev = resolve_device(device)
-    model = TimeUNet(
+    common = dict(
         input_dim=cfg.get("input_dim", 10),
         encoder_widths=tuple(cfg.get("encoder_widths", (64, 64, 64, 128))),
         decoder_widths=tuple(cfg.get("decoder_widths", (32, 32, 64, 128))),
@@ -72,6 +71,15 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
         use_doy=cfg.get("use_doy", False),
         add_linear=cfg.get("add_linear", False),
     )
+    if name == "utae":
+        from crop2seg_tpu_torch.models.utae import UTAE
+        model = UTAE(agg_mode=cfg.get("agg_mode", "att_group"),
+                     use_mbconv=cfg.get("use_mbconv", False),
+                     add_boundary_loss=cfg.get("add_boundary_loss", False),
+                     remat=cfg.get("remat", False), **common)
+    else:
+        from crop2seg_tpu_torch.models.timeunet import TimeUNet
+        model = TimeUNet(**common)
     if generator is not None:
         init_weights(model, generator)
     return model.to(dev).eval()

@@ -24,7 +24,7 @@ import torch
 from crop2seg_tpu_torch.ops._build import load_library
 
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
-MAX_C = 64          # lanes own channels c and c + 32
+MAX_C = 128         # lanes own channels c + 32k, k < 4
 MAX_HEADS = 16      # per-head accumulators live in registers
 
 

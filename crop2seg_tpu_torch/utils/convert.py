@@ -1,7 +1,7 @@
-"""Weights converter: the JAX package's flax TimeUNet variables -> the port's
-state dict (the inverse of crop2seg_tpu/utils/torch_convert.py:44-68 and
-:109-316). Leaves arrive as numpy arrays; the result loads with
-``TimeUNet.load_state_dict``.
+"""Weights converter: the JAX package's flax U-TAE and TimeUNet variables ->
+the port's state dict (the inverse of crop2seg_tpu/utils/torch_convert.py:44-68
+and :109-316). Leaves arrive as numpy arrays; the result loads with
+``UTAE.load_state_dict`` / ``TimeUNet.load_state_dict``.
 
     flax conv kernel   (kh, kw, I, O)              -> torch (O, I, kh, kw)
     flax conv-transpose forward HWIO, pre-flipped  -> torch (I, O, kh, kw)
@@ -142,9 +142,12 @@ def ltae_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return _torch(sd)
 
 
-def timeunet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax ``{'params', 'batch_stats'}`` of crop2seg_tpu's TimeUNet (nested
-    dicts of numpy arrays) -> the port's TimeUNet state dict."""
+def utae_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``{'params', 'batch_stats'}`` of crop2seg_tpu's U-TAE or TimeUNet
+    (nested dicts of numpy arrays) -> the port's state dict (the inverse of
+    crop2seg_tpu/utils/torch_convert.py::convert_utae). The two models hold
+    the same modules (U-TAE's aggregator has no parameters), and U-TAE may
+    add the boundary head."""
     p, s = _split(variables)
     sd: Dict[str, np.ndarray] = {}
     _conv_layer(sd, "in_conv.conv", p["in_conv"]["conv"],
@@ -156,6 +159,11 @@ def timeunet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]
         i += 1
     _ltae(sd, "temporal_encoder", p["temporal_encoder"],
           s.get("temporal_encoder", {}))
-    _conv_layer(sd, "out_conv.conv", p["out_conv"]["conv"],
-                s.get("out_conv", {}).get("conv", {}))
+    for head in ("out_conv", "boundary_conv"):
+        if head in p:
+            _conv_layer(sd, f"{head}.conv", p[head]["conv"],
+                        s.get(head, {}).get("conv", {}))
     return _torch(sd)
+
+
+timeunet_state_dict_from_flax = utae_state_dict_from_flax

@@ -1,10 +1,12 @@
 """Where the time of one whole tile goes in crop2seg_tpu_torch, on one card.
 
-    python3 scripts/profile_tile_torch.py [--dtype bf16|fp32] [--trace out.json]
+    python3 scripts/profile_tile_torch.py [--model timeunet|utae]
+                                          [--dtype bf16|fp32] [--trace out.json]
 
-Runs TimeUNet_v1 at the factory defaults (seeded random weights) through
-make_tile_predictor on one synthetic (61, 1098, 1098, 10) tile, length 55,
-batch 10: one warm-up tile, then one tile under torch.profiler. Prints the
+Runs TimeUNet_v1 (default) or U-TAE at the factory defaults (seeded random
+weights) through make_tile_predictor on one synthetic (61, 1098, 1098, 10)
+tile, length 55, batch 10: one warm-up tile, then one tile under
+torch.profiler. Prints the
 card (nvidia-smi name and power limit), the tile's wall time, the device's
 busy share (summed kernel time over wall time), and the kernels that take
 the most device time, grouped by name.
@@ -29,6 +31,7 @@ from crop2seg_tpu_torch.models.factory import get_model  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("timeunet", "utae"), default="timeunet")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     ap.add_argument("--top", type=int, default=25)
@@ -43,7 +46,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
+    model = get_model({"model": args.model}, generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(2)
     tile = torch.randn(61, 1098, 1098, 10, generator=gen, device=dev)
     tile[55:] = 0.0
@@ -59,7 +62,7 @@ def main() -> int:
         wall = time.perf_counter() - start
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in events)
-    print(f"tile {args.dtype}: wall {wall:.4f} s ({100 / wall:.2f} patches/s), "
+    print(f"{args.model} tile {args.dtype}: wall {wall:.4f} s ({100 / wall:.2f} patches/s), "
           f"device busy {busy_us / 1e6:.4f} s = {busy_us / 1e4 / wall:.1f} % of wall")
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:args.top]:

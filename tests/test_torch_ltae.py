@@ -3,7 +3,8 @@ Pallas kernel (interpret mode), the LTAE module against the JAX module, and
 the ltae.npz golden. The CUDA kernel itself is held against the plain version
 on the card (tests/test_torch_package.py's ``cuda`` test, and chip_smoke.py).
 
-Shape: B=2, T=9, 8x8 pixels, C=32, G=8, D=64, d_out=16, fp32, with pads.
+Shape: B=2, T=9, 8x8 pixels, C=32, G=8, D=64, d_out=16, fp32, with pads;
+and U-TAE's width, 4x4 pixels, C=128, G=16, D=256, d_out=128, attention out.
 Tolerance: rtol 1e-3 / atol 5e-4 on out, as tests/test_ltae_pallas.py holds
 the Pallas kernel to the XLA module. This config's out-GroupNorm has
 2-channel groups whose variance is ~0 for some rows, which amplifies
@@ -30,16 +31,19 @@ OUT_TOL = dict(rtol=1e-3, atol=5e-4)
 ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def case():
+# U-TAE's bottleneck width: C = d_out = 128, 16 heads, d_model 256
+WIDE = dict(c=128, n_head=16, d_model=256, d_out=128, h=4, w=4)
+
+
+def _make_case(c=C, n_head=N_HEAD, d_model=D_MODEL, d_out=D_OUT, h=H, w=W):
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((B, T, H, W, C)).astype(np.float32)
+    x = rng.standard_normal((B, T, h, w, c)).astype(np.float32)
     pad = np.zeros((B, T), bool)
     pad[0, T - 2:] = True
     x[pad] = 0.0
     dates = np.tile((np.arange(T) * 7.0 + 20).astype(np.float32), (B, 1))
-    m = JLTAE(in_channels=C, n_head=N_HEAD, d_k=D_K, mlp=(D_MODEL, D_OUT),
-              d_model=D_MODEL)
+    m = JLTAE(in_channels=c, n_head=n_head, d_k=D_K, mlp=(d_model, d_out),
+              d_model=d_model)
     v = jax.jit(lambda x: m.init(jax.random.PRNGKey(1), x, dates, pad_mask=pad,
                                  train=False))(x)
     bs = jax.tree_util.tree_map(  # non-trivial BN statistics
@@ -50,12 +54,22 @@ def case():
     pe = np.asarray(m.apply(v, jnp.asarray(dates),
                             method=lambda mod, d: mod._pe(d)))
     jparams = jax.tree_util.tree_map(np.asarray,
-                                     jk.params_from_ltae_variables(v, N_HEAD))
-    sc = (1.0 + 0.2 * rng.standard_normal((B, T, C))).astype(np.float32)
-    sh = (0.1 * rng.standard_normal((B, T, C))).astype(np.float32)
+                                     jk.params_from_ltae_variables(v, n_head))
+    sc = (1.0 + 0.2 * rng.standard_normal((B, T, c))).astype(np.float32)
+    sh = (0.1 * rng.standard_normal((B, T, c))).astype(np.float32)
     valid = (~pad).astype(np.float32)[:, :, None]
     return dict(module=m, variables=v, x=x, pad=pad, dates=dates, pe=pe,
                 jparams=jparams, tail=(sc * valid, sh * valid))
+
+
+@pytest.fixture(scope="module")
+def case():
+    return _make_case()
+
+
+@pytest.fixture(scope="module")
+def wide_case():
+    return _make_case(**WIDE)
 
 
 def _t(a):
@@ -161,3 +175,38 @@ def test_wrapper_on_cpu_runs_the_plain_version(case):
     want, _ = tk.ltae_fused_forward_reference(*args, n_head=N_HEAD, d_k=D_K)
     assert tk.ltae_fused_forward.launches == before
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_wide_reference_matches_jax_kernel(wide_case):
+    """C = 128, d_out = 128, G = 16 with the attention output (U-TAE's L-TAE):
+    the plain version against the JAX Pallas kernel in interpret mode."""
+    case, g, n = wide_case, WIDE["n_head"], WIDE["h"] * WIDE["w"]
+    rows = case["x"].reshape(B, T, n, WIDE["c"])
+    want, want_attn = jk.ltae_fused_forward(
+        jnp.asarray(rows), jnp.asarray(case["pe"]), jnp.asarray(case["pad"]),
+        case["jparams"], n_head=g, d_k=D_K, row_block=16, interpret=True)
+    got, got_attn = tk.ltae_fused_forward_reference(
+        _t(rows), _t(case["pe"]), _t(case["pad"]), _tparams(case["jparams"]),
+        n_head=g, d_k=D_K)
+    assert got.shape == (B, n, WIDE["d_out"]) and got_attn.shape == (B, n, g, T)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT_TOL)
+    np.testing.assert_allclose(got_attn.numpy(), np.asarray(want_attn), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_wide_module_matches_jax_module(wide_case, fused):
+    """The port's LTAE(in_channels=128, mlp=(256, 128)) against the JAX
+    module, both paths, attention as (B, H, W, G, T)."""
+    case = wide_case
+    want, want_attn = case["module"].apply(
+        case["variables"], jnp.asarray(case["x"]), jnp.asarray(case["dates"]),
+        pad_mask=jnp.asarray(case["pad"]), train=False)
+    m = LTAE(in_channels=WIDE["c"], n_head=WIDE["n_head"], d_k=D_K,
+             mlp=(WIDE["d_model"], WIDE["d_out"]), d_model=WIDE["d_model"]).eval()
+    m.load_state_dict(ltae_state_dict_from_flax(case["variables"]))
+    with torch.inference_mode():
+        got, attn = m(_t(case["x"]), _t(case["dates"]), _t(case["pad"]), fused=fused)
+    assert got.shape == (B, WIDE["h"], WIDE["w"], WIDE["d_out"])
+    assert attn.shape == (B, WIDE["h"], WIDE["w"], WIDE["n_head"], T)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT_TOL)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(want_attn), **ATTN_TOL)

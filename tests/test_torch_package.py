@@ -12,6 +12,7 @@ import torch
 from crop2seg_tpu_torch.ops import _build
 from crop2seg_tpu_torch.ops import ltae_fused as tk
 from crop2seg_tpu_torch.ops import ltae_pool as lp
+from crop2seg_tpu_torch.ops import ltae_stages as ls
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "crop2seg_tpu")
@@ -93,7 +94,8 @@ def test_build_targets_hopper_into_an_ignored_directory():
     ignored = open(os.path.join(REPO, ".gitignore")).read().split()
     assert rel + "/" in ignored or rel in ignored
     replaces = {"ltae_fused_fwd": "crop2seg_tpu/ops/ltae_pallas.py::ltae_fused_forward",
-                "ltae_pool": "crop2seg_tpu/ops/ltae_pallas_train.py::ltae_pool"}
+                "ltae_pool": "crop2seg_tpu/ops/ltae_pallas_train.py::ltae_pool",
+                "ltae_stages": "scripts/debug_ltae_stages.py::_kernel"}
     for name, tpu_kernel in replaces.items():
         assert (_build.CSRC_DIR / f"{name}.cu").exists()
         lib = _build.library_path(name)
@@ -115,11 +117,13 @@ def _random_params(c, d, g, d_out, gen):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,n,c,d,g,d_out", [(2, 9, 64, 32, 64, 8, 16),
-                                               (1, 61, 300, 64, 256, 16, 64)])
+                                               (1, 61, 300, 64, 256, 16, 64),
+                                               (2, 61, 258, 128, 256, 16, 128)])
 def test_cuda_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out):
     """The CUDA kernel against its plain version on the card, with pads, the
     tail affine and the attention output, N not a multiple of the block's
-    rows. This file imports no JAX, so it runs where JAX is absent:
+    rows, at TimeUNet's C = 64 and U-TAE's C = 128 (the kernel's two
+    instantiations). This file imports no JAX, so it runs where JAX is absent:
     ``python -m pytest --noconftest -m cuda tests/test_torch_package.py``.
     Tolerance: fp32 5e-3 (sums in another order; out-GroupNorm groups of 2
     or 4 channels amplify that noise); bf16 3e-2 (one bf16 rounding of the
@@ -148,6 +152,58 @@ def test_cuda_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out):
     tol = 5e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
     torch.testing.assert_close(attn, want_attn, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_unsupported_widths():
+    """C = 160 (past the kernel's 128) raises on the card; it is not sent to
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    params = {k: v.to(dev) for k, v in _random_params(160, 64, 16, 16, gen).items()}
+    x = torch.zeros(1, 5, 8, 160, device=dev)
+    before = tk.ltae_fused_forward.launches
+    with pytest.raises(ValueError, match="unsupported shape"):
+        tk.ltae_fused_forward(x, torch.zeros(1, 5, 64, device=dev),
+                              torch.zeros(1, 5, dtype=torch.bool, device=dev),
+                              params, n_head=16)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        ls.ltae_stages(x, torch.zeros(1, 5, 64, device=dev),
+                       torch.zeros(1, 1, 5, device=dev), torch.zeros(160, 64, device=dev),
+                       torch.zeros(64, device=dev), torch.zeros(64, 16, device=dev),
+                       torch.zeros(1, 16, device=dev), n_head=16)
+    assert tk.ltae_fused_forward.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,n,c", [(1, 61, 256, 64), (2, 20, 77, 128)])
+def test_cuda_ltae_stages_matches_plain_version(b, t, n, c):
+    """The stage kernel against its plain version on the card, each stage,
+    with pads, N not a multiple of the block's rows: 1e-4 of each stage's
+    largest |value| (fp32 sums in another order), attention 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    d, g = 256, 16
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+    mask = torch.zeros(b, 1, t, device=dev)
+    mask[0, :, t - 6:] = 1.0
+    args = (r(b, t, n, c), r(b, t, d), mask, r(c, d, scale=0.1), r(d, scale=0.1),
+            r(d, g, scale=0.1), r(1, g, scale=0.1))
+    before = ls.ltae_stages.launches
+    got = ls.ltae_stages(*args, n_head=g)
+    assert ls.ltae_stages.launches == before + 1
+    want = ls.ltae_stages_reference(*args, n_head=g)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("h0", "scores", "attn", "o"), got, want):
+        tol = 1e-5 if name == "attn" else 1e-4 * w.abs().max().item()
+        assert a.shape == w.shape and bool(torch.isfinite(a).all()), name
+        assert (a - w).abs().max().item() <= tol, name
 
 
 @pytest.mark.cuda
