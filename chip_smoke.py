@@ -46,6 +46,19 @@
    seeded weights): the entry forward at (1, 30, 128, 128, 10), length 27
    (one kernel launch, finite logits), then one tile through
    make_tile_predictor in bf16 and fp32 with the checks of phase 4.
+9. The fused eval L-TAE kernel with three queries per head (nq = 3), at
+   U-TAE's bottleneck width (N=16*16, C=d_out=128) and TimeUNet's (N=128*128,
+   C=d_out=64), against its plain version (B=2, fp32 and bf16, tail affine
+   and attention each on and off; tolerances at TOL_Q), both timed at B=10;
+   then that mode's
+   path, the LTAE(num_queries=3) module in eval at U-TAE's width: exactly
+   one launch, agreeing with the module's plain ops.
+10. U-TAE training at the factory defaults: make_train_step, 5 steps at B=4
+   in fp32 without remat and 5 at B=16 in bf16 with remat="conv_out" (the
+   JAX bench's core train cell), each with a finite, falling loss, changed
+   BatchNorm statistics and no launch of any kernel (the JAX U-TAE trains
+   on plain ops too); then one B=2 step's gradients with remat ("conv_out"
+   and "full") against those without, within the measured spread.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -68,7 +81,8 @@ from crop2seg_tpu_torch.inference.tile import make_tile_predictor
 from crop2seg_tpu_torch.learning.losses import cross_entropy
 from crop2seg_tpu_torch.learning.trainer import (
     StepConfig, make_eval_step, make_train_step)
-from crop2seg_tpu_torch.models.factory import get_model
+from crop2seg_tpu_torch.models.factory import get_model, init_weights
+from crop2seg_tpu_torch.nn.ltae import LTAE
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_lengths
 from crop2seg_tpu_torch.ops import _build
 from crop2seg_tpu_torch.ops import ltae_fused as lf
@@ -85,6 +99,22 @@ MAIN_B, LENGTH = 10, 55
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}   # out, vs plain fp32
 ATTN_TOL = 1e-4
 UTAE_HW, UTAE_C = 16 * 16, 128     # U-TAE's L-TAE: the 16^2 bottleneck, C = d_out
+NQ = 3                             # queries per head in phase 9
+# phase 9 (nq = 3) vs the plain version at U-TAE's width: out in fp32; out in
+# bf16 against the fp32 plain version on the same bf16-rounded input, per
+# value as a share of max(1, |value|) (the out GroupNorm pools nq * d_out / G
+# values, so outputs reach ~5, where storing in bf16 alone rounds by up to
+# 2**-8 of the value); attention (fp32 either way). At TimeUNet's width fp32
+# out and attention keep phase 2's TOL and ATTN_TOL: there the nq = 1 mode
+# itself differs from its plain version by ~6e-4 and ~8e-6 (the out
+# GroupNorm's groups of d_out / G = 4 channels amplify the order of fp32 sums)
+TOL_Q = {torch.float32: 5e-4, torch.bfloat16: 1e-2}
+ATTN_TOL_Q = 1e-5
+# the LTAE(num_queries=3) module's fused path against its plain ops: the
+# whole-module tolerance (the folds change the order of the fp32 sums)
+MODULE_TOL_Q = 1e-3
+UTAE_TRAIN_RUNS = (("fp32 B=4", None, 4, False), ("bf16 B=16 remat conv_out",
+                                                  torch.bfloat16, 16, True))
 # the stage kernel vs its plain version: fp32 sums in another order, as a
 # share of each stage's largest |value|; the attention absolutely
 STAGE_TOL, ATTN_TOL_STAGES = 1e-4, 1e-5
@@ -132,46 +162,51 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def ltae_flops(b: int, tail: bool, n: int = HW, c: int = C,
-               d_out: int = D_OUT) -> float:
-    """Operations the fused forward needs (one query), counted per row:
-    tail affine, in-GroupNorm, scores, softmax, C-space pooling, the
-    projection + PE term, the MLP and the out-GroupNorm."""
-    per_row = ((3 * T * c if tail else 0) + 6 * T * c + 2 * T * c * G
-               + 4 * G * T + 2 * G * T * c + 2 * c * D + 2 * T * D + D
-               + 2 * D * d_out + 2 * d_out + 8 * d_out)
+               d_out: int = D_OUT, nq: int = 1) -> float:
+    """Operations the fused forward needs, counted per row: tail affine and
+    in-GroupNorm once; per query the scores, softmax, C-space pooling, the
+    projection + PE term and the MLP; the out-GroupNorm over all queries."""
+    per_query = (2 * T * c * G + 4 * G * T + 2 * G * T * c + 2 * c * D + 2 * T * D
+                 + D + 2 * D * d_out + 2 * d_out + 8 * d_out)
+    per_row = (3 * T * c if tail else 0) + 6 * T * c + nq * per_query
     return float(b * n * per_row)
 
 
 def ltae_bytes(b: int, dtype: torch.dtype, tail: bool, need_attn: bool,
-               n: int = HW, c: int = C, d_out: int = D_OUT) -> float:
+               n: int = HW, c: int = C, d_out: int = D_OUT, nq: int = 1) -> float:
     """Each input read once, each output written once."""
     es = torch.tensor([], dtype=dtype).element_size()
-    nb = b * T * n * c * es + b * n * d_out * es         # x in, out
-    nb += b * T * D * 4 + b * G * T * 4                  # pe, pes
-    nb += (c * D + D + c * G + D * d_out + 3 * d_out) * 4  # folded weights
+    nb = b * T * n * c * es + b * n * nq * d_out * es    # x in, out
+    nb += b * T * D * 4 + b * G * nq * T * 4             # pe, pes
+    nb += (c * D + D + c * G * nq + D * d_out + 3 * d_out) * 4  # folded weights
     if tail:
         nb += 2 * b * T * c * 4
     if need_attn:
-        nb += b * n * G * T * 4
+        nb += b * n * G * nq * T * 4
     return float(nb)
 
 
 def bound(b: int, dtype: torch.dtype, tail: bool, need_attn: bool, **shape):
-    """The kernel's bound at ``shape`` (n, c, d_out; TimeUNet's by default)."""
+    """The kernel's bound at ``shape`` (n, c, d_out, nq; TimeUNet's and one
+    query by default)."""
     t_bytes = ltae_bytes(b, dtype, tail, need_attn, **shape) / HBM_BYTES_PER_S * 1e3
     t_ops = ltae_flops(b, tail, **shape) / PEAK_FLOP_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ltae_inputs(model, b: int, gen: torch.Generator, dev, n: int = HW):
+def ltae_inputs(model, b: int, gen: torch.Generator, dev, n: int = HW, nq: int = 1):
     """Full-width kernel inputs: the seeded model's L-TAE parameters (with
-    non-trivial BN statistics), its PE of real day offsets, pads, and a
-    deferred tail affine zeroed at the pads; n pixel rows of its width."""
+    non-trivial BN statistics; with nq > 1 queries drawn as the factory
+    draws them), its PE of real day offsets, pads, and a deferred tail affine
+    zeroed at the pads; n pixel rows of its width."""
     te = model.temporal_encoder
     c, d_out = te.in_norm.num_channels, te.out_norm.num_channels
     sd = {k: v.clone() for k, v in te.state_dict().items()}
     sd["mlp.2.running_mean"] = 0.3 * torch.randn(d_out, generator=gen, device=dev)
     sd["mlp.2.running_var"] = 0.5 + torch.rand(d_out, generator=gen, device=dev)
+    if nq > 1:
+        sd["attention_head.Q"] = (2.0 / D_K) ** 0.5 * torch.randn(
+            G, nq, D_K, generator=gen, device=dev)
     params = lf.params_from_ltae_variables(sd)
     dates = (torch.arange(T, dtype=torch.float32) * 5 + 3).to(dev)
     with torch.inference_mode():
@@ -185,10 +220,12 @@ def ltae_inputs(model, b: int, gen: torch.Generator, dev, n: int = HW):
     return x, pe, pad, params, (sc, sh)
 
 
-def check_kernel(name: str, xd, pe, pad, params, need_attn: bool, tail=None) -> float:
+def check_kernel(name: str, xd, pe, pad, params, need_attn: bool, tail=None,
+                 tol=TOL, attn_tol: float = ATTN_TOL, per_value: bool = False) -> float:
     """Kernel 1 against its plain version (fp32, on the same input rounded
-    to xd's dtype): out within TOL, attention within ATTN_TOL, finite.
-    Returns the largest |err| of out."""
+    to xd's dtype): out within tol[dtype] (with ``per_value``, bf16 out
+    within tol * max(1, |value|) per value), attention within attn_tol,
+    finite. Returns the largest |err| of out."""
     got, attn = lf.ltae_fused_forward(xd, pe, pad, params, n_head=G, d_k=D_K,
                                       need_attn=need_attn, tail_affine=tail)
     want, want_attn = lf.ltae_fused_forward_reference(
@@ -197,14 +234,21 @@ def check_kernel(name: str, xd, pe, pad, params, need_attn: bool, tail=None) -> 
     torch.cuda.synchronize()
     check(got.shape == want.shape and torch.isfinite(got.float()).all().item(),
           f"{name}: shape or non-finite")
-    err = (got.float() - want).abs().max().item()
-    line = f"kernel vs plain {name}: max_abs_err {err:.3e} (tol {TOL[xd.dtype]:g})"
+    diff = (got.float() - want).abs()
+    err = diff.max().item()
+    held = err
+    line = f"kernel vs plain {name}: max_abs_err {err:.3e} (tol {tol[xd.dtype]:g}"
+    if per_value and xd.dtype == torch.bfloat16:
+        held = (diff / want.abs().clamp_min(1.0)).max().item()
+        line += f" of max(1, |value|): {held:.3e}"
+    line += ")"
     if need_attn:
+        check(attn.shape == want_attn.shape, f"{name}: attn shape {attn.shape}")
         aerr = (attn - want_attn).abs().max().item()
-        line += f", attn {aerr:.3e} (tol {ATTN_TOL:g})"
-        check(aerr <= ATTN_TOL, f"{name}: attn error {aerr}")
+        line += f", attn {aerr:.3e} (tol {attn_tol:g})"
+        check(aerr <= attn_tol, f"{name}: attn error {aerr}")
     print(line, flush=True)
-    check(err <= TOL[xd.dtype], f"{name}: out error {err}")
+    check(held <= tol[xd.dtype], f"{name}: out error {held}")
     return err
 
 
@@ -412,7 +456,8 @@ def phase_pool_kernel(model, dev):
 
 
 def train_batch(b: int, gen: torch.Generator, dev):
-    lengths = torch.tensor(TRAIN_LENGTHS[:b], device=dev)
+    lengths = torch.tensor([TRAIN_LENGTHS[i % len(TRAIN_LENGTHS)] for i in range(b)],
+                           device=dev)
     pad = torch.arange(T, device=dev)[None] >= lengths[:, None]
     x = torch.randn(b, T, 128, 128, 10, generator=gen, device=dev)
     x[pad] = 0.0
@@ -534,30 +579,40 @@ def phase_train(dev):
         del m, logits
         torch.cuda.empty_cache()
 
+    check_grads_within_spread("kernel", grads["kernel"], grads["plain"],
+                              grads["perturbed"])
+    return launches, runs
+
+
+def check_grads_within_spread(label: str, got: dict, plain: dict, perturbed: dict):
+    """One step's gradients ``got`` against ``plain``, as |diff| / |plain|
+    per parameter, within GRAD_FACTOR times the spread that perturbing the
+    L-TAE output by GRAD_EPS causes (``perturbed``; the parameter's own, or
+    the median over parameters if larger); gradients that are zero up to
+    rounding on the plain side stay below GRAD_ZERO of the largest."""
     def rel(a, b):
         return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-    plain = grads["plain"]
     top = max(g_.abs().max().item() for g_ in plain.values())
     zero = [k for k, g_ in plain.items() if g_.abs().max().item() <= GRAD_ZERO * top]
     for k in zero:
-        got = grads["kernel"][k].abs().max().item()
-        check(got <= GRAD_ZERO * top, f"gradient of {k}: {got} where the plain one is 0")
+        z = got[k].abs().max().item()
+        check(z <= GRAD_ZERO * top, f"{label}: gradient of {k}: {z} where the plain one is 0")
     live = [k for k in plain if k not in zero]
-    kp = {k: rel(grads["kernel"][k], plain[k]) for k in live}
-    pe_ = {k: rel(grads["perturbed"][k], plain[k]) for k in live}
+    kp = {k: rel(got[k], plain[k]) for k in live}
+    pe_ = {k: rel(perturbed[k], plain[k]) for k in live}
     floor = float(np.median(list(pe_.values())))
     ratio = {k: kp[k] / (GRAD_FACTOR * max(pe_[k], floor)) for k in live}
     worst = max(ratio, key=ratio.get)
     print(f"B=2 gradients, |diff|/|plain| over {len(live)} parameters (and "
           f"{len(zero)} zero up to rounding, within {GRAD_ZERO:g} of the "
-          f"largest on both paths): kernel vs plain median "
+          f"largest on both paths): {label} vs plain median "
           f"{np.median(list(kp.values())):.3e} max {max(kp.values()):.3e}; plain "
           f"vs plain with the L-TAE output perturbed by {GRAD_EPS:g}: median "
           f"{floor:.3e} max {max(pe_.values()):.3e}; worst ratio to the limit "
           f"{ratio[worst]:.3f} ({worst})", flush=True)
-    check(ratio[worst] <= 1.0, f"gradient of {worst}: kernel vs plain {kp[worst]:.3e}"
+    check(ratio[worst] <= 1.0, f"gradient of {worst}: {label} vs plain {kp[worst]:.3e}"
           f" beyond {GRAD_FACTOR:g}x the perturbation spread")
-    return launches, runs
+    return ratio[worst]
 
 
 def phase_main_path(model, dev, label: str = ""):
@@ -745,6 +800,171 @@ def phase_utae(model, dev):
     return entry, launches, pps_bf16, pps_fp32
 
 
+def phase_kernel_queries(models: dict, dev):
+    """Kernel 1 with NQ queries per head at U-TAE's and TimeUNet's widths:
+    against its plain version at B=2 (fp32 and bf16, tail affine and
+    attention each on and off), then both timed at B=10 (U-TAE's width with
+    the attention out, TimeUNet's with the tail affine and without it). Then
+    the mode's path, LTAE(num_queries=NQ) in eval at U-TAE's width and B=10:
+    one launch, agreeing with the module's plain ops. Returns the errors,
+    the timings and that path's launch count."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    widths = {"utae": dict(n=UTAE_HW, c=UTAE_C, d_out=UTAE_C),
+              "timeunet": dict(n=HW, c=C, d_out=D_OUT)}
+    tols = {"utae": (TOL_Q, ATTN_TOL_Q),
+            "timeunet": ({torch.float32: TOL[torch.float32],
+                          torch.bfloat16: TOL_Q[torch.bfloat16]}, ATTN_TOL)}
+    errs, timings = {}, {}
+    for width, shape in widths.items():
+        model = models[width]
+        tol, attn_tol = tols[width]
+        x, pe, pad, params, tail = ltae_inputs(model, 2, gen, dev, n=shape["n"], nq=NQ)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            for use_tail in (False, True):
+                for need_attn in (False, True):
+                    errs[(width, dtype, use_tail, need_attn)] = check_kernel(
+                        f"nq={NQ} C={shape['c']} {str(dtype)[6:]} tail={use_tail} "
+                        f"attn={need_attn}", xd, pe, pad, params, need_attn,
+                        tail if use_tail else None, tol=tol, attn_tol=attn_tol,
+                        per_value=True)
+        del x, pe, pad, tail, xd
+        torch.cuda.empty_cache()
+
+        x, pe, pad, params, tail = ltae_inputs(model, MAIN_B, gen, dev, n=shape["n"], nq=NQ)
+        need_attn, ts = (True, None) if width == "utae" else (False, tail)
+        iters, plain_iters = (50, 10) if width == "utae" else (10, 3)
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            ms = cuda_ms(lambda: lf.ltae_fused_forward(
+                xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=need_attn,
+                tail_affine=ts), iters=iters)
+            plain_ms = cuda_ms(lambda: lf.ltae_fused_forward_reference(
+                xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=need_attn,
+                tail_affine=ts), iters=plain_iters, warmup=1)
+            b_ms, b_by = bound(MAIN_B, dtype, ts is not None, need_attn, nq=NQ, **shape)
+            timings[(width, dtype)] = (ms, plain_ms, b_ms, b_by)
+            flops = ltae_flops(MAIN_B, ts is not None, nq=NQ, **shape)
+            nbytes = ltae_bytes(MAIN_B, dtype, ts is not None, need_attn, nq=NQ, **shape)
+            print(f"ltae_fused_fwd nq={NQ} {str(dtype)[6:]} B={MAIN_B} T={T} "
+                  f"N={shape['n']} C={shape['c']} d_out={shape['d_out']} "
+                  f"tail={ts is not None} attn={need_attn}: kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{flops / (MAIN_B * shape['n']) / 1e6:.3f} MFLOP per row), "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s",
+                  flush=True)
+            del xd
+            torch.cuda.empty_cache()
+        del x, pe, pad, tail
+        torch.cuda.empty_cache()
+
+    # the mode's path: the LTAE module with NQ queries, eval, on the card
+    te = LTAE(in_channels=UTAE_C, n_head=G, d_k=D_K, mlp=(D, UTAE_C), d_model=D,
+              num_queries=NQ)
+    te = init_weights(te, torch.Generator().manual_seed(10)).to(dev).eval()
+    x = torch.randn(MAIN_B, T, 16, 16, UTAE_C, generator=gen, device=dev)
+    pad = pad_mask_from_lengths(torch.tensor([LENGTH, T] * (MAIN_B // 2), device=dev), T)
+    x[pad] = 0.0
+    dates = (torch.arange(T, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(MAIN_B, T)
+    with torch.inference_mode():
+        lf.ltae_fused_forward.launches = 0             # this path's count
+        out, attn = te(x, dates, pad)
+        torch.cuda.synchronize()
+        launches = lf.ltae_fused_forward.launches
+        ref, ref_attn = te(x, dates, pad, fused=False)
+    check(tuple(out.shape) == (MAIN_B, NQ, 16, 16, UTAE_C) and tuple(attn.shape) == (
+        MAIN_B, 16, 16, G, NQ, T), f"LTAE nq={NQ}: shapes {out.shape} {attn.shape}")
+    check(bool(torch.isfinite(out).all()), f"LTAE nq={NQ}: non-finite output")
+    err = (out - ref).abs().max().item()
+    aerr = (attn - ref_attn).abs().max().item()
+    print(f"LTAE(num_queries={NQ}) eval, ({MAIN_B}, {T}, 16, 16, {UTAE_C}): "
+          f"ltae_fused_fwd launches {launches}; fused vs plain ops out {err:.3e} "
+          f"(tol {MODULE_TOL_Q:g}), attn {aerr:.3e} (tol {ATTN_TOL_Q:g})", flush=True)
+    check(launches == 1, f"LTAE nq={NQ} launched the kernel {launches} times, not 1")
+    check(err <= MODULE_TOL_Q and aerr <= ATTN_TOL_Q,
+          f"LTAE nq={NQ}: fused vs plain out {err}, attn {aerr}")
+    return errs, timings, launches
+
+
+def phase_utae_train(dev):
+    """U-TAE training at the factory defaults: UTAE_TRAIN_RUNS through
+    make_train_step (5 steps each, warm step ms over steps 2-5, peak
+    memory), then one B=2 step's gradients with remat against those
+    without, held to the spread that perturbing the L-TAE output causes."""
+    cfg = StepConfig(num_classes=N_CLASSES,
+                     class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+    model = get_model({"model": "utae"}, generator=torch.Generator().manual_seed(0))
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    stats = ("temporal_encoder.mlp.2.running_mean", "up_blocks.0.up.1.running_var",
+             "out_conv.conv.conv.1.running_mean")
+    runs = {}
+    for label, dtype, b, remat in UTAE_TRAIN_RUNS:
+        model = get_model({"model": "utae", "remat": remat}, device=dev)
+        model.load_state_dict(fresh)
+        batch = train_batch(b, torch.Generator(device=dev).manual_seed(4), dev)
+        step = make_train_step(model, cfg, dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lp.ltae_pool.launches.clear()                  # this path's counts
+        lf.ltae_fused_forward.launches = 0
+        losses, step_ms = [], []
+        for i in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            aux = step(batch, gen)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(aux["loss"]))
+            print(f"utae train {label} step {i + 1}: loss {losses[-1]:.6f}, "
+                  f"{step_ms[-1]:.3f} ms", flush=True)
+            check(np.isfinite(losses[-1]), f"utae {label} step {i + 1}: loss {losses[-1]}")
+        launched = dict(lp.ltae_pool.launches)
+        launched["ltae_fused_fwd"] = lf.ltae_fused_forward.launches
+        check(not any(launched.values()),
+              f"utae {label}: the training path launched a kernel: {launched}")
+        check(losses[-1] < losses[0], f"utae {label}: loss did not fall: {losses}")
+        moved = [not torch.equal(model.state_dict()[k], fresh[k].to(dev)) for k in stats]
+        check(all(moved), f"utae {label}: BatchNorm statistics unchanged: {stats}")
+        warm_ms = float(np.mean(step_ms[1:]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"utae train step {label}, warm (steps 2-5): {warm_ms:.3f} ms, "
+              f"{b / warm_ms * 1e3:.2f} samples/s; peak memory {peak:.2f} GiB; "
+              f"kernel launches {launched}", flush=True)
+        runs[label] = {"losses": losses, "warm_ms": warm_ms, "peak_gib": peak,
+                       "batch": b}
+        del model, step, batch, aux
+        torch.cuda.empty_cache()
+
+    small = train_batch(2, torch.Generator(device=dev).manual_seed(4), dev)
+    grads = {}
+    for name, remat, policy, eps in (("no remat", False, "conv_out", 0.0),
+                                     ("remat conv_out", True, "conv_out", 0.0),
+                                     ("remat full", True, "full", 0.0),
+                                     ("perturbed", False, "conv_out", GRAD_EPS)):
+        m = get_model({"model": "utae", "remat": remat, "remat_policy": policy}, device=dev)
+        m.load_state_dict(fresh)
+        m.train()
+        if eps:
+            noise = torch.Generator(device=dev).manual_seed(12)
+            m.temporal_encoder.register_forward_hook(
+                lambda mod, args, out: (out[0] * (1 + eps * torch.randn(
+                    out[0].shape, generator=noise, device=dev)), out[1]))
+        logits = m(small["x"], small["dates"], small["pad_mask"],
+                   generator=torch.Generator(device=dev).manual_seed(11))
+        cross_entropy(logits, small["y"], weight=torch.tensor(
+            cfg.class_weights, device=dev)).backward()
+        grads[name] = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+        del m, logits
+        torch.cuda.empty_cache()
+    worst = {label: check_grads_within_spread(label, grads[label], grads["no remat"],
+                                              grads["perturbed"])
+             for label in ("remat conv_out", "remat full")}
+    return runs, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -784,8 +1004,11 @@ def main() -> int:
     utae_errs, utae_t = phase_kernel_utae(utae, dev)
     stages = phase_stages(dev)
     entry_launches, utae_launches, utae_pps, utae_pps32 = phase_utae(utae, dev)
-    del utae
+    timeunet = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
+    q_errs, q_t, q_launches = phase_kernel_queries({"utae": utae, "timeunet": timeunet}, dev)
+    del utae, timeunet
     torch.cuda.empty_cache()
+    utae_runs, remat_worst = phase_utae_train(dev)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -847,7 +1070,27 @@ def main() -> int:
         "replaces": "scripts/debug_ltae_stages.py:91", "library_ms": None,
         "dtype": "float32", **stages,
     }
-    print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages]}),
+    ms, plain_ms, b_ms, b_by = q_t[("utae", torch.bfloat16)]
+    kernel_q = {
+        "name": f"ltae_fused_fwd_nq{NQ}", "route": "cuda",
+        "source": "crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu",
+        "replaces": "crop2seg_tpu/ops/ltae_pallas.py:421",
+        "launches": q_launches,
+        "max_abs_err": max(v for k, v in q_errs.items() if k[1] == torch.bfloat16),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "dtype": "bfloat16", "shape": [MAIN_B, T, UTAE_HW, UTAE_C], "d_out": UTAE_C,
+        "num_queries": NQ, "attn": True,
+        "max_abs_err_fp32": max(v for k, v in q_errs.items() if k[1] == torch.float32),
+    }
+    for (width, dtype), (ms, plain_ms, b_ms, b_by) in q_t.items():
+        if (width, dtype) != ("utae", torch.bfloat16):
+            kernel_q[f"{width}_{str(dtype)[6:]}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    print("utae_train " + json.dumps({"runs": utae_runs,
+                                      "remat_grad_worst_ratio": remat_worst}),
+          flush=True)
+    print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

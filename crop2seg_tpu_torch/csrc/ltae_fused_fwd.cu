@@ -1,4 +1,5 @@
-// Fused masked L-TAE eval forward for NVIDIA Hopper (sm_90a), one query.
+// Fused masked L-TAE eval forward for NVIDIA Hopper (sm_90a), nq <= 8
+// learnable queries per head.
 //
 // Replaces crop2seg_tpu/ops/ltae_pallas.py::ltae_fused_forward (its Pallas
 // body `_kernel`, pallas_call at ltae_pallas.py:421). Wrapper, offline folds
@@ -7,13 +8,24 @@
 // Per pixel row n of batch item b, over T <= 64 steps and C <= 128 channels:
 //   x      = [max(x * tsc + tsh, 0)]            deferred conv-tail affine
 //   xn     = GroupNorm_G(x) over (T, C/G)       two-pass fp32, no affine
-//   scores = xn @ Ws + pes[b]                   Ws = (s*W_in) U, pes holds
+// then for each query q < nq (one column of U per (head, query), g*nq + q):
+//   scores = xn @ Ws[:, g*nq+q] + pes[b]        Ws = (s*W_in) U, pes holds
 //                                               (b_in + pe) U + cs, -1e6 at pads
 //   a      = softmax_T(scores)                  (G, T)
 //   P      = a @ xn                             (G, C): pooled in C-space
 //   o[d]   = P[g(d)] . W_in[:, d] + b_in[d] + sum_t a[g(d), t] pe[t, d]
-//   m      = relu(o @ W_m + b_m)                eval BatchNorm folded
-//   out    = GroupNorm_G(m) * osc + obi
+//   m_q    = relu(o @ W_m + b_m)                eval BatchNorm folded
+// and last
+//   out    = GroupNorm_G(m) * osc + obi         group g pools its d_out/G
+//                                               channels over all nq queries
+// The TPU kernel widens the weighted sum to all queries at once (a 0/1
+// broadcast matmul and a block-diagonal W_m); here the row loops over the
+// queries and reuses the a, P and o regions, so registers and shared memory
+// per query stay those of nq = 1; only the MLP outputs of all queries (the
+// out GroupNorm pools them) and Ws grow with nq. The query count is a
+// template parameter QN: 1 compiles the one-query kernel with every index
+// constant (a runtime loop costs it ~28 % at C = 64, measured), 0 reads nq
+// from the arguments.
 // Pooling in C-space is exact algebra (sum_t a = 1), so the projected
 // sequence h (T x D per row, 4x the input) never exists, in registers or in
 // memory: the kernel reads x once and writes out (and attn on request).
@@ -36,16 +48,20 @@
 //
 // At the U-TAE bottleneck (B=10, T=61, N=256, C=128, d_out=128, attention
 // out) the work is 0.70 MFLOP per row over 2,560 rows, ~0.03 ms at the fp32
-// peak; there the launch is too small to fill the card for long.
+// peak; there the launch is too small to fill the card for long. With nq
+// queries the scores, P, o and the MLP run nq times; the input GroupNorm and
+// the read of x do not.
 //
 // Layout: one block = R <= 8 rows (one warp per row for the per-row steps),
 // all T. Shared memory per row: xs (T, C+1) | a (T, G+1) | P (G, C+1) |
-// o (D) | v (max(C, d_out)); the +1 pads avoid bank conflicts. At the
-// TimeUNet shape R = 8 uses 203 KiB of the 227 KiB a block may have; at the
-// U-TAE shape (C = 128, d_out = 128) a row takes 45 KiB and R = 4 rows use
-// 185 KiB. One block runs per SM. A lane owns channels c + 32k, k < KC:
-// the kernel is instantiated for KC = 2 (C <= 64) and KC = 4 (C <= 128), so
-// the per-lane channel arrays stay in registers.
+// o (D) | v (max(C, nq*d_out)); the +1 pads avoid bank conflicts; Ws (C,
+// G*nq) once per block. At the TimeUNet shape R = 8 uses 203 KiB of the
+// 227 KiB a block may have; at the U-TAE shape (C = 128, d_out = 128) a row
+// takes 45 KiB and R = 4 rows use 185 KiB (nq = 3: 47 KiB a row, 24 KiB of
+// Ws, 212 KiB). The launch picks the most rows that fit. One block runs per
+// SM. A lane owns channels c + 32k, k < KC: the kernel is instantiated for
+// KC = 2 (C <= 64) and KC = 4 (C <= 128), so the per-lane channel arrays
+// stay in registers, and for QN = 1 and QN = 0 (above).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +73,7 @@ namespace {
 constexpr int kMaxT = 64;      // lanes own t and t + 32
 constexpr int kMaxC = 128;     // lanes own c + 32k, k < KC <= 4
 constexpr int kMaxG = 16;      // per-head accumulators held in registers
+constexpr int kMaxQ = 8;       // queries per head (MAX_QUERIES in ltae_fused.py)
 constexpr int kMaxRows = 8;    // rows (= warps) per block
 constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
 
@@ -65,22 +82,23 @@ struct Args {
   const float* pe;    // (B, T, D)
   const float* win;   // (C, D), in-GroupNorm affine folded
   const float* bin;   // (D,)
-  const float* ws;    // (C, G)
-  const float* pes;   // (B, G, T)
+  const float* ws;    // (C, G*nq), column g*nq + q
+  const float* pes;   // (B, G*nq, T)
   const float* wm;    // (D, d_out), BatchNorm folded
   const float* bm;    // (d_out,)
   const float* osc;   // (d_out,)
   const float* obi;   // (d_out,)
   const float* tsc;   // (B, T, C) or null
   const float* tsh;   // (B, T, C) or null
-  void* out;          // (B, N, d_out), x's type
-  float* attn;        // (B, N, G, T) or null
-  int B, T, N, C, D, G, DOUT;
+  void* out;          // (B, N, nq, d_out), x's type
+  float* attn;        // (B, N, G, nq, T) or null
+  int B, T, N, C, D, G, DOUT, NQ;
   float eps;
 };
 
-__host__ __device__ inline int row_floats(int T, int C, int D, int G, int DOUT) {
-  return T * (C + 1) + T * (G + 1) + G * (C + 1) + D + (C > DOUT ? C : DOUT);
+__host__ __device__ inline int row_floats(int T, int C, int D, int G, int DOUT,
+                                          int NQ) {
+  return T * (C + 1) + T * (G + 1) + G * (C + 1) + D + (C > NQ * DOUT ? C : NQ * DOUT);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -122,26 +140,28 @@ template <> struct Vec<__nv_bfloat16> {
   __device__ static void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 };
 
-template <typename Tin, int KC>
+template <typename Tin, int KC, int QN>
 __global__ void __launch_bounds__(32 * kMaxRows)
 ltae_fused_fwd_kernel(const Args a) {
   extern __shared__ float smem[];
   const int T = a.T, C = a.C, D = a.D, G = a.G, DOUT = a.DOUT, N = a.N;
+  const int NQ = QN > 0 ? QN : a.NQ;
   const int CP = C + 1, GP = G + 1;
   const int R = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * R;
   const int cg = C / G, dv = D / G, og = DOUT / G;
-  const int rf = row_floats(T, C, D, G, DOUT);
+  const int rf = row_floats(T, C, D, G, DOUT, NQ);
   const int off_a = T * CP, off_p = off_a + T * GP, off_o = off_p + G * CP,
             off_v = off_o + D;
 
-  float* ws_s = smem;            // (C, G)
-  float* rows = smem + C * G;    // R regions of rf floats
+  const int GQ = G * NQ;
+  float* ws_s = smem;            // (C, G*nq)
+  float* rows = smem + C * GQ;   // R regions of rf floats
 
   // ---- stage Ws and the x tile (tail affine applied on load) -------------
-  for (int i = threadIdx.x; i < C * G; i += blockDim.x) ws_s[i] = a.ws[i];
+  for (int i = threadIdx.x; i < C * GQ; i += blockDim.x) ws_s[i] = a.ws[i];
   constexpr int V = Vec<Tin>::kN;
   const Tin* x = static_cast<const Tin*>(a.x);
   const int RC = R * C;
@@ -228,8 +248,12 @@ ltae_fused_fwd_kernel(const Args a) {
   }
   __syncwarp();
 
-  // 2. scores (lanes own t, t + 32) and the masked softmax over T.
+  // Steps 2-5 run once per query; a, P and o are reused, m_q goes to
+  // v[q * d_out + j]. The block-wide steps 4 and 5 sit between barriers that
+  // every thread reaches (NQ is uniform).
   const bool v0 = lane < T, v1 = lane + 32 < T;
+  for (int q = 0; q < NQ; ++q) {
+  // 2. scores (lanes own t, t + 32) and the masked softmax over T.
   {
     float s0[kMaxG], s1[kMaxG];
 #pragma unroll
@@ -238,24 +262,25 @@ ltae_fused_fwd_kernel(const Args a) {
     const float* x1p = xr + (v1 ? lane + 32 : 0) * CP;
     for (int c = 0; c < C; ++c) {
       const float x0 = x0p[c], x1 = x1p[c];
-      const float* w = ws_s + c * G;
+      const float* w = ws_s + c * GQ + q;
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g < G) {
-          const float wv = w[g];
+          const float wv = w[g * NQ];
           s0[g] = fmaf(x0, wv, s0[g]);
           s1[g] = fmaf(x1, wv, s1[g]);
         }
       }
     }
-    const float* pes = a.pes + (size_t)b * G * T;
+    // (head, query) column g*nq + q of pes and of the row's attention
+    const float* pes = a.pes + ((size_t)b * GQ + q) * T;
     float* attn = (a.attn != nullptr && row_ok)
-                      ? a.attn + ((size_t)b * N + n) * G * T : nullptr;
+                      ? a.attn + (((size_t)b * N + n) * GQ + q) * T : nullptr;
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g < G) {   // G is uniform: the whole warp takes the shuffles
-        const float z0 = v0 ? s0[g] + pes[g * T + lane] : -CUDART_INF_F;
-        const float z1 = v1 ? s1[g] + pes[g * T + lane + 32] : -CUDART_INF_F;
+        const float z0 = v0 ? s0[g] + pes[g * NQ * T + lane] : -CUDART_INF_F;
+        const float z1 = v1 ? s1[g] + pes[g * NQ * T + lane + 32] : -CUDART_INF_F;
         const float m = warp_max(fmaxf(z0, z1));
         float e0 = v0 ? expf(z0 - m) : 0.f;
         float e1 = v1 ? expf(z1 - m) : 0.f;
@@ -265,8 +290,8 @@ ltae_fused_fwd_kernel(const Args a) {
         if (v0) ar[lane * GP + g] = e0;
         if (v1) ar[(lane + 32) * GP + g] = e1;
         if (attn != nullptr) {
-          if (v0) attn[g * T + lane] = e0;
-          if (v1) attn[g * T + lane + 32] = e1;
+          if (v0) attn[g * NQ * T + lane] = e0;
+          if (v1) attn[g * NQ * T + lane + 32] = e1;
         }
       }
     }
@@ -334,54 +359,84 @@ ltae_fused_fwd_kernel(const Args a) {
   }
   __syncthreads();
 
-  // 5. m = relu(o @ W_m + b_m), block-wide over (row, j).
+  // 5. m_q = relu(o @ W_m + b_m), block-wide over (row, j). The next
+  //    query's step 4 writes o only after the barrier that ends its step 3.
   for (int i = threadIdx.x; i < R * DOUT; i += blockDim.x) {
     const int r = i / DOUT, j = i - r * DOUT;
     const float* orow = rows + r * rf + off_o;
     float acc = a.bm[j];
     for (int d = 0; d < D; ++d) acc = fmaf(orow[d], __ldg(a.wm + d * DOUT + j), acc);
-    rows[r * rf + off_v + j] = fmaxf(acc, 0.f);
+    rows[r * rf + off_v + q * DOUT + j] = fmaxf(acc, 0.f);
   }
+  }  // queries
   __syncthreads();
 
-  // 6. out GroupNorm over G groups of d_out/G channels, two-pass, + affine.
-  if (row_ok) {
+  // 6. out GroupNorm over G groups of d_out/G channels, each pooled over
+  //    the nq queries (og * nq values), two-pass, + the shared affine. One
+  //    query keeps its own loop: compiled from the pooled loop below, the
+  //    one-query kernel took 64 registers instead of 78 and ran 4-5 % slower
+  //    at C = 64 (measured).
+  if (QN == 1 && row_ok) {
     Tin* out = static_cast<Tin*>(a.out) + ((size_t)b * N + n) * DOUT;
     for (int j = lane; j < DOUT; j += 32) {
       const int g0 = (j / og) * og;
       float s = 0.f;
       for (int i = 0; i < og; ++i) s += vr[g0 + i];
       const float mu = s / og;
-      float q = 0.f;
+      float ss = 0.f;
       for (int i = 0; i < og; ++i) {
         const float dl = vr[g0 + i] - mu;
-        q = fmaf(dl, dl, q);
+        ss = fmaf(dl, dl, ss);
       }
-      const float y = (vr[j] - mu) * rsqrtf(q / og + a.eps);
+      const float y = (vr[j] - mu) * rsqrtf(ss / og + a.eps);
       Vec<Tin>::store(out + j, fmaf(y, a.osc[j], a.obi[j]));
+    }
+  } else if (row_ok) {
+    Tin* out = static_cast<Tin*>(a.out) + ((size_t)b * N + n) * NQ * DOUT;
+    const float cnt_o = (float)(og * NQ);
+    for (int e = lane; e < NQ * DOUT; e += 32) {
+      const int j = e % DOUT;
+      const int g0 = (j / og) * og;
+      float s = 0.f;
+      for (int qq = 0; qq < NQ; ++qq)
+        for (int i = 0; i < og; ++i) s += vr[qq * DOUT + g0 + i];
+      const float mu = s / cnt_o;
+      float ss = 0.f;
+      for (int qq = 0; qq < NQ; ++qq)
+        for (int i = 0; i < og; ++i) {
+          const float dl = vr[qq * DOUT + g0 + i] - mu;
+          ss = fmaf(dl, dl, ss);
+        }
+      const float y = (vr[e] - mu) * rsqrtf(ss / cnt_o + a.eps);
+      Vec<Tin>::store(out + e, fmaf(y, a.osc[j], a.obi[j]));
     }
   }
 }
 
-template <typename Tin, int KC>
+template <typename Tin, int KC, int QN>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int rf = row_floats(a.T, a.C, a.D, a.G, a.DOUT);
+  const int rf = row_floats(a.T, a.C, a.D, a.G, a.DOUT, a.NQ);
   int rows = kMaxRows;
-  auto bytes = [&](int r) { return (size_t)(a.C * a.G + r * rf) * sizeof(float); };
+  auto bytes = [&](int r) { return (size_t)(a.C * a.G * a.NQ + r * rf) * sizeof(float); };
   while (rows > 1 && bytes(rows) > kSmemLimit) --rows;
   if (bytes(rows) > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      ltae_fused_fwd_kernel<Tin, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ltae_fused_fwd_kernel<Tin, KC, QN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes(rows));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + rows - 1) / rows, a.B);
-  ltae_fused_fwd_kernel<Tin, KC><<<grid, 32 * rows, bytes(rows), stream>>>(a);
+  ltae_fused_fwd_kernel<Tin, KC, QN><<<grid, 32 * rows, bytes(rows), stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename Tin, int KC>
+cudaError_t launch_q(const Args& a, cudaStream_t stream) {
+  return a.NQ == 1 ? launch<Tin, KC, 1>(a, stream) : launch<Tin, KC, 0>(a, stream);
 }
 
 template <typename Tin>
 cudaError_t launch_c(const Args& a, cudaStream_t stream) {
-  return a.C <= 64 ? launch<Tin, 2>(a, stream) : launch<Tin, 4>(a, stream);
+  return a.C <= 64 ? launch_q<Tin, 2>(a, stream) : launch_q<Tin, 4>(a, stream);
 }
 
 }  // namespace
@@ -393,9 +448,9 @@ extern "C" int ltae_fused_fwd(
     const void* bin, const void* ws, const void* pes, const void* wm,
     const void* bm, const void* osc, const void* obi, const void* tsc,
     const void* tsh, void* out, void* attn, int B, int T, int N, int C, int D,
-    int G, int DOUT, float eps, void* stream) {
+    int G, int DOUT, int NQ, float eps, void* stream) {
   if (B < 1 || N < 1 || T < 1 || T > kMaxT || C < 8 || C > kMaxC || C % 8 ||
-      G < 1 || G > kMaxG || C % G || D % G || DOUT % G ||
+      G < 1 || G > kMaxG || C % G || D % G || DOUT % G || NQ < 1 || NQ > kMaxQ ||
       (tsc == nullptr) != (tsh == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -413,7 +468,7 @@ extern "C" int ltae_fused_fwd(
   a.tsh = static_cast<const float*>(tsh);
   a.out = out;
   a.attn = static_cast<float*>(attn);
-  a.B = B; a.T = T; a.N = N; a.C = C; a.D = D; a.G = G; a.DOUT = DOUT;
+  a.B = B; a.T = T; a.N = N; a.C = C; a.D = D; a.G = G; a.DOUT = DOUT; a.NQ = NQ;
   a.eps = eps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(x_is_bf16 ? launch_c<__nv_bfloat16>(a, s) : launch_c<float>(a, s));

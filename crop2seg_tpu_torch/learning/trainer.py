@@ -59,6 +59,16 @@ def _weight(cfg: StepConfig, dev: torch.device) -> torch.Tensor | None:
     return torch.tensor(cfg.class_weights, dtype=torch.float32, device=dev)
 
 
+def _logits(model: torch.nn.Module, b: Mapping, **kw) -> torch.Tensor:
+    out = model(b["x"], b["dates"], b["pad_mask"], **kw)
+    if isinstance(out, tuple):
+        raise ValueError(
+            "the model returns a tuple (a boundary head, or maps or attention "
+            "beside the logits): the boundary loss is not ported yet "
+            "(ROADMAP.md); build the model without add_boundary_loss")
+    return out
+
+
 def _autocast(dev: torch.device, dtype: torch.dtype | None):
     """The forward's compute dtype: autocast to ``dtype`` (bf16), or fp32."""
     return torch.autocast(dev.type, dtype=dtype,
@@ -89,7 +99,7 @@ def make_train_step(model: torch.nn.Module, cfg: StepConfig,
         b = _to(batch, dev)
         optimizer.zero_grad(set_to_none=True)
         with _autocast(dev, dtype):
-            logits = model(b["x"], b["dates"], b["pad_mask"], generator=generator)
+            logits = _logits(model, b, generator=generator)
         aux = _metrics(cfg, logits.float(), b["y"], weight)
         aux["loss"].backward()
         optimizer.step()
@@ -113,7 +123,7 @@ def make_eval_step(model: torch.nn.Module, cfg: StepConfig,
         b = _to(batch, dev)
         with torch.inference_mode():
             with _autocast(dev, dtype):
-                logits = model(b["x"], b["dates"], b["pad_mask"])
+                logits = _logits(model, b)
             return _metrics(cfg, logits.float(), b["y"], weight)
 
     return step

@@ -35,12 +35,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def get_model(config: Mapping[str, Any] | Any, device=None,
               generator: torch.Generator | None = None) -> nn.Module:
-    """Build the eval model named by ``config['model']`` (a dict or namespace
+    """Build the model named by ``config['model']`` (a dict or namespace
     with the reference train.py flag names) on ``device`` (default: the CUDA
-    card). ``generator`` draws the weights (default: PyTorch's global RNG).
-    ``use_pallas`` is accepted for config parity: on the card the fused kernel
-    is the only eval path. ``remat`` is a training option, accepted and
-    ignored (U-TAE training is not ported yet)."""
+    card), in eval mode. ``generator`` draws the weights (default: PyTorch's
+    global RNG). ``use_pallas`` is accepted for config parity: on the card the
+    fused kernel is the only eval path. U-TAE takes ``remat`` and
+    ``remat_policy``, which act in training: "conv_out" by default (save each
+    convolution's output, recompute the norm and ReLU tails, as
+    crop2seg_tpu/models/factory.py:8-18 picks) or "full"; the model raises
+    on any other string. Both models take ``num_queries=1`` only; the
+    ``LTAE`` module takes more."""
     cfg = config if isinstance(config, Mapping) else vars(config)
     name = cfg["model"]
     if name not in ("utae", "timeunet", "timeunet_v1"):
@@ -76,7 +80,8 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
         model = UTAE(agg_mode=cfg.get("agg_mode", "att_group"),
                      use_mbconv=cfg.get("use_mbconv", False),
                      add_boundary_loss=cfg.get("add_boundary_loss", False),
-                     remat=cfg.get("remat", False), **common)
+                     remat=cfg.get("remat", False),
+                     remat_policy=cfg.get("remat_policy", "conv_out"), **common)
     else:
         from crop2seg_tpu_torch.models.timeunet import TimeUNet
         model = TimeUNet(**common)

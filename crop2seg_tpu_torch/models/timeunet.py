@@ -46,6 +46,11 @@ class TimeUNet(nn.Module):
                  num_queries: int = 1, use_doy: bool = False,
                  add_linear: bool = False, defer_tail: bool | None = None):
         super().__init__()
+        if num_queries != 1:
+            raise ValueError(
+                "TimeUNet takes num_queries=1 only: with more queries the JAX "
+                "TimeUNet fails too (its U-Net cannot take the (B, nq, H, W, C) "
+                "L-TAE output); the LTAE module alone takes num_queries > 1")
         enc_w, dec_w = tuple(encoder_widths), tuple(decoder_widths)
         n = len(enc_w)
         self.pad_value = pad_value

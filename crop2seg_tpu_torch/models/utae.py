@@ -1,4 +1,4 @@
-"""U-TAE, eval (port of crop2seg_tpu/models/utae.py:30-181).
+"""U-TAE (port of crop2seg_tpu/models/utae.py:30-181).
 
     x (B,T,H,W,C) --shared in_conv--> f0 --shared down blocks--> f3 (T kept)
     f3 --L-TAE--> bottleneck (B,h,w,dec_w[-1]) + attention (B,h,w,head,T)
@@ -13,20 +13,69 @@ is deferred on this path. Every tensor is channels-last; pad frames of each
 shared block's output hold ``pad_value``, and every cross-T consumer masks
 them.
 
-Training is not ported yet (ROADMAP.md item 10): the ``remat*`` options are
-accepted and ignored, and a module in training mode raises.
+In training mode (``model.train()``) the L-TAE takes its plain path with the
+attention out, as the JAX U-TAE does: attention dropout after the softmax,
+and the skips aggregate the dropped attention. No kernel runs there, in JAX
+either (its kernel pair serves only a one-query L-TAE whose attention is not
+consumed). Every BatchNorm (the up blocks, the heads, and the encoder with
+``encoder_norm="batch"``) uses batch statistics and updates its running ones.
+
+``remat`` checkpoints activations as the JAX ``nn.remat`` does: in_conv
+always, the down blocks with ``remat_down``, the up blocks and the heads with
+``remat_decoder``. ``remat_policy`` None or ``"full"`` recomputes each block
+whole in the backward pass; ``"conv_out"`` saves every convolution's output
+and recomputes only the norm and ReLU tails. Recompute leaves BatchNorm's
+running statistics alone, so gradients and statistics do not depend on the
+remat settings.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from crop2seg_tpu_torch.nn.aggregator import temporal_aggregate
-from crop2seg_tpu_torch.nn.layers import ConvBlock, DownConvBlock, UpConvBlock
+from crop2seg_tpu_torch.nn.layers import (
+    ConvBlock, DownConvBlock, UpConvBlock, frozen_running_stats)
 from crop2seg_tpu_torch.nn.ltae import LTAE
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
+
+REMAT_POLICIES = (None, "full", "conv_out")
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """``conv_out``: keep what each convolution (and transposed convolution)
+    returns, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.convolution.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _recompute(ctx):
+    with ctx, frozen_running_stats():
+        yield
+
+
+def _contexts(policy):
+    fwd, rec = ((contextlib.nullcontext(), contextlib.nullcontext())
+                if policy != "conv_out"
+                else create_selective_checkpoint_contexts(_save_conv_outputs))
+    return fwd, _recompute(rec)
+
+
+def remat(block, policy=None):
+    """``block`` under activation checkpointing (``policy``: None or "full",
+    or "conv_out")."""
+    context_fn = functools.partial(_contexts, policy)
+
+    def run(*args):
+        return checkpoint(block, *args, use_reentrant=False, context_fn=context_fn)
+    return run
 
 
 class UTAE(nn.Module):
@@ -50,6 +99,18 @@ class UTAE(nn.Module):
             raise NotImplementedError(
                 "use_mbconv, conv_type != '2d' and add_squeeze_excit are not "
                 "ported yet (ROADMAP.md, open items)")
+        if num_queries != 1:
+            raise ValueError(
+                "U-TAE takes num_queries=1 only: with more queries the JAX "
+                "U-TAE fails too (its aggregator cannot take the (B, h, w, "
+                "head, nq, T) attention); the LTAE module alone takes "
+                "num_queries > 1")
+        if remat_policy not in REMAT_POLICIES:
+            # a typo would silently change what is recomputed
+            raise ValueError(f"unknown remat_policy {remat_policy!r}: expected "
+                             "None, 'full' or 'conv_out'")
+        self.remat, self.remat_policy = remat, remat_policy
+        self.remat_down, self.remat_decoder = remat_down, remat_decoder
         enc_w, dec_w = tuple(encoder_widths), tuple(decoder_widths)
         n = len(enc_w)
         self.agg_mode, self.pad_value = agg_mode, pad_value
@@ -85,17 +146,21 @@ class UTAE(nn.Module):
         (B, H, W, 2) logits; ``return_att`` adds the attention (B, h, w,
         head, T), ``return_maps`` the decoder maps; ``encoder`` returns
         (decoder output, maps) before the head. ``fused``: None picks the
-        kernel for a CUDA input and the plain L-TAE for a CPU input;
-        True/False force one. ``generator`` is passed to the L-TAE."""
-        if self.training:
-            raise NotImplementedError(
-                "U-TAE training is not ported yet (ROADMAP.md item 10)")
+        kernel for a CUDA input and the plain L-TAE for a CPU input in eval
+        mode; True/False force one. ``generator`` (training) draws the
+        L-TAE's dropout masks."""
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
-        feature_maps = [temporally_shared(self.in_conv, x, pad_mask, self.pad_value)]
+        on = self.remat and self.training and torch.is_grad_enabled()
+
+        def wrap(block, enabled=True):
+            return remat(block, self.remat_policy) if on and enabled else block
+        feature_maps = [temporally_shared(wrap(self.in_conv), x, pad_mask,
+                                          self.pad_value)]
         for down in self.down_blocks:
-            feature_maps.append(temporally_shared(down, feature_maps[-1], pad_mask,
-                                                  self.pad_value))
+            feature_maps.append(temporally_shared(
+                wrap(down, self.remat_down), feature_maps[-1], pad_mask,
+                self.pad_value))
         out, att = self.temporal_encoder(
             feature_maps[-1], batch_positions, pad_mask,
             need_attn=return_att or self.agg_mode != "mean", fused=fused,
@@ -104,13 +169,13 @@ class UTAE(nn.Module):
         for i, up in enumerate(self.up_blocks):
             skip = temporal_aggregate(feature_maps[-(i + 2)], attn=att,
                                       pad_mask=pad_mask, mode=self.agg_mode)
-            out = up(out, skip)
+            out = wrap(up, self.remat_decoder)(out, skip)
             maps.append(out)
         if self.encoder:
             return out, maps
-        heads = (self.out_conv(out),)
+        heads = (wrap(self.out_conv, self.remat_decoder)(out),)
         if self.boundary_conv is not None:
-            heads += (self.boundary_conv(out),)
+            heads += (wrap(self.boundary_conv, self.remat_decoder)(out),)
         if return_att:
             return heads + (att,)
         if self.return_maps:

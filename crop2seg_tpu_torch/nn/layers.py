@@ -7,12 +7,14 @@ format), so cuDNN runs its NHWC kernels and no layout copy is made.
 Normalizations are per-channel affines on the NHWC tensor, with statistics in
 fp32. In training mode BatchNorm normalizes with the batch statistics and
 updates its running ones as flax ``BatchNorm(momentum=0.9)`` does (see
-``batch_norm``); GroupNorm is the same in both modes. Module and parameter
+``batch_norm``), except inside ``frozen_running_stats`` (the recompute of an
+activation-checkpointed block); GroupNorm is the same in both modes. Module and parameter
 names follow the reference's torch modules, so its state dicts load with
 ``load_state_dict``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -84,6 +86,23 @@ def batchnorm_affine(bn: nn.modules.batchnorm._BatchNorm):
     return scale, bn.bias.float() - bn.running_mean.float() * scale
 
 
+_stats_frozen = 0
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Train-mode BatchNorm inside keeps its running statistics as they are.
+    Activation checkpointing runs a block's forward a second time in the
+    backward pass; the JAX package's remat recomputes without a second state
+    update, and so must the port."""
+    global _stats_frozen
+    _stats_frozen += 1
+    try:
+        yield
+    finally:
+        _stats_frozen -= 1
+
+
 def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
     """BatchNorm of a channels-last tensor (statistics over every dim but the
     last). Eval: the running statistics. Training: the batch mean and the
@@ -97,10 +116,11 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Te
     dims = tuple(range(x.dim() - 1))
     mean = xf.mean(dims)
     var = (xf - mean).square().mean(dims)
-    with torch.no_grad():
-        bn.running_mean.lerp_(mean, bn.momentum)
-        bn.running_var.lerp_(var, bn.momentum)
-        bn.num_batches_tracked.add_(1)
+    if not _stats_frozen:
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean, bn.momentum)
+            bn.running_var.lerp_(var, bn.momentum)
+            bn.num_batches_tracked.add_(1)
     scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
     return torch.addcmul(bn.bias.float() - mean * scale, xf, scale).to(x.dtype)
 

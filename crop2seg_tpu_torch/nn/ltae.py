@@ -1,22 +1,29 @@
-"""Masked lightweight temporal attention encoder, one query
-(port of crop2seg_tpu/nn/ltae.py:39-352).
+"""Masked lightweight temporal attention encoder, nq learnable queries per
+head (port of crop2seg_tpu/nn/ltae.py:39-352).
 
 Per pixel row, T steps, C channels:
 
     h   = GroupNorm_{n_head}(x)                       # over (C/G, T) jointly
     h   = W_in h + PE(dates)                          # 1x1 proj C -> d_model
-    A   = softmax_T(q . (W_k h) / sqrt(d_k), -1e6 at pads)
-    o   = head-grouped sum_t A h -> MLP + BN + ReLU -> GroupNorm_{n_head}
+    A_q = softmax_T(q . (W_k h) / sqrt(d_k), -1e6 at pads)   # per query q
+    o_q = head-grouped sum_t A_q h -> MLP + BN + ReLU
+    out = GroupNorm_{n_head} over (nq, d_out/G) per group
 
 The input GroupNorm counts pad frames, as the reference does (its torch
-GroupNorm over (C/G, T) sees the zero pad frames). In eval mode a CUDA tensor
-runs the fused eval kernel (ops/ltae_fused.py) and a CPU tensor the plain
-PyTorch ops below; both return ``(out (B, H, W, d_out), attn (B, H, W, head,
-T))``, the JAX layouts. In training mode the pooling runs through
-``ops/ltae_pool.py`` (its kernel pair on a CUDA tensor), as the JAX
-``LTAE._fused_train`` does, with attention dropout after the softmax and the
-MLP tail in training mode; it returns ``(out, None)``. Both modes take the
-producer's deferred GroupNorm affine (``tail_affine``) on the kernel path.
+GroupNorm over (C/G, T) sees the zero pad frames). Outputs have the JAX
+layouts: out (B, H, W, d_out) and attn (B, H, W, head, T) for one query,
+out (B, nq, H, W, d_out) and attn (B, H, W, head, nq, T) for nq > 1.
+
+Eval mode: a CUDA tensor runs the fused eval kernel (ops/ltae_fused.py), any
+nq; a CPU tensor the plain PyTorch ops below. Training mode, as the JAX
+``LTAE`` routes it: with one query and no attention output the pooling runs
+through ``ops/ltae_pool.py`` (its kernel pair on a CUDA tensor, the JAX
+``_fused_train``) and returns ``(out, None)``; with the attention output or
+nq > 1 the plain ops run, with attention dropout after the softmax, and the
+returned attention is the dropped, rescaled one that weighed the values (U-TAE
+aggregates its skips with it). The MLP tail runs in training mode either way.
+The producer's deferred GroupNorm affine (``tail_affine``) is taken on the
+kernel paths only.
 """
 from __future__ import annotations
 
@@ -46,47 +53,66 @@ def _group_norm_btc(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
     return y.reshape(x.shape).to(x.dtype)
 
 
-def _group_norm_channels(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
-                         bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over channel groups of (..., C), fp32 two-pass."""
-    g = x.float().reshape(x.shape[:-1] + (n_groups, -1))
+def _group_norm_queries(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
+                        bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm of (..., nq, C) over channel groups, each group pooled over
+    the nq queries (torch GroupNorm on (N, C, nq)), fp32 two-pass; the affine
+    is shared across queries."""
+    *lead, nq, c = x.shape
+    g = x.float().reshape(*lead, nq, n_groups, c // n_groups).transpose(-3, -2)
+    g = g.reshape(*lead, n_groups, -1)
     mean = g.mean(dim=-1, keepdim=True)
     var = (g - mean).square().mean(dim=-1, keepdim=True)
-    y = ((g - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = ((g - mean) * torch.rsqrt(var + eps)).reshape(
+        *lead, n_groups, nq, c // n_groups).transpose(-3, -2).reshape(x.shape)
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+def _dropout(x: torch.Tensor, p: float, generator=None) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator`` (flax
+    ``nn.Dropout``: kept values scaled by 1/(1-p))."""
+    if p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep / (1.0 - p)
+
+
 class MaskedLightweightAttention(nn.Module):
-    """Learnable-query masked attention over time, one query.
+    """Learnable-query masked attention over time, ``num_queries`` queries
+    per head (crop2seg_tpu/nn/ltae.py:77-125).
 
     h: (B, T, H, W, d_model) time-major; pad_mask (B, T) True at pads.
-    Returns out (B, H, W, d_model) and attn (B, H, W, head, T).
+    Returns out (B, H, W, nq, d_model), each query's heads concatenated
+    head-major, and attn (B, H, W, head, nq, T). ``attn_dropout`` > 0 drops
+    attention weights after the softmax (masks from ``generator``); the
+    returned attention is then the dropped one that weighed the values.
     """
 
-    def __init__(self, n_head: int, d_k: int, d_model: int):
+    def __init__(self, n_head: int, d_k: int, d_model: int, num_queries: int = 1):
         super().__init__()
         self.n_head, self.d_k = n_head, d_k
-        self.Q = nn.Parameter(torch.empty(n_head, 1, d_k))
+        self.Q = nn.Parameter(torch.empty(n_head, num_queries, d_k))
         self.fc1_k = nn.Linear(d_model, n_head * d_k)
         std = math.sqrt(2.0 / d_k)
         nn.init.normal_(self.Q, std=std)
         nn.init.normal_(self.fc1_k.weight, std=std)
 
-    def forward(self, h: torch.Tensor, pad_mask: torch.Tensor | None = None):
+    def forward(self, h: torch.Tensor, pad_mask: torch.Tensor | None = None,
+                attn_dropout: float = 0.0, generator=None):
         b, t, hh, ww, d = h.shape
         k = self.fc1_k(h).reshape(b, t, hh, ww, self.n_head, self.d_k)
-        scores = torch.einsum("gk,btxygk->bxygt", self.Q[:, 0].to(k.dtype), k)
+        scores = torch.einsum("gqk,btxygk->bxygqt", self.Q.to(k.dtype), k)
         scores = scores.float() / math.sqrt(self.d_k)
         if pad_mask is not None:
-            scores = scores.masked_fill(pad_mask[:, None, None, None, :], -1e6)
-        attn = torch.softmax(scores, dim=-1)
+            scores = scores.masked_fill(pad_mask[:, None, None, None, None, :], -1e6)
+        attn = _dropout(torch.softmax(scores, dim=-1), attn_dropout, generator)
         v = h.reshape(b, t, hh, ww, self.n_head, d // self.n_head)
-        out = torch.einsum("bxygt,btxygd->bxygd", attn.to(v.dtype), v)
-        return out.reshape(b, hh, ww, d), attn
+        out = torch.einsum("bxygqt,btxygd->bxyqgd", attn.to(v.dtype), v)
+        return out.reshape(b, hh, ww, -1, d), attn
 
 
 class LTAE(nn.Module):
-    """Lightweight temporal attention encoder, ``num_queries=1``.
+    """Lightweight temporal attention encoder.
 
     Call: x (B, T, H, W, C), batch_positions (B, T) or (B, T, 2), pad_mask
     (B, T) bool. ``fused`` picks the path: None means the kernel for a CUDA
@@ -97,6 +123,7 @@ class LTAE(nn.Module):
     mode ``ltae_pool_tail``, or its plain version when not fused). ``generator``
     (training only) draws the dropout masks; None uses PyTorch's global RNG.
     ``dropout`` is the MLP's rate, ``attn_dropout`` the attention's.
+    ``num_queries`` > 1 adds a query axis to both outputs (module docstring).
     """
 
     def __init__(self, in_channels: int = 128, n_head: int = 16, d_k: int = 4,
@@ -107,12 +134,10 @@ class LTAE(nn.Module):
                  num_queries: int = 1, add_linear: bool = False,
                  attn_dropout: float = 0.1):
         super().__init__()
-        if num_queries != 1:
-            raise NotImplementedError(
-                "num_queries > 1 is not ported yet (ROADMAP.md, open items)")
         if d_model is None or mlp[0] != d_model:
             raise ValueError("the port needs d_model set and mlp[0] == d_model")
         self.n_head, self.d_k, self.d_model = n_head, d_k, d_model
+        self.num_queries = num_queries
         self.attn_dropout = attn_dropout
         self.use_abs_rel_enc = use_abs_rel_enc
         self.in_norm = nn.GroupNorm(n_head, in_channels, eps=1e-5)
@@ -128,7 +153,8 @@ class LTAE(nn.Module):
             if use_abs_rel_enc:
                 self.positional_encoder_abs = AbsolutePositionalEncoder(
                     d_model // n_head, repeat=n_head)
-        self.attention_head = MaskedLightweightAttention(n_head, d_k, d_model)
+        self.attention_head = MaskedLightweightAttention(n_head, d_k, d_model,
+                                                         num_queries)
         # mlp.2 is the BN, as in the reference state dict; index 1 holds the
         # dropout rate only: _mlp_tail applies it after the ReLU, the JAX order
         self.mlp = nn.Sequential(nn.Linear(mlp[0], mlp[1]), nn.Dropout(dropout),
@@ -144,25 +170,37 @@ class LTAE(nn.Module):
         return self.positional_encoder(bp)
 
     def _mlp_tail(self, o: torch.Tensor, generator=None) -> torch.Tensor:
-        """MLP -> BN -> ReLU -> Dropout -> out GroupNorm on (..., d_model),
-        the order of crop2seg_tpu/nn/ltae.py:340-352 (BN and dropout in
-        training mode only when the module trains)."""
+        """MLP -> BN -> ReLU -> Dropout -> out GroupNorm on (..., nq,
+        d_model), the order of crop2seg_tpu/nn/ltae.py:340-352 (BN and
+        dropout in training mode only when the module trains)."""
         lin, drop, bn, _ = self.mlp
         m = torch.relu(batch_norm(lin(o), bn))
-        if self.training and drop.p > 0.0:
-            keep = torch.rand(m.shape, generator=generator, device=m.device) >= drop.p
-            m = m * keep / (1.0 - drop.p)
-        return _group_norm_channels(m, self.n_head, self.out_norm.weight,
-                                    self.out_norm.bias, self.out_norm.eps)
+        if self.training:
+            m = _dropout(m, drop.p, generator)
+        return _group_norm_queries(m, self.n_head, self.out_norm.weight,
+                                   self.out_norm.bias, self.out_norm.eps)
 
-    def _plain(self, x, batch_positions, pad_mask):
+    def _with_query_axes(self, out, attn):
+        """(B, H, W, nq, d) and (B, H, W, G, nq, T) -> the JAX ranks: the
+        query axes dropped for one query, out as (B, nq, H, W, d) else."""
+        if self.num_queries == 1:
+            return out[:, :, :, 0], None if attn is None else attn[..., 0, :]
+        return out.permute(0, 3, 1, 2, 4), attn
+
+    def _plain(self, x, batch_positions, pad_mask, generator=None):
+        """The plain ops in either mode (crop2seg_tpu/nn/ltae.py:486-492); in
+        training mode with attention and MLP dropout. PE is taken in fp32
+        with autocast off."""
         h = _group_norm_btc(x, self.n_head, self.in_norm.weight,
                             self.in_norm.bias, self.in_norm.eps)
         h = F.linear(h, self.inconv.weight[:, :, 0], self.inconv.bias)
         if self.positional_encoder is not None:
-            h = h + self.pe(batch_positions)[:, :, None, None, :].to(h.dtype)
-        out, attn = self.attention_head(h, pad_mask)
-        return self._mlp_tail(out), attn
+            with torch.autocast(x.device.type, enabled=False):
+                pe = self.pe(batch_positions)
+            h = h + pe[:, :, None, None, :].to(h.dtype)
+        out, attn = self.attention_head(
+            h, pad_mask, self.attn_dropout if self.training else 0.0, generator)
+        return self._with_query_axes(self._mlp_tail(out, generator), attn)
 
     def _fused(self, x, batch_positions, pad_mask, need_attn, tail_affine):
         from crop2seg_tpu_torch.ops.ltae_fused import (
@@ -178,14 +216,16 @@ class LTAE(nn.Module):
             x.reshape(b, t, hh * ww, c), pe, pad_mask, params,
             n_head=self.n_head, d_k=self.d_k, need_attn=need_attn,
             tail_affine=tail_affine)
-        return (out.reshape(b, hh, ww, -1),
-                None if attn is None else attn.reshape(b, hh, ww, self.n_head, t))
+        nq = self.num_queries
+        return self._with_query_axes(
+            out.reshape(b, hh, ww, nq, -1),
+            None if attn is None else attn.reshape(b, hh, ww, self.n_head, nq, t))
 
     def pool_params(self):
         """``(win_f, bin_f, u, cs)`` of ``ops/ltae_pool.py`` from the raw
         parameters (crop2seg_tpu/nn/ltae.py:301-311): the input GroupNorm's
-        affine folded into the projection, the query into the keys. Plain
-        torch ops, so autograd reaches the parameters through them."""
+        affine folded into the projection, the (one) query into the keys.
+        Plain torch ops, so autograd reaches the parameters through them."""
         g, dk, d = self.n_head, self.d_k, self.d_model
         win = self.inconv.weight[:, :, 0].t()
         win_f = win * self.in_norm.weight[:, None]
@@ -200,9 +240,10 @@ class LTAE(nn.Module):
 
     def _train(self, x, batch_positions, pad_mask, fused, generator,
                tail_affine):
-        """Training path (crop2seg_tpu/nn/ltae.py:279-338): ``ltae_pool``, or
-        ``ltae_pool_tail`` with the deferred tail. PE and the folds are taken
-        in fp32 with autocast off, as the JAX package takes them from its fp32
+        """Training path without the attention output, one query
+        (crop2seg_tpu/nn/ltae.py:279-338): ``ltae_pool``, or ``ltae_pool_tail``
+        with the deferred tail. PE and the folds are taken in fp32 with
+        autocast off, as the JAX package takes them from its fp32
         parameters."""
         b, t, hh, ww, c = x.shape
         with torch.autocast(x.device.type, enabled=False):
@@ -224,7 +265,8 @@ class LTAE(nn.Module):
         else:
             pool = ltae_pool_tail if fused else ltae_pool_tail_reference
             o = pool(rows, *tail_affine, pe, pad_mask, *params, seed, **kw)
-        return self._mlp_tail(o.reshape(b, hh, ww, self.d_model), generator), None
+        out = self._mlp_tail(o.reshape(b, hh, ww, 1, self.d_model), generator)
+        return out[:, :, :, 0], None
 
     def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,
                 pad_mask: torch.Tensor | None = None, *, need_attn: bool = True,
@@ -232,18 +274,15 @@ class LTAE(nn.Module):
                 generator: torch.Generator | None = None):
         if fused is None:
             fused = x.is_cuda
-        if self.training:
-            if need_attn:
-                raise NotImplementedError(
-                    "the training path returns no attention masks: pass "
-                    "need_attn=False (attention output in training is not "
-                    "ported yet, ROADMAP.md)")
+        if self.training and not need_attn and self.num_queries == 1:
             return self._train(x, batch_positions, pad_mask, fused, generator,
                                tail_affine)
-        if fused:
+        if fused and not self.training:
             return self._fused(x, batch_positions, pad_mask, need_attn,
                                tail_affine)
         if tail_affine is not None:
-            raise ValueError("tail_affine needs the fused path")
-        out, attn = self._plain(x, batch_positions, pad_mask)
+            raise ValueError("tail_affine needs a kernel path: eval with "
+                             "fused, or training without the attention "
+                             "output and with one query")
+        out, attn = self._plain(x, batch_positions, pad_mask, generator)
         return out, (attn if need_attn else None)

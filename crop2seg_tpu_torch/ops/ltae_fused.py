@@ -1,16 +1,20 @@
 """Fused masked L-TAE eval forward: CUDA C++ kernel for Hopper + plain version
 (port of crop2seg_tpu/ops/ltae_pallas.py::ltae_fused_forward).
 
-Per pixel row over T steps (nq = 1):
+Per pixel row over T steps, for each of nq learnable queries per head:
 
     [max(x*sc + sh, 0)] -> GroupNorm_G over (T, C/G) -> 1x1 proj C->D + PE
-    -> masked one-query softmax over T -> head-grouped weighted sum
-    -> MLP (eval BN folded) + ReLU -> GroupNorm_G -> affine
+    -> masked softmax over T per (head, query) -> head-grouped weighted sum
+    -> MLP (eval BN folded) + ReLU per query
+    -> GroupNorm_G pooling each group's channels over all nq queries -> affine
 
 ``ltae_fused_forward`` does the offline folds in fp32 and launches the kernel
 of ``csrc/ltae_fused_fwd.cu`` on a CUDA tensor; on a CPU tensor it calls
 ``ltae_fused_forward_reference``, the plain PyTorch version that materializes
 the projected sequence h. ``ltae_fused_forward.launches`` counts launches.
+With nq = 1 (q of shape (G, d_k) or (G, 1, d_k)) out is (B, N, d_out) and
+attn (B, N, G, T); with nq > 1 they gain a query axis, (B, N, nq, d_out) and
+(B, N, G, nq, T), the JAX package's ranks.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from crop2seg_tpu_torch.ops._build import load_library
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
 MAX_C = 128         # lanes own channels c + 32k, k < 4
 MAX_HEADS = 16      # per-head accumulators live in registers
+MAX_QUERIES = 8     # queries per head: a row's MLP outputs of all queries
+                    # stay in shared memory for the out-GroupNorm
 
 
 def fold_batchnorm(wm, bm, bn_scale, bn_bias, bn_mean, bn_var, eps: float = 1e-5):
@@ -58,13 +64,10 @@ def params_from_ltae_variables(sd: Mapping[str, torch.Tensor],
 
 
 def _query(params, n_head: int) -> torch.Tensor:
+    """The learnable queries as (G, nq, d_k) fp32; q (G, d_k) is nq = 1."""
     q = params["q"]
-    if q.dim() == 3:
-        if q.shape[1] != 1:
-            raise NotImplementedError(
-                "num_queries > 1 is not ported to the fused kernel yet "
-                "(ROADMAP.md, open items)")
-        q = q[:, 0]
+    if q.dim() == 2:
+        q = q[:, None]
     if q.shape[0] != n_head:
         raise ValueError(f"q has {q.shape[0]} heads, expected {n_head}")
     return q.float()
@@ -76,8 +79,11 @@ def ltae_fused_forward_reference(x, pe, pad_mask, params, *, n_head: int = 16,
                                  tail_affine: Optional[tuple] = None):
     """Plain fp32 PyTorch version of the kernel, on the same arguments.
 
-    x (B, T, N, C), pe (B, T, D), pad_mask (B, T) bool. Returns out
-    (B, N, d_out) in x's dtype and attn (B, N, G, T) fp32 or None."""
+    x (B, T, N, C), pe (B, T, D), pad_mask (B, T) bool. Returns out in x's
+    dtype and attn fp32 or None: (B, N, d_out) and (B, N, G, T) for one query,
+    (B, N, nq, d_out) and (B, N, G, nq, T) for nq > 1. Query q of head g
+    weighs head g's values; the out GroupNorm pools group g's channels over
+    all queries, with the affine shared across queries."""
     b, t, n, c = x.shape
     g = n_head
     xf = x.float()
@@ -92,31 +98,46 @@ def ltae_fused_forward_reference(x, pe, pad_mask, params, *, n_head: int = 16,
     h = xn @ params["win"].float() + params["bin"].float() + pe.float()[:, :, None, :]
     d = h.shape[-1]
     k = (h @ params["wk"].float() + params["bk"].float()).reshape(b, t, n, g, d_k)
-    scores = torch.einsum("btngk,gk->bngt", k, _query(params, g)) / math.sqrt(d_k)
-    scores = scores.masked_fill(pad_mask.to(torch.bool)[:, None, None, :], -1e6)
-    attn = torch.softmax(scores, dim=-1)                          # (B, N, G, T)
-    o = torch.einsum("bngt,btngv->bngv", attn,
-                     h.reshape(b, t, n, g, d // g)).reshape(b, n, d)
-    m = torch.relu(o @ params["wm_folded"].float() + params["bm_folded"].float())
-    mg = m.reshape(b, n, g, -1)
+    hv = h.reshape(b, t, n, g, d // g)
+    q = _query(params, g)
+    nq = q.shape[1]
+    ms, attns = [], []
+    for qi in range(nq):                     # the kernel's loop over queries
+        scores = torch.einsum("btngk,gk->bngt", k, q[:, qi]) / math.sqrt(d_k)
+        scores = scores.masked_fill(pad_mask.to(torch.bool)[:, None, None, :], -1e6)
+        attn = torch.softmax(scores, dim=-1)                      # (B, N, G, T)
+        o = torch.einsum("bngt,btngv->bngv", attn, hv).reshape(b, n, d)
+        ms.append(torch.relu(o @ params["wm_folded"].float()
+                             + params["bm_folded"].float()))
+        attns.append(attn)
+    m = torch.stack(ms, dim=2)                                    # (B, N, nq, d_out)
+    d_out = m.shape[-1]
+    mg = m.reshape(b, n, nq, g, d_out // g).transpose(2, 3).reshape(b, n, g, -1)
     mmean = mg.mean(dim=-1, keepdim=True)
     mvar = (mg - mmean).square().mean(dim=-1, keepdim=True)
-    out = ((mg - mmean) * torch.rsqrt(mvar + eps)).reshape(m.shape)
+    out = ((mg - mmean) * torch.rsqrt(mvar + eps)).reshape(
+        b, n, g, nq, d_out // g).transpose(2, 3).reshape(b, n, nq, d_out)
     out = out * params["out_scale"].float() + params["out_bias"].float()
+    attn = torch.stack(attns, dim=3)                              # (B, N, G, nq, T)
+    if nq == 1:
+        out, attn = out[:, :, 0], attn[:, :, :, 0]
     return out.to(x.dtype), (attn if need_attn else None)
 
 
 def _fold(pe, pad_mask, params, n_head: int, d_k: int):
-    """The offline folds, fp32: in-GN affine into W_in, the query into the key
-    projection (U = W_k q / sqrt(d_k)), U through W_in (Ws = W_in U) and
-    through bias + PE (pes = (b_in + pe) U + cs, -1e6 at pads)."""
+    """The offline folds, fp32: in-GN affine into W_in, the queries into the
+    key projection (U = W_k q / sqrt(d_k), one column per (head, query),
+    head-major: column g*nq + q), U through W_in (Ws = W_in U) and through
+    bias + PE (pes = (b_in + pe) U + cs, -1e6 at pads)."""
     f = {k: v.float() for k, v in params.items()}
     d = f["win"].shape[1]
     win = f["win"] * f["in_scale"][:, None]
     bin_ = f["bin"] + f["in_bias"] @ f["win"]
     q = _query(params, n_head)
-    u = torch.einsum("dgk,gk->dg", f["wk"].reshape(d, n_head, d_k), q) / math.sqrt(d_k)
-    cs = torch.einsum("gk,gk->g", f["bk"].reshape(n_head, d_k), q) / math.sqrt(d_k)
+    u = (torch.einsum("dgk,gqk->dgq", f["wk"].reshape(d, n_head, d_k), q)
+         / math.sqrt(d_k)).reshape(d, -1)
+    cs = (torch.einsum("gk,gqk->gq", f["bk"].reshape(n_head, d_k), q)
+          / math.sqrt(d_k)).reshape(-1)
     pes = pe.float() @ u + (bin_ @ u + cs)
     pes = pes - 1e6 * pad_mask.float()[:, :, None]
     return {"pe": pe.float(), "win": win, "bin": bin_, "ws": win @ u,
@@ -129,7 +150,7 @@ def _kernel():
     lib = load_library("ltae_fused_fwd")
     fn = lib.ltae_fused_fwd
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci] + [vp] * 13 + [ci] * 7 + [ctypes.c_float, vp]
+    fn.argtypes = [vp, ci] + [vp] * 13 + [ci] * 8 + [ctypes.c_float, vp]
     fn.restype = ci
     return fn
 
@@ -139,15 +160,21 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
                        *, n_head: int = 16, d_k: int = 4, eps: float = 1e-5,
                        need_attn: bool = True,
                        tail_affine: Optional[tuple] = None):
-    """Fused L-TAE eval forward, nq = 1.
+    """Fused L-TAE eval forward, nq <= MAX_QUERIES queries per head.
 
     x: time-major rows (B, T, N, C), fp32 or bf16 (N = H*W, a free reshape of
     (B, T, H, W, C)); pe (B, T, D); pad_mask (B, T) bool; params as
-    ``params_from_ltae_variables`` returns. tail_affine: optional (sc, sh) of
-    (B, T, C), applied as ``max(x*sc + sh, 0)`` on load.
-    Returns (out (B, N, d_out) in x's dtype, attn (B, N, G, T) fp32 or None).
+    ``params_from_ltae_variables`` returns (q (G, nq, d_k)). tail_affine:
+    optional (sc, sh) of (B, T, C), applied as ``max(x*sc + sh, 0)`` on load.
+    Returns (out (B, N, d_out) in x's dtype, attn (B, N, G, T) fp32 or None)
+    for nq = 1; (B, N, nq, d_out) and (B, N, G, nq, T) for nq > 1.
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    More than MAX_QUERIES queries raise on either.
     """
+    nq = _query(params, n_head).shape[1]
+    if nq > MAX_QUERIES:
+        raise ValueError(f"num_queries={nq}: the kernel takes at most "
+                         f"MAX_QUERIES={MAX_QUERIES} queries per head")
     if x.device.type == "cpu":
         return ltae_fused_forward_reference(
             x, pe, pad_mask, params, n_head=n_head, d_k=d_k, eps=eps,
@@ -178,8 +205,8 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
                 raise ValueError(f"tail_affine must be (B, T, C) = {(b, t, c)}")
             f["tsc"], f["tsh"] = tsc, tsh
     f = {k: v.to(x.device).contiguous() for k, v in f.items()}
-    out = torch.empty(b, n, d_out, dtype=x.dtype, device=x.device)
-    attn = (torch.empty(b, n, g, t, dtype=torch.float32, device=x.device)
+    out = torch.empty(b, n, nq, d_out, dtype=x.dtype, device=x.device)
+    attn = (torch.empty(b, n, g, nq, t, dtype=torch.float32, device=x.device)
             if need_attn else None)
 
     def ptr(name):
@@ -193,10 +220,12 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
                 ptr("wm"), ptr("bm"), ptr("osc"), ptr("obi"),
                 ptr("tsc"), ptr("tsh"), out.data_ptr(),
                 None if attn is None else attn.data_ptr(),
-                b, t, n, c, d, g, d_out, eps, stream)
+                b, t, n, c, d, g, d_out, nq, eps, stream)
     if rc != 0:
         raise RuntimeError(f"ltae_fused_fwd kernel launch failed: cudaError {rc}")
     ltae_fused_forward.launches += 1
+    if nq == 1:
+        return out[:, :, 0], (None if attn is None else attn[:, :, :, 0])
     return out, attn
 
 

@@ -1,13 +1,18 @@
 """Where the time of one training step goes in crop2seg_tpu_torch, on one card.
 
-    python3 scripts/profile_train_torch.py [--dtype fp32|bf16] [--untailed]
-                                           [--batch 4] [--steps 3] [--trace out.json]
+    python3 scripts/profile_train_torch.py [--model timeunet|utae]
+                                           [--dtype fp32|bf16] [--untailed]
+                                           [--remat] [--batch 4] [--steps 3]
+                                           [--trace out.json]
 
-Runs make_train_step on TimeUNet_v1 at the factory defaults (seeded random
-weights, 15 classes, class 14 weighted 0, Adam lr 1e-3, dropout live; fp32,
-or bf16 under autocast with ``--dtype bf16``; in_conv's GroupNorm + ReLU
-deferred into the ltae_pool_tail kernels, or with ``--untailed`` applied by
-PyTorch before the untailed pair) with one synthetic batch (T=61,
+Runs make_train_step on TimeUNet_v1 or U-TAE at the factory defaults (seeded
+random weights, 15 classes, class 14 weighted 0, Adam lr 1e-3, dropout live;
+fp32, or bf16 under autocast with ``--dtype bf16``). TimeUNet defers in_conv's
+GroupNorm + ReLU into the ltae_pool_tail kernels, or with ``--untailed``
+applies it in PyTorch before the untailed pair; U-TAE trains on plain ops,
+with ``--remat`` under activation checkpointing (``remat_policy="conv_out"``;
+the JAX bench's U-TAE train cell is ``--model utae --dtype bf16 --batch 16
+--remat``). One synthetic batch (T=61,
 128x128x10, lengths 61/55/43/27 repeated): two warm-up steps, then
 ``--steps`` steps under torch.profiler. Prints the card (nvidia-smi name and
 power limit), the wall time per step, the device's busy share (summed kernel
@@ -33,9 +38,12 @@ from crop2seg_tpu_torch.models.factory import get_model  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("timeunet", "utae"), default="timeunet")
     ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
     ap.add_argument("--untailed", action="store_true",
-                    help="do not defer in_conv's GroupNorm + ReLU into the kernels")
+                    help="TimeUNet: do not defer in_conv's GroupNorm + ReLU into the kernels")
+    ap.add_argument("--remat", action="store_true",
+                    help="U-TAE: activation checkpointing, remat_policy conv_out")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
@@ -61,8 +69,10 @@ def main() -> int:
              "dates": (torch.arange(t, dtype=torch.float32, device=dev) * 5 + 3
                        )[None].expand(b, t).contiguous(),
              "y": torch.randint(0, 15, (b, 128, 128), generator=gen, device=dev)}
-    model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
-    model.defer_tail = False if args.untailed else None
+    model = get_model({"model": args.model, "remat": args.remat},
+                      generator=torch.Generator().manual_seed(0))
+    if args.model == "timeunet":
+        model.defer_tail = False if args.untailed else None
     step = make_train_step(model, StepConfig(num_classes=15,
                                              class_weights=(1.0,) * 14 + (0.0,)),
                            dtype=torch.bfloat16 if args.dtype == "bf16" else None)
@@ -78,8 +88,9 @@ def main() -> int:
         wall = (time.perf_counter() - start) / args.steps
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in events) / args.steps
-    route = "untailed" if args.untailed else "tail"
-    print(f"train step B={b} {args.dtype} {route}: wall {wall * 1e3:.3f} ms per "
+    route = ("untailed" if args.untailed else "tail") if args.model == "timeunet" else (
+        "remat conv_out" if args.remat else "no remat")
+    print(f"{args.model} train step B={b} {args.dtype} {route}: wall {wall * 1e3:.3f} ms per "
           f"step, device busy {busy_us / 1e3:.3f} ms = {busy_us / 1e4 / wall:.1f} "
           f"% of wall")
     print(f"{'ms/step':>10} {'share':>6} {'calls':>6}  kernel")

@@ -35,7 +35,8 @@ ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
 WIDE = dict(c=128, n_head=16, d_model=256, d_out=128, h=4, w=4)
 
 
-def _make_case(c=C, n_head=N_HEAD, d_model=D_MODEL, d_out=D_OUT, h=H, w=W):
+def _make_case(c=C, n_head=N_HEAD, d_model=D_MODEL, d_out=D_OUT, h=H, w=W,
+               num_queries=1):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((B, T, h, w, c)).astype(np.float32)
     pad = np.zeros((B, T), bool)
@@ -43,7 +44,7 @@ def _make_case(c=C, n_head=N_HEAD, d_model=D_MODEL, d_out=D_OUT, h=H, w=W):
     x[pad] = 0.0
     dates = np.tile((np.arange(T) * 7.0 + 20).astype(np.float32), (B, 1))
     m = JLTAE(in_channels=c, n_head=n_head, d_k=D_K, mlp=(d_model, d_out),
-              d_model=d_model)
+              d_model=d_model, num_queries=num_queries)
     v = jax.jit(lambda x: m.init(jax.random.PRNGKey(1), x, dates, pad_mask=pad,
                                  train=False))(x)
     bs = jax.tree_util.tree_map(  # non-trivial BN statistics
@@ -159,12 +160,19 @@ def test_ltae_golden():
                                rtol=5e-4, atol=5e-4)
 
 
-def test_num_queries_above_one_is_queued():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LTAE(in_channels=16, n_head=4, d_model=16, mlp=(16, 8), num_queries=3)
-    params = {"q": torch.zeros(4, 3, 4)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk._query(params, 4)
+@pytest.mark.parametrize("model", ["utae", "timeunet"])
+def test_models_with_num_queries_above_one_raise(model):
+    """The LTAE module takes num_queries > 1 (tests/test_torch_ltae_queries.py);
+    U-TAE and TimeUNet raise at construction, as the JAX models have no path
+    for it either (their forward fails on the query axis)."""
+    from crop2seg_tpu_torch.models.factory import get_model
+
+    cfg = {"model": model, "encoder_widths": [8, 16], "decoder_widths": [8, 16],
+           "out_conv": [8, 3], "n_head": 4, "d_model": 16, "num_queries": 2}
+    with pytest.raises(ValueError, match="num_queries=1 only"):
+        get_model(cfg, device="cpu")
+    m = LTAE(in_channels=16, n_head=4, d_model=16, mlp=(16, 8), num_queries=3)
+    assert m.attention_head.Q.shape == (4, 3, 4)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version(case):

@@ -155,6 +155,46 @@ def test_cuda_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tail", [False, True], ids=["untailed", "tail"])
+@pytest.mark.parametrize("b,t,n,c,d,g,d_out,nq", [(2, 9, 64, 32, 64, 8, 16, 3),
+                                                  (1, 61, 300, 64, 256, 16, 64, 3),
+                                                  (2, 61, 258, 128, 256, 16, 128, 2),
+                                                  (1, 20, 77, 128, 256, 16, 128, 8)])
+def test_cuda_kernel_num_queries_matches_plain_version(dtype, tail, b, t, n, c, d, g,
+                                                       d_out, nq):
+    """The kernel's nq > 1 mode against its plain version on the card: out
+    (B, N, nq, d_out), attention (B, N, G, nq, T), with pads, N not a
+    multiple of the block's rows, up to MAX_QUERIES = 8 queries. Tolerances
+    as the one-query test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    params = _random_params(c, d, g, d_out, gen)
+    params["q"] = torch.randn(g, nq, 4, generator=gen)
+    params = {k: v.to(dev) for k, v in params.items()}
+    x = torch.randn(b, t, n, c, generator=gen).to(dev, dtype)
+    pe = torch.randn(b, t, d, generator=gen).to(dev)
+    pad = torch.zeros(b, t, dtype=torch.bool)
+    pad[0, t - 3:] = True
+    pad = pad.to(dev)
+    valid = (~pad).float()[:, :, None]
+    ts = ((1 + 0.2 * torch.randn(b, t, c, generator=gen)).to(dev) * valid,
+          (0.1 * torch.randn(b, t, c, generator=gen)).to(dev) * valid) if tail else None
+    before = tk.ltae_fused_forward.launches
+    got, attn = tk.ltae_fused_forward(x, pe, pad, params, n_head=g, d_k=4, tail_affine=ts)
+    assert tk.ltae_fused_forward.launches == before + 1
+    want, want_attn = tk.ltae_fused_forward_reference(
+        x.float(), pe, pad, params, n_head=g, d_k=4, tail_affine=ts)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, nq, d_out) and attn.shape == (b, n, g, nq, t)
+    tol = 5e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    torch.testing.assert_close(attn, want_attn, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_rejects_unsupported_widths():
     """C = 160 (past the kernel's 128) raises on the card; it is not sent to
     the plain version."""

@@ -127,8 +127,9 @@ def test_factory_other_models_point_at_roadmap(cfg):
 def test_training_mode_raises_naming_slice_d():
     """Training mode runs (slice D's training step) and is differentiable,
     with the deferred in_conv tail too (ltae_pool_tail, on both the kernel
-    wrapper and the plain version); what its L-TAE still lacks raises and
-    names ROADMAP.md: the attention output."""
+    wrapper and the plain version). The L-TAE's attention output in training
+    takes the plain ops (the JAX route), so the deferred tail, which only the
+    kernel paths apply, raises there."""
     m = TimeUNet(**KW)                        # a new module trains
     out = m(torch.randn(1, 2, 16, 16, 10), torch.zeros(1, 2))
     assert out.shape == (1, 16, 16, 5) and out.requires_grad
@@ -138,8 +139,10 @@ def test_training_mode_raises_naming_slice_d():
         out, attn = te(h, torch.zeros(1, 2), need_attn=False, tail_affine=tail,
                        fused=fused)
         assert out.shape == (1, 4, 4, 16) and out.requires_grad and attn is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te(h, torch.zeros(1, 2))
+    out, attn = te(h, torch.zeros(1, 2))
+    assert attn.shape == (1, 4, 4, 4, 2) and attn.requires_grad
+    with pytest.raises(ValueError, match="tail_affine needs a kernel path"):
+        te(h, torch.zeros(1, 2), tail_affine=tail)
 
 
 def test_converter_inverts_the_jax_package_import():

@@ -169,6 +169,18 @@ def test_factory_builds_utae_at_the_jax_defaults():
 
 
 def test_training_mode_raises_naming_roadmap():
+    """U-TAE trains (tests/test_torch_utae_train.py); what its training still
+    lacks raises and names ROADMAP.md: the boundary head's loss, so
+    make_train_step refuses a model that returns a tuple."""
+    from crop2seg_tpu_torch.learning.trainer import StepConfig, make_train_step
+
     m = UTAE(**UTAE_CFG)                      # a new module trains
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(torch.zeros(1, 2, 16, 16, 10), torch.zeros(1, 2))
+    logits = m(torch.randn(1, 2, 16, 16, 10), torch.zeros(1, 2))
+    assert logits.shape == (1, 16, 16, 5) and logits.requires_grad
+    step = make_train_step(UTAE(**UTAE_CFG, add_boundary_loss=True),
+                           StepConfig(num_classes=5), device="cpu")
+    batch = {"x": np.ones((1, 2, 16, 16, 10), np.float32),
+             "dates": np.zeros((1, 2), np.float32),
+             "pad_mask": np.zeros((1, 2), bool), "y": np.zeros((1, 16, 16), np.int64)}
+    with pytest.raises(ValueError, match="ROADMAP"):
+        step(batch, torch.Generator())
