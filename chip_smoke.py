@@ -16,7 +16,9 @@
    width (B=2, one sample padded to 55): o and all gradients (dx or dz, dpe,
    dW_f, db_f, du, dcs, and dtsc, dtsh in tail mode), at drop_p 0 and 0.1
    with the same seed; then times each variant and its plain version at the
-   train step's B=4.
+   train step's B=4, and checks that two backward calls give the same
+   gradients bit for bit (the backward adds its blocks' sums in a fixed
+   order).
 4. Serving path: TimeUNet_v1 at the factory defaults (15 classes, weights
    drawn from a seeded torch.Generator) through make_tile_predictor on one
    synthetic standardized tile (61, 1098, 1098, 10), length 55, batch 10, in
@@ -121,7 +123,7 @@ STAGE_TOL, ATTN_TOL_STAGES = 1e-4, 1e-5
 TRAIN_B, TRAIN_LENGTHS, N_CLASSES = 4, (61, 55, 43, 27), 15
 # ltae_pool kernels vs plain, as max |err| / max |plain|: fp32 sums of up to
 # B*N*T = 2M terms (the weight, PE and bias gradients) taken in another
-# order, the grid-wide ones by atomics in an order that changes per run
+# order: the grid-wide ones per block's range of rows, then across blocks
 POOL_TOL = 1e-3
 # the bf16 variants against the fp32 plain version on the same bf16-rounded
 # input and a bf16-exact upstream gradient: o and dx are stored in bf16, one
@@ -432,6 +434,12 @@ def phase_pool_kernel(model, dev):
             bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, god, retain_graph=True),
                              iters=iters, warmup=1)
             per[plain] = (fwd_ms, bwd_ms)
+            if not plain:   # the backward's sums are added in a fixed order
+                again = [torch.autograd.grad(o, leaves, god, retain_graph=True)
+                         for _ in range(2)]
+                check(all(torch.equal(p, q) for p, q in zip(*again)),
+                      f"{lp.variant(tail, dtype, 'bwd')}: two calls gave other gradients")
+                del again
             del o, god, leaves
             torch.cuda.empty_cache()
         for i, direction in enumerate(("fwd", "bwd")):
@@ -472,8 +480,8 @@ def train_run(label: str, fresh, batch, cfg, dev, *, dtype=None,
     ``batch``, each path with the pair's launch counts set to 0 just before
     it and read just after: every step must launch the forward and the
     backward of exactly the variant its route and dtype select, once each.
-    Returns the model, the counts, the losses, the warm step ms (steps 2 on)
-    and the peak memory in GiB."""
+    Returns the model, the counts, the losses, the warm step ms (steps 2 on:
+    mean, median) and the peak memory in GiB."""
     model = get_model({"model": "timeunet"}, device=dev)
     model.load_state_dict(fresh)
     model.defer_tail = defer_tail
@@ -501,12 +509,13 @@ def train_run(label: str, fresh, batch, cfg, dev, *, dtype=None,
         check(np.isfinite(losses[-1]), f"{label} step {i + 1}: loss {losses[-1]}")
     launches = dict(lp.ltae_pool.launches)
     check(losses[-1] < losses[0], f"{label}: loss did not fall over {steps} steps: {losses}")
-    warm_ms = float(np.mean(step_ms[1:]))
+    # the median as well: one late warm-up step can move the mean by a third
+    warm_ms, warm_median = float(np.mean(step_ms[1:])), float(np.median(step_ms[1:]))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train step B={TRAIN_B} {label}, warm (steps 2-{steps}): {warm_ms:.3f} ms, "
-          f"{TRAIN_B / warm_ms * 1e3:.2f} samples/s; peak memory {peak:.2f} GiB",
-          flush=True)
-    return model, launches, losses, warm_ms, peak
+    print(f"train step B={TRAIN_B} {label}, warm (steps 2-{steps}): mean {warm_ms:.3f} ms, "
+          f"median {warm_median:.3f} ms, {TRAIN_B / warm_median * 1e3:.2f} samples/s at "
+          f"the median; peak memory {peak:.2f} GiB", flush=True)
+    return model, launches, losses, (warm_ms, warm_median), peak
 
 
 def phase_train(dev):
@@ -532,7 +541,8 @@ def phase_train(dev):
             label, fresh, batch, cfg, dev, dtype=dtype, defer_tail=defer_tail,
             steps=steps)
         launches.update(counts)
-        runs[label] = {"losses": losses, "warm_ms": warm_ms, "peak_gib": peak}
+        runs[label] = {"losses": losses, "warm_ms": warm_ms[0],
+                       "warm_median_ms": warm_ms[1], "peak_gib": peak}
         if label == "tail fp32":
             bn_after = [model.temporal_encoder.mlp[2].running_mean,
                         model.up_blocks[0].up[1].running_var]
@@ -1046,6 +1056,7 @@ def main() -> int:
                 run = runs[f"tail {'fp32' if dtype == torch.float32 else 'bf16'}"]
                 pool[-1].update(train_losses=run["losses"],
                                 train_step_ms=run["warm_ms"],
+                                train_step_median_ms=run["warm_median_ms"],
                                 train_peak_gib=run["peak_gib"])
     ms, plain_ms, b_ms, b_by = utae_t[torch.bfloat16]
     ms32, plain32, b32, b_by32 = utae_t[torch.float32]

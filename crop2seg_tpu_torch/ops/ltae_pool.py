@@ -35,13 +35,17 @@ the caller's autocast state.
 
 The backward kernel never builds h: per row and head it works in C-space
 with ``Z[g] = win_f[:, d in g] @ go[d in g]`` and ``P[g] = sum_t a_d[t, g]
-xhat[t]``, and it sums four row reductions over the whole grid with fp32
-atomics: ``A = sum xhat^T ds`` (C, G), ``F[c, d] = sum P[g(d), c] go[d]``
-(C, D), ``Dsum_b = sum ds`` (B, T, G) and ``E_b[t, d] = sum a_d[t, g(d)]
-go[d]`` (B, T, D); in tail mode also ``dtsc = sum_rows live z`` and ``dtsh =
-sum_rows live`` (B, T, C), with ``live = dxf * 1[z*tsc + tsh > 0]`` and
-``dz = live * tsc``. The six other gradients follow from the four sums in a
-few small products here (``_finish_backward``):
+xhat[t]``, and it sums four row reductions over the whole grid: ``A = sum
+xhat^T ds`` (C, G), ``F[c, d] = sum P[g(d), c] go[d]`` (C, D), ``Dsum_b =
+sum ds`` (B, T, G) and ``E_b[t, d] = sum a_d[t, g(d)] go[d]`` (B, T, D); in
+tail mode also ``dtsc = sum_rows live z`` and ``dtsh = sum_rows live`` (B,
+T, C), with ``live = dxf * 1[z*tsc + tsh > 0]`` and ``dz = live * tsc``.
+Its S persistent blocks per batch item (``blocks_per_item``) each sum a
+contiguous range of rows (``row_ranges``) on chip and write one partial, and
+a second small kernel adds the partials in a fixed order, so the sums are the
+same from run to run; ``ltae_pool.launches`` counts the pair as one backward
+launch. The six other gradients follow from the four sums in a few small
+products here (``_finish_backward``):
 
     dW_f = A u^T + F          du  = W_f^T A + sum_b (bin_f + pe_b)^T Dsum_b
     dpe  = Dsum u^T + E       db_f = sum_{b,t} dpe      dcs = sum Dsum
@@ -59,6 +63,7 @@ from crop2seg_tpu_torch.ops._build import load_library
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
 MAX_C = 64          # lanes own channels c and c + 32
 MAX_HEADS = 16      # per-head accumulators live in registers
+MAX_D = 256         # the backward holds win_f and bin_f + pe in shared memory
 EPS = 1e-5          # the input GroupNorm's epsilon
 _M32 = 0xFFFFFFFF
 
@@ -102,10 +107,11 @@ def _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head, tail=None):
     b, t, n, c = x.shape
     d = win_f.shape[1]
     if not (t <= MAX_T and c <= MAX_C and c % 8 == 0 and n_head <= MAX_HEADS
-            and c % n_head == 0 and d % n_head == 0):
+            and c % n_head == 0 and d % n_head == 0 and d <= MAX_D):
         raise ValueError(
             f"unsupported shape T={t} C={c} G={n_head} D={d}: the kernels take "
-            f"T<={MAX_T}, C<={MAX_C} with C%8==0, G<={MAX_HEADS} dividing C and D")
+            f"T<={MAX_T}, C<={MAX_C} with C%8==0, G<={MAX_HEADS} dividing C and D, "
+            f"D<={MAX_D}")
     want = {"pe": (b, t, d), "pad_mask": (b, t), "win_f": (c, d), "bin_f": (d,),
             "u": (d, n_head), "cs": (1, n_head)}
     got = {"pe": pe, "pad_mask": pad_mask, "win_f": win_f, "bin_f": bin_f,
@@ -163,17 +169,34 @@ def ltae_pool_tail_reference(z, tsc, tsh, pe, pad_mask, win_f, bin_f, u, cs,
 
 @functools.cache
 def _kernels():
+    """The C entries of csrc/ltae_pool.cu with their argument types:
+    (forward, backward, partial-sum floats per backward block)."""
     lib = load_library("ltae_pool")
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    fwd, bwd = lib.ltae_pool_fwd, lib.ltae_pool_bwd
+    fwd, bwd, part = lib.ltae_pool_fwd, lib.ltae_pool_bwd, lib.ltae_pool_bwd_part_floats
     # x, x_is_bf16 | tsc, tsh, bpe, win, ws, pes, o | B T N C D G |
     # seed_mix thresh scale eps stream
     fwd.argtypes = [vp, ci] + [vp] * 7 + [ci] * 6 + [cu, cu, cf, cf, vp]
     # x, x_is_bf16 | tsc, tsh, go, win, ws, pes, bpe, dx, A, F, Dsum, E,
-    # dtsc, dtsh | B T N C D G | ...
-    bwd.argtypes = [vp, ci] + [vp] * 14 + [ci] * 6 + [cu, cu, cf, cf, vp]
-    fwd.restype = bwd.restype = ci
-    return fwd, bwd
+    # dtsc, dtsh, part | S B T N C D G | ...
+    bwd.argtypes = [vp, ci] + [vp] * 15 + [ci] * 7 + [cu, cu, cf, cf, vp]
+    part.argtypes = [ci] * 5
+    fwd.restype = bwd.restype = part.restype = ci
+    return fwd, bwd, part
+
+
+def blocks_per_item(b: int, sm_count: int) -> int:
+    """The backward kernel's blocks per batch item, S: its B * S persistent
+    blocks (one per SM) form a single wave, so S = sm_count // B, and at
+    least 1 (then B > sm_count blocks run in more than one wave)."""
+    return max(1, sm_count // b)
+
+
+def row_ranges(n: int, s: int) -> list:
+    """The rows [start, stop) of each of the S backward blocks of a batch
+    item, in block order, as the kernel splits them: contiguous, sizes
+    differing by at most one, empty when n < s."""
+    return [(i * n // s, (i + 1) * n // s) for i in range(s)]
 
 
 def _folds(pe, pad_mask, win_f, bin_f, u, cs):
@@ -216,7 +239,7 @@ class _LtaePool(torch.autograd.Function):
         with torch.autocast("cuda", enabled=False):
             ws, bpe, pes = _folds(pe, pad_mask, win_f, bin_f, u, cs)
         o = torch.empty(b, n, d, dtype=x.dtype, device=x.device)
-        fwd, _ = _kernels()
+        fwd = _kernels()[0]
         with torch.cuda.device(x.device):
             rc = fwd(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc),
                      _ptr(tsh), bpe.data_ptr(), win_f.data_ptr(), ws.data_ptr(),
@@ -240,18 +263,20 @@ class _LtaePool(torch.autograd.Function):
         go = go.to(x.dtype).contiguous()
         dx = torch.empty_like(x)
         f32 = dict(dtype=torch.float32, device=x.device)
-        acc_a, acc_f = torch.zeros(c, g, **f32), torch.zeros(c, d, **f32)
-        dsum, acc_e = torch.zeros(b, t, g, **f32), torch.zeros(b, t, d, **f32)
-        dtsc, dtsh = ((torch.zeros(b, t, c, **f32), torch.zeros(b, t, c, **f32))
+        acc_a, acc_f = torch.empty(c, g, **f32), torch.empty(c, d, **f32)
+        dsum, acc_e = torch.empty(b, t, g, **f32), torch.empty(b, t, d, **f32)
+        dtsc, dtsh = ((torch.empty(b, t, c, **f32), torch.empty(b, t, c, **f32))
                       if tail else (None, None))
-        _, bwd = _kernels()
+        _, bwd, part_floats = _kernels()
+        s = blocks_per_item(b, torch.cuda.get_device_properties(x.device).multi_processor_count)
+        part = torch.empty(b * s, part_floats(t, c, d, g, int(tail)), **f32)
         with torch.cuda.device(x.device):
             rc = bwd(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc),
                      _ptr(tsh), go.data_ptr(), win_f.data_ptr(), ws.data_ptr(),
                      pes.data_ptr(), bpe.data_ptr(), dx.data_ptr(),
                      acc_a.data_ptr(), acc_f.data_ptr(), dsum.data_ptr(),
-                     acc_e.data_ptr(), _ptr(dtsc), _ptr(dtsh), b, t, n, c, d, g,
-                     *_scalars(ctx.seed, ctx.drop_p), EPS,
+                     acc_e.data_ptr(), _ptr(dtsc), _ptr(dtsh), part.data_ptr(), s,
+                     b, t, n, c, d, g, *_scalars(ctx.seed, ctx.drop_p), EPS,
                      torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ltae_pool_bwd kernel launch failed: cudaError {rc}")

@@ -121,6 +121,27 @@ def test_tail_plain_version_matches_jax_kernel(fn):
         np.testing.assert_allclose(a, np.asarray(w), **TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("n,b,sm_count", [(16384, 4, 132), (5003, 4, 132), (100, 1, 132),
+                                          (7, 2, 132), (301, 200, 132), (1, 1, 1)],
+                         ids=["main-path", "n-not-multiple", "n-below-s", "tiny",
+                              "b-above-sms", "one"])
+def test_backward_row_ranges_cover_every_row_once(n, b, sm_count):
+    """The backward kernel's S persistent blocks per batch item
+    (``blocks_per_item``) form one wave when B <= the SM count, and their row
+    ranges (``row_ranges``, the kernel's split) are contiguous, in order, and
+    hold every row of [0, N) exactly once, with empty ranges when N < S."""
+    s = lp.blocks_per_item(b, sm_count)
+    assert s >= 1 and (b * s <= sm_count if b <= sm_count else s == 1)
+    ranges = lp.row_ranges(n, s)
+    assert len(ranges) == s and ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(lo <= hi for lo, hi in ranges)
+    assert all(a[1] == c[0] for a, c in zip(ranges, ranges[1:]))
+    rows = [i for lo, hi in ranges for i in range(lo, hi)]
+    assert rows == list(range(n))
+    sizes = [hi - lo for lo, hi in ranges]
+    assert max(sizes) - min(sizes) <= 1
+
+
 def test_kernel_tail_backward_formulas_match_autograd():
     """The tail mode of csrc/ltae_pool.cu's backward, written out in float64
     torch ops: from dxf, the gradient at the normalized input, ``live = dxf
@@ -153,8 +174,10 @@ def test_kernel_tail_backward_formulas_match_autograd():
 def test_kernel_backward_formulas_match_autograd():
     """The C-space backward of csrc/ltae_pool.cu, written out in float64
     torch ops (Z, q, p1, ds, P, dxhat, the GroupNorm backward and the four
-    grid sums A, F, Dsum, E), then ops/ltae_pool.py::_finish_backward, equals
-    autograd of the plain version, dropout on. Tolerance 1e-10: float64."""
+    grid sums A, F, Dsum, E, summed per block's row range and then across
+    ranges, S = 5 blocks per batch item with N = 32 rows), then
+    ops/ltae_pool.py::_finish_backward, equals autograd of the plain version,
+    dropout on. Tolerance 1e-10: float64."""
     x, pe, pad, win, bin_, u, cs, tgt = (torch.tensor(a).double()
                                          if a.dtype != bool else torch.tensor(a)
                                          for a in _inputs(3))
@@ -185,10 +208,21 @@ def test_kernel_backward_formulas_match_autograd():
     xhg = xh.reshape(B, T, N, G, C // G)
     dx = (inv * (dxh - dxh.mean((1, 4), keepdim=True)
                  - xhg * (dxh * xhg).mean((1, 4), keepdim=True))).reshape(x.shape)
-    acc_a = torch.einsum("btnc,btng->cg", xh, ds)
-    acc_f = torch.einsum("bngc,bngj->cgj", pool, gog).reshape(C, D)
-    acc_e = torch.einsum("btng,bngj->btgj", ad, gog).reshape(B, T, D)
-    got = (dx,) + lp._finish_backward(acc_a, acc_f, ds.sum(2), acc_e, win, u, bpe)
+    # the four sums as the kernel forms them: over each block's contiguous
+    # range of rows, then the ranges' partial sums in block order
+    parts = []
+    for bb in range(B):
+        for lo, hi in lp.row_ranges(N, 5):
+            r, xs = slice(lo, hi), xh[bb, :, lo:hi]
+            parts.append((bb, torch.einsum("tnc,tng->cg", xs, ds[bb, :, r]),
+                          torch.einsum("ngc,ngj->cgj", pool[bb, r], gog[bb, r]).reshape(C, D),
+                          ds[bb, :, r].sum(1),
+                          torch.einsum("tng,ngj->tgj", ad[bb, :, r], gog[bb, r]).reshape(T, D)))
+    acc_a = sum(p[1] for p in parts)
+    acc_f = sum(p[2] for p in parts)
+    dsum = torch.stack([sum(p[3] for p in parts if p[0] == bb) for bb in range(B)])
+    acc_e = torch.stack([sum(p[4] for p in parts if p[0] == bb) for bb in range(B)])
+    got = (dx,) + lp._finish_backward(acc_a, acc_f, dsum, acc_e, win, u, bpe)
     for name, g_, w_ in zip(NAMES, got, want):
         torch.testing.assert_close(g_, w_, rtol=1e-10, atol=1e-10, msg=name)
 

@@ -251,19 +251,27 @@ def test_cuda_ltae_stages_matches_plain_version(b, t, n, c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
 @pytest.mark.parametrize("b,t,n,c,d,g", [(2, 9, 301, 32, 64, 8),
-                                         (1, 61, 300, 64, 256, 16)])
+                                         (1, 61, 300, 64, 256, 16),
+                                         (4, 61, 5003, 64, 256, 16),
+                                         (1, 61, 100, 64, 256, 16),
+                                         (1, 12, 200, 32, 256, 8)])
 def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
                                                     dtype, tail):
     """The ltae_pool forward and backward kernels, in each variant (x fp32
     or bf16, untailed or tail mode), against the plain version under
     autograd on the card, with pads (tsc = tsh = 0 there), dropout on and off
-    (the same hash mask on both sides), N not a multiple of the blocks' rows:
-    o and all gradients (dtsc and dtsh too in tail mode), as max |err| / max
-    |plain|. fp32 1e-4 (fp32 sums in another order, the grid-wide ones by
-    atomics); bf16 1e-2 against the fp32 plain version on the same
-    bf16-rounded input and upstream gradient (o and dx are stored in bf16, a
-    rounding of at most 2**-8 of each). dcs is zero in exact arithmetic, so
-    it is held against the scale of du (the same ds, weighted by h)."""
+    (the same hash mask on both sides), N not a multiple of the blocks' rows.
+    The backward's persistent blocks (S per batch item) meet several rows
+    each with N not a multiple of S (N = 5003), fewer rows than blocks, so
+    that some blocks have none (N = 100), G < 16 (idle warps), and heads of
+    dv = 32 > 16 channels (two passes over the rows, the last shape). o and
+    all gradients (dtsc and dtsh too in tail mode), as max |err| / max
+    |plain|. fp32 1e-4 (fp32 sums in another order, the grid-wide ones per
+    block and then across blocks); bf16 1e-2 against the fp32 plain version
+    on the same bf16-rounded input and upstream gradient (o and dx are stored
+    in bf16, a rounding of at most 2**-8 of each). dcs is zero in exact
+    arithmetic, so it is held against the scale of du (the same ds, weighted
+    by h)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -303,6 +311,35 @@ def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
         scale = want[names.index("du" if name == "dcs" else name)].abs().max().item()
         err = (got[i] - want[i]).abs().max().item()
         assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [False, True], ids=["untailed", "tail"])
+def test_cuda_ltae_pool_backward_is_reproducible(tail):
+    """The backward kernel adds its blocks' partial sums in a fixed order, so
+    two backward calls on the same inputs give the same gradients bit for
+    bit, the weight gradients too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    b, t, n, c, d, g = 2, 61, 3000, 64, 256, 16
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+    ts = (1 + r(b, t, c, scale=0.2), r(b, t, c, scale=0.1)) if tail else ()
+    leaves = [a.requires_grad_(True) for a in (r(b, t, n, c),) + ts + (
+        r(b, t, d), r(c, d, scale=c ** -0.5), r(d, scale=0.1), r(d, g, scale=0.2),
+        r(1, g, scale=0.1))]
+    pad = torch.zeros(b, t, dtype=torch.bool, device=dev)
+    fn = lp.ltae_pool_tail if tail else lp.ltae_pool
+    o = fn(*leaves[:1 + len(ts)], leaves[1 + len(ts)], pad, *leaves[2 + len(ts):], 3,
+           n_head=g, drop_p=0.1)
+    go = r(b, n, d)
+    first = torch.autograd.grad(o, leaves, go, retain_graph=True)
+    again = torch.autograd.grad(o, leaves, go)
+    for a, w in zip(first, again):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.cuda
