@@ -5,11 +5,12 @@
 1. Builds the kernel sources (csrc/ltae_fused_fwd.cu, csrc/ltae_pool.cu,
    csrc/ltae_stages.cu), one nvcc process each, started together, and prints
    ptxas's registers and spills per kernel instantiation.
-2. Holds the fused eval L-TAE kernel against its plain PyTorch version on the
-   card at full width (T=61, N=128*128, C=64, D=256, G=16, d_out=64, with
-   pads), in fp32 and bf16, with the tail affine and the attention output
-   each on and off, then times both at the serving shape (B=10) beside the
-   kernel's bound.
+2. Holds the fused eval L-TAE kernel (at C <= 64 with one query its
+   row-group kernel, ltae_fused_group_kernel) against its plain PyTorch
+   version on the card at full width (T=61, N=128*128, C=64, D=256, G=16,
+   d_out=64, with pads), in fp32 and bf16, with the tail affine and the
+   attention output each on and off, then times both at the serving shape
+   (B=10) beside the kernel's bound.
 3. Holds the training pooling kernels (ltae_pool forward and backward) in
    each of their four variants (untailed or with the deferred in_conv tail,
    x in fp32 or bf16) against their plain version under autograd at full
@@ -1026,6 +1027,7 @@ def main() -> int:
         "name": "ltae_fused_fwd", "route": "cuda",
         "source": "crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu",
         "replaces": "crop2seg_tpu/ops/ltae_pallas.py:421",
+        "kernel": "ltae_fused_group_kernel<Tin>",
         "launches": launches,
         "max_abs_err": max(v for k, v in errs.items() if k[0] == torch.bfloat16),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1064,6 +1066,7 @@ def main() -> int:
         "name": "ltae_fused_fwd_utae", "route": "cuda",
         "source": "crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu",
         "replaces": "crop2seg_tpu/ops/ltae_pallas.py:421",
+        "kernel": "ltae_fused_fwd_kernel<Tin, 4, 1>",
         "launches": utae_launches,
         "max_abs_err": max(v for k, v in utae_errs.items() if k[0] == torch.bfloat16),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1086,6 +1089,7 @@ def main() -> int:
         "name": f"ltae_fused_fwd_nq{NQ}", "route": "cuda",
         "source": "crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu",
         "replaces": "crop2seg_tpu/ops/ltae_pallas.py:421",
+        "kernel": "ltae_fused_fwd_kernel<Tin, KC, 0>",
         "launches": q_launches,
         "max_abs_err": max(v for k, v in q_errs.items() if k[1] == torch.bfloat16),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,

@@ -19,16 +19,11 @@
 //   out    = GroupNorm_G(m) * osc + obi         group g pools its d_out/G
 //                                               channels over all nq queries
 // The TPU kernel widens the weighted sum to all queries at once (a 0/1
-// broadcast matmul and a block-diagonal W_m); here the row loops over the
-// queries and reuses the a, P and o regions, so registers and shared memory
-// per query stay those of nq = 1; only the MLP outputs of all queries (the
-// out GroupNorm pools them) and Ws grow with nq. The query count is a
-// template parameter QN: 1 compiles the one-query kernel with every index
-// constant (a runtime loop costs it ~28 % at C = 64, measured), 0 reads nq
-// from the arguments.
-// Pooling in C-space is exact algebra (sum_t a = 1), so the projected
-// sequence h (T x D per row, 4x the input) never exists, in registers or in
-// memory: the kernel reads x once and writes out (and attn on request).
+// broadcast matmul and a block-diagonal W_m); here a row loops over the
+// queries. Pooling in C-space is exact algebra (sum_t a = 1), so the
+// projected sequence h (T x D per row, 4x the input) never exists, in
+// registers or in memory: the kernel reads x once and writes out (and attn
+// on request).
 //
 // Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 on the CUDA cores) at the
 // TimeUNet main-path shape B=10, T=61, N=16384, C=64, D=256, G=16, d_out=64:
@@ -36,32 +31,63 @@
 //               written -> 0.39 ms (bf16), 0.78 ms (fp32).
 //   operations: ~0.39 MFLOP per row with the tail affine, ~63 GFLOP per
 //               launch. In fp32 on the CUDA cores that is >= 0.95 ms, so
-//               this design is bound by its operations, not by the bf16
-//               byte bound; reaching the byte bound needs the three
-//               products (scores, P, the MLP) on the tensor cores (wgmma),
-//               which is later work.
-// What the design does about it: x is read from device memory exactly once,
-// with 16-byte loads, into shared memory; every product of the row runs out
-// of shared memory and registers; the per-d projection and the MLP run
-// block-wide so each W_in / pe / W_m element fetched from L2 serves all the
-// block's rows. chip_smoke.py measures the kernel beside this bound.
+//               both kernels below are bound by their operations, not by the
+//               bf16 byte bound; reaching that needs the products (scores,
+//               P, the MLP) on the tensor cores (mma), which is later work.
+// chip_smoke.py measures each launch beside this bound.
 //
-// At the U-TAE bottleneck (B=10, T=61, N=256, C=128, d_out=128, attention
-// out) the work is 0.70 MFLOP per row over 2,560 rows, ~0.03 ms at the fp32
-// peak; there the launch is too small to fill the card for long. With nq
+// Two kernels share the arithmetic above, every product and statistic in
+// fp32 (bf16 only in device memory):
+//
+// ltae_fused_group_kernel<Tin>: C <= 64 and one query (TimeUNet's whole-
+// tile path, ten launches a tile). What held the one-warp-per-row kernel
+// below at 10.7 / 11.6 ms (bf16 / fp32) there was latency with nothing to
+// hide it: one 256-thread block of 8 rows per SM (203 KiB of shared memory),
+// the block's x loaded before any compute and no compute while it loaded,
+// every step a dependent chain of shared-memory or L2 loads (clock64 stamps
+// per step, PERF.md: no step above 24 %). This kernel:
+// - persistent 512-thread blocks, S = SMs / B per batch item
+//   (ops/ltae_fused.py::launch_shape), each walking its contiguous range of
+//   rows (ltae_pool.py::row_ranges) in groups of R = 8 rows, two warps a row;
+// - Ws, pes[b], b_in, b_m and the out affine in shared memory once per
+//   block; the next group's x (16-byte cp.async) comes in while the group's
+//   projection, MLP and out GroupNorm run, into the x tile, free since P;
+//   in tail mode tsc[b], tsh[b] come in the same way after the MLP;
+// - GroupNorm: thread (row, channel quad, quarter of T) holds its 64 values
+//   in registers; scores: warp (row, half of the heads), lanes t and t + 32,
+//   so the softmax stays in the warp; P: 4 x 4 (head, channel) register
+//   tiles; projection + PE term: thread (d, half of the sum) over the
+//   group's 8 rows; MLP: thread (j, eighth of D) over the 8 rows, the
+//   eighths added in order. So each W_in, pe[b] and W_m element read from
+//   L2 serves 8 rows from a register, and no weight is read once per row.
+// - the x tile's channel quads are swizzled by t (xs_quad), so that every
+//   16-byte shared load of it is free of bank conflicts.
+// Limits: D <= 256 (a thread per (d, half)), d_out <= 256 (the group's m in
+// shared memory): 221.75 KiB at the TimeUNet shape, at most 224 KiB of the
+// 227 (T = C = 64, D = d_out = 256). On an NVIDIA H100 80GB HBM3 at 700 W:
+// 4.97 ms bf16, 5.31 ms fp32 per B = 10 launch (PERF.md, section 6), 46 %
+// of the one-warp-per-row kernel's time, 12.8x / 5.6x the bound; 128
+// registers with ~140 bytes of spills. scripts/split_ltae_fused_steps.py
+// splits its time by step.
+//
+// ltae_fused_fwd_kernel<Tin, KC, QN>: C <= 128 (U-TAE's bottleneck, C = 128)
+// and nq <= 8 queries (the LTAE module with num_queries > 1). One block = R
+// <= 8 rows (one warp per row for the per-row steps), all T. Shared memory
+// per row: xs (T, C+1) | a (T, G+1) | P (G, C+1) | o (D) | v (max(C,
+// nq*d_out)); the +1 pads avoid bank conflicts; Ws (C, G*nq) once per
+// block. At the U-TAE shape (C = 128, d_out = 128) a row takes 45 KiB and R
+// = 4 rows use 185 KiB (nq = 3: 47 KiB a row, 24 KiB of Ws, 212 KiB). The
+// launch picks the most rows that fit. One block runs per SM. A lane owns
+// channels c + 32k, k < KC: the kernel is instantiated for KC = 2 (C <= 64,
+// nq > 1) and KC = 4 (C <= 128), so the per-lane channel arrays stay in
+// registers. The row reuses its a, P and o regions across queries; only the
+// MLP outputs of all queries (the out GroupNorm pools them) and Ws grow with
+// nq. The query count is a template parameter QN: 1 compiles the one-query
+// kernel with every index constant, 0 reads nq from the arguments. With nq
 // queries the scores, P, o and the MLP run nq times; the input GroupNorm and
-// the read of x do not.
-//
-// Layout: one block = R <= 8 rows (one warp per row for the per-row steps),
-// all T. Shared memory per row: xs (T, C+1) | a (T, G+1) | P (G, C+1) |
-// o (D) | v (max(C, nq*d_out)); the +1 pads avoid bank conflicts; Ws (C,
-// G*nq) once per block. At the TimeUNet shape R = 8 uses 203 KiB of the
-// 227 KiB a block may have; at the U-TAE shape (C = 128, d_out = 128) a row
-// takes 45 KiB and R = 4 rows use 185 KiB (nq = 3: 47 KiB a row, 24 KiB of
-// Ws, 212 KiB). The launch picks the most rows that fit. One block runs per
-// SM. A lane owns channels c + 32k, k < KC: the kernel is instantiated for
-// KC = 2 (C <= 64) and KC = 4 (C <= 128), so the per-lane channel arrays
-// stay in registers, and for QN = 1 and QN = 0 (above).
+// the read of x do not. At the U-TAE bottleneck (N = 256) the work is 0.70
+// MFLOP per row over 2,560 rows, ~0.03 ms at the fp32 peak; there the launch
+// is too small to fill the card for long.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +102,14 @@ constexpr int kMaxG = 16;      // per-head accumulators held in registers
 constexpr int kMaxQ = 8;       // queries per head (MAX_QUERIES in ltae_fused.py)
 constexpr int kMaxRows = 8;    // rows (= warps) per block
 constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
+// C <= 64, one query (ltae_fused_group_kernel)
+constexpr int kGroupMaxC = 64;
+constexpr int kGroupRows = 8;       // rows per group
+constexpr int kJChunk = 64;         // MLP / out-GroupNorm outputs per pass
+constexpr int kGroupThreads = kGroupRows * kJChunk;  // 16 warps: 2 per row
+constexpr int kMlpSplit = kGroupThreads / kJChunk;   // MLP: D split in eighths
+constexpr int kGroupMaxD = kGroupThreads / 2;        // projection: a thread per (d, half)
+constexpr int kGroupMaxDout = 256;  // m of the group's rows in shared memory
 
 struct Args {
   const void* x;
@@ -413,6 +447,516 @@ ltae_fused_fwd_kernel(const Args a) {
   }
 }
 
+// ---- C <= 64, one query: persistent row groups (module note) --------------
+
+// Shared memory of a group kernel block, in floats. Regions start on 16
+// bytes. The x tile holds (R, TP, C) fp32 with its channel quads swizzled
+// by t (xs_quad), and from the end of P to the next GroupNorm the next
+// group's raw x in x's type, (T, R, C) as in device memory. The a region
+// holds a (R, G, TP) until the projection, then the MLP's partial sums
+// (8, R, 64), then in tail mode tsc[b] and tsh[b] (T, C) each, for the next
+// GroupNorm; the P region holds P (R, G, C) until the projection, then m
+// (R, d_out).
+struct GroupLayout {
+  int tp, dp, sw;      // T and D rounded up to 4; the swizzle mask of quads
+  int xs, a, p, o, ot, bin, bm, osc, obi, ws, pes, chs;
+  int floats;
+};
+
+__host__ __device__ inline GroupLayout group_layout(int T, int C, int D, int G, int DOUT) {
+  GroupLayout L;
+  int o = 0;
+  auto take = [&](int n) { const int at = o; o += (n + 3) & ~3; return at; };
+  auto mx = [](int u, int v) { return u > v ? u : v; };
+  L.tp = (T + 3) & ~3;
+  L.dp = (D + 3) & ~3;
+  const int quads = C / 4, low = quads & -quads;   // C % 8 == 0: quads even
+  L.sw = (low < 8 ? low : 8) - 1;
+  L.xs = take(kGroupRows * L.tp * C);
+  L.a = take(mx(mx(kGroupRows * G * L.tp, kMlpSplit * kGroupRows * kJChunk), 2 * T * C));
+  L.p = take(mx(kGroupRows * G * C, kGroupRows * DOUT));
+  L.o = take(kGroupRows * L.dp);
+  L.ot = take(kGroupRows * L.dp);
+  L.bin = take(D);
+  L.bm = take(DOUT);
+  L.osc = take(DOUT);
+  L.obi = take(DOUT);
+  L.ws = take(C * kMaxG);
+  L.pes = take(kMaxG * L.tp);
+  L.chs = take(2 * kGroupRows * C);
+  L.floats = o;
+  return L;
+}
+
+// Offset of channel quad q (channels 4q .. 4q + 4) of step t in a row's x
+// tile: stored at quad q ^ (t & sw), so that lanes reading one quad of 8
+// consecutive t, or the quads of one t, hit distinct banks.
+__device__ __forceinline__ int xs_quad(int t, int q, int C, int sw) {
+  return t * C + ((q ^ (t & sw)) << 2);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float at4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying the raw x of rows [m0, m0 + rows) of batch item b, all T,
+// into raw as (T, R, C) in x's type: for each t the rows are contiguous in
+// device memory, so the copy is 16-byte vectors throughout.
+template <typename Tin>
+__device__ void fetch_group(const Args& a, Tin* raw, int b, int m0, int rows) {
+  constexpr int V = 16 / sizeof(Tin);
+  const Tin* x = static_cast<const Tin*>(a.x);
+  const int C = a.C, per_t = rows * C / V;   // C % 8 == 0: whole vectors
+#pragma unroll 1
+  for (int i = threadIdx.x; i < a.T * per_t; i += kGroupThreads) {
+    const int t = i / per_t, e = (i - t * per_t) * V;
+    cp_async16(raw + t * kGroupRows * C + e,
+               x + ((size_t)(b * a.T + t) * a.N + m0) * C + e);
+  }
+  cp_async_commit();
+}
+
+// Start copying batch item b's tail affine, tsc[b] and tsh[b] (T, C) fp32,
+// into ts (2, T, C).
+__device__ void fetch_tail(const Args& a, float* ts, int b) {
+  const int n = a.T * a.C;   // C % 8 == 0: whole vectors
+  const float* sc = a.tsc + (size_t)b * n;
+  const float* sh = a.tsh + (size_t)b * n;
+#pragma unroll 1
+  for (int i = 4 * threadIdx.x; i < n; i += 4 * kGroupThreads) {
+    cp_async16(ts + i, sc + i);
+    cp_async16(ts + n + i, sh + i);
+  }
+  cp_async_commit();
+}
+
+// Four consecutive values of x's type from shared memory, widened to fp32.
+__device__ __forceinline__ float4 load4(const float* p) { return ld4(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);   // element 2i in the low half
+  return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+}
+
+// The GroupNorm's per-group statistic for the thread's 4 channels: part[j]
+// holds the thread's sum over its 16 steps of channel 4 gq + j of row gr;
+// the two quarters in the warp are added by a shuffle, the row's two warps
+// through chs (2, R, C) and a barrier, then the group's cg channels; out[j]
+// = that / cnt, or rsqrt(that / cnt + eps) with `rs`. Every thread of
+// the block calls it (two barriers).
+__device__ __forceinline__ void group_stat(float* part, float* out, float* chs, int gr,
+                                           int gh, int gq, int lane, int C, int cg,
+                                           float cnt, float eps, bool rs) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) part[j] += __shfl_xor_sync(0xffffffffu, part[j], 16);
+  if (lane < 16 && 4 * gq < C)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) chs[(gh * kGroupRows + gr) * C + 4 * gq + j] = part[j];
+  __syncthreads();
+  if (4 * gq < C) {
+    const float* c0 = chs + gr * C;
+    const float* c1 = chs + (kGroupRows + gr) * C;
+    int prev = -1;
+    float val = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int g0 = ((4 * gq + j) / cg) * cg;
+      if (g0 != prev) {   // channels of one group share the value
+        float s = 0.f;
+#pragma unroll 1
+        for (int k = 0; k < cg; ++k) s += c0[g0 + k] + c1[g0 + k];
+        val = rs ? rsqrtf(s / cnt + eps) : s / cnt;
+        prev = g0;
+      }
+      out[j] = val;
+    }
+  }
+  __syncthreads();
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+ltae_fused_group_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem_group[];
+  float* const smem = smem_group;
+  const int T = a.T, C = a.C, D = a.D, G = a.G, DOUT = a.DOUT, N = a.N;
+  const GroupLayout L = group_layout(T, C, D, G, DOUT);
+  const int TP = L.tp, DP = L.dp, SW = L.sw;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, S = gridDim.x;
+  const int cg = C / G, dv = D / G, og = DOUT / G;
+  // this block's rows: a contiguous range of batch item b (row_ranges)
+  const int n0 = (int)((long long)blockIdx.x * N / S);
+  const int n1 = (int)((long long)(blockIdx.x + 1) * N / S);
+  if (n0 >= n1) return;   // the whole block: no barrier is reached
+
+  float* xs = smem + L.xs;
+  float* as = smem + L.a;
+  float* ps = smem + L.p;
+  Tin* raw = reinterpret_cast<Tin*>(xs);
+  const bool tail = a.tsc != nullptr;
+  fetch_group<Tin>(a, raw, b, n0, min(kGroupRows, n1 - n0));
+  if (tail) fetch_tail(a, as, b);
+
+  // ---- batch item b's constants, once per block ----------------------------
+  for (int i = tid; i < C * kMaxG; i += kGroupThreads) {
+    const int c = i / kMaxG, g = i - c * kMaxG;
+    smem[L.ws + i] = g < G ? a.ws[c * G + g] : 0.f;
+  }
+  for (int i = tid; i < G * T; i += kGroupThreads) {
+    const int g = i / T, t = i - g * T;
+    smem[L.pes + g * TP + t] = a.pes[(size_t)b * G * T + i];
+  }
+  for (int i = tid; i < D; i += kGroupThreads) smem[L.bin + i] = a.bin[i];
+  for (int i = tid; i < DOUT; i += kGroupThreads) {
+    smem[L.bm + i] = a.bm[i];
+    smem[L.osc + i] = a.osc[i];
+    smem[L.obi + i] = a.obi[i];
+  }
+  const float* tsc = as;   // tsc[b], tsh[b] as fetch_tail lays them out
+  const float* tsh = as + T * C;
+  const float* pe_b = a.pe + (size_t)b * T * D;
+  const float cnt = (float)(T * cg);
+
+#pragma unroll 1
+  for (int m0 = n0; m0 < n1; m0 += kGroupRows) {
+    const int rows = min(kGroupRows, n1 - m0);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // 1. tail affine and GroupNorm over (T, C/G): thread (r, quad, quarter)
+    //    holds channels 4 quad .. + 4 of row r at 16 steps in registers;
+    //    per-channel sums (the quarters added by a shuffle and across the
+    //    row's two warps), the group mean, centered squares (two passes),
+    //    normalized into the x tile. Rows past the range compute on zeros
+    //    and store nothing.
+    const int gr = warp >> 1, gq = lane & 15, gh = warp & 1;
+    const int gt0 = 16 * (2 * gh + (lane >> 4));
+    const bool gn_on = 4 * gq < C;
+    float4 v[16];
+    float mean[4] = {0.f, 0.f, 0.f, 0.f}, inv[4] = {0.f, 0.f, 0.f, 0.f};
+    {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      const int nt = min(16, max(0, T - gt0));   // the thread's steps below T
+      if (gn_on) {
+        const int nx = gr < rows ? nt : 0;         // ... that hold a row's data
+        const Tin* rp = raw + (gt0 * kGroupRows + gr) * C + 4 * gq;
+        const float* scp = tsc + gt0 * C + 4 * gq;
+        const float* shp = tsh + gt0 * C + 4 * gq;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i < nx) {
+            x = load4(rp + i * kGroupRows * C);
+            if (tail) {
+              const float4 sc = ld4(scp + i * C), sh = ld4(shp + i * C);
+              x = make_float4(fmaxf(fmaf(x.x, sc.x, sh.x), 0.f), fmaxf(fmaf(x.y, sc.y, sh.y), 0.f),
+                              fmaxf(fmaf(x.z, sc.z, sh.z), 0.f), fmaxf(fmaf(x.w, sc.w, sh.w), 0.f));
+            }
+          }
+          v[i] = x;
+          s[0] += x.x;
+          s[1] += x.y;
+          s[2] += x.z;
+          s[3] += x.w;
+        }
+      }
+      group_stat(s, mean, smem + L.chs, gr, gh, gq, lane, C, cg, cnt, 0.f, false);
+      float q[4] = {0.f, 0.f, 0.f, 0.f};
+      if (gn_on) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          if (i < nt) {
+            const float d0 = v[i].x - mean[0], d1 = v[i].y - mean[1];
+            const float d2 = v[i].z - mean[2], d3 = v[i].w - mean[3];
+            q[0] = fmaf(d0, d0, q[0]);
+            q[1] = fmaf(d1, d1, q[1]);
+            q[2] = fmaf(d2, d2, q[2]);
+            q[3] = fmaf(d3, d3, q[3]);
+          }
+        }
+      }
+      group_stat(q, inv, smem + L.chs, gr, gh, gq, lane, C, cg, cnt, a.eps, true);
+      if (gn_on) {
+        float* xr = xs + gr * TP * C;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int t = gt0 + i;
+          float4 y = make_float4(0.f, 0.f, 0.f, 0.f);   // the pad steps T .. TP
+          if (i < nt)
+            y = make_float4((v[i].x - mean[0]) * inv[0], (v[i].y - mean[1]) * inv[1],
+                            (v[i].z - mean[2]) * inv[2], (v[i].w - mean[3]) * inv[3]);
+          if (t < TP) *reinterpret_cast<float4*>(xr + xs_quad(t, gq, C, SW)) = y;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. scores and the masked softmax over T: warp (r, half) owns row r's
+    //    heads 8 * half .. + 8, lanes t and t + 32; c in order, as the
+    //    one-warp-per-row kernel sums them.
+    {
+      const int r = warp >> 1, g0 = (warp & 1) * 8;
+      if (g0 < G) {   // warp-uniform
+        // lanes past the padded steps read a step they do not own
+        const int t0 = lane < TP ? lane : 0, t1 = lane + 32 < TP ? lane + 32 : lane;
+        const bool v0 = lane < T, v1 = lane + 32 < T;
+        const float* xr = xs + r * TP * C;
+        const float* wsg = smem + L.ws + g0;
+        float s0[8], s1[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s0[k] = s1[k] = 0.f;
+#pragma unroll 2
+        for (int q = 0; q < C / 4; ++q) {
+          const float4 xa = ld4(xr + xs_quad(t0, q, C, SW));
+          const float4 xb = ld4(xr + xs_quad(t1, q, C, SW));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float* w = wsg + (4 * q + i) * kMaxG;
+            const float4 wl = ld4(w), wh = ld4(w + 4);
+            const float wv[8] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
+            const float xv0 = at4(xa, i), xv1 = at4(xb, i);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              s0[k] = fmaf(xv0, wv[k], s0[k]);
+              s1[k] = fmaf(xv1, wv[k], s1[k]);
+            }
+          }
+        }
+        const int n = m0 + r;
+        float* attn = (a.attn != nullptr && r < rows)
+                          ? a.attn + ((size_t)b * N + n) * G * T : nullptr;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int g = g0 + k;
+          if (g < G) {   // uniform: the whole warp takes the shuffles
+            const float* pes = smem + L.pes + g * TP;
+            const float z0 = v0 ? s0[k] + pes[t0] : -CUDART_INF_F;
+            const float z1 = v1 ? s1[k] + pes[lane + 32] : -CUDART_INF_F;
+            const float mx = warp_max(fmaxf(z0, z1));
+            float e0 = v0 ? expf(z0 - mx) : 0.f;
+            float e1 = v1 ? expf(z1 - mx) : 0.f;
+            const float rs = 1.f / warp_sum(e0 + e1);
+            e0 *= rs;
+            e1 *= rs;
+            float* ar = as + (r * G + g) * TP;
+            if (lane < TP) ar[lane] = e0;        // 0 on the pad steps T .. TP
+            if (lane + 32 < TP) ar[lane + 32] = e1;
+            if (attn != nullptr) {
+              if (v0) attn[g * T + t0] = e0;
+              if (v1) attn[g * T + lane + 32] = e1;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. P = a @ xn, (G, C) per row: warp (r, half), lane (c quad, g quad);
+    //    a 4 x 4 tile of (g, c) in registers, t in order (the pad steps add
+    //    0 * 0). Written once the x tile is free, which also lets the next
+    //    group's x start coming in.
+    {
+      const int r = warp >> 1;
+      const int cq = lane & 15, gq = (lane >> 4) + 2 * (warp & 1);
+      const bool on = 4 * cq < C && 4 * gq < G;
+      float p[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[k][j] = 0.f;
+      if (on) {
+        const float* xr = xs + r * TP * C;
+        const float* ar[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ar[k] = as + (r * G + min(4 * gq + k, G - 1)) * TP;
+#pragma unroll 1
+        for (int t = 0; t < TP; t += 4) {
+          float4 xv[4], av[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) xv[i] = ld4(xr + xs_quad(t + i, cq, C, SW));
+#pragma unroll
+          for (int k = 0; k < 4; ++k) av[k] = ld4(ar[k] + t);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float w = at4(av[k], i);
+              p[k][0] = fmaf(w, xv[i].x, p[k][0]);
+              p[k][1] = fmaf(w, xv[i].y, p[k][1]);
+              p[k][2] = fmaf(w, xv[i].z, p[k][2]);
+              p[k][3] = fmaf(w, xv[i].w, p[k][3]);
+            }
+        }
+      }
+      __syncthreads();   // the x tile is free from here
+      if (m0 + kGroupRows < n1)
+        fetch_group<Tin>(a, raw, b, m0 + kGroupRows, min(kGroupRows, n1 - m0 - kGroupRows));
+      if (on) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (4 * gq + k < G)
+            *reinterpret_cast<float4*>(ps + (r * G + 4 * gq + k) * C + 4 * cq) =
+                make_float4(p[k][0], p[k][1], p[k][2], p[k][3]);
+      }
+    }
+    __syncthreads();
+
+    // 4. o[d] = b_in[d] + P[g(d)] . W_in[:, d] + a[g(d)] . pe[:, d]: thread d
+    //    of the first 256 sums over c, of the last 256 over t, for all the
+    //    group's rows, so each W_in / pe element read from L2 serves R rows.
+    {
+      const int d = tid & 255, half = tid >> 8;
+      const bool on = d < D;
+      const int g = on ? d / dv : 0;
+      float acc[kGroupRows];
+      const float b0 = half == 0 && on ? smem[L.bin + d] : 0.f;
+#pragma unroll
+      for (int r = 0; r < kGroupRows; ++r) acc[r] = b0;
+      if (on && half == 0) {
+#pragma unroll 4
+        for (int c = 0; c < C; c += 4) {
+          float w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) w[i] = __ldg(a.win + (c + i) * D + d);
+#pragma unroll
+          for (int r = 0; r < kGroupRows; ++r) {
+            const float4 pv = ld4(ps + (r * G + g) * C + c);
+            acc[r] = fmaf(pv.x, w[0], acc[r]);
+            acc[r] = fmaf(pv.y, w[1], acc[r]);
+            acc[r] = fmaf(pv.z, w[2], acc[r]);
+            acc[r] = fmaf(pv.w, w[3], acc[r]);
+          }
+        }
+      } else if (on) {
+#pragma unroll 4
+        for (int t = 0; t < TP; t += 4) {
+          float w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) w[i] = t + i < T ? __ldg(pe_b + (t + i) * D + d) : 0.f;
+#pragma unroll
+          for (int r = 0; r < kGroupRows; ++r) {
+            const float4 av = ld4(as + (r * G + g) * TP + t);
+            acc[r] = fmaf(av.x, w[0], acc[r]);
+            acc[r] = fmaf(av.y, w[1], acc[r]);
+            acc[r] = fmaf(av.z, w[2], acc[r]);
+            acc[r] = fmaf(av.w, w[3], acc[r]);
+          }
+        }
+      }
+      if (on && half == 1)
+#pragma unroll
+        for (int r = 0; r < kGroupRows; ++r) smem[L.ot + r * DP + d] = acc[r];
+      __syncthreads();
+      if (on && half == 0)
+#pragma unroll
+        for (int r = 0; r < kGroupRows; ++r)
+          smem[L.o + r * DP + d] = acc[r] + smem[L.ot + r * DP + d];
+    }
+    __syncthreads();
+
+    // 5. m = relu(o @ W_m + b_m): thread (j, k) sums d in the k-th eighth of
+    //    D for all the group's rows; the eighths are added in order.
+    for (int j0 = 0; j0 < DOUT; j0 += kJChunk) {
+      const int jj = tid & (kJChunk - 1), k = tid / kJChunk, j = j0 + jj;
+      const int d0 = k * D / kMlpSplit, d1 = (k + 1) * D / kMlpSplit;
+      float acc[kGroupRows];
+#pragma unroll
+      for (int r = 0; r < kGroupRows; ++r) acc[r] = 0.f;
+      if (j < DOUT) {
+        if ((D & (4 * kMlpSplit - 1)) == 0) {   // every eighth holds whole quads
+#pragma unroll 4
+          for (int d = d0; d < d1; d += 4) {
+            float w[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) w[i] = __ldg(a.wm + (d + i) * DOUT + j);
+#pragma unroll
+            for (int r = 0; r < kGroupRows; ++r) {
+              const float4 ov = ld4(smem + L.o + r * DP + d);
+              acc[r] = fmaf(ov.x, w[0], acc[r]);
+              acc[r] = fmaf(ov.y, w[1], acc[r]);
+              acc[r] = fmaf(ov.z, w[2], acc[r]);
+              acc[r] = fmaf(ov.w, w[3], acc[r]);
+            }
+          }
+        } else {
+#pragma unroll 1
+          for (int d = d0; d < d1; ++d) {
+            const float w = __ldg(a.wm + d * DOUT + j);
+#pragma unroll
+            for (int r = 0; r < kGroupRows; ++r)
+              acc[r] = fmaf(smem[L.o + r * DP + d], w, acc[r]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kGroupRows; ++r) as[(k * kGroupRows + r) * kJChunk + jj] = acc[r];
+      __syncthreads();
+      {
+        const int r = tid / kJChunk;   // kGroupThreads = kGroupRows * kJChunk
+        if (j < DOUT) {
+          float s = smem[L.bm + j];
+          for (int kk = 0; kk < kMlpSplit; ++kk) s += as[(kk * kGroupRows + r) * kJChunk + jj];
+          ps[r * DOUT + j] = fmaxf(s, 0.f);
+        }
+      }
+      __syncthreads();
+    }
+    if (tail && m0 + kGroupRows < n1) fetch_tail(a, as, b);   // the a region is free
+
+    // 6. out GroupNorm over G groups of d_out / G channels, two-pass, then
+    //    the affine: thread (r, j).
+    for (int j0 = 0; j0 < DOUT; j0 += kJChunk) {
+      const int r = tid / kJChunk, j = j0 + (tid & (kJChunk - 1));
+      if (j < DOUT && r < rows) {
+        const float* mr = ps + r * DOUT;
+        const int g0 = (j / og) * og;
+        float s = 0.f;
+        for (int i = 0; i < og; ++i) s += mr[g0 + i];
+        const float mu = s / og;
+        float ss = 0.f;
+        for (int i = 0; i < og; ++i) {
+          const float dl = mr[g0 + i] - mu;
+          ss = fmaf(dl, dl, ss);
+        }
+        const float y = (mr[j] - mu) * rsqrtf(ss / og + a.eps);
+        Vec<Tin>::store(static_cast<Tin*>(a.out) + ((size_t)b * N + m0 + r) * DOUT + j,
+                        fmaf(y, smem[L.osc + j], smem[L.obi + j]));
+      }
+    }
+  }
+}
+
+template <typename Tin>
+cudaError_t launch_group(const Args& a, int S, cudaStream_t stream) {
+  const size_t bytes =
+      (size_t)group_layout(a.T, a.C, a.D, a.G, a.DOUT).floats * sizeof(float);
+  if (bytes > kSmemLimit || S < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ltae_fused_group_kernel<Tin>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return err;
+  ltae_fused_group_kernel<Tin><<<dim3(S, a.B), kGroupThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename Tin, int KC, int QN>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int rf = row_floats(a.T, a.C, a.D, a.G, a.DOUT, a.NQ);
@@ -435,23 +979,26 @@ cudaError_t launch_q(const Args& a, cudaStream_t stream) {
 }
 
 template <typename Tin>
-cudaError_t launch_c(const Args& a, cudaStream_t stream) {
-  return a.C <= 64 ? launch_q<Tin, 2>(a, stream) : launch_q<Tin, 4>(a, stream);
+cudaError_t launch_c(const Args& a, int S, cudaStream_t stream) {
+  if (a.C > kGroupMaxC) return launch_q<Tin, 4>(a, stream);
+  return a.NQ == 1 ? launch_group<Tin>(a, S, stream) : launch<Tin, 2, 0>(a, stream);
 }
 
 }  // namespace
 
 // C entry for ctypes. Pointers are device pointers; tsc/tsh and attn may be
-// null. Returns the cudaError_t of the launch (0 on success).
+// null. S is the group kernel's blocks per batch item (ignored by the other
+// kernel). Returns the cudaError_t of the launch (0 on success).
 extern "C" int ltae_fused_fwd(
     const void* x, int x_is_bf16, const void* pe, const void* win,
     const void* bin, const void* ws, const void* pes, const void* wm,
     const void* bm, const void* osc, const void* obi, const void* tsc,
     const void* tsh, void* out, void* attn, int B, int T, int N, int C, int D,
-    int G, int DOUT, int NQ, float eps, void* stream) {
+    int G, int DOUT, int NQ, int S, float eps, void* stream) {
   if (B < 1 || N < 1 || T < 1 || T > kMaxT || C < 8 || C > kMaxC || C % 8 ||
       G < 1 || G > kMaxG || C % G || D % G || DOUT % G || NQ < 1 || NQ > kMaxQ ||
-      (tsc == nullptr) != (tsh == nullptr))
+      (tsc == nullptr) != (tsh == nullptr) ||
+      (C <= kGroupMaxC && NQ == 1 && (D > kGroupMaxD || DOUT > kGroupMaxDout || S < 1)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x;
@@ -471,5 +1018,5 @@ extern "C" int ltae_fused_fwd(
   a.B = B; a.T = T; a.N = N; a.C = C; a.D = D; a.G = G; a.DOUT = DOUT; a.NQ = NQ;
   a.eps = eps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(x_is_bf16 ? launch_c<__nv_bfloat16>(a, s) : launch_c<float>(a, s));
+  return (int)(x_is_bf16 ? launch_c<__nv_bfloat16>(a, S, s) : launch_c<float>(a, S, s));
 }

@@ -9,7 +9,9 @@ Per pixel row over T steps, for each of nq learnable queries per head:
     -> GroupNorm_G pooling each group's channels over all nq queries -> affine
 
 ``ltae_fused_forward`` does the offline folds in fp32 and launches the kernel
-of ``csrc/ltae_fused_fwd.cu`` on a CUDA tensor; on a CPU tensor it calls
+of ``csrc/ltae_fused_fwd.cu`` on a CUDA tensor (at C <= 64 with one query,
+S = ``launch_shape`` persistent blocks per batch item, each walking its
+``row_ranges`` in groups of 8 rows); on a CPU tensor it calls
 ``ltae_fused_forward_reference``, the plain PyTorch version that materializes
 the projected sequence h. ``ltae_fused_forward.launches`` counts launches.
 With nq = 1 (q of shape (G, d_k) or (G, 1, d_k)) out is (B, N, d_out) and
@@ -26,12 +28,17 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from crop2seg_tpu_torch.ops._build import load_library
+from crop2seg_tpu_torch.ops.ltae_pool import blocks_per_item
 
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
 MAX_C = 128         # lanes own channels c + 32k, k < 4
 MAX_HEADS = 16      # per-head accumulators live in registers
 MAX_QUERIES = 8     # queries per head: a row's MLP outputs of all queries
                     # stay in shared memory for the out-GroupNorm
+# C <= 64 with one query runs the row-group kernel, which also needs
+GROUP_MAX_C = 64
+MAX_D = 256         # its projection gives a thread to each (d, half of the sum)
+MAX_D_OUT = 256     # its group's MLP outputs stay in shared memory
 
 
 def fold_batchnorm(wm, bm, bn_scale, bn_bias, bn_mean, bn_var, eps: float = 1e-5):
@@ -145,12 +152,40 @@ def _fold(pe, pad_mask, params, n_head: int, d_k: int):
             "bm": f["bm_folded"], "osc": f["out_scale"], "obi": f["out_bias"]}
 
 
+def launch_shape(b: int, t: int, c: int, d: int, g: int, d_out: int, nq: int,
+                 sm_count: int) -> int:
+    """Check a launch against the kernel's limits (ValueError past them) and
+    return S, the row-group kernel's persistent blocks per batch item
+    (``blocks_per_item``: one wave of B * S <= sm_count blocks, each taking
+    ``ltae_pool.row_ranges(N, S)[i]``); 1 for the other kernel, which
+    ignores it."""
+    if not (t <= MAX_T and c <= MAX_C and c % 8 == 0 and g <= MAX_HEADS
+            and c % g == 0 and d % g == 0 and d_out % g == 0):
+        raise ValueError(
+            f"unsupported shape T={t} C={c} G={g} D={d} d_out={d_out}: the "
+            f"kernel takes T<={MAX_T}, C<={MAX_C} with C%8==0, "
+            f"G<={MAX_HEADS} dividing C, D and d_out")
+    if c > GROUP_MAX_C or nq > 1:
+        return 1
+    if d > MAX_D or d_out > MAX_D_OUT:
+        raise ValueError(
+            f"unsupported shape C={c} D={d} d_out={d_out}: with C<={GROUP_MAX_C} "
+            f"and one query the kernel takes D<={MAX_D}, d_out<={MAX_D_OUT}")
+    return blocks_per_item(b, sm_count)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself if it starts on 16 bytes (the kernel copies tsc and tsh in
+    16-byte vectors), else a copy that does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 @functools.cache
 def _kernel():
     lib = load_library("ltae_fused_fwd")
     fn = lib.ltae_fused_fwd
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci] + [vp] * 13 + [ci] * 8 + [ctypes.c_float, vp]
+    fn.argtypes = [vp, ci] + [vp] * 13 + [ci] * 9 + [ctypes.c_float, vp]
     fn.restype = ci
     return fn
 
@@ -188,12 +223,8 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
     b, t, n, c = x.shape
     g = n_head
     d, d_out = params["win"].shape[1], params["wm_folded"].shape[1]
-    if not (t <= MAX_T and c <= MAX_C and c % 8 == 0 and g <= MAX_HEADS
-            and c % g == 0 and d % g == 0 and d_out % g == 0):
-        raise ValueError(
-            f"unsupported shape T={t} C={c} G={g} D={d} d_out={d_out}: the "
-            f"kernel takes T<={MAX_T}, C<={MAX_C} with C%8==0, "
-            f"G<={MAX_HEADS} dividing C, D and d_out")
+    s = launch_shape(b, t, c, d, g, d_out, nq,
+                     torch.cuda.get_device_properties(x.device).multi_processor_count)
     if pe.shape != (b, t, d) or pad_mask.shape != (b, t):
         raise ValueError(f"pe {tuple(pe.shape)} / pad_mask {tuple(pad_mask.shape)} "
                          f"do not match x {tuple(x.shape)}, D={d}")
@@ -204,7 +235,7 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
             if tsc.shape != (b, t, c) or tsh.shape != (b, t, c):
                 raise ValueError(f"tail_affine must be (B, T, C) = {(b, t, c)}")
             f["tsc"], f["tsh"] = tsc, tsh
-    f = {k: v.to(x.device).contiguous() for k, v in f.items()}
+    f = {k: _aligned(v.to(x.device).contiguous()) for k, v in f.items()}
     out = torch.empty(b, n, nq, d_out, dtype=x.dtype, device=x.device)
     attn = (torch.empty(b, n, g, nq, t, dtype=torch.float32, device=x.device)
             if need_attn else None)
@@ -220,7 +251,7 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
                 ptr("wm"), ptr("bm"), ptr("osc"), ptr("obi"),
                 ptr("tsc"), ptr("tsh"), out.data_ptr(),
                 None if attn is None else attn.data_ptr(),
-                b, t, n, c, d, g, d_out, nq, eps, stream)
+                b, t, n, c, d, g, d_out, nq, s, eps, stream)
     if rc != 0:
         raise RuntimeError(f"ltae_fused_fwd kernel launch failed: cudaError {rc}")
     ltae_fused_forward.launches += 1

@@ -11,14 +11,18 @@ are drawn from a seeded generator at B=10, T=61 with every other sample
 padded to 55: TimeUNet's width (N=128*128, C=d_out=64, the deferred tail
 affine, no attention) or U-TAE's (N=16*16, C=d_out=128, attention out); G=16,
 D=256, nq queries per head. Prints the card (nvidia-smi name and power
-limit), then one JSON line per dtype with the kernel's ms per launch (CUDA
-events, mean over --iters launches after 3 warm-up launches).
+limit), then per dtype the SM clock and power draw before and after its
+timing, and one JSON line with the kernel's ms per launch: the mean over
+--iters back-to-back launches after 3 warm-up launches (CUDA events around
+the loop) and the median of the same launches, each between its own pair of
+CUDA events.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -53,6 +57,12 @@ def inputs(width: dict, nq: int, dev):
         tail if width["tail"] else None)
 
 
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", choices=tuple(WIDTHS), default="timeunet")
@@ -62,9 +72,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0])
+    print(smi("name,power.limit"))
     dev = torch.device("cuda")
     width = WIDTHS[args.width]
     x, pe, pad, params, tail = inputs(width, args.nq, dev)
@@ -76,15 +84,20 @@ def main() -> int:
                                   need_attn=width["attn"], tail_affine=tail)
         for _ in range(3):
             launch()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(args.iters):
-            launch()
-        end.record()
         torch.cuda.synchronize()
+        print(f"clocks.sm, power.draw before {str(dtype)[6:]}: {smi('clocks.sm,power.draw')}")
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(args.iters + 1)]
+        for i in range(args.iters):
+            events[i].record()
+            launch()
+        events[-1].record()
+        torch.cuda.synchronize()
+        print(f"clocks.sm, power.draw after {str(dtype)[6:]}: {smi('clocks.sm,power.draw')}")
+        per_launch = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
         print(json.dumps({"package": os.path.dirname(os.path.dirname(lf.__file__)),
                           "width": args.width, "nq": args.nq, "dtype": str(dtype)[6:],
-                          "ms": start.elapsed_time(end) / args.iters}), flush=True)
+                          "ms": events[0].elapsed_time(events[-1]) / args.iters,
+                          "median_ms": statistics.median(per_launch)}), flush=True)
     return 0
 
 

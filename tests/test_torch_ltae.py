@@ -22,6 +22,7 @@ from crop2seg_tpu.nn.ltae import LTAE as JLTAE
 from crop2seg_tpu.ops import ltae_pallas as jk
 from crop2seg_tpu_torch.nn.ltae import LTAE
 from crop2seg_tpu_torch.ops import ltae_fused as tk
+from crop2seg_tpu_torch.ops import ltae_pool as lp
 from crop2seg_tpu_torch.utils.convert import ltae_state_dict_from_flax
 from tests.parity_utils import attn_from_torch, from_nhwc, load_fixture, to_nhwc_seq
 
@@ -218,3 +219,37 @@ def test_wide_module_matches_jax_module(wide_case, fused):
     assert attn.shape == (B, WIDE["h"], WIDE["w"], WIDE["n_head"], T)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT_TOL)
     np.testing.assert_allclose(attn.numpy(), np.asarray(want_attn), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("b,n,sm_count", [(10, 16384, 132), (1, 5, 132), (3, 4099, 132),
+                                          (140, 3, 132), (2, 9, 1)],
+                         ids=["main-path", "n-below-blocks", "n-not-multiple",
+                              "b-above-sms", "one-sm"])
+def test_group_kernel_rows_fall_in_exactly_one_block(b, n, sm_count):
+    """At C <= 64 with one query the kernel runs S = ``launch_shape`` blocks
+    per batch item (one wave when B <= the SM count, else S = 1), block i
+    walking ``row_ranges(N, S)[i]`` in groups of 8 rows: every row of [0, N)
+    falls in exactly one block and one group, with blocks left empty when
+    N < S."""
+    s = tk.launch_shape(b, 61, 64, 256, 16, 64, 1, sm_count)
+    assert s == lp.blocks_per_item(b, sm_count)
+    assert b * s <= sm_count if b <= sm_count else s == 1
+    ranges = lp.row_ranges(n, s)
+    assert len(ranges) == s
+    rows = [i for lo, hi in ranges for m0 in range(lo, hi, 8)
+            for i in range(m0, min(m0 + 8, hi))]
+    assert rows == list(range(n))
+
+
+@pytest.mark.parametrize("d,d_out", [(272, 64), (256, 272)])
+def test_group_kernel_limits_raise_before_any_launch(d, d_out):
+    """Past D = 256 or d_out = 256 the row-group kernel (C <= 64, one query)
+    has no room: ``launch_shape``, which the wrapper calls before it
+    launches, raises; the one-warp-per-row kernel (C = 128, or nq > 1)
+    takes the same D and d_out."""
+    with pytest.raises(ValueError, match="D<=256, d_out<=256"):
+        tk.launch_shape(1, 61, 64, d, 16, d_out, 1, 132)
+    assert tk.launch_shape(1, 61, 128, d, 16, d_out, 1, 132) == 1
+    assert tk.launch_shape(1, 61, 64, d, 16, d_out, 3, 132) == 1
+    with pytest.raises(ValueError, match="unsupported shape"):
+        tk.launch_shape(1, 65, 64, 256, 16, 64, 1, 132)

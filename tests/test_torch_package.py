@@ -118,12 +118,21 @@ def _random_params(c, d, g, d_out, gen):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,n,c,d,g,d_out", [(2, 9, 64, 32, 64, 8, 16),
                                                (1, 61, 300, 64, 256, 16, 64),
-                                               (2, 61, 258, 128, 256, 16, 128)])
+                                               (2, 61, 258, 128, 256, 16, 128),
+                                               (1, 61, 5, 64, 256, 16, 64),
+                                               (3, 61, 4099, 64, 256, 16, 64),
+                                               (2, 64, 300, 64, 256, 16, 64),
+                                               (2, 1, 300, 64, 256, 16, 64),
+                                               (140, 4, 3, 16, 32, 4, 8)],
+                         ids=["small", "timeunet", "utae", "n-below-blocks",
+                              "n-not-multiple", "t-64", "t-1", "b-above-sms"])
 def test_cuda_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out):
     """The CUDA kernel against its plain version on the card, with pads, the
-    tail affine and the attention output, N not a multiple of the block's
-    rows, at TimeUNet's C = 64 and U-TAE's C = 128 (the kernel's two
-    instantiations). This file imports no JAX, so it runs where JAX is absent:
+    tail affine and the attention output, at TimeUNet's C = 64 (the row-group
+    kernel: fewer rows than blocks per item, N not a multiple of the row
+    group or of the blocks, T at its limit of 64 and at 1, more batch items
+    than SMs) and U-TAE's C = 128 (the one-warp-per-row kernel, N not a
+    multiple of its rows). This file imports no JAX, so it runs where JAX is absent:
     ``python -m pytest --noconftest -m cuda tests/test_torch_package.py``.
     Tolerance: fp32 5e-3 (sums in another order; out-GroupNorm groups of 2
     or 4 channels amplify that noise); bf16 3e-2 (one bf16 rounding of the
@@ -196,8 +205,9 @@ def test_cuda_kernel_num_queries_matches_plain_version(dtype, tail, b, t, n, c, 
 
 @pytest.mark.cuda
 def test_cuda_kernel_rejects_unsupported_widths():
-    """C = 160 (past the kernel's 128) raises on the card; it is not sent to
-    the plain version."""
+    """C = 160 (past the kernel's 128), and D = 272 (past the row-group
+    kernel's 256 at C <= 64 with one query) raise on the card; neither is
+    sent to the plain version, and the C entry refuses D = 272 too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
@@ -214,6 +224,18 @@ def test_cuda_kernel_rejects_unsupported_widths():
                        torch.zeros(1, 1, 5, device=dev), torch.zeros(160, 64, device=dev),
                        torch.zeros(64, device=dev), torch.zeros(64, 16, device=dev),
                        torch.zeros(1, 16, device=dev), n_head=16)
+    params = {k: v.to(dev) for k, v in _random_params(64, 272, 16, 64, gen).items()}
+    x = torch.zeros(1, 5, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="D<=256"):
+        tk.ltae_fused_forward(x, torch.zeros(1, 5, 272, device=dev),
+                              torch.zeros(1, 5, dtype=torch.bool, device=dev),
+                              params, n_head=16)
+    out = torch.empty(1, 8, 64, device=dev)
+    big = torch.zeros(272 * 272, device=dev)
+    rc = tk._kernel()(x.data_ptr(), 0, *[big.data_ptr()] * 9, None, None,
+                      out.data_ptr(), None, 1, 5, 8, 64, 272, 16, 64, 1, 1, 1e-5,
+                      torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
     assert tk.ltae_fused_forward.launches == before
 
 
