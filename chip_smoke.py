@@ -17,9 +17,12 @@
    width (B=2, one sample padded to 55): o and all gradients (dx or dz, dpe,
    dW_f, db_f, du, dcs, and dtsc, dtsh in tail mode), at drop_p 0 and 0.1
    with the same seed; then times each variant and its plain version at the
-   train step's B=4, and checks that two backward calls give the same
-   gradients bit for bit (the backward adds its blocks' sums in a fixed
-   order).
+   train step's B=4 (the forward kernel's mean and median ms per launch),
+   and checks that two backward calls give the same gradients bit for bit
+   (the backward adds its blocks' sums in a fixed order). The forward is
+   ltae_pool_fwd_group_kernel<Tin, Tail>; its four instantiations' ptxas
+   registers and spills are printed after the build and go into the
+   kernels line.
 4. Serving path: TimeUNet_v1 at the factory defaults (15 classes, weights
    drawn from a seeded torch.Generator) through make_tile_predictor on one
    synthetic standardized tile (61, 1098, 1098, 10), length 55, batch 10, in
@@ -153,15 +156,50 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    return cuda_ms_median(fn, iters, warmup)[0]
+
+
+def cuda_ms_median(fn, iters: int, warmup: int = 2):
+    """(mean, median) ms per call: CUDA events around the loop and around
+    each call."""
     for _ in range(warmup):
         fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    for i in range(iters):
+        events[i].record()
         fn()
-    end.record()
+    events[-1].record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    per_call = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return events[0].elapsed_time(events[-1]) / iters, per_call[iters // 2]
+
+
+def ptxas_report(log: str) -> dict:
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = [0, 0, 0]
+        elif name and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[name][1] = int(words[words.index("spill") - 2])
+            out[name][2] = int(words[words.index("loads") - 3])
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            out[name][0] = int(words[words.index("registers") - 1])
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def pool_fwd_kernel_name(tail: bool, dtype: torch.dtype) -> str:
+    tin = "__nv_bfloat16" if dtype == torch.bfloat16 else "float"
+    return f"ltae_pool_fwd_group_kernel<{tin}, {'true' if tail else 'false'}>"
+
+
+def pool_fwd_mangled(tail: bool, dtype: torch.dtype) -> str:
+    tin = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+    return f"ltae_pool_fwd_group_kernelI{tin}Lb{int(tail)}E"
 
 
 def ltae_flops(b: int, tail: bool, n: int = HW, c: int = C,
@@ -429,12 +467,12 @@ def phase_pool_kernel(model, dev):
             def fwd():
                 with torch.no_grad():
                     pool_apply(tail, plain, leaves, pad, 99, 0.1)
-            fwd_ms = cuda_ms(fwd, iters=iters, warmup=1)
+            fwd_ms, fwd_median = cuda_ms_median(fwd, iters=iters, warmup=1)
             o = pool_apply(tail, plain, leaves, pad, 99, 0.1)
             god = go.to(o.dtype)
             bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, god, retain_graph=True),
                              iters=iters, warmup=1)
-            per[plain] = (fwd_ms, bwd_ms)
+            per[plain] = (fwd_ms, bwd_ms, fwd_median)
             if not plain:   # the backward's sums are added in a fixed order
                 again = [torch.autograd.grad(o, leaves, god, retain_graph=True)
                          for _ in range(2)]
@@ -447,10 +485,12 @@ def phase_pool_kernel(model, dev):
             bwd = direction == "bwd"
             name = lp.variant(tail, dtype, direction)
             ms, plain_ms = per[False][i], per[True][i]
-            timings[name] = (ms, plain_ms)
+            median = None if bwd else per[False][2]
+            timings[name] = (ms, plain_ms, median)
             b_ms, b_by = pool_bound(TRAIN_B, bwd, tail, dtype)
             flops, nbytes = pool_flops(TRAIN_B, bwd, tail), pool_bytes(TRAIN_B, bwd, tail, dtype)
-            print(f"{name} B={TRAIN_B} T={T} N={HW} C={C}: kernel {ms:.3f} ms, "
+            med = "" if bwd else f" (median {median:.3f})"
+            print(f"{name} B={TRAIN_B} T={T} N={HW} C={C}: kernel {ms:.3f} ms{med}, "
                   f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; bytes "
                   f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms, operations "
                   f"{flops / PEAK_FLOP_PER_S[dtype] * 1e3:.3f} ms, "
@@ -997,6 +1037,14 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if any(k in line for k in ("entry function", "registers", "spill", "smem")):
                 print("  ptxas:", line.strip(), flush=True)
+    pool_ptxas = ptxas_report(libs["ltae_pool"].with_suffix(".log").read_text())
+    fwd_ptxas = {}
+    for tail, dtype in VARIANTS:
+        found = [v for k, v in pool_ptxas.items() if pool_fwd_mangled(tail, dtype) in k]
+        check(len(found) == 1, f"ptxas reported no {pool_fwd_kernel_name(tail, dtype)}")
+        fwd_ptxas[(tail, dtype)] = found[0]
+        print(f"ptxas {pool_fwd_kernel_name(tail, dtype)}: {found[0][0]} registers, "
+              f"{found[0][1]} bytes spill stores, {found[0][2]} bytes spill loads", flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1043,17 +1091,25 @@ def main() -> int:
         for direction in ("fwd", "bwd"):
             name = lp.variant(tail, dtype, direction)
             b_ms, b_by = pool_bound(TRAIN_B, direction == "bwd", tail, dtype)
+            tin = "__nv_bfloat16" if dtype == torch.bfloat16 else "float"
             pool.append({
                 "name": name, "route": "cuda",
                 "source": "crop2seg_tpu_torch/csrc/ltae_pool.cu",
                 "replaces": "crop2seg_tpu/ops/ltae_pallas_train.py:"
                             + ("457" if direction == "fwd" else "536"),
+                "kernel": (pool_fwd_kernel_name(tail, dtype) if direction == "fwd" else
+                           f"ltae_pool_bwd_kernel<{tin}, {str(tail).lower()}>"
+                           " + ltae_pool_bwd_reduce"),
                 "launches": pool_launches.get(name, 0),
                 "max_abs_err": pool_errs[name],
                 "ms": pool_t[name][0], "plain_ms": pool_t[name][1],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "dtype": str(dtype)[6:], "shape": [TRAIN_B, T, HW, C],
             })
+            if direction == "fwd":
+                regs, spill_st, spill_ld = fwd_ptxas[(tail, dtype)]
+                pool[-1].update(median_ms=pool_t[name][2], registers=regs,
+                                spill_store_bytes=spill_st, spill_load_bytes=spill_ld)
             if tail and direction == "fwd":
                 run = runs[f"tail {'fp32' if dtype == torch.float32 else 'bf16'}"]
                 pool[-1].update(train_losses=run["losses"],

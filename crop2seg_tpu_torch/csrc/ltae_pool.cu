@@ -66,12 +66,46 @@
 // ms) is the real floor of this design in bf16 too; the products on the
 // tensor cores are later work.
 //
-// Forward: one block = R rows of one batch item, one warp per row for the
-// per-row steps; x is read once with 16-byte loads into shared memory (the
-// tail affine applied on the way), and the per-d projection runs block-wide,
-// so each W / bpe element fetched from L2 serves all the block's rows. Shared
-// memory per row (fp32, +1 pads against bank conflicts): xhat (T, C+1) | a_d
-// (T, G+1) | P (G, C+1) | scratch (C); R = 8 at the main-path shape (195 KiB).
+// Forward, ltae_pool_fwd_group_kernel<Tin, Tail>. What held the earlier
+// design (one 256-thread block of 8 rows, one warp per row, ~195 KiB of
+// shared memory, so one block of 8 warps per SM; the block's whole x loaded
+// before any compute; each row's GroupNorm, scores and pooling a chain of
+// dependent shared-memory loads on one warp; W and bpe read from L2 by every
+// block) at 4.3-5.0 ms a launch was latency with nothing to hide it, as for
+// kernel 1's old design (csrc/ltae_fused_fwd.cu). This design follows
+// ltae_fused_fwd.cu::ltae_fused_group_kernel without its MLP and out
+// GroupNorm:
+// - persistent blocks of 512 threads, S = SMs / B per batch item (one wave:
+//   33 x 4 = 132 at B = 4; ops/ltae_pool.py::fwd_launch_shape), each
+//   walking its contiguous range of rows (row_ranges) in groups of R = 8
+//   rows, two warps a row;
+// - Ws and pes[b] in shared memory once per block; bpe[b] (T, D) does not
+//   fit beside the x tile and stays in L2;
+// - the next group's raw x (16-byte cp.async, (T, R, C) as in device
+//   memory) comes into the x tile as soon as P has read it, so it overlaps
+//   the projection and the store of o; in tail mode tsc[b] and tsh[b] come
+//   in the same way into the a region once the projection has read a_d;
+// - GroupNorm: thread (row, channel quad, quarter of T) holds its values in
+//   registers (16-byte loads), two-pass fp32, each channel's running sum
+//   handed from quarter to quarter; scores: warp (row, half of the heads),
+//   lanes t and t + 32, so the softmax (and the dropout) stays in the warp;
+//   P: 4 x 4 (head, channel) register tiles; projection + PE term: thread
+//   (d, half of the rows) over 4 rows, so each W and bpe element read from
+//   L2 serves 4 rows from a register;
+// - every sum runs in the earlier kernel's order (GroupNorm over t
+//   then over the group's channels, scores over c, P over t, o over c then
+//   t), so o is that kernel's bit for bit. Partial sums added at the end
+//   (per quarter of T, or the projection's c and t halves) gave o as close
+//   to fp64 but other roundings, and the whole-model gradient check in
+//   chip_smoke.py, which a change of o by a few ulp moves, then failed
+//   (PERF.md, section 6);
+// - the x tile's channel quads are swizzled by t (xs_quad), so that the
+//   16-byte shared loads of the scores and P are free of bank conflicts.
+// Shared memory at T = C = 64, G = 16: the x tile 128 KiB, a_d 32 KiB, P 32
+// KiB, Ws, pes and the GroupNorm's channel sums 12 KiB: 204 KiB of the 227.
+// Limit D <= 256. Measured in PERF.md, section 6;
+// scripts/split_ltae_fused_steps.py --kernel pool_fwd splits its time by
+// step.
 //
 // Backward: persistent blocks of 512 threads (16 warps), S = SMs / B per batch
 // item (one wave: 33 x 4 = 132 at B = 4), each walking a contiguous range of
@@ -112,7 +146,9 @@ constexpr int kMaxT = 64;      // lanes own t and t + 32
 constexpr int kMaxC = 64;      // lanes own c and c + 32
 constexpr int kMaxG = 16;      // per-head accumulators held in registers
 constexpr int kMaxD = 256;     // backward: W and bpe[b] held in shared memory
-constexpr int kMaxRows = 8;    // forward: rows (= warps) per block
+constexpr int kFwdRows = 8;    // forward: rows per group
+constexpr int kFwdThreads = 512;  // forward: 16 warps, two per row of a group
+constexpr int kFwdMaxD = kFwdThreads / 2;  // forward: a thread per (d, half)
 constexpr int kBwdThreads = 512;  // backward: 16 warps, warp g owns head g
 constexpr int kJ = 16;         // backward: a head's d channels per pass in registers
 constexpr int kMaxTPer = kMaxT / (kBwdThreads / kMaxC);  // t per thread, C-parallel steps
@@ -144,37 +180,24 @@ struct Args {
 template <typename Tin> struct Io;
 
 template <> struct Io<float> {
-  static constexpr int kVec = 4;   // values per 16-byte load
-  __device__ static void unpack(const uint4& r, float* v) {
-    v[0] = __uint_as_float(r.x);
-    v[1] = __uint_as_float(r.y);
-    v[2] = __uint_as_float(r.z);
-    v[3] = __uint_as_float(r.w);
-  }
   __device__ static float load(const float* p) { return __ldg(p); }
+  // four consecutive values from shared memory
+  __device__ static float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
   __device__ static void store(float* p, float v) { *p = v; }
 };
 
 template <> struct Io<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static void unpack(const uint4& r, float* v) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // element 2i sits in the low half
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
   __device__ static float load(const __nv_bfloat16* p) {
     return __uint_as_float(
         (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
   }
+  __device__ static float4 load4(const __nv_bfloat16* p) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);   // element 2i in the low half
+    return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                       __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+  }
   __device__ static void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 };
-
-__host__ __device__ inline int fwd_row_floats(int T, int C, int G) {
-  return T * (C + 1) + T * (G + 1) + G * (C + 1) + C;
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -214,213 +237,407 @@ __device__ __forceinline__ float tail_pre(float z, float sc, float sh) {
   return __fadd_rn(__fmul_rn(z, sc), sh);
 }
 
-// Stage Ws and the rows n0 .. n0+R-1 of batch item b as fp32 (zeros past N),
-// in tail mode with max(z * tsc + tsh, 0) applied on the way.
-template <typename Tin, bool Tail>
-__device__ void stage(const Args& a, float* ws_s, float* rows, int rf, int R,
-                      int b, int n0) {
-  const int T = a.T, C = a.C, CP = C + 1, RC = R * C;
-  for (int i = threadIdx.x; i < C * a.G; i += blockDim.x) ws_s[i] = a.ws[i];
-  constexpr int V = Io<Tin>::kVec;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---- forward: persistent row groups -----------------------------------------
+
+// Shared memory of the forward block, in floats. Regions start on 16 bytes.
+// The x tile holds (R, TP, C) fp32 with its channel quads swizzled by t
+// (xs_quad), and from the end of P to the next GroupNorm the next group's raw
+// x in x's type, (T, R, C) as in device memory. The a region holds a_d (R, G,
+// TP) until the projection, then in tail mode tsc[b] and tsh[b] (T, C) each,
+// for the next GroupNorm.
+struct FwdLayout {
+  int tp, sw;          // T rounded up to 4; the swizzle mask of quads
+  int xs, a, p, ws, pes, chs;
+  int floats;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int T, int C, int G) {
+  FwdLayout L;
+  int o = 0;
+  auto take = [&](int n) { const int at = o; o += (n + 3) & ~3; return at; };
+  L.tp = (T + 3) & ~3;
+  const int quads = C / 4, low = quads & -quads;   // C % 8 == 0: quads even
+  L.sw = (low < 8 ? low : 8) - 1;
+  L.xs = take(kFwdRows * L.tp * C);
+  L.a = take(kFwdRows * G * L.tp > 2 * T * C ? kFwdRows * G * L.tp : 2 * T * C);
+  L.p = take(kFwdRows * G * C);           // P (R, G, C)
+  L.ws = take(C * kMaxG);                 // Ws (C, G), zero pad heads up to 16
+  L.pes = take(kMaxG * L.tp);             // pes[b] (G, TP)
+  L.chs = take(2 * kFwdRows * C);         // GroupNorm: the relay, the channel sums
+  L.floats = o;
+  return L;
+}
+
+// Offset of channel quad q (channels 4q .. 4q + 4) of step t in a row's x
+// tile: stored at quad q ^ (t & sw), so that lanes reading one quad of 8
+// consecutive t, or the quads of one t, hit distinct banks.
+__device__ __forceinline__ int xs_quad(int t, int q, int C, int sw) {
+  return t * C + ((q ^ (t & sw)) << 2);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float at4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Start copying the raw x of rows [m0, m0 + rows) of batch item b, all T,
+// into raw as (T, R, C) in x's type: for each t the rows are contiguous in
+// device memory, so the copy is 16-byte vectors throughout.
+template <typename Tin>
+__device__ void fetch_group(const Args& a, Tin* raw, int b, int m0, int rows) {
+  constexpr int V = 16 / sizeof(Tin);
   const Tin* x = static_cast<const Tin*>(a.x);
-  const int nvec = T * RC / V;   // C % 8 == 0: a vector never straddles rows
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    const int e = i * V;
-    const int t = e / RC, rem = e - t * RC;
-    const int r = rem / C, c = rem - r * C;
-    const int n = n0 + r;
-    float v[V];
-    if (n < a.N) {
-      Io<Tin>::unpack(__ldg(reinterpret_cast<const uint4*>(
-                          x + ((size_t)(b * T + t) * a.N + n) * C + c)), v);
-      if constexpr (Tail) {
-        const size_t k = (size_t)(b * T + t) * C + c;
-#pragma unroll
-        for (int j = 0; j < V; ++j)
-          v[j] = fmaxf(tail_pre(v[j], __ldg(a.tsc + k + j), __ldg(a.tsh + k + j)), 0.f);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = 0.f;
-    }
-    float* dst = rows + r * rf + t * CP + c;
-#pragma unroll
-    for (int j = 0; j < V; ++j) dst[j] = v[j];
+  const int C = a.C, per_t = rows * C / V;   // C % 8 == 0: whole vectors
+#pragma unroll 1
+  for (int i = threadIdx.x; i < a.T * per_t; i += kFwdThreads) {
+    const int t = i / per_t, e = (i - t * per_t) * V;
+    cp_async16(raw + t * kFwdRows * C + e, x + ((size_t)(b * a.T + t) * a.N + m0) * C + e);
   }
+  cp_async_commit();
 }
 
-// GroupNorm of one row (T, C) in place over (T, C/G), two-pass fp32, no
-// affine; the warp's lanes own channels lane and lane + 32. vr: C floats of
-// scratch.
-__device__ void group_norm_row(float* xr, float* vr, int T, int C, int G, float eps) {
-  const int lane = threadIdx.x & 31, CP = C + 1, cg = C / G;
-  const float cnt = (float)(T * cg);
-  float mean_c[2] = {0.f, 0.f};
-  for (int c = lane; c < C; c += 32) {
-    float s = 0.f;
-    for (int t = 0; t < T; ++t) s += xr[t * CP + c];
-    vr[c] = s;
+// Start copying batch item b's tail affine, tsc[b] and tsh[b] (T, C) fp32,
+// into ts (2, T, C).
+__device__ void fetch_tail(const Args& a, float* ts, int b) {
+  const int n = a.T * a.C;   // C % 8 == 0: whole vectors
+  const float* sc = a.tsc + (size_t)b * n;
+  const float* sh = a.tsh + (size_t)b * n;
+#pragma unroll 1
+  for (int i = 4 * threadIdx.x; i < n; i += 4 * kFwdThreads) {
+    cp_async16(ts + i, sc + i);
+    cp_async16(ts + n + i, sh + i);
   }
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int c = lane + 32 * k;
-    if (c < C) {
-      const int g0 = (c / cg) * cg;
-      float s = 0.f;
-      for (int j = 0; j < cg; ++j) s += vr[g0 + j];
-      mean_c[k] = s / cnt;
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int c = lane + 32 * k;
-    if (c < C) {
-      float q = 0.f;
-      for (int t = 0; t < T; ++t) {
-        const float dl = xr[t * CP + c] - mean_c[k];
-        q = fmaf(dl, dl, q);
-      }
-      vr[c] = q;
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int c = lane + 32 * k;
-    if (c < C) {
-      const int g0 = (c / cg) * cg;
-      float q = 0.f;
-      for (int j = 0; j < cg; ++j) q += vr[g0 + j];
-      const float inv = rsqrtf(q / cnt + eps);
-      for (int t = 0; t < T; ++t) xr[t * CP + c] = (xr[t * CP + c] - mean_c[k]) * inv;
-    }
-  }
-  __syncwarp();
-}
-
-// Scores xhat Ws + pes and the masked softmax over T for one row (lanes own
-// t and t + 32); writes a_d (T, G+1).
-__device__ void attention_row(const Args& a, const float* xr, const float* ws_s,
-                              float* adr, int b, int n) {
-  const int lane = threadIdx.x & 31, T = a.T, C = a.C, G = a.G;
-  const int CP = C + 1, GP = G + 1;
-  const bool v0 = lane < T, v1 = lane + 32 < T;
-  float s0[kMaxG], s1[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) s0[g] = s1[g] = 0.f;
-  const float* x0p = xr + (v0 ? lane : 0) * CP;   // lanes past T read row 0
-  const float* x1p = xr + (v1 ? lane + 32 : 0) * CP;
-  for (int c = 0; c < C; ++c) {
-    const float x0 = x0p[c], x1 = x1p[c];
-    const float* w = ws_s + c * G;
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float wv = w[g];
-        s0[g] = fmaf(x0, wv, s0[g]);
-        s1[g] = fmaf(x1, wv, s1[g]);
-      }
-    }
-  }
-  const float* pes = a.pes + (size_t)b * G * T;
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {   // G is uniform: the whole warp takes the shuffles
-      const float z0 = v0 ? s0[g] + pes[g * T + lane] : -CUDART_INF_F;
-      const float z1 = v1 ? s1[g] + pes[g * T + lane + 32] : -CUDART_INF_F;
-      const float m = warp_max(fmaxf(z0, z1));
-      float e0 = v0 ? expf(z0 - m) : 0.f;
-      float e1 = v1 ? expf(z1 - m) : 0.f;
-      const float inv = 1.f / warp_sum(e0 + e1);
-      e0 *= inv;
-      e1 *= inv;
-      if (v0) adr[lane * GP + g] = e0 * keep_scale(a, b, lane, n, g);
-      if (v1) adr[(lane + 32) * GP + g] = e1 * keep_scale(a, b, lane + 32, n, g);
-    }
-  }
-  __syncwarp();
-}
-
-// P[g, c] = sum_t a_d[t, g] xhat[t, c] for one row (lanes own c, c + 32).
-__device__ void pool_row(const float* xr, const float* adr, float* pr, int T,
-                         int C, int G) {
-  const int lane = threadIdx.x & 31, CP = C + 1, GP = G + 1;
-  const bool c0 = lane < C, c1 = lane + 32 < C;
-  float p0[kMaxG], p1[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) p0[g] = p1[g] = 0.f;
-  for (int t = 0; t < T; ++t) {
-    const float* xt = xr + t * CP;
-    const float x0 = c0 ? xt[lane] : 0.f;
-    const float x1 = c1 ? xt[lane + 32] : 0.f;
-    const float* at = adr + t * GP;
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float av = at[g];
-        p0[g] = fmaf(av, x0, p0[g]);
-        p1[g] = fmaf(av, x1, p1[g]);
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
-      if (c0) pr[g * CP + lane] = p0[g];
-      if (c1) pr[g * CP + lane + 32] = p1[g];
-    }
-  }
-  __syncwarp();
+  cp_async_commit();
 }
 
 template <typename Tin, bool Tail>
-__global__ void __launch_bounds__(32 * kMaxRows)
-ltae_pool_fwd_kernel(const Args a) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kFwdThreads, 1)
+ltae_pool_fwd_group_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem_fwd[];
+  float* const smem = smem_fwd;
   const int T = a.T, C = a.C, D = a.D, G = a.G, N = a.N;
-  const int CP = C + 1, GP = G + 1, dv = D / G;
-  const int R = blockDim.x >> 5, warp = threadIdx.x >> 5;
-  const int b = blockIdx.y, n0 = blockIdx.x * R;
-  const int rf = fwd_row_floats(T, C, G);
-  const int off_a = T * CP, off_p = off_a + T * GP, off_v = off_p + G * CP;
-  float* ws_s = smem;            // (C, G)
-  float* rows = smem + C * G;    // R regions of rf floats
+  const FwdLayout L = fwd_layout(T, C, G);
+  const int TP = L.tp, SW = L.sw;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, S = gridDim.x;
+  const int cg = C / G, dv = D / G;
+  // this block's rows: a contiguous range of batch item b (row_ranges)
+  const int n0 = (int)((long long)blockIdx.x * N / S);
+  const int n1 = (int)((long long)(blockIdx.x + 1) * N / S);
+  if (n0 >= n1) return;   // the whole block: no barrier is reached
 
-  stage<Tin, Tail>(a, ws_s, rows, rf, R, b, n0);
-  __syncthreads();
+  float* xs = smem + L.xs;
+  float* as = smem + L.a;
+  float* ps = smem + L.p;
+  Tin* raw = reinterpret_cast<Tin*>(xs);
+  fetch_group<Tin>(a, raw, b, n0, min(kFwdRows, n1 - n0));
+  if constexpr (Tail) fetch_tail(a, as, b);
 
-  float* xr = rows + warp * rf;
-  group_norm_row(xr, xr + off_v, T, C, G, a.eps);
-  attention_row(a, xr, ws_s, xr + off_a, b, n0 + warp);
-  pool_row(xr, xr + off_a, xr + off_p, T, C, G);
-  __syncthreads();
-
-  // o[d] = P[g(d)] . W[:, d] + sum_t a_d[t, g(d)] bpe[t, d], block-wide: a
-  // thread owns d for all R rows, so each W / bpe element read serves R rows.
+  // ---- batch item b's constants, once per block ----------------------------
+  for (int i = tid; i < C * kMaxG; i += kFwdThreads) {
+    const int c = i / kMaxG, g = i - c * kMaxG;
+    smem[L.ws + i] = g < G ? a.ws[c * G + g] : 0.f;
+  }
+  for (int i = tid; i < G * T; i += kFwdThreads) {
+    const int g = i / T, t = i - g * T;
+    smem[L.pes + g * TP + t] = a.pes[(size_t)b * G * T + i];
+  }
+  const float* tsc = as;   // tsc[b], tsh[b] as fetch_tail lays them out
+  const float* tsh = as + T * C;
   const float* bpe = a.bpe + (size_t)b * T * D;
-  Tin* o = static_cast<Tin*>(a.o);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    const int g = d / dv;
-    float acc[kMaxRows];
+  const float cnt = (float)(T * cg);
+
+#pragma unroll 1
+  for (int m0 = n0; m0 < n1; m0 += kFwdRows) {
+    const int rows = min(kFwdRows, n1 - m0);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // 1. tail affine and GroupNorm over (T, C/G), two-pass fp32: thread (r,
+    //    quad, quarter) holds channels 4 quad .. + 4 of row r at 16 steps in
+    //    registers. Each channel's sum runs over t in order, as the earlier
+    //    one-warp-per-row kernel summed it (so o is that kernel's bit for
+    //    bit): quarter 0 starts it, and each quarter hands its running sums
+    //    to the next (a shuffle within the row's first warp, shared memory to
+    //    its second); then the group's channels in order. Normalized into the
+    //    x tile. Rows past the range compute on zeros and store nothing.
+    {
+      const int gr = warp >> 1, gq = lane & 15, gh = warp & 1, hi = lane >> 4;
+      const int gt0 = 16 * (2 * gh + hi);
+      const bool gn_on = 4 * gq < C;
+      const int nt = min(16, max(0, T - gt0));   // the thread's steps below T
+      float* relay = smem + L.chs;                // (R, C): quarter 1's running sums
+      float* sums = relay + kFwdRows * C;         // (R, C): the channel sums
+      float4 v[16];
+      if (gn_on) {
+        const int nx = gr < rows ? nt : 0;        // ... that hold a row's data
+        const Tin* rp = raw + (gt0 * kFwdRows + gr) * C + 4 * gq;
+        const float* scp = tsc + gt0 * C + 4 * gq;
+        const float* shp = tsh + gt0 * C + 4 * gq;
 #pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float w = __ldg(a.win + c * D + d);
+        for (int i = 0; i < 16; ++i) {
+          float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i < nx) {
+            x = Io<Tin>::load4(rp + i * kFwdRows * C);
+            if constexpr (Tail) {
+              const float4 sc = ld4(scp + i * C), sh = ld4(shp + i * C);
+              x = make_float4(fmaxf(tail_pre(x.x, sc.x, sh.x), 0.f),
+                              fmaxf(tail_pre(x.y, sc.y, sh.y), 0.f),
+                              fmaxf(tail_pre(x.z, sc.z, sh.z), 0.f),
+                              fmaxf(tail_pre(x.w, sc.w, sh.w), 0.f));
+            }
+          }
+          v[i] = x;
+        }
+      }
+      // One pass of the relay: acc[j] continues channel 4 gq + j's running
+      // value over this thread's steps with step(acc, x); the result of the
+      // last quarter lands in sums. Every thread of the block calls it.
+      auto relay_pass = [&](float* acc, auto&& step) {
+        auto run = [&]() {
 #pragma unroll
-      for (int r = 0; r < kMaxRows; ++r)
-        if (r < R) acc[r] = fmaf(rows[r * rf + off_p + g * CP + c], w, acc[r]);
+          for (int i = 0; i < 16; ++i)
+            if (i < nt) step(acc, v[i]);
+        };
+        const int at = gr * C + 4 * gq;
+        if (gh == 1 && hi == 0 && gn_on)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[j] = relay[at + j];
+        if (hi == 0) run();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {   // the warp's low half to its high half
+          const float o = __shfl_xor_sync(0xffffffffu, acc[j], 16);
+          if (hi == 1) acc[j] = o;
+        }
+        if (hi == 1) run();
+        if (hi == 1 && gn_on)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) (gh == 0 ? relay : sums)[at + j] = acc[j];
+      };
+      // quarters 0-1 in the row's first warp, then 2-3 in its second
+      auto relayed = [&](float* acc, auto&& step) {
+        if (gh == 0) relay_pass(acc, step);
+        __syncthreads();
+        if (gh == 1) relay_pass(acc, step);
+        __syncthreads();
+      };
+      // the group's cg channel values from sums, in order from 0
+      auto group_total = [&](int j) {
+        const int g0 = ((4 * gq + j) / cg) * cg;
+        float t = 0.f;
+#pragma unroll 1
+        for (int k = 0; k < cg; ++k) t += sums[gr * C + g0 + k];
+        return t;
+      };
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      relayed(acc, [](float* a, const float4& x) {
+        a[0] += x.x;
+        a[1] += x.y;
+        a[2] += x.z;
+        a[3] += x.w;
+      });
+      float mean[4] = {0.f, 0.f, 0.f, 0.f};
+      if (gn_on)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mean[j] = group_total(j) / cnt;
+      float q[4] = {0.f, 0.f, 0.f, 0.f};
+      relayed(q, [&](float* a, const float4& x) {
+        const float d0 = x.x - mean[0], d1 = x.y - mean[1];
+        const float d2 = x.z - mean[2], d3 = x.w - mean[3];
+        a[0] = fmaf(d0, d0, a[0]);
+        a[1] = fmaf(d1, d1, a[1]);
+        a[2] = fmaf(d2, d2, a[2]);
+        a[3] = fmaf(d3, d3, a[3]);
+      });
+      if (gn_on) {
+        float inv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) inv[j] = rsqrtf(group_total(j) / cnt + a.eps);
+        float* xr = xs + gr * TP * C;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int t = gt0 + i;
+          float4 y = make_float4(0.f, 0.f, 0.f, 0.f);   // the pad steps T .. TP
+          if (i < nt)
+            y = make_float4((v[i].x - mean[0]) * inv[0], (v[i].y - mean[1]) * inv[1],
+                            (v[i].z - mean[2]) * inv[2], (v[i].w - mean[3]) * inv[3]);
+          if (t < TP) *reinterpret_cast<float4*>(xr + xs_quad(t, gq, C, SW)) = y;
+        }
+      }
     }
-    for (int t = 0; t < T; ++t) {
-      const float pv = __ldg(bpe + t * D + d);
+    __syncthreads();
+
+    // 2. scores and the masked softmax over T, then dropout: warp (r, half)
+    //    owns row r's heads 8 * half .. + 8, lanes t and t + 32; c in order.
+    //    a_d = a * keep(seed, b, t, n, g) / (1 - p), 0 on the pad steps.
+    {
+      const int r = warp >> 1, g0 = (warp & 1) * 8;
+      if (g0 < G) {   // warp-uniform
+        // lanes past the padded steps read a step they do not own
+        const int t0 = lane < TP ? lane : 0, t1 = lane + 32 < TP ? lane + 32 : lane;
+        const bool v0 = lane < T, v1 = lane + 32 < T;
+        const float* xr = xs + r * TP * C;
+        const float* wsg = smem + L.ws + g0;
+        float s0[8], s1[8];
 #pragma unroll
-      for (int r = 0; r < kMaxRows; ++r)
-        if (r < R) acc[r] = fmaf(rows[r * rf + off_a + t * GP + g], pv, acc[r]);
+        for (int k = 0; k < 8; ++k) s0[k] = s1[k] = 0.f;
+#pragma unroll 2
+        for (int q = 0; q < C / 4; ++q) {
+          const float4 xa = ld4(xr + xs_quad(t0, q, C, SW));
+          const float4 xb = ld4(xr + xs_quad(t1, q, C, SW));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float* w = wsg + (4 * q + i) * kMaxG;
+            const float4 wl = ld4(w), wh = ld4(w + 4);
+            const float wv[8] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
+            const float xv0 = at4(xa, i), xv1 = at4(xb, i);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              s0[k] = fmaf(xv0, wv[k], s0[k]);
+              s1[k] = fmaf(xv1, wv[k], s1[k]);
+            }
+          }
+        }
+        const int n = m0 + r;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int g = g0 + k;
+          if (g < G) {   // uniform: the whole warp takes the shuffles
+            const float* pes = smem + L.pes + g * TP;
+            const float z0 = v0 ? s0[k] + pes[t0] : -CUDART_INF_F;
+            const float z1 = v1 ? s1[k] + pes[lane + 32] : -CUDART_INF_F;
+            const float mx = warp_max(fmaxf(z0, z1));
+            float e0 = v0 ? expf(z0 - mx) : 0.f;
+            float e1 = v1 ? expf(z1 - mx) : 0.f;
+            const float rs = 1.f / warp_sum(e0 + e1);
+            e0 *= rs;
+            e1 *= rs;
+            float* ar = as + (r * G + g) * TP;
+            if (lane < TP) ar[lane] = v0 ? e0 * keep_scale(a, b, lane, n, g) : 0.f;
+            if (lane + 32 < TP) ar[lane + 32] = v1 ? e1 * keep_scale(a, b, lane + 32, n, g) : 0.f;
+          }
+        }
+      }
     }
+    __syncthreads();
+
+    // 3. P = a_d @ xhat, (G, C) per row: warp (r, half), lane (c quad, g
+    //    quad); a 4 x 4 tile of (g, c) in registers, t in order (the pad
+    //    steps add 0 * 0). Written once the x tile is free, which also lets
+    //    the next group's x start coming in.
+    {
+      const int r = warp >> 1;
+      const int cq = lane & 15, gq4 = (lane >> 4) + 2 * (warp & 1);
+      const bool on = 4 * cq < C && 4 * gq4 < G;
+      float p[4][4];
 #pragma unroll
-    for (int r = 0; r < kMaxRows; ++r)
-      if (r < R && n0 + r < N) Io<Tin>::store(o + ((size_t)b * N + n0 + r) * D + d, acc[r]);
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[k][j] = 0.f;
+      if (on) {
+        const float* xr = xs + r * TP * C;
+        const float* ar[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ar[k] = as + (r * G + min(4 * gq4 + k, G - 1)) * TP;
+#pragma unroll 1
+        for (int t = 0; t < TP; t += 4) {
+          float4 xv[4], av[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) xv[i] = ld4(xr + xs_quad(t + i, cq, C, SW));
+#pragma unroll
+          for (int k = 0; k < 4; ++k) av[k] = ld4(ar[k] + t);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float w = at4(av[k], i);
+              p[k][0] = fmaf(w, xv[i].x, p[k][0]);
+              p[k][1] = fmaf(w, xv[i].y, p[k][1]);
+              p[k][2] = fmaf(w, xv[i].z, p[k][2]);
+              p[k][3] = fmaf(w, xv[i].w, p[k][3]);
+            }
+        }
+      }
+      __syncthreads();   // the x tile is free from here
+      if (m0 + kFwdRows < n1)
+        fetch_group<Tin>(a, raw, b, m0 + kFwdRows, min(kFwdRows, n1 - m0 - kFwdRows));
+      if (on) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (4 * gq4 + k < G)
+            *reinterpret_cast<float4*>(ps + (r * G + 4 * gq4 + k) * C + 4 * cq) =
+                make_float4(p[k][0], p[k][1], p[k][2], p[k][3]);
+      }
+    }
+    __syncthreads();
+
+    // 4. o[d] = P[g(d)] . W[:, d] + sum_t a_d[t, g(d)] bpe[t, d], one chain
+    //    per (row, d), c then t, as the earlier kernel summed it:
+    //    thread (d, half of the rows) over the half's 4 rows, so each W / bpe
+    //    element read from L2 serves 4 rows; o is stored in x's type.
+    {
+      constexpr int kHalf = kFwdRows / 2;
+      const int d = tid & (kFwdMaxD - 1), r0 = (tid / kFwdMaxD) * kHalf;
+      const bool on = d < D;
+      const int g = on ? d / dv : 0;
+      float acc[kHalf];
+#pragma unroll
+      for (int r = 0; r < kHalf; ++r) acc[r] = 0.f;
+      if (on) {
+#pragma unroll 4
+        for (int c = 0; c < C; c += 4) {
+          float w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) w[i] = __ldg(a.win + (c + i) * D + d);
+#pragma unroll
+          for (int r = 0; r < kHalf; ++r) {
+            const float4 pv = ld4(ps + ((r0 + r) * G + g) * C + c);
+            acc[r] = fmaf(pv.x, w[0], acc[r]);
+            acc[r] = fmaf(pv.y, w[1], acc[r]);
+            acc[r] = fmaf(pv.z, w[2], acc[r]);
+            acc[r] = fmaf(pv.w, w[3], acc[r]);
+          }
+        }
+#pragma unroll 4
+        for (int t = 0; t < TP; t += 4) {   // the pad steps add 0 * 0
+          float w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) w[i] = t + i < T ? __ldg(bpe + (t + i) * D + d) : 0.f;
+#pragma unroll
+          for (int r = 0; r < kHalf; ++r) {
+            const float4 av = ld4(as + ((r0 + r) * G + g) * TP + t);
+            acc[r] = fmaf(av.x, w[0], acc[r]);
+            acc[r] = fmaf(av.y, w[1], acc[r]);
+            acc[r] = fmaf(av.z, w[2], acc[r]);
+            acc[r] = fmaf(av.w, w[3], acc[r]);
+          }
+        }
+      }
+      __syncthreads();   // a_d is read: the a region is free
+      if (Tail && m0 + kFwdRows < n1) fetch_tail(a, as, b);
+      if (on) {
+        Tin* orow = static_cast<Tin*>(a.o) + ((size_t)b * N + m0 + r0) * D + d;
+#pragma unroll
+        for (int r = 0; r < kHalf; ++r)
+          if (r0 + r < rows) Io<Tin>::store(orow + (size_t)r * D, acc[r]);
+      }
+    }
   }
 }
 
@@ -472,15 +689,6 @@ __host__ __device__ inline int bwd_item_floats(int T, int C, int D, int G, bool 
   return T * G + T * D + (tail ? 2 * T * C : 0);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -496,7 +704,7 @@ __device__ void fetch_row(const Args& a, float* raw, int b, int n) {
     const int e = i * V, t = e / C;
     cp_async16(dst + e, x + ((size_t)(b * a.T + t) * a.N + n) * C + (e - t * C));
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
 }
 
 template <typename Tin>
@@ -898,22 +1106,21 @@ __global__ void ltae_pool_bwd_reduce(const Args a, const float* part, int S, boo
 
 using Kernel = void (*)(const Args);
 
-cudaError_t launch(Kernel kernel, int rf, const Args& a, cudaStream_t stream) {
-  int rows = kMaxRows;
-  auto bytes = [&](int r) { return (size_t)(a.C * a.G + r * rf) * sizeof(float); };
-  while (rows > 1 && bytes(rows) > kSmemLimit) --rows;
-  if (bytes(rows) > kSmemLimit) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes(rows));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + rows - 1) / rows, a.B);
-  kernel<<<grid, 32 * rows, bytes(rows), stream>>>(a);
-  return cudaGetLastError();
-}
-
 template <typename Tin>
 Kernel fwd_kernel(bool tail) {
-  return tail ? &ltae_pool_fwd_kernel<Tin, true> : &ltae_pool_fwd_kernel<Tin, false>;
+  return tail ? &ltae_pool_fwd_group_kernel<Tin, true>
+              : &ltae_pool_fwd_group_kernel<Tin, false>;
+}
+
+// The forward: S persistent blocks per batch item.
+cudaError_t launch_fwd(Kernel kernel, const Args& a, int S, cudaStream_t stream) {
+  const size_t bytes = (size_t)fwd_layout(a.T, a.C, a.G).floats * sizeof(float);
+  if (bytes > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(S, a.B), kFwdThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
 using BwdKernel = void (*)(const Args, float*);
@@ -961,17 +1168,23 @@ Args make_args(int B, int T, int N, int C, int D, int G, unsigned seed_mix,
 
 // C entries for ctypes. Pointers are device pointers to contiguous tensors:
 // x, go, o and dx of x's type (fp32, or bf16 when x_is_bf16), every other one
-// fp32. tsc and tsh are null for the untailed mode; in tail mode the backward
-// also needs dtsc and dtsh. The backward writes every element of its sums
-// (acc_a, acc_f, dsum, acc_e, dtsc, dtsh) and needs a scratch buffer `part`
-// of S * B * ltae_pool_bwd_part_floats(...) floats, S blocks per batch item.
-// Each returns the cudaError_t of its launches (0 on success).
+// fp32; x, and in tail mode tsc and tsh, start on 16 bytes (the forward
+// copies them in 16-byte vectors). tsc and tsh are null for the untailed
+// mode; in tail mode the backward also needs dtsc and dtsh. Each kernel runs
+// S persistent blocks per batch item (ops/ltae_pool.py::blocks_per_item).
+// The forward takes D <= 256 (a thread per (d, half of a row group) in its
+// projection).
+// The backward writes every element of its sums (acc_a, acc_f, dsum, acc_e,
+// dtsc, dtsh) and needs a scratch buffer `part` of S * B *
+// ltae_pool_bwd_part_floats(...) floats. Each returns the cudaError_t of its
+// launches (0 on success).
 extern "C" int ltae_pool_fwd(const void* x, int x_is_bf16, const void* tsc,
                              const void* tsh, const void* bpe, const void* win,
-                             const void* ws, const void* pes, void* o, int B,
+                             const void* ws, const void* pes, void* o, int S, int B,
                              int T, int N, int C, int D, int G, unsigned seed_mix,
                              unsigned thresh, float scale, float eps, void* stream) {
-  if (bad_shape(B, T, N, C, D, G) || (tsc == nullptr) != (tsh == nullptr))
+  if (bad_shape(B, T, N, C, D, G) || D > kFwdMaxD || S < 1 ||
+      (tsc == nullptr) != (tsh == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(B, T, N, C, D, G, seed_mix, thresh, scale, eps);
   a.x = x;
@@ -983,8 +1196,8 @@ extern "C" int ltae_pool_fwd(const void* x, int x_is_bf16, const void* tsc,
   a.pes = static_cast<const float*>(pes);
   a.o = o;
   const bool tail = tsc != nullptr;
-  return (int)launch(x_is_bf16 ? fwd_kernel<__nv_bfloat16>(tail) : fwd_kernel<float>(tail),
-                     fwd_row_floats(T, C, G), a, static_cast<cudaStream_t>(stream));
+  return (int)launch_fwd(x_is_bf16 ? fwd_kernel<__nv_bfloat16>(tail) : fwd_kernel<float>(tail),
+                         a, S, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ltae_pool_bwd_part_floats(int T, int C, int D, int G, int tail) {

@@ -28,7 +28,7 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from crop2seg_tpu_torch.ops._build import load_library
-from crop2seg_tpu_torch.ops.ltae_pool import blocks_per_item
+from crop2seg_tpu_torch.ops.ltae_pool import aligned16, blocks_per_item
 
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
 MAX_C = 128         # lanes own channels c + 32k, k < 4
@@ -174,12 +174,6 @@ def launch_shape(b: int, t: int, c: int, d: int, g: int, d_out: int, nq: int,
     return blocks_per_item(b, sm_count)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t itself if it starts on 16 bytes (the kernel copies tsc and tsh in
-    16-byte vectors), else a copy that does."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 @functools.cache
 def _kernel():
     lib = load_library("ltae_fused_fwd")
@@ -235,7 +229,7 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
             if tsc.shape != (b, t, c) or tsh.shape != (b, t, c):
                 raise ValueError(f"tail_affine must be (B, T, C) = {(b, t, c)}")
             f["tsc"], f["tsh"] = tsc, tsh
-    f = {k: _aligned(v.to(x.device).contiguous()) for k, v in f.items()}
+    f = {k: aligned16(v.to(x.device).contiguous()) for k, v in f.items()}
     out = torch.empty(b, n, nq, d_out, dtype=x.dtype, device=x.device)
     attn = (torch.empty(b, n, g, nq, t, dtype=torch.float32, device=x.device)
             if need_attn else None)

@@ -29,6 +29,10 @@ and dx come back in x's dtype, every other gradient in fp32.
 ``ltae_pool.launches_fwd`` / ``.launches_bwd`` count the kernels' launches,
 and ``ltae_pool.launches`` counts them per variant (``variant``).
 
+The forward kernel runs S = ``fwd_launch_shape(...)`` persistent blocks per
+batch item, each walking its ``row_ranges`` in groups of 8 rows, and writes
+o in one pass over x.
+
 The folds and the small products around the kernels run in fp32 with
 autocast off, from fp32 parameters, as the JAX package computes them, whatever
 the caller's autocast state.
@@ -63,7 +67,8 @@ from crop2seg_tpu_torch.ops._build import load_library
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
 MAX_C = 64          # lanes own channels c and c + 32
 MAX_HEADS = 16      # per-head accumulators live in registers
-MAX_D = 256         # the backward holds win_f and bin_f + pe in shared memory
+MAX_D = 256         # the forward gives a thread to each (d, half of a row group);
+                    # the backward holds win_f and bin_f + pe in shared memory
 EPS = 1e-5          # the input GroupNorm's epsilon
 _M32 = 0xFFFFFFFF
 
@@ -103,15 +108,19 @@ def variant(tail: bool, dtype: torch.dtype, direction: str) -> str:
             f"{'_bf16' if dtype == torch.bfloat16 else ''}")
 
 
+def _check_limits(t: int, c: int, d: int, g: int) -> None:
+    if not (t <= MAX_T and c <= MAX_C and c % 8 == 0 and g <= MAX_HEADS
+            and c % g == 0 and d % g == 0 and d <= MAX_D):
+        raise ValueError(
+            f"unsupported shape T={t} C={c} G={g} D={d}: the kernels take "
+            f"T<={MAX_T}, C<={MAX_C} with C%8==0, G<={MAX_HEADS} dividing C and D, "
+            f"D<={MAX_D}")
+
+
 def _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head, tail=None):
     b, t, n, c = x.shape
     d = win_f.shape[1]
-    if not (t <= MAX_T and c <= MAX_C and c % 8 == 0 and n_head <= MAX_HEADS
-            and c % n_head == 0 and d % n_head == 0 and d <= MAX_D):
-        raise ValueError(
-            f"unsupported shape T={t} C={c} G={n_head} D={d}: the kernels take "
-            f"T<={MAX_T}, C<={MAX_C} with C%8==0, G<={MAX_HEADS} dividing C and D, "
-            f"D<={MAX_D}")
+    _check_limits(t, c, d, n_head)
     want = {"pe": (b, t, d), "pad_mask": (b, t), "win_f": (c, d), "bin_f": (d,),
             "u": (d, n_head), "cs": (1, n_head)}
     got = {"pe": pe, "pad_mask": pad_mask, "win_f": win_f, "bin_f": bin_f,
@@ -174,9 +183,9 @@ def _kernels():
     lib = load_library("ltae_pool")
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
     fwd, bwd, part = lib.ltae_pool_fwd, lib.ltae_pool_bwd, lib.ltae_pool_bwd_part_floats
-    # x, x_is_bf16 | tsc, tsh, bpe, win, ws, pes, o | B T N C D G |
+    # x, x_is_bf16 | tsc, tsh, bpe, win, ws, pes, o | S B T N C D G |
     # seed_mix thresh scale eps stream
-    fwd.argtypes = [vp, ci] + [vp] * 7 + [ci] * 6 + [cu, cu, cf, cf, vp]
+    fwd.argtypes = [vp, ci] + [vp] * 7 + [ci] * 7 + [cu, cu, cf, cf, vp]
     # x, x_is_bf16 | tsc, tsh, go, win, ws, pes, bpe, dx, A, F, Dsum, E,
     # dtsc, dtsh, part | S B T N C D G | ...
     bwd.argtypes = [vp, ci] + [vp] * 15 + [ci] * 7 + [cu, cu, cf, cf, vp]
@@ -186,17 +195,32 @@ def _kernels():
 
 
 def blocks_per_item(b: int, sm_count: int) -> int:
-    """The backward kernel's blocks per batch item, S: its B * S persistent
-    blocks (one per SM) form a single wave, so S = sm_count // B, and at
-    least 1 (then B > sm_count blocks run in more than one wave)."""
+    """The persistent kernels' blocks per batch item, S: their B * S blocks
+    (one per SM) form a single wave, so S = sm_count // B, and at least 1
+    (then B > sm_count blocks run in more than one wave)."""
     return max(1, sm_count // b)
 
 
 def row_ranges(n: int, s: int) -> list:
-    """The rows [start, stop) of each of the S backward blocks of a batch
-    item, in block order, as the kernel splits them: contiguous, sizes
-    differing by at most one, empty when n < s."""
+    """The rows [start, stop) of each of the S blocks of a batch item, in
+    block order, as the kernels split them: contiguous, sizes differing by
+    at most one, empty when n < s."""
     return [(i * n // s, (i + 1) * n // s) for i in range(s)]
+
+
+def fwd_launch_shape(b: int, t: int, c: int, d: int, g: int, sm_count: int) -> int:
+    """Check a forward launch against the kernels' limits (ValueError past
+    them) and return S, the forward kernel's persistent blocks per batch item
+    (``blocks_per_item``), each walking ``row_ranges(N, S)[i]`` in groups
+    of 8 rows."""
+    _check_limits(t, c, d, g)
+    return blocks_per_item(b, sm_count)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself if it starts on 16 bytes (the forward kernels copy tsc and tsh
+    in 16-byte vectors), else a copy that does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _folds(pe, pad_mask, win_f, bin_f, u, cs):
@@ -215,6 +239,10 @@ def _scalars(seed: int, drop_p: float):
 
 def _ptr(a):
     return None if a is None else a.data_ptr()
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _count(tail: bool, dtype: torch.dtype, direction: str) -> None:
@@ -238,12 +266,13 @@ class _LtaePool(torch.autograd.Function):
         d = win_f.shape[1]
         with torch.autocast("cuda", enabled=False):
             ws, bpe, pes = _folds(pe, pad_mask, win_f, bin_f, u, cs)
+        s = fwd_launch_shape(b, t, c, d, n_head, _sm_count(x.device))
         o = torch.empty(b, n, d, dtype=x.dtype, device=x.device)
         fwd = _kernels()[0]
         with torch.cuda.device(x.device):
             rc = fwd(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc),
                      _ptr(tsh), bpe.data_ptr(), win_f.data_ptr(), ws.data_ptr(),
-                     pes.data_ptr(), o.data_ptr(), b, t, n, c, d, n_head,
+                     pes.data_ptr(), o.data_ptr(), s, b, t, n, c, d, n_head,
                      *_scalars(seed, drop_p), EPS,
                      torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
@@ -268,7 +297,7 @@ class _LtaePool(torch.autograd.Function):
         dtsc, dtsh = ((torch.empty(b, t, c, **f32), torch.empty(b, t, c, **f32))
                       if tail else (None, None))
         _, bwd, part_floats = _kernels()
-        s = blocks_per_item(b, torch.cuda.get_device_properties(x.device).multi_processor_count)
+        s = blocks_per_item(b, _sm_count(x.device))
         part = torch.empty(b * s, part_floats(t, c, d, g, int(tail)), **f32)
         with torch.cuda.device(x.device):
             rc = bwd(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc),
@@ -320,7 +349,7 @@ def _pool(x, tail, pe, pad_mask, win_f, bin_f, u, cs, seed, n_head, drop_p):
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
-    tsc, tsh = (None, None) if tail is None else (a.contiguous() for a in tail)
+    tsc, tsh = (None, None) if tail is None else (aligned16(a.contiguous()) for a in tail)
     return _LtaePool.apply(x, tsc, tsh, pe.contiguous(), pad_mask,
                            win_f.contiguous(), bin_f.contiguous(), u.contiguous(),
                            cs.contiguous(), int(seed), n_head, float(drop_p))

@@ -8,17 +8,21 @@ crop2seg_tpu_torch is imported from PYTHONPATH when it is set (this
 checkout's otherwise), and its kernels are built there. Inputs and parameters
 are drawn from a seeded generator at B=4, T=61 (samples 1-3 padded to 55,
 the tail affine zeroed there), N=128*128, C=64, D=256, G=16, drop_p 0.1.
-Prints the card (nvidia-smi name and power limit), then one JSON line per
-variant (untailed or tail mode, x fp32 or bf16) with the forward's and the
-backward's ms per call (CUDA events, mean over --iters calls after 2 warm-up
-calls). The backward is timed through torch.autograd.grad, so it includes
-the wrapper's few small products around the kernel.
+Prints the card (nvidia-smi name and power limit), then per variant
+(untailed or tail mode, x fp32 or bf16) the SM clock and power draw before
+and after its timing, and one JSON line with the forward's and the
+backward's ms per call: the mean over --iters back-to-back calls after 2
+warm-up calls (CUDA events around the loop) and the median of the same
+calls, each between its own pair of CUDA events. The backward is timed
+through torch.autograd.grad, so it includes the wrapper's few small products
+around the kernel.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -45,16 +49,24 @@ def inputs(dev):
     return r(B, T, N, C), ts, r(B, T, D), pad, params, r(B, N, D)
 
 
-def timed(fn, iters: int) -> float:
+def timed(fn, iters: int):
+    """(mean, median) ms per call of fn."""
     for _ in range(2):
         fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    for i in range(iters):
+        events[i].record()
         fn()
-    end.record()
+    events[-1].record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    per_call = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return events[0].elapsed_time(events[-1]) / iters, statistics.median(per_call)
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
 
 
 def main() -> int:
@@ -64,9 +76,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0])
+    print(smi("name,power.limit"))
     dev = torch.device("cuda")
     x, ts, pe, pad, params, go = inputs(dev)
     for tail in (False, True):
@@ -85,14 +95,18 @@ def main() -> int:
             def fwd_only():
                 with torch.no_grad():
                     forward()
-            fwd_ms = timed(fwd_only, args.iters)
+            name = lp.variant(tail, dtype, "bwd").replace("_bwd", "")
+            print(f"clocks.sm, power.draw before {name}: {smi('clocks.sm,power.draw')}")
+            fwd_ms, fwd_median = timed(fwd_only, args.iters)
             o = forward()
             god = go.to(o.dtype)
-            bwd_ms = timed(lambda: torch.autograd.grad(o, leaves, god, retain_graph=True),
-                           args.iters)
+            bwd_ms, bwd_median = timed(
+                lambda: torch.autograd.grad(o, leaves, god, retain_graph=True), args.iters)
+            print(f"clocks.sm, power.draw after {name}: {smi('clocks.sm,power.draw')}")
             print(json.dumps({"package": os.path.dirname(os.path.dirname(lp.__file__)),
-                              "variant": lp.variant(tail, dtype, "bwd").replace("_bwd", ""),
-                              "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}), flush=True)
+                              "variant": name, "fwd_ms": fwd_ms,
+                              "fwd_median_ms": fwd_median, "bwd_ms": bwd_ms,
+                              "bwd_median_ms": bwd_median}), flush=True)
             del o, god, leaves
             torch.cuda.empty_cache()
     return 0

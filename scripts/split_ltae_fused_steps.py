@@ -1,19 +1,24 @@
-"""Split the time of the fused eval L-TAE kernel's row-group kernel
-(crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu::ltae_fused_group_kernel, C <= 64
-with one query) into its steps, on one card.
+"""Split the time of a row-group kernel into its steps, on one card: the
+fused eval L-TAE kernel's (crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu::
+ltae_fused_group_kernel, C <= 64 with one query) or, with --kernel
+pool_fwd, the training forward's (csrc/ltae_pool.cu::
+ltae_pool_fwd_group_kernel, all four variants).
 
-    python3 scripts/split_ltae_fused_steps.py [--launches 5]
+    python3 scripts/split_ltae_fused_steps.py [--kernel fused|pool_fwd] [--launches 5]
 
 Copies this checkout's crop2seg_tpu_torch into the gitignored
-_archive/steps/, adds clock64() stamps to the copy's group kernel at each
-step boundary (thread 0 of every block, summed over the block's row groups,
-one atomicAdd per block into a __device__ array read back through an extra
-C entry), builds it there and runs it at the TimeUNet main-path shape of
-scripts/bench_ltae_fused_torch.py (B=10, T=61, N=128*128, C=64, D=256, G=16,
-d_out=64, tail affine, no attention). Prints the card (nvidia-smi name and
-power limit), then per dtype one JSON line: the instrumented launch's ms
-(CUDA events; the stamps cost a few per cent) and each step's cycles per
-8-row group with its share. The stamps never reach the package itself.
+_archive/steps/, adds clock64() stamps to the copy's kernel at each step
+boundary (thread 0 of every block, summed over the block's row groups, one
+atomicAdd per block into a __device__ array read back through an extra C
+entry), builds it there and runs it: the fused kernel at the TimeUNet
+main-path shape of scripts/bench_ltae_fused_torch.py (B=10, T=61,
+N=128*128, C=64, D=256, G=16, d_out=64, tail affine, no attention), the
+training forward at that of scripts/bench_ltae_pool_torch.py (B=4, T=61,
+N=128*128, C=64, D=256, G=16, drop_p 0.1). Prints the card (nvidia-smi name
+and power limit), then per dtype (and mode) one JSON line: the instrumented
+launch's ms (CUDA events; the stamps cost a few per cent) and each step's
+cycles per 8-row group with its share. The stamps never reach the package
+itself.
 """
 from __future__ import annotations
 
@@ -30,28 +35,44 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 COPY = ROOT / "_archive" / "steps"
-STEPS = ("wait for x", "GroupNorm", "scores + softmax", "P", "projection + PE",
-         "MLP", "out GroupNorm")
 GROUP_ROWS = 8
+WAIT = "    cp_async_wait_all();\n    __syncthreads();\n\n    // 1. tail affine"
 
-# (anchor in the group kernel, text put before it); a stamp closes the step
-# that ends there. Anchors are the kernel's step comments and barriers.
-STAMPS = (
-    ("    cp_async_wait_all();\n    __syncthreads();\n\n    // 1. tail affine",
-     "    STEP_T0 = clock64();\n"),
-    ("\n    // 1. tail affine", "    STAMP(0)\n"),
-    ("    // 2. scores", "    STAMP(1)\n"),
-    ("    // 3. P = a @ xn", "    STAMP(2)\n"),
-    ("    // 4. o[d] = b_in[d]", "    STAMP(3)\n"),
-    ("    // 5. m = relu", "    STAMP(4)\n"),
-    ("    // 6. out GroupNorm", "    STAMP(5)\n"),
-)
+# Per kernel: its source, the text that opens its body and the text after
+# it, its steps, and the (anchor, text put before it) pairs; a stamp closes
+# the step that ends there. Anchors are the kernel's step comments and
+# barriers; the end of the row-group loop closes the last step.
+KERNELS = {
+    "fused": dict(
+        lib="ltae_fused_fwd", head="ltae_fused_group_kernel(const Args a) {",
+        after="cudaError_t launch_group(",
+        steps=("wait for x", "GroupNorm", "scores + softmax", "P", "projection + PE",
+               "MLP", "out GroupNorm"),
+        stamps=((WAIT, "    STEP_T0 = clock64();\n"),
+                ("\n    // 1. tail affine", "    STAMP(0)\n"),
+                ("    // 2. scores", "    STAMP(1)\n"),
+                ("    // 3. P = a @ xn", "    STAMP(2)\n"),
+                ("    // 4. o[d] = b_in[d]", "    STAMP(3)\n"),
+                ("    // 5. m = relu", "    STAMP(4)\n"),
+                ("    // 6. out GroupNorm", "    STAMP(5)\n"))),
+    "pool_fwd": dict(
+        lib="ltae_pool", head="ltae_pool_fwd_group_kernel(const Args a) {",
+        after="// ---- backward",
+        steps=("wait for x", "GroupNorm", "scores + softmax + dropout", "P",
+               "projection + PE + store"),
+        stamps=((WAIT, "    STEP_T0 = clock64();\n"),
+                ("\n    // 1. tail affine", "    STAMP(0)\n"),
+                ("    // 2. scores", "    STAMP(1)\n"),
+                ("    // 3. P = a_d @ xhat", "    STAMP(2)\n"),
+                ("    // 4. o[d] = P[g(d)]", "    STAMP(3)\n"))),
+}
 
 
-def instrument(src: str) -> str:
-    head = src.index("ltae_fused_group_kernel(const Args a) {")
-    body_end = src.index("cudaError_t launch_group(")
+def instrument(src: str, spec: dict) -> str:
+    head = src.index(spec["head"])
+    body_end = src.index(spec["after"])
     kernel = src[head:body_end]
+    nsteps = len(spec["steps"])
     kernel = kernel.replace(
         "  if (n0 >= n1) return;   // the whole block: no barrier is reached\n",
         "  if (n0 >= n1) return;   // the whole block: no barrier is reached\n"
@@ -59,15 +80,15 @@ def instrument(src: str) -> str:
         "  long long STEP_T0 = 0, step_t1 = 0;\n"
         "#define STAMP(i) step_t1 = clock64(); step_acc[i] += step_t1 - STEP_T0; "
         "STEP_T0 = step_t1;\n", 1)
-    for anchor, text in STAMPS:
+    for anchor, text in spec["stamps"]:
         if anchor not in kernel:
-            raise RuntimeError(f"anchor not found in the group kernel: {anchor!r}")
+            raise RuntimeError(f"anchor not found in {spec['head']}: {anchor!r}")
         kernel = kernel.replace(anchor, text + anchor, 1)
-    # the loop's end closes the out GroupNorm; the kernel's end adds the sums
+    # the loop's end closes the last step; the kernel's end adds the sums
     tail = kernel.rindex("  }\n}\n")
-    kernel = (kernel[:tail] + "    STAMP(6)\n  }\n"
+    kernel = (kernel[:tail] + f"    STAMP({nsteps - 1})\n  }}\n"
               "  if (threadIdx.x == 0) {\n"
-              "    for (int i = 0; i < 7; ++i)\n"
+              f"    for (int i = 0; i < {nsteps}; ++i)\n"
               "      atomicAdd(&g_steps[i], (unsigned long long)step_acc[i]);\n"
               "    atomicAdd(&g_steps[7], (unsigned long long)((n1 - n0 + 7) / 8));\n"
               "  }\n}\n" + kernel[tail + len("  }\n}\n"):])
@@ -85,8 +106,47 @@ extern "C" int ltae_steps_read(unsigned long long* host) {
 """
 
 
+def _bench(name: str):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fused_launches(dev):
+    """(label, launch) per dtype of the fused kernel at TimeUNet's width."""
+    from crop2seg_tpu_torch.ops import ltae_fused as lf
+    bench = _bench("bench_ltae_fused_torch")
+    x, pe, pad, params, tail = bench.inputs(bench.WIDTHS["timeunet"], 1, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        yield str(dtype)[6:], lambda xd=xd: lf.ltae_fused_forward(
+            xd, pe, pad, params, n_head=bench.G, d_k=bench.D_K, need_attn=False,
+            tail_affine=tail)
+
+
+def pool_fwd_launches(dev):
+    """(label, launch) per variant of the training forward."""
+    from crop2seg_tpu_torch.ops import ltae_pool as lp
+    bench = _bench("bench_ltae_pool_torch")
+    x, ts, pe, pad, params, _ = bench.inputs(dev)
+    for tail in (False, True):
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+
+            def launch(xd=xd, tail=tail):
+                with torch.no_grad():
+                    if tail:
+                        return lp.ltae_pool_tail(xd, *ts, pe, pad, *params, 99,
+                                                 n_head=bench.G, drop_p=bench.DROP_P)
+                    return lp.ltae_pool(xd, pe, pad, *params, 99, n_head=bench.G,
+                                        drop_p=bench.DROP_P)
+            yield lp.variant(tail, dtype, "fwd"), launch
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=tuple(KERNELS), default="fused")
     ap.add_argument("--launches", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -95,32 +155,23 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0])
+    spec = KERNELS[args.kernel]
     shutil.rmtree(COPY, ignore_errors=True)
     shutil.copytree(ROOT / "crop2seg_tpu_torch", COPY / "crop2seg_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    cu = COPY / "crop2seg_tpu_torch" / "csrc" / "ltae_fused_fwd.cu"
-    cu.write_text(instrument(cu.read_text()))
+    cu = COPY / "crop2seg_tpu_torch" / "csrc" / f"{spec['lib']}.cu"
+    cu.write_text(instrument(cu.read_text(), spec))
     sys.path.insert(0, str(COPY))
     from crop2seg_tpu_torch.ops import _build
-    from crop2seg_tpu_torch.ops import ltae_fused as lf
-    assert Path(lf.__file__).is_relative_to(COPY), lf.__file__
-    spec = importlib.util.spec_from_file_location(
-        "bench", ROOT / "scripts" / "bench_ltae_fused_torch.py")
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
+    assert Path(_build.__file__).is_relative_to(COPY), _build.__file__
 
     dev = torch.device("cuda")
-    width = bench.WIDTHS["timeunet"]
-    x, pe, pad, params, tail = bench.inputs(width, 1, dev)
-    read = _build.load_library("ltae_fused_fwd").ltae_steps_read
+    read = _build.load_library(spec["lib"]).ltae_steps_read
     read.argtypes = [ctypes.c_void_p]
     sums = (ctypes.c_ulonglong * 8)()
-    for dtype in (torch.bfloat16, torch.float32):
-        xd = x.to(dtype)
-
-        def launch():
-            lf.ltae_fused_forward(xd, pe, pad, params, n_head=bench.G, d_k=bench.D_K,
-                                  need_attn=False, tail_affine=tail)
+    nsteps = len(spec["steps"])
+    runs = fused_launches(dev) if args.kernel == "fused" else pool_fwd_launches(dev)
+    for label, launch in runs:
         for _ in range(2):
             launch()
         if read(sums) != 0:
@@ -133,13 +184,14 @@ def main() -> int:
         torch.cuda.synchronize()
         if read(sums) != 0:
             raise RuntimeError("reading the step sums failed")
-        cycles, groups = list(sums[:7]), sums[7]
+        cycles, groups = list(sums[:nsteps]), sums[7]
         total = sum(cycles)
         print(json.dumps({
-            "dtype": str(dtype)[6:], "ms_instrumented": start.elapsed_time(end) / args.launches,
+            "kernel": args.kernel, "run": label,
+            "ms_instrumented": start.elapsed_time(end) / args.launches,
             "groups": groups, "cycles_per_group": total / groups,
             "steps": {name: {"cycles_per_group": c / groups, "share": c / total}
-                      for name, c in zip(STEPS, cycles)}}), flush=True)
+                      for name, c in zip(spec["steps"], cycles)}}), flush=True)
     return 0
 
 

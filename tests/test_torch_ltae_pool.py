@@ -142,6 +142,35 @@ def test_backward_row_ranges_cover_every_row_once(n, b, sm_count):
     assert max(sizes) - min(sizes) <= 1
 
 
+@pytest.mark.parametrize("b,sm_count,s", [(1, 132, 132), (4, 132, 33), (10, 132, 13),
+                                          (140, 132, 1), (1, 114, 114), (4, 114, 28),
+                                          (10, 114, 11), (140, 114, 1)])
+def test_fwd_launch_shape_gives_one_wave_of_blocks(b, sm_count, s):
+    """The forward kernel's persistent blocks per batch item: S = SMs // B,
+    one wave of B * S <= SMs blocks (132 SMs on an H100 SXM, 114 on an H100
+    PCIe), and 1 when B exceeds the SM count; at the widest shape it takes."""
+    assert lp.fwd_launch_shape(b, 64, 64, 256, 16, sm_count) == s
+    assert lp.fwd_launch_shape(b, 61, 64, 256, 16, sm_count) == lp.blocks_per_item(b, sm_count)
+
+
+@pytest.mark.parametrize("t,c,d,g", [(65, 64, 256, 16), (61, 72, 256, 16), (61, 12, 48, 4),
+                                     (61, 64, 256, 32), (61, 64, 272, 16), (61, 24, 256, 16),
+                                     (61, 64, 100, 8)],
+                         ids=["t-65", "c-72", "c-not-multiple-of-8", "g-32", "d-272",
+                              "g-not-dividing-c", "g-not-dividing-d"])
+def test_fwd_launch_shape_raises_past_each_limit(t, c, d, g):
+    """Past each of the forward kernel's limits (T <= 64, C <= 64 with C % 8
+    == 0, G <= 16 dividing C and D, D <= 256) ``fwd_launch_shape`` raises
+    before any launch, and the wrapper's shape check agrees on a CPU tensor."""
+    with pytest.raises(ValueError, match="unsupported shape"):
+        lp.fwd_launch_shape(4, t, c, d, g, 132)
+    x = torch.zeros(1, t, 2, c)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        lp.ltae_pool(x, torch.zeros(1, t, d), torch.zeros(1, t, dtype=torch.bool),
+                     torch.zeros(c, d), torch.zeros(d), torch.zeros(d, g),
+                     torch.zeros(1, g), n_head=g)
+
+
 def test_kernel_tail_backward_formulas_match_autograd():
     """The tail mode of csrc/ltae_pool.cu's backward, written out in float64
     torch ops: from dxf, the gradient at the normalized input, ``live = dxf

@@ -276,17 +276,24 @@ def test_cuda_ltae_stages_matches_plain_version(b, t, n, c):
                                          (1, 61, 300, 64, 256, 16),
                                          (4, 61, 5003, 64, 256, 16),
                                          (1, 61, 100, 64, 256, 16),
-                                         (1, 12, 200, 32, 256, 8)])
+                                         (1, 12, 200, 32, 256, 8),
+                                         (1, 61, 5, 64, 256, 16),
+                                         (140, 4, 3, 16, 32, 4),
+                                         (2, 64, 300, 64, 256, 16),
+                                         (2, 5, 77, 64, 256, 16)])
 def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
                                                     dtype, tail):
     """The ltae_pool forward and backward kernels, in each variant (x fp32
     or bf16, untailed or tail mode), against the plain version under
     autograd on the card, with pads (tsc = tsh = 0 there), dropout on and off
     (the same hash mask on both sides), N not a multiple of the blocks' rows.
-    The backward's persistent blocks (S per batch item) meet several rows
-    each with N not a multiple of S (N = 5003), fewer rows than blocks, so
-    that some blocks have none (N = 100), G < 16 (idle warps), and heads of
-    dv = 32 > 16 channels (two passes over the rows, the last shape). o and
+    Both kernels' persistent blocks (S per batch item) meet several rows
+    each with N not a multiple of S or of the forward's 8-row group (N =
+    5003), fewer rows than blocks, so that some blocks have none (N = 100
+    and N = 5), more batch items than SMs (B = 140, S = 1), G < 16 (idle
+    warps), heads of dv = 32 > 16 channels (two passes over the rows in the
+    backward), T at its limit of 64 and T = 5 (one quarter of the forward's
+    GroupNorm threads holds data, one pad step in the forward's tiles). o and
     all gradients (dtsc and dtsh too in tail mode), as max |err| / max
     |plain|. fp32 1e-4 (fp32 sums in another order, the grid-wide ones per
     block and then across blocks); bf16 1e-2 against the fp32 plain version
@@ -333,6 +340,37 @@ def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
         scale = want[names.index("du" if name == "dcs" else name)].abs().max().item()
         err = (got[i] - want[i]).abs().max().item()
         assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_ltae_pool_rejects_unsupported_widths():
+    """D = 272 at C = 64 (past the forward kernel's 256, a thread per (d,
+    half) of its projection) raises in the wrapper, is not sent to the plain
+    version, and the C entry refuses it too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    b, t, n, c, d, g = 1, 5, 8, 64, 272, 16
+    x = torch.zeros(b, t, n, c, device=dev)
+    pe, pad = torch.zeros(b, t, d, device=dev), torch.zeros(b, t, dtype=torch.bool, device=dev)
+    params = (torch.zeros(c, d, device=dev), torch.zeros(d, device=dev),
+              torch.zeros(d, g, device=dev), torch.zeros(1, g, device=dev))
+    ts = (torch.ones(b, t, c, device=dev), torch.zeros(b, t, c, device=dev))
+    before = dict(lp.ltae_pool.launches)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        lp.ltae_pool(x, pe, pad, *params, n_head=g)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        lp.ltae_pool_tail(x, *ts, pe, pad, *params, n_head=g)
+    o = torch.empty(b, n, d, device=dev)
+    big = torch.zeros(t * d + c * d, device=dev)
+    for tsc, tsh in ((None, None), (ts[0].data_ptr(), ts[1].data_ptr())):
+        # x, x_is_bf16, tsc, tsh, bpe, win, ws, pes, o, S, B, T, N, C, D, G, ...
+        rc = lp._kernels()[0](x.data_ptr(), 0, tsc, tsh, *[big.data_ptr()] * 4,
+                              o.data_ptr(), 1, b, t, n, c, d, g, 0, 0, 1.0, 1e-5,
+                              torch.cuda.current_stream().cuda_stream)
+        assert rc != 0
+    torch.cuda.synchronize()
+    assert dict(lp.ltae_pool.launches) == before
 
 
 @pytest.mark.cuda
