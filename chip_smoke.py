@@ -41,9 +41,14 @@
    the same model on the plain tail route (dropout on, same generator seed).
    Prints the warm step times and peak memory.
 6. The fused eval L-TAE kernel at U-TAE's bottleneck (T=61, N=16*16, C=128,
-   D=256, G=16, d_out=128) against its plain version (B=2, one sample
-   padded to 55, fp32 and bf16, attention on and off), then both timed at
-   the serving batch (B=10, attention on) beside the bound.
+   D=256, G=16, d_out=128: the wide row-group kernel,
+   ltae_fused_wide_kernel) against its plain version (B=2, one sample
+   padded to 55, fp32 and bf16, attention on and off; then B=1, the entry
+   forward's shape, and B=2 at N=258, which ends in a partial group), then
+   both timed at the serving batch (B=10, attention on) beside the bound:
+   the wrapper's call by CUDA events (``ms``, as every kernel), and the
+   kernel's own device time by torch.profiler (``device_ms``), since at
+   this shape the host takes longer to issue a call than the kernel runs.
 7. The stage-dump path: scripts/debug_ltae_stages_torch.py's run (the stage
    kernel and its plain version on that script's seeded inputs, B=1, T=61,
    N=256, C=64), one launch, each stage within tolerance and finite; then
@@ -65,6 +70,14 @@
    BatchNorm statistics and no launch of any kernel (the JAX U-TAE trains
    on plain ops too); then one B=2 step's gradients with remat ("conv_out"
    and "full") against those without, within the measured spread.
+11. Routes on the card: the LTAE at TimeUNet's width with T=70, past the
+   kernels' T <= 64, in eval and in training (no attention out): the
+   kernel route (the default on the card) raises before any launch, and
+   the plain route (fused=False) runs on the card, within MODULE_TOL_Q
+   (1e-3) of the same module on the CPU;
+   TimeUNet with pad_value=1.5 (in_conv's tail not deferred) in eval and in
+   a train-mode forward: one launch of the eval kernel or of the untailed
+   training forward, logits within 1e-3 of the plain L-TAE's.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -73,6 +86,7 @@ check raises, and the exit code is then non-zero.
 from __future__ import annotations
 
 import collections
+import copy
 import importlib.util
 import json
 import subprocess
@@ -82,6 +96,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from crop2seg_tpu_torch.inference.tile import make_tile_predictor
 from crop2seg_tpu_torch.learning.losses import cross_entropy
@@ -172,6 +187,22 @@ def cuda_ms_median(fn, iters: int, warmup: int = 2):
     torch.cuda.synchronize()
     per_call = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
     return events[0].elapsed_time(events[-1]) / iters, per_call[iters // 2]
+
+
+def kernel_device_ms(fn, iters: int, name: str) -> float:
+    """Device ms per call of the kernels whose name holds ``name``, by
+    torch.profiler over ``iters`` calls after a warm-up: the kernel's own
+    time, without the host's time to issue a call, which CUDA events
+    around back-to-back calls measure once it exceeds the kernel's."""
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and name in e.key]
+    check(bool(events), f"the profiler saw no kernel named like {name}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
 def ptxas_report(log: str) -> dict:
@@ -736,37 +767,46 @@ def phase_main_path(model, dev, label: str = ""):
 
 
 def phase_kernel_utae(model, dev):
-    """Kernel 1 at U-TAE's bottleneck: against its plain version at B=2 (fp32
-    and bf16, attention on and off), then both timed at B=10 with the
+    """Kernel 1 at U-TAE's bottleneck (the wide row-group kernel): against
+    its plain version at B=2 (fp32 and bf16, attention on and off), at B=1
+    (the entry forward's shape: most blocks get one or two rows) and at B=2
+    with N=258 (a partial last group), then both timed at B=10 with the
     attention out, as U-TAE serves it."""
     gen = torch.Generator(device=dev).manual_seed(5)
     shape = dict(n=UTAE_HW, c=UTAE_C, d_out=UTAE_C)
-    x, pe, pad, params, _ = ltae_inputs(model, 2, gen, dev, n=UTAE_HW)
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        xd = x.to(dtype)
-        for need_attn in (False, True):
-            errs[(dtype, need_attn)] = check_kernel(
-                f"C={UTAE_C} {str(dtype)[6:]} attn={need_attn}", xd, pe, pad, params,
-                need_attn)
+    for b, n in ((2, UTAE_HW), (1, UTAE_HW), (2, UTAE_HW + 2)):
+        x, pe, pad, params, _ = ltae_inputs(model, b, gen, dev, n=n)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            for need_attn in (False, True):
+                errs[(dtype, need_attn, b, n)] = check_kernel(
+                    f"C={UTAE_C} B={b} N={n} {str(dtype)[6:]} attn={need_attn}", xd,
+                    pe, pad, params, need_attn)
 
     timings = {}
     x, pe, pad, params, _ = ltae_inputs(model, MAIN_B, gen, dev, n=UTAE_HW)
     for dtype in (torch.bfloat16, torch.float32):
         xd = x.to(dtype)
-        ms = cuda_ms(lambda: lf.ltae_fused_forward(
-            xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=True), iters=50)
+
+        def launch():
+            return lf.ltae_fused_forward(xd, pe, pad, params, n_head=G, d_k=D_K,
+                                         need_attn=True)
+        ms = cuda_ms(launch, iters=50)
+        device_ms = kernel_device_ms(launch, 50, "ltae_fused_wide_kernel")
         plain_ms = cuda_ms(lambda: lf.ltae_fused_forward_reference(
             xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=True), iters=10)
         b_ms, b_by = bound(MAIN_B, dtype, False, True, **shape)
-        timings[dtype] = (ms, plain_ms, b_ms, b_by)
+        timings[dtype] = (ms, plain_ms, b_ms, b_by, device_ms)
         flops, nbytes = ltae_flops(MAIN_B, False, **shape), ltae_bytes(
             MAIN_B, dtype, False, True, **shape)
         print(f"ltae_fused_fwd {str(dtype)[6:]} B={MAIN_B} T={T} N={UTAE_HW} "
-              f"C={UTAE_C} d_out={UTAE_C} attn: kernel {ms:.3f} ms, plain "
+              f"C={UTAE_C} d_out={UTAE_C} attn: kernel {ms:.3f} ms (the wrapper's "
+              f"call, CUDA events; device time {device_ms:.3f} ms, profiler), plain "
               f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
               f"{flops / (MAIN_B * UTAE_HW) / 1e6:.3f} MFLOP per row), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s",
+              f"{flops / device_ms / 1e9:.1f} TFLOP/s, "
+              f"{nbytes / device_ms / 1e6:.1f} GB/s in device time",
               flush=True)
     return errs, timings
 
@@ -1016,6 +1056,75 @@ def phase_utae_train(dev):
     return runs, worst
 
 
+def phase_routing(dev):
+    """A shape the kernels do not take raises on the kernel route before any
+    launch and runs on the plain route on the card, and TimeUNet with
+    pad_value != 0 keeps in_conv's tail. Returns the LTAE's launch count at
+    T=70 (all modes) and the TimeUNet errors."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    t_long = 70
+    te = LTAE(in_channels=C, n_head=G, d_k=D_K, mlp=(D, D_OUT), d_model=D)
+    te = init_weights(te, torch.Generator().manual_seed(14)).to(dev)
+    te.attn_dropout, te.mlp[1].p = 0.0, 0.0
+    x = torch.randn(2, t_long, 32, 32, C, generator=gen, device=dev)
+    pad = pad_mask_from_lengths(torch.tensor([t_long, 60], device=dev), t_long)
+    x[pad] = 0.0
+    dates = (torch.arange(t_long, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(2, -1)
+    te_cpu = copy.deepcopy(te).cpu()
+    launches = 0
+    for train in (False, True):
+        te.train(train)
+        te_cpu.train(train)
+        mode = "train" if train else "eval"
+        with torch.no_grad():
+            lf.ltae_fused_forward.launches = 0         # this path's counts
+            lp.ltae_pool.launches.clear()
+            try:
+                te(x, dates, pad, need_attn=not train)
+                refused = False
+            except ValueError as e:
+                refused = "does not take T=70" in str(e)
+            torch.cuda.synchronize()
+            n = lf.ltae_fused_forward.launches + sum(lp.ltae_pool.launches.values())
+            out, _ = te(x, dates, pad, need_attn=not train, fused=False)
+            ref, _ = te_cpu(x.cpu(), dates.cpu(), pad.cpu(), need_attn=not train)
+        err = (out.cpu() - ref).abs().max().item()
+        launches += n
+        print(f"LTAE T={t_long} C={C} {mode}: kernel route refused before any launch "
+              f"{refused} ({n} launches); plain route on {out.device}, vs the CPU "
+              f"{err:.3e} (tol {MODULE_TOL_Q:g})", flush=True)
+        check(refused and n == 0, f"LTAE T={t_long} {mode}: kernel route not refused, "
+              f"{n} launches")
+        check(out.is_cuda and bool(torch.isfinite(out).all()) and err <= MODULE_TOL_Q,
+              f"LTAE T={t_long} {mode}: plain route on {out.device}, {err} off the CPU")
+
+    model = get_model({"model": "timeunet", "pad_value": 1.5}, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    model.temporal_encoder.attn_dropout, model.temporal_encoder.mlp[1].p = 0.0, 0.0
+    x = torch.randn(2, T, 128, 128, 10, generator=gen, device=dev)
+    pad = pad_mask_from_lengths(torch.tensor([LENGTH, T], device=dev), T)
+    dates = (torch.arange(T, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(2, -1)
+    errs = {}
+    for train in (False, True):
+        model.train(train)
+        with torch.no_grad():
+            lf.ltae_fused_forward.launches = 0         # this path's counts
+            lp.ltae_pool.launches.clear()
+            got = model(x, dates, pad)
+            torch.cuda.synchronize()
+            n = {"ltae_fused_fwd": lf.ltae_fused_forward.launches, **lp.ltae_pool.launches}
+            want = model(x, dates, pad, fused=False)
+        errs[train] = (got - want).abs().max().item()
+        label = "train-mode forward" if train else "eval"
+        expect = lp.variant(False, torch.float32, "fwd") if train else "ltae_fused_fwd"
+        print(f"TimeUNet pad_value=1.5 {label}: kernel launches {n}, kernel route vs "
+              f"plain L-TAE logits {errs[train]:.3e} (tol 1e-3)", flush=True)
+        check({k: v for k, v in n.items() if v} == {expect: 1},
+              f"TimeUNet pad_value=1.5 {label}: launches {n}, expected one {expect}")
+        check(errs[train] <= 1e-3, f"TimeUNet pad_value=1.5 {label}: {errs[train]}")
+    return launches, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -1046,6 +1155,15 @@ def main() -> int:
         print(f"ptxas {pool_fwd_kernel_name(tail, dtype)}: {found[0][0]} registers, "
               f"{found[0][1]} bytes spill stores, {found[0][2]} bytes spill loads", flush=True)
 
+    fused_ptxas = ptxas_report(libs["ltae_fused_fwd"].with_suffix(".log").read_text())
+    wide_ptxas = {}
+    for dtype, tin in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
+        found = [v for k, v in fused_ptxas.items() if f"ltae_fused_wide_kernelI{tin}E" in k]
+        check(len(found) == 1, f"ptxas reported no ltae_fused_wide_kernel<{tin}>")
+        wide_ptxas[dtype] = found[0]
+        print(f"ptxas ltae_fused_wide_kernel<{str(dtype)[6:]}>: {found[0][0]} registers, "
+              f"{found[0][1]} bytes spill stores, {found[0][2]} bytes spill loads", flush=True)
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -1068,6 +1186,7 @@ def main() -> int:
     del utae, timeunet
     torch.cuda.empty_cache()
     utae_runs, remat_worst = phase_utae_train(dev)
+    routing_launches, pad_value_errs = phase_routing(dev)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -1116,13 +1235,17 @@ def main() -> int:
                                 train_step_ms=run["warm_ms"],
                                 train_step_median_ms=run["warm_median_ms"],
                                 train_peak_gib=run["peak_gib"])
-    ms, plain_ms, b_ms, b_by = utae_t[torch.bfloat16]
-    ms32, plain32, b32, b_by32 = utae_t[torch.float32]
+    ms, plain_ms, b_ms, b_by, device_ms = utae_t[torch.bfloat16]
+    ms32, plain32, b32, b_by32, device32 = utae_t[torch.float32]
     kernel_utae = {
         "name": "ltae_fused_fwd_utae", "route": "cuda",
         "source": "crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu",
         "replaces": "crop2seg_tpu/ops/ltae_pallas.py:421",
-        "kernel": "ltae_fused_fwd_kernel<Tin, 4, 1>",
+        "kernel": "ltae_fused_wide_kernel<Tin>",
+        "registers": wide_ptxas[torch.bfloat16][0],
+        "spill_store_bytes": wide_ptxas[torch.bfloat16][1],
+        "registers_fp32": wide_ptxas[torch.float32][0],
+        "spill_store_bytes_fp32": wide_ptxas[torch.float32][1],
         "launches": utae_launches,
         "max_abs_err": max(v for k, v in utae_errs.items() if k[0] == torch.bfloat16),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1131,7 +1254,7 @@ def main() -> int:
         "attn": True, "launches_entry_forward": entry_launches,
         "max_abs_err_fp32": max(v for k, v in utae_errs.items() if k[0] == torch.float32),
         "ms_fp32": ms32, "plain_ms_fp32": plain32, "bound_ms_fp32": b32,
-        "bound_by_fp32": b_by32,
+        "bound_by_fp32": b_by32, "device_ms": device_ms, "device_ms_fp32": device32,
         "tile_patches_per_s": utae_pps, "tile_patches_per_s_fp32": utae_pps32,
     }
     kernel_stages = {
@@ -1145,7 +1268,7 @@ def main() -> int:
         "name": f"ltae_fused_fwd_nq{NQ}", "route": "cuda",
         "source": "crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu",
         "replaces": "crop2seg_tpu/ops/ltae_pallas.py:421",
-        "kernel": "ltae_fused_fwd_kernel<Tin, KC, 0>",
+        "kernel": "ltae_fused_fwd_kernel<Tin, KC>",
         "launches": q_launches,
         "max_abs_err": max(v for k, v in q_errs.items() if k[1] == torch.bfloat16),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1161,6 +1284,10 @@ def main() -> int:
     print("utae_train " + json.dumps({"runs": utae_runs,
                                       "remat_grad_worst_ratio": remat_worst}),
           flush=True)
+    print("routing " + json.dumps({"ltae_t70_launches": routing_launches,
+                                   "timeunet_pad_value_err": {
+                                       "eval": pad_value_errs[False],
+                                       "train_forward": pad_value_errs[True]}}), flush=True)
     print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

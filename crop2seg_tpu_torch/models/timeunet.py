@@ -10,12 +10,14 @@ affine ``(sc, sh)``, the pad mask is folded in as zeroed rows, and the L-TAE
 kernels apply ``max(z * sc + sh, 0)`` on load: the fused eval kernel in eval
 mode, the ``ltae_pool_tail`` pair in training mode (the JAX package's
 ``use_pallas_train`` path, crop2seg_tpu/models/timeunet.py:89-120). The
-plain path (the default for a CPU input), and the kernel path when in_conv
-does not end in GroupNorm + ReLU (``encoder_norm="batch"``), run in_conv
-through ``temporally_shared``; the L-TAE then takes the untailed pair in
-training. ``defer_tail`` forces the choice: True defers the tail on the plain
-path too (training mode: ``ltae_pool_tail``'s plain version), False never
-defers it. All routes give the same result.
+plain path (the default for a CPU input) runs in_conv through
+``temporally_shared``, and so does the kernel path when the tail cannot be
+deferred: in_conv does not end in GroupNorm + ReLU (``encoder_norm="batch"``)
+or ``pad_value`` is not 0 (the kernels fold pads in as zero rows); the L-TAE
+then takes the untailed pair in training. ``defer_tail`` forces the
+choice: True defers the tail on the plain path too (training mode:
+``ltae_pool_tail``'s plain version; it raises with ``pad_value`` != 0),
+False never defers it. All routes give the same result.
 
 In training mode (``model.train()``) the L-TAE takes its training path and
 every BatchNorm uses batch statistics and updates its running ones. Under
@@ -55,8 +57,9 @@ class TimeUNet(nn.Module):
         n = len(enc_w)
         self.pad_value = pad_value
         # None: defer on the kernel path when in_conv ends in GroupNorm + ReLU
+        # and pads are zeros
         self.defer_tail = defer_tail
-        self._tail_deferrable = encoder_norm == "group"
+        self._tail_deferrable = encoder_norm == "group" and pad_value == 0
         self.in_conv = ConvBlock((input_dim, enc_w[0], enc_w[0]),
                                  norm=encoder_norm, padding_mode=padding_mode)
         self.down_blocks = nn.ModuleList(
@@ -96,7 +99,8 @@ class TimeUNet(nn.Module):
         if defer:
             if self.pad_value != 0:
                 raise NotImplementedError(
-                    "the fused path folds pads in as zero rows: pad_value must be 0")
+                    "the deferred tail folds pads in as zero rows: pad_value "
+                    "must be 0 with defer_tail=True")
             z, sc, sh = self.in_conv(x.reshape((b * t,) + tuple(x.shape[2:])),
                                      defer_tail_norm=True)
             valid = (~pad_mask).reshape(b * t, 1).to(sc.dtype)

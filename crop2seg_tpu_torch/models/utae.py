@@ -13,11 +13,12 @@ is deferred on this path. Every tensor is channels-last; pad frames of each
 shared block's output hold ``pad_value``, and every cross-T consumer masks
 them.
 
-In training mode (``model.train()``) the L-TAE takes its plain path with the
-attention out, as the JAX U-TAE does: attention dropout after the softmax,
-and the skips aggregate the dropped attention. No kernel runs there, in JAX
-either (its kernel pair serves only a one-query L-TAE whose attention is not
-consumed). Every BatchNorm (the up blocks, the heads, and the encoder with
+In training mode (``model.train()``) the L-TAE takes its plain path, as the
+JAX U-TAE does (it has no ``use_pallas_train``), whatever ``fused`` says:
+attention dropout after the softmax, and the skips aggregate the dropped
+attention. No kernel runs there, in JAX either; with ``agg_mode="mean"`` too,
+which asks for no attention, the L-TAE takes ``ltae_pool``'s plain version.
+Every BatchNorm (the up blocks, the heads, and the encoder with
 ``encoder_norm="batch"``) uses batch statistics and updates its running ones.
 
 ``remat`` checkpoints activations as the JAX ``nn.remat`` does: in_conv
@@ -145,10 +146,10 @@ class UTAE(nn.Module):
         (B, T) bool -> logits (B, H, W, K); with the boundary head also its
         (B, H, W, 2) logits; ``return_att`` adds the attention (B, h, w,
         head, T), ``return_maps`` the decoder maps; ``encoder`` returns
-        (decoder output, maps) before the head. ``fused``: None picks the
-        kernel for a CUDA input and the plain L-TAE for a CPU input in eval
-        mode; True/False force one. ``generator`` (training) draws the
-        L-TAE's dropout masks."""
+        (decoder output, maps) before the head. ``fused`` (eval mode): None
+        picks the kernel for a CUDA input and the plain L-TAE for a CPU
+        input; True/False force one. Training takes the plain L-TAE.
+        ``generator`` (training) draws the L-TAE's dropout masks."""
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         on = self.remat and self.training and torch.is_grad_enabled()
@@ -163,8 +164,8 @@ class UTAE(nn.Module):
                 self.pad_value))
         out, att = self.temporal_encoder(
             feature_maps[-1], batch_positions, pad_mask,
-            need_attn=return_att or self.agg_mode != "mean", fused=fused,
-            generator=generator)
+            need_attn=return_att or self.agg_mode != "mean",
+            fused=False if self.training else fused, generator=generator)
         maps = [out]
         for i, up in enumerate(self.up_blocks):
             skip = temporal_aggregate(feature_maps[-(i + 2)], attn=att,

@@ -22,8 +22,14 @@ through ``ops/ltae_pool.py`` (its kernel pair on a CUDA tensor, the JAX
 nq > 1 the plain ops run, with attention dropout after the softmax, and the
 returned attention is the dropped, rescaled one that weighed the values (U-TAE
 aggregates its skips with it). The MLP tail runs in training mode either way.
-The producer's deferred GroupNorm affine (``tail_affine``) is taken on the
-kernel paths only.
+
+A kernel route (``fused``) takes only the shapes its kernel takes
+(``LTAE.kernel_takes``: T <= 64, C <= 128, ...). Past them it raises
+ValueError before any launch, on either device, where the JAX ``LTAE`` with
+``use_pallas`` runs its Pallas kernel at any T; the plain route
+(``fused=False``) takes any shape. The producer's deferred GroupNorm affine
+(``tail_affine``) is taken in eval on the kernel path only, in training on
+either.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from torch import nn
 from crop2seg_tpu_torch.nn.layers import batch_norm
 from crop2seg_tpu_torch.nn.positional import (
     AbsolutePositionalEncoder, PositionalEncoder)
+from crop2seg_tpu_torch.ops import ltae_fused, ltae_pool as pool_ops
 from crop2seg_tpu_torch.ops.ltae_pool import (
     ltae_pool, ltae_pool_reference, ltae_pool_tail, ltae_pool_tail_reference)
 
@@ -117,11 +124,13 @@ class LTAE(nn.Module):
     Call: x (B, T, H, W, C), batch_positions (B, T) or (B, T, 2), pad_mask
     (B, T) bool. ``fused`` picks the path: None means the kernel for a CUDA
     tensor and the plain ops for a CPU tensor; True/False force one (the
-    tests and chip_smoke.py compare the two). ``tail_affine`` is the
-    producer's deferred GroupNorm affine ``(sc, sh)`` of shape (B, T, C),
-    applied as ``max(x * sc + sh, 0)`` (fused path in eval mode; in training
-    mode ``ltae_pool_tail``, or its plain version when not fused). ``generator``
-    (training only) draws the dropout masks; None uses PyTorch's global RNG.
+    tests and chip_smoke.py compare the two). A kernel route raises on a
+    shape its kernel does not take (``kernel_takes``).
+    ``tail_affine`` is the producer's deferred GroupNorm affine ``(sc, sh)``
+    of shape (B, T, C), applied as ``max(x * sc + sh, 0)`` (fused path in
+    eval mode; in training mode ``ltae_pool_tail``, or its plain version when
+    not fused). ``generator`` (training only) draws the dropout masks; None
+    uses PyTorch's global RNG.
     ``dropout`` is the MLP's rate, ``attn_dropout`` the attention's.
     ``num_queries`` > 1 adds a query axis to both outputs (module docstring).
     """
@@ -203,16 +212,13 @@ class LTAE(nn.Module):
         return self._with_query_axes(self._mlp_tail(out, generator), attn)
 
     def _fused(self, x, batch_positions, pad_mask, need_attn, tail_affine):
-        from crop2seg_tpu_torch.ops.ltae_fused import (
-            ltae_fused_forward, params_from_ltae_variables)
-
         b, t, hh, ww, c = x.shape
         pe = (self.pe(batch_positions) if self.positional_encoder is not None
               else torch.zeros(b, t, self.d_model, device=x.device))
         if pad_mask is None:
             pad_mask = torch.zeros(b, t, dtype=torch.bool, device=x.device)
-        params = params_from_ltae_variables(self.state_dict())
-        out, attn = ltae_fused_forward(
+        params = ltae_fused.params_from_ltae_variables(self.state_dict())
+        out, attn = ltae_fused.ltae_fused_forward(
             x.reshape(b, t, hh * ww, c), pe, pad_mask, params,
             n_head=self.n_head, d_k=self.d_k, need_attn=need_attn,
             tail_affine=tail_affine)
@@ -268,13 +274,32 @@ class LTAE(nn.Module):
         out = self._mlp_tail(o.reshape(b, hh, ww, 1, self.d_model), generator)
         return out[:, :, :, 0], None
 
+    def kernel_takes(self, t: int, c: int) -> bool:
+        """Whether this mode's kernel takes T steps of C channels: the fused
+        eval kernel in eval mode, the training kernel pair in training mode
+        (which serves one query without the attention output). The
+        wrappers' own limits decide (``kernel_takes`` of ``ops/ltae_fused.py``
+        and ``ops/ltae_pool.py``)."""
+        if not self.training:
+            return ltae_fused.kernel_takes(t, c, self.d_model, self.n_head,
+                                           self.out_norm.num_channels,
+                                           self.num_queries)
+        return pool_ops.kernel_takes(t, c, self.d_model, self.n_head)
+
     def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,
                 pad_mask: torch.Tensor | None = None, *, need_attn: bool = True,
                 tail_affine=None, fused: bool | None = None,
                 generator: torch.Generator | None = None):
         if fused is None:
             fused = x.is_cuda
-        if self.training and not need_attn and self.num_queries == 1:
+        pair = self.training and not need_attn and self.num_queries == 1
+        t, c = x.shape[1], x.shape[-1]
+        if fused and (pair or not self.training) and not self.kernel_takes(t, c):
+            raise ValueError(
+                f"the L-TAE's {'training' if self.training else 'eval'} kernel does "
+                f"not take T={t} C={c} D={self.d_model} G={self.n_head} "
+                f"nq={self.num_queries}; fused=False runs the plain ops")
+        if pair:
             return self._train(x, batch_positions, pad_mask, fused, generator,
                                tail_affine)
         if fused and not self.training:

@@ -9,11 +9,13 @@ Per pixel row over T steps, for each of nq learnable queries per head:
     -> GroupNorm_G pooling each group's channels over all nq queries -> affine
 
 ``ltae_fused_forward`` does the offline folds in fp32 and launches the kernel
-of ``csrc/ltae_fused_fwd.cu`` on a CUDA tensor (at C <= 64 with one query,
-S = ``launch_shape`` persistent blocks per batch item, each walking its
-``row_ranges`` in groups of 8 rows); on a CPU tensor it calls
-``ltae_fused_forward_reference``, the plain PyTorch version that materializes
-the projected sequence h. ``ltae_fused_forward.launches`` counts launches.
+of ``csrc/ltae_fused_fwd.cu`` on a CUDA tensor (with one query and D, d_out
+<= 256, S = ``launch_shape`` persistent blocks per batch item, each walking
+its ``row_ranges`` in groups of 8 rows at C <= 64, 4 above); on a CPU tensor
+it calls ``ltae_fused_forward_reference``, the plain PyTorch version that
+materializes the projected sequence h. ``kernel_takes`` says which shapes
+the kernel takes; ``nn/ltae.py::LTAE`` asks it to refuse a shape before any
+launch. ``ltae_fused_forward.launches`` counts launches.
 With nq = 1 (q of shape (G, d_k) or (G, 1, d_k)) out is (B, N, d_out) and
 attn (B, N, G, T); with nq > 1 they gain a query axis, (B, N, nq, d_out) and
 (B, N, G, nq, T), the JAX package's ranks.
@@ -35,10 +37,12 @@ MAX_C = 128         # lanes own channels c + 32k, k < 4
 MAX_HEADS = 16      # per-head accumulators live in registers
 MAX_QUERIES = 8     # queries per head: a row's MLP outputs of all queries
                     # stay in shared memory for the out-GroupNorm
-# C <= 64 with one query runs the row-group kernel, which also needs
+# One query runs a row-group kernel: 8-row groups at C <= GROUP_MAX_C, 4-row
+# groups above. Both take
 GROUP_MAX_C = 64
-MAX_D = 256         # its projection gives a thread to each (d, half of the sum)
-MAX_D_OUT = 256     # its group's MLP outputs stay in shared memory
+MAX_D = 256         # the projection gives a thread to each (d, half of the sum)
+MAX_D_OUT = 256     # the group's MLP outputs stay in shared memory
+# and past them one query runs the nq kernel above GROUP_MAX_C, none below.
 
 
 def fold_batchnorm(wm, bm, bn_scale, bn_bias, bn_mean, bn_var, eps: float = 1e-5):
@@ -152,26 +156,32 @@ def _fold(pe, pad_mask, params, n_head: int, d_k: int):
             "bm": f["bm_folded"], "osc": f["out_scale"], "obi": f["out_bias"]}
 
 
+def kernel_takes(t: int, c: int, d: int, g: int, d_out: int, nq: int) -> bool:
+    """Whether the kernel takes T steps, C channels, D = d_model, G heads,
+    d_out MLP outputs and nq queries per head (``launch_shape`` raises past
+    these limits)."""
+    return (t <= MAX_T and c <= MAX_C and c % 8 == 0 and g <= MAX_HEADS
+            and c % g == 0 and d % g == 0 and d_out % g == 0
+            and nq <= MAX_QUERIES
+            and (nq > 1 or c > GROUP_MAX_C or (d <= MAX_D and d_out <= MAX_D_OUT)))
+
+
 def launch_shape(b: int, t: int, c: int, d: int, g: int, d_out: int, nq: int,
                  sm_count: int) -> int:
-    """Check a launch against the kernel's limits (ValueError past them) and
-    return S, the row-group kernel's persistent blocks per batch item
-    (``blocks_per_item``: one wave of B * S <= sm_count blocks, each taking
-    ``ltae_pool.row_ranges(N, S)[i]``); 1 for the other kernel, which
-    ignores it."""
-    if not (t <= MAX_T and c <= MAX_C and c % 8 == 0 and g <= MAX_HEADS
-            and c % g == 0 and d % g == 0 and d_out % g == 0):
+    """Check a launch against the kernel's limits (``kernel_takes``;
+    ValueError past them) and return S, the row-group kernels' persistent
+    blocks per batch item (``blocks_per_item``: one wave of B * S <= sm_count
+    blocks, each taking ``ltae_pool.row_ranges(N, S)[i]``); 1 where the nq
+    kernel runs (nq > 1, or one query past D, d_out = 256), which ignores
+    it."""
+    if not kernel_takes(t, c, d, g, d_out, nq):
         raise ValueError(
-            f"unsupported shape T={t} C={c} G={g} D={d} d_out={d_out}: the "
-            f"kernel takes T<={MAX_T}, C<={MAX_C} with C%8==0, "
-            f"G<={MAX_HEADS} dividing C, D and d_out")
-    if c > GROUP_MAX_C or nq > 1:
-        return 1
-    if d > MAX_D or d_out > MAX_D_OUT:
-        raise ValueError(
-            f"unsupported shape C={c} D={d} d_out={d_out}: with C<={GROUP_MAX_C} "
-            f"and one query the kernel takes D<={MAX_D}, d_out<={MAX_D_OUT}")
-    return blocks_per_item(b, sm_count)
+            f"unsupported shape T={t} C={c} G={g} D={d} d_out={d_out} nq={nq}: "
+            f"the kernel takes T<={MAX_T}, C<={MAX_C} with C%8==0, G<={MAX_HEADS} "
+            f"dividing C, D and d_out, nq<={MAX_QUERIES}, and with one query at "
+            f"C<={GROUP_MAX_C} D<={MAX_D}, d_out<={MAX_D_OUT}")
+    row_group = nq == 1 and d <= MAX_D and d_out <= MAX_D_OUT
+    return blocks_per_item(b, sm_count) if row_group else 1
 
 
 @functools.cache
@@ -197,8 +207,9 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
     optional (sc, sh) of (B, T, C), applied as ``max(x*sc + sh, 0)`` on load.
     Returns (out (B, N, d_out) in x's dtype, attn (B, N, G, T) fp32 or None)
     for nq = 1; (B, N, nq, d_out) and (B, N, G, nq, T) for nq > 1.
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
-    More than MAX_QUERIES queries raise on either.
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    (a shape past ``kernel_takes`` raises). More than MAX_QUERIES queries
+    raise on either.
     """
     nq = _query(params, n_head).shape[1]
     if nq > MAX_QUERIES:

@@ -108,9 +108,16 @@ def variant(tail: bool, dtype: torch.dtype, direction: str) -> str:
             f"{'_bf16' if dtype == torch.bfloat16 else ''}")
 
 
+def kernel_takes(t: int, c: int, d: int, g: int) -> bool:
+    """Whether the kernel pair takes T steps, C channels, D = d_model and G
+    heads (the limits above; ``_check_limits`` raises past them).
+    ``nn/ltae.py::LTAE`` asks it to refuse a shape before any launch."""
+    return (t <= MAX_T and c <= MAX_C and c % 8 == 0 and g <= MAX_HEADS
+            and c % g == 0 and d % g == 0 and d <= MAX_D)
+
+
 def _check_limits(t: int, c: int, d: int, g: int) -> None:
-    if not (t <= MAX_T and c <= MAX_C and c % 8 == 0 and g <= MAX_HEADS
-            and c % g == 0 and d % g == 0 and d <= MAX_D):
+    if not kernel_takes(t, c, d, g):
         raise ValueError(
             f"unsupported shape T={t} C={c} G={g} D={d}: the kernels take "
             f"T<={MAX_T}, C<={MAX_C} with C%8==0, G<={MAX_HEADS} dividing C and D, "

@@ -54,15 +54,23 @@ def _conv(sd, prefix, params):
 
 
 def _conv_layer(sd, prefix, params, stats):
-    """ConvLayer: flax conv{i}/norm{i} -> torch Sequential ``{prefix}.conv``
-    indices 3i / 3i+1 (every TimeUNet unit has a norm and a ReLU slot)."""
-    for key, sub in params.items():
-        kind, i = re.fullmatch(r"(conv|norm)(\d+)", key).groups()
-        idx = 3 * int(i) + (kind == "norm")
-        if kind == "conv":
-            _conv(sd, _j(prefix, f"conv.{idx}"), sub["conv"])
-        else:
-            _norm(sd, _j(prefix, f"conv.{idx}"), sub, stats.get(key))
+    """ConvLayer: flax conv{i}/norm{i} -> torch Sequential ``{prefix}.conv``,
+    its indices found by scanning the units as ``nn/layers.py::ConvLayer``
+    lays them out: conv, [norm], [ReLU]. Every unit but the last has a ReLU;
+    the last one's (``last_relu``) comes after every index, so it moves
+    none. With a norm that is conv 3i, norm 3i+1; without one, conv 2i."""
+    for key in params:
+        if not re.fullmatch(r"(conv|norm)\d+", key):
+            raise ValueError(f"unexpected ConvLayer entry {key!r}")
+    idx = 0
+    for i in range(sum(key.startswith("conv") for key in params)):
+        _conv(sd, _j(prefix, f"conv.{idx}"), params[f"conv{i}"]["conv"])
+        idx += 1
+        if f"norm{i}" in params:
+            _norm(sd, _j(prefix, f"conv.{idx}"), params[f"norm{i}"],
+                  stats.get(f"norm{i}"))
+            idx += 1
+        idx += 1   # the unit's ReLU
 
 
 def _ltae(sd, prefix, p, s):

@@ -12,10 +12,14 @@ padded to 55: TimeUNet's width (N=128*128, C=d_out=64, the deferred tail
 affine, no attention) or U-TAE's (N=16*16, C=d_out=128, attention out); G=16,
 D=256, nq queries per head. Prints the card (nvidia-smi name and power
 limit), then per dtype the SM clock and power draw before and after its
-timing, and one JSON line with the kernel's ms per launch: the mean over
---iters back-to-back launches after 3 warm-up launches (CUDA events around
-the loop) and the median of the same launches, each between its own pair of
-CUDA events.
+timing, and one JSON line with the wrapper's ms per call: the mean over
+--iters back-to-back calls after 3 warm-up calls (CUDA events around the
+loop) and the median of the same calls, each between its own pair of CUDA
+events; and, from torch.profiler over another --iters calls, the kernel's
+own device time per launch (``kernel_ms``) and all device time per call
+(``device_ms``: the folds' small products too). Where the kernel takes less
+time than the host needs to issue a call (U-TAE's shape since the wide
+kernel), the events time the host and only the profiler times the kernel.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import subprocess
 import sys
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -63,6 +68,18 @@ def smi(query: str) -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
+def device_ms(launch, iters: int):
+    """(kernel, all) device ms per call over ``iters`` calls, by
+    torch.profiler: the ltae_fused kernel's own time, and every kernel's."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            launch()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernel = sum(e.self_device_time_total for e in events if "ltae_fused" in e.key)
+    return kernel / 1e3 / iters, sum(e.self_device_time_total for e in events) / 1e3 / iters
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", choices=tuple(WIDTHS), default="timeunet")
@@ -94,10 +111,12 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"clocks.sm, power.draw after {str(dtype)[6:]}: {smi('clocks.sm,power.draw')}")
         per_launch = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        kernel_ms, all_ms = device_ms(launch, args.iters)
         print(json.dumps({"package": os.path.dirname(os.path.dirname(lf.__file__)),
                           "width": args.width, "nq": args.nq, "dtype": str(dtype)[6:],
                           "ms": events[0].elapsed_time(events[-1]) / args.iters,
-                          "median_ms": statistics.median(per_launch)}), flush=True)
+                          "median_ms": statistics.median(per_launch),
+                          "kernel_ms": kernel_ms, "device_ms": all_ms}), flush=True)
     return 0
 
 

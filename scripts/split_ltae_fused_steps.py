@@ -1,10 +1,11 @@
 """Split the time of a row-group kernel into its steps, on one card: the
 fused eval L-TAE kernel's (crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu::
-ltae_fused_group_kernel, C <= 64 with one query) or, with --kernel
-pool_fwd, the training forward's (csrc/ltae_pool.cu::
+ltae_fused_group_kernel, C <= 64 with one query), with --kernel wide its
+wide sibling's (ltae_fused_wide_kernel, 64 < C <= 128 with one query) or,
+with --kernel pool_fwd, the training forward's (csrc/ltae_pool.cu::
 ltae_pool_fwd_group_kernel, all four variants).
 
-    python3 scripts/split_ltae_fused_steps.py [--kernel fused|pool_fwd] [--launches 5]
+    python3 scripts/split_ltae_fused_steps.py [--kernel fused|wide|pool_fwd] [--launches 5]
 
 Copies this checkout's crop2seg_tpu_torch into the gitignored
 _archive/steps/, adds clock64() stamps to the copy's kernel at each step
@@ -13,12 +14,14 @@ atomicAdd per block into a __device__ array read back through an extra C
 entry), builds it there and runs it: the fused kernel at the TimeUNet
 main-path shape of scripts/bench_ltae_fused_torch.py (B=10, T=61,
 N=128*128, C=64, D=256, G=16, d_out=64, tail affine, no attention), the
-training forward at that of scripts/bench_ltae_pool_torch.py (B=4, T=61,
-N=128*128, C=64, D=256, G=16, drop_p 0.1). Prints the card (nvidia-smi name
-and power limit), then per dtype (and mode) one JSON line: the instrumented
-launch's ms (CUDA events; the stamps cost a few per cent) and each step's
-cycles per 8-row group with its share. The stamps never reach the package
-itself.
+wide kernel at its U-TAE shape (--width utae: N=16*16, C=d_out=128,
+attention out), the training forward at that of
+scripts/bench_ltae_pool_torch.py (B=4, T=61, N=128*128, C=64, D=256, G=16,
+drop_p 0.1). Prints the card (nvidia-smi name and power limit), then per
+dtype (and mode) one JSON line: the instrumented launch's ms (CUDA events;
+the stamps cost a few per cent) and each step's cycles per row group (8
+rows, 4 for the wide kernel) with its share. The stamps never reach the
+package itself.
 """
 from __future__ import annotations
 
@@ -35,28 +38,31 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 COPY = ROOT / "_archive" / "steps"
-GROUP_ROWS = 8
 WAIT = "    cp_async_wait_all();\n    __syncthreads();\n\n    // 1. tail affine"
 
 # Per kernel: its source, the text that opens its body and the text after
-# it, its steps, and the (anchor, text put before it) pairs; a stamp closes
-# the step that ends there. Anchors are the kernel's step comments and
-# barriers; the end of the row-group loop closes the last step.
+# it, its rows per group, its steps, and the (anchor, text put before it)
+# pairs; a stamp closes the step that ends there. Anchors are the kernel's
+# step comments and barriers; the end of the row-group loop closes the last
+# step.
+FUSED_STEPS = dict(
+    lib="ltae_fused_fwd", rows=8,
+    steps=("wait for x", "GroupNorm", "scores + softmax", "P", "projection + PE",
+           "MLP", "out GroupNorm"),
+    stamps=((WAIT, "    STEP_T0 = clock64();\n"),
+            ("\n    // 1. tail affine", "    STAMP(0)\n"),
+            ("    // 2. scores", "    STAMP(1)\n"),
+            ("    // 3. P = a @ xn", "    STAMP(2)\n"),
+            ("    // 4. o[d] = b_in[d]", "    STAMP(3)\n"),
+            ("    // 5. m = relu", "    STAMP(4)\n"),
+            ("    // 6. out GroupNorm", "    STAMP(5)\n")))
 KERNELS = {
-    "fused": dict(
-        lib="ltae_fused_fwd", head="ltae_fused_group_kernel(const Args a) {",
-        after="cudaError_t launch_group(",
-        steps=("wait for x", "GroupNorm", "scores + softmax", "P", "projection + PE",
-               "MLP", "out GroupNorm"),
-        stamps=((WAIT, "    STEP_T0 = clock64();\n"),
-                ("\n    // 1. tail affine", "    STAMP(0)\n"),
-                ("    // 2. scores", "    STAMP(1)\n"),
-                ("    // 3. P = a @ xn", "    STAMP(2)\n"),
-                ("    // 4. o[d] = b_in[d]", "    STAMP(3)\n"),
-                ("    // 5. m = relu", "    STAMP(4)\n"),
-                ("    // 6. out GroupNorm", "    STAMP(5)\n"))),
+    "fused": dict(FUSED_STEPS, head="ltae_fused_group_kernel(const Args a) {",
+                  after="cudaError_t launch_group("),
+    "wide": dict(FUSED_STEPS, rows=4, head="ltae_fused_wide_kernel(const Args a) {",
+                 after="cudaError_t launch_wide("),
     "pool_fwd": dict(
-        lib="ltae_pool", head="ltae_pool_fwd_group_kernel(const Args a) {",
+        lib="ltae_pool", rows=8, head="ltae_pool_fwd_group_kernel(const Args a) {",
         after="// ---- backward",
         steps=("wait for x", "GroupNorm", "scores + softmax + dropout", "P",
                "projection + PE + store"),
@@ -90,7 +96,7 @@ def instrument(src: str, spec: dict) -> str:
               "  if (threadIdx.x == 0) {\n"
               f"    for (int i = 0; i < {nsteps}; ++i)\n"
               "      atomicAdd(&g_steps[i], (unsigned long long)step_acc[i]);\n"
-              "    atomicAdd(&g_steps[7], (unsigned long long)((n1 - n0 + 7) / 8));\n"
+              f"    atomicAdd(&g_steps[7], (unsigned long long)((n1 - n0 + {spec['rows'] - 1}) / {spec['rows']}));\n"
               "  }\n}\n" + kernel[tail + len("  }\n}\n"):])
     src = src[:head] + kernel + src[body_end:]
     src = src.replace("namespace {\n", "__device__ unsigned long long g_steps[8];\n\n"
@@ -113,15 +119,17 @@ def _bench(name: str):
     return mod
 
 
-def fused_launches(dev):
-    """(label, launch) per dtype of the fused kernel at TimeUNet's width."""
+def fused_launches(dev, width: str):
+    """(label, launch) per dtype of the fused kernel at TimeUNet's or
+    U-TAE's width, as scripts/bench_ltae_fused_torch.py runs it."""
     from crop2seg_tpu_torch.ops import ltae_fused as lf
     bench = _bench("bench_ltae_fused_torch")
-    x, pe, pad, params, tail = bench.inputs(bench.WIDTHS["timeunet"], 1, dev)
+    w = bench.WIDTHS[width]
+    x, pe, pad, params, tail = bench.inputs(w, 1, dev)
     for dtype in (torch.bfloat16, torch.float32):
         xd = x.to(dtype)
         yield str(dtype)[6:], lambda xd=xd: lf.ltae_fused_forward(
-            xd, pe, pad, params, n_head=bench.G, d_k=bench.D_K, need_attn=False,
+            xd, pe, pad, params, n_head=bench.G, d_k=bench.D_K, need_attn=w["attn"],
             tail_affine=tail)
 
 
@@ -170,7 +178,8 @@ def main() -> int:
     read.argtypes = [ctypes.c_void_p]
     sums = (ctypes.c_ulonglong * 8)()
     nsteps = len(spec["steps"])
-    runs = fused_launches(dev) if args.kernel == "fused" else pool_fwd_launches(dev)
+    runs = (pool_fwd_launches(dev) if args.kernel == "pool_fwd" else
+            fused_launches(dev, "utae" if args.kernel == "wide" else "timeunet"))
     for label, launch in runs:
         for _ in range(2):
             launch()

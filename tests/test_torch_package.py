@@ -119,20 +119,23 @@ def _random_params(c, d, g, d_out, gen):
 @pytest.mark.parametrize("b,t,n,c,d,g,d_out", [(2, 9, 64, 32, 64, 8, 16),
                                                (1, 61, 300, 64, 256, 16, 64),
                                                (2, 61, 258, 128, 256, 16, 128),
+                                               (2, 61, 90, 128, 272, 16, 128),
                                                (1, 61, 5, 64, 256, 16, 64),
                                                (3, 61, 4099, 64, 256, 16, 64),
                                                (2, 64, 300, 64, 256, 16, 64),
                                                (2, 1, 300, 64, 256, 16, 64),
                                                (140, 4, 3, 16, 32, 4, 8)],
-                         ids=["small", "timeunet", "utae", "n-below-blocks",
+                         ids=["small", "timeunet", "utae", "utae-d-272", "n-below-blocks",
                               "n-not-multiple", "t-64", "t-1", "b-above-sms"])
 def test_cuda_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out):
     """The CUDA kernel against its plain version on the card, with pads, the
     tail affine and the attention output, at TimeUNet's C = 64 (the row-group
     kernel: fewer rows than blocks per item, N not a multiple of the row
     group or of the blocks, T at its limit of 64 and at 1, more batch items
-    than SMs) and U-TAE's C = 128 (the one-warp-per-row kernel, N not a
-    multiple of its rows). This file imports no JAX, so it runs where JAX is absent:
+    than SMs) and U-TAE's C = 128 (the wide row-group kernel, N not a
+    multiple of its 4-row group or of the blocks; at D = 272 the nq kernel
+    with one query). This file imports no JAX, so it runs where JAX is
+    absent:
     ``python -m pytest --noconftest -m cuda tests/test_torch_package.py``.
     Tolerance: fp32 5e-3 (sums in another order; out-GroupNorm groups of 2
     or 4 channels amplify that noise); bf16 3e-2 (one bf16 rounding of the
@@ -201,6 +204,110 @@ def test_cuda_kernel_num_queries_matches_plain_version(dtype, tail, b, t, n, c, 
     tol = 5e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
     torch.testing.assert_close(attn, want_attn, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_attn", [False, True], ids=["no-attn", "attn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,n", [(2, 61, 258), (1, 20, 77), (1, 61, 256)],
+                         ids=["partial-group", "short-t", "entry-forward"])
+def test_cuda_wide_kernel_matches_plain_version(b, t, n, dtype, need_attn):
+    """The wide row-group kernel (64 < C <= 128, one query: U-TAE's
+    bottleneck, C = d_out = 128, D = 256, G = 16) against its plain version
+    on the card, with pads: N = 258 ends in a partial 4-row group; at B = 1
+    most of the 132 blocks get one or two rows (N = 256, the entry
+    forward's shape) or none (N = 77). Tolerances as
+    ``test_cuda_kernel_matches_plain_version``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    c, d, g, d_out = 128, 256, 16, 128
+    params = {k: v.to(dev) for k, v in _random_params(c, d, g, d_out, gen).items()}
+    x = torch.randn(b, t, n, c, generator=gen).to(dev, dtype)
+    pe = torch.randn(b, t, d, generator=gen).to(dev)
+    pad = torch.zeros(b, t, dtype=torch.bool)
+    pad[0, t - 3:] = True
+    pad = pad.to(dev)
+    before = tk.ltae_fused_forward.launches
+    got, attn = tk.ltae_fused_forward(x, pe, pad, params, n_head=g, d_k=4,
+                                      need_attn=need_attn)
+    assert tk.ltae_fused_forward.launches == before + 1
+    want, want_attn = tk.ltae_fused_forward_reference(x.float(), pe, pad, params,
+                                                      n_head=g, d_k=4)
+    torch.cuda.synchronize()
+    tol = 5e-3 if dtype == torch.float32 else 3e-2
+    assert got.shape == (b, n, d_out)
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    if need_attn:
+        torch.testing.assert_close(attn, want_attn, rtol=1e-4, atol=1e-4)
+    else:
+        assert attn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_cuda_ltae_past_the_kernels_limits_raises_on_the_card(train, monkeypatch):
+    """LTAE at T = 70 (past the kernels' T <= 64) on the card, in eval and in
+    training without the attention output: the kernel route (the default
+    for a CUDA tensor) raises before any launch, where the JAX L-TAE would
+    run its Pallas kernel; the plain route (fused=False) runs on the card and
+    agrees with the same module on the CPU (TF32 off) within 1e-3, the
+    module tolerance of ``chip_smoke.py`` at this width: the out
+    GroupNorm's groups of 4 channels amplify the two devices' orders of
+    sums (3.1e-4 measured in eval)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from crop2seg_tpu_torch.nn.ltae import LTAE
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    m = LTAE(in_channels=64, n_head=16, d_k=4, mlp=(256, 64), d_model=256).to(dev)
+    m.attn_dropout, m.mlp[1].p = 0.0, 0.0
+    m.train(train)
+    x = torch.randn(2, 70, 8, 8, 64, generator=gen).to(dev)
+    dates = (torch.arange(70.0) * 5)[None].expand(2, -1).to(dev)
+    pad = torch.zeros(2, 70, dtype=torch.bool, device=dev)
+    pad[1, 60:] = True
+    before = (tk.ltae_fused_forward.launches, lp.ltae_pool.launches_fwd)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="does not take T=70"):
+            m(x, dates, pad, need_attn=not train)
+        assert (tk.ltae_fused_forward.launches, lp.ltae_pool.launches_fwd) == before
+        out, _ = m(x, dates, pad, need_attn=not train, fused=False)
+        want, _ = m.cpu()(x.cpu(), dates.cpu(), pad.cpu(), need_attn=not train)
+    assert out.is_cuda
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train-forward"])
+def test_cuda_timeunet_pad_value_keeps_the_tail_on_the_card(train):
+    """TimeUNet(pad_value=1.5) on the card: the kernel route leaves in_conv's
+    tail undeferred and launches the eval kernel (eval) or the untailed
+    training forward (a train-mode forward) once; its logits are within 1e-3
+    of the plain L-TAE's (fused=False)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from crop2seg_tpu_torch.models.timeunet import TimeUNet
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    m = TimeUNet(input_dim=6, encoder_widths=(16, 16, 32), decoder_widths=(8, 16, 32),
+                 out_conv=(8, 5), n_head=4, d_model=32, pad_value=1.5).to(dev)
+    m.temporal_encoder.attn_dropout, m.temporal_encoder.mlp[1].p = 0.0, 0.0
+    m.train(train)
+    x = torch.randn(2, 9, 16, 16, 6, generator=gen).to(dev)
+    dates = (torch.arange(9.0) * 5)[None].expand(2, -1).to(dev)
+    pad = torch.zeros(2, 9, dtype=torch.bool, device=dev)
+    pad[1, 6:] = True
+    before = (tk.ltae_fused_forward.launches, lp.ltae_pool.launches_fwd)
+    with torch.no_grad():
+        got = m(x, dates, pad)
+        after = (tk.ltae_fused_forward.launches, lp.ltae_pool.launches_fwd)
+        want = m(x, dates, pad, fused=False)
+    assert after == (before[0] + (not train), before[1] + train)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.cuda
