@@ -4,7 +4,8 @@
 
 1. Builds the kernel sources (csrc/ltae_fused_fwd.cu, csrc/ltae_pool.cu,
    csrc/ltae_stages.cu), one nvcc process each, started together, and prints
-   ptxas's registers and spills per kernel instantiation.
+   ptxas's registers and spills per kernel instantiation (and on their own
+   lines the wide, queries and general kernels').
 2. Holds the fused eval L-TAE kernel (at C <= 64 with one query its
    row-group kernel, ltae_fused_group_kernel) against its plain PyTorch
    version on the card at full width (T=61, N=128*128, C=64, D=256, G=16,
@@ -57,27 +58,40 @@
    seeded weights): the entry forward at (1, 30, 128, 128, 10), length 27
    (one kernel launch, finite logits), then one tile through
    make_tile_predictor in bf16 and fp32 with the checks of phase 4.
-9. The fused eval L-TAE kernel with three queries per head (nq = 3), at
-   U-TAE's bottleneck width (N=16*16, C=d_out=128) and TimeUNet's (N=128*128,
+9. The fused eval L-TAE kernel with three queries per head (nq = 3: the
+   queries row-group kernel, ltae_fused_queries_kernel), at U-TAE's
+   bottleneck width (N=16*16, C=d_out=128) and TimeUNet's (N=128*128,
    C=d_out=64), against its plain version (B=2, fp32 and bf16, tail affine
-   and attention each on and off; tolerances at TOL_Q), both timed at B=10;
-   then that mode's
-   path, the LTAE(num_queries=3) module in eval at U-TAE's width: exactly
-   one launch, agreeing with the module's plain ops.
-10. U-TAE training at the factory defaults: make_train_step, 5 steps at B=4
+   and attention each on and off; tolerances at TOL_Q), both timed at B=10
+   (the wrapper's call by CUDA events, the kernel by torch.profiler) beside
+   the bound; then that mode's path, the LTAE(num_queries=3) module in eval
+   at U-TAE's width: exactly one launch of the queries kernel, agreeing with
+   the module's plain ops.
+10. U-TAE training at the factory defaults (run after phase 11):
+   make_train_step, 5 steps at B=4
    in fp32 without remat and 5 at B=16 in bf16 with remat="conv_out" (the
    JAX bench's core train cell), each with a finite, falling loss, changed
    BatchNorm statistics and no launch of any kernel (the JAX U-TAE trains
    on plain ops too); then one B=2 step's gradients with remat ("conv_out"
    and "full") against those without, within the measured spread.
-11. Routes on the card: the LTAE at TimeUNet's width with T=70, past the
-   kernels' T <= 64, in eval and in training (no attention out): the
-   kernel route (the default on the card) raises before any launch, and
-   the plain route (fused=False) runs on the card, within MODULE_TOL_Q
-   (1e-3) of the same module on the CPU;
-   TimeUNet with pad_value=1.5 (in_conv's tail not deferred) in eval and in
-   a train-mode forward: one launch of the eval kernel or of the untailed
-   training forward, logits within 1e-3 of the plain L-TAE's.
+11. The general kernels, which take every shape past the fast kernels'
+   limits (T > 64 above all): timed at T=128, B=4, TimeUNet's width (the
+   eval kernel with the tail affine, the training pair in tail mode with
+   drop_p 0.1; fp32 and bf16) beside their plain versions and bounds. Then
+   the routes on the card, each path's counts set to 0 just before it and
+   read just after: the LTAE module in eval on the kernel route at T=70 and
+   T=128 (one query at C=64 with the tail, C=128 with the attention, three
+   queries; fp32 and bf16): one general launch each, held against the plain
+   version with TOL and ATTN_TOL (TOL_Q and ATTN_TOL_Q with three queries);
+   the training pair at T=70 and 128 (tail bf16 and untailed fp32, drop_p
+   0.1) against its plain version under autograd with POOL_TOL /
+   POOL_TOL_BF16, one general forward and backward each; a TimeUNet train
+   step at T=70, B=2 (4 steps, finite falling loss, exactly one general
+   forward and one general backward a step); the U-TAE entry forward at
+   T=70 (one general launch); TimeUNet with pad_value=1.5 (in_conv's tail
+   not deferred) in eval and in a train-mode forward: one launch of the
+   eval kernel or of the untailed training forward, logits within 1e-3 of
+   the plain L-TAE's.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -234,42 +248,45 @@ def pool_fwd_mangled(tail: bool, dtype: torch.dtype) -> str:
 
 
 def ltae_flops(b: int, tail: bool, n: int = HW, c: int = C,
-               d_out: int = D_OUT, nq: int = 1) -> float:
+               d_out: int = D_OUT, nq: int = 1, t: int = T) -> float:
     """Operations the fused forward needs, counted per row: tail affine and
     in-GroupNorm once; per query the scores, softmax, C-space pooling, the
     projection + PE term and the MLP; the out-GroupNorm over all queries."""
-    per_query = (2 * T * c * G + 4 * G * T + 2 * G * T * c + 2 * c * D + 2 * T * D
+    per_query = (2 * t * c * G + 4 * G * t + 2 * G * t * c + 2 * c * D + 2 * t * D
                  + D + 2 * D * d_out + 2 * d_out + 8 * d_out)
-    per_row = (3 * T * c if tail else 0) + 6 * T * c + nq * per_query
+    per_row = (3 * t * c if tail else 0) + 6 * t * c + nq * per_query
     return float(b * n * per_row)
 
 
 def ltae_bytes(b: int, dtype: torch.dtype, tail: bool, need_attn: bool,
-               n: int = HW, c: int = C, d_out: int = D_OUT, nq: int = 1) -> float:
+               n: int = HW, c: int = C, d_out: int = D_OUT, nq: int = 1,
+               t: int = T) -> float:
     """Each input read once, each output written once."""
     es = torch.tensor([], dtype=dtype).element_size()
-    nb = b * T * n * c * es + b * n * nq * d_out * es    # x in, out
-    nb += b * T * D * 4 + b * G * nq * T * 4             # pe, pes
+    nb = b * t * n * c * es + b * n * nq * d_out * es    # x in, out
+    nb += b * t * D * 4 + b * G * nq * t * 4             # pe, pes
     nb += (c * D + D + c * G * nq + D * d_out + 3 * d_out) * 4  # folded weights
     if tail:
-        nb += 2 * b * T * c * 4
+        nb += 2 * b * t * c * 4
     if need_attn:
-        nb += b * n * G * nq * T * 4
+        nb += b * n * G * nq * t * 4
     return float(nb)
 
 
 def bound(b: int, dtype: torch.dtype, tail: bool, need_attn: bool, **shape):
-    """The kernel's bound at ``shape`` (n, c, d_out, nq; TimeUNet's and one
-    query by default)."""
+    """The kernel's bound at ``shape`` (n, c, d_out, nq, t; TimeUNet's, one
+    query and T = 61 by default)."""
     t_bytes = ltae_bytes(b, dtype, tail, need_attn, **shape) / HBM_BYTES_PER_S * 1e3
     t_ops = ltae_flops(b, tail, **shape) / PEAK_FLOP_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ltae_inputs(model, b: int, gen: torch.Generator, dev, n: int = HW, nq: int = 1):
+def ltae_inputs(model, b: int, gen: torch.Generator, dev, n: int = HW, nq: int = 1,
+                t: int = T):
     """Full-width kernel inputs: the seeded model's L-TAE parameters (with
     non-trivial BN statistics; with nq > 1 queries drawn as the factory
-    draws them), its PE of real day offsets, pads, and a deferred tail affine
+    draws them), its PE of real day offsets over t dates, every other
+    sample padded from t - 6 (LENGTH at T = 61), and a deferred tail affine
     zeroed at the pads; n pixel rows of its width."""
     te = model.temporal_encoder
     c, d_out = te.in_norm.num_channels, te.out_norm.num_channels
@@ -280,15 +297,15 @@ def ltae_inputs(model, b: int, gen: torch.Generator, dev, n: int = HW, nq: int =
         sd["attention_head.Q"] = (2.0 / D_K) ** 0.5 * torch.randn(
             G, nq, D_K, generator=gen, device=dev)
     params = lf.params_from_ltae_variables(sd)
-    dates = (torch.arange(T, dtype=torch.float32) * 5 + 3).to(dev)
+    dates = (torch.arange(t, dtype=torch.float32) * 5 + 3).to(dev)
     with torch.inference_mode():
-        pe = te.pe(dates[None].expand(b, T)).contiguous()
-    lengths = torch.tensor([LENGTH, T] * b)[:b].to(dev)
-    pad = torch.arange(T, device=dev)[None] >= lengths[:, None]
-    x = torch.randn(b, T, n, c, generator=gen, device=dev)
+        pe = te.pe(dates[None].expand(b, t)).contiguous()
+    lengths = torch.tensor([t - (T - LENGTH), t] * b)[:b].to(dev)
+    pad = torch.arange(t, device=dev)[None] >= lengths[:, None]
+    x = torch.randn(b, t, n, c, generator=gen, device=dev)
     valid = (~pad).float()[:, :, None]
-    sc = (1 + 0.2 * torch.randn(b, T, c, generator=gen, device=dev)) * valid
-    sh = 0.1 * torch.randn(b, T, c, generator=gen, device=dev) * valid
+    sc = (1 + 0.2 * torch.randn(b, t, c, generator=gen, device=dev)) * valid
+    sh = 0.1 * torch.randn(b, t, c, generator=gen, device=dev) * valid
     return x, pe, pad, params, (sc, sh)
 
 
@@ -360,7 +377,7 @@ def phase_kernel(model, dev):
     return errs, timings
 
 
-def pool_flops(b: int, backward: bool, tail: bool = False) -> float:
+def pool_flops(b: int, backward: bool, tail: bool = False, t: int = T) -> float:
     """Operations of the ltae_pool kernels, counted per row. Forward: input
     GroupNorm, scores, softmax, C-space pooling, the projection + PE term,
     and in tail mode the affine and ReLU (3 per element). Backward: the
@@ -368,54 +385,56 @@ def pool_flops(b: int, backward: bool, tail: bool = False) -> float:
     pooling, dxhat, the GroupNorm backward and the four sums A, F, E, Dsum;
     in tail mode also the affine and ReLU again, the mask, dz and the two
     sums dtsc, dtsh (3 + 5 per element)."""
-    tc, tcg, tg = T * C, T * C * G, T * G
+    tc, tcg, tg = t * C, t * C * G, t * G
     if backward:
-        per_row = 14 * tc + 12 * tcg + 9 * tg + 4 * C * D + 4 * T * D
+        per_row = 14 * tc + 12 * tcg + 9 * tg + 4 * C * D + 4 * t * D
         per_row += 8 * tc if tail else 0
     else:
-        per_row = 6 * tc + 4 * tcg + 4 * tg + 2 * C * D + 2 * T * D
+        per_row = 6 * tc + 4 * tcg + 4 * tg + 2 * C * D + 2 * t * D
         per_row += 3 * tc if tail else 0
     return float(b * HW * per_row)
 
 
 def pool_bytes(b: int, backward: bool, tail: bool = False,
-               dtype: torch.dtype = torch.float32) -> float:
+               dtype: torch.dtype = torch.float32, t: int = T) -> float:
     """Each input read once, each output written once: x (z), o or go and dx
-    in x's dtype, the rest fp32."""
+    in x's dtype, the rest fp32 (the general pair's saved statistics, 4 per
+    row and head, are not counted: the fast pair has none)."""
     es = torch.tensor([], dtype=dtype).element_size()
-    n = b * T * HW * C * es + b * HW * D * es      # x; o (fwd) or go (bwd)
-    n += (b * T * D + b * G * T + C * D + C * G) * 4  # bpe, pes, W_f, Ws
+    n = b * t * HW * C * es + b * HW * D * es      # x; o (fwd) or go (bwd)
+    n += (b * t * D + b * G * t + C * D + C * G) * 4  # bpe, pes, W_f, Ws
     if tail:
-        n += 2 * b * T * C * 4                     # tsc, tsh
+        n += 2 * b * t * C * 4                     # tsc, tsh
     if backward:
-        n += b * T * HW * C * es                   # dx
-        n += (C * G + C * D + b * T * G + b * T * D) * 4  # the four sums
-        n += 2 * b * T * C * 4 if tail else 0      # dtsc, dtsh
+        n += b * t * HW * C * es                   # dx
+        n += (C * G + C * D + b * t * G + b * t * D) * 4  # the four sums
+        n += 2 * b * t * C * 4 if tail else 0      # dtsc, dtsh
     return float(n)
 
 
 def pool_bound(b: int, backward: bool, tail: bool = False,
-               dtype: torch.dtype = torch.float32):
-    t_bytes = pool_bytes(b, backward, tail, dtype) / HBM_BYTES_PER_S * 1e3
-    t_ops = pool_flops(b, backward, tail) / PEAK_FLOP_PER_S[dtype] * 1e3
+               dtype: torch.dtype = torch.float32, t: int = T):
+    t_bytes = pool_bytes(b, backward, tail, dtype, t) / HBM_BYTES_PER_S * 1e3
+    t_ops = pool_flops(b, backward, tail, t) / PEAK_FLOP_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def pool_inputs(model, b: int, gen: torch.Generator, dev):
+def pool_inputs(model, b: int, gen: torch.Generator, dev, t: int = T):
     """Full-width ltae_pool inputs: the seeded model's folded L-TAE
-    parameters, its PE of real day offsets, sample 1 padded to LENGTH, and a
-    deferred tail affine (tsc, tsh) zeroed at the pads."""
+    parameters, its PE of real day offsets over t dates, samples 1.. padded
+    from t - 6 (LENGTH at T = 61), and a deferred tail affine (tsc, tsh)
+    zeroed at the pads."""
     te = model.temporal_encoder
     with torch.no_grad():
         params = [p.detach().clone() for p in te.pool_params()]
-        pe = te.pe((torch.arange(T, dtype=torch.float32, device=dev) * 5 + 3
-                    )[None].expand(b, T)).contiguous()
-    pad = torch.zeros(b, T, dtype=torch.bool, device=dev)
-    pad[1:, LENGTH:] = True
-    x = torch.randn(b, T, HW, C, generator=gen, device=dev)
+        pe = te.pe((torch.arange(t, dtype=torch.float32, device=dev) * 5 + 3
+                    )[None].expand(b, t)).contiguous()
+    pad = torch.zeros(b, t, dtype=torch.bool, device=dev)
+    pad[1:, t - (T - LENGTH):] = True
+    x = torch.randn(b, t, HW, C, generator=gen, device=dev)
     valid = (~pad).float()[:, :, None]
-    ts = ((1 + 0.2 * torch.randn(b, T, C, generator=gen, device=dev)) * valid,
-          0.1 * torch.randn(b, T, C, generator=gen, device=dev) * valid)
+    ts = ((1 + 0.2 * torch.randn(b, t, C, generator=gen, device=dev)) * valid,
+          0.1 * torch.randn(b, t, C, generator=gen, device=dev) * valid)
     return x, ts, pe, pad, params
 
 
@@ -535,23 +554,24 @@ def phase_pool_kernel(model, dev):
     return errs, timings
 
 
-def train_batch(b: int, gen: torch.Generator, dev):
+def train_batch(b: int, gen: torch.Generator, dev, t: int = T):
     lengths = torch.tensor([TRAIN_LENGTHS[i % len(TRAIN_LENGTHS)] for i in range(b)],
                            device=dev)
-    pad = torch.arange(T, device=dev)[None] >= lengths[:, None]
-    x = torch.randn(b, T, 128, 128, 10, generator=gen, device=dev)
+    pad = torch.arange(t, device=dev)[None] >= lengths[:, None]
+    x = torch.randn(b, t, 128, 128, 10, generator=gen, device=dev)
     x[pad] = 0.0
-    dates = (torch.arange(T, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(b, T)
+    dates = (torch.arange(t, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(b, t)
     y = torch.randint(0, N_CLASSES, (b, 128, 128), generator=gen, device=dev)
     return {"x": x, "dates": dates.contiguous(), "pad_mask": pad, "y": y}
 
 
 def train_run(label: str, fresh, batch, cfg, dev, *, dtype=None,
-              defer_tail=None, steps: int = 5):
+              defer_tail=None, steps: int = 5, general: bool = False):
     """``steps`` steps of make_train_step from the weights ``fresh`` on
     ``batch``, each path with the pair's launch counts set to 0 just before
     it and read just after: every step must launch the forward and the
-    backward of exactly the variant its route and dtype select, once each.
+    backward of exactly the variant its route and dtype select (``general``:
+    the general pair's, past the fast pair's T <= 64), once each.
     Returns the model, the counts, the losses, the warm step ms (steps 2 on:
     mean, median) and the peak memory in GiB."""
     model = get_model({"model": "timeunet"}, device=dev)
@@ -560,7 +580,7 @@ def train_run(label: str, fresh, batch, cfg, dev, *, dtype=None,
     step = make_train_step(model, cfg, dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(7)
     tail = defer_tail is not False
-    want = {lp.variant(tail, dtype or torch.float32, d): 1 for d in ("fwd", "bwd")}
+    want = {lp.variant(tail, dtype or torch.float32, d, general): 1 for d in ("fwd", "bwd")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
@@ -584,8 +604,9 @@ def train_run(label: str, fresh, batch, cfg, dev, *, dtype=None,
     # the median as well: one late warm-up step can move the mean by a third
     warm_ms, warm_median = float(np.mean(step_ms[1:])), float(np.median(step_ms[1:]))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train step B={TRAIN_B} {label}, warm (steps 2-{steps}): mean {warm_ms:.3f} ms, "
-          f"median {warm_median:.3f} ms, {TRAIN_B / warm_median * 1e3:.2f} samples/s at "
+    b = batch["x"].shape[0]
+    print(f"train step B={b} {label}, warm (steps 2-{steps}): mean {warm_ms:.3f} ms, "
+          f"median {warm_median:.3f} ms, {b / warm_median * 1e3:.2f} samples/s at "
           f"the median; peak memory {peak:.2f} GiB", flush=True)
     return model, launches, losses, (warm_ms, warm_median), peak
 
@@ -892,13 +913,15 @@ def phase_utae(model, dev):
 
 
 def phase_kernel_queries(models: dict, dev):
-    """Kernel 1 with NQ queries per head at U-TAE's and TimeUNet's widths:
-    against its plain version at B=2 (fp32 and bf16, tail affine and
-    attention each on and off), then both timed at B=10 (U-TAE's width with
-    the attention out, TimeUNet's with the tail affine and without it). Then
-    the mode's path, LTAE(num_queries=NQ) in eval at U-TAE's width and B=10:
-    one launch, agreeing with the module's plain ops. Returns the errors,
-    the timings and that path's launch count."""
+    """Kernel 1 with NQ queries per head (the queries row-group kernel) at
+    U-TAE's and TimeUNet's widths: against its plain version at B=2 (fp32
+    and bf16, tail affine and attention each on and off; every call on the
+    "queries" route), then both timed at B=10 (U-TAE's width with the
+    attention out, TimeUNet's with the tail affine and without it), the
+    kernel by CUDA events around the wrapper's call and by torch.profiler.
+    Then the mode's path, LTAE(num_queries=NQ) in eval at U-TAE's width and
+    B=10: one launch of the queries kernel, agreeing with the module's plain
+    ops. Returns the errors, the timings and that path's launch count."""
     gen = torch.Generator(device=dev).manual_seed(9)
     widths = {"utae": dict(n=UTAE_HW, c=UTAE_C, d_out=UTAE_C),
               "timeunet": dict(n=HW, c=C, d_out=D_OUT)}
@@ -910,6 +933,9 @@ def phase_kernel_queries(models: dict, dev):
         model = models[width]
         tol, attn_tol = tols[width]
         x, pe, pad, params, tail = ltae_inputs(model, 2, gen, dev, n=shape["n"], nq=NQ)
+        check(lf.kernel_route(T, shape["c"], D, G, shape["d_out"], NQ) == "queries",
+              f"nq={NQ} at C={shape['c']} does not take the queries kernel")
+        lf.ltae_fused_forward.route_launches.clear()
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
             for use_tail in (False, True):
@@ -919,6 +945,8 @@ def phase_kernel_queries(models: dict, dev):
                         f"attn={need_attn}", xd, pe, pad, params, need_attn,
                         tail if use_tail else None, tol=tol, attn_tol=attn_tol,
                         per_value=True)
+        check(dict(lf.ltae_fused_forward.route_launches) == {"queries": 8},
+              f"nq={NQ} checks launched {dict(lf.ltae_fused_forward.route_launches)}")
         del x, pe, pad, tail, xd
         torch.cuda.empty_cache()
 
@@ -927,23 +955,27 @@ def phase_kernel_queries(models: dict, dev):
         iters, plain_iters = (50, 10) if width == "utae" else (10, 3)
         for dtype in (torch.bfloat16, torch.float32):
             xd = x.to(dtype)
-            ms = cuda_ms(lambda: lf.ltae_fused_forward(
-                xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=need_attn,
-                tail_affine=ts), iters=iters)
+
+            def launch():
+                return lf.ltae_fused_forward(xd, pe, pad, params, n_head=G, d_k=D_K,
+                                             need_attn=need_attn, tail_affine=ts)
+            ms = cuda_ms(launch, iters=iters)
+            device_ms = kernel_device_ms(launch, iters, "ltae_fused_queries_kernel")
             plain_ms = cuda_ms(lambda: lf.ltae_fused_forward_reference(
                 xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=need_attn,
                 tail_affine=ts), iters=plain_iters, warmup=1)
             b_ms, b_by = bound(MAIN_B, dtype, ts is not None, need_attn, nq=NQ, **shape)
-            timings[(width, dtype)] = (ms, plain_ms, b_ms, b_by)
+            timings[(width, dtype)] = (ms, plain_ms, b_ms, b_by, device_ms)
             flops = ltae_flops(MAIN_B, ts is not None, nq=NQ, **shape)
             nbytes = ltae_bytes(MAIN_B, dtype, ts is not None, need_attn, nq=NQ, **shape)
             print(f"ltae_fused_fwd nq={NQ} {str(dtype)[6:]} B={MAIN_B} T={T} "
                   f"N={shape['n']} C={shape['c']} d_out={shape['d_out']} "
-                  f"tail={ts is not None} attn={need_attn}: kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"tail={ts is not None} attn={need_attn}: kernel {ms:.3f} ms (the "
+                  f"wrapper's call, CUDA events; device time {device_ms:.3f} ms, "
+                  f"profiler), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
                   f"{flops / (MAIN_B * shape['n']) / 1e6:.3f} MFLOP per row), "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s",
-                  flush=True)
+                  f"{flops / device_ms / 1e9:.1f} TFLOP/s, "
+                  f"{nbytes / device_ms / 1e6:.1f} GB/s in device time", flush=True)
             del xd
             torch.cuda.empty_cache()
         del x, pe, pad, tail
@@ -959,9 +991,11 @@ def phase_kernel_queries(models: dict, dev):
     dates = (torch.arange(T, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(MAIN_B, T)
     with torch.inference_mode():
         lf.ltae_fused_forward.launches = 0             # this path's count
+        lf.ltae_fused_forward.route_launches.clear()
         out, attn = te(x, dates, pad)
         torch.cuda.synchronize()
         launches = lf.ltae_fused_forward.launches
+        routes = dict(lf.ltae_fused_forward.route_launches)
         ref, ref_attn = te(x, dates, pad, fused=False)
     check(tuple(out.shape) == (MAIN_B, NQ, 16, 16, UTAE_C) and tuple(attn.shape) == (
         MAIN_B, 16, 16, G, NQ, T), f"LTAE nq={NQ}: shapes {out.shape} {attn.shape}")
@@ -971,7 +1005,8 @@ def phase_kernel_queries(models: dict, dev):
     print(f"LTAE(num_queries={NQ}) eval, ({MAIN_B}, {T}, 16, 16, {UTAE_C}): "
           f"ltae_fused_fwd launches {launches}; fused vs plain ops out {err:.3e} "
           f"(tol {MODULE_TOL_Q:g}), attn {aerr:.3e} (tol {ATTN_TOL_Q:g})", flush=True)
-    check(launches == 1, f"LTAE nq={NQ} launched the kernel {launches} times, not 1")
+    check(launches == 1 and routes == {"queries": 1},
+          f"LTAE nq={NQ} launched {routes}, not the queries kernel once")
     check(err <= MODULE_TOL_Q and aerr <= ATTN_TOL_Q,
           f"LTAE nq={NQ}: fused vs plain out {err}, attn {aerr}")
     return errs, timings, launches
@@ -1056,47 +1091,165 @@ def phase_utae_train(dev):
     return runs, worst
 
 
-def phase_routing(dev):
-    """A shape the kernels do not take raises on the kernel route before any
-    launch and runs on the plain route on the card, and TimeUNet with
-    pad_value != 0 keeps in_conv's tail. Returns the LTAE's launch count at
-    T=70 (all modes) and the TimeUNet errors."""
-    gen = torch.Generator(device=dev).manual_seed(13)
-    t_long = 70
-    te = LTAE(in_channels=C, n_head=G, d_k=D_K, mlp=(D, D_OUT), d_model=D)
-    te = init_weights(te, torch.Generator().manual_seed(14)).to(dev)
-    te.attn_dropout, te.mlp[1].p = 0.0, 0.0
-    x = torch.randn(2, t_long, 32, 32, C, generator=gen, device=dev)
-    pad = pad_mask_from_lengths(torch.tensor([t_long, 60], device=dev), t_long)
+def general_eval_case(label: str, te, dtype, t: int, n_side: int, gen, dev,
+                      tail: bool, need_attn: bool, tol, attn_tol, per_value=False):
+    """The LTAE module ``te`` in eval on the kernel route at T = t (B = 2,
+    n_side^2 pixels, the second sample padded from t - 6): the general
+    kernel's count set to 0 just before and read just after (one launch),
+    out and attention held against the plain version on the module's own
+    folded parameters (``ltae_fused_forward_reference``) within tol[dtype]
+    (per value of max(1, |value|) in bf16 with ``per_value``) and attn_tol.
+    Returns the largest |err| of out."""
+    b, c, nq = 2, te.in_norm.num_channels, te.num_queries
+    x = torch.randn(b, t, n_side, n_side, c, generator=gen, device=dev)
+    pad = pad_mask_from_lengths(torch.tensor([t, t - 6], device=dev), t)
     x[pad] = 0.0
-    dates = (torch.arange(t_long, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(2, -1)
-    te_cpu = copy.deepcopy(te).cpu()
-    launches = 0
-    for train in (False, True):
-        te.train(train)
-        te_cpu.train(train)
-        mode = "train" if train else "eval"
-        with torch.no_grad():
-            lf.ltae_fused_forward.launches = 0         # this path's counts
-            lp.ltae_pool.launches.clear()
-            try:
-                te(x, dates, pad, need_attn=not train)
-                refused = False
-            except ValueError as e:
-                refused = "does not take T=70" in str(e)
-            torch.cuda.synchronize()
-            n = lf.ltae_fused_forward.launches + sum(lp.ltae_pool.launches.values())
-            out, _ = te(x, dates, pad, need_attn=not train, fused=False)
-            ref, _ = te_cpu(x.cpu(), dates.cpu(), pad.cpu(), need_attn=not train)
-        err = (out.cpu() - ref).abs().max().item()
-        launches += n
-        print(f"LTAE T={t_long} C={C} {mode}: kernel route refused before any launch "
-              f"{refused} ({n} launches); plain route on {out.device}, vs the CPU "
-              f"{err:.3e} (tol {MODULE_TOL_Q:g})", flush=True)
-        check(refused and n == 0, f"LTAE T={t_long} {mode}: kernel route not refused, "
-              f"{n} launches")
-        check(out.is_cuda and bool(torch.isfinite(out).all()) and err <= MODULE_TOL_Q,
-              f"LTAE T={t_long} {mode}: plain route on {out.device}, {err} off the CPU")
+    xd = x.to(dtype)
+    dates = (torch.arange(t, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(b, t)
+    valid = (~pad).float()[:, :, None]
+    ts = ((1 + 0.2 * torch.randn(b, t, c, generator=gen, device=dev)) * valid,
+          0.1 * torch.randn(b, t, c, generator=gen, device=dev) * valid) if tail else None
+    with torch.inference_mode():
+        lf.ltae_fused_forward.route_launches.clear()   # this path's count
+        out, attn = te(xd, dates, pad, need_attn=need_attn, tail_affine=ts)
+        torch.cuda.synchronize()
+        routes = dict(lf.ltae_fused_forward.route_launches)
+        params = lf.params_from_ltae_variables(te.state_dict())
+        want, want_attn = lf.ltae_fused_forward_reference(
+            xd.float().reshape(b, t, -1, c), te.pe(dates), pad, params, n_head=G,
+            d_k=D_K, need_attn=need_attn, tail_affine=ts)
+    check(routes == {"general": 1}, f"{label}: launched {routes}, not the general kernel once")
+    got = (out.permute(0, 2, 3, 1, 4) if nq > 1 else out).reshape(want.shape).float()
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    diff = (got - want).abs()
+    err = diff.max().item()
+    held = (diff / want.abs().clamp_min(1.0)).max().item() if (
+        per_value and dtype == torch.bfloat16) else err
+    line = f"{label}: general launches {routes['general']}, out {err:.3e} (tol {tol[dtype]:g}"
+    line += f" of max(1, |value|): {held:.3e})" if per_value and dtype == torch.bfloat16 else ")"
+    if need_attn:
+        got_attn = attn.reshape(want_attn.shape)
+        aerr = (got_attn - want_attn).abs().max().item()
+        line += f", attn {aerr:.3e} (tol {attn_tol:g})"
+        check(aerr <= attn_tol, f"{label}: attn error {aerr}")
+    print(line, flush=True)
+    check(held <= tol[dtype], f"{label}: out error {held}")
+    return err
+
+
+def pool_case(label: str, model, tail: bool, dtype, t: int, gen, dev, drop_p: float):
+    """The training pair at T = t against its plain version under autograd
+    as phase 3 holds the fast pair (B = 2, TimeUNet's width, drop_p): one
+    general forward and one general backward launch, o and every gradient
+    within POOL_TOL (fp32) or POOL_TOL_BF16. Returns the largest relative
+    errors of the forward and of the backward."""
+    x, ts, pe, pad, params = pool_inputs(model, 2, gen, dev, t=t)
+    proj = torch.randn(2, HW, D, generator=gen, device=dev).bfloat16().float()
+    names = (("o", "dx") + (("dtsc", "dtsh") if tail else ())
+             + ("dpe", "dwin_f", "dbin_f", "du", "dcs"))
+    tol = POOL_TOL if dtype == torch.float32 else POOL_TOL_BF16
+    res, launched = [], None
+    for plain, xin in ((False, x.to(dtype)), (True, x.to(dtype).float())):
+        leaves = pool_leaves(tail, xin, ts, pe, params)
+        lp.ltae_pool.launches.clear()                  # this path's counts
+        o = pool_apply(tail, plain, leaves, pad, 1234, drop_p)
+        grads = torch.autograd.grad((o.float() * proj).sum(), leaves)
+        torch.cuda.synchronize()
+        if not plain:
+            launched = dict(lp.ltae_pool.launches)
+        res.append([o.detach().float()] + [g_.detach().float() for g_ in grads])
+        del o, grads, leaves
+    want_launch = {lp.variant(tail, dtype, d, general=True): 1 for d in ("fwd", "bwd")}
+    check(launched == want_launch, f"{label}: launched {launched}, not {want_launch}")
+    got, want = res
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, g_, w_ in zip(names, got, want):
+        check(g_.shape == w_.shape and bool(torch.isfinite(g_).all()),
+              f"{label} {name}: shape or non-finite")
+        scale = want[names.index("du" if name == "dcs" else name)]
+        rel = (g_ - w_).abs().max().item() / max(scale.abs().max().item(), 1e-30)
+        check(rel <= tol, f"{label} {name}: {rel}")
+        key = "fwd" if name == "o" else "bwd"
+        worst[key] = max(worst[key], rel)
+    print(f"{label}: launches {launched}; o {worst['fwd']:.3e}, worst gradient "
+          f"{worst['bwd']:.3e} relative (tol {tol:g})", flush=True)
+    return worst
+
+
+def phase_routing(models: dict, dev):
+    """Shapes past the fast kernels' limits on the kernel route (the default
+    on the card) take the general kernels, as the JAX package runs its
+    Pallas kernels there: the LTAE in eval at T = 70 and 128 (one query at
+    TimeUNet's C = 64 with the tail, at U-TAE's C = 128 with the attention,
+    and three queries), the training pair at T = 70 and 128 (tail bf16 and
+    untailed fp32, drop_p 0.1), a TimeUNet train step at T = 70, B = 2 and
+    the U-TAE entry forward at T = 70; then TimeUNet with pad_value=1.5
+    keeps in_conv's tail. Returns the general kernels' launches per path
+    and kernel, their errors, and the TimeUNet pad_value errors."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    launches = collections.Counter()
+    errs = collections.defaultdict(float)
+    cases = (("C=64 tail", dict(in_channels=C, mlp=(D, D_OUT)), HW, True, False, 1),
+             ("C=128 attn", dict(in_channels=UTAE_C, mlp=(D, UTAE_C)), UTAE_HW, False,
+              True, 1),
+             (f"nq={NQ} C=128 attn", dict(in_channels=UTAE_C, mlp=(D, UTAE_C),
+                                          num_queries=NQ), UTAE_HW, False, True, NQ))
+    for name, kw, n, tail, need_attn, nq in cases:
+        te = LTAE(n_head=G, d_k=D_K, d_model=D, **kw)
+        te = init_weights(te, torch.Generator().manual_seed(14)).to(dev).eval()
+        tol, attn_tol = (TOL, ATTN_TOL) if nq == 1 else (
+            {torch.float32: TOL_Q[torch.float32], torch.bfloat16: TOL_Q[torch.bfloat16]},
+            ATTN_TOL_Q)
+        for t in (70, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                err = general_eval_case(
+                    f"LTAE {name} T={t} {str(dtype)[6:]} eval", te, dtype, t,
+                    int(n ** 0.5), gen, dev, tail, need_attn, tol, attn_tol,
+                    per_value=nq > 1)
+                launches["ltae_fused_fwd_general"] += 1
+                errs[("eval", dtype)] = max(errs[("eval", dtype)], err)
+        del te
+        torch.cuda.empty_cache()
+
+    timeunet = models["timeunet"]
+    for t in (70, 128):
+        for tail, dtype in ((True, torch.bfloat16), (False, torch.float32)):
+            worst = pool_case(f"ltae_pool tail={tail} {str(dtype)[6:]} T={t} drop_p=0.1",
+                              timeunet, tail, dtype, t, gen, dev, 0.1)
+            for d in ("fwd", "bwd"):
+                launches[lp.variant(tail, dtype, d, general=True)] += 1
+                errs[(d, dtype)] = max(errs[(d, dtype)], worst[d])
+            torch.cuda.empty_cache()
+
+    # a TimeUNet train step at T = 70: the tail route's general pair
+    cfg = StepConfig(num_classes=N_CLASSES,
+                     class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+    fresh = {k: v.clone() for k, v in get_model(
+        {"model": "timeunet"}, generator=torch.Generator().manual_seed(0)).state_dict().items()}
+    batch = train_batch(2, torch.Generator(device=dev).manual_seed(4), dev, t=70)
+    model, counts, losses, warm_ms, peak = train_run(
+        "T=70 tail fp32", fresh, batch, cfg, dev, steps=4, general=True)
+    launches.update(counts)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # the U-TAE entry forward at T = 70: its L-TAE at C = 128 on the general kernel
+    utae = models["utae"]
+    x = torch.randn(1, 70, 128, 128, 10, generator=gen, device=dev)
+    dates = (torch.arange(70, dtype=torch.float32, device=dev) * 5 + 3)[None]
+    pad = pad_mask_from_lengths(torch.tensor([64], device=dev), 70)
+    with torch.inference_mode():
+        lf.ltae_fused_forward.route_launches.clear()   # this path's count
+        logits = utae(x, dates, pad)
+        torch.cuda.synchronize()
+        routes = dict(lf.ltae_fused_forward.route_launches)
+    print(f"utae entry forward (1, 70, 128, 128, 10), length 64: logits "
+          f"{tuple(logits.shape)}, launches {routes}", flush=True)
+    check(tuple(logits.shape) == (1, 128, 128, N_CLASSES)
+          and bool(torch.isfinite(logits).all()), "utae T=70 entry forward: logits")
+    check(routes == {"general": 1}, f"utae T=70 entry forward launched {routes}")
+    launches["ltae_fused_fwd_general"] += 1
+    del x, logits
 
     model = get_model({"model": "timeunet", "pad_value": 1.5}, device=dev,
                       generator=torch.Generator().manual_seed(0))
@@ -1104,7 +1257,7 @@ def phase_routing(dev):
     x = torch.randn(2, T, 128, 128, 10, generator=gen, device=dev)
     pad = pad_mask_from_lengths(torch.tensor([LENGTH, T], device=dev), T)
     dates = (torch.arange(T, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(2, -1)
-    errs = {}
+    pad_errs = {}
     for train in (False, True):
         model.train(train)
         with torch.no_grad():
@@ -1114,15 +1267,86 @@ def phase_routing(dev):
             torch.cuda.synchronize()
             n = {"ltae_fused_fwd": lf.ltae_fused_forward.launches, **lp.ltae_pool.launches}
             want = model(x, dates, pad, fused=False)
-        errs[train] = (got - want).abs().max().item()
+        pad_errs[train] = (got - want).abs().max().item()
         label = "train-mode forward" if train else "eval"
         expect = lp.variant(False, torch.float32, "fwd") if train else "ltae_fused_fwd"
         print(f"TimeUNet pad_value=1.5 {label}: kernel launches {n}, kernel route vs "
-              f"plain L-TAE logits {errs[train]:.3e} (tol 1e-3)", flush=True)
+              f"plain L-TAE logits {pad_errs[train]:.3e} (tol 1e-3)", flush=True)
         check({k: v for k, v in n.items() if v} == {expect: 1},
               f"TimeUNet pad_value=1.5 {label}: launches {n}, expected one {expect}")
-        check(errs[train] <= 1e-3, f"TimeUNet pad_value=1.5 {label}: {errs[train]}")
-    return launches, errs
+        check(pad_errs[train] <= 1e-3, f"TimeUNet pad_value=1.5 {label}: {pad_errs[train]}")
+    return dict(launches), dict(errs), {"losses": losses, "warm_ms": warm_ms[0],
+                                        "peak_gib": peak}, pad_errs
+
+
+T_GENERAL = 128   # the general kernels' timing shape: T past the fast kernels' 64
+
+
+def phase_general_timing(models: dict, dev):
+    """The general kernels timed at T = 128, TimeUNet's width (N = 128*128,
+    C = 64, D = 256), B = 4, beside their plain versions and bounds: the
+    eval kernel with the tail affine and no attention (bf16 and fp32), the
+    training pair in tail mode with drop_p 0.1 (fp32 and bf16). Returns
+    {name: {dtype: (ms, plain_ms, bound_ms, bound_by)}}."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    model, t, b = models["timeunet"], T_GENERAL, TRAIN_B
+    out = collections.defaultdict(dict)
+    x, pe, pad, params, tail = ltae_inputs(model, b, gen, dev, t=t)
+    check(lf.kernel_route(t, C, D, G, D_OUT, 1) == "general", "T=128 is not general")
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        ms = cuda_ms(lambda: lf.ltae_fused_forward(
+            xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=False,
+            tail_affine=tail), iters=5)
+        plain_ms = cuda_ms(lambda: lf.ltae_fused_forward_reference(
+            xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=False,
+            tail_affine=tail), iters=2, warmup=1)
+        b_ms, b_by = bound(b, dtype, True, False, t=t)
+        out["ltae_fused_fwd_general"][dtype] = (ms, plain_ms, b_ms, b_by)
+        print(f"ltae_fused_general_kernel {str(dtype)[6:]} B={b} T={t} N={HW} C={C}: "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; bytes {ltae_bytes(b, dtype, True, False, t=t) / HBM_BYTES_PER_S * 1e3:.4f}"
+              f" ms, operations {ltae_flops(b, True, t=t) / PEAK_FLOP_PER_S[dtype] * 1e3:.4f}"
+              f" ms)", flush=True)
+        del xd
+        torch.cuda.empty_cache()
+    del x, pe, pad, params, tail
+    torch.cuda.empty_cache()
+
+    x, ts, pe, pad, params = pool_inputs(model, b, gen, dev, t=t)
+    go = torch.randn(b, HW, D, generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        per = {}
+        for plain, iters in ((False, 5), (True, 2)):
+            leaves = pool_leaves(True, xd, ts, pe, params)
+
+            def fwd():
+                with torch.no_grad():
+                    pool_apply(True, plain, leaves, pad, 99, 0.1)
+            fwd_ms = cuda_ms(fwd, iters=iters, warmup=1)
+            o = pool_apply(True, plain, leaves, pad, 99, 0.1)
+            god = go.to(o.dtype)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, god, retain_graph=True),
+                             iters=iters, warmup=1)
+            per[plain] = (fwd_ms, bwd_ms)
+            del o, god, leaves
+            torch.cuda.empty_cache()
+        for i, direction in enumerate(("fwd", "bwd")):
+            bwd = direction == "bwd"
+            b_ms, b_by = pool_bound(b, bwd, True, dtype, t)
+            name = f"ltae_pool_tail_{direction}_general"
+            out[name][dtype] = (per[False][i], per[True][i], b_ms, b_by)
+            print(f"{lp.variant(True, dtype, direction, general=True)} B={b} T={t} N={HW} "
+                  f"C={C}: kernel {per[False][i]:.3f} ms, plain {per[True][i]:.3f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}; "
+                  f"{pool_flops(b, bwd, True, t) / (b * HW) / 1e6:.3f} MFLOP per row)",
+                  flush=True)
+        del xd
+        torch.cuda.empty_cache()
+    del x, ts, pe, pad, params, go
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1156,13 +1380,29 @@ def main() -> int:
               f"{found[0][1]} bytes spill stores, {found[0][2]} bytes spill loads", flush=True)
 
     fused_ptxas = ptxas_report(libs["ltae_fused_fwd"].with_suffix(".log").read_text())
-    wide_ptxas = {}
-    for dtype, tin in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
-        found = [v for k, v in fused_ptxas.items() if f"ltae_fused_wide_kernelI{tin}E" in k]
-        check(len(found) == 1, f"ptxas reported no ltae_fused_wide_kernel<{tin}>")
-        wide_ptxas[dtype] = found[0]
-        print(f"ptxas ltae_fused_wide_kernel<{str(dtype)[6:]}>: {found[0][0]} registers, "
-              f"{found[0][1]} bytes spill stores, {found[0][2]} bytes spill loads", flush=True)
+    # {(kernel, dtype[, R]): (registers, spill stores, spill loads)} of the
+    # wide row-group kernel, the queries kernel (R rows a group: 4 at C <= 64,
+    # 2 above) and the general kernels
+    ptx = {}
+    tins = ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16"))
+    for dtype, tin in tins:
+        for key, lib, mangled in (
+                (("wide", dtype), fused_ptxas, f"ltae_fused_wide_kernelI{tin}E"),
+                (("queries", dtype, 4), fused_ptxas, f"ltae_fused_queries_kernelI{tin}Li4E"),
+                (("queries", dtype, 2), fused_ptxas, f"ltae_fused_queries_kernelI{tin}Li2E"),
+                (("general", dtype), fused_ptxas, f"ltae_fused_general_kernelI{tin}E"),
+                (("pool_fwd_general", dtype), pool_ptxas,
+                 f"ltae_pool_fwd_general_kernelI{tin}Lb1E"),
+                (("pool_bwd_general", dtype), pool_ptxas,
+                 f"ltae_pool_bwd_general_kernelI{tin}Lb1E")):
+            found = [v for k, v in lib.items() if mangled in k]
+            check(len(found) == 1, f"ptxas reported no {mangled}")
+            ptx[key] = found[0]
+            print(f"ptxas {key[0]}<{str(dtype)[6:]}{', ' + str(key[2]) if len(key) > 2 else ''}"
+                  f"{', tail' if 'pool' in key[0] else ''}>: {found[0][0]} registers, "
+                  f"{found[0][1]} bytes spill stores, {found[0][2]} bytes spill loads",
+                  flush=True)
+    wide_ptxas = {dtype: ptx[("wide", dtype)] for dtype, _ in tins}
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1182,11 +1422,14 @@ def main() -> int:
     stages = phase_stages(dev)
     entry_launches, utae_launches, utae_pps, utae_pps32 = phase_utae(utae, dev)
     timeunet = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
-    q_errs, q_t, q_launches = phase_kernel_queries({"utae": utae, "timeunet": timeunet}, dev)
-    del utae, timeunet
+    models = {"utae": utae, "timeunet": timeunet}
+    q_errs, q_t, q_launches = phase_kernel_queries(models, dev)
+    gen_t = phase_general_timing(models, dev)
+    torch.cuda.empty_cache()
+    gen_launches, gen_errs, gen_train, pad_value_errs = phase_routing(models, dev)
+    del utae, timeunet, models
     torch.cuda.empty_cache()
     utae_runs, remat_worst = phase_utae_train(dev)
-    routing_launches, pad_value_errs = phase_routing(dev)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -1263,33 +1506,77 @@ def main() -> int:
         "replaces": "scripts/debug_ltae_stages.py:91", "library_ms": None,
         "dtype": "float32", **stages,
     }
-    ms, plain_ms, b_ms, b_by = q_t[("utae", torch.bfloat16)]
+    ms, plain_ms, b_ms, b_by, device_ms = q_t[("utae", torch.bfloat16)]
     kernel_q = {
         "name": f"ltae_fused_fwd_nq{NQ}", "route": "cuda",
         "source": "crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu",
         "replaces": "crop2seg_tpu/ops/ltae_pallas.py:421",
-        "kernel": "ltae_fused_fwd_kernel<Tin, KC>",
+        "kernel": "ltae_fused_queries_kernel<Tin, R>",
+        "registers": ptx[("queries", torch.bfloat16, 2)][0],
+        "spill_store_bytes": ptx[("queries", torch.bfloat16, 2)][1],
         "launches": q_launches,
         "max_abs_err": max(v for k, v in q_errs.items() if k[1] == torch.bfloat16),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "library_ms": None, "device_ms": device_ms,
         "dtype": "bfloat16", "shape": [MAIN_B, T, UTAE_HW, UTAE_C], "d_out": UTAE_C,
         "num_queries": NQ, "attn": True,
         "max_abs_err_fp32": max(v for k, v in q_errs.items() if k[1] == torch.float32),
     }
-    for (width, dtype), (ms, plain_ms, b_ms, b_by) in q_t.items():
+    for (width, dtype), (ms, plain_ms, b_ms, b_by, device_ms) in q_t.items():
         if (width, dtype) != ("utae", torch.bfloat16):
+            regs = ptx[("queries", dtype, 2 if width == "utae" else 4)]
             kernel_q[f"{width}_{str(dtype)[6:]}"] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+                "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "registers": regs[0], "spill_store_bytes": regs[1]}
+    general = []
+    for name, key, replaces, errs_key in (
+            ("ltae_fused_fwd_general", "general", "crop2seg_tpu/ops/ltae_pallas.py:421",
+             "eval"),
+            ("ltae_pool_tail_fwd_general", "pool_fwd_general",
+             "crop2seg_tpu/ops/ltae_pallas_train.py:457", "fwd"),
+            ("ltae_pool_tail_bwd_general", "pool_bwd_general",
+             "crop2seg_tpu/ops/ltae_pallas_train.py:536", "bwd")):
+        (ms, plain_ms, b_ms, b_by), (ms32, plain32, b32, b_by32) = (
+            gen_t[name][torch.bfloat16], gen_t[name][torch.float32])
+        if errs_key == "eval":
+            n_launch = gen_launches.get(name, 0)
+            by_variant = None
+        else:
+            by_variant = {k: v for k, v in gen_launches.items()
+                          if k.startswith("ltae_pool") and f"_{errs_key}" in k}
+            n_launch = sum(by_variant.values())
+        general.append({
+            "name": name, "route": "cuda",
+            "source": ("crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu" if key == "general"
+                       else "crop2seg_tpu_torch/csrc/ltae_pool.cu"),
+            "replaces": replaces,
+            "kernel": {"general": "ltae_fused_general_kernel<Tin>",
+                       "pool_fwd_general": "ltae_pool_fwd_general_kernel<Tin, Tail>",
+                       "pool_bwd_general": "ltae_pool_bwd_general_kernel<Tin, Tail>"
+                                           " + ltae_pool_bwd_reduce"}[key],
+            "launches": n_launch, "launches_by_variant": by_variant,
+            "max_abs_err": gen_errs.get((errs_key, torch.bfloat16), 0.0),
+            "max_abs_err_fp32": gen_errs.get((errs_key, torch.float32), 0.0),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "dtype": "bfloat16",
+            "shape": [TRAIN_B, T_GENERAL, HW, C],
+            "ms_fp32": ms32, "plain_ms_fp32": plain32, "bound_ms_fp32": b32,
+            "bound_by_fp32": b_by32,
+            "registers": ptx[(key, torch.bfloat16)][0],
+            "spill_store_bytes": ptx[(key, torch.bfloat16)][1],
+        })
     print("utae_train " + json.dumps({"runs": utae_runs,
                                       "remat_grad_worst_ratio": remat_worst}),
           flush=True)
-    print("routing " + json.dumps({"ltae_t70_launches": routing_launches,
+    print("routing " + json.dumps({"general_launches": gen_launches,
+                                   "timeunet_t70_train": gen_train,
                                    "timeunet_pad_value_err": {
                                        "eval": pad_value_errs[False],
                                        "train_forward": pad_value_errs[True]}}), flush=True)
-    print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]}),
+    print(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s, the build included",
           flush=True)
+    print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]
+                      + general}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,11 @@
-// Fused masked L-TAE eval forward for NVIDIA Hopper (sm_90a), nq <= 8
-// learnable queries per head.
+// Fused masked L-TAE eval forward for NVIDIA Hopper (sm_90a), nq learnable
+// queries per head.
 //
 // Replaces crop2seg_tpu/ops/ltae_pallas.py::ltae_fused_forward (its Pallas
 // body `_kernel`, pallas_call at ltae_pallas.py:421). Wrapper, offline folds
 // and the plain PyTorch version: crop2seg_tpu_torch/ops/ltae_fused.py.
 //
-// Per pixel row n of batch item b, over T <= 64 steps and C <= 128 channels:
+// Per pixel row n of batch item b, over T steps and C channels:
 //   x      = [max(x * tsc + tsh, 0)]            deferred conv-tail affine
 //   xn     = GroupNorm_G(x) over (T, C/G)       two-pass fp32, no affine
 // then for each query q < nq (one column of U per (head, query), g*nq + q):
@@ -36,8 +36,13 @@
 //               P, the MLP) on the tensor cores (mma), which is later work.
 // chip_smoke.py measures each launch beside this bound.
 //
-// Three kernels share the arithmetic above, every product and statistic in
-// fp32 (bf16 only in device memory):
+// Four kernels share the arithmetic above, every product and statistic in
+// fp32 (bf16 only in device memory). The wrapper picks one per shape
+// (ops/ltae_fused.py::kernel_route): the three row-group kernels take T <=
+// 64, C <= 128 with C % 8 == 0, G <= 16, D and d_out <= 256 (one query at C
+// <= 64, one at 64 < C <= 128, nq = 2 .. 8 at either); the general kernel
+// takes every other shape at which the L-TAE is defined (G dividing C, D and
+// d_out).
 //
 // ltae_fused_group_kernel<Tin>: C <= 64 and one query (TimeUNet's whole-
 // tile path, ten launches a tile). What held the one-warp-per-row kernel
@@ -91,22 +96,46 @@
 // - the attention is stored from the softmax, coalesced over t; the next
 //   group's x comes in by cp.async behind the projection, MLP and out
 //   GroupNorm; in tail mode tsc[b], tsh[b] are read from L2 (no room).
-// Limits as above: D <= 256, d_out <= 256; a wider one-query L-TAE at this
-// C takes the kernel below. PERF.md, section 6, has its time.
+// Limits as above: D <= 256, d_out <= 256. PERF.md, section 6, has its time.
 //
-// ltae_fused_fwd_kernel<Tin, KC>: nq = 2 .. 8 queries (the LTAE module with
-// num_queries > 1), and one query at 64 < C with D or d_out past 256 (the
-// row-group kernels' limit), C <= 128. One block = R <= 8 rows (one warp per row for
-// the per-row steps), all T. Shared memory per row: xs (T, C+1) | a (T,
-// G+1) | P (G, C+1) | o (D) | v (max(C, nq*d_out)); the +1 pads avoid bank
-// conflicts; Ws (C, G*nq) once per block. At U-TAE's width with nq = 3 a row
-// takes 47 KiB and 4 rows with 24 KiB of Ws 212 KiB. The launch picks the
-// most rows that fit. One block runs per SM. A lane owns channels c + 32k, k
-// < KC: the kernel is instantiated for KC = 2 (C <= 64) and KC = 4 (C <=
-// 128), so the per-lane channel arrays stay in registers. The row reuses its
-// a, P and o regions across queries; only the MLP outputs of all queries
-// (the out GroupNorm pools them) and Ws grow with nq. The scores, P, o and
-// the MLP run nq times; the input GroupNorm and the read of x do not.
+// ltae_fused_queries_kernel<Tin, R>: nq = 2 .. 8 queries (the LTAE module
+// with num_queries > 1), C <= 128. It replaces a kernel of one warp per row
+// in blocks of <= 8 rows (35.8 ms bf16 at TimeUNet's width with nq = 3, 2.3
+// ms at U-TAE's): the block's x loaded before any compute, Ws and W_m read
+// from L2 for every row, every step a chain of dependent loads. This kernel
+// is the row-group kernels' design with a loop over the queries:
+// - the same persistent 512-thread blocks and row ranges, in groups of R =
+//   4 rows at C <= 64 and R = 2 at 64 < C <= 128, so that Ws and pes[b] of
+//   all queries (C x nq x 16 and nq x 16 x T), the MLP outputs m of every
+//   query of the group's rows (nq x d_out a row, for the out GroupNorm,
+//   which pools each head's channels over all queries) and the x tile fit
+//   at nq = 8, T = 64, D = d_out = 256: 204 / 208 KiB;
+// - GroupNorm once per row: thread (row, channel quad, eighth of T), the
+//   eighths' sums added through shared memory; then for each query q: scores
+//   by warp (row, 4 or 2 heads) with the softmax in the warp and the
+//   attention stored from it, P in 2 x 4 (head, channel) register tiles,
+//   projection + PE term by thread (d, half of C and of T) over the group's
+//   rows, the MLP (group_mlp) into m[q]; last the out GroupNorm over the
+//   queries;
+// - the next group's x comes in by cp.async once the last query's P has
+//   read the x tile, behind that query's projection, its MLP and the out
+//   GroupNorm; tsc[b] and tsh[b] are read from L2.
+//
+// ltae_fused_general_kernel<Tin>: every other shape (T > 64 above all: a
+// year of Sentinel-2 dates at the 5-day revisit is 73), written to be right
+// at any size rather than fast. One block of 256 threads takes one row at a
+// time, S blocks per batch item; x is read from device memory in three
+// passes over T (the GroupNorm's sums, its centred squares, then chunks of
+// 32 steps for the scores), with an online softmax: a running max and sum
+// per (head, query) column, P and the PE term rescaled as chunks arrive (the
+// JAX package's chunked path, crop2seg_tpu/nn/ltae.py:354-458, has the same
+// math). The attention is written as raw scores and normalized in a last
+// pass. Its per-row workspace lives in shared memory where it fits, else in
+// a scratch buffer in device memory (ltae_fused_general_scratch_floats).
+// Scalar loads, so any C. Latency bounds it, not bytes or operations: each
+// row's steps are chains of dependent loads between block barriers, and x
+// is read three times; four resident blocks an SM (kGenBlocksPerSm) and
+// unrolled inner loops hide part of it. PERF.md, section 6, has its time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,11 +144,10 @@
 
 namespace {
 
-constexpr int kMaxT = 64;      // lanes own t and t + 32
-constexpr int kMaxC = 128;     // lanes own c + 32k, k < KC <= 4
+constexpr int kMaxT = 64;      // row-group kernels: lanes own t and t + 32
+constexpr int kMaxC = 128;     // the wide row group's x tile
 constexpr int kMaxG = 16;      // per-head accumulators held in registers
-constexpr int kMaxQ = 8;       // queries per head (MAX_QUERIES in ltae_fused.py)
-constexpr int kMaxRows = 8;    // rows (= warps) per block
+constexpr int kMaxQ = 8;       // queries kernel: m of all queries in shared memory
 constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
 // C <= 64, one query (ltae_fused_group_kernel)
 constexpr int kGroupMaxC = 64;
@@ -134,6 +162,14 @@ constexpr int kWideRows = 4;        // rows per group
 constexpr int kWideJChunk = 128;    // MLP / out-GroupNorm outputs per pass
 constexpr int kWideSplit = kGroupThreads / kWideJChunk;  // MLP: D split in quarters
 constexpr int kWideParts = kGroupThreads / 32 / kWideRows;  // GroupNorm: a warp per quarter of T
+// nq = 2 .. 8, C <= 128 (ltae_fused_queries_kernel)
+constexpr int kQueriesNarrowRows = 4;   // rows per group at C <= 64
+constexpr int kQueriesWideRows = 2;     // rows per group at 64 < C <= 128
+constexpr int kQueriesParts = 8;        // GroupNorm: parts of T, 8 steps each
+// every other shape (ltae_fused_general_kernel)
+constexpr int kGenThreads = 256;
+constexpr int kGenBlocksPerSm = 4;     // resident blocks an SM (latency)
+constexpr int kGenChunk = 32;           // steps of normalized x on chip at a time
 
 struct Args {
   const void* x;
@@ -153,11 +189,6 @@ struct Args {
   int B, T, N, C, D, G, DOUT, NQ;
   float eps;
 };
-
-__host__ __device__ inline int row_floats(int T, int C, int D, int G, int DOUT,
-                                          int NQ) {
-  return T * (C + 1) + T * (G + 1) + G * (C + 1) + D + (C > NQ * DOUT ? C : NQ * DOUT);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -197,261 +228,6 @@ template <> struct Vec<__nv_bfloat16> {
   }
   __device__ static void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 };
-
-template <typename Tin, int KC>
-__global__ void __launch_bounds__(32 * kMaxRows)
-ltae_fused_fwd_kernel(const Args a) {
-  extern __shared__ float smem[];
-  const int T = a.T, C = a.C, D = a.D, G = a.G, DOUT = a.DOUT, N = a.N;
-  const int NQ = a.NQ;
-  const int CP = C + 1, GP = G + 1;
-  const int R = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * R;
-  const int cg = C / G, dv = D / G, og = DOUT / G;
-  const int rf = row_floats(T, C, D, G, DOUT, NQ);
-  const int off_a = T * CP, off_p = off_a + T * GP, off_o = off_p + G * CP,
-            off_v = off_o + D;
-
-  const int GQ = G * NQ;
-  float* ws_s = smem;            // (C, G*nq)
-  float* rows = smem + C * GQ;   // R regions of rf floats
-
-  // ---- stage Ws and the x tile (tail affine applied on load) -------------
-  for (int i = threadIdx.x; i < C * GQ; i += blockDim.x) ws_s[i] = a.ws[i];
-  constexpr int V = Vec<Tin>::kN;
-  const Tin* x = static_cast<const Tin*>(a.x);
-  const int RC = R * C;
-  const int nvec = T * RC / V;   // C % V == 0: a vector never straddles rows
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    const int e = i * V;
-    const int t = e / RC, rem = e - t * RC;
-    const int r = rem / C, c = rem - r * C;
-    const int n = n0 + r;
-    float v[V];
-    if (n < N) {
-      const size_t off = ((size_t)(b * T + t) * N + n) * C + c;
-      Vec<Tin>::unpack(__ldg(reinterpret_cast<const uint4*>(x + off)), v);
-      if (a.tsc != nullptr) {
-        const size_t k = (size_t)(b * T + t) * C + c;
-#pragma unroll
-        for (int j = 0; j < V; ++j) v[j] = fmaxf(fmaf(v[j], a.tsc[k + j], a.tsh[k + j]), 0.f);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = 0.f;
-    }
-    float* dst = rows + r * rf + t * CP + c;
-#pragma unroll
-    for (int j = 0; j < V; ++j) dst[j] = v[j];
-  }
-  __syncthreads();
-
-  // ---- per-row steps: warp `warp` owns row n ------------------------------
-  const int n = n0 + warp;
-  const bool row_ok = n < N;     // rows past N compute on zeros, write nothing
-  float* xr = rows + warp * rf;
-  float* ar = xr + off_a;
-  float* pr = xr + off_p;
-  float* vr = xr + off_v;
-
-  // 1. GroupNorm over (T, C/G): per-channel sums, group mean, then centered
-  //    squares (two passes), then normalize in place. Lanes own c + 32k.
-  const float cnt = (float)(T * cg);
-  float mean_c[KC], inv_c[KC];
-#pragma unroll
-  for (int k = 0; k < KC; ++k) mean_c[k] = inv_c[k] = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    float s = 0.f;
-    for (int t = 0; t < T; ++t) s += xr[t * CP + c];
-    vr[c] = s;
-  }
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < KC; ++k) {
-    const int c = lane + 32 * k;
-    if (c < C) {
-      const int g0 = (c / cg) * cg;
-      float s = 0.f;
-      for (int j = 0; j < cg; ++j) s += vr[g0 + j];
-      mean_c[k] = s / cnt;
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < KC; ++k) {
-    const int c = lane + 32 * k;
-    if (c < C) {
-      float q = 0.f;
-      for (int t = 0; t < T; ++t) {
-        const float dl = xr[t * CP + c] - mean_c[k];
-        q = fmaf(dl, dl, q);
-      }
-      vr[c] = q;
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < KC; ++k) {
-    const int c = lane + 32 * k;
-    if (c < C) {
-      const int g0 = (c / cg) * cg;
-      float q = 0.f;
-      for (int j = 0; j < cg; ++j) q += vr[g0 + j];
-      inv_c[k] = rsqrtf(q / cnt + a.eps);
-      for (int t = 0; t < T; ++t)
-        xr[t * CP + c] = (xr[t * CP + c] - mean_c[k]) * inv_c[k];
-    }
-  }
-  __syncwarp();
-
-  // Steps 2-5 run once per query; a, P and o are reused, m_q goes to
-  // v[q * d_out + j]. The block-wide steps 4 and 5 sit between barriers that
-  // every thread reaches (NQ is uniform).
-  const bool v0 = lane < T, v1 = lane + 32 < T;
-  for (int q = 0; q < NQ; ++q) {
-  // 2. scores (lanes own t, t + 32) and the masked softmax over T.
-  {
-    float s0[kMaxG], s1[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) s0[g] = s1[g] = 0.f;
-    const float* x0p = xr + (v0 ? lane : 0) * CP;   // lanes past T read row 0
-    const float* x1p = xr + (v1 ? lane + 32 : 0) * CP;
-    for (int c = 0; c < C; ++c) {
-      const float x0 = x0p[c], x1 = x1p[c];
-      const float* w = ws_s + c * GQ + q;
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float wv = w[g * NQ];
-          s0[g] = fmaf(x0, wv, s0[g]);
-          s1[g] = fmaf(x1, wv, s1[g]);
-        }
-      }
-    }
-    // (head, query) column g*nq + q of pes and of the row's attention
-    const float* pes = a.pes + ((size_t)b * GQ + q) * T;
-    float* attn = (a.attn != nullptr && row_ok)
-                      ? a.attn + (((size_t)b * N + n) * GQ + q) * T : nullptr;
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {   // G is uniform: the whole warp takes the shuffles
-        const float z0 = v0 ? s0[g] + pes[g * NQ * T + lane] : -CUDART_INF_F;
-        const float z1 = v1 ? s1[g] + pes[g * NQ * T + lane + 32] : -CUDART_INF_F;
-        const float m = warp_max(fmaxf(z0, z1));
-        float e0 = v0 ? expf(z0 - m) : 0.f;
-        float e1 = v1 ? expf(z1 - m) : 0.f;
-        const float inv = 1.f / warp_sum(e0 + e1);
-        e0 *= inv;
-        e1 *= inv;
-        if (v0) ar[lane * GP + g] = e0;
-        if (v1) ar[(lane + 32) * GP + g] = e1;
-        if (attn != nullptr) {
-          if (v0) attn[g * NQ * T + lane] = e0;
-          if (v1) attn[g * NQ * T + lane + 32] = e1;
-        }
-      }
-    }
-  }
-  __syncwarp();
-
-  // 3. P = a @ xn, (G, C): lanes own c + 32k.
-  {
-    float p[KC][kMaxG];
-#pragma unroll
-    for (int k = 0; k < KC; ++k)
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) p[k][g] = 0.f;
-    for (int t = 0; t < T; ++t) {
-      const float* xt = xr + t * CP;
-      float xv[KC];
-#pragma unroll
-      for (int k = 0; k < KC; ++k) xv[k] = lane + 32 * k < C ? xt[lane + 32 * k] : 0.f;
-      const float* at = ar + t * GP;
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float av = at[g];
-#pragma unroll
-          for (int k = 0; k < KC; ++k) p[k][g] = fmaf(av, xv[k], p[k][g]);
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-#pragma unroll
-        for (int k = 0; k < KC; ++k)
-          if (lane + 32 * k < C) pr[g * CP + lane + 32 * k] = p[k][g];
-      }
-    }
-  }
-  __syncthreads();
-
-  // 4. o = P[g(d)] . W_in[:, d] + b_in[d] + sum_t a[g(d), t] pe[t, d], block-
-  //    wide: a thread owns d for all R rows, so each W_in / pe element read
-  //    from L2 serves R rows.
-  const float* pe_b = a.pe + (size_t)b * T * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    const int g = d / dv;
-    float acc[kMaxRows];
-    const float b0 = a.bin[d];
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) acc[r] = b0;
-    for (int c = 0; c < C; ++c) {
-      const float w = __ldg(a.win + c * D + d);
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r)
-        if (r < R) acc[r] = fmaf(rows[r * rf + off_p + g * CP + c], w, acc[r]);
-    }
-    for (int t = 0; t < T; ++t) {
-      const float pv = __ldg(pe_b + t * D + d);
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r)
-        if (r < R) acc[r] = fmaf(rows[r * rf + off_a + t * GP + g], pv, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r)
-      if (r < R) rows[r * rf + off_o + d] = acc[r];
-  }
-  __syncthreads();
-
-  // 5. m_q = relu(o @ W_m + b_m), block-wide over (row, j). The next
-  //    query's step 4 writes o only after the barrier that ends its step 3.
-  for (int i = threadIdx.x; i < R * DOUT; i += blockDim.x) {
-    const int r = i / DOUT, j = i - r * DOUT;
-    const float* orow = rows + r * rf + off_o;
-    float acc = a.bm[j];
-    for (int d = 0; d < D; ++d) acc = fmaf(orow[d], __ldg(a.wm + d * DOUT + j), acc);
-    rows[r * rf + off_v + q * DOUT + j] = fmaxf(acc, 0.f);
-  }
-  }  // queries
-  __syncthreads();
-
-  // 6. out GroupNorm over G groups of d_out/G channels, each pooled over
-  //    the nq queries (og * nq values), two-pass, + the shared affine.
-  if (row_ok) {
-    Tin* out = static_cast<Tin*>(a.out) + ((size_t)b * N + n) * NQ * DOUT;
-    const float cnt_o = (float)(og * NQ);
-    for (int e = lane; e < NQ * DOUT; e += 32) {
-      const int j = e % DOUT;
-      const int g0 = (j / og) * og;
-      float s = 0.f;
-      for (int qq = 0; qq < NQ; ++qq)
-        for (int i = 0; i < og; ++i) s += vr[qq * DOUT + g0 + i];
-      const float mu = s / cnt_o;
-      float ss = 0.f;
-      for (int qq = 0; qq < NQ; ++qq)
-        for (int i = 0; i < og; ++i) {
-          const float dl = vr[qq * DOUT + g0 + i] - mu;
-          ss = fmaf(dl, dl, ss);
-        }
-      const float y = (vr[e] - mu) * rsqrtf(ss / cnt_o + a.eps);
-      Vec<Tin>::store(out + e, fmaf(y, a.osc[j], a.obi[j]));
-    }
-  }
-}
 
 // ---- C <= 64, one query: persistent row groups (module note) --------------
 
@@ -1345,48 +1121,760 @@ cudaError_t launch_wide(const Args& a, int S, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename Tin, int KC>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int rf = row_floats(a.T, a.C, a.D, a.G, a.DOUT, a.NQ);
-  int rows = kMaxRows;
-  auto bytes = [&](int r) { return (size_t)(a.C * a.G * a.NQ + r * rf) * sizeof(float); };
-  while (rows > 1 && bytes(rows) > kSmemLimit) --rows;
-  if (bytes(rows) > kSmemLimit) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      ltae_fused_fwd_kernel<Tin, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes(rows));
+// ---- nq = 2 .. 8 queries, C <= 128: persistent row groups, a query loop ----
+
+// Shared memory of a queries kernel block, in floats: the group kernels'
+// regions (group_layout) with Ws (C, nq, 16) and pes[b] (nq, 16, TP) of all
+// queries, zero past G, and m, the MLP outputs (nq, R, d_out) of every
+// query. The a region holds the GroupNorm's partial sums (8, R, C), then one
+// query's a (R, G, TP) until its projection, then the MLP's partial sums;
+// the P region holds P (R, G, C).
+struct QueriesLayout : GroupLayout {
+  int m;
+};
+
+template <int R>
+__host__ __device__ constexpr QueriesLayout queries_layout(int T, int C, int D, int G,
+                                                         int DOUT, int NQ) {
+  constexpr int J = kGroupThreads / R;   // group_mlp's outputs per pass
+  QueriesLayout L{};
+  int o = 0;
+  auto take = [&](int n) { const int at = o; o += (n + 3) & ~3; return at; };
+  auto mx = [](int u, int v) { return u > v ? u : v; };
+  L.tp = (T + 3) & ~3;
+  L.dp = (D + 3) & ~3;
+  const int quads = C / 4, low = quads & -quads;   // C % 8 == 0: quads even
+  L.sw = (low < 8 ? low : 8) - 1;
+  L.xs = take(R * L.tp * C);
+  L.a = take(mx(mx(R * G * L.tp, kGroupThreads / J * R * J), kQueriesParts * R * C));
+  L.chs = L.a;
+  L.p = take(R * G * C);
+  L.m = take(NQ * R * DOUT);
+  L.o = take(R * L.dp);
+  L.ot = take(R * L.dp);
+  L.bin = take(D);
+  L.bm = take(DOUT);
+  L.osc = take(DOUT);
+  L.obi = take(DOUT);
+  L.ws = take(C * NQ * kMaxG);
+  L.pes = take(NQ * kMaxG * L.tp);
+  L.floats = o;
+  return L;
+}
+
+static_assert(queries_layout<kQueriesNarrowRows>(kMaxT, kGroupMaxC, kGroupMaxD, kMaxG,
+                                                 kGroupMaxDout, kMaxQ).floats *
+                      sizeof(float) <= kSmemLimit,
+              "the C <= 64 queries row group at its limits fits in shared memory");
+static_assert(queries_layout<kQueriesWideRows>(kMaxT, kMaxC, kGroupMaxD, kMaxG,
+                                               kGroupMaxDout, kMaxQ).floats *
+                      sizeof(float) <= kSmemLimit,
+              "the C <= 128 queries row group at its limits fits in shared memory");
+
+template <typename Tin, int R>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+ltae_fused_queries_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem_queries[];
+  float* const smem = smem_queries;
+  constexpr int TPR = kGroupThreads / R;   // threads a row: 128 or 256
+  constexpr int WPR = TPR / 32;            // warps a row: 4 or 8
+  constexpr int HPW = kMaxG / WPR;         // scores: heads a warp, 4 or 2
+  constexpr int LQ = TPR / kQueriesParts;  // GroupNorm, P: channel quads a row, 16 or 32
+  constexpr int SP = kMaxT / kQueriesParts;  // GroupNorm: steps a thread
+  constexpr int J = kGroupThreads / R;     // MLP and out GroupNorm: outputs a pass
+  static_assert(HPW == 4 || HPW == 2, "a warp's heads are one float4 or float2 of Ws");
+  const int T = a.T, C = a.C, D = a.D, G = a.G, DOUT = a.DOUT, N = a.N, NQ = a.NQ;
+  const QueriesLayout L = queries_layout<R>(T, C, D, G, DOUT, NQ);
+  const int TP = L.tp, DP = L.dp, SW = L.sw;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, S = gridDim.x;
+  const int cg = C / G, dv = D / G, og = DOUT / G;
+  // this block's rows: a contiguous range of batch item b (row_ranges)
+  const int n0 = (int)((long long)blockIdx.x * N / S);
+  const int n1 = (int)((long long)(blockIdx.x + 1) * N / S);
+  if (n0 >= n1) return;   // the whole block: no barrier is reached
+
+  float* xs = smem + L.xs;
+  float* as = smem + L.a;
+  float* ps = smem + L.p;
+  float* ms = smem + L.m;
+  Tin* raw = reinterpret_cast<Tin*>(xs);
+  fetch_group<Tin, R>(a, raw, b, n0, min(R, n1 - n0));
+
+  // batch item b's constants, once per block: Ws and pes[b] of every query
+  // (column g*nq + q in device memory), zero past G; b_in, b_m, out affine
+  for (int i = tid; i < C * NQ * kMaxG; i += kGroupThreads) {
+    const int g = i % kMaxG, cq = i / kMaxG, q = cq % NQ, c = cq / NQ;
+    smem[L.ws + i] = g < G ? a.ws[(c * G + g) * NQ + q] : 0.f;
+  }
+  for (int i = tid; i < NQ * kMaxG * TP; i += kGroupThreads) {
+    const int t = i % TP, qg = i / TP, g = qg % kMaxG, q = qg / kMaxG;
+    smem[L.pes + i] = g < G && t < T ? a.pes[((size_t)b * G * NQ + g * NQ + q) * T + t] : 0.f;
+  }
+  for (int i = tid; i < D; i += kGroupThreads) smem[L.bin + i] = a.bin[i];
+  for (int i = tid; i < DOUT; i += kGroupThreads) {
+    smem[L.bm + i] = a.bm[i];
+    smem[L.osc + i] = a.osc[i];
+    smem[L.obi + i] = a.obi[i];
+  }
+  // tsc[b], tsh[b] stay in L2
+  const bool tail = a.tsc != nullptr;
+  const float* tsc = tail ? a.tsc + (size_t)b * T * C : nullptr;
+  const float* tsh = tail ? a.tsh + (size_t)b * T * C : nullptr;
+  const float* pe_b = a.pe + (size_t)b * T * D;
+  const float cnt = (float)(T * cg);
+  const int r_me = tid / TPR, i_me = tid % TPR;   // this thread's row and place in it
+
+#pragma unroll 1
+  for (int m0 = n0; m0 < n1; m0 += R) {
+    const int rows = min(R, n1 - m0);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // 1. tail affine and GroupNorm over (T, C/G), once per row: thread (r,
+    //    quad, eighth of T) holds channels 4 quad .. + 4 of row r at 8 steps
+    //    in registers; per-channel sums (the eighths added in order through
+    //    shared memory), the group mean, centered squares (two passes),
+    //    normalized into the x tile. Rows past the range compute on zeros
+    //    and store nothing.
+    {
+      const int gr = r_me, gq = i_me % LQ, part = i_me / LQ;
+      const int gt0 = SP * part;
+      const bool gn_on = 4 * gq < C;
+      const int nt = min(SP, max(0, T - gt0));   // the thread's steps below T
+      float* chs = smem + L.chs;                  // (8, R, C)
+      float4 v[SP];
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      if (gn_on) {
+        const int nx = gr < rows ? nt : 0;       // ... that hold a row's data
+        const Tin* rp = raw + (gt0 * R + gr) * C + 4 * gq;
+#pragma unroll
+        for (int i = 0; i < SP; ++i) {
+          float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i < nx) {
+            x = load4(rp + i * R * C);
+            if (tail) {
+              const size_t k = (size_t)(gt0 + i) * C + 4 * gq;
+              const float4 sc = __ldg(reinterpret_cast<const float4*>(tsc + k));
+              const float4 sh = __ldg(reinterpret_cast<const float4*>(tsh + k));
+              x = make_float4(fmaxf(fmaf(x.x, sc.x, sh.x), 0.f), fmaxf(fmaf(x.y, sc.y, sh.y), 0.f),
+                              fmaxf(fmaf(x.z, sc.z, sh.z), 0.f), fmaxf(fmaf(x.w, sc.w, sh.w), 0.f));
+            }
+          }
+          v[i] = x;
+          s[0] += x.x;
+          s[1] += x.y;
+          s[2] += x.z;
+          s[3] += x.w;
+        }
+      }
+      // the group's statistic for the thread's 4 channels from every part's
+      // sums in chs: / cnt, or rsqrt(that / cnt + eps) with `rs`
+      auto stat = [&](const float* part_sum, float* out, float eps, bool rs) {
+        if (gn_on)
+          *reinterpret_cast<float4*>(chs + (part * R + gr) * C + 4 * gq) =
+              make_float4(part_sum[0], part_sum[1], part_sum[2], part_sum[3]);
+        __syncthreads();
+        if (gn_on) {
+          int prev = -1;
+          float val = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int g0 = ((4 * gq + j) / cg) * cg;
+            if (g0 != prev) {   // channels of one group share the value
+              float t = 0.f;
+#pragma unroll 1
+              for (int k = 0; k < cg; ++k)
+#pragma unroll
+                for (int h = 0; h < kQueriesParts; ++h) t += chs[(h * R + gr) * C + g0 + k];
+              val = rs ? rsqrtf(t / cnt + eps) : t / cnt;
+              prev = g0;
+            }
+            out[j] = val;
+          }
+        }
+        __syncthreads();
+      };
+      float mean[4] = {0.f, 0.f, 0.f, 0.f}, inv[4] = {0.f, 0.f, 0.f, 0.f};
+      stat(s, mean, 0.f, false);
+      float q[4] = {0.f, 0.f, 0.f, 0.f};
+      if (gn_on) {
+#pragma unroll
+        for (int i = 0; i < SP; ++i) {
+          if (i < nt) {
+            const float d0 = v[i].x - mean[0], d1 = v[i].y - mean[1];
+            const float d2 = v[i].z - mean[2], d3 = v[i].w - mean[3];
+            q[0] = fmaf(d0, d0, q[0]);
+            q[1] = fmaf(d1, d1, q[1]);
+            q[2] = fmaf(d2, d2, q[2]);
+            q[3] = fmaf(d3, d3, q[3]);
+          }
+        }
+      }
+      stat(q, inv, a.eps, true);
+      if (gn_on) {
+        float* xr = xs + gr * TP * C;
+#pragma unroll
+        for (int i = 0; i < SP; ++i) {
+          const int t = gt0 + i;
+          float4 y = make_float4(0.f, 0.f, 0.f, 0.f);   // the pad steps T .. TP
+          if (i < nt)
+            y = make_float4((v[i].x - mean[0]) * inv[0], (v[i].y - mean[1]) * inv[1],
+                            (v[i].z - mean[2]) * inv[2], (v[i].w - mean[3]) * inv[3]);
+          if (t < TP) *reinterpret_cast<float4*>(xr + xs_quad(t, gq, C, SW)) = y;
+        }
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 1
+    for (int q = 0; q < NQ; ++q) {
+      // 2. scores and the masked softmax over T for query q: warp (r, w) owns
+      //    row r's heads HPW * w .. + HPW, lanes t and t + 32, c in order; the
+      //    attention is stored from here, coalesced over t.
+      {
+        const int r = warp / WPR, g0 = (warp % WPR) * HPW;
+        if (g0 < G) {   // warp-uniform
+          // lanes past the padded steps read a step they do not own
+          const int t0 = lane < TP ? lane : 0, t1 = lane + 32 < TP ? lane + 32 : lane;
+          const bool v0 = lane < T, v1 = lane + 32 < T;
+          const float* xr = xs + r * TP * C;
+          const float* wsq = smem + L.ws + q * kMaxG + g0;
+          float s0[HPW], s1[HPW];
+#pragma unroll
+          for (int k = 0; k < HPW; ++k) s0[k] = s1[k] = 0.f;
+#pragma unroll 2
+          for (int c4 = 0; c4 < C / 4; ++c4) {
+            const float4 xa = ld4(xr + xs_quad(t0, c4, C, SW));
+            const float4 xb = ld4(xr + xs_quad(t1, c4, C, SW));
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float* w = wsq + (4 * c4 + i) * NQ * kMaxG;
+              float wv[HPW];
+              if constexpr (HPW == 4) {
+                const float4 w4 = ld4(w);
+                wv[0] = w4.x;
+                wv[1] = w4.y;
+                wv[2] = w4.z;
+                wv[3] = w4.w;
+              } else {
+                const float2 w2 = *reinterpret_cast<const float2*>(w);
+                wv[0] = w2.x;
+                wv[1] = w2.y;
+              }
+              const float xv0 = at4(xa, i), xv1 = at4(xb, i);
+#pragma unroll
+              for (int k = 0; k < HPW; ++k) {
+                s0[k] = fmaf(xv0, wv[k], s0[k]);
+                s1[k] = fmaf(xv1, wv[k], s1[k]);
+              }
+            }
+          }
+          const int n = m0 + r;
+          float* attn = (a.attn != nullptr && r < rows)
+                            ? a.attn + ((size_t)b * N + n) * G * NQ * T : nullptr;
+#pragma unroll
+          for (int k = 0; k < HPW; ++k) {
+            const int g = g0 + k;
+            if (g < G) {   // uniform: the whole warp takes the shuffles
+              const float* pes = smem + L.pes + (q * kMaxG + g) * TP;
+              const float z0 = v0 ? s0[k] + pes[t0] : -CUDART_INF_F;
+              const float z1 = v1 ? s1[k] + pes[lane + 32] : -CUDART_INF_F;
+              const float mx = warp_max(fmaxf(z0, z1));
+              float e0 = v0 ? expf(z0 - mx) : 0.f;
+              float e1 = v1 ? expf(z1 - mx) : 0.f;
+              const float rs = 1.f / warp_sum(e0 + e1);
+              e0 *= rs;
+              e1 *= rs;
+              float* ar = as + (r * G + g) * TP;
+              if (lane < TP) ar[lane] = e0;        // 0 on the pad steps T .. TP
+              if (lane + 32 < TP) ar[lane + 32] = e1;
+              if (attn != nullptr) {
+                float* at = attn + (g * NQ + q) * T;
+                if (v0) at[t0] = e0;
+                if (v1) at[lane + 32] = e1;
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      // 3. P = a @ xn, (G, C) per row: thread (r, channel quad, head pair) of
+      //    a 2 x 4 tile of (g, c) in registers, t in order (the pad steps add
+      //    0 * 0). After the last query the x tile is free, and the next
+      //    group's x starts coming in.
+      {
+        const int r = r_me, cq = i_me % LQ, gp = i_me / LQ;
+        const bool on = 4 * cq < C && 2 * gp < G;
+        float p[2][4];
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) p[k][j] = 0.f;
+        if (on) {
+          const float* xr = xs + r * TP * C;
+          const float* ar[2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) ar[k] = as + (r * G + min(2 * gp + k, G - 1)) * TP;
+#pragma unroll 1
+          for (int t = 0; t < TP; t += 4) {
+            float4 xv[4], av[2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) xv[i] = ld4(xr + xs_quad(t + i, cq, C, SW));
+#pragma unroll
+            for (int k = 0; k < 2; ++k) av[k] = ld4(ar[k] + t);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int k = 0; k < 2; ++k) {
+                const float w = at4(av[k], i);
+                p[k][0] = fmaf(w, xv[i].x, p[k][0]);
+                p[k][1] = fmaf(w, xv[i].y, p[k][1]);
+                p[k][2] = fmaf(w, xv[i].z, p[k][2]);
+                p[k][3] = fmaf(w, xv[i].w, p[k][3]);
+              }
+          }
+        }
+        __syncthreads();   // after the last query the x tile is free from here
+        if (q == NQ - 1 && m0 + R < n1)
+          fetch_group<Tin, R>(a, raw, b, m0 + R, min(R, n1 - m0 - R));
+        if (on) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            if (2 * gp + k < G)
+              *reinterpret_cast<float4*>(ps + (r * G + 2 * gp + k) * C + 4 * cq) =
+                  make_float4(p[k][0], p[k][1], p[k][2], p[k][3]);
+        }
+      }
+      __syncthreads();
+
+      // 4. o[d] = b_in[d] + P[g(d)] . W_in[:, d] + a[g(d)] . pe[:, d]: thread
+      //    (d, half) sums its half of c, then its half of the steps, for all
+      //    the group's rows, so each W_in / pe element read from L2 serves R
+      //    rows; the halves are added in order.
+      {
+        const int d = tid & 255, half = tid >> 8;
+        const bool on = d < D;
+        const int g = on ? d / dv : 0;
+        const int c0 = half * (C / 2), c1 = c0 + C / 2;   // C % 8 == 0: whole quads
+        const int th = TP / 8 * 4;                        // half 0's steps, whole quads
+        const int t0 = half ? th : 0, t1 = half ? TP : th;
+        float acc[R];
+        const float b0 = half == 0 && on ? smem[L.bin + d] : 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = b0;
+        if (on) {
+#pragma unroll 4
+          for (int c = c0; c < c1; c += 4) {
+            float w[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) w[i] = __ldg(a.win + (c + i) * D + d);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float4 pv = ld4(ps + (r * G + g) * C + c);
+              acc[r] = fmaf(pv.x, w[0], acc[r]);
+              acc[r] = fmaf(pv.y, w[1], acc[r]);
+              acc[r] = fmaf(pv.z, w[2], acc[r]);
+              acc[r] = fmaf(pv.w, w[3], acc[r]);
+            }
+          }
+#pragma unroll 4
+          for (int t = t0; t < t1; t += 4) {
+            float w[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) w[i] = t + i < T ? __ldg(pe_b + (t + i) * D + d) : 0.f;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float4 av = ld4(as + (r * G + g) * TP + t);
+              acc[r] = fmaf(av.x, w[0], acc[r]);
+              acc[r] = fmaf(av.y, w[1], acc[r]);
+              acc[r] = fmaf(av.z, w[2], acc[r]);
+              acc[r] = fmaf(av.w, w[3], acc[r]);
+            }
+          }
+        }
+        if (on && half == 1)
+#pragma unroll
+          for (int r = 0; r < R; ++r) smem[L.ot + r * DP + d] = acc[r];
+        __syncthreads();
+        if (on && half == 0)
+#pragma unroll
+          for (int r = 0; r < R; ++r) smem[L.o + r * DP + d] = acc[r] + smem[L.ot + r * DP + d];
+      }
+      __syncthreads();
+
+      // 5. m[q] = relu(o @ W_m + b_m): thread (j, part of D) over the group's
+      //    rows (group_mlp), into query q's (R, d_out) block of m.
+      group_mlp<R, J>(a, smem, L, as, ms + q * R * DOUT);
+    }  // queries
+
+    // 6. out GroupNorm over G groups of d_out / G channels, each pooled over
+    //    the nq queries (nq * d_out / G values), two-pass, then the affine:
+    //    thread (r, j) for every query, in passes of J outputs.
+    for (int j0 = 0; j0 < DOUT; j0 += J) {
+      const int r = tid / J, j = j0 + tid % J;
+      if (j < DOUT && r < rows) {
+        const int g0 = (j / og) * og;
+        const float cnt_o = (float)(og * NQ);
+        float s = 0.f;
+        for (int qq = 0; qq < NQ; ++qq)
+          for (int i = 0; i < og; ++i) s += ms[(qq * R + r) * DOUT + g0 + i];
+        const float mu = s / cnt_o;
+        float ss = 0.f;
+        for (int qq = 0; qq < NQ; ++qq)
+          for (int i = 0; i < og; ++i) {
+            const float dl = ms[(qq * R + r) * DOUT + g0 + i] - mu;
+            ss = fmaf(dl, dl, ss);
+          }
+        const float rs = rsqrtf(ss / cnt_o + a.eps);
+        Tin* out = static_cast<Tin*>(a.out) + ((size_t)b * N + m0 + r) * NQ * DOUT + j;
+        const float sc = smem[L.osc + j], sh = smem[L.obi + j];
+        for (int qq = 0; qq < NQ; ++qq)
+          Vec<Tin>::store(out + qq * DOUT, fmaf((ms[(qq * R + r) * DOUT + j] - mu) * rs, sc, sh));
+      }
+    }
+  }
+}
+
+template <typename Tin, int R>
+cudaError_t launch_queries(const Args& a, int S, cudaStream_t stream) {
+  const size_t bytes =
+      (size_t)queries_layout<R>(a.T, a.C, a.D, a.G, a.DOUT, a.NQ).floats * sizeof(float);
+  if (bytes > kSmemLimit || S < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ltae_fused_queries_kernel<Tin, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + rows - 1) / rows, a.B);
-  ltae_fused_fwd_kernel<Tin, KC><<<grid, 32 * rows, bytes(rows), stream>>>(a);
+  ltae_fused_queries_kernel<Tin, R><<<dim3(S, a.B), kGroupThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The row-group kernels serve one query up to D, d_out = 256; the nq kernel
-// the rest (at C <= 64 the C entry refuses one query past those widths).
+// ---- every other shape: one row at a time, x streamed over T --------------
+
+// The general kernel's workspace per block, in floats: in shared memory
+// where it fits, else the block's slice of a scratch buffer in device
+// memory. Per channel the GroupNorm's mean and 1/std and the partial sums of
+// channel_sums; a chunk of normalized x (TC, C) and its scores (TC, G*nq);
+// per (head, query) column the running max, sum and this chunk's rescale,
+// P (G*nq, C); per (query, d) the PE term and o; m (nq, d_out); the out
+// GroupNorm's mean and 1/std per head.
+struct GenLayout {
+  int tc;
+  int mean, inv, red, xc, e, mx, sum, scl, p, epe, o, m, gst;
+  int floats;
+};
+
+__host__ __device__ inline GenLayout gen_layout(int T, int C, int D, int G, int DOUT,
+                                                int NQ) {
+  GenLayout L{};
+  int o = 0;
+  auto take = [&](int n) { const int at = o; o += (n + 3) & ~3; return at; };
+  const int GQ = G * NQ;
+  L.tc = T < kGenChunk ? T : kGenChunk;
+  L.mean = take(C);
+  L.inv = take(C);
+  L.red = take(C > kGenThreads ? C : kGenThreads);
+  L.xc = take(L.tc * C);
+  L.e = take(L.tc * GQ);
+  L.mx = take(GQ);
+  L.sum = take(GQ);
+  L.scl = take(GQ);
+  L.p = take(GQ * C);
+  L.epe = take(NQ * D);
+  L.o = take(NQ * D);
+  L.m = take(NQ * DOUT);
+  L.gst = take(2 * G);
+  L.floats = o;
+  return L;
+}
+
+__device__ __forceinline__ float ld_elem(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_elem(const __nv_bfloat16* p) {
+  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// x[b, t, n, c] in fp32, with the tail affine max(x * tsc + tsh, 0) applied.
 template <typename Tin>
-cudaError_t launch_c(const Args& a, int S, cudaStream_t stream) {
+__device__ __forceinline__ float load_x(const Args& a, int b, int t, int n, int c) {
+  const size_t bt = (size_t)b * a.T + t;
+  float v = ld_elem(static_cast<const Tin*>(a.x) + (bt * a.N + n) * a.C + c);
+  if (a.tsc != nullptr) v = fmaxf(fmaf(v, a.tsc[bt * a.C + c], a.tsh[bt * a.C + c]), 0.f);
+  return v;
+}
+
+// The sums over t < T of f(t, c) for every channel c < C, into red[c]:
+// thread (c, part) sums steps part, part + parts, ..., and the parts are
+// added in order. Every thread of the block calls it; red must be free (a
+// barrier after its last reads). Two barriers.
+template <typename F>
+__device__ void channel_sums(int T, int C, float* red, F f) {
+  const int tid = threadIdx.x;
+  if (C < kGenThreads) {
+    const int parts = kGenThreads / C, c = tid % C, part = tid / C;
+    if (part < parts) {
+      float s = 0.f;
+#pragma unroll 4
+      for (int t = part; t < T; t += parts) s += f(t, c);
+      red[part * C + c] = s;
+    }
+    __syncthreads();
+    if (tid < C) {   // thread c alone reads slots (k, c) and writes (0, c)
+      float s = 0.f;
+      for (int k = 0; k < parts; ++k) s += red[k * C + tid];
+      red[tid] = s;
+    }
+  } else {
+    for (int c = tid; c < C; c += kGenThreads) {
+      float s = 0.f;
+#pragma unroll 4
+      for (int t = 0; t < T; ++t) s += f(t, c);
+      red[c] = s;
+    }
+  }
+  __syncthreads();
+}
+
+// The total of channel c's GroupNorm group (its cg channels) in red.
+__device__ __forceinline__ float group_total(const float* red, int c, int cg) {
+  const int g0 = c / cg * cg;
+  float s = 0.f;
+  for (int k = 0; k < cg; ++k) s += red[g0 + k];
+  return s;
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(kGenThreads, kGenBlocksPerSm)
+ltae_fused_general_kernel(const Args a, float* const scratch) {
+  extern __shared__ __align__(16) float smem_general[];
+  const int T = a.T, C = a.C, D = a.D, G = a.G, DOUT = a.DOUT, N = a.N, NQ = a.NQ;
+  const int GQ = G * NQ, cg = C / G, dv = D / G, og = DOUT / G;
+  const GenLayout L = gen_layout(T, C, D, G, DOUT, NQ);
+  const int tid = threadIdx.x, b = blockIdx.y, S = gridDim.x;
+  float* const w = scratch != nullptr
+                       ? scratch + (size_t)(b * S + blockIdx.x) * L.floats : smem_general;
+  float* __restrict__ const mean = w + L.mean;
+  float* __restrict__ const inv = w + L.inv;
+  float* __restrict__ const red = w + L.red;
+  float* __restrict__ const xc = w + L.xc;
+  float* __restrict__ const e = w + L.e;
+  float* __restrict__ const mx = w + L.mx;
+  float* __restrict__ const sum = w + L.sum;
+  float* __restrict__ const scl = w + L.scl;
+  float* __restrict__ const p = w + L.p;
+  float* __restrict__ const epe = w + L.epe;
+  float* __restrict__ const o = w + L.o;
+  float* __restrict__ const m = w + L.m;
+  float* __restrict__ const gst = w + L.gst;
+  // this block's rows: a contiguous range of batch item b (row_ranges)
+  const int n0 = (int)((long long)blockIdx.x * N / S);
+  const int n1 = (int)((long long)(blockIdx.x + 1) * N / S);
+  const float cnt = (float)T * cg;
+  const float* pe_b = a.pe + (size_t)b * T * D;
+  const float* pes_b = a.pes + (size_t)b * GQ * T;
+
+  for (int n = n0; n < n1; ++n) {
+    // 1. GroupNorm statistics over (T, C/G), two passes over x
+    channel_sums(T, C, red, [&](int t, int c) { return load_x<Tin>(a, b, t, n, c); });
+    for (int c = tid; c < C; c += kGenThreads) mean[c] = group_total(red, c, cg) / cnt;
+    __syncthreads();
+    channel_sums(T, C, red, [&](int t, int c) {
+      const float dl = load_x<Tin>(a, b, t, n, c) - mean[c];
+      return dl * dl;
+    });
+    for (int c = tid; c < C; c += kGenThreads)
+      inv[c] = rsqrtf(group_total(red, c, cg) / cnt + a.eps);
+    for (int i = tid; i < GQ; i += kGenThreads) {
+      mx[i] = -CUDART_INF_F;
+      sum[i] = 0.f;
+    }
+    for (int i = tid; i < GQ * C; i += kGenThreads) p[i] = 0.f;
+    for (int i = tid; i < NQ * D; i += kGenThreads) epe[i] = 0.f;
+    __syncthreads();
+
+    // 2. chunks of TC steps: normalized x, scores, an online softmax
+    float* attn = a.attn != nullptr ? a.attn + ((size_t)b * N + n) * GQ * T : nullptr;
+    for (int t0 = 0; t0 < T; t0 += L.tc) {
+      const int tc = min(L.tc, T - t0);
+#pragma unroll 4
+      for (int i = tid; i < tc * C; i += kGenThreads) {
+        const int t = i / C, c = i - t * C;
+        xc[i] = (load_x<Tin>(a, b, t0 + t, n, c) - mean[c]) * inv[c];
+      }
+      __syncthreads();
+      // scores of every (step, column); column g*nq + q is head g's query q
+      for (int i = tid; i < tc * GQ; i += kGenThreads) {
+        const int t = i / GQ, col = i - t * GQ;
+        const float* xt = xc + t * C;
+        float s = 0.f;
+#pragma unroll 4
+        for (int c = 0; c < C; ++c) s = fmaf(xt[c], __ldg(a.ws + c * GQ + col), s);
+        s += pes_b[col * T + t0 + t];
+        e[i] = s;
+        if (attn != nullptr) attn[col * T + t0 + t] = s;   // raw: normalized in step 5
+      }
+      __syncthreads();
+      // the running max and sum per column; e becomes exp(s - max)
+      for (int col = tid; col < GQ; col += kGenThreads) {
+        float mc = mx[col];
+        for (int t = 0; t < tc; ++t) mc = fmaxf(mc, e[t * GQ + col]);
+        const float sc = expf(mx[col] - mc);   // 0 at the first chunk
+        float sm = sum[col] * sc;
+        for (int t = 0; t < tc; ++t) {
+          const float v = expf(e[t * GQ + col] - mc);
+          e[t * GQ + col] = v;
+          sm += v;
+        }
+        mx[col] = mc;
+        sum[col] = sm;
+        scl[col] = sc;
+      }
+      __syncthreads();
+      // P[col] and the PE term per (query, d), rescaled to the new max
+      for (int i = tid; i < GQ * C; i += kGenThreads) {
+        const int col = i / C, c = i - col * C;
+        float acc = p[i] * scl[col];
+#pragma unroll 4
+        for (int t = 0; t < tc; ++t) acc = fmaf(e[t * GQ + col], xc[t * C + c], acc);
+        p[i] = acc;
+      }
+      for (int i = tid; i < NQ * D; i += kGenThreads) {
+        const int q = i / D, d = i - q * D, col = d / dv * NQ + q;
+        float acc = epe[i] * scl[col];
+#pragma unroll 4
+        for (int t = 0; t < tc; ++t)
+          acc = fmaf(e[t * GQ + col], __ldg(pe_b + (size_t)(t0 + t) * D + d), acc);
+        epe[i] = acc;
+      }
+      __syncthreads();
+    }
+
+    // 3. o[q][d] = (P[col] . W_in[:, d] + PE term) / sum[col] + b_in[d], then
+    //    m[q] = relu(o[q] @ W_m + b_m)
+    for (int i = tid; i < NQ * D; i += kGenThreads) {
+      const int q = i / D, d = i - q * D, col = d / dv * NQ + q;
+      const float* pc = p + col * C;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < C; ++c) acc = fmaf(pc[c], __ldg(a.win + (size_t)c * D + d), acc);
+      o[i] = (acc + epe[i]) / sum[col] + a.bin[d];
+    }
+    __syncthreads();
+    for (int i = tid; i < NQ * DOUT; i += kGenThreads) {
+      const int q = i / DOUT, j = i - q * DOUT;
+      const float* oq = o + q * D;
+      float acc = a.bm[j];
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) acc = fmaf(oq[d], __ldg(a.wm + (size_t)d * DOUT + j), acc);
+      m[i] = fmaxf(acc, 0.f);
+    }
+    __syncthreads();
+
+    // 4. out GroupNorm: head g pools its d_out/G channels over all queries
+    for (int g = tid; g < G; g += kGenThreads) {
+      const float cnt_o = (float)(NQ * og);
+      float s = 0.f;
+      for (int q = 0; q < NQ; ++q)
+        for (int k = 0; k < og; ++k) s += m[q * DOUT + g * og + k];
+      const float mu = s / cnt_o;
+      float ss = 0.f;
+      for (int q = 0; q < NQ; ++q)
+        for (int k = 0; k < og; ++k) {
+          const float dl = m[q * DOUT + g * og + k] - mu;
+          ss = fmaf(dl, dl, ss);
+        }
+      gst[g] = mu;
+      gst[G + g] = rsqrtf(ss / cnt_o + a.eps);
+    }
+    __syncthreads();
+    Tin* out = static_cast<Tin*>(a.out) + ((size_t)b * N + n) * NQ * DOUT;
+    for (int i = tid; i < NQ * DOUT; i += kGenThreads) {
+      const int j = i % DOUT, g = j / og;
+      Vec<Tin>::store(out + i, fmaf((m[i] - gst[g]) * gst[G + g], a.osc[j], a.obi[j]));
+    }
+
+    // 5. the attention, normalized in place: exp(s - max) / sum
+    if (attn != nullptr)
+      for (int i = tid; i < GQ * T; i += kGenThreads) {
+        const int col = i / T;
+        attn[i] = expf(attn[i] - mx[col]) / sum[col];
+      }
+    __syncthreads();
+  }
+}
+
+template <typename Tin>
+cudaError_t launch_general(const Args& a, int S, float* scratch, cudaStream_t stream) {
+  const size_t bytes =
+      (size_t)gen_layout(a.T, a.C, a.D, a.G, a.DOUT, a.NQ).floats * sizeof(float);
+  const bool in_smem = bytes <= kSmemLimit;
+  if (S < 1 || in_smem == (scratch != nullptr)) return cudaErrorInvalidValue;
+  const size_t dyn = in_smem ? bytes : 0;
+  cudaError_t err = cudaFuncSetAttribute(ltae_fused_general_kernel<Tin>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)dyn);
+  if (err != cudaSuccess) return err;
+  ltae_fused_general_kernel<Tin><<<dim3(S, a.B), kGenThreads, dyn, stream>>>(a, scratch);
+  return cudaGetLastError();
+}
+
+// The routes of ops/ltae_fused.py::kernel_route, in ROUTES' order.
+enum Route { kRouteGroup = 0, kRouteWide = 1, kRouteQueries = 2, kRouteGeneral = 3 };
+
+// Whether the row-group kernels take the shape (ops/ltae_fused.py::kernel_takes).
+bool row_groups_take(int T, int C, int D, int G, int DOUT, int NQ) {
+  return T <= kMaxT && C <= kMaxC && C % 8 == 0 && G <= kMaxG && D <= kGroupMaxD &&
+         DOUT <= kGroupMaxDout && NQ <= kMaxQ;
+}
+
+template <typename Tin>
+cudaError_t launch_c(const Args& a, int route, int S, float* scratch, cudaStream_t stream) {
   const bool wide = a.C > kGroupMaxC;
-  const bool group = a.NQ == 1 && a.D <= kGroupMaxD && a.DOUT <= kGroupMaxDout;
-  if (!group) return wide ? launch<Tin, 4>(a, stream) : launch<Tin, 2>(a, stream);
-  return wide ? launch_wide<Tin>(a, S, stream) : launch_group<Tin>(a, S, stream);
+  switch (route) {
+    case kRouteGroup:
+      return launch_group<Tin>(a, S, stream);
+    case kRouteWide:
+      return launch_wide<Tin>(a, S, stream);
+    case kRouteQueries:
+      return wide ? launch_queries<Tin, kQueriesWideRows>(a, S, stream)
+                  : launch_queries<Tin, kQueriesNarrowRows>(a, S, stream);
+    default:
+      return launch_general<Tin>(a, S, scratch, stream);
+  }
 }
 
 }  // namespace
 
+// The general kernel's scratch floats per block: 0 where its workspace fits
+// in shared memory, else the size of each block's slice of `scratch`.
+extern "C" int ltae_fused_general_scratch_floats(int T, int C, int D, int G, int DOUT,
+                                                 int NQ) {
+  const int f = gen_layout(T, C, D, G, DOUT, NQ).floats;
+  return (size_t)f * sizeof(float) <= kSmemLimit ? 0 : f;
+}
+
 // C entry for ctypes. Pointers are device pointers; tsc/tsh and attn may be
-// null. S is the row-group kernels' blocks per batch item (ignored by the
-// nq kernel). Returns the cudaError_t of the launch (0 on success).
+// null. `route` is ops/ltae_fused.py::kernel_route's choice (Route), and the
+// entry refuses a route that does not take the shape. S is the blocks per
+// batch item; `scratch`, of B * S * ltae_fused_general_scratch_floats(...)
+// floats, is the general kernel's workspace where that is not 0, else null.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int ltae_fused_fwd(
     const void* x, int x_is_bf16, const void* pe, const void* win,
     const void* bin, const void* ws, const void* pes, const void* wm,
     const void* bm, const void* osc, const void* obi, const void* tsc,
     const void* tsh, void* out, void* attn, int B, int T, int N, int C, int D,
-    int G, int DOUT, int NQ, int S, float eps, void* stream) {
-  if (B < 1 || N < 1 || T < 1 || T > kMaxT || C < 8 || C > kMaxC || C % 8 ||
-      G < 1 || G > kMaxG || C % G || D % G || DOUT % G || NQ < 1 || NQ > kMaxQ ||
-      (tsc == nullptr) != (tsh == nullptr) ||
-      (NQ == 1 && (S < 1 || (C <= kGroupMaxC && (D > kGroupMaxD || DOUT > kGroupMaxDout)))))
+    int G, int DOUT, int NQ, int route, int S, void* scratch, float eps, void* stream) {
+  if (B < 1 || N < 1 || T < 1 || C < 1 || G < 1 || NQ < 1 || S < 1 || C % G || D % G ||
+      DOUT % G || D < G || DOUT < G || (tsc == nullptr) != (tsh == nullptr))
     return (int)cudaErrorInvalidValue;
+  const bool rows = row_groups_take(T, C, D, G, DOUT, NQ);
+  const bool wide = C > kGroupMaxC;
+  const bool ok = route == kRouteGroup     ? rows && NQ == 1 && !wide
+                  : route == kRouteWide    ? rows && NQ == 1 && wide
+                  : route == kRouteQueries ? rows && NQ > 1
+                  : route == kRouteGeneral;
+  if (!ok || (route != kRouteGeneral && scratch != nullptr)) return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x;
   a.pe = static_cast<const float*>(pe);
@@ -1405,5 +1893,7 @@ extern "C" int ltae_fused_fwd(
   a.B = B; a.T = T; a.N = N; a.C = C; a.D = D; a.G = G; a.DOUT = DOUT; a.NQ = NQ;
   a.eps = eps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(x_is_bf16 ? launch_c<__nv_bfloat16>(a, S, s) : launch_c<float>(a, S, s));
+  float* sc = static_cast<float*>(scratch);
+  return (int)(x_is_bf16 ? launch_c<__nv_bfloat16>(a, route, S, sc, s)
+                         : launch_c<float>(a, route, S, sc, s));
 }

@@ -9,8 +9,8 @@
 // without the deferred conv tail. Wrapper, folds, the autograd Function and
 // the plain PyTorch versions: crop2seg_tpu_torch/ops/ltae_pool.py.
 //
-// Per pixel row n of batch item b, over T <= 64 steps, C <= 64 channels,
-// G <= 16 heads of dv = D/G channels:
+// Per pixel row n of batch item b, over T steps, C channels, G heads of dv
+// = D/G channels:
 //   xf   = x, or in tail mode max(z * tsc[b, t] + tsh[b, t], 0)   (deferred
 //          GroupNorm + ReLU of the producing conv; pads arrive with
 //          tsc = tsh = 0, so their rows are exactly 0)
@@ -107,6 +107,28 @@
 // scripts/split_ltae_fused_steps.py --kernel pool_fwd splits its time by
 // step.
 //
+// Routes (ops/ltae_pool.py::kernel_takes): the two kernels below,
+// ltae_pool_fwd_group_kernel and ltae_pool_bwd_kernel, take T <= 64, C <= 64
+// with C % 8 == 0, G <= 16 and D <= 256 (TimeUNet's training path); every
+// other shape at which the L-TAE is defined (G dividing C and D; T > 64
+// above all) takes the general pair at the end of this file, written to be
+// right at any size rather than fast: one block of 256 threads per row at a
+// time, S blocks per batch item, x read from device memory in passes over T
+// with an online softmax (a running max and sum per head, P and the bpe term
+// rescaled as chunks of 32 steps arrive), the same hash dropout on the same
+// (b, t, n, g) index, so the same mask. The general forward saves each row's
+// GroupNorm statistics and softmax max and sum, which its backward takes;
+// the backward sums into per-block partial sums of the fast backward's
+// layout, which ltae_pool_bwd_reduce adds in the same fixed order. Their
+// per-row workspace lives in shared memory where it fits, else in a scratch
+// buffer in device memory (ltae_pool_general_scratch_floats). Latency bounds
+// them, as the general eval kernel (csrc/ltae_fused_fwd.cu): four resident
+// blocks an SM and unrolled loops hide part of it; the backward keeps Ws and
+// Z in shared memory as (C, G + 1), so that neither its per-step nor its
+// per-channel reads stride or conflict, and adds each row's E and F into its
+// block's partial sums in device memory, a quarter of its time. PERF.md,
+// section 6, has their times.
+//
 // Backward: persistent blocks of 512 threads (16 warps), S = SMs / B per batch
 // item (one wave: 33 x 4 = 132 at B = 4), each walking a contiguous range of
 // rows (ops/ltae_pool.py::row_ranges). What bounded the earlier design (one
@@ -142,7 +164,7 @@
 
 namespace {
 
-constexpr int kMaxT = 64;      // lanes own t and t + 32
+constexpr int kMaxT = 64;      // fast pair: lanes own t and t + 32
 constexpr int kMaxC = 64;      // lanes own c and c + 32
 constexpr int kMaxG = 16;      // per-head accumulators held in registers
 constexpr int kMaxD = 256;     // backward: W and bpe[b] held in shared memory
@@ -153,6 +175,9 @@ constexpr int kBwdThreads = 512;  // backward: 16 warps, warp g owns head g
 constexpr int kJ = 16;         // backward: a head's d channels per pass in registers
 constexpr int kMaxTPer = kMaxT / (kBwdThreads / kMaxC);  // t per thread, C-parallel steps
 constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
+constexpr int kGenThreads = 256;  // the general pair: threads a block
+constexpr int kGenBlocksPerSm = 4;  // the general pair: resident blocks an SM (latency)
+constexpr int kGenChunk = 32;     // the general pair: steps of xhat on chip at a time
 
 struct Args {
   const void* x;      // (B, T, N, C) x's type: the input, in tail mode the raw z
@@ -1164,6 +1189,509 @@ Args make_args(int B, int T, int N, int C, int D, int G, unsigned seed_mix,
   return a;
 }
 
+// ---- every other shape: one row at a time, x streamed over T ---------------
+
+// The general kernels' workspace per block, in floats: in shared memory where
+// it fits, else the block's slice of a scratch buffer in device memory.
+// Forward: per channel the GroupNorm's mean and 1/std and channel_sums'
+// partial sums, a chunk of xhat (TC, C) and its scores (TC, G), per head the
+// running max and sum and this chunk's rescale, P (G, C) and the bpe term
+// (D). Backward: per channel mean and 1/std, go (D), Ws and Z as (C, G + 1)
+// (the pad keeps both a row's and a column's reads free of bank
+// conflicts), a chunk of xhat, a, a_d and p1 (then ds) of every step (T,
+// G) each, P (G, C), per head sum_t a_d p1, the partial sums of dxhat and
+// dxhat xhat per channel, and their group means.
+struct GenLayout {
+  int tc;
+  int mean, inv, red, red2, xc, e, mx, sum, scl, p, eb, go, ws, z, av, adv, dsv, tot, gm;
+  int floats;
+};
+
+__host__ __device__ inline GenLayout gen_layout(int T, int C, int D, int G, bool backward) {
+  GenLayout L{};
+  int o = 0;
+  auto take = [&](int n) { const int at = o; o += (n + 3) & ~3; return at; };
+  L.tc = T < kGenChunk ? T : kGenChunk;
+  const int slots = C > kGenThreads ? C : kGenThreads;
+  L.mean = take(C);
+  L.inv = take(C);
+  L.red = take(slots);
+  L.xc = take(L.tc * C);
+  L.p = take(G * C);
+  if (!backward) {
+    L.e = take(L.tc * G);
+    L.mx = take(G);
+    L.sum = take(G);
+    L.scl = take(G);
+    L.eb = take(D);
+  } else {
+    L.red2 = take(slots);
+    L.go = take(D);
+    L.ws = take(C * (G + 1));
+    L.z = take(C * (G + 1));
+    L.av = take(T * G);
+    L.adv = take(T * G);
+    L.dsv = take(T * G);
+    L.tot = take(G);
+    L.gm = take(2 * G);
+  }
+  L.floats = o;
+  return L;
+}
+
+// x[b, t, n, c] in fp32 (in tail mode the raw z).
+template <typename Tin>
+__device__ __forceinline__ float load_raw(const Args& a, int b, int t, int n, int c) {
+  return Io<Tin>::load(static_cast<const Tin*>(a.x) +
+                       (((size_t)b * a.T + t) * a.N + n) * a.C + c);
+}
+
+// xf[b, t, n, c]: x, or in tail mode max(z * tsc + tsh, 0).
+template <typename Tin, bool Tail>
+__device__ __forceinline__ float load_xf(const Args& a, int b, int t, int n, int c) {
+  const float v = load_raw<Tin>(a, b, t, n, c);
+  if constexpr (Tail) {
+    const size_t k = ((size_t)b * a.T + t) * a.C + c;
+    return fmaxf(tail_pre(v, a.tsc[k], a.tsh[k]), 0.f);
+  }
+  return v;
+}
+
+// The sums over t < T of f(t, c) for every channel c < C, into red[c]:
+// thread (c, part) sums steps part, part + parts, ..., and the parts are
+// added in order. Every thread of the block calls it; red must be free (a
+// barrier after its last reads). Two barriers.
+template <typename F>
+__device__ void channel_sums(int T, int C, float* red, F f) {
+  const int tid = threadIdx.x;
+  if (C < kGenThreads) {
+    const int parts = kGenThreads / C, c = tid % C, part = tid / C;
+    if (part < parts) {
+      float s = 0.f;
+#pragma unroll 4
+      for (int t = part; t < T; t += parts) s += f(t, c);
+      red[part * C + c] = s;
+    }
+    __syncthreads();
+    if (tid < C) {   // thread c alone reads slots (k, c) and writes (0, c)
+      float s = 0.f;
+      for (int k = 0; k < parts; ++k) s += red[k * C + tid];
+      red[tid] = s;
+    }
+  } else {
+    for (int c = tid; c < C; c += kGenThreads) {
+      float s = 0.f;
+#pragma unroll 4
+      for (int t = 0; t < T; ++t) s += f(t, c);
+      red[c] = s;
+    }
+  }
+  __syncthreads();
+}
+
+// The total of channel c's GroupNorm group (its cg channels) in red.
+__device__ __forceinline__ float group_total(const float* red, int c, int cg) {
+  const int g0 = c / cg * cg;
+  float s = 0.f;
+  for (int k = 0; k < cg; ++k) s += red[g0 + k];
+  return s;
+}
+
+// Forward of any shape. Per row it also saves, in st (B, N, 4, G), each
+// group's GroupNorm mean and 1/std and each head's softmax max and sum, which
+// the general backward takes instead of two more passes over x.
+template <typename Tin, bool Tail>
+__global__ void __launch_bounds__(kGenThreads, kGenBlocksPerSm)
+ltae_pool_fwd_general_kernel(const Args a, float* const st, float* const scratch) {
+  extern __shared__ __align__(16) float smem_gen_fwd[];
+  const int T = a.T, C = a.C, D = a.D, G = a.G, N = a.N;
+  const int cg = C / G, dv = D / G;
+  const GenLayout L = gen_layout(T, C, D, G, false);
+  const int tid = threadIdx.x, b = blockIdx.y, S = gridDim.x;
+  float* const w = scratch != nullptr
+                       ? scratch + (size_t)(b * S + blockIdx.x) * L.floats : smem_gen_fwd;
+  float* __restrict__ const mean = w + L.mean;
+  float* __restrict__ const inv = w + L.inv;
+  float* __restrict__ const red = w + L.red;
+  float* __restrict__ const xc = w + L.xc;
+  float* __restrict__ const e = w + L.e;
+  float* __restrict__ const mx = w + L.mx;
+  float* __restrict__ const sum = w + L.sum;
+  float* __restrict__ const scl = w + L.scl;
+  float* __restrict__ const p = w + L.p;
+  float* __restrict__ const eb = w + L.eb;
+  // this block's rows: a contiguous range of batch item b (row_ranges)
+  const int n0 = (int)((long long)blockIdx.x * N / S);
+  const int n1 = (int)((long long)(blockIdx.x + 1) * N / S);
+  const float cnt = (float)T * cg;
+  const float* bpe_b = a.bpe + (size_t)b * T * D;
+  const float* pes_b = a.pes + (size_t)b * G * T;
+
+  for (int n = n0; n < n1; ++n) {
+    float* st_row = st + ((size_t)b * N + n) * 4 * G;
+    // 1. GroupNorm statistics over (T, C/G), two passes over x
+    channel_sums(T, C, red, [&](int t, int c) { return load_xf<Tin, Tail>(a, b, t, n, c); });
+    for (int c = tid; c < C; c += kGenThreads) mean[c] = group_total(red, c, cg) / cnt;
+    __syncthreads();
+    channel_sums(T, C, red, [&](int t, int c) {
+      const float dl = load_xf<Tin, Tail>(a, b, t, n, c) - mean[c];
+      return dl * dl;
+    });
+    for (int c = tid; c < C; c += kGenThreads)
+      inv[c] = rsqrtf(group_total(red, c, cg) / cnt + a.eps);
+    for (int g = tid; g < G; g += kGenThreads) {
+      mx[g] = -CUDART_INF_F;
+      sum[g] = 0.f;
+    }
+    for (int i = tid; i < G * C; i += kGenThreads) p[i] = 0.f;
+    for (int i = tid; i < D; i += kGenThreads) eb[i] = 0.f;
+    __syncthreads();
+    for (int g = tid; g < G; g += kGenThreads) {
+      st_row[g] = mean[g * cg];
+      st_row[G + g] = inv[g * cg];
+    }
+
+    // 2. chunks of TC steps: xhat, scores, an online softmax; P and the bpe
+    //    term take the dropped weights e * keep / (1 - p), the sum takes e
+    for (int t0 = 0; t0 < T; t0 += L.tc) {
+      const int tc = min(L.tc, T - t0);
+#pragma unroll 4
+      for (int i = tid; i < tc * C; i += kGenThreads) {
+        const int t = i / C, c = i - t * C;
+        xc[i] = (load_xf<Tin, Tail>(a, b, t0 + t, n, c) - mean[c]) * inv[c];
+      }
+      __syncthreads();
+      for (int i = tid; i < tc * G; i += kGenThreads) {
+        const int t = i / G, g = i - t * G;
+        const float* xt = xc + t * C;
+        float s = 0.f;
+#pragma unroll 4
+        for (int c = 0; c < C; ++c) s = fmaf(xt[c], __ldg(a.ws + c * G + g), s);
+        e[i] = s + pes_b[g * T + t0 + t];
+      }
+      __syncthreads();
+      for (int g = tid; g < G; g += kGenThreads) {
+        float mc = mx[g];
+        for (int t = 0; t < tc; ++t) mc = fmaxf(mc, e[t * G + g]);
+        const float sc = expf(mx[g] - mc);   // 0 at the first chunk
+        float sm = sum[g] * sc;
+        for (int t = 0; t < tc; ++t) {
+          const float v = expf(e[t * G + g] - mc);
+          sm += v;
+          e[t * G + g] = v * keep_scale(a, b, t0 + t, n, g);
+        }
+        mx[g] = mc;
+        sum[g] = sm;
+        scl[g] = sc;
+      }
+      __syncthreads();
+      for (int i = tid; i < G * C; i += kGenThreads) {
+        const int g = i / C, c = i - g * C;
+        float acc = p[i] * scl[g];
+#pragma unroll 4
+        for (int t = 0; t < tc; ++t) acc = fmaf(e[t * G + g], xc[t * C + c], acc);
+        p[i] = acc;
+      }
+      for (int d = tid; d < D; d += kGenThreads) {
+        const int g = d / dv;
+        float acc = eb[d] * scl[g];
+#pragma unroll 4
+        for (int t = 0; t < tc; ++t)
+          acc = fmaf(e[t * G + g], __ldg(bpe_b + (size_t)(t0 + t) * D + d), acc);
+        eb[d] = acc;
+      }
+      __syncthreads();
+    }
+
+    // 3. o[d] = (P[g(d)] . W[:, d] + bpe term) / sum[g(d)]
+    Tin* orow = static_cast<Tin*>(a.o) + ((size_t)b * N + n) * D;
+    for (int d = tid; d < D; d += kGenThreads) {
+      const int g = d / dv;
+      const float* pg = p + g * C;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < C; ++c) acc = fmaf(pg[c], __ldg(a.win + (size_t)c * D + d), acc);
+      Io<Tin>::store(orow + d, (acc + eb[d]) / sum[g]);
+    }
+    for (int g = tid; g < G; g += kGenThreads) {
+      st_row[2 * G + g] = mx[g];
+      st_row[3 * G + g] = sum[g];
+    }
+    __syncthreads();
+  }
+}
+
+// Backward of any shape, with the forward's saved statistics st: per row
+// three passes over x in chunks (a, a_d and p1 with P; then A and the
+// GroupNorm backward's group means; then dx and in tail mode dtsc, dtsh),
+// the row's share of every sum added into the block's partial sums in
+// `part` (the layout ltae_pool_bwd_reduce adds in a fixed order).
+template <typename Tin, bool Tail>
+__global__ void __launch_bounds__(kGenThreads, kGenBlocksPerSm)
+ltae_pool_bwd_general_kernel(const Args a, const float* const st, float* const part,
+                             float* const scratch) {
+  extern __shared__ __align__(16) float smem_gen_bwd[];
+  const int T = a.T, C = a.C, D = a.D, G = a.G, N = a.N;
+  const int cg = C / G, dv = D / G;
+  const GenLayout L = gen_layout(T, C, D, G, true);
+  const int tid = threadIdx.x, b = blockIdx.y, S = gridDim.x;
+  float* const w = scratch != nullptr
+                       ? scratch + (size_t)(b * S + blockIdx.x) * L.floats : smem_gen_bwd;
+  float* __restrict__ const mean = w + L.mean;
+  float* __restrict__ const inv = w + L.inv;
+  float* __restrict__ const red = w + L.red;
+  float* __restrict__ const red2 = w + L.red2;
+  float* __restrict__ const xc = w + L.xc;
+  float* __restrict__ const p = w + L.p;
+  float* __restrict__ const go = w + L.go;
+  float* __restrict__ const wsp = w + L.ws;
+  float* __restrict__ const z = w + L.z;
+  float* __restrict__ const av = w + L.av;
+  float* __restrict__ const adv = w + L.adv;
+  float* __restrict__ const dsv = w + L.dsv;
+  float* __restrict__ const tot = w + L.tot;
+  float* __restrict__ const gm = w + L.gm;
+  const int n0 = (int)((long long)blockIdx.x * N / S);
+  const int n1 = (int)((long long)(blockIdx.x + 1) * N / S);
+  const float cnt = (float)T * cg;
+  const float* bpe_b = a.bpe + (size_t)b * T * D;
+  const float* pes_b = a.pes + (size_t)b * G * T;
+  const int parts = C < kGenThreads ? kGenThreads / C : 1;
+  const int GP = G + 1;   // row stride of wsp and z
+
+  // this block's partial sums: A (C, G), F (C, D), then its item's Dsum (T,
+  // G), E (T, D) and in tail mode dtsc, dtsh (T, C); zero, then each row's
+  // share added in row order
+  const int per_block = bwd_shared_floats(C, D, G) + bwd_item_floats(T, C, D, G, Tail);
+  float* __restrict__ const pa = part + (size_t)(b * S + blockIdx.x) * per_block;
+  float* __restrict__ const pf = pa + C * G;
+  float* __restrict__ const pds = pf + C * D;
+  float* __restrict__ const pe = pds + T * G;
+  float* __restrict__ const psc = pe + T * D;
+  float* __restrict__ const psh = psc + T * C;
+  for (int i = tid; i < per_block; i += kGenThreads) pa[i] = 0.f;
+  for (int i = tid; i < C * G; i += kGenThreads) wsp[i / G * GP + i % G] = a.ws[i];
+
+  for (int n = n0; n < n1; ++n) {
+    const float* st_row = st + ((size_t)b * N + n) * 4 * G;
+    const Tin* go_row = static_cast<const Tin*>(a.go) + ((size_t)b * N + n) * D;
+    for (int c = tid; c < C; c += kGenThreads) {
+      mean[c] = st_row[c / cg];
+      inv[c] = st_row[G + c / cg];
+    }
+    for (int d = tid; d < D; d += kGenThreads) go[d] = Io<Tin>::load(go_row + d);
+    for (int i = tid; i < G * C; i += kGenThreads) p[i] = 0.f;
+    __syncthreads();
+    // Z[g, c] = sum_{d in g} W[c, d] go[d], stored as z[c, g]
+    for (int i = tid; i < G * C; i += kGenThreads) {
+      const int g = i / C, c = i - g * C;
+      const float* wr = a.win + (size_t)c * D + g * dv;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < dv; ++j) acc = fmaf(__ldg(wr + j), go[g * dv + j], acc);
+      z[c * GP + g] = acc;
+    }
+    __syncthreads();
+
+    // 1. a = exp(s - max) / sum, a_d, p1 = xhat Z[g] + sum_{d in g} go[d]
+    //    bpe[t, d] of every step; P = sum_t a_d xhat
+    for (int t0 = 0; t0 < T; t0 += L.tc) {
+      const int tc = min(L.tc, T - t0);
+#pragma unroll 4
+      for (int i = tid; i < tc * C; i += kGenThreads) {
+        const int t = i / C, c = i - t * C;
+        xc[i] = (load_xf<Tin, Tail>(a, b, t0 + t, n, c) - mean[c]) * inv[c];
+      }
+      __syncthreads();
+      for (int i = tid; i < tc * G; i += kGenThreads) {
+        const int t = i / G, g = i - t * G, tt = t0 + t;
+        const float* xt = xc + t * C;
+        float s = 0.f, p1 = 0.f;
+#pragma unroll 4
+        for (int c = 0; c < C; ++c) {
+          s = fmaf(xt[c], wsp[c * GP + g], s);
+          p1 = fmaf(xt[c], z[c * GP + g], p1);
+        }
+        const float* bt = bpe_b + (size_t)tt * D + g * dv;
+#pragma unroll 4
+        for (int j = 0; j < dv; ++j) p1 = fmaf(go[g * dv + j], __ldg(bt + j), p1);
+        const float aa = expf(s + pes_b[g * T + tt] - st_row[2 * G + g]) / st_row[3 * G + g];
+        av[tt * G + g] = aa;
+        adv[tt * G + g] = aa * keep_scale(a, b, tt, n, g);
+        dsv[tt * G + g] = p1;
+      }
+      __syncthreads();
+      for (int i = tid; i < G * C; i += kGenThreads) {
+        const int g = i / C, c = i - g * C;
+        float acc = p[i];
+#pragma unroll 4
+        for (int t = 0; t < tc; ++t) acc = fmaf(adv[(t0 + t) * G + g], xc[t * C + c], acc);
+        p[i] = acc;
+      }
+      __syncthreads();
+    }
+
+    // 2. ds = a_d p1 - a sum_t a_d p1 (the softmax jacobian)
+    for (int g = tid; g < G; g += kGenThreads) {
+      float s = 0.f;
+#pragma unroll 4
+      for (int t = 0; t < T; ++t) s = fmaf(adv[t * G + g], dsv[t * G + g], s);
+      tot[g] = s;
+    }
+    __syncthreads();
+    for (int i = tid; i < T * G; i += kGenThreads) {
+      const int g = i % G;
+      dsv[i] = adv[i] * dsv[i] - av[i] * tot[g];
+    }
+    __syncthreads();
+
+    // 3. the row's share of Dsum, E and F
+    for (int i = tid; i < T * G; i += kGenThreads) pds[i] += dsv[i];
+#pragma unroll 4
+    for (int i = tid; i < T * D; i += kGenThreads) {
+      const int t = i / D, d = i - t * D;
+      pe[i] = fmaf(adv[t * G + d / dv], go[d], pe[i]);
+    }
+#pragma unroll 4
+    for (int i = tid; i < C * D; i += kGenThreads) {
+      const int c = i / D, d = i - c * D;
+      pf[i] = fmaf(p[(d / dv) * C + c], go[d], pf[i]);
+    }
+
+    // 4. A += xhat^T ds, and per channel the sums of dxhat = ds Ws^T + a_d Z
+    //    and of dxhat xhat, thread (c, part) over its steps of each chunk
+    for (int i = tid; i < (C > kGenThreads ? C : kGenThreads); i += kGenThreads)
+      red[i] = red2[i] = 0.f;
+    auto dxhat = [&](int tt, int c) {
+      float acc = 0.f;
+#pragma unroll 4
+      for (int g = 0; g < G; ++g)
+        acc = fmaf(dsv[tt * G + g], wsp[c * GP + g], fmaf(adv[tt * G + g], z[c * GP + g], acc));
+      return acc;
+    };
+    for (int t0 = 0; t0 < T; t0 += L.tc) {
+      const int tc = min(L.tc, T - t0);
+      __syncthreads();   // xc is free
+#pragma unroll 4
+      for (int i = tid; i < tc * C; i += kGenThreads) {
+        const int t = i / C, c = i - t * C;
+        xc[i] = (load_xf<Tin, Tail>(a, b, t0 + t, n, c) - mean[c]) * inv[c];
+      }
+      __syncthreads();
+      for (int i = tid; i < C * G; i += kGenThreads) {
+        const int c = i / G, g = i - c * G;
+        float acc = pa[i];
+#pragma unroll 4
+        for (int t = 0; t < tc; ++t) acc = fmaf(xc[t * C + c], dsv[(t0 + t) * G + g], acc);
+        pa[i] = acc;
+      }
+      for (int c0 = 0; c0 < C; c0 += kGenThreads) {   // one pass but for C > kGenThreads
+        const int c = parts > 1 ? tid % C : c0 + tid, part_i = parts > 1 ? tid / C : 0;
+        if (part_i < parts && c < C) {
+          float s1 = 0.f, s2 = 0.f;
+#pragma unroll 4
+          for (int t = part_i; t < tc; t += parts) {
+            const float dh = dxhat(t0 + t, c);
+            s1 += dh;
+            s2 = fmaf(dh, xc[t * C + c], s2);
+          }
+          red[part_i * C + c] += s1;
+          red2[part_i * C + c] += s2;
+        }
+        if (parts > 1) break;
+      }
+    }
+    __syncthreads();
+    if (parts > 1 && tid < C) {   // thread c alone reads slots (k, c), writes (0, c)
+      float s1 = 0.f, s2 = 0.f;
+      for (int k = 0; k < parts; ++k) {
+        s1 += red[k * C + tid];
+        s2 += red2[k * C + tid];
+      }
+      red[tid] = s1;
+      red2[tid] = s2;
+    }
+    __syncthreads();
+    for (int g = tid; g < G; g += kGenThreads) {
+      float s1 = 0.f, s2 = 0.f;
+      for (int k = 0; k < cg; ++k) {
+        s1 += red[g * cg + k];
+        s2 += red2[g * cg + k];
+      }
+      gm[g] = s1 / cnt;
+      gm[G + g] = s2 / cnt;
+    }
+    __syncthreads();
+
+    // 5. dx = inv (dxhat - mean dxhat - xhat mean dxhat xhat); in tail mode
+    //    through the ReLU mask and tsc, with the row's share of dtsc, dtsh
+    Tin* dx = static_cast<Tin*>(a.dx);
+#pragma unroll 4
+    for (int i = tid; i < T * C; i += kGenThreads) {
+      const int t = i / C, c = i - t * C, g = c / cg;
+      const float zv = load_raw<Tin>(a, b, t, n, c);
+      float xf = zv, sc = 0.f, sh = 0.f;
+      if constexpr (Tail) {
+        const size_t k = ((size_t)b * T + t) * C + c;
+        sc = a.tsc[k];
+        sh = a.tsh[k];
+        xf = fmaxf(tail_pre(zv, sc, sh), 0.f);
+      }
+      const float xh = (xf - mean[c]) * inv[c];
+      const float dxf = inv[c] * (dxhat(t, c) - gm[g] - xh * gm[G + g]);
+      const size_t at = (((size_t)b * T + t) * N + n) * C + c;
+      if constexpr (Tail) {
+        const float live = tail_pre(zv, sc, sh) > 0.f ? dxf : 0.f;
+        Io<Tin>::store(dx + at, live * sc);
+        psc[i] = fmaf(live, zv, psc[i]);
+        psh[i] += live;
+      } else {
+        Io<Tin>::store(dx + at, dxf);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <bool Tail, typename Tin>
+cudaError_t launch_general_fwd(const Args& a, float* st, float* scratch, int S,
+                               cudaStream_t stream) {
+  const size_t bytes = (size_t)gen_layout(a.T, a.C, a.D, a.G, false).floats * sizeof(float);
+  const bool in_smem = bytes <= kSmemLimit;
+  if (S < 1 || in_smem == (scratch != nullptr)) return cudaErrorInvalidValue;
+  const size_t dyn = in_smem ? bytes : 0;
+  cudaError_t err = cudaFuncSetAttribute(ltae_pool_fwd_general_kernel<Tin, Tail>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return err;
+  ltae_pool_fwd_general_kernel<Tin, Tail><<<dim3(S, a.B), kGenThreads, dyn, stream>>>(
+      a, st, scratch);
+  return cudaGetLastError();
+}
+
+template <bool Tail, typename Tin>
+cudaError_t launch_general_bwd(const Args& a, const float* st, float* part, float* scratch,
+                               int S, cudaStream_t stream) {
+  const size_t bytes = (size_t)gen_layout(a.T, a.C, a.D, a.G, true).floats * sizeof(float);
+  const bool in_smem = bytes <= kSmemLimit;
+  if (S < 1 || in_smem == (scratch != nullptr)) return cudaErrorInvalidValue;
+  const size_t dyn = in_smem ? bytes : 0;
+  cudaError_t err = cudaFuncSetAttribute(ltae_pool_bwd_general_kernel<Tin, Tail>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return err;
+  ltae_pool_bwd_general_kernel<Tin, Tail><<<dim3(S, a.B), kGenThreads, dyn, stream>>>(
+      a, st, part, scratch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int total = bwd_shared_floats(a.C, a.D, a.G) +
+                    a.B * bwd_item_floats(a.T, a.C, a.D, a.G, Tail);
+  ltae_pool_bwd_reduce<<<(total + 255) / 256, 256, 0, stream>>>(a, part, S, Tail);
+  return cudaGetLastError();
+}
+
+// Every shape at which the L-TAE is defined (G dividing C and D).
+bool bad_general_shape(int B, int T, int N, int C, int D, int G) {
+  return B < 1 || N < 1 || T < 1 || C < 1 || G < 1 || C % G || D < G || D % G;
+}
+
 }  // namespace
 
 // C entries for ctypes. Pointers are device pointers to contiguous tensors:
@@ -1235,4 +1763,85 @@ extern "C" int ltae_pool_bwd(const void* x, int x_is_bf16, const void* tsc,
   return (int)launch_bwd(x_is_bf16 ? bwd_kernel<__nv_bfloat16>(tail) : bwd_kernel<float>(tail),
                          a, static_cast<float*>(part), S, tail, x_is_bf16 ? 2 : 4,
                          static_cast<cudaStream_t>(stream));
+}
+
+// The general pair's scratch floats per block: 0 where the workspace of the
+// forward (backward = 0) or the backward fits in shared memory, else the
+// size of each block's slice of `scratch`.
+extern "C" int ltae_pool_general_scratch_floats(int T, int C, int D, int G, int backward) {
+  const int f = gen_layout(T, C, D, G, backward != 0).floats;
+  return (size_t)f * sizeof(float) <= kSmemLimit ? 0 : f;
+}
+
+// The general pair (any shape with G dividing C and D), with the arguments
+// of ltae_pool_fwd / ltae_pool_bwd and: st (B, N, 4, G) fp32, which the
+// forward writes and the backward reads; scratch, of B * S *
+// ltae_pool_general_scratch_floats(...) floats where that is not 0, else
+// null. The backward's `part` holds B * S * ltae_pool_bwd_part_floats(...).
+extern "C" int ltae_pool_fwd_general(const void* x, int x_is_bf16, const void* tsc,
+                                     const void* tsh, const void* bpe, const void* win,
+                                     const void* ws, const void* pes, void* o, void* st,
+                                     void* scratch, int S, int B, int T, int N, int C, int D,
+                                     int G, unsigned seed_mix, unsigned thresh, float scale,
+                                     float eps, void* stream) {
+  if (bad_general_shape(B, T, N, C, D, G) || st == nullptr ||
+      (tsc == nullptr) != (tsh == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(B, T, N, C, D, G, seed_mix, thresh, scale, eps);
+  a.x = x;
+  a.tsc = static_cast<const float*>(tsc);
+  a.tsh = static_cast<const float*>(tsh);
+  a.bpe = static_cast<const float*>(bpe);
+  a.win = static_cast<const float*>(win);
+  a.ws = static_cast<const float*>(ws);
+  a.pes = static_cast<const float*>(pes);
+  a.o = o;
+  float* stf = static_cast<float*>(st);
+  float* sc = static_cast<float*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tail = tsc != nullptr;
+  if (x_is_bf16)
+    return (int)(tail ? launch_general_fwd<true, __nv_bfloat16>(a, stf, sc, S, s)
+                      : launch_general_fwd<false, __nv_bfloat16>(a, stf, sc, S, s));
+  return (int)(tail ? launch_general_fwd<true, float>(a, stf, sc, S, s)
+                    : launch_general_fwd<false, float>(a, stf, sc, S, s));
+}
+
+extern "C" int ltae_pool_bwd_general(const void* x, int x_is_bf16, const void* tsc,
+                                     const void* tsh, const void* go, const void* win,
+                                     const void* ws, const void* pes, const void* bpe,
+                                     const void* st, void* dx, void* acc_a, void* acc_f,
+                                     void* dsum, void* acc_e, void* dtsc, void* dtsh,
+                                     void* part, void* scratch, int S, int B, int T, int N,
+                                     int C, int D, int G, unsigned seed_mix, unsigned thresh,
+                                     float scale, float eps, void* stream) {
+  const bool tail = tsc != nullptr;
+  if (bad_general_shape(B, T, N, C, D, G) || st == nullptr || part == nullptr ||
+      (tsh != nullptr) != tail || (dtsc != nullptr) != tail || (dtsh != nullptr) != tail)
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(B, T, N, C, D, G, seed_mix, thresh, scale, eps);
+  a.x = x;
+  a.go = go;
+  a.tsc = static_cast<const float*>(tsc);
+  a.tsh = static_cast<const float*>(tsh);
+  a.win = static_cast<const float*>(win);
+  a.ws = static_cast<const float*>(ws);
+  a.pes = static_cast<const float*>(pes);
+  a.bpe = static_cast<const float*>(bpe);
+  a.dx = dx;
+  a.acc_a = static_cast<float*>(acc_a);
+  a.acc_f = static_cast<float*>(acc_f);
+  a.dsum = static_cast<float*>(dsum);
+  a.acc_e = static_cast<float*>(acc_e);
+  a.dtsc = static_cast<float*>(dtsc);
+  a.dtsh = static_cast<float*>(dtsh);
+  const float* stf = static_cast<const float*>(st);
+  float* pt = static_cast<float*>(part);
+  float* sc = static_cast<float*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16)
+    return (int)(tail ? launch_general_bwd<true, __nv_bfloat16>(a, stf, pt, sc, S, s)
+                      : launch_general_bwd<false, __nv_bfloat16>(a, stf, pt, sc, S, s));
+  return (int)(tail ? launch_general_bwd<true, float>(a, stf, pt, sc, S, s)
+                    : launch_general_bwd<false, float>(a, stf, pt, sc, S, s));
 }

@@ -23,13 +23,13 @@ nq > 1 the plain ops run, with attention dropout after the softmax, and the
 returned attention is the dropped, rescaled one that weighed the values (U-TAE
 aggregates its skips with it). The MLP tail runs in training mode either way.
 
-A kernel route (``fused``) takes only the shapes its kernel takes
-(``LTAE.kernel_takes``: T <= 64, C <= 128, ...). Past them it raises
-ValueError before any launch, on either device, where the JAX ``LTAE`` with
-``use_pallas`` runs its Pallas kernel at any T; the plain route
-(``fused=False``) takes any shape. The producer's deferred GroupNorm affine
-(``tail_affine``) is taken in eval on the kernel path only, in training on
-either.
+The kernel route (``fused``) takes every shape the module is defined at,
+as the JAX ``LTAE`` with ``use_pallas`` runs its Pallas kernel at any T:
+the wrappers send a shape their fast kernels take (``LTAE.kernel_takes``:
+T <= 64, C <= 128 in eval and C <= 64 in training, ...) to those, and any
+other (T > 64 above all) to their general kernels. The producer's deferred
+GroupNorm affine (``tail_affine``) is taken in eval on the kernel path only,
+in training on either.
 """
 from __future__ import annotations
 
@@ -124,8 +124,8 @@ class LTAE(nn.Module):
     Call: x (B, T, H, W, C), batch_positions (B, T) or (B, T, 2), pad_mask
     (B, T) bool. ``fused`` picks the path: None means the kernel for a CUDA
     tensor and the plain ops for a CPU tensor; True/False force one (the
-    tests and chip_smoke.py compare the two). A kernel route raises on a
-    shape its kernel does not take (``kernel_takes``).
+    tests and chip_smoke.py compare the two). The kernel route takes any
+    shape: a fast kernel where ``kernel_takes``, a general one elsewhere.
     ``tail_affine`` is the producer's deferred GroupNorm affine ``(sc, sh)``
     of shape (B, T, C), applied as ``max(x * sc + sh, 0)`` (fused path in
     eval mode; in training mode ``ltae_pool_tail``, or its plain version when
@@ -274,17 +274,30 @@ class LTAE(nn.Module):
         out = self._mlp_tail(o.reshape(b, hh, ww, 1, self.d_model), generator)
         return out[:, :, :, 0], None
 
-    def kernel_takes(self, t: int, c: int) -> bool:
-        """Whether this mode's kernel takes T steps of C channels: the fused
-        eval kernel in eval mode, the training kernel pair in training mode
-        (which serves one query without the attention output). The
-        wrappers' own limits decide (``kernel_takes`` of ``ops/ltae_fused.py``
-        and ``ops/ltae_pool.py``)."""
+    def kernel_route(self, t: int, c: int) -> str:
+        """The kernel that serves T steps of C channels on this mode's kernel
+        route: in eval ``ops/ltae_fused.py::kernel_route`` ("group", "wide",
+        "queries" or "general"); in training, where the pair serves one query
+        without the attention output, "pair" where the fast pair takes the
+        shape (``ops/ltae_pool.py::kernel_takes``), else "general".
+        ValueError where the module is not defined (G not dividing C,
+        d_model and the MLP's width)."""
+        g, d, d_out = self.n_head, self.d_model, self.out_norm.num_channels
+        route = ltae_fused.kernel_route(t, c, d, g, d_out, self.num_queries)
         if not self.training:
-            return ltae_fused.kernel_takes(t, c, self.d_model, self.n_head,
-                                           self.out_norm.num_channels,
-                                           self.num_queries)
-        return pool_ops.kernel_takes(t, c, self.d_model, self.n_head)
+            return route
+        return "pair" if pool_ops.kernel_takes(t, c, d, g) else "general"
+
+    def kernel_takes(self, t: int, c: int) -> bool:
+        """Whether this mode's kernel route takes T steps of C channels: at
+        every shape where the module is defined, by a fast kernel or by a
+        general one (``kernel_route``), as the JAX ``LTAE`` runs its Pallas
+        kernel at any T."""
+        try:
+            self.kernel_route(t, c)
+        except ValueError:
+            return False
+        return True
 
     def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,
                 pad_mask: torch.Tensor | None = None, *, need_attn: bool = True,
@@ -293,12 +306,6 @@ class LTAE(nn.Module):
         if fused is None:
             fused = x.is_cuda
         pair = self.training and not need_attn and self.num_queries == 1
-        t, c = x.shape[1], x.shape[-1]
-        if fused and (pair or not self.training) and not self.kernel_takes(t, c):
-            raise ValueError(
-                f"the L-TAE's {'training' if self.training else 'eval'} kernel does "
-                f"not take T={t} C={c} D={self.d_model} G={self.n_head} "
-                f"nq={self.num_queries}; fused=False runs the plain ops")
         if pair:
             return self._train(x, batch_positions, pad_mask, fused, generator,
                                tail_affine)

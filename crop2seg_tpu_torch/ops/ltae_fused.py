@@ -8,20 +8,25 @@ Per pixel row over T steps, for each of nq learnable queries per head:
     -> MLP (eval BN folded) + ReLU per query
     -> GroupNorm_G pooling each group's channels over all nq queries -> affine
 
-``ltae_fused_forward`` does the offline folds in fp32 and launches the kernel
-of ``csrc/ltae_fused_fwd.cu`` on a CUDA tensor (with one query and D, d_out
-<= 256, S = ``launch_shape`` persistent blocks per batch item, each walking
-its ``row_ranges`` in groups of 8 rows at C <= 64, 4 above); on a CPU tensor
-it calls ``ltae_fused_forward_reference``, the plain PyTorch version that
-materializes the projected sequence h. ``kernel_takes`` says which shapes
-the kernel takes; ``nn/ltae.py::LTAE`` asks it to refuse a shape before any
-launch. ``ltae_fused_forward.launches`` counts launches.
+``ltae_fused_forward`` does the offline folds in fp32 and launches a kernel
+of ``csrc/ltae_fused_fwd.cu`` on a CUDA tensor; on a CPU tensor it calls
+``ltae_fused_forward_reference``, the plain PyTorch version that
+materializes the projected sequence h. ``kernel_route`` picks the kernel:
+the row-group kernels (S = ``launch_shape`` persistent blocks per batch
+item, each walking its ``row_ranges`` in groups of rows) take T <= 64, C <=
+128 with C % 8 == 0, G <= 16, D and d_out <= 256 and nq <= 8
+(``kernel_takes``): "group" for one query at C <= 64, "wide" for one query
+above, "queries" for nq > 1; the "general" kernel takes every other shape
+at which the L-TAE is defined (G dividing C, D and d_out), T > 64 above all.
+``ltae_fused_forward.launches`` counts launches, and ``.route_launches``
+counts them per route.
 With nq = 1 (q of shape (G, d_k) or (G, 1, d_k)) out is (B, N, d_out) and
 attn (B, N, G, T); with nq > 1 they gain a query axis, (B, N, nq, d_out) and
 (B, N, G, nq, T), the JAX package's ranks.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -30,19 +35,18 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from crop2seg_tpu_torch.ops._build import load_library
-from crop2seg_tpu_torch.ops.ltae_pool import aligned16, blocks_per_item
+from crop2seg_tpu_torch.ops.ltae_pool import aligned16, blocks_per_item, general_launch_shape
 
+# The row-group kernels' limits; the general kernel takes the rest.
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
-MAX_C = 128         # lanes own channels c + 32k, k < 4
+MAX_C = 128         # the x tile of a row group fits in shared memory
 MAX_HEADS = 16      # per-head accumulators live in registers
-MAX_QUERIES = 8     # queries per head: a row's MLP outputs of all queries
+MAX_QUERIES = 8     # queries per head: the group's MLP outputs of all queries
                     # stay in shared memory for the out-GroupNorm
-# One query runs a row-group kernel: 8-row groups at C <= GROUP_MAX_C, 4-row
-# groups above. Both take
-GROUP_MAX_C = 64
+GROUP_MAX_C = 64    # one query: 8-row groups at C <= GROUP_MAX_C, 4-row above
 MAX_D = 256         # the projection gives a thread to each (d, half of the sum)
 MAX_D_OUT = 256     # the group's MLP outputs stay in shared memory
-# and past them one query runs the nq kernel above GROUP_MAX_C, none below.
+ROUTES = ("group", "wide", "queries", "general")   # the C entry's route ids
 
 
 def fold_batchnorm(wm, bm, bn_scale, bn_bias, bn_mean, bn_var, eps: float = 1e-5):
@@ -156,42 +160,62 @@ def _fold(pe, pad_mask, params, n_head: int, d_k: int):
             "bm": f["bm_folded"], "osc": f["out_scale"], "obi": f["out_bias"]}
 
 
+def _check_defined(c: int, d: int, g: int, d_out: int) -> None:
+    """The L-TAE is defined where its G heads divide C, D and d_out (the
+    GroupNorms' groups and the heads' channels); ValueError elsewhere."""
+    if g < 1 or c % g or d % g or d_out % g:
+        raise ValueError(f"unsupported shape C={c} G={g} D={d} d_out={d_out}: "
+                         f"G must divide C, D and d_out")
+
+
 def kernel_takes(t: int, c: int, d: int, g: int, d_out: int, nq: int) -> bool:
-    """Whether the kernel takes T steps, C channels, D = d_model, G heads,
-    d_out MLP outputs and nq queries per head (``launch_shape`` raises past
-    these limits)."""
+    """Whether a row-group kernel takes T steps, C channels, D = d_model, G
+    heads, d_out MLP outputs and nq queries per head (``launch_shape``
+    raises past these limits); the general kernel takes the other shapes."""
     return (t <= MAX_T and c <= MAX_C and c % 8 == 0 and g <= MAX_HEADS
             and c % g == 0 and d % g == 0 and d_out % g == 0
-            and nq <= MAX_QUERIES
-            and (nq > 1 or c > GROUP_MAX_C or (d <= MAX_D and d_out <= MAX_D_OUT)))
+            and nq <= MAX_QUERIES and d <= MAX_D and d_out <= MAX_D_OUT)
+
+
+def kernel_route(t: int, c: int, d: int, g: int, d_out: int, nq: int) -> str:
+    """The kernel that serves a shape, one of ``ROUTES``: a row-group kernel
+    where ``kernel_takes`` says so ("group" for one query at C <=
+    GROUP_MAX_C, "wide" for one query above, "queries" for nq > 1), else
+    "general". ValueError where the L-TAE is not defined."""
+    _check_defined(c, d, g, d_out)
+    if not kernel_takes(t, c, d, g, d_out, nq):
+        return "general"
+    if nq > 1:
+        return "queries"
+    return "group" if c <= GROUP_MAX_C else "wide"
 
 
 def launch_shape(b: int, t: int, c: int, d: int, g: int, d_out: int, nq: int,
                  sm_count: int) -> int:
-    """Check a launch against the kernel's limits (``kernel_takes``;
-    ValueError past them) and return S, the row-group kernels' persistent
-    blocks per batch item (``blocks_per_item``: one wave of B * S <= sm_count
-    blocks, each taking ``ltae_pool.row_ranges(N, S)[i]``); 1 where the nq
-    kernel runs (nq > 1, or one query past D, d_out = 256), which ignores
-    it."""
+    """Check a launch against the row-group kernels' limits (``kernel_takes``;
+    ValueError past them) and return S, their persistent blocks per batch
+    item (``blocks_per_item``: one wave of B * S <= sm_count blocks, each
+    taking ``ltae_pool.row_ranges(N, S)[i]``)."""
     if not kernel_takes(t, c, d, g, d_out, nq):
         raise ValueError(
             f"unsupported shape T={t} C={c} G={g} D={d} d_out={d_out} nq={nq}: "
-            f"the kernel takes T<={MAX_T}, C<={MAX_C} with C%8==0, G<={MAX_HEADS} "
-            f"dividing C, D and d_out, nq<={MAX_QUERIES}, and with one query at "
-            f"C<={GROUP_MAX_C} D<={MAX_D}, d_out<={MAX_D_OUT}")
-    row_group = nq == 1 and d <= MAX_D and d_out <= MAX_D_OUT
-    return blocks_per_item(b, sm_count) if row_group else 1
+            f"the row-group kernels take T<={MAX_T}, C<={MAX_C} with C%8==0, "
+            f"G<={MAX_HEADS} dividing C, D and d_out, nq<={MAX_QUERIES}, "
+            f"D<={MAX_D}, d_out<={MAX_D_OUT}")
+    return blocks_per_item(b, sm_count)
 
 
 @functools.cache
 def _kernel():
+    """The C entries: (ltae_fused_fwd, ltae_fused_general_scratch_floats)."""
     lib = load_library("ltae_fused_fwd")
-    fn = lib.ltae_fused_fwd
+    fn, scratch = lib.ltae_fused_fwd, lib.ltae_fused_general_scratch_floats
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci] + [vp] * 13 + [ci] * 9 + [ctypes.c_float, vp]
-    fn.restype = ci
-    return fn
+    # x, x_is_bf16 | pe .. attn | B T N C D G DOUT NQ route S | scratch, eps, stream
+    fn.argtypes = [vp, ci] + [vp] * 13 + [ci] * 10 + [vp, ctypes.c_float, vp]
+    scratch.argtypes = [ci] * 6
+    fn.restype = scratch.restype = ci
+    return fn, scratch
 
 
 def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
@@ -199,7 +223,7 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
                        *, n_head: int = 16, d_k: int = 4, eps: float = 1e-5,
                        need_attn: bool = True,
                        tail_affine: Optional[tuple] = None):
-    """Fused L-TAE eval forward, nq <= MAX_QUERIES queries per head.
+    """Fused L-TAE eval forward, nq queries per head.
 
     x: time-major rows (B, T, N, C), fp32 or bf16 (N = H*W, a free reshape of
     (B, T, H, W, C)); pe (B, T, D); pad_mask (B, T) bool; params as
@@ -208,13 +232,12 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
     Returns (out (B, N, d_out) in x's dtype, attn (B, N, G, T) fp32 or None)
     for nq = 1; (B, N, nq, d_out) and (B, N, G, nq, T) for nq > 1.
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (a shape past ``kernel_takes`` raises). More than MAX_QUERIES queries
-    raise on either.
+    of ``kernel_route``. A shape where G does not divide C, D and d_out
+    raises on either.
     """
     nq = _query(params, n_head).shape[1]
-    if nq > MAX_QUERIES:
-        raise ValueError(f"num_queries={nq}: the kernel takes at most "
-                         f"MAX_QUERIES={MAX_QUERIES} queries per head")
+    _check_defined(x.shape[-1], params["win"].shape[1], n_head,
+                   params["wm_folded"].shape[1])
     if x.device.type == "cpu":
         return ltae_fused_forward_reference(
             x, pe, pad_mask, params, n_head=n_head, d_k=d_k, eps=eps,
@@ -228,8 +251,10 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
     b, t, n, c = x.shape
     g = n_head
     d, d_out = params["win"].shape[1], params["wm_folded"].shape[1]
-    s = launch_shape(b, t, c, d, g, d_out, nq,
-                     torch.cuda.get_device_properties(x.device).multi_processor_count)
+    route = kernel_route(t, c, d, g, d_out, nq)
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    s = (general_launch_shape(b, sm_count) if route == "general"
+         else launch_shape(b, t, c, d, g, d_out, nq, sm_count))
     if pe.shape != (b, t, d) or pad_mask.shape != (b, t):
         raise ValueError(f"pe {tuple(pe.shape)} / pad_mask {tuple(pad_mask.shape)} "
                          f"do not match x {tuple(x.shape)}, D={d}")
@@ -248,7 +273,10 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
     def ptr(name):
         return f[name].data_ptr() if name in f else None
 
-    fn = _kernel()
+    fn, scratch_floats = _kernel()
+    scratch = None
+    if route == "general" and (per := scratch_floats(t, c, d, g, d_out, nq)):
+        scratch = torch.empty(b * s * per, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
@@ -256,13 +284,16 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
                 ptr("wm"), ptr("bm"), ptr("osc"), ptr("obi"),
                 ptr("tsc"), ptr("tsh"), out.data_ptr(),
                 None if attn is None else attn.data_ptr(),
-                b, t, n, c, d, g, d_out, nq, s, eps, stream)
+                b, t, n, c, d, g, d_out, nq, ROUTES.index(route), s,
+                None if scratch is None else scratch.data_ptr(), eps, stream)
     if rc != 0:
-        raise RuntimeError(f"ltae_fused_fwd kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"ltae_fused_fwd kernel launch failed ({route}): cudaError {rc}")
     ltae_fused_forward.launches += 1
+    ltae_fused_forward.route_launches[route] += 1
     if nq == 1:
         return out[:, :, 0], (None if attn is None else attn[:, :, :, 0])
     return out, attn
 
 
 ltae_fused_forward.launches = 0
+ltae_fused_forward.route_launches = collections.Counter()

@@ -29,9 +29,15 @@ and dx come back in x's dtype, every other gradient in fp32.
 ``ltae_pool.launches_fwd`` / ``.launches_bwd`` count the kernels' launches,
 and ``ltae_pool.launches`` counts them per variant (``variant``).
 
-The forward kernel runs S = ``fwd_launch_shape(...)`` persistent blocks per
-batch item, each walking its ``row_ranges`` in groups of 8 rows, and writes
-o in one pass over x.
+Routes: where ``kernel_takes`` (T <= 64, C <= 64 with C % 8 == 0, G <= 16,
+D <= 256: TimeUNet's training path) the forward kernel runs S =
+``fwd_launch_shape(...)`` persistent blocks per batch item, each walking its
+``row_ranges`` in groups of 8 rows, and writes o in one pass over x; every
+other shape at which the L-TAE is defined (G dividing C and D) takes the
+general pair (variants ``..._general``, S = ``general_launch_shape``): one
+row at a time per block, x streamed over T with an online softmax, the
+forward saving each row's GroupNorm statistics and softmax max and sum
+(B, N, 4, G) for its backward.
 
 The folds and the small products around the kernels run in fp32 with
 autocast off, from fp32 parameters, as the JAX package computes them, whatever
@@ -64,12 +70,14 @@ import torch
 
 from crop2seg_tpu_torch.ops._build import load_library
 
+# The fast pair's limits; the general pair takes the rest.
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
 MAX_C = 64          # lanes own channels c and c + 32
 MAX_HEADS = 16      # per-head accumulators live in registers
 MAX_D = 256         # the forward gives a thread to each (d, half of a row group);
                     # the backward holds win_f and bin_f + pe in shared memory
 EPS = 1e-5          # the input GroupNorm's epsilon
+GENERAL_BLOCKS_PER_SM = 4   # the general kernels' 256-thread blocks (kGenBlocksPerSm)
 _M32 = 0xFFFFFFFF
 
 
@@ -101,17 +109,19 @@ def keep_mask(seed: int, b: int, t: int, n: int, g: int, drop_p: float,
     return (h >= dropout_threshold(drop_p)).reshape(b, t, n, g)
 
 
-def variant(tail: bool, dtype: torch.dtype, direction: str) -> str:
+def variant(tail: bool, dtype: torch.dtype, direction: str,
+            general: bool = False) -> str:
     """A kernel variant's name, the key of ``ltae_pool.launches``:
-    ``ltae_pool[_tail]_{fwd,bwd}[_bf16]``."""
+    ``ltae_pool[_tail]_{fwd,bwd}[_bf16][_general]``."""
     return (f"ltae_pool{'_tail' if tail else ''}_{direction}"
-            f"{'_bf16' if dtype == torch.bfloat16 else ''}")
+            f"{'_bf16' if dtype == torch.bfloat16 else ''}"
+            f"{'_general' if general else ''}")
 
 
 def kernel_takes(t: int, c: int, d: int, g: int) -> bool:
-    """Whether the kernel pair takes T steps, C channels, D = d_model and G
-    heads (the limits above; ``_check_limits`` raises past them).
-    ``nn/ltae.py::LTAE`` asks it to refuse a shape before any launch."""
+    """Whether the fast kernel pair takes T steps, C channels, D = d_model
+    and G heads (the limits above; ``_check_limits`` raises past them); the
+    general pair takes the other shapes."""
     return (t <= MAX_T and c <= MAX_C and c % 8 == 0 and g <= MAX_HEADS
             and c % g == 0 and d % g == 0 and d <= MAX_D)
 
@@ -127,7 +137,9 @@ def _check_limits(t: int, c: int, d: int, g: int) -> None:
 def _check(x, pe, pad_mask, win_f, bin_f, u, cs, n_head, tail=None):
     b, t, n, c = x.shape
     d = win_f.shape[1]
-    _check_limits(t, c, d, n_head)
+    if n_head < 1 or c % n_head or d % n_head:
+        raise ValueError(f"unsupported shape C={c} G={n_head} D={d}: G must divide "
+                         f"C and D")
     want = {"pe": (b, t, d), "pad_mask": (b, t), "win_f": (c, d), "bin_f": (d,),
             "u": (d, n_head), "cs": (1, n_head)}
     got = {"pe": pe, "pad_mask": pad_mask, "win_f": win_f, "bin_f": bin_f,
@@ -186,19 +198,28 @@ def ltae_pool_tail_reference(z, tsc, tsh, pe, pad_mask, win_f, bin_f, u, cs,
 @functools.cache
 def _kernels():
     """The C entries of csrc/ltae_pool.cu with their argument types:
-    (forward, backward, partial-sum floats per backward block)."""
+    (forward, backward, partial-sum floats per backward block, general
+    forward, general backward, general scratch floats per block)."""
     lib = load_library("ltae_pool")
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
     fwd, bwd, part = lib.ltae_pool_fwd, lib.ltae_pool_bwd, lib.ltae_pool_bwd_part_floats
+    gfwd, gbwd = lib.ltae_pool_fwd_general, lib.ltae_pool_bwd_general
+    scratch = lib.ltae_pool_general_scratch_floats
     # x, x_is_bf16 | tsc, tsh, bpe, win, ws, pes, o | S B T N C D G |
     # seed_mix thresh scale eps stream
     fwd.argtypes = [vp, ci] + [vp] * 7 + [ci] * 7 + [cu, cu, cf, cf, vp]
     # x, x_is_bf16 | tsc, tsh, go, win, ws, pes, bpe, dx, A, F, Dsum, E,
     # dtsc, dtsh, part | S B T N C D G | ...
     bwd.argtypes = [vp, ci] + [vp] * 15 + [ci] * 7 + [cu, cu, cf, cf, vp]
+    # general: ... o, st, scratch | S B T N C D G | ...
+    gfwd.argtypes = [vp, ci] + [vp] * 9 + [ci] * 7 + [cu, cu, cf, cf, vp]
+    # general: ... bpe, st, dx, A, F, Dsum, E, dtsc, dtsh, part, scratch | ...
+    gbwd.argtypes = [vp, ci] + [vp] * 17 + [ci] * 7 + [cu, cu, cf, cf, vp]
     part.argtypes = [ci] * 5
-    fwd.restype = bwd.restype = part.restype = ci
-    return fwd, bwd, part
+    scratch.argtypes = [ci] * 5
+    for f in (fwd, bwd, part, gfwd, gbwd, scratch):
+        f.restype = ci
+    return fwd, bwd, part, gfwd, gbwd, scratch
 
 
 def blocks_per_item(b: int, sm_count: int) -> int:
@@ -222,6 +243,13 @@ def fwd_launch_shape(b: int, t: int, c: int, d: int, g: int, sm_count: int) -> i
     of 8 rows."""
     _check_limits(t, c, d, g)
     return blocks_per_item(b, sm_count)
+
+
+def general_launch_shape(b: int, sm_count: int) -> int:
+    """S, the general kernels' blocks per batch item (the eval kernel's and
+    the pair's): GENERAL_BLOCKS_PER_SM per SM over the batch, each walking
+    ``row_ranges(N, S)[i]`` one row at a time."""
+    return blocks_per_item(b, GENERAL_BLOCKS_PER_SM * sm_count)
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -252,8 +280,15 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _count(tail: bool, dtype: torch.dtype, direction: str) -> None:
-    ltae_pool.launches[variant(tail, dtype, direction)] += 1
+def _general_scratch(t, c, d, g, backward: bool, blocks: int, device):
+    """The general kernel's workspace in device memory where it does not fit
+    in shared memory, else None."""
+    per = _kernels()[5](t, c, d, g, int(backward))
+    return torch.empty(blocks * per, dtype=torch.float32, device=device) if per else None
+
+
+def _count(tail: bool, dtype: torch.dtype, direction: str, general: bool) -> None:
+    ltae_pool.launches[variant(tail, dtype, direction, general)] += 1
     if direction == "fwd":
         ltae_pool.launches_fwd += 1
     else:
@@ -261,7 +296,8 @@ def _count(tail: bool, dtype: torch.dtype, direction: str) -> None:
 
 
 class _LtaePool(torch.autograd.Function):
-    """The kernel pair; ``tsc``/``tsh`` None selects the untailed mode. The
+    """The kernel pair, the fast one where ``kernel_takes`` and the general
+    one elsewhere; ``tsc``/``tsh`` None selects the untailed mode. The
     backward runs in the forward's autocast state (``custom_bwd``); the
     folds and the small products run in fp32 with autocast off either way."""
 
@@ -273,26 +309,38 @@ class _LtaePool(torch.autograd.Function):
         d = win_f.shape[1]
         with torch.autocast("cuda", enabled=False):
             ws, bpe, pes = _folds(pe, pad_mask, win_f, bin_f, u, cs)
-        s = fwd_launch_shape(b, t, c, d, n_head, _sm_count(x.device))
         o = torch.empty(b, n, d, dtype=x.dtype, device=x.device)
-        fwd = _kernels()[0]
+        general = not kernel_takes(t, c, d, n_head)
+        stats = None
+        head = (x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc), _ptr(tsh),
+                bpe.data_ptr(), win_f.data_ptr(), ws.data_ptr(), pes.data_ptr(),
+                o.data_ptr())
+        tail_args = (b, t, n, c, d, n_head, *_scalars(seed, drop_p), EPS)
+        kernels = _kernels()
         with torch.cuda.device(x.device):
-            rc = fwd(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc),
-                     _ptr(tsh), bpe.data_ptr(), win_f.data_ptr(), ws.data_ptr(),
-                     pes.data_ptr(), o.data_ptr(), s, b, t, n, c, d, n_head,
-                     *_scalars(seed, drop_p), EPS,
-                     torch.cuda.current_stream(x.device).cuda_stream)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if general:
+                s = general_launch_shape(b, _sm_count(x.device))
+                stats = torch.empty(b, n, 4, n_head, dtype=torch.float32, device=x.device)
+                scratch = _general_scratch(t, c, d, n_head, False, b * s, x.device)
+                rc = kernels[3](*head, stats.data_ptr(), _ptr(scratch), s, *tail_args,
+                                stream)
+            else:
+                s = fwd_launch_shape(b, t, c, d, n_head, _sm_count(x.device))
+                rc = kernels[0](*head, s, *tail_args, stream)
         if rc != 0:
-            raise RuntimeError(f"ltae_pool_fwd kernel launch failed: cudaError {rc}")
-        _count(tsc is not None, x.dtype, "fwd")
-        ctx.save_for_backward(x, tsc, tsh, win_f, u, ws, bpe, pes)
+            raise RuntimeError(f"ltae_pool_fwd{'_general' if general else ''} kernel "
+                               f"launch failed: cudaError {rc}")
+        _count(tsc is not None, x.dtype, "fwd", general)
+        ctx.save_for_backward(x, tsc, tsh, win_f, u, ws, bpe, pes, stats)
         ctx.seed, ctx.n_head, ctx.drop_p = seed, n_head, drop_p
         return o
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, go):
-        x, tsc, tsh, win_f, u, ws, bpe, pes = ctx.saved_tensors
+        x, tsc, tsh, win_f, u, ws, bpe, pes, stats = ctx.saved_tensors
+        general = stats is not None
         tail = tsc is not None
         b, t, n, c = x.shape
         d, g = win_f.shape[1], ctx.n_head
@@ -303,20 +351,27 @@ class _LtaePool(torch.autograd.Function):
         dsum, acc_e = torch.empty(b, t, g, **f32), torch.empty(b, t, d, **f32)
         dtsc, dtsh = ((torch.empty(b, t, c, **f32), torch.empty(b, t, c, **f32))
                       if tail else (None, None))
-        _, bwd, part_floats = _kernels()
-        s = blocks_per_item(b, _sm_count(x.device))
-        part = torch.empty(b * s, part_floats(t, c, d, g, int(tail)), **f32)
+        kernels = _kernels()
+        s = (general_launch_shape if general else blocks_per_item)(b, _sm_count(x.device))
+        part = torch.empty(b * s, kernels[2](t, c, d, g, int(tail)), **f32)
+        args = (x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc), _ptr(tsh),
+                go.data_ptr(), win_f.data_ptr(), ws.data_ptr(), pes.data_ptr(),
+                bpe.data_ptr())
+        sums = (dx.data_ptr(), acc_a.data_ptr(), acc_f.data_ptr(), dsum.data_ptr(),
+                acc_e.data_ptr(), _ptr(dtsc), _ptr(dtsh), part.data_ptr())
+        scalars = (b, t, n, c, d, g, *_scalars(ctx.seed, ctx.drop_p), EPS)
         with torch.cuda.device(x.device):
-            rc = bwd(x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc),
-                     _ptr(tsh), go.data_ptr(), win_f.data_ptr(), ws.data_ptr(),
-                     pes.data_ptr(), bpe.data_ptr(), dx.data_ptr(),
-                     acc_a.data_ptr(), acc_f.data_ptr(), dsum.data_ptr(),
-                     acc_e.data_ptr(), _ptr(dtsc), _ptr(dtsh), part.data_ptr(), s,
-                     b, t, n, c, d, g, *_scalars(ctx.seed, ctx.drop_p), EPS,
-                     torch.cuda.current_stream(x.device).cuda_stream)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if general:
+                scratch = _general_scratch(t, c, d, g, True, b * s, x.device)
+                rc = kernels[4](*args, stats.data_ptr(), *sums, _ptr(scratch), s,
+                                *scalars, stream)
+            else:
+                rc = kernels[1](*args, *sums, s, *scalars, stream)
         if rc != 0:
-            raise RuntimeError(f"ltae_pool_bwd kernel launch failed: cudaError {rc}")
-        _count(tail, x.dtype, "bwd")
+            raise RuntimeError(f"ltae_pool_bwd{'_general' if general else ''} kernel "
+                               f"launch failed: cudaError {rc}")
+        _count(tail, x.dtype, "bwd", general)
         with torch.autocast("cuda", enabled=False):
             dpe, dwin, dbin, du, dcs = _finish_backward(acc_a, acc_f, dsum, acc_e,
                                                         win_f, u, bpe)

@@ -78,7 +78,7 @@ def main() -> int:
     other = other_forward(args.other.resolve())
 
     def use(fwd):
-        lp._kernels = lambda: (fwd, mine[1], mine[2])
+        lp._kernels = lambda: (fwd, *mine[1:])
 
     model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
     for b in (2, 4):

@@ -1,11 +1,14 @@
 """Split the time of a row-group kernel into its steps, on one card: the
 fused eval L-TAE kernel's (crop2seg_tpu_torch/csrc/ltae_fused_fwd.cu::
 ltae_fused_group_kernel, C <= 64 with one query), with --kernel wide its
-wide sibling's (ltae_fused_wide_kernel, 64 < C <= 128 with one query) or,
-with --kernel pool_fwd, the training forward's (csrc/ltae_pool.cu::
-ltae_pool_fwd_group_kernel, all four variants).
+wide sibling's (ltae_fused_wide_kernel, 64 < C <= 128 with one query),
+with --kernel pool_fwd the training forward's (csrc/ltae_pool.cu::
+ltae_pool_fwd_group_kernel, all four variants) or, with --kernel
+pool_bwd_general, the general training backward's by pass
+(ltae_pool_bwd_general_kernel, tail mode, one row at a time).
 
-    python3 scripts/split_ltae_fused_steps.py [--kernel fused|wide|pool_fwd] [--launches 5]
+    python3 scripts/split_ltae_fused_steps.py [--kernel fused|wide|pool_fwd|pool_bwd_general]
+        [--launches 5]
 
 Copies this checkout's crop2seg_tpu_torch into the gitignored
 _archive/steps/, adds clock64() stamps to the copy's kernel at each step
@@ -17,11 +20,13 @@ N=128*128, C=64, D=256, G=16, d_out=64, tail affine, no attention), the
 wide kernel at its U-TAE shape (--width utae: N=16*16, C=d_out=128,
 attention out), the training forward at that of
 scripts/bench_ltae_pool_torch.py (B=4, T=61, N=128*128, C=64, D=256, G=16,
-drop_p 0.1). Prints the card (nvidia-smi name and power limit), then per
-dtype (and mode) one JSON line: the instrumented launch's ms (CUDA events;
-the stamps cost a few per cent) and each step's cycles per row group (8
-rows, 4 for the wide kernel) with its share. The stamps never reach the
-package itself.
+drop_p 0.1), the general backward at chip_smoke.py's timing shape for it
+(B=4, T=128, N=128*128, C=64, D=256, G=16, tail mode, drop_p 0.1; a launch
+is the whole backward under autograd). Prints the card (nvidia-smi name and
+power limit), then per dtype (and mode) one JSON line: the instrumented
+launch's ms (CUDA events; the stamps cost a few per cent) and each step's
+cycles per row group (8 rows, 4 for the wide kernel, 1 for the general
+backward) with its share. The stamps never reach the package itself.
 """
 from __future__ import annotations
 
@@ -71,7 +76,22 @@ KERNELS = {
                 ("    // 2. scores", "    STAMP(1)\n"),
                 ("    // 3. P = a_d @ xhat", "    STAMP(2)\n"),
                 ("    // 4. o[d] = P[g(d)]", "    STAMP(3)\n"))),
+    "pool_bwd_general": dict(
+        lib="ltae_pool", rows=1,
+        head="ltae_pool_bwd_general_kernel(const Args a, const float* const st,",
+        after="template <bool Tail, typename Tin>\ncudaError_t launch_general_fwd",
+        decl_after="  for (int i = tid; i < C * G; i += kGenThreads) wsp[i / G * GP + i % G]"
+                   " = a.ws[i];\n",
+        steps=("row start, Z", "pass 1: a, a_d, p1, P", "ds", "Dsum, E, F",
+               "pass 2: A, GroupNorm-backward sums", "pass 3: dx"),
+        stamps=(("    const float* st_row = st", "    STEP_T0 = clock64();\n"),
+                ("    // 1. a = exp(s - max)", "    STAMP(0)\n"),
+                ("    // 2. ds = a_d p1", "    STAMP(1)\n"),
+                ("    // 3. the row's share", "    STAMP(2)\n"),
+                ("    // 4. A += xhat^T ds", "    STAMP(3)\n"),
+                ("    // 5. dx = inv", "    STAMP(4)\n"))),
 }
+ROW_GROUP_START = "  if (n0 >= n1) return;   // the whole block: no barrier is reached\n"
 
 
 def instrument(src: str, spec: dict) -> str:
@@ -79,9 +99,11 @@ def instrument(src: str, spec: dict) -> str:
     body_end = src.index(spec["after"])
     kernel = src[head:body_end]
     nsteps = len(spec["steps"])
+    start = spec.get("decl_after", ROW_GROUP_START)
+    if start not in kernel:
+        raise RuntimeError(f"anchor not found in {spec['head']}: {start!r}")
     kernel = kernel.replace(
-        "  if (n0 >= n1) return;   // the whole block: no barrier is reached\n",
-        "  if (n0 >= n1) return;   // the whole block: no barrier is reached\n"
+        start, start +
         "  long long step_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
         "  long long STEP_T0 = 0, step_t1 = 0;\n"
         "#define STAMP(i) step_t1 = clock64(); step_acc[i] += step_t1 - STEP_T0; "
@@ -152,6 +174,26 @@ def pool_fwd_launches(dev):
             yield lp.variant(tail, dtype, "fwd"), launch
 
 
+def pool_bwd_general_launches(dev):
+    """(label, launch) per dtype of the general backward in tail mode at
+    T = 128, on chip_smoke.py's inputs (the seeded TimeUNet's folded L-TAE)."""
+    from crop2seg_tpu_torch.models.factory import get_model
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x, ts, pe, pad, params = cs.pool_inputs(model, cs.TRAIN_B, gen, dev, t=cs.T_GENERAL)
+    go = torch.randn(cs.TRAIN_B, cs.HW, cs.D, generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = cs.pool_leaves(True, x.to(dtype), ts, pe, params)
+        o = cs.pool_apply(True, False, leaves, pad, 99, 0.1)
+        god = go.to(o.dtype)
+        yield (f"ltae_pool_tail_bwd{'_bf16' if dtype == torch.bfloat16 else ''}_general",
+               lambda o=o, leaves=leaves, god=god: torch.autograd.grad(
+                   o, leaves, god, retain_graph=True))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=tuple(KERNELS), default="fused")
@@ -179,6 +221,7 @@ def main() -> int:
     sums = (ctypes.c_ulonglong * 8)()
     nsteps = len(spec["steps"])
     runs = (pool_fwd_launches(dev) if args.kernel == "pool_fwd" else
+            pool_bwd_general_launches(dev) if args.kernel == "pool_bwd_general" else
             fused_launches(dev, "utae" if args.kernel == "wide" else "timeunet"))
     for label, launch in runs:
         for _ in range(2):

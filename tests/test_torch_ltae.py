@@ -243,17 +243,19 @@ def test_group_kernel_rows_fall_in_exactly_one_block(b, n, sm_count):
 
 @pytest.mark.parametrize("d,d_out", [(272, 64), (256, 272)])
 def test_group_kernel_limits_raise_before_any_launch(d, d_out):
-    """Past D = 256 or d_out = 256 the row-group kernels (one query) have no
-    room: at C <= 64 ``launch_shape``, which the wrapper calls before it
-    launches, raises and ``kernel_takes`` says no; at C = 128, and with
-    nq > 1, the nq kernel takes the same D and d_out (S = 1)."""
-    with pytest.raises(ValueError, match="D<=256, d_out<=256"):
-        tk.launch_shape(1, 61, 64, d, 16, d_out, 1, 132)
-    assert not tk.kernel_takes(61, 64, d, 16, d_out, 1)
-    assert tk.launch_shape(1, 61, 128, d, 16, d_out, 1, 132) == 1
-    assert tk.launch_shape(1, 61, 64, d, 16, d_out, 3, 132) == 1
+    """Past D = 256 or d_out = 256 the row-group kernels (one query or nq >
+    1, C <= 64 or 128) have no room: ``launch_shape`` raises, ``kernel_takes``
+    says no, and the router sends the shape to the general kernel before any
+    launch (S = ``general_launch_shape``); so does T = 65."""
+    for c, nq in ((64, 1), (128, 1), (64, 3), (128, 3)):
+        with pytest.raises(ValueError, match="D<=256, d_out<=256"):
+            tk.launch_shape(1, 61, c, d, 16, d_out, nq, 132)
+        assert not tk.kernel_takes(61, c, d, 16, d_out, nq)
+        assert tk.kernel_route(61, c, d, 16, d_out, nq) == "general"
     with pytest.raises(ValueError, match="unsupported shape"):
         tk.launch_shape(1, 65, 64, 256, 16, 64, 1, 132)
+    assert tk.kernel_route(65, 64, 256, 16, 64, 1) == "general"
+    assert tk.general_launch_shape(1, 132) == lp.GENERAL_BLOCKS_PER_SM * 132
 
 
 @pytest.mark.parametrize("b", [1, 10])
@@ -264,16 +266,19 @@ def test_wide_kernel_rows_fall_in_exactly_one_block(b, n):
     i walking ``row_ranges(N, S)[i]`` in groups of 4 rows: every row of
     [0, N) falls in exactly one block and one group, at the entry forward's
     B = 1 (most blocks get 1 or 2 rows) and the tile's B = 10, with N = 258
-    ending in a partial group. With nq > 1 the other kernel runs and S = 1."""
+    ending in a partial group. With nq > 1 the queries kernel runs on the
+    same blocks and ranges, in groups of 2 rows at this C."""
     s = tk.launch_shape(b, 61, 128, 256, 16, 128, 1, 132)
     assert s == lp.blocks_per_item(b, 132) and b * s <= 132
-    assert tk.launch_shape(b, 61, 128, 256, 16, 128, 3, 132) == 1
-    r = 4                                   # rows per group at C = 128
-    ranges = lp.row_ranges(n, s)
-    assert len(ranges) == s
-    rows = [i for lo, hi in ranges for m0 in range(lo, hi, r)
-            for i in range(m0, min(m0 + r, hi))]
-    assert rows == list(range(n))
+    assert tk.kernel_route(61, 128, 256, 16, 128, 1) == "wide"
+    assert tk.launch_shape(b, 61, 128, 256, 16, 128, 3, 132) == s
+    assert tk.kernel_route(61, 128, 256, 16, 128, 3) == "queries"
+    for r in (4, 2):                        # rows per group at C = 128: one query, nq > 1
+        ranges = lp.row_ranges(n, s)
+        assert len(ranges) == s
+        rows = [i for lo, hi in ranges for m0 in range(lo, hi, r)
+                for i in range(m0, min(m0 + r, hi))]
+        assert rows == list(range(n))
 
 
 @pytest.mark.parametrize("t,c,d,g,d_out,nq", [(61, 64, 256, 16, 64, 1), (61, 128, 256, 16, 128, 1),
@@ -283,10 +288,12 @@ def test_wide_kernel_rows_fall_in_exactly_one_block(b, n):
                                               (61, 72, 64, 8, 16, 1), (61, 20, 64, 4, 16, 1),
                                               (61, 64, 256, 32, 64, 1)])
 def test_kernel_takes_is_the_wrappers_own_limits(t, c, d, g, d_out, nq):
-    """``kernel_takes`` of both wrappers says yes exactly where their launch
-    checks pass (``launch_shape``, ``_check_limits``), and ``LTAE.kernel_takes``
-    asks the right one for the mode: the eval kernel in eval, the training
-    pair in training."""
+    """``kernel_takes`` of both wrappers (their fast kernels, the general ones
+    serving the rest) says yes exactly where their launch checks pass
+    (``launch_shape``, ``_check_limits``) and ``kernel_route`` picks a
+    row-group kernel, and ``LTAE.kernel_route`` asks the right one for the
+    mode: the eval kernels in eval, the training pair in training. The
+    module's kernel route takes each of these shapes (``LTAE.kernel_takes``)."""
     def passes(check, *args):
         try:
             check(*args)
@@ -295,7 +302,9 @@ def test_kernel_takes_is_the_wrappers_own_limits(t, c, d, g, d_out, nq):
         return True
     takes = tk.kernel_takes(t, c, d, g, d_out, nq)
     assert takes == passes(tk.launch_shape, 1, t, c, d, g, d_out, nq, 132)
+    assert takes == (tk.kernel_route(t, c, d, g, d_out, nq) != "general")
     assert lp.kernel_takes(t, c, d, g) == passes(lp._check_limits, t, c, d, g)
     m = LTAE(in_channels=c, n_head=g, d_k=4, mlp=(d, d_out), d_model=d, num_queries=nq)
-    assert m.eval().kernel_takes(t, c) == takes
-    assert m.train().kernel_takes(t, c) == lp.kernel_takes(t, c, d, g)
+    assert m.eval().kernel_route(t, c) == tk.kernel_route(t, c, d, g, d_out, nq)
+    assert (m.train().kernel_route(t, c) == "pair") == lp.kernel_takes(t, c, d, g)
+    assert m.eval().kernel_takes(t, c) and m.train().kernel_takes(t, c)

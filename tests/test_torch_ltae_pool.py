@@ -159,16 +159,27 @@ def test_fwd_launch_shape_gives_one_wave_of_blocks(b, sm_count, s):
                          ids=["t-65", "c-72", "c-not-multiple-of-8", "g-32", "d-272",
                               "g-not-dividing-c", "g-not-dividing-d"])
 def test_fwd_launch_shape_raises_past_each_limit(t, c, d, g):
-    """Past each of the forward kernel's limits (T <= 64, C <= 64 with C % 8
-    == 0, G <= 16 dividing C and D, D <= 256) ``fwd_launch_shape`` raises
-    before any launch, and the wrapper's shape check agrees on a CPU tensor."""
+    """Past each of the fast forward kernel's limits (T <= 64, C <= 64 with C
+    % 8 == 0, G <= 16 dividing C and D, D <= 256) ``fwd_launch_shape``
+    raises before any launch and ``kernel_takes`` says no. The wrapper then
+    takes the general pair where the L-TAE is defined (on a CPU tensor the
+    plain version, equal to ``ltae_pool_reference``), and raises only where
+    G does not divide C or D."""
     with pytest.raises(ValueError, match="unsupported shape"):
         lp.fwd_launch_shape(4, t, c, d, g, 132)
-    x = torch.zeros(1, t, 2, c)
-    with pytest.raises(ValueError, match="unsupported shape"):
-        lp.ltae_pool(x, torch.zeros(1, t, d), torch.zeros(1, t, dtype=torch.bool),
-                     torch.zeros(c, d), torch.zeros(d), torch.zeros(d, g),
-                     torch.zeros(1, g), n_head=g)
+    assert not lp.kernel_takes(t, c, d, g)
+    gen = torch.Generator().manual_seed(0)
+    args = (torch.randn(1, t, 2, c, generator=gen), torch.randn(1, t, d, generator=gen),
+            torch.zeros(1, t, dtype=torch.bool), torch.randn(c, d, generator=gen),
+            torch.randn(d, generator=gen), torch.randn(d, g, generator=gen),
+            torch.randn(1, g, generator=gen))
+    if c % g or d % g:
+        with pytest.raises(ValueError, match="unsupported shape"):
+            lp.ltae_pool(*args, n_head=g)
+    else:
+        torch.testing.assert_close(lp.ltae_pool(*args, n_head=g),
+                                   lp.ltae_pool_reference(*args, n_head=g),
+                                   rtol=0, atol=0)
 
 
 def test_kernel_tail_backward_formulas_match_autograd():
@@ -322,7 +333,7 @@ def test_wrapper_on_cpu_counts_no_launch_and_checks_shapes():
         o, lp.ltae_pool_reference(x, pe, pad, win, bin_, u, cs, n_head=G),
         rtol=0, atol=0)
     with pytest.raises(ValueError, match="unsupported shape"):
-        lp.ltae_pool(x[..., :12], pe, pad, win[:12], bin_, u, cs, n_head=G)
+        lp.ltae_pool(x[..., :10], pe, pad, win[:10], bin_, u, cs, n_head=G)
     with pytest.raises(ValueError, match="expected"):
         lp.ltae_pool(x, pe, pad, win, bin_, u, cs[0], n_head=G)
     with pytest.raises(ValueError, match="drop_p"):

@@ -79,7 +79,8 @@ def test_reference_matches_jax_kernel(cases, name, tail):
 
 def test_wrapper_on_cpu_and_the_query_limit(cases):
     """On a CPU tensor the wrapper returns the plain version's result and
-    counts no launch; nq past MAX_QUERIES raises, on the CPU too."""
+    counts no launch; nq past MAX_QUERIES goes to the general kernel (on the
+    CPU the plain version), no longer refused."""
     case, spec = _case(cases, "nq3"), CASES["nq3"]
     params = {k: _t(v) for k, v in case["jparams"].items()}
     args = (_t(case["x"].reshape(B, T, -1, spec["c"])), _t(case["pe"]), _t(case["pad"]))
@@ -89,9 +90,15 @@ def test_wrapper_on_cpu_and_the_query_limit(cases):
     assert tk.ltae_fused_forward.launches == before
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(attn, want_attn, rtol=0, atol=0)
-    too_many = dict(params, q=torch.zeros(8, tk.MAX_QUERIES + 1, D_K))
-    with pytest.raises(ValueError, match="MAX_QUERIES"):
-        tk.ltae_fused_forward(*args, too_many, n_head=8)
+    many = dict(params, q=torch.randn(8, tk.MAX_QUERIES + 1, D_K,
+                                     generator=torch.Generator().manual_seed(0)))
+    nq = tk.MAX_QUERIES + 1
+    assert tk.kernel_route(T, spec["c"], spec["d_model"], 8, spec["d_out"], nq) == "general"
+    got, attn = tk.ltae_fused_forward(*args, many, n_head=8, d_k=D_K)
+    want, want_attn = tk.ltae_fused_forward_reference(*args, many, n_head=8, d_k=D_K)
+    assert got.shape == (B, args[0].shape[2], nq, spec["d_out"])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(attn, want_attn, rtol=0, atol=0)
 
 
 def test_params_from_state_dict_match_jax(cases):

@@ -133,8 +133,8 @@ def test_cuda_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out):
     kernel: fewer rows than blocks per item, N not a multiple of the row
     group or of the blocks, T at its limit of 64 and at 1, more batch items
     than SMs) and U-TAE's C = 128 (the wide row-group kernel, N not a
-    multiple of its 4-row group or of the blocks; at D = 272 the nq kernel
-    with one query). This file imports no JAX, so it runs where JAX is
+    multiple of its 4-row group or of the blocks; at D = 272 the general
+    kernel). This file imports no JAX, so it runs where JAX is
     absent:
     ``python -m pytest --noconftest -m cuda tests/test_torch_package.py``.
     Tolerance: fp32 5e-3 (sums in another order; out-GroupNorm groups of 2
@@ -172,13 +172,18 @@ def test_cuda_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out):
 @pytest.mark.parametrize("b,t,n,c,d,g,d_out,nq", [(2, 9, 64, 32, 64, 8, 16, 3),
                                                   (1, 61, 300, 64, 256, 16, 64, 3),
                                                   (2, 61, 258, 128, 256, 16, 128, 2),
-                                                  (1, 20, 77, 128, 256, 16, 128, 8)])
+                                                  (1, 20, 77, 128, 256, 16, 128, 8),
+                                                  (3, 61, 4099, 64, 256, 16, 64, 3),
+                                                  (1, 64, 300, 128, 256, 16, 256, 8),
+                                                  (140, 4, 3, 24, 48, 3, 6, 2)])
 def test_cuda_kernel_num_queries_matches_plain_version(dtype, tail, b, t, n, c, d, g,
                                                        d_out, nq):
-    """The kernel's nq > 1 mode against its plain version on the card: out
-    (B, N, nq, d_out), attention (B, N, G, nq, T), with pads, N not a
-    multiple of the block's rows, up to MAX_QUERIES = 8 queries. Tolerances
-    as the one-query test above."""
+    """The queries row-group kernel (nq > 1) against its plain version on
+    the card: out (B, N, nq, d_out), attention (B, N, G, nq, T), with pads,
+    N not a multiple of the row groups (4 rows at C <= 64, 2 above) or of
+    the blocks, up to MAX_QUERIES = 8 queries at T = 64 and d_out = 256 (its
+    shared-memory limits), three heads (idle warps and a partial head pair),
+    more batch items than SMs. Tolerances as the one-query test above."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
@@ -195,6 +200,7 @@ def test_cuda_kernel_num_queries_matches_plain_version(dtype, tail, b, t, n, c, 
     ts = ((1 + 0.2 * torch.randn(b, t, c, generator=gen)).to(dev) * valid,
           (0.1 * torch.randn(b, t, c, generator=gen)).to(dev) * valid) if tail else None
     before = tk.ltae_fused_forward.launches
+    assert tk.kernel_route(t, c, d, g, d_out, nq) == "queries"
     got, attn = tk.ltae_fused_forward(x, pe, pad, params, n_head=g, d_k=4, tail_affine=ts)
     assert tk.ltae_fused_forward.launches == before + 1
     want, want_attn = tk.ltae_fused_forward_reference(
@@ -246,16 +252,74 @@ def test_cuda_wide_kernel_matches_plain_version(b, t, n, dtype, need_attn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,n,c,d,g,d_out,nq,tail,attn", [
+    (2, 70, 300, 64, 256, 16, 64, 1, True, False),
+    (2, 128, 77, 64, 256, 16, 64, 1, True, True),
+    (1, 190, 40, 64, 256, 16, 64, 1, False, True),
+    (2, 70, 258, 128, 256, 16, 128, 1, False, True),
+    (2, 128, 100, 128, 256, 16, 128, 3, True, True),
+    (2, 61, 90, 128, 272, 16, 128, 1, False, True),
+    (1, 61, 50, 64, 256, 32, 64, 1, True, True),
+    (1, 20, 30, 192, 256, 16, 192, 1, True, True),
+    (2, 33, 40, 12, 48, 4, 8, 2, True, True),
+    (1, 12, 20, 32, 64, 8, 16, 9, False, True),
+    (1, 40, 3, 256, 64, 32, 32, 8, True, True),
+    (140, 66, 3, 16, 32, 4, 8, 1, True, True)],
+    ids=["timeunet-t70", "t128", "t190", "utae-t70", "nq3-t128", "d-272", "g-32",
+         "c-192", "c-12", "nq-9", "scratch", "b-above-sms"])
+def test_cuda_general_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out, nq,
+                                                   tail, attn):
+    """The general eval kernel (every shape the row-group kernels do not
+    take) against its plain version on the card, with pads: T past 64 (70,
+    128, 190: chunks of 32 steps with a partial last one), U-TAE's width,
+    three queries, D = 272, G = 32, C = 192 and C = 12 (not a multiple of
+    8), nine queries, a workspace past shared memory (its scratch buffer in
+    device memory), more batch items than SMs. One launch of the general
+    route each. Tolerances as ``test_cuda_kernel_matches_plain_version``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    params = _random_params(c, d, g, d_out, gen)
+    params["q"] = torch.randn(g, nq, 4, generator=gen)
+    params = {k: v.to(dev) for k, v in params.items()}
+    x = torch.randn(b, t, n, c, generator=gen).to(dev, dtype)
+    pe = torch.randn(b, t, d, generator=gen).to(dev)
+    pad = torch.zeros(b, t, dtype=torch.bool)
+    pad[0, t - 3:] = True
+    pad = pad.to(dev)
+    valid = (~pad).float()[:, :, None]
+    ts = ((1 + 0.2 * torch.randn(b, t, c, generator=gen)).to(dev) * valid,
+          (0.1 * torch.randn(b, t, c, generator=gen)).to(dev) * valid) if tail else None
+    assert tk.kernel_route(t, c, d, g, d_out, nq) == "general"
+    before = tk.ltae_fused_forward.route_launches["general"]
+    got, got_attn = tk.ltae_fused_forward(x, pe, pad, params, n_head=g, d_k=4,
+                                          need_attn=attn, tail_affine=ts)
+    assert tk.ltae_fused_forward.route_launches["general"] == before + 1
+    want, want_attn = tk.ltae_fused_forward_reference(
+        x.float(), pe, pad, params, n_head=g, d_k=4, tail_affine=ts)
+    torch.cuda.synchronize()
+    tol = 5e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    if attn:
+        torch.testing.assert_close(got_attn, want_attn, rtol=1e-4, atol=1e-4)
+    else:
+        assert got_attn is None
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
 def test_cuda_ltae_past_the_kernels_limits_raises_on_the_card(train, monkeypatch):
-    """LTAE at T = 70 (past the kernels' T <= 64) on the card, in eval and in
-    training without the attention output: the kernel route (the default
-    for a CUDA tensor) raises before any launch, where the JAX L-TAE would
-    run its Pallas kernel; the plain route (fused=False) runs on the card and
-    agrees with the same module on the CPU (TF32 off) within 1e-3, the
-    module tolerance of ``chip_smoke.py`` at this width: the out
-    GroupNorm's groups of 4 channels amplify the two devices' orders of
-    sums (3.1e-4 measured in eval)."""
+    """LTAE at T = 70 (past the fast kernels' T <= 64) on the card, in eval
+    and in training without the attention output: the kernel route (the
+    default for a CUDA tensor) no longer raises, as the JAX L-TAE runs its
+    Pallas kernel there: it launches the general kernel once (eval) or the
+    general pair (training, forward and backward) and agrees with the plain
+    route on the card, and the plain route (fused=False) agrees with the
+    same module on the CPU (TF32 off); both within 1e-3, the module
+    tolerance of ``chip_smoke.py`` at this width: the out GroupNorm's groups
+    of 4 channels amplify the orders of sums (3.1e-4 measured in eval)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
@@ -270,14 +334,24 @@ def test_cuda_ltae_past_the_kernels_limits_raises_on_the_card(train, monkeypatch
     dates = (torch.arange(70.0) * 5)[None].expand(2, -1).to(dev)
     pad = torch.zeros(2, 70, dtype=torch.bool, device=dev)
     pad[1, 60:] = True
-    before = (tk.ltae_fused_forward.launches, lp.ltae_pool.launches_fwd)
+    before = (tk.ltae_fused_forward.route_launches["general"],
+              dict(lp.ltae_pool.launches))
+    x.requires_grad_(train)
+    got, _ = m(x, dates, pad, need_attn=not train)
+    if train:
+        got.square().sum().backward()
+    launched = {k: v - before[1].get(k, 0) for k, v in lp.ltae_pool.launches.items()
+                if v != before[1].get(k, 0)}
+    if train:
+        assert launched == {lp.variant(False, torch.float32, k, general=True): 1
+                            for k in ("fwd", "bwd")}
+    else:
+        assert tk.ltae_fused_forward.route_launches["general"] == before[0] + 1
     with torch.no_grad():
-        with pytest.raises(ValueError, match="does not take T=70"):
-            m(x, dates, pad, need_attn=not train)
-        assert (tk.ltae_fused_forward.launches, lp.ltae_pool.launches_fwd) == before
         out, _ = m(x, dates, pad, need_attn=not train, fused=False)
         want, _ = m.cpu()(x.cpu(), dates.cpu(), pad.cpu(), need_attn=not train)
     assert out.is_cuda
+    torch.testing.assert_close(got.detach(), out, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(out.cpu(), want, rtol=1e-3, atol=1e-3)
 
 
@@ -312,20 +386,29 @@ def test_cuda_timeunet_pad_value_keeps_the_tail_on_the_card(train):
 
 @pytest.mark.cuda
 def test_cuda_kernel_rejects_unsupported_widths():
-    """C = 160 (past the kernel's 128), and D = 272 (past the row-group
-    kernel's 256 at C <= 64 with one query) raise on the card; neither is
-    sent to the plain version, and the C entry refuses D = 272 too."""
+    """C = 160 (past the row-group kernels' 128) and D = 272 (past their
+    256) go to the general kernel on the card, not to the plain version;
+    the C entry refuses D = 272 on the row-group route, and a shape where G
+    does not divide C raises before any launch. The stage kernel still
+    refuses C = 160."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     params = {k: v.to(dev) for k, v in _random_params(160, 64, 16, 16, gen).items()}
     x = torch.zeros(1, 5, 8, 160, device=dev)
-    before = tk.ltae_fused_forward.launches
-    with pytest.raises(ValueError, match="unsupported shape"):
-        tk.ltae_fused_forward(x, torch.zeros(1, 5, 64, device=dev),
+    before = tk.ltae_fused_forward.route_launches["general"]
+    tk.ltae_fused_forward(x, torch.zeros(1, 5, 64, device=dev),
+                          torch.zeros(1, 5, dtype=torch.bool, device=dev), params, n_head=16)
+    assert tk.ltae_fused_forward.route_launches["general"] == before + 1
+    before, before_general = (tk.ltae_fused_forward.launches,
+                              tk.ltae_fused_forward.route_launches["general"])
+    with pytest.raises(ValueError, match="G must divide"):
+        tk.ltae_fused_forward(x[..., :150].contiguous(), torch.zeros(1, 5, 64, device=dev),
                               torch.zeros(1, 5, dtype=torch.bool, device=dev),
-                              params, n_head=16)
+                              {**params, "win": params["win"][:150],
+                               "in_scale": params["in_scale"][:150],
+                               "in_bias": params["in_bias"][:150]}, n_head=16)
     with pytest.raises(ValueError, match="unsupported shape"):
         ls.ltae_stages(x, torch.zeros(1, 5, 64, device=dev),
                        torch.zeros(1, 1, 5, device=dev), torch.zeros(160, 64, device=dev),
@@ -334,16 +417,18 @@ def test_cuda_kernel_rejects_unsupported_widths():
     params = {k: v.to(dev) for k, v in _random_params(64, 272, 16, 64, gen).items()}
     x = torch.zeros(1, 5, 8, 64, device=dev)
     with pytest.raises(ValueError, match="D<=256"):
-        tk.ltae_fused_forward(x, torch.zeros(1, 5, 272, device=dev),
-                              torch.zeros(1, 5, dtype=torch.bool, device=dev),
-                              params, n_head=16)
+        tk.launch_shape(1, 5, 64, 272, 16, 64, 1, 132)
     out = torch.empty(1, 8, 64, device=dev)
     big = torch.zeros(272 * 272, device=dev)
-    rc = tk._kernel()(x.data_ptr(), 0, *[big.data_ptr()] * 9, None, None,
-                      out.data_ptr(), None, 1, 5, 8, 64, 272, 16, 64, 1, 1, 1e-5,
-                      torch.cuda.current_stream().cuda_stream)
+    rc = tk._kernel()[0](x.data_ptr(), 0, *[big.data_ptr()] * 9, None, None,
+                         out.data_ptr(), None, 1, 5, 8, 64, 272, 16, 64, 1,
+                         tk.ROUTES.index("group"), 1, None, 1e-5,
+                         torch.cuda.current_stream().cuda_stream)
     assert rc != 0
     assert tk.ltae_fused_forward.launches == before
+    tk.ltae_fused_forward(x, torch.zeros(1, 5, 272, device=dev),
+                          torch.zeros(1, 5, dtype=torch.bool, device=dev), params, n_head=16)
+    assert tk.ltae_fused_forward.route_launches["general"] == before_general + 1
 
 
 @pytest.mark.cuda
@@ -450,10 +535,76 @@ def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tail", [False, True], ids=["untailed", "tail"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,n,c,d,g", [(2, 70, 301, 64, 256, 16),
+                                         (1, 128, 100, 64, 256, 16),
+                                         (2, 35, 40, 72, 64, 8),
+                                         (1, 20, 33, 64, 256, 32),
+                                         (2, 61, 30, 64, 272, 16),
+                                         (1, 9, 50, 12, 24, 4),
+                                         (1, 1200, 3, 16, 32, 16),
+                                         (140, 66, 3, 16, 32, 4)],
+                         ids=["timeunet-t70", "t128", "c-72", "g-32", "d-272", "c-12",
+                              "scratch", "b-above-sms"])
+def test_cuda_ltae_pool_general_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
+                                                            dtype, tail):
+    """The general training pair (every shape the fast pair does not take)
+    against the plain version under autograd on the card, as
+    ``test_cuda_ltae_pool_kernels_match_plain_version`` holds the fast pair:
+    T past 64 (70, 128 and 1200, where the backward's workspace lies in
+    device memory), C = 72 and C = 12, G = 32, D = 272, more batch items
+    than SMs; one general forward and one general backward launch; o and
+    every gradient within the same tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5)
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+    x, pe = r(b, t, n, c).to(dtype), r(b, t, d)
+    go = r(b, n, d).to(dtype).float()                # exact in x's dtype
+    params = (r(c, d, scale=c ** -0.5), r(d, scale=0.1), r(d, g, scale=0.2),
+              r(1, g, scale=0.1))
+    pad = torch.zeros(b, t, dtype=torch.bool, device=dev)
+    pad[0, t - 3:] = True
+    valid = (~pad).float()[:, :, None]
+    ts = (((1 + r(b, t, c, scale=0.2)) * valid, r(b, t, c, scale=0.1) * valid)
+          if tail else ())
+    assert not lp.kernel_takes(t, c, d, g)
+    kernel = lp.ltae_pool_tail if tail else lp.ltae_pool
+    plain = lp.ltae_pool_tail_reference if tail else lp.ltae_pool_reference
+    res = []
+    for fn, xin in ((kernel, x), (plain, x.float())):
+        leaves = [a.clone().requires_grad_(True) for a in (xin,) + ts + (pe,) + params]
+        before = dict(lp.ltae_pool.launches)
+        o = fn(*leaves[:1 + len(ts)], leaves[1 + len(ts)], pad, *leaves[2 + len(ts):],
+               7, n_head=g, drop_p=drop_p)
+        res.append([o.float()] + [a.float() for a in
+                                  torch.autograd.grad(o, leaves, go.to(o.dtype))])
+        launched = {k: v - before.get(k, 0) for k, v in lp.ltae_pool.launches.items()
+                    if v != before.get(k, 0)}
+        names = [lp.variant(tail, dtype, k, general=True) for k in ("fwd", "bwd")]
+        assert launched == ({k: 1 for k in names} if fn is kernel else {})
+    torch.cuda.synchronize()
+    got, want = res
+    names = (("o", "dx") + (("dtsc", "dtsh") if tail else ())
+             + ("dpe", "dwin_f", "dbin_f", "du", "dcs"))
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for i, name in enumerate(names):
+        scale = want[names.index("du" if name == "dcs" else name)].abs().max().item()
+        err = (got[i] - want[i]).abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
 def test_cuda_ltae_pool_rejects_unsupported_widths():
-    """D = 272 at C = 64 (past the forward kernel's 256, a thread per (d,
-    half) of its projection) raises in the wrapper, is not sent to the plain
-    version, and the C entry refuses it too."""
+    """D = 272 at C = 64 (past the fast forward kernel's 256, a thread per
+    (d, half) of its projection) goes to the general pair, not to the plain
+    version; the fast C entry refuses it, and a G that does not divide C
+    raises in the wrapper before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -464,10 +615,16 @@ def test_cuda_ltae_pool_rejects_unsupported_widths():
               torch.zeros(d, g, device=dev), torch.zeros(1, g, device=dev))
     ts = (torch.ones(b, t, c, device=dev), torch.zeros(b, t, c, device=dev))
     before = dict(lp.ltae_pool.launches)
+    lp.ltae_pool(x, pe, pad, *params, n_head=g)
+    lp.ltae_pool_tail(x, *ts, pe, pad, *params, n_head=g)
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in lp.ltae_pool.launches.items()
+                if v != before.get(k, 0)}
+    assert launched == {lp.variant(tail, torch.float32, "fwd", general=True): 1
+                        for tail in (False, True)}
+    before = dict(lp.ltae_pool.launches)
     with pytest.raises(ValueError, match="unsupported shape"):
-        lp.ltae_pool(x, pe, pad, *params, n_head=g)
-    with pytest.raises(ValueError, match="unsupported shape"):
-        lp.ltae_pool_tail(x, *ts, pe, pad, *params, n_head=g)
+        lp.ltae_pool(x[..., :60].contiguous(), pe, pad, params[0][:60], *params[1:], n_head=g)
     o = torch.empty(b, n, d, device=dev)
     big = torch.zeros(t * d + c * d, device=dev)
     for tsc, tsh in ((None, None), (ts[0].data_ptr(), ts[1].data_ptr())):
@@ -481,16 +638,18 @@ def test_cuda_ltae_pool_rejects_unsupported_widths():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [61, 70], ids=["fast", "general"])
 @pytest.mark.parametrize("tail", [False, True], ids=["untailed", "tail"])
-def test_cuda_ltae_pool_backward_is_reproducible(tail):
-    """The backward kernel adds its blocks' partial sums in a fixed order, so
-    two backward calls on the same inputs give the same gradients bit for
-    bit, the weight gradients too."""
+def test_cuda_ltae_pool_backward_is_reproducible(tail, t):
+    """The backward kernels (the fast one at T = 61, the general one at T =
+    70) add their blocks' partial sums in a fixed order, so two backward
+    calls on the same inputs give the same gradients bit for bit, the
+    weight gradients too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
-    b, t, n, c, d, g = 2, 61, 3000, 64, 256, 16
+    b, n, c, d, g = 2, 3000, 64, 256, 16
 
     def r(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen)).to(dev)

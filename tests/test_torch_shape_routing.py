@@ -1,14 +1,17 @@
 """crop2seg_tpu_torch's L-TAE routes against the JAX package: the port takes
-the plain ops where the JAX package takes XLA, and a kernel route raises on a
-shape its kernel does not take, where the JAX package would run its kernel.
+the plain ops where the JAX package takes XLA, and its kernel route where the
+JAX package runs its kernel, at any T (past the fast kernels' limits the
+general kernels serve it).
 
 - U-TAE trains its L-TAE on plain ops whatever ``fused`` says, as the JAX
   U-TAE (no ``use_pallas_train``) does: with ``agg_mode="mean"`` at its
   bottleneck's C = 128 it takes ``ltae_pool``'s plain version, never the
   kernel pair (which stops at C = 64).
-- LTAE and TimeUNet at T = 70, past the kernels' T <= 64: the plain route
-  (the default for a CPU tensor) matches the JAX modules; ``fused=True``
-  raises ValueError before any kernel wrapper is called.
+- LTAE and TimeUNet at T = 70, past the fast kernels' T <= 64: the kernel
+  route takes the shape (``LTAE.kernel_takes``, the general kernels; also at
+  T = 65, 128, 190, G = 32 and C = 192), ``fused=True`` calls the kernel
+  wrapper, and the plain route (the default for a CPU tensor) matches the
+  JAX modules.
 - TimeUNet with ``pad_value=1.5`` and ``fused=True`` leaves the tail
   undeferred (the deferred tail folds pads in as zeros).
 
@@ -16,7 +19,7 @@ Each is held against the JAX module on the same converted weights and the
 same numpy inputs, the JAX package's XLA route, dropout zeroed on both sides
 (tests/test_torch_train.py's swap of the ``LTAE`` name). On the CPU the
 kernel wrappers run their plain versions, so the tests make the wrappers
-raise to show that no kernel route was taken. Tolerances: tests/
+raise to show which route was taken. Tolerances: tests/
 test_torch_train.py's (5e-4 on values and running statistics, 1e-3 of each
 gradient's norm; whole models 1e-3), and 1e-5 on attention weights.
 """
@@ -41,7 +44,7 @@ from tests.test_torch_train import TOL, _assert_grads, _assert_model_grads, _np,
 
 MODEL_TOL = dict(rtol=1e-3, atol=1e-3)
 ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
-T_LONG = 70                      # past the kernels' T <= 64
+T_LONG = 70                      # past the fast kernels' T <= 64
 UTAE_KW = dict(input_dim=6, encoder_widths=(8, 128), decoder_widths=(8, 128),
                out_conv=(8, 5), n_head=4, d_model=32, d_k=4, agg_mode="mean")
 TIMEUNET_KW = dict(input_dim=6, encoder_widths=(8, 8, 16), decoder_widths=(4, 8, 16),
@@ -161,15 +164,31 @@ def ltae_case():
                 attn=np.asarray(attn), train=_jax_train(m, v, x, dates, pad))
 
 
+def _assert_kernel_route_takes_long_t(m):
+    """The module's kernel route in its mode takes T = 65, 70, 128 and 190
+    on the general kernel (``LTAE.kernel_takes``, ``kernel_route``), as it
+    does G = 32 and C = 192, past the fast kernels' G <= 16 and C <= 128."""
+    for t in (65, 70, 128, 190):
+        assert m.kernel_takes(t, LTAE_KW["in_channels"])
+        assert m.kernel_route(t, LTAE_KW["in_channels"]) == "general"
+    for kw in (dict(in_channels=64, n_head=32, d_k=4, mlp=(64, 32), d_model=64),
+               dict(in_channels=192, n_head=16, d_k=4, mlp=(256, 192), d_model=256)):
+        wide = LTAE(**kw).train(m.training)
+        assert wide.kernel_takes(61, kw["in_channels"])
+        assert wide.kernel_route(61, kw["in_channels"]) == "general"
+
+
 def test_ltae_past_the_kernels_t_runs_its_plain_ops_in_eval(ltae_case, no_kernel_route):
-    """LTAE at T = 70 in eval, past the eval kernel's T <= 64: the plain ops
-    (the default on the CPU) run with no wrapper called, and out and
-    attention match the JAX L-TAE; fused=True raises before any wrapper."""
+    """LTAE at T = 70 in eval, past the fast eval kernels' T <= 64: the
+    kernel route takes it (the general kernel; fused=True calls the eval
+    wrapper, which raises here), and the plain ops (the default on the CPU)
+    run with no wrapper called, out and attention matching the JAX L-TAE."""
     c = ltae_case
     m = LTAE(**LTAE_KW).eval()
     m.load_state_dict(convert.ltae_state_dict_from_flax(c["v"]))
+    _assert_kernel_route_takes_long_t(m)
     with torch.inference_mode():
-        with pytest.raises(ValueError, match="eval kernel does not take T=70"):
+        with pytest.raises(AssertionError, match="a kernel wrapper was called"):
             m(_t(c["x"]), _t(c["dates"]), _t(c["pad"]), fused=True)
         out, attn = m(_t(c["x"]), _t(c["dates"]), _t(c["pad"]))
     np.testing.assert_allclose(out.numpy(), c["out"], **MODEL_TOL)
@@ -178,14 +197,16 @@ def test_ltae_past_the_kernels_t_runs_its_plain_ops_in_eval(ltae_case, no_kernel
 
 def test_ltae_past_the_kernels_t_trains_on_the_plain_pool(ltae_case, no_kernel_route):
     """LTAE at T = 70 in training without the attention output, past the
-    kernel pair's T <= 64: ltae_pool's plain version (the default on the
-    CPU) runs with no wrapper called; out, every gradient and the updated
-    statistics match the JAX L-TAE in training mode. fused=True raises
-    before any wrapper."""
+    fast kernel pair's T <= 64: the kernel route takes it (the general
+    pair; fused=True calls the ltae_pool wrapper, which raises here), and
+    ltae_pool's plain version (the default on the CPU) runs with no wrapper
+    called; out, every gradient and the updated statistics match the JAX
+    L-TAE in training mode."""
     c = ltae_case
     m = LTAE(**LTAE_KW)
     m.load_state_dict(convert.ltae_state_dict_from_flax(c["v"]))
-    with pytest.raises(ValueError, match="training kernel does not take T=70"):
+    _assert_kernel_route_takes_long_t(m.train())
+    with pytest.raises(AssertionError, match="a kernel wrapper was called"):
         _port_train(m, c["x"], c["dates"], c["pad"], True, need_attn=False)
     got = _port_train(m, c["x"], c["dates"], c["pad"], None, need_attn=False)
     want = c["train"]
@@ -199,10 +220,10 @@ def test_ltae_past_the_kernels_t_trains_on_the_plain_pool(ltae_case, no_kernel_r
 
 
 def test_timeunet_past_the_kernels_t_runs_plain(no_kernel_route):
-    """TimeUNet at T = 70 in eval, past the kernels' T <= 64: the plain
-    route (the default on the CPU) runs with no wrapper called, and the
-    logits match the JAX TimeUNet's; fused=True raises before any
-    wrapper."""
+    """TimeUNet at T = 70 in eval, past the fast kernels' T <= 64: its
+    L-TAE's kernel route takes it (fused=True calls the eval wrapper, which
+    raises here), and the plain route (the default on the CPU) runs with no
+    wrapper called, the logits matching the JAX TimeUNet's."""
     x, dates, pad = _batch(2, T_LONG, 8, 6, T_LONG - 9, seed=2)
     m = jtimeunet.TimeUNet(**TIMEUNET_KW)
     v = _np(jax.jit(lambda x: m.init(jax.random.PRNGKey(0), x, dates, pad_mask=pad,
@@ -211,8 +232,10 @@ def test_timeunet_past_the_kernels_t_runs_plain(no_kernel_route):
                                                    train=False))(v, x))
     model = TimeUNet(**TIMEUNET_KW).eval()
     model.load_state_dict(convert.timeunet_state_dict_from_flax(v))
+    assert model.temporal_encoder.kernel_route(T_LONG, TIMEUNET_KW["encoder_widths"][0]) \
+        == "general"
     with torch.inference_mode():
-        with pytest.raises(ValueError, match="does not take T=70"):
+        with pytest.raises(AssertionError, match="a kernel wrapper was called"):
             model(_t(x), _t(dates), _t(pad), fused=True)
         got = model(_t(x), _t(dates), _t(pad))
     np.testing.assert_allclose(got.numpy(), want, **MODEL_TOL)
