@@ -88,10 +88,15 @@
    POOL_TOL_BF16, one general forward and backward each; a TimeUNet train
    step at T=70, B=2 (4 steps, finite falling loss, exactly one general
    forward and one general backward a step); the U-TAE entry forward at
-   T=70 (one general launch); TimeUNet with pad_value=1.5 (in_conv's tail
-   not deferred) in eval and in a train-mode forward: one launch of the
-   eval kernel or of the untailed training forward, logits within 1e-3 of
-   the plain L-TAE's.
+   T=70 (one general launch); a TimeUNet tile of a year of 5-day revisits
+   (73, 1098, 1098, 10) through make_tile_predictor at batch 10 in bf16 and
+   fp32, timed (patches/s): exactly 10 general launches each, proba finite
+   and summing to 1, then the general kernel at the tile's shape (B=10,
+   T=73, the tail) against its plain version with TOL; two general backwards on the same inputs (tail mode,
+   T=128, fp32 and bf16): every gradient bit for bit the same; TimeUNet
+   with pad_value=1.5 (in_conv's tail not deferred) in eval and in a
+   train-mode forward: one launch of the eval kernel or of the untailed
+   training forward, logits within 1e-3 of the plain L-TAE's.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -1176,6 +1181,84 @@ def pool_case(label: str, model, tail: bool, dtype, t: int, gen, dev, drop_p: fl
     return worst
 
 
+T_YEAR = 73   # a year of Sentinel-2 dates at the 5-day revisit: past the fast kernels' 64
+
+
+def phase_tile_year(model, dev):
+    """One (73, 1098, 1098, 10) tile, every date valid, through
+    make_tile_predictor at batch 10 in bf16 and fp32 (a warm-up run, then the
+    timed one, the general kernel's counts set to 0 just before it): exactly
+    10 launches of the general kernel, proba finite and summing to 1. Then
+    the general kernel at the tile's shape (B = 10, T = 73, TimeUNet's
+    width, the tail affine, no attention; every other sample padded from
+    T - 6) against its plain version on the same inputs, within TOL, its
+    count set to 0 just before (one launch). Returns ({dtype: (patches/s,
+    launches)}, {dtype: max |err| of out})."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    tile = torch.randn(T_YEAR, 1098, 1098, 10, generator=gen, device=dev)
+    dates = np.arange(T_YEAR, dtype=np.float32) * 5 + 3
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        predict = make_tile_predictor(model, batch_size=MAIN_B, dtype=dtype)
+        predict(tile, dates, T_YEAR)                            # warm-up
+        torch.cuda.synchronize()
+        lf.ltae_fused_forward.route_launches.clear()            # this path's count
+        start = time.perf_counter()
+        res = predict(tile, dates, T_YEAR)
+        secs = time.perf_counter() - start
+        routes = dict(lf.ltae_fused_forward.route_launches)
+        p = res["proba"]
+        s_err = float(np.abs(p.sum(-1) - 1).max())
+        print(f"tile T={T_YEAR} {str(dtype)[6:]}: {secs:.3f} s, {100 / secs:.2f} patches/s, "
+              f"launches {routes}, proba sums off by {s_err:.2e}", flush=True)
+        check(routes == {"general": 10}, f"T={T_YEAR} tile launched {routes}, not the general "
+              f"kernel 10 times")
+        check(p.shape == (1098, 1098, N_CLASSES) and bool(np.isfinite(p).all()),
+              f"T={T_YEAR} {dtype} tile: proba shape or non-finite")
+        check(s_err < 1e-4, f"T={T_YEAR} {dtype} tile: proba sums off by {s_err}")
+        out[dtype] = (100 / secs, routes["general"])
+    del tile
+    torch.cuda.empty_cache()
+
+    errs = {}
+    x, pe, pad, params, tail = ltae_inputs(model, MAIN_B, gen, dev, t=T_YEAR)
+    for dtype in (torch.bfloat16, torch.float32):
+        lf.ltae_fused_forward.route_launches.clear()            # this check's count
+        errs[dtype] = check_kernel(
+            f"ltae_fused_general_kernel {str(dtype)[6:]} B={MAIN_B} T={T_YEAR} N={HW} "
+            f"C={C} (the tile's shape)", x.to(dtype), pe, pad, params, False, tail)
+        routes = dict(lf.ltae_fused_forward.route_launches)
+        check(routes == {"general": 1}, f"T={T_YEAR} check launched {routes}, not the "
+              f"general kernel once")
+    del x, pe, pad, tail
+    torch.cuda.empty_cache()
+    return out, errs
+
+
+def general_bwd_reproducible(model, gen, dev):
+    """Two general backwards (tail mode, drop_p 0.1, T = 128, B = 2) on the
+    same inputs give the same dx, dtsc, dtsh and the gradients formed from
+    the reduced sums (dpe, dW_f, db_f, du, dcs) bit for bit, per dtype:
+    the blocks' partial sums are added in a fixed order."""
+    x, ts, pe, pad, params = pool_inputs(model, 2, gen, dev, t=T_GENERAL)
+    go = torch.randn(2, HW, D, generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = pool_leaves(True, x.to(dtype), ts, pe, params)
+        o = pool_apply(True, False, leaves, pad, 21, 0.1)
+        god = go.to(o.dtype)
+        first = torch.autograd.grad(o, leaves, god, retain_graph=True)
+        again = torch.autograd.grad(o, leaves, god)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        print(f"ltae_pool_tail_bwd{'_bf16' if dtype == torch.bfloat16 else ''}_general "
+              f"T={T_GENERAL}: two backwards bit-identical in dx, dtsc, dtsh, dpe, dW_f, "
+              f"db_f, du, dcs: {same}", flush=True)
+        check(same, f"the general backward ({dtype}) is not reproducible")
+        del leaves, o, first, again
+    torch.cuda.empty_cache()
+    return True
+
+
 def phase_routing(models: dict, dev):
     """Shapes past the fast kernels' limits on the kernel route (the default
     on the card) take the general kernels, as the JAX package runs its
@@ -1250,6 +1333,14 @@ def phase_routing(models: dict, dev):
     check(routes == {"general": 1}, f"utae T=70 entry forward launched {routes}")
     launches["ltae_fused_fwd_general"] += 1
     del x, logits
+    torch.cuda.empty_cache()
+
+    # a year of 5-day revisits: the TimeUNet tile at T = 73, ten general launches
+    year, year_errs = phase_tile_year(timeunet, dev)
+    launches["ltae_fused_fwd_general"] += sum(n for _, n in year.values())
+    for dtype, err in year_errs.items():
+        errs[("eval", dtype)] = max(errs[("eval", dtype)], err)
+    reproducible = general_bwd_reproducible(timeunet, gen, dev)
 
     model = get_model({"model": "timeunet", "pad_value": 1.5}, device=dev,
                       generator=torch.Generator().manual_seed(0))
@@ -1276,7 +1367,10 @@ def phase_routing(models: dict, dev):
               f"TimeUNet pad_value=1.5 {label}: launches {n}, expected one {expect}")
         check(pad_errs[train] <= 1e-3, f"TimeUNet pad_value=1.5 {label}: {pad_errs[train]}")
     return dict(launches), dict(errs), {"losses": losses, "warm_ms": warm_ms[0],
-                                        "peak_gib": peak}, pad_errs
+                                        "peak_gib": peak}, pad_errs, {
+        "tile_t73_patches_per_s": year[torch.bfloat16][0],
+        "tile_t73_patches_per_s_fp32": year[torch.float32][0],
+        "bwd_general_reproducible": reproducible}
 
 
 T_GENERAL = 128   # the general kernels' timing shape: T past the fast kernels' 64
@@ -1390,11 +1484,13 @@ def main() -> int:
                 (("wide", dtype), fused_ptxas, f"ltae_fused_wide_kernelI{tin}E"),
                 (("queries", dtype, 4), fused_ptxas, f"ltae_fused_queries_kernelI{tin}Li4E"),
                 (("queries", dtype, 2), fused_ptxas, f"ltae_fused_queries_kernelI{tin}Li2E"),
-                (("general", dtype), fused_ptxas, f"ltae_fused_general_kernelI{tin}E"),
+                # the general kernels' instantiations with the workspace
+                # in shared memory (Smem = true), those the timing runs
+                (("general", dtype), fused_ptxas, f"ltae_fused_general_kernelI{tin}Lb1E"),
                 (("pool_fwd_general", dtype), pool_ptxas,
                  f"ltae_pool_fwd_general_kernelI{tin}Lb1E"),
                 (("pool_bwd_general", dtype), pool_ptxas,
-                 f"ltae_pool_bwd_general_kernelI{tin}Lb1E")):
+                 f"ltae_pool_bwd_general_kernelI{tin}Lb1ELb1E")):
             found = [v for k, v in lib.items() if mangled in k]
             check(len(found) == 1, f"ptxas reported no {mangled}")
             ptx[key] = found[0]
@@ -1426,7 +1522,7 @@ def main() -> int:
     q_errs, q_t, q_launches = phase_kernel_queries(models, dev)
     gen_t = phase_general_timing(models, dev)
     torch.cuda.empty_cache()
-    gen_launches, gen_errs, gen_train, pad_value_errs = phase_routing(models, dev)
+    gen_launches, gen_errs, gen_train, pad_value_errs, year = phase_routing(models, dev)
     del utae, timeunet, models
     torch.cuda.empty_cache()
     utae_runs, remat_worst = phase_utae_train(dev)
@@ -1564,7 +1660,13 @@ def main() -> int:
             "bound_by_fp32": b_by32,
             "registers": ptx[(key, torch.bfloat16)][0],
             "spill_store_bytes": ptx[(key, torch.bfloat16)][1],
+            "registers_fp32": ptx[(key, torch.float32)][0],
+            "spill_store_bytes_fp32": ptx[(key, torch.float32)][1],
         })
+    general[0].update(tile_t73_patches_per_s=year["tile_t73_patches_per_s"],
+                      tile_t73_patches_per_s_fp32=year["tile_t73_patches_per_s_fp32"])
+    general[2].update(reproducible=year["bwd_general_reproducible"],
+                      train_step_t70_ms=gen_train["warm_ms"])
     print("utae_train " + json.dumps({"runs": utae_runs,
                                       "remat_grad_worst_ratio": remat_worst}),
           flush=True)

@@ -122,20 +122,34 @@
 //   GroupNorm; tsc[b] and tsh[b] are read from L2.
 //
 // ltae_fused_general_kernel<Tin>: every other shape (T > 64 above all: a
-// year of Sentinel-2 dates at the 5-day revisit is 73), written to be right
-// at any size rather than fast. One block of 256 threads takes one row at a
-// time, S blocks per batch item; x is read from device memory in three
-// passes over T (the GroupNorm's sums, its centred squares, then chunks of
-// 32 steps for the scores), with an online softmax: a running max and sum
-// per (head, query) column, P and the PE term rescaled as chunks arrive (the
-// JAX package's chunked path, crop2seg_tpu/nn/ltae.py:354-458, has the same
-// math). The attention is written as raw scores and normalized in a last
-// pass. Its per-row workspace lives in shared memory where it fits, else in
-// a scratch buffer in device memory (ltae_fused_general_scratch_floats).
-// Scalar loads, so any C. Latency bounds it, not bytes or operations: each
-// row's steps are chains of dependent loads between block barriers, and x
-// is read three times; four resident blocks an SM (kGenBlocksPerSm) and
-// unrolled inner loops hide part of it. PERF.md, section 6, has its time.
+// year of Sentinel-2 dates at the 5-day revisit is 73). Its first design, one
+// 256-thread block per row at a time, x read three times from device memory
+// and the weights once per row from L2, took ~15.8 ms at T = 128, B = 4,
+// TimeUNet's width, latency-bound. This design is the row-group kernels'
+// with T tiled:
+// - persistent 512-thread blocks, one an SM, each walking its rows in groups
+//   of R <= 4 from the plan (ge_plan: the group's x resident in shared
+//   memory where that fits at some R, else streamed; with the attention out,
+//   every score of the group on chip where that fits; then the most rows;
+//   then W_in and W_m in shared memory where they fit beside), Ws in shared
+//   memory once per block, W_in, W_m and pe[b] otherwise from L2 once per
+//   group, each element serving the group's rows;
+// - x arrives in chunks of 32 steps by 16-byte cp.async behind the compute:
+//   with the group's x resident, the GroupNorm's two passes and the chunk
+//   pass read it from shared memory, else the chunks stream through two
+//   slots;
+// - an online softmax per (row, head, query) column (a warp per column, a
+//   lane per step of the chunk): a running max and sum, P and the PE term
+//   rescaled as chunks arrive (the JAX package's chunked path,
+//   crop2seg_tpu/nn/ltae.py:354-458, has the same math); the attention is
+//   written once, normalized, from the scores on chip, or written raw and
+//   normalized last where they do not fit;
+// - register tiles: a thread takes four columns of a (row, step) for the
+//   scores and of a (row, channel) for P; the projection and the MLP split
+//   their sums over parts of C and D, added in a fixed order.
+// Where even R = 1 does not fit, the workspace is a scratch buffer in device
+// memory (ltae_fused_general_scratch_floats). PERF.md, section 6, has its
+// time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -167,9 +181,11 @@ constexpr int kQueriesNarrowRows = 4;   // rows per group at C <= 64
 constexpr int kQueriesWideRows = 2;     // rows per group at 64 < C <= 128
 constexpr int kQueriesParts = 8;        // GroupNorm: parts of T, 8 steps each
 // every other shape (ltae_fused_general_kernel)
-constexpr int kGenThreads = 256;
-constexpr int kGenBlocksPerSm = 4;     // resident blocks an SM (latency)
-constexpr int kGenChunk = 32;           // steps of normalized x on chip at a time
+constexpr int kGeThreads = 512;    // 16 warps, one block an SM
+constexpr int kGeMaxRows = 4;      // rows a group at most
+constexpr int kGeMaxParts = 8;     // split sums: parts of a product's inner dimension
+constexpr int kLoads = 8;          // device-memory loads in flight a thread
+constexpr int kGenChunk = 32;      // steps of x on chip at a time
 
 struct Args {
   const void* x;
@@ -1550,114 +1566,132 @@ cudaError_t launch_queries(const Args& a, int S, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---- every other shape: one row at a time, x streamed over T --------------
+// ---- every other shape: persistent row groups, x streamed over T -----------
 
-// The general kernel's workspace per block, in floats: in shared memory
-// where it fits, else the block's slice of a scratch buffer in device
-// memory. Per channel the GroupNorm's mean and 1/std and the partial sums of
-// channel_sums; a chunk of normalized x (TC, C) and its scores (TC, G*nq);
-// per (head, query) column the running max, sum and this chunk's rescale,
-// P (G*nq, C); per (query, d) the PE term and o; m (nq, d_out); the out
-// GroupNorm's mean and 1/std per head.
-struct GenLayout {
-  int tc;
-  int mean, inv, red, xc, e, mx, sum, scl, p, epe, o, m, gst;
+// Shared memory of the general block, in floats; regions start on 16 bytes.
+// R rows a group; the raw x of a chunk of TC steps, (TC, R, C) in x's type as
+// in device memory, fills one slot (all chunks of the group stay with
+// `resident`, else two slots take turns); xh holds a chunk's normalized x (R,
+// TC, C | 1: an odd row stride, so lanes on consecutive steps hit distinct
+// banks) and e its scores, then exp weights (R, TC, GP | 4: columns rounded
+// up to 4, the stride 4 more where that is a multiple of 8, so the softmax's
+// lanes on consecutive steps meet at most 4-way bank conflicts); with `sc`
+// every score of the group (R, GQ, T), so the attention is
+// written once, normalized; per (row, column) the running max and sum and
+// this chunk's rescale; P (R, GQ, C); per (row, query) the PE term and o (D)
+// and m (d_out); red the split sums of the GroupNorm statistics and of the
+// projection and MLP products; the in and out GroupNorms' statistics (R, 2,
+// G); Ws (C, GP + 4); with `win` / `wm` W_in (C, D) and W_m (D, d_out), read
+// from L2 otherwise.
+struct GeLayout {
+  int rows, tc, nch, slots, slot, gp, wp, cp, px, po, pm;
+  int resident, sc_on, win_on, wm_on;
+  int raw, xh, e, sc, mx, sum, scl, p, epe, o, m, red, st, gst, ws, win, wm;
   int floats;
 };
 
-__host__ __device__ inline GenLayout gen_layout(int T, int C, int D, int G, int DOUT,
-                                                int NQ) {
-  GenLayout L{};
+__host__ __device__ inline int ge_parts(int items) {
+  const int p = kGeThreads / (items > 0 ? items : 1);
+  return p < 1 ? 1 : p > kGeMaxParts ? kGeMaxParts : p;
+}
+
+__host__ __device__ inline GeLayout ge_layout(int T, int C, int D, int G, int DOUT, int NQ,
+                                              int elem_bytes, int R, bool resident, bool sc,
+                                              bool win, bool wm) {
+  GeLayout L{};
   int o = 0;
   auto take = [&](int n) { const int at = o; o += (n + 3) & ~3; return at; };
+  auto mx3 = [](int u, int v, int z) { return u > v ? (u > z ? u : z) : (v > z ? v : z); };
   const int GQ = G * NQ;
+  L.rows = R;
+  L.resident = resident;
+  L.sc_on = sc;
+  L.win_on = win;
+  L.wm_on = wm;
   L.tc = T < kGenChunk ? T : kGenChunk;
-  L.mean = take(C);
-  L.inv = take(C);
-  L.red = take(C > kGenThreads ? C : kGenThreads);
-  L.xc = take(L.tc * C);
-  L.e = take(L.tc * GQ);
-  L.mx = take(GQ);
-  L.sum = take(GQ);
-  L.scl = take(GQ);
-  L.p = take(GQ * C);
-  L.epe = take(NQ * D);
-  L.o = take(NQ * D);
-  L.m = take(NQ * DOUT);
-  L.gst = take(2 * G);
+  L.nch = (T + L.tc - 1) / L.tc;
+  L.slots = resident ? L.nch : 2;
+  L.slot = (L.tc * R * C * elem_bytes + 15) / 16 * 4;
+  L.gp = (GQ + 3) & ~3;
+  L.wp = L.gp + 4;
+  L.cp = C | 1;
+  L.px = ge_parts(C);
+  L.po = ge_parts(NQ * D);
+  L.pm = ge_parts(NQ * DOUT);
+  L.raw = take(L.slots * L.slot);
+  L.xh = take(R * L.tc * L.cp);
+  L.e = take(R * L.tc * (L.gp | 4));
+  L.sc = take(sc ? R * GQ * T : 0);
+  L.mx = take(R * L.gp);
+  L.sum = take(R * L.gp);
+  L.scl = take(R * L.gp);
+  L.p = take(R * GQ * C);
+  L.epe = take(R * NQ * D);
+  L.o = take(R * NQ * D);
+  L.m = take(R * NQ * DOUT);
+  L.red = take(mx3(L.px * R * C, L.po * R * NQ * D, L.pm * R * NQ * DOUT));
+  L.st = take(R * 2 * G);
+  L.gst = take(R * 2 * G);
+  L.ws = take(C * L.wp);
+  L.win = win ? take(C * D) : -1;
+  L.wm = wm ? take(D * DOUT) : -1;
   L.floats = o;
   return L;
 }
 
-__device__ __forceinline__ float ld_elem(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld_elem(const __nv_bfloat16* p) {
-  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+// The general kernel's plan: the group's x resident if that fits at some R,
+// else streamed; with the attention out, every score of the group on chip if
+// that fits; then the most rows a group, R = 4 .. 1; then W_in and W_m in
+// shared memory if they fit beside. Where nothing fits, R = 1 streamed in a
+// scratch buffer in device memory, weights from L2, the attention written raw
+// and normalized last. ops/ltae_fused.py::general_plan mirrors it.
+__host__ __device__ inline GeLayout ge_plan(int T, int C, int D, int G, int DOUT, int NQ,
+                                            int elem_bytes, bool need_attn) {
+  auto fits = [](const GeLayout& L) { return (size_t)L.floats * sizeof(float) <= kSmemLimit; };
+  for (int res = 1; res >= 0; --res)
+    for (int sc = need_attn ? 1 : 0; sc >= 0; --sc)
+      for (int R = kGeMaxRows; R >= 1; --R) {
+        GeLayout L = ge_layout(T, C, D, G, DOUT, NQ, elem_bytes, R, res, sc, false, false);
+        if (!fits(L)) continue;
+        GeLayout W = ge_layout(T, C, D, G, DOUT, NQ, elem_bytes, R, res, sc, true, false);
+        if (fits(W)) L = W;
+        W = ge_layout(T, C, D, G, DOUT, NQ, elem_bytes, R, res, sc, L.win_on, true);
+        return fits(W) ? W : L;
+      }
+  return ge_layout(T, C, D, G, DOUT, NQ, elem_bytes, 1, false, false, false, false);
 }
 
-// x[b, t, n, c] in fp32, with the tail affine max(x * tsc + tsh, 0) applied.
-template <typename Tin>
-__device__ __forceinline__ float load_x(const Args& a, int b, int t, int n, int c) {
-  const size_t bt = (size_t)b * a.T + t;
-  float v = ld_elem(static_cast<const Tin*>(a.x) + (bt * a.N + n) * a.C + c);
-  if (a.tsc != nullptr) v = fmaxf(fmaf(v, a.tsc[bt * a.C + c], a.tsh[bt * a.C + c]), 0.f);
-  return v;
-}
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// The sums over t < T of f(t, c) for every channel c < C, into red[c]:
-// thread (c, part) sums steps part, part + parts, ..., and the parts are
-// added in order. Every thread of the block calls it; red must be free (a
-// barrier after its last reads). Two barriers.
-template <typename F>
-__device__ void channel_sums(int T, int C, float* red, F f) {
-  const int tid = threadIdx.x;
-  if (C < kGenThreads) {
-    const int parts = kGenThreads / C, c = tid % C, part = tid / C;
-    if (part < parts) {
-      float s = 0.f;
-#pragma unroll 4
-      for (int t = part; t < T; t += parts) s += f(t, c);
-      red[part * C + c] = s;
-    }
-    __syncthreads();
-    if (tid < C) {   // thread c alone reads slots (k, c) and writes (0, c)
-      float s = 0.f;
-      for (int k = 0; k < parts; ++k) s += red[k * C + tid];
-      red[tid] = s;
-    }
-  } else {
-    for (int c = tid; c < C; c += kGenThreads) {
-      float s = 0.f;
-#pragma unroll 4
-      for (int t = 0; t < T; ++t) s += f(t, c);
-      red[c] = s;
-    }
-  }
-  __syncthreads();
-}
-
-// The total of channel c's GroupNorm group (its cg channels) in red.
-__device__ __forceinline__ float group_total(const float* red, int c, int cg) {
-  const int g0 = c / cg * cg;
-  float s = 0.f;
-  for (int k = 0; k < cg; ++k) s += red[g0 + k];
-  return s;
-}
-
-template <typename Tin>
-__global__ void __launch_bounds__(kGenThreads, kGenBlocksPerSm)
-ltae_fused_general_kernel(const Args a, float* const scratch) {
+// Every shape the row-group kernels do not take. Each persistent block takes
+// its rows (row_ranges) in groups of R, and each group in three passes over
+// T in chunks of TC steps: the GroupNorm's sums, its centred squares, then
+// the scores with an online softmax per (row, column), P and the PE term
+// rescaled as chunks arrive. Then o, the MLP and the out GroupNorm of the
+// group's rows, each weight element read once for all of them. Chunks arrive
+// by cp.async behind the compute: all of a group's with `resident` (the
+// second and third passes read x from shared memory; the next group's chunk
+// j comes in once the third pass is past it), else the next visit's chunk
+// into the other of two slots.
+template <typename Tin, bool Smem>
+__global__ void __launch_bounds__(kGeThreads, 1)
+ltae_fused_general_kernel(const Args a, const GeLayout L, float* const scratch) {
   extern __shared__ __align__(16) float smem_general[];
   const int T = a.T, C = a.C, D = a.D, G = a.G, DOUT = a.DOUT, N = a.N, NQ = a.NQ;
-  const int GQ = G * NQ, cg = C / G, dv = D / G, og = DOUT / G;
-  const GenLayout L = gen_layout(T, C, D, G, DOUT, NQ);
-  const int tid = threadIdx.x, b = blockIdx.y, S = gridDim.x;
-  float* const w = scratch != nullptr
-                       ? scratch + (size_t)(b * S + blockIdx.x) * L.floats : smem_general;
-  float* __restrict__ const mean = w + L.mean;
-  float* __restrict__ const inv = w + L.inv;
-  float* __restrict__ const red = w + L.red;
-  float* __restrict__ const xc = w + L.xc;
+  const int GQ = G * NQ, cg = C / G, dv = D / G, og = DOUT / G, G2 = 2 * G;
+  const int R = L.rows, TC = L.tc, GP = L.gp, WP = L.wp, CP = L.cp, GQ4 = L.gp / 4;
+  const int EP = L.gp | 4;   // e's row stride: lanes on consecutive steps 4-way at most
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, S = gridDim.x;
+  // Smem: the workspace in shared memory (so the compiler addresses it as
+  // such), else this block's slice of the scratch buffer
+  float* const w = Smem ? smem_general : scratch + (size_t)(b * S + blockIdx.x) * L.floats;
+  Tin* const raw = reinterpret_cast<Tin*>(w + L.raw);
+  const int slot_elems = L.slot * 4 / (int)sizeof(Tin);
+  float* __restrict__ const xh = w + L.xh;
   float* __restrict__ const e = w + L.e;
+  float* __restrict__ const scs = w + L.sc;
   float* __restrict__ const mx = w + L.mx;
   float* __restrict__ const sum = w + L.sum;
   float* __restrict__ const scl = w + L.scl;
@@ -1665,156 +1699,417 @@ ltae_fused_general_kernel(const Args a, float* const scratch) {
   float* __restrict__ const epe = w + L.epe;
   float* __restrict__ const o = w + L.o;
   float* __restrict__ const m = w + L.m;
+  float* __restrict__ const red = w + L.red;
+  float* __restrict__ const st = w + L.st;
   float* __restrict__ const gst = w + L.gst;
-  // this block's rows: a contiguous range of batch item b (row_ranges)
+  float* __restrict__ const wss = w + L.ws;
   const int n0 = (int)((long long)blockIdx.x * N / S);
   const int n1 = (int)((long long)(blockIdx.x + 1) * N / S);
   const float cnt = (float)T * cg;
   const float* pe_b = a.pe + (size_t)b * T * D;
   const float* pes_b = a.pes + (size_t)b * GQ * T;
+  const Tin* const x = static_cast<const Tin*>(a.x);
 
-  for (int n = n0; n < n1; ++n) {
-    // 1. GroupNorm statistics over (T, C/G), two passes over x
-    channel_sums(T, C, red, [&](int t, int c) { return load_x<Tin>(a, b, t, n, c); });
-    for (int c = tid; c < C; c += kGenThreads) mean[c] = group_total(red, c, cg) / cnt;
+  for (int i = tid; i < C * WP; i += kGeThreads) {
+    const int c = i / WP, col = i - c * WP;
+    wss[i] = col < GQ ? a.ws[c * GQ + col] : 0.f;
+  }
+  if (L.win_on)
+    for (int i = tid; i < C * D; i += kGeThreads) w[L.win + i] = a.win[i];
+  if (L.wm_on)
+    for (int i = tid; i < D * DOUT; i += kGeThreads) w[L.wm + i] = a.wm[i];
+  const float* const win = L.win_on ? w + L.win : a.win;
+  const float* const wm = L.wm_on ? w + L.wm : a.wm;
+
+  // chunk j of rows [m0, m0 + rows) into slot s: 16-byte cp.async where the
+  // workspace is in shared memory and a row's C values fill whole vectors,
+  // else plain copies
+  const bool async = Smem && (C * (int)sizeof(Tin)) % 16 == 0;
+  auto load_chunk = [&](int m0, int j, int s) {
+    const int rows = min(R, n1 - m0), t0 = j * TC, tc = min(TC, T - t0), per_t = rows * C;
+    Tin* dst = raw + s * slot_elems;
+    const Tin* src = x + ((size_t)(b * T + t0) * N + m0) * C;
+    if (async) {
+      constexpr int V = 16 / sizeof(Tin);
+      const int nv = per_t / V;
+#pragma unroll 1
+      for (int i = tid; i < tc * nv; i += kGeThreads) {
+        const int t = i / nv, k = (i - t * nv) * V;
+        cp_async16(dst + t * R * C + k, src + (size_t)t * N * C + k);
+      }
+      cp_async_commit();
+    } else {
+#pragma unroll 1
+      for (int i = tid; i < tc * per_t; i += kGeThreads) {
+        const int t = i / per_t, k = i - t * per_t;
+        dst[t * R * C + k] = src[(size_t)t * N * C + k];
+      }
+    }
+  };
+  // The start of a visit (pass, chunk j) of the group at m0: its chunk is in
+  // and every thread is past the last visit; the next chunk to load starts.
+  // Returns the chunk's slot.
+  int visits = 0;
+  auto begin_visit = [&](int m0, int pass, int j) -> int {
+    cp_async_wait_all();
     __syncthreads();
-    channel_sums(T, C, red, [&](int t, int c) {
-      const float dl = load_x<Tin>(a, b, t, n, c) - mean[c];
-      return dl * dl;
-    });
-    for (int c = tid; c < C; c += kGenThreads)
-      inv[c] = rsqrtf(group_total(red, c, cg) / cnt + a.eps);
-    for (int i = tid; i < GQ; i += kGenThreads) {
+    if (L.resident) {
+      if (pass == 3 && j > 0 && m0 + R < n1) load_chunk(m0 + R, j - 1, j - 1);
+      return j;
+    }
+    int nm = m0, np = pass, nj = j + 1;
+    if (nj == L.nch) {
+      nj = 0;
+      if (++np == 4) {
+        np = 1;
+        nm += R;
+      }
+    }
+    if (nm < n1) load_chunk(nm, nj, (visits + 1) & 1);
+    return (visits++) & 1;
+  };
+  // x[b, t0 + t, m0 + r, c] from slot rs, with the tail affine (sc, sh) of
+  // its step and channel where there is one
+  auto xf = [&](const Tin* rs, int r, int t, int c, float sc, float sh) {
+    const float v = to_f(rs[t * R * C + r * C + c]);
+    return a.tsc != nullptr ? fmaxf(fmaf(v, sc, sh), 0.f) : v;
+  };
+
+  if (n0 < n1) {
+    if (L.resident)
+      for (int j = 0; j < L.nch; ++j) load_chunk(n0, j, j);
+    else
+      load_chunk(n0, 0, 0);
+  }
+
+#pragma unroll 1
+  for (int m0 = n0; m0 < n1; m0 += R) {
+    const int rows = min(R, n1 - m0);
+    float* attn_g = a.attn != nullptr ? a.attn + ((size_t)b * N + m0) * GQ * T : nullptr;
+
+    // 1. GroupNorm statistics over (T, C/G): the sums, then the centred
+    //    squares; thread (part, c) over steps part, part + px, .. of each
+    //    chunk and the group's rows (each tail value read once for all of
+    //    them), the parts added in order, then the group's channels
+#pragma unroll 1
+    for (int pass = 1; pass <= 2; ++pass) {
+#pragma unroll 1
+      for (int j = 0; j < L.nch; ++j) {
+        const int t0 = j * TC, tc = min(TC, T - t0);
+        const Tin* rs = raw + begin_visit(m0, pass, j) * slot_elems;
+        for (int it = tid; it < L.px * C; it += kGeThreads) {
+          const int c = it % C, pt = it / C;
+          float mean[kGeMaxRows], acc[kGeMaxRows];
+#pragma unroll
+          for (int r = 0; r < kGeMaxRows; ++r) {
+            mean[r] = pass == 2 && r < rows ? st[r * G2 + c / cg] : 0.f;
+            acc[r] = 0.f;
+          }
+#pragma unroll 4
+          for (int t = pt; t < tc; t += L.px) {
+            float sc = 1.f, sh = 0.f;
+            if (a.tsc != nullptr) {
+              const size_t at = ((size_t)b * T + t0 + t) * C + c;
+              sc = __ldg(a.tsc + at);
+              sh = __ldg(a.tsh + at);
+            }
+#pragma unroll
+            for (int r = 0; r < kGeMaxRows; ++r) {
+              if (r < rows) {
+                const float dl = xf(rs, r, t, c, sc, sh) - mean[r];
+                acc[r] = pass == 1 ? acc[r] + dl : fmaf(dl, dl, acc[r]);
+              }
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < kGeMaxRows; ++r) {
+            if (r < rows) {
+              float* slot = red + (pt * R + r) * C + c;
+              *slot = j == 0 ? acc[r] : *slot + acc[r];
+            }
+          }
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < rows * C; i += kGeThreads) {
+        const int r = i / C, c = i - r * C;
+        float s = 0.f;
+        for (int pt = 0; pt < L.px; ++pt) s += red[(pt * R + r) * C + c];
+        red[r * C + c] = s;
+      }
+      __syncthreads();
+      for (int i = tid; i < rows * G; i += kGeThreads) {
+        const int r = i / G, g = i - r * G;
+        float s = 0.f;
+        for (int k = 0; k < cg; ++k) s += red[r * C + g * cg + k];
+        if (pass == 1) st[r * G2 + g] = s / cnt;
+        else st[r * G2 + G + g] = rsqrtf(s / cnt + a.eps);
+      }
+    }
+    for (int i = tid; i < rows * GP; i += kGeThreads) {
       mx[i] = -CUDART_INF_F;
       sum[i] = 0.f;
     }
-    for (int i = tid; i < GQ * C; i += kGenThreads) p[i] = 0.f;
-    for (int i = tid; i < NQ * D; i += kGenThreads) epe[i] = 0.f;
-    __syncthreads();
+    for (int i = tid; i < rows * GQ * C; i += kGeThreads) p[i] = 0.f;
+    for (int i = tid; i < rows * NQ * D; i += kGeThreads) epe[i] = 0.f;
 
-    // 2. chunks of TC steps: normalized x, scores, an online softmax
-    float* attn = a.attn != nullptr ? a.attn + ((size_t)b * N + n) * GQ * T : nullptr;
-    for (int t0 = 0; t0 < T; t0 += L.tc) {
-      const int tc = min(L.tc, T - t0);
-#pragma unroll 4
-      for (int i = tid; i < tc * C; i += kGenThreads) {
-        const int t = i / C, c = i - t * C;
-        xc[i] = (load_x<Tin>(a, b, t0 + t, n, c) - mean[c]) * inv[c];
-      }
-      __syncthreads();
-      // scores of every (step, column); column g*nq + q is head g's query q
-      for (int i = tid; i < tc * GQ; i += kGenThreads) {
-        const int t = i / GQ, col = i - t * GQ;
-        const float* xt = xc + t * C;
-        float s = 0.f;
-#pragma unroll 4
-        for (int c = 0; c < C; ++c) s = fmaf(xt[c], __ldg(a.ws + c * GQ + col), s);
-        s += pes_b[col * T + t0 + t];
-        e[i] = s;
-        if (attn != nullptr) attn[col * T + t0 + t] = s;   // raw: normalized in step 5
-      }
-      __syncthreads();
-      // the running max and sum per column; e becomes exp(s - max)
-      for (int col = tid; col < GQ; col += kGenThreads) {
-        float mc = mx[col];
-        for (int t = 0; t < tc; ++t) mc = fmaxf(mc, e[t * GQ + col]);
-        const float sc = expf(mx[col] - mc);   // 0 at the first chunk
-        float sm = sum[col] * sc;
-        for (int t = 0; t < tc; ++t) {
-          const float v = expf(e[t * GQ + col] - mc);
-          e[t * GQ + col] = v;
-          sm += v;
+    // 2. chunks: normalized x, scores, an online softmax per (row, column),
+    //    P and the PE term rescaled to the new max
+#pragma unroll 1
+    for (int j = 0; j < L.nch; ++j) {
+      const int t0 = j * TC, tc = min(TC, T - t0);
+      const Tin* rs = raw + begin_visit(m0, 3, j) * slot_elems;
+      // thread (part, c) over steps part, part + px, .. and the group's
+      // rows: normalized x
+      for (int it = tid; it < L.px * C; it += kGeThreads) {
+        const int c = it % C, pt = it / C, gc = c / cg;
+        float mean[kGeMaxRows], inv[kGeMaxRows];
+#pragma unroll
+        for (int r = 0; r < kGeMaxRows; ++r) {
+          mean[r] = r < rows ? st[r * G2 + gc] : 0.f;
+          inv[r] = r < rows ? st[r * G2 + G + gc] : 0.f;
         }
-        mx[col] = mc;
-        sum[col] = sm;
-        scl[col] = sc;
+#pragma unroll 4
+        for (int t = pt; t < tc; t += L.px) {
+          float sc = 1.f, sh = 0.f;
+          if (a.tsc != nullptr) {
+            const size_t at = ((size_t)b * T + t0 + t) * C + c;
+            sc = __ldg(a.tsc + at);
+            sh = __ldg(a.tsh + at);
+          }
+#pragma unroll
+          for (int r = 0; r < kGeMaxRows; ++r)
+            if (r < rows) xh[(r * TC + t) * CP + c] = (xf(rs, r, t, c, sc, sh) - mean[r]) * inv[r];
+        }
       }
       __syncthreads();
-      // P[col] and the PE term per (query, d), rescaled to the new max
-      for (int i = tid; i < GQ * C; i += kGenThreads) {
-        const int col = i / C, c = i - col * C;
-        float acc = p[i] * scl[col];
+      // thread (r, t, four columns); column g*nq + q is head g's query q
+      for (int i = tid; i < rows * tc * GQ4; i += kGeThreads) {
+        const int cq = i % GQ4, k = i / GQ4, t = k % tc, r = k / tc, tt = t0 + t;
+        const float* xr = xh + (r * TC + t) * CP;
+        const float* wq = wss + 4 * cq;
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
-        for (int t = 0; t < tc; ++t) acc = fmaf(e[t * GQ + col], xc[t * C + c], acc);
-        p[i] = acc;
-      }
-      for (int i = tid; i < NQ * D; i += kGenThreads) {
-        const int q = i / D, d = i - q * D, col = d / dv * NQ + q;
-        float acc = epe[i] * scl[col];
-#pragma unroll 4
-        for (int t = 0; t < tc; ++t)
-          acc = fmaf(e[t * GQ + col], __ldg(pe_b + (size_t)(t0 + t) * D + d), acc);
-        epe[i] = acc;
+        for (int c = 0; c < C; ++c) {
+          const float xv = xr[c];
+          const float4 wv = ld4(wq + c * WP);
+          acc.x = fmaf(xv, wv.x, acc.x);
+          acc.y = fmaf(xv, wv.y, acc.y);
+          acc.z = fmaf(xv, wv.z, acc.z);
+          acc.w = fmaf(xv, wv.w, acc.w);
+        }
+#pragma unroll
+        for (int k2 = 0; k2 < 4; ++k2) {
+          const int col = 4 * cq + k2;
+          if (col < GQ) {
+            const float s = at4(acc, k2) + __ldg(pes_b + col * T + tt);
+            e[(r * TC + t) * EP + col] = s;
+            if (L.sc_on) scs[(r * GQ + col) * T + tt] = s;
+            else if (attn_g != nullptr) attn_g[((size_t)r * GQ + col) * T + tt] = s;
+          }
+        }
       }
       __syncthreads();
-    }
-
-    // 3. o[q][d] = (P[col] . W_in[:, d] + PE term) / sum[col] + b_in[d], then
-    //    m[q] = relu(o[q] @ W_m + b_m)
-    for (int i = tid; i < NQ * D; i += kGenThreads) {
-      const int q = i / D, d = i - q * D, col = d / dv * NQ + q;
-      const float* pc = p + col * C;
-      float acc = 0.f;
+      // warp (r, column), lane t: the chunk's max, the rescale, exp and sum
+      for (int k = warp; k < rows * GQ; k += kGeThreads / 32) {
+        const int r = k / GQ, col = k - r * GQ;
+        float* ec = e + r * TC * EP + col;
+        const float v = lane < tc ? ec[lane * EP] : -CUDART_INF_F;
+        const float old = mx[r * GP + col];
+        const float nm = fmaxf(old, warp_max(v));
+        const float sc = expf(old - nm);   // 0 at the first chunk
+        const float ev = lane < tc ? expf(v - nm) : 0.f;
+        const float tot = warp_sum(ev);
+        if (lane < tc) ec[lane * EP] = ev;
+        if (lane == 0) {
+          mx[r * GP + col] = nm;
+          sum[r * GP + col] = fmaf(sum[r * GP + col], sc, tot);
+          scl[r * GP + col] = sc;
+        }
+      }
+      __syncthreads();
+      // thread (r, four columns, c): P[r][col, c] = P scl + sum_t e xhat
+      for (int i = tid; i < rows * GQ4 * C; i += kGeThreads) {
+        const int c = i % C, k = i / C, cq = k % GQ4, r = k / GQ4;
+        const float* xc = xh + r * TC * CP + c;
+        const float* ec = e + r * TC * EP + 4 * cq;
+        float* pc = p + (r * GQ + 4 * cq) * C + c;
+        const float* sl = scl + r * GP + 4 * cq;
+        float4 acc;
+        acc.x = pc[0] * sl[0];
+        acc.y = 4 * cq + 1 < GQ ? pc[C] * sl[1] : 0.f;
+        acc.z = 4 * cq + 2 < GQ ? pc[2 * C] * sl[2] : 0.f;
+        acc.w = 4 * cq + 3 < GQ ? pc[3 * C] * sl[3] : 0.f;
 #pragma unroll 4
-      for (int c = 0; c < C; ++c) acc = fmaf(pc[c], __ldg(a.win + (size_t)c * D + d), acc);
-      o[i] = (acc + epe[i]) / sum[col] + a.bin[d];
+        for (int t = 0; t < tc; ++t) {
+          const float xv = xc[t * CP];
+          const float4 ev = ld4(ec + t * EP);
+          acc.x = fmaf(ev.x, xv, acc.x);
+          acc.y = fmaf(ev.y, xv, acc.y);
+          acc.z = fmaf(ev.z, xv, acc.z);
+          acc.w = fmaf(ev.w, xv, acc.w);
+        }
+#pragma unroll
+        for (int k2 = 0; k2 < 4; ++k2)
+          if (4 * cq + k2 < GQ) pc[k2 * C] = at4(acc, k2);
+      }
+      // the PE term: lanes l and l + 16 of a warp take the two halves of
+      // the chunk's steps for one (q, d), over the group's rows (each pe
+      // element read from L2 once for all of them, kLoads loads in flight),
+      // and add their halves by a shuffle
+      const int nd = NQ * D, nd16 = (nd + 15) & ~15, half = lane >> 4;
+      const int u0 = half * ((tc + 1) / 2), u1 = half ? tc : (tc + 1) / 2;
+      for (int i = tid; i < 2 * nd16; i += kGeThreads) {
+        const int idx = (i >> 5) * 16 + (i & 15);
+        const bool valid = idx < nd;
+        const int q = valid ? idx / D : 0, d = valid ? idx - q * D : 0;
+        const int col = d / dv * NQ + q;
+        float acc[kGeMaxRows];
+#pragma unroll
+        for (int r = 0; r < kGeMaxRows; ++r)
+          acc[r] = valid && r < rows && half == 0 ? epe[(r * NQ + q) * D + d] * scl[r * GP + col]
+                                                  : 0.f;
+        const float* pc = pe_b + (size_t)t0 * D + d;
+        for (int u = u0; u < u1; u += kLoads) {
+          float pv[kLoads];
+#pragma unroll
+          for (int k = 0; k < kLoads; ++k)
+            pv[k] = valid && u + k < u1 ? __ldg(pc + (size_t)(u + k) * D) : 0.f;
+#pragma unroll
+          for (int k = 0; k < kLoads; ++k)
+#pragma unroll
+            for (int r = 0; r < kGeMaxRows; ++r)
+              if (r < rows && u + k < u1)
+                acc[r] = fmaf(e[(r * TC + u + k) * EP + col], pv[k], acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < kGeMaxRows; ++r) {
+          acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 16);
+          if (valid && r < rows && half == 0) epe[(r * NQ + q) * D + d] = acc[r];
+        }
+      }
     }
     __syncthreads();
-    for (int i = tid; i < NQ * DOUT; i += kGenThreads) {
-      const int q = i / DOUT, j = i - q * DOUT;
-      const float* oq = o + q * D;
-      float acc = a.bm[j];
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) acc = fmaf(oq[d], __ldg(a.wm + (size_t)d * DOUT + j), acc);
-      m[i] = fmaxf(acc, 0.f);
+
+    // 3. o[r][q, d] = (P[r][col] . W_in[:, d] + PE term) / sum + b_in[d]:
+    //    thread (part, q, d) over channels part, part + po, .. for all rows
+    for (int it = tid; it < L.po * NQ * D; it += kGeThreads) {
+      const int d = it % D, k = it / D, q = k % NQ, pt = k / NQ, col = d / dv * NQ + q;
+      float acc[kGeMaxRows] = {};
+      for (int c0 = pt; c0 < C; c0 += kLoads * L.po) {   // kLoads loads in flight
+        float wv[kLoads];
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          const int c = c0 + k * L.po;
+          wv[k] = c < C ? win[(size_t)c * D + d] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          const int c = c0 + k * L.po;
+#pragma unroll
+          for (int r = 0; r < kGeMaxRows; ++r)
+            if (r < rows && c < C) acc[r] = fmaf(p[(r * GQ + col) * C + c], wv[k], acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kGeMaxRows; ++r)
+        if (r < rows) red[((pt * R + r) * NQ + q) * D + d] = acc[r];
+    }
+    __syncthreads();
+    for (int i = tid; i < rows * NQ * D; i += kGeThreads) {
+      const int d = i % D, k = i / D, q = k % NQ, r = k / NQ, col = d / dv * NQ + q;
+      float s = 0.f;
+      for (int pt = 0; pt < L.po; ++pt) s += red[((pt * R + r) * NQ + q) * D + d];
+      o[i] = (s + epe[i]) / sum[r * GP + col] + __ldg(a.bin + d);
+    }
+    __syncthreads();
+    // 4. m[r][q] = relu(o[r][q] @ W_m + b_m): thread (part, q, j) over d =
+    //    part, part + pm, .. for all rows
+    for (int it = tid; it < L.pm * NQ * DOUT; it += kGeThreads) {
+      const int jj = it % DOUT, k = it / DOUT, q = k % NQ, pt = k / NQ;
+      float acc[kGeMaxRows] = {};
+      for (int d0 = pt; d0 < D; d0 += kLoads * L.pm) {   // kLoads loads in flight
+        float wv[kLoads];
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          const int d = d0 + k * L.pm;
+          wv[k] = d < D ? wm[(size_t)d * DOUT + jj] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          const int d = d0 + k * L.pm;
+#pragma unroll
+          for (int r = 0; r < kGeMaxRows; ++r)
+            if (r < rows && d < D) acc[r] = fmaf(o[(r * NQ + q) * D + d], wv[k], acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kGeMaxRows; ++r)
+        if (r < rows) red[((pt * R + r) * NQ + q) * DOUT + jj] = acc[r];
+    }
+    __syncthreads();
+    for (int i = tid; i < rows * NQ * DOUT; i += kGeThreads) {
+      const int jj = i % DOUT, k = i / DOUT, q = k % NQ, r = k / NQ;
+      float s = __ldg(a.bm + jj);
+      for (int pt = 0; pt < L.pm; ++pt) s += red[((pt * R + r) * NQ + q) * DOUT + jj];
+      m[i] = fmaxf(s, 0.f);
     }
     __syncthreads();
 
-    // 4. out GroupNorm: head g pools its d_out/G channels over all queries
-    for (int g = tid; g < G; g += kGenThreads) {
+    // 5. out GroupNorm: head g pools its d_out/G channels over all queries
+    for (int i = tid; i < rows * G; i += kGeThreads) {
+      const int r = i / G, g = i - r * G;
+      const float* mr = m + r * NQ * DOUT + g * og;
       const float cnt_o = (float)(NQ * og);
       float s = 0.f;
       for (int q = 0; q < NQ; ++q)
-        for (int k = 0; k < og; ++k) s += m[q * DOUT + g * og + k];
+        for (int k = 0; k < og; ++k) s += mr[q * DOUT + k];
       const float mu = s / cnt_o;
       float ss = 0.f;
       for (int q = 0; q < NQ; ++q)
         for (int k = 0; k < og; ++k) {
-          const float dl = m[q * DOUT + g * og + k] - mu;
+          const float dl = mr[q * DOUT + k] - mu;
           ss = fmaf(dl, dl, ss);
         }
-      gst[g] = mu;
-      gst[G + g] = rsqrtf(ss / cnt_o + a.eps);
+      gst[r * G2 + g] = mu;
+      gst[r * G2 + G + g] = rsqrtf(ss / cnt_o + a.eps);
     }
     __syncthreads();
-    Tin* out = static_cast<Tin*>(a.out) + ((size_t)b * N + n) * NQ * DOUT;
-    for (int i = tid; i < NQ * DOUT; i += kGenThreads) {
-      const int j = i % DOUT, g = j / og;
-      Vec<Tin>::store(out + i, fmaf((m[i] - gst[g]) * gst[G + g], a.osc[j], a.obi[j]));
+    Tin* out = static_cast<Tin*>(a.out) + ((size_t)b * N + m0) * NQ * DOUT;
+    for (int i = tid; i < rows * NQ * DOUT; i += kGeThreads) {
+      const int jj = i % DOUT, r = i / (NQ * DOUT), g = jj / og;
+      Vec<Tin>::store(out + i, fmaf((m[i] - gst[r * G2 + g]) * gst[r * G2 + G + g],
+                                    __ldg(a.osc + jj), __ldg(a.obi + jj)));
     }
 
-    // 5. the attention, normalized in place: exp(s - max) / sum
-    if (attn != nullptr)
-      for (int i = tid; i < GQ * T; i += kGenThreads) {
-        const int col = i / T;
-        attn[i] = expf(attn[i] - mx[col]) / sum[col];
+    // 6. the attention: exp(s - max) / sum, from the scores on chip, else
+    //    from the raw scores written in step 2
+    if (attn_g != nullptr)   // warp (r, column), lanes over t
+      for (int k = warp; k < rows * GQ; k += kGeThreads / 32) {
+        const int r = k / GQ, col = k - r * GQ;
+        const float m = mx[r * GP + col], sm = sum[r * GP + col];
+        float* ar = attn_g + (size_t)k * T;
+        const float* sr = L.sc_on ? scs + k * T : ar;
+        for (int t = lane; t < T; t += 32) ar[t] = expf(sr[t] - m) / sm;
       }
-    __syncthreads();
+    __syncthreads();   // the group's buffers are free
+    if (L.resident && m0 + R < n1) load_chunk(m0 + R, L.nch - 1, L.nch - 1);
   }
 }
 
 template <typename Tin>
 cudaError_t launch_general(const Args& a, int S, float* scratch, cudaStream_t stream) {
-  const size_t bytes =
-      (size_t)gen_layout(a.T, a.C, a.D, a.G, a.DOUT, a.NQ).floats * sizeof(float);
+  const GeLayout L = ge_plan(a.T, a.C, a.D, a.G, a.DOUT, a.NQ, sizeof(Tin), a.attn != nullptr);
+  const size_t bytes = (size_t)L.floats * sizeof(float);
   const bool in_smem = bytes <= kSmemLimit;
   if (S < 1 || in_smem == (scratch != nullptr)) return cudaErrorInvalidValue;
   const size_t dyn = in_smem ? bytes : 0;
-  cudaError_t err = cudaFuncSetAttribute(ltae_fused_general_kernel<Tin>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)dyn);
+  const auto kernel = in_smem ? ltae_fused_general_kernel<Tin, true>
+                              : ltae_fused_general_kernel<Tin, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return err;
-  ltae_fused_general_kernel<Tin><<<dim3(S, a.B), kGenThreads, dyn, stream>>>(a, scratch);
+  kernel<<<dim3(S, a.B), kGeThreads, dyn, stream>>>(a, L, scratch);
   return cudaGetLastError();
 }
 
@@ -1845,12 +2140,30 @@ cudaError_t launch_c(const Args& a, int route, int S, float* scratch, cudaStream
 
 }  // namespace
 
-// The general kernel's scratch floats per block: 0 where its workspace fits
-// in shared memory, else the size of each block's slice of `scratch`.
+// The general kernel's scratch floats per block: 0 where its workspace (for x
+// of fp32, or bf16 with x_is_bf16, and the attention out with need_attn)
+// fits in shared memory, else the size of each block's slice of `scratch`.
 extern "C" int ltae_fused_general_scratch_floats(int T, int C, int D, int G, int DOUT,
-                                                 int NQ) {
-  const int f = gen_layout(T, C, D, G, DOUT, NQ).floats;
+                                                 int NQ, int x_is_bf16, int need_attn) {
+  const int f = ge_plan(T, C, D, G, DOUT, NQ, x_is_bf16 ? 2 : 4, need_attn != 0).floats;
   return (size_t)f * sizeof(float) <= kSmemLimit ? 0 : f;
+}
+
+// The general kernel's plan for a shape (ge_plan), into out[6]: rows a
+// group, whether the group's x stays resident, whether the scores stay on
+// chip, whether W_in and W_m are in shared memory, and the workspace's floats
+// per block (past 227 KB: in the scratch buffer).
+extern "C" int ltae_fused_general_plan(int T, int C, int D, int G, int DOUT, int NQ,
+                                       int x_is_bf16, int need_attn, int* out) {
+  if (T < 1 || C < 1 || D < 1 || G < 1 || DOUT < 1 || NQ < 1) return (int)cudaErrorInvalidValue;
+  const GeLayout L = ge_plan(T, C, D, G, DOUT, NQ, x_is_bf16 ? 2 : 4, need_attn != 0);
+  out[0] = L.rows;
+  out[1] = L.resident;
+  out[2] = L.sc_on;
+  out[3] = L.win_on;
+  out[4] = L.wm_on;
+  out[5] = L.floats;
+  return 0;
 }
 
 // C entry for ctypes. Pointers are device pointers; tsc/tsh and attn may be

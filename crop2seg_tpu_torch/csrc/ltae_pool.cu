@@ -111,23 +111,45 @@
 // ltae_pool_fwd_group_kernel and ltae_pool_bwd_kernel, take T <= 64, C <= 64
 // with C % 8 == 0, G <= 16 and D <= 256 (TimeUNet's training path); every
 // other shape at which the L-TAE is defined (G dividing C and D; T > 64
-// above all) takes the general pair at the end of this file, written to be
-// right at any size rather than fast: one block of 256 threads per row at a
-// time, S blocks per batch item, x read from device memory in passes over T
-// with an online softmax (a running max and sum per head, P and the bpe term
-// rescaled as chunks of 32 steps arrive), the same hash dropout on the same
-// (b, t, n, g) index, so the same mask. The general forward saves each row's
-// GroupNorm statistics and softmax max and sum, which its backward takes;
-// the backward sums into per-block partial sums of the fast backward's
-// layout, which ltae_pool_bwd_reduce adds in the same fixed order. Their
-// per-row workspace lives in shared memory where it fits, else in a scratch
-// buffer in device memory (ltae_pool_general_scratch_floats). Latency bounds
-// them, as the general eval kernel (csrc/ltae_fused_fwd.cu): four resident
-// blocks an SM and unrolled loops hide part of it; the backward keeps Ws and
-// Z in shared memory as (C, G + 1), so that neither its per-step nor its
-// per-channel reads stride or conflict, and adds each row's E and F into its
-// block's partial sums in device memory, a quarter of its time. PERF.md,
-// section 6, has their times.
+// above all) takes the general pair at the end of this file, with the same
+// hash dropout on the same (b, t, n, g) index, so the same mask. The
+// general forward, written to be right at any size rather than fast, runs
+// one block of 256 threads per row at a time, S blocks per batch item (four
+// an SM), x read from device memory in passes over T with an online softmax
+// (a running max and sum per head, P and the bpe term rescaled as chunks of
+// 32 steps arrive); it saves each row's GroupNorm statistics and softmax
+// max and sum, which its backward takes. Its workspace lives in shared
+// memory where it fits, else in a scratch buffer in device memory
+// (ltae_pool_general_scratch_floats).
+//
+// The general backward, ltae_pool_bwd_general_kernel<Tin, Tail>. What held
+// its first design (one row per 256-thread block at a time, x read from
+// device memory three times, every row's E and F added into the block's
+// partial sums in device memory, ~50 ms at T = 128, B = 4, TimeUNet's
+// width) was latency: every pass alike slow (PERF.md, section 6). This
+// design follows the row-group kernels:
+// - persistent blocks of 512 threads, one an SM (S = SMs / B per batch
+//   item), each walking its rows in groups of R <= 4, R from the plan
+//   (gb_plan: the group's x resident in shared memory where that fits at
+//   some R, else streamed; then the most rows), Ws once per block, Z and the
+//   PE term of p1 once per group from W and bpe in L2, each element serving
+//   the group's rows;
+// - x arrives in chunks of 32 steps by 16-byte cp.async behind the compute;
+//   with the group's x resident, the GroupNorm-backward sums and dx read it
+//   from shared memory (x leaves device memory once), else the chunks
+//   stream again, through two slots;
+// - F sums on chip for the block's life (registers of the 512 threads
+//   where C * D <= 16384, as kernel 3 keeps its sums), E and Dsum once a
+//   group, A once a chunk, dtsc and dtsh once a chunk over the group's rows:
+//   into the block's partial sums, which ltae_pool_bwd_reduce adds in a
+//   fixed order, so gradients are the same from run to run;
+// - the hot steps are register tiles: a thread takes four heads of a (row,
+//   step) for the scores and p1 (Ws and Z rows as float4), four heads of a
+//   (row, channel) for P and A, and a channel's Ws and Z of 16 heads in
+//   registers for dxhat, over 4 steps of each row of the chunk.
+// Where even R = 1 does not fit (T = 2000 at G = 16), the workspace is a
+// scratch buffer in device memory, read and written through the same code.
+// PERF.md, section 6, has the times of both.
 //
 // Backward: persistent blocks of 512 threads (16 warps), S = SMs / B per batch
 // item (one wave: 33 x 4 = 132 at B = 4), each walking a contiguous range of
@@ -175,9 +197,15 @@ constexpr int kBwdThreads = 512;  // backward: 16 warps, warp g owns head g
 constexpr int kJ = 16;         // backward: a head's d channels per pass in registers
 constexpr int kMaxTPer = kMaxT / (kBwdThreads / kMaxC);  // t per thread, C-parallel steps
 constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
-constexpr int kGenThreads = 256;  // the general pair: threads a block
-constexpr int kGenBlocksPerSm = 4;  // the general pair: resident blocks an SM (latency)
-constexpr int kGenChunk = 32;     // the general pair: steps of xhat on chip at a time
+constexpr int kGenThreads = 256;  // the general forward: threads a block
+constexpr int kGenBlocksPerSm = 4;  // the general forward: resident blocks an SM (latency)
+constexpr int kGenChunk = 32;     // the general pair: steps of x on chip at a time
+constexpr int kGbThreads = 512;   // the general backward: 16 warps, one block an SM
+constexpr int kGbMaxRows = 4;     // the general backward: rows a group at most
+constexpr int kGbHeadRegs = 16;   // the general backward: heads of Ws and Z in registers
+constexpr int kGbFRegs = 32;      // the general backward: F in registers, C * D <= 16384
+constexpr int kGbParts = 8;       // the general backward: a chunk's steps split in 8 parts
+constexpr int kLoads = 8;         // the general backward: device-memory loads in flight a thread
 
 struct Args {
   const void* x;      // (B, T, N, C) x's type: the input, in tail mode the raw z
@@ -1191,50 +1219,32 @@ Args make_args(int B, int T, int N, int C, int D, int G, unsigned seed_mix,
 
 // ---- every other shape: one row at a time, x streamed over T ---------------
 
-// The general kernels' workspace per block, in floats: in shared memory where
-// it fits, else the block's slice of a scratch buffer in device memory.
-// Forward: per channel the GroupNorm's mean and 1/std and channel_sums'
-// partial sums, a chunk of xhat (TC, C) and its scores (TC, G), per head the
-// running max and sum and this chunk's rescale, P (G, C) and the bpe term
-// (D). Backward: per channel mean and 1/std, go (D), Ws and Z as (C, G + 1)
-// (the pad keeps both a row's and a column's reads free of bank
-// conflicts), a chunk of xhat, a, a_d and p1 (then ds) of every step (T,
-// G) each, P (G, C), per head sum_t a_d p1, the partial sums of dxhat and
-// dxhat xhat per channel, and their group means.
+// The general forward's workspace per block, in floats: in shared memory
+// where it fits, else the block's slice of a scratch buffer in device memory.
+// Per channel the GroupNorm's mean and 1/std and channel_sums' partial sums,
+// a chunk of xhat (TC, C) and its scores (TC, G), per head the running max
+// and sum and this chunk's rescale, P (G, C) and the bpe term (D).
 struct GenLayout {
   int tc;
-  int mean, inv, red, red2, xc, e, mx, sum, scl, p, eb, go, ws, z, av, adv, dsv, tot, gm;
+  int mean, inv, red, xc, e, mx, sum, scl, p, eb;
   int floats;
 };
 
-__host__ __device__ inline GenLayout gen_layout(int T, int C, int D, int G, bool backward) {
+__host__ __device__ inline GenLayout gen_layout(int T, int C, int D, int G) {
   GenLayout L{};
   int o = 0;
   auto take = [&](int n) { const int at = o; o += (n + 3) & ~3; return at; };
   L.tc = T < kGenChunk ? T : kGenChunk;
-  const int slots = C > kGenThreads ? C : kGenThreads;
   L.mean = take(C);
   L.inv = take(C);
-  L.red = take(slots);
+  L.red = take(C > kGenThreads ? C : kGenThreads);
   L.xc = take(L.tc * C);
   L.p = take(G * C);
-  if (!backward) {
-    L.e = take(L.tc * G);
-    L.mx = take(G);
-    L.sum = take(G);
-    L.scl = take(G);
-    L.eb = take(D);
-  } else {
-    L.red2 = take(slots);
-    L.go = take(D);
-    L.ws = take(C * (G + 1));
-    L.z = take(C * (G + 1));
-    L.av = take(T * G);
-    L.adv = take(T * G);
-    L.dsv = take(T * G);
-    L.tot = take(G);
-    L.gm = take(2 * G);
-  }
+  L.e = take(L.tc * G);
+  L.mx = take(G);
+  L.sum = take(G);
+  L.scl = take(G);
+  L.eb = take(D);
   L.floats = o;
   return L;
 }
@@ -1306,7 +1316,7 @@ ltae_pool_fwd_general_kernel(const Args a, float* const st, float* const scratch
   extern __shared__ __align__(16) float smem_gen_fwd[];
   const int T = a.T, C = a.C, D = a.D, G = a.G, N = a.N;
   const int cg = C / G, dv = D / G;
-  const GenLayout L = gen_layout(T, C, D, G, false);
+  const GenLayout L = gen_layout(T, C, D, G);
   const int tid = threadIdx.x, b = blockIdx.y, S = gridDim.x;
   float* const w = scratch != nullptr
                        ? scratch + (size_t)(b * S + blockIdx.x) * L.floats : smem_gen_fwd;
@@ -1421,47 +1431,135 @@ ltae_pool_fwd_general_kernel(const Args a, float* const st, float* const scratch
   }
 }
 
-// Backward of any shape, with the forward's saved statistics st: per row
-// three passes over x in chunks (a, a_d and p1 with P; then A and the
-// GroupNorm backward's group means; then dx and in tail mode dtsc, dtsh),
-// the row's share of every sum added into the block's partial sums in
-// `part` (the layout ltae_pool_bwd_reduce adds in a fixed order).
-template <typename Tin, bool Tail>
-__global__ void __launch_bounds__(kGenThreads, kGenBlocksPerSm)
-ltae_pool_bwd_general_kernel(const Args a, const float* const st, float* const part,
-                             float* const scratch) {
+// ---- the general backward: persistent row groups, x streamed over T --------
+
+// Shared memory of the general backward block, in floats; regions start on
+// 16 bytes. R rows a group; the raw x of a chunk of TC steps, (TC, R, C) in
+// x's type as in device memory, fills one slot (all chunks of the group stay
+// with `resident`, else two slots take turns); xh holds a chunk's xhat (R,
+// TC, C | 1: an odd row stride, so lanes on consecutive steps hit distinct
+// banks); per row and step, ds and ad (R, T, GP: heads rounded up to 4,
+// zero past G) hold a_d p1 and the sign-coded a until the jacobian, then ds
+// and a_d; Z (R, C, ZP) and Ws (C, ZP) have a row stride of GP + 4 (float4
+// rows free of bank conflicts); the p region holds P (R, G, C) until F is
+// summed, then each row's A (R, C, GP);
+// go (R, G, dv + 1: a pad float a head, so lanes on consecutive heads hit
+// distinct banks); per row its saved statistics (4, G), tot (GP), sum_t ds
+// and sum_t a_d (2, GP) and the group means gm (2, G).
+struct GbLayout {
+  int rows, tc, nch, slots, slot, gp, zp, cp, resident;
+  int raw, xh, ds, ad, z, ws, p, go, st, tot, sg, gm;
+  int floats;
+};
+
+__host__ __device__ inline GbLayout gb_layout(int T, int C, int D, int G, int elem_bytes,
+                                              int R, bool resident) {
+  GbLayout L{};
+  int o = 0;
+  auto take = [&](int n) { const int at = o; o += (n + 3) & ~3; return at; };
+  L.rows = R;
+  L.resident = resident;
+  L.tc = T < kGenChunk ? T : kGenChunk;
+  L.nch = (T + L.tc - 1) / L.tc;
+  L.slots = resident ? L.nch : 2;
+  L.slot = (L.tc * R * C * elem_bytes + 15) / 16 * 4;
+  L.gp = (G + 3) & ~3;
+  L.zp = L.gp + 4;
+  L.cp = C | 1;
+  L.raw = take(L.slots * L.slot);
+  L.xh = take(R * L.tc * L.cp);
+  L.ds = take(R * T * L.gp);
+  L.ad = take(R * T * L.gp);
+  L.z = take(R * C * L.zp);
+  L.ws = take(C * L.zp);
+  L.p = take(R * C * L.gp);
+  L.go = take(R * G * (D / G + 1));
+  L.st = take(R * 4 * G);
+  L.tot = take(R * L.gp);
+  L.sg = take(R * 2 * L.gp);
+  L.gm = take(R * 2 * G);
+  L.floats = o;
+  return L;
+}
+
+// The general backward's plan: the group's x resident if that fits at some
+// R, else streamed; then the most rows a group, R = 4 .. 1. Where nothing
+// fits in shared memory, R = 1 streamed in a scratch buffer in device memory.
+// ops/ltae_pool.py::general_bwd_plan mirrors it.
+__host__ __device__ inline GbLayout gb_plan(int T, int C, int D, int G, int elem_bytes) {
+  for (int res = 1; res >= 0; --res)
+    for (int R = kGbMaxRows; R >= 1; --R) {
+      const GbLayout L = gb_layout(T, C, D, G, elem_bytes, R, res != 0);
+      if ((size_t)L.floats * sizeof(float) <= kSmemLimit) return L;
+    }
+  return gb_layout(T, C, D, G, elem_bytes, 1, false);
+}
+
+// d / dv for 0 <= d < 2^21: (d + 0.5) / dv is at least 0.5 / dv from an
+// integer, and the float product's error stays below that there.
+__device__ __forceinline__ int head_of(int d, float inv_dv) {
+  return __float2int_rz((d + 0.5f) * inv_dv);
+}
+
+// a_d and a from the sign-coded value the first pass stores: a * scale where
+// the element is kept, -a where it is dropped (a >= 0, so the sign tells
+// them apart; scale = 1 / (1 - p), inv_scale = 1 - p).
+__device__ __forceinline__ float coded_ad(float v) { return fmaxf(v, 0.f); }
+__device__ __forceinline__ float coded_a(float v, float inv_scale) {
+  return v >= 0.f ? v * inv_scale : -v;
+}
+
+// Backward of any shape, with the forward's saved statistics st (B, N, 4,
+// G). Each persistent block takes its rows (row_ranges) in groups of R, and
+// each group in three passes over T in chunks of TC steps:
+//   1. per step and head a, a_d and p1, then P = sum_t a_d xhat;
+//   2. A += xhat^T ds and per channel the sums of dxhat and dxhat xhat;
+//   3. dx (in tail mode through the ReLU mask and tsc, with dtsc and dtsh).
+// Between them, the jacobian ds = a_d p1 - a sum_t a_d p1 and the group's
+// share of F (in registers for the block's life where C * D <= 16384, else
+// added into the block's partial sums once a group), E and Dsum (added once a
+// group). Chunks arrive by cp.async behind the compute: all of a group's with
+// `resident` (passes 2 and 3 read x from shared memory; the next group's
+// chunk j comes in once pass 3 is past it), else the next visit's chunk into
+// the other of two slots.
+template <typename Tin, bool Tail, bool Smem>
+__global__ void __launch_bounds__(kGbThreads, 1)
+ltae_pool_bwd_general_kernel(const Args a, const GbLayout L, const float* const st,
+                             float* const part, float* const scratch) {
   extern __shared__ __align__(16) float smem_gen_bwd[];
   const int T = a.T, C = a.C, D = a.D, G = a.G, N = a.N;
-  const int cg = C / G, dv = D / G;
-  const GenLayout L = gen_layout(T, C, D, G, true);
-  const int tid = threadIdx.x, b = blockIdx.y, S = gridDim.x;
-  float* const w = scratch != nullptr
-                       ? scratch + (size_t)(b * S + blockIdx.x) * L.floats : smem_gen_bwd;
-  float* __restrict__ const mean = w + L.mean;
-  float* __restrict__ const inv = w + L.inv;
-  float* __restrict__ const red = w + L.red;
-  float* __restrict__ const red2 = w + L.red2;
-  float* __restrict__ const xc = w + L.xc;
-  float* __restrict__ const p = w + L.p;
-  float* __restrict__ const go = w + L.go;
-  float* __restrict__ const wsp = w + L.ws;
-  float* __restrict__ const z = w + L.z;
-  float* __restrict__ const av = w + L.av;
-  float* __restrict__ const adv = w + L.adv;
-  float* __restrict__ const dsv = w + L.dsv;
+  const int R = L.rows, TC = L.tc, GP = L.gp, ZP = L.zp, CP = L.cp, G4 = L.gp / 4;
+  const int cg = C / G, dv = D / G, G2 = 2 * G, G4S = 4 * G, DV1 = dv + 1, GOP = G * DV1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, S = gridDim.x;
+  // Smem: the workspace in shared memory (so the compiler addresses it as
+  // such), else this block's slice of the scratch buffer
+  float* const w = Smem ? smem_gen_bwd : scratch + (size_t)(b * S + blockIdx.x) * L.floats;
+  Tin* const raw = reinterpret_cast<Tin*>(w + L.raw);
+  const int slot_elems = L.slot * 4 / (int)sizeof(Tin);
+  float* __restrict__ const xh = w + L.xh;
+  float* __restrict__ const dsv = w + L.ds;
+  float* __restrict__ const adv = w + L.ad;
+  float* __restrict__ const zs = w + L.z;
+  float* __restrict__ const wss = w + L.ws;
+  float* __restrict__ const ps = w + L.p;
+  float* __restrict__ const ars = w + L.p;   // after F: each row's A (R, C, GP)
+  float* __restrict__ const gos = w + L.go;
+  float* __restrict__ const sts = w + L.st;
   float* __restrict__ const tot = w + L.tot;
+  float* __restrict__ const sg = w + L.sg;
   float* __restrict__ const gm = w + L.gm;
   const int n0 = (int)((long long)blockIdx.x * N / S);
   const int n1 = (int)((long long)(blockIdx.x + 1) * N / S);
   const float cnt = (float)T * cg;
+  const float inv_scale = 1.f / a.scale;
+  const float inv_dv = 1.f / dv;
   const float* bpe_b = a.bpe + (size_t)b * T * D;
   const float* pes_b = a.pes + (size_t)b * G * T;
-  const int parts = C < kGenThreads ? kGenThreads / C : 1;
-  const int GP = G + 1;   // row stride of wsp and z
+  const Tin* const x = static_cast<const Tin*>(a.x);
 
   // this block's partial sums: A (C, G), F (C, D), then its item's Dsum (T,
-  // G), E (T, D) and in tail mode dtsc, dtsh (T, C); zero, then each row's
-  // share added in row order
+  // G), E (T, D) and in tail mode dtsc, dtsh (T, C)
   const int per_block = bwd_shared_floats(C, D, G) + bwd_item_floats(T, C, D, G, Tail);
   float* __restrict__ const pa = part + (size_t)(b * S + blockIdx.x) * per_block;
   float* __restrict__ const pf = pa + C * G;
@@ -1469,194 +1567,542 @@ ltae_pool_bwd_general_kernel(const Args a, const float* const st, float* const p
   float* __restrict__ const pe = pds + T * G;
   float* __restrict__ const psc = pe + T * D;
   float* __restrict__ const psh = psc + T * C;
-  for (int i = tid; i < per_block; i += kGenThreads) pa[i] = 0.f;
-  for (int i = tid; i < C * G; i += kGenThreads) wsp[i / G * GP + i % G] = a.ws[i];
+  for (int i = tid; i < per_block; i += kGbThreads) pa[i] = 0.f;
+  for (int i = tid; i < C * ZP; i += kGbThreads) {
+    const int c = i / ZP, g = i - c * ZP;
+    wss[i] = g < G ? a.ws[c * G + g] : 0.f;
+  }
+  const bool f_regs = C * D <= kGbFRegs * kGbThreads;
+  float freg[kGbFRegs];
+#pragma unroll
+  for (int k = 0; k < kGbFRegs; ++k) freg[k] = 0.f;
 
-  for (int n = n0; n < n1; ++n) {
-    const float* st_row = st + ((size_t)b * N + n) * 4 * G;
-    const Tin* go_row = static_cast<const Tin*>(a.go) + ((size_t)b * N + n) * D;
-    for (int c = tid; c < C; c += kGenThreads) {
-      mean[c] = st_row[c / cg];
-      inv[c] = st_row[G + c / cg];
-    }
-    for (int d = tid; d < D; d += kGenThreads) go[d] = Io<Tin>::load(go_row + d);
-    for (int i = tid; i < G * C; i += kGenThreads) p[i] = 0.f;
-    __syncthreads();
-    // Z[g, c] = sum_{d in g} W[c, d] go[d], stored as z[c, g]
-    for (int i = tid; i < G * C; i += kGenThreads) {
-      const int g = i / C, c = i - g * C;
-      const float* wr = a.win + (size_t)c * D + g * dv;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < dv; ++j) acc = fmaf(__ldg(wr + j), go[g * dv + j], acc);
-      z[c * GP + g] = acc;
-    }
-    __syncthreads();
-
-    // 1. a = exp(s - max) / sum, a_d, p1 = xhat Z[g] + sum_{d in g} go[d]
-    //    bpe[t, d] of every step; P = sum_t a_d xhat
-    for (int t0 = 0; t0 < T; t0 += L.tc) {
-      const int tc = min(L.tc, T - t0);
-#pragma unroll 4
-      for (int i = tid; i < tc * C; i += kGenThreads) {
-        const int t = i / C, c = i - t * C;
-        xc[i] = (load_xf<Tin, Tail>(a, b, t0 + t, n, c) - mean[c]) * inv[c];
+  // chunk j of rows [m0, m0 + rows) into slot s: 16-byte cp.async where the
+  // workspace is in shared memory and a row's C values fill whole vectors,
+  // else plain copies
+  const bool async = Smem && (C * (int)sizeof(Tin)) % 16 == 0;
+  auto load_chunk = [&](int m0, int j, int s) {
+    const int rows = min(R, n1 - m0), t0 = j * TC, tc = min(TC, T - t0), per_t = rows * C;
+    Tin* dst = raw + s * slot_elems;
+    const Tin* src = x + ((size_t)(b * T + t0) * N + m0) * C;
+    if (async) {
+      constexpr int V = 16 / sizeof(Tin);
+      const int nv = per_t / V;
+#pragma unroll 1
+      for (int i = tid; i < tc * nv; i += kGbThreads) {
+        const int t = i / nv, e = (i - t * nv) * V;
+        cp_async16(dst + t * R * C + e, src + (size_t)t * N * C + e);
       }
+      cp_async_commit();
+    } else {
+#pragma unroll 1
+      for (int i = tid; i < tc * per_t; i += kGbThreads) {
+        const int t = i / per_t, e = i - t * per_t;
+        dst[t * R * C + e] = src[(size_t)t * N * C + e];
+      }
+    }
+  };
+  // The start of a visit (pass, chunk j) of the group at m0: its chunk is in
+  // and every thread is past the last visit; the next chunk to load starts.
+  // Returns the chunk's slot.
+  int visits = 0;
+  auto begin_visit = [&](int m0, int pass, int j) -> int {
+    cp_async_wait_all();
+    __syncthreads();
+    if (L.resident) {
+      if (pass == 3 && j > 0 && m0 + R < n1) load_chunk(m0 + R, j - 1, j - 1);
+      return j;
+    }
+    int nm = m0, np = pass, nj = j + 1;
+    if (nj == L.nch) {
+      nj = 0;
+      if (++np == 4) {
+        np = 1;
+        nm += R;
+      }
+    }
+    if (nm < n1) load_chunk(nm, nj, (visits + 1) & 1);
+    return (visits++) & 1;
+  };
+  // xhat of the chunk (from slot s) into xh: thread (part, c) over steps
+  // part, part + np, .. and the group's rows, so that each tail affine value
+  // is read once for all of them
+  auto normalize = [&](int rows, int s, int t0, int tc) {
+    const Tin* rs = raw + s * slot_elems;
+    const int np = max(1, min(tc, kGbThreads / C));
+    for (int it = tid; it < np * C; it += kGbThreads) {
+      const int c = it % C, pt = it / C, gc = c / cg;
+      float mean[kGbMaxRows], inv[kGbMaxRows];
+#pragma unroll
+      for (int r = 0; r < kGbMaxRows; ++r) {
+        mean[r] = r < rows ? sts[r * G4S + gc] : 0.f;
+        inv[r] = r < rows ? sts[r * G4S + G + gc] : 0.f;
+      }
+#pragma unroll 4
+      for (int t = pt; t < tc; t += np) {
+        float sc = 1.f, sh = 0.f;
+        if constexpr (Tail) {
+          const size_t at = ((size_t)b * T + t0 + t) * C + c;
+          sc = __ldg(a.tsc + at);
+          sh = __ldg(a.tsh + at);
+        }
+#pragma unroll
+        for (int r = 0; r < kGbMaxRows; ++r) {
+          if (r < rows) {
+            float v = to_f(rs[t * R * C + r * C + c]);
+            if constexpr (Tail) v = fmaxf(tail_pre(v, sc, sh), 0.f);
+            xh[(r * TC + t) * CP + c] = (v - mean[r]) * inv[r];
+          }
+        }
+      }
+    }
+  };
+  // dxhat[t, c] = sum_g ds[t, g] Ws[c, g] + a_d[t, g] Z[g, c] of row r, with
+  // the first 16 heads' Ws and Z from registers
+  auto dxhat = [&](const float* wr, const float* zr, int r, int tt, int c) {
+    const float* dr = dsv + (r * T + tt) * GP;
+    const float* ar = adv + (r * T + tt) * GP;
+    float acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < kGbHeadRegs / 4; ++q) {
+      if (4 * q < GP) {
+        const float4 d4 = ld4(dr + 4 * q), a4 = ld4(ar + 4 * q);
+        acc = fmaf(d4.x, wr[4 * q], fmaf(a4.x, zr[4 * q], acc));
+        acc = fmaf(d4.y, wr[4 * q + 1], fmaf(a4.y, zr[4 * q + 1], acc));
+        acc = fmaf(d4.z, wr[4 * q + 2], fmaf(a4.z, zr[4 * q + 2], acc));
+        acc = fmaf(d4.w, wr[4 * q + 3], fmaf(a4.w, zr[4 * q + 3], acc));
+      }
+    }
+    for (int g = kGbHeadRegs; g < G; ++g)   // G > 16 only
+      acc = fmaf(dr[g], wss[c * ZP + g], fmaf(ar[g], zs[(r * C + c) * ZP + g], acc));
+    return acc;
+  };
+  auto head_regs = [&](float* reg, const float* row) {
+#pragma unroll
+    for (int q = 0; q < kGbHeadRegs / 4; ++q) {
+      const float4 v = 4 * q < GP ? ld4(row + 4 * q) : make_float4(0.f, 0.f, 0.f, 0.f);
+      reg[4 * q] = v.x;
+      reg[4 * q + 1] = v.y;
+      reg[4 * q + 2] = v.z;
+      reg[4 * q + 3] = v.w;
+    }
+  };
+
+  if (n0 < n1) {
+    if (L.resident)
+      for (int j = 0; j < L.nch; ++j) load_chunk(n0, j, j);
+    else
+      load_chunk(n0, 0, 0);
+  }
+
+#pragma unroll 1
+  for (int m0 = n0; m0 < n1; m0 += R) {
+    const int rows = min(R, n1 - m0);
+    // ---- the group's statistics, go, Z and the PE term of p1 ---------------
+    for (int i = tid; i < rows * G4S; i += kGbThreads)
+      sts[i] = st[((size_t)b * N + m0) * G4S + i];
+    for (int i = tid; i < rows * D; i += kGbThreads) {   // go[r][g, j], a pad a head
+      const int r = i / D, d = i - r * D, g = d / dv;
+      gos[r * GOP + g * DV1 + d - g * dv] =
+          Io<Tin>::load(static_cast<const Tin*>(a.go) + ((size_t)b * N + m0) * D + i);
+    }
+    for (int i = tid; i < rows * G * C; i += kGbThreads) ps[i] = 0.f;
+    __syncthreads();
+    // Z[r][c, g] = sum_{d in g} W[c, d] go_r[d]: each W element from L2
+    // serves the group's rows; kLoads loads in flight a thread
+    for (int i = tid; i < C * GP; i += kGbThreads) {
+      const int c = i / GP, g = i - c * GP;
+      float acc[kGbMaxRows] = {};
+      if (g < G) {
+        const float* wr = a.win + (size_t)c * D + g * dv;
+        const float* gr = gos + g * DV1;
+        for (int j0 = 0; j0 < dv; j0 += kLoads) {
+          float wv[kLoads];
+#pragma unroll
+          for (int k = 0; k < kLoads; ++k) wv[k] = j0 + k < dv ? __ldg(wr + j0 + k) : 0.f;
+#pragma unroll
+          for (int k = 0; k < kLoads; ++k)
+#pragma unroll
+            for (int r = 0; r < kGbMaxRows; ++r)
+              if (r < rows && j0 + k < dv) acc[r] = fmaf(wv[k], gr[r * GOP + j0 + k], acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kGbMaxRows; ++r)
+        if (r < rows) zs[(r * C + c) * ZP + g] = acc[r];
+    }
+    // ds[r][t, g] = sum_{d in g} go_r[d] bpe[t, d], p1's PE term
+    for (int i = tid; i < T * GP; i += kGbThreads) {
+      const int t = i / GP, g = i - t * GP;
+      float acc[kGbMaxRows] = {};
+      if (g < G) {
+        const float* bt = bpe_b + (size_t)t * D + g * dv;
+        const float* gr = gos + g * DV1;
+        for (int j0 = 0; j0 < dv; j0 += kLoads) {
+          float bv[kLoads];
+#pragma unroll
+          for (int k = 0; k < kLoads; ++k) bv[k] = j0 + k < dv ? __ldg(bt + j0 + k) : 0.f;
+#pragma unroll
+          for (int k = 0; k < kLoads; ++k)
+#pragma unroll
+            for (int r = 0; r < kGbMaxRows; ++r)
+              if (r < rows && j0 + k < dv) acc[r] = fmaf(gr[r * GOP + j0 + k], bv[k], acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kGbMaxRows; ++r)
+        if (r < rows) dsv[(r * T + t) * GP + g] = acc[r];
+    }
+
+    // 1. a, a_d and p1 of every step, and P = sum_t a_d xhat
+#pragma unroll 1
+    for (int j = 0; j < L.nch; ++j) {
+      const int t0 = j * TC, tc = min(TC, T - t0);
+      const int s = begin_visit(m0, 1, j);
+      normalize(rows, s, t0, tc);
       __syncthreads();
-      for (int i = tid; i < tc * G; i += kGenThreads) {
-        const int t = i / G, g = i - t * G, tt = t0 + t;
-        const float* xt = xc + t * C;
-        float s = 0.f, p1 = 0.f;
+      // thread (r, t, four heads): s = xhat Ws + pes, p1 += xhat Z[g]
+      for (int i = tid; i < rows * tc * G4; i += kGbThreads) {
+        const int gq = i % G4, k = i / G4, t = k % tc, r = k / tc, tt = t0 + t;
+        const float* xr = xh + (r * TC + t) * CP;
+        const float* wq = wss + 4 * gq;
+        const float* zq = zs + r * C * ZP + 4 * gq;
+        float4 sv = make_float4(0.f, 0.f, 0.f, 0.f), pv = sv;
 #pragma unroll 4
         for (int c = 0; c < C; ++c) {
-          s = fmaf(xt[c], wsp[c * GP + g], s);
-          p1 = fmaf(xt[c], z[c * GP + g], p1);
+          const float xv = xr[c];
+          const float4 wv = ld4(wq + c * ZP), zv = ld4(zq + c * ZP);
+          sv.x = fmaf(xv, wv.x, sv.x);
+          sv.y = fmaf(xv, wv.y, sv.y);
+          sv.z = fmaf(xv, wv.z, sv.z);
+          sv.w = fmaf(xv, wv.w, sv.w);
+          pv.x = fmaf(xv, zv.x, pv.x);
+          pv.y = fmaf(xv, zv.y, pv.y);
+          pv.z = fmaf(xv, zv.z, pv.z);
+          pv.w = fmaf(xv, zv.w, pv.w);
         }
-        const float* bt = bpe_b + (size_t)tt * D + g * dv;
-#pragma unroll 4
-        for (int j = 0; j < dv; ++j) p1 = fmaf(go[g * dv + j], __ldg(bt + j), p1);
-        const float aa = expf(s + pes_b[g * T + tt] - st_row[2 * G + g]) / st_row[3 * G + g];
-        av[tt * G + g] = aa;
-        adv[tt * G + g] = aa * keep_scale(a, b, tt, n, g);
-        dsv[tt * G + g] = p1;
-      }
-      __syncthreads();
-      for (int i = tid; i < G * C; i += kGenThreads) {
-        const int g = i / C, c = i - g * C;
-        float acc = p[i];
-#pragma unroll 4
-        for (int t = 0; t < tc; ++t) acc = fmaf(adv[(t0 + t) * G + g], xc[t * C + c], acc);
-        p[i] = acc;
-      }
-      __syncthreads();
-    }
-
-    // 2. ds = a_d p1 - a sum_t a_d p1 (the softmax jacobian)
-    for (int g = tid; g < G; g += kGenThreads) {
-      float s = 0.f;
-#pragma unroll 4
-      for (int t = 0; t < T; ++t) s = fmaf(adv[t * G + g], dsv[t * G + g], s);
-      tot[g] = s;
-    }
-    __syncthreads();
-    for (int i = tid; i < T * G; i += kGenThreads) {
-      const int g = i % G;
-      dsv[i] = adv[i] * dsv[i] - av[i] * tot[g];
-    }
-    __syncthreads();
-
-    // 3. the row's share of Dsum, E and F
-    for (int i = tid; i < T * G; i += kGenThreads) pds[i] += dsv[i];
-#pragma unroll 4
-    for (int i = tid; i < T * D; i += kGenThreads) {
-      const int t = i / D, d = i - t * D;
-      pe[i] = fmaf(adv[t * G + d / dv], go[d], pe[i]);
-    }
-#pragma unroll 4
-    for (int i = tid; i < C * D; i += kGenThreads) {
-      const int c = i / D, d = i - c * D;
-      pf[i] = fmaf(p[(d / dv) * C + c], go[d], pf[i]);
-    }
-
-    // 4. A += xhat^T ds, and per channel the sums of dxhat = ds Ws^T + a_d Z
-    //    and of dxhat xhat, thread (c, part) over its steps of each chunk
-    for (int i = tid; i < (C > kGenThreads ? C : kGenThreads); i += kGenThreads)
-      red[i] = red2[i] = 0.f;
-    auto dxhat = [&](int tt, int c) {
-      float acc = 0.f;
-#pragma unroll 4
-      for (int g = 0; g < G; ++g)
-        acc = fmaf(dsv[tt * G + g], wsp[c * GP + g], fmaf(adv[tt * G + g], z[c * GP + g], acc));
-      return acc;
-    };
-    for (int t0 = 0; t0 < T; t0 += L.tc) {
-      const int tc = min(L.tc, T - t0);
-      __syncthreads();   // xc is free
-#pragma unroll 4
-      for (int i = tid; i < tc * C; i += kGenThreads) {
-        const int t = i / C, c = i - t * C;
-        xc[i] = (load_xf<Tin, Tail>(a, b, t0 + t, n, c) - mean[c]) * inv[c];
-      }
-      __syncthreads();
-      for (int i = tid; i < C * G; i += kGenThreads) {
-        const int c = i / G, g = i - c * G;
-        float acc = pa[i];
-#pragma unroll 4
-        for (int t = 0; t < tc; ++t) acc = fmaf(xc[t * C + c], dsv[(t0 + t) * G + g], acc);
-        pa[i] = acc;
-      }
-      for (int c0 = 0; c0 < C; c0 += kGenThreads) {   // one pass but for C > kGenThreads
-        const int c = parts > 1 ? tid % C : c0 + tid, part_i = parts > 1 ? tid / C : 0;
-        if (part_i < parts && c < C) {
-          float s1 = 0.f, s2 = 0.f;
-#pragma unroll 4
-          for (int t = part_i; t < tc; t += parts) {
-            const float dh = dxhat(t0 + t, c);
-            s1 += dh;
-            s2 = fmaf(dh, xc[t * C + c], s2);
+        float* dr = dsv + (r * T + tt) * GP + 4 * gq;
+        float* ar = adv + (r * T + tt) * GP + 4 * gq;
+        const float* sr = sts + r * G4S;
+#pragma unroll
+        for (int k2 = 0; k2 < 4; ++k2) {
+          const int g = 4 * gq + k2;
+          if (g < G) {
+            const float aa = expf(at4(sv, k2) + __ldg(pes_b + g * T + tt) - sr[G2 + g]) /
+                             sr[3 * G + g];
+            const float ks = keep_scale(a, b, tt, m0 + r, g);
+            const float ad = aa * ks;
+            dr[k2] = ad * (dr[k2] + at4(pv, k2));
+            ar[k2] = ks != 0.f ? ad : -aa;
+          } else {
+            dr[k2] = 0.f;
+            ar[k2] = 0.f;
           }
-          red[part_i * C + c] += s1;
-          red2[part_i * C + c] += s2;
         }
-        if (parts > 1) break;
+      }
+      __syncthreads();
+      // thread (r, four heads, c): P[r][g, c] += sum_t a_d[t, g] xhat[t, c]
+      for (int i = tid; i < rows * G4 * C; i += kGbThreads) {
+        const int c = i % C, k = i / C, gq = k % G4, r = k / G4;
+        const float* xc = xh + r * TC * CP + c;
+        const float* ar = adv + (r * T + t0) * GP + 4 * gq;
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int t = 0; t < tc; ++t) {
+          const float xv = xc[t * CP];
+          const float4 av = ld4(ar + t * GP);
+          acc.x = fmaf(coded_ad(av.x), xv, acc.x);
+          acc.y = fmaf(coded_ad(av.y), xv, acc.y);
+          acc.z = fmaf(coded_ad(av.z), xv, acc.z);
+          acc.w = fmaf(coded_ad(av.w), xv, acc.w);
+        }
+#pragma unroll
+        for (int k2 = 0; k2 < 4; ++k2)
+          if (4 * gq + k2 < G) ps[(r * G + 4 * gq + k2) * C + c] += at4(acc, k2);
+      }
+    }
+
+    // 2. ds = a_d p1 - a sum_t a_d p1 (the softmax jacobian); ad becomes a_d
+    __syncthreads();
+    for (int k = warp; k < rows * GP; k += kGbThreads / 32) {   // pad heads: 0
+      const int r = k / GP, g = k - r * GP;
+      float sm = 0.f;
+      for (int t = lane; t < T; t += 32) sm += dsv[(r * T + t) * GP + g];
+      sm = warp_sum(sm);
+      if (lane == 0) tot[r * GP + g] = sm;
+    }
+    __syncthreads();
+    for (int it = tid; it < rows * T; it += kGbThreads) {   // thread per (r, t)
+      float* dr = dsv + it * GP;
+      float* ar = adv + it * GP;
+      const float* tr = tot + it / T * GP;
+      for (int q = 0; q < G4; ++q) {
+        float4 dv4 = ld4(dr + 4 * q), av = ld4(ar + 4 * q);
+        const float4 tv = ld4(tr + 4 * q);
+        dv4.x -= coded_a(av.x, inv_scale) * tv.x;
+        dv4.y -= coded_a(av.y, inv_scale) * tv.y;
+        dv4.z -= coded_a(av.z, inv_scale) * tv.z;
+        dv4.w -= coded_a(av.w, inv_scale) * tv.w;
+        av = make_float4(coded_ad(av.x), coded_ad(av.y), coded_ad(av.z), coded_ad(av.w));
+        *reinterpret_cast<float4*>(dr + 4 * q) = dv4;
+        *reinterpret_cast<float4*>(ar + 4 * q) = av;
       }
     }
     __syncthreads();
-    if (parts > 1 && tid < C) {   // thread c alone reads slots (k, c), writes (0, c)
+
+    // per row sum_t ds and sum_t a_d (warp (r, head), lanes over t), and the
+    // P part of the GroupNorm backward's second sum (see step 4)
+    for (int k = warp; k < rows * GP; k += kGbThreads / 32) {
+      const int r = k / GP, g = k - r * GP;
       float s1 = 0.f, s2 = 0.f;
-      for (int k = 0; k < parts; ++k) {
-        s1 += red[k * C + tid];
-        s2 += red2[k * C + tid];
+      for (int t = lane; t < T; t += 32) {
+        s1 += dsv[(r * T + t) * GP + g];
+        s2 += adv[(r * T + t) * GP + g];
       }
-      red[tid] = s1;
-      red2[tid] = s2;
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) {
+        sg[r * 2 * GP + g] = s1;
+        sg[r * 2 * GP + GP + g] = s2;
+      }
+    }
+    for (int i = tid; i < rows * G; i += kGbThreads) {
+      const int r = i / G, gc = i - r * G;
+      float sm = 0.f;
+      for (int c = gc * cg; c < (gc + 1) * cg; ++c)
+        for (int g = 0; g < G; ++g)
+          sm = fmaf(zs[(r * C + c) * ZP + g], ps[(r * G + g) * C + c], sm);
+      gm[r * G2 + G + gc] = sm;
+    }
+
+    // 3. the group's share of F, E and Dsum
+    if (f_regs && kGbThreads % D == 0) {   // element tid + k * kGbThreads is (c + k cs, d)
+      const int d = tid % D, cs = kGbThreads / D, g = d / dv, gd = g * DV1 + d - g * dv;
+      float gv[kGbMaxRows];
+#pragma unroll
+      for (int r = 0; r < kGbMaxRows; ++r) gv[r] = r < rows ? gos[r * GOP + gd] : 0.f;
+      int c = tid / D;
+#pragma unroll
+      for (int k = 0; k < kGbFRegs; ++k) {
+        if (c < C) {
+          float sm = 0.f;
+#pragma unroll
+          for (int r = 0; r < kGbMaxRows; ++r)
+            if (r < rows) sm = fmaf(ps[(r * G + g) * C + c], gv[r], sm);
+          freg[k] += sm;
+        }
+        c += cs;
+      }
+    } else if (f_regs) {   // element tid + k * kGbThreads is (c, d), stepped
+      int c = tid / D, d = tid - c * D;
+      const int cs = kGbThreads / D, dsp = kGbThreads - cs * D;
+#pragma unroll
+      for (int k = 0; k < kGbFRegs; ++k) {
+        if (c < C) {
+          const int g = head_of(d, inv_dv), gd = g * DV1 + d - g * dv;
+          float sm = 0.f;
+#pragma unroll
+          for (int r = 0; r < kGbMaxRows; ++r)
+            if (r < rows) sm = fmaf(ps[(r * G + g) * C + c], gos[r * GOP + gd], sm);
+          freg[k] += sm;
+        }
+        c += cs;
+        d += dsp;
+        if (d >= D) {
+          d -= D;
+          ++c;
+        }
+      }
+    } else {
+      for (int i = tid; i < C * D; i += kGbThreads) {
+        const int c = i / D, d = i - c * D, g = d / dv, gd = g * DV1 + d - g * dv;
+        float sm = 0.f;
+        for (int r = 0; r < rows; ++r) sm = fmaf(ps[(r * G + g) * C + c], gos[r * GOP + gd], sm);
+        pf[i] += sm;
+      }
+    }
+    const int npe = max(1, kGbThreads / D);   // E: thread (part, d) over steps
+    for (int it = tid; it < npe * D; it += kGbThreads) {
+      const int d = it % D, pt = it / D, g = d / dv, gd = g * DV1 + d - g * dv;
+      float gv[kGbMaxRows];
+#pragma unroll
+      for (int r = 0; r < kGbMaxRows; ++r) gv[r] = r < rows ? gos[r * GOP + gd] : 0.f;
+      for (int t0 = pt; t0 < T; t0 += kLoads * npe) {   // kLoads partial sums in flight
+        float old[kLoads];
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          const int t = t0 + k * npe;
+          old[k] = t < T ? pe[t * D + d] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          const int t = t0 + k * npe;
+          if (t < T) {
+            const float* ar = adv + t * GP + g;
+            float sm = 0.f;
+#pragma unroll
+            for (int r = 0; r < kGbMaxRows; ++r)
+              if (r < rows) sm = fmaf(ar[r * T * GP], gv[r], sm);
+            pe[t * D + d] = old[k] + sm;
+          }
+        }
+      }
+    }
+    // Dsum[t, g] += sum_r ds_r[t, g]
+    for (int i = tid; i < T * G; i += kGbThreads) {
+      const int t = i / G, g = i - t * G;
+      float sm = 0.f;
+#pragma unroll
+      for (int r = 0; r < kGbMaxRows; ++r)
+        if (r < rows) sm += dsv[(r * T + t) * GP + g];
+      pds[i] += sm;
+    }
+
+    // 4. each row's A_r = xhat^T ds (thread (r, four heads, c) over the
+    //    chunk's steps), added into the block's A once a group. The GroupNorm
+    //    backward's sums follow without dxhat: over t and the channels c of
+    //    group gc, sum dxhat = sum_c sum_g Ws[c, g] sum_t ds[t, g] + Z[g, c]
+    //    sum_t a_d[t, g], and sum dxhat xhat = sum_c sum_g Ws[c, g] A_r[c, g]
+    //    + Z[g, c] P_r[g, c]
+#pragma unroll 1
+    for (int j = 0; j < L.nch; ++j) {
+      const int t0 = j * TC, tc = min(TC, T - t0);
+      const int s = begin_visit(m0, 2, j);
+      normalize(rows, s, t0, tc);
+      __syncthreads();
+      for (int i = tid; i < rows * G4 * C; i += kGbThreads) {
+        const int c = i % C, k = i / C, gq = k % G4, r = k / G4;
+        const float* xc = xh + r * TC * CP + c;
+        const float* dr = dsv + (r * T + t0) * GP + 4 * gq;
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int t = 0; t < tc; ++t) {
+          const float xv = xc[t * CP];
+          const float4 dv4 = ld4(dr + t * GP);
+          acc.x = fmaf(xv, dv4.x, acc.x);
+          acc.y = fmaf(xv, dv4.y, acc.y);
+          acc.z = fmaf(xv, dv4.z, acc.z);
+          acc.w = fmaf(xv, dv4.w, acc.w);
+        }
+        float4* ar = reinterpret_cast<float4*>(ars + (r * C + c) * GP + 4 * gq);
+        if (j > 0) {
+          const float4 old = *ar;
+          acc = make_float4(old.x + acc.x, old.y + acc.y, old.z + acc.z, old.w + acc.w);
+        }
+        *ar = acc;
+      }
     }
     __syncthreads();
-    for (int g = tid; g < G; g += kGenThreads) {
-      float s1 = 0.f, s2 = 0.f;
-      for (int k = 0; k < cg; ++k) {
-        s1 += red[g * cg + k];
-        s2 += red2[g * cg + k];
-      }
-      gm[g] = s1 / cnt;
-      gm[G + g] = s2 / cnt;
+    for (int i = tid; i < rows * G; i += kGbThreads) {   // the group means
+      const int r = i / G, gc = i - r * G;
+      const float* sd = sg + r * 2 * GP;
+      float s1 = 0.f, s2 = gm[r * G2 + G + gc];
+      for (int c = gc * cg; c < (gc + 1) * cg; ++c)
+        for (int g = 0; g < G; ++g) {
+          const float wv = wss[c * ZP + g], zv = zs[(r * C + c) * ZP + g];
+          s1 = fmaf(sd[g], wv, fmaf(sd[GP + g], zv, s1));
+          s2 = fmaf(wv, ars[(r * C + c) * GP + g], s2);
+        }
+      gm[r * G2 + gc] = s1 / cnt;
+      gm[r * G2 + G + gc] = s2 / cnt;
     }
-    __syncthreads();
+    for (int i = tid; i < C * G; i += kGbThreads) {   // A += sum_r A_r
+      const int c = i / G, g = i - c * G;
+      float sm = 0.f;
+#pragma unroll
+      for (int r = 0; r < kGbMaxRows; ++r)
+        if (r < rows) sm += ars[(r * C + c) * GP + g];
+      pa[i] += sm;
+    }
 
     // 5. dx = inv (dxhat - mean dxhat - xhat mean dxhat xhat); in tail mode
-    //    through the ReLU mask and tsc, with the row's share of dtsc, dtsh
-    Tin* dx = static_cast<Tin*>(a.dx);
-#pragma unroll 4
-    for (int i = tid; i < T * C; i += kGenThreads) {
-      const int t = i / C, c = i - t * C, g = c / cg;
-      const float zv = load_raw<Tin>(a, b, t, n, c);
-      float xf = zv, sc = 0.f, sh = 0.f;
-      if constexpr (Tail) {
-        const size_t k = ((size_t)b * T + t) * C + c;
-        sc = a.tsc[k];
-        sh = a.tsh[k];
-        xf = fmaxf(tail_pre(zv, sc, sh), 0.f);
-      }
-      const float xh = (xf - mean[c]) * inv[c];
-      const float dxf = inv[c] * (dxhat(t, c) - gm[g] - xh * gm[G + g]);
-      const size_t at = (((size_t)b * T + t) * N + n) * C + c;
-      if constexpr (Tail) {
-        const float live = tail_pre(zv, sc, sh) > 0.f ? dxf : 0.f;
-        Io<Tin>::store(dx + at, live * sc);
-        psc[i] = fmaf(live, zv, psc[i]);
-        psh[i] += live;
-      } else {
-        Io<Tin>::store(dx + at, dxf);
+    //    through the ReLU mask and tsc, with the group's share of dtsc, dtsh
+#pragma unroll 1
+    for (int j = 0; j < L.nch; ++j) {
+      const int t0 = j * TC, tc = min(TC, T - t0);
+      const Tin* rs = raw + begin_visit(m0, 3, j) * slot_elems;
+      Tin* dx = static_cast<Tin*>(a.dx);
+      for (int it = tid; it < kGbParts * C; it += kGbThreads) {
+        const int c = it % C, pt = it / C, gc = c / cg;
+        float wr[kGbHeadRegs], zr[kGbHeadRegs];
+        head_regs(wr, wss + c * ZP);
+        float dsc[kGenChunk / kGbParts], dsh[kGenChunk / kGbParts];
+        float tsc_k[Tail ? kGenChunk / kGbParts : 1], tsh_k[Tail ? kGenChunk / kGbParts : 1];
+#pragma unroll
+        for (int k = 0; k < kGenChunk / kGbParts; ++k) {
+          dsc[k] = dsh[k] = 0.f;
+          if constexpr (Tail) {   // the tail affine of the thread's steps, for every row
+            const int t = pt + k * kGbParts;
+            const size_t k3 = ((size_t)b * T + t0 + t) * C + c;
+            tsc_k[k] = t < tc ? __ldg(a.tsc + k3) : 0.f;
+            tsh_k[k] = t < tc ? __ldg(a.tsh + k3) : 0.f;
+          }
+        }
+        for (int r = 0; r < rows; ++r) {
+          head_regs(zr, zs + (r * C + c) * ZP);
+          const float mean = sts[r * G4S + gc], inv = sts[r * G4S + G + gc];
+          const float m1 = gm[r * G2 + gc], m2 = gm[r * G2 + G + gc];
+#pragma unroll
+          for (int k = 0; k < kGenChunk / kGbParts; ++k) {
+            const int t = pt + k * kGbParts;
+            if (t < tc) {
+              const float dh = dxhat(wr, zr, r, t0 + t, c);
+              // xhat from the slot: z, and in tail mode the pre-activation
+              const float zv = to_f(rs[t * R * C + r * C + c]);
+              float xf = zv, sc = 0.f, pre = 0.f;
+              if constexpr (Tail) {
+                sc = tsc_k[k];
+                pre = tail_pre(zv, sc, tsh_k[k]);
+                xf = fmaxf(pre, 0.f);
+              }
+              const float dxf = inv * (dh - m1 - (xf - mean) * inv * m2);
+              const size_t at = (((size_t)b * T + t0 + t) * N + m0 + r) * C + c;
+              if constexpr (Tail) {
+                const float live = pre > 0.f ? dxf : 0.f;
+                Io<Tin>::store(dx + at, live * sc);
+                dsc[k] = fmaf(live, zv, dsc[k]);
+                dsh[k] += live;
+              } else {
+                Io<Tin>::store(dx + at, dxf);
+              }
+            }
+          }
+        }
+        if constexpr (Tail) {   // the loads first, all in flight
+          float osc[kGenChunk / kGbParts], osh[kGenChunk / kGbParts];
+#pragma unroll
+          for (int k = 0; k < kGenChunk / kGbParts; ++k) {
+            const int t = pt + k * kGbParts;
+            osc[k] = t < tc ? psc[(t0 + t) * C + c] : 0.f;
+            osh[k] = t < tc ? psh[(t0 + t) * C + c] : 0.f;
+          }
+#pragma unroll
+          for (int k = 0; k < kGenChunk / kGbParts; ++k) {
+            const int t = pt + k * kGbParts;
+            if (t < tc) {
+              psc[(t0 + t) * C + c] = osc[k] + dsc[k];
+              psh[(t0 + t) * C + c] = osh[k] + dsh[k];
+            }
+          }
+        }
       }
     }
-    __syncthreads();
+    __syncthreads();   // the group's buffers are free
+    if (L.resident && m0 + R < n1) load_chunk(m0 + R, L.nch - 1, L.nch - 1);
+  }
+  if (f_regs) {
+#pragma unroll
+    for (int k = 0; k < kGbFRegs; ++k) {
+      const int i = tid + k * kGbThreads;
+      if (i < C * D) pf[i] = freg[k];
+    }
   }
 }
 
 template <bool Tail, typename Tin>
 cudaError_t launch_general_fwd(const Args& a, float* st, float* scratch, int S,
                                cudaStream_t stream) {
-  const size_t bytes = (size_t)gen_layout(a.T, a.C, a.D, a.G, false).floats * sizeof(float);
+  const size_t bytes = (size_t)gen_layout(a.T, a.C, a.D, a.G).floats * sizeof(float);
   const bool in_smem = bytes <= kSmemLimit;
   if (S < 1 || in_smem == (scratch != nullptr)) return cudaErrorInvalidValue;
   const size_t dyn = in_smem ? bytes : 0;
@@ -1671,15 +2117,17 @@ cudaError_t launch_general_fwd(const Args& a, float* st, float* scratch, int S,
 template <bool Tail, typename Tin>
 cudaError_t launch_general_bwd(const Args& a, const float* st, float* part, float* scratch,
                                int S, cudaStream_t stream) {
-  const size_t bytes = (size_t)gen_layout(a.T, a.C, a.D, a.G, true).floats * sizeof(float);
+  const GbLayout L = gb_plan(a.T, a.C, a.D, a.G, sizeof(Tin));
+  const size_t bytes = (size_t)L.floats * sizeof(float);
   const bool in_smem = bytes <= kSmemLimit;
   if (S < 1 || in_smem == (scratch != nullptr)) return cudaErrorInvalidValue;
   const size_t dyn = in_smem ? bytes : 0;
-  cudaError_t err = cudaFuncSetAttribute(ltae_pool_bwd_general_kernel<Tin, Tail>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  const auto kernel = in_smem ? ltae_pool_bwd_general_kernel<Tin, Tail, true>
+                              : ltae_pool_bwd_general_kernel<Tin, Tail, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return err;
-  ltae_pool_bwd_general_kernel<Tin, Tail><<<dim3(S, a.B), kGenThreads, dyn, stream>>>(
-      a, st, part, scratch);
+  kernel<<<dim3(S, a.B), kGbThreads, dyn, stream>>>(a, L, st, part, scratch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int total = bwd_shared_floats(a.C, a.D, a.G) +
                     a.B * bwd_item_floats(a.T, a.C, a.D, a.G, Tail);
@@ -1766,11 +2214,28 @@ extern "C" int ltae_pool_bwd(const void* x, int x_is_bf16, const void* tsc,
 }
 
 // The general pair's scratch floats per block: 0 where the workspace of the
-// forward (backward = 0) or the backward fits in shared memory, else the
-// size of each block's slice of `scratch`.
-extern "C" int ltae_pool_general_scratch_floats(int T, int C, int D, int G, int backward) {
-  const int f = gen_layout(T, C, D, G, backward != 0).floats;
+// forward (backward = 0) or the backward (for x of fp32, or bf16 with
+// x_is_bf16) fits in shared memory, else the size of each block's slice of
+// `scratch`.
+extern "C" int ltae_pool_general_scratch_floats(int T, int C, int D, int G, int backward,
+                                                int x_is_bf16) {
+  const int f = backward ? gb_plan(T, C, D, G, x_is_bf16 ? 2 : 4).floats
+                         : gen_layout(T, C, D, G).floats;
   return (size_t)f * sizeof(float) <= kSmemLimit ? 0 : f;
+}
+
+// The general backward's plan for a shape (gb_plan), into out[4]: rows a
+// group, whether the group's x stays resident, steps a chunk, and the
+// workspace's floats per block (past 227 KB: in the scratch buffer).
+extern "C" int ltae_pool_bwd_general_plan(int T, int C, int D, int G, int x_is_bf16,
+                                          int* out) {
+  if (T < 1 || C < 1 || G < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  const GbLayout L = gb_plan(T, C, D, G, x_is_bf16 ? 2 : 4);
+  out[0] = L.rows;
+  out[1] = L.resident;
+  out[2] = L.tc;
+  out[3] = L.floats;
+  return 0;
 }
 
 // The general pair (any shape with G dividing C and D), with the arguments

@@ -17,7 +17,9 @@ item, each walking its ``row_ranges`` in groups of rows) take T <= 64, C <=
 128 with C % 8 == 0, G <= 16, D and d_out <= 256 and nq <= 8
 (``kernel_takes``): "group" for one query at C <= 64, "wide" for one query
 above, "queries" for nq > 1; the "general" kernel takes every other shape
-at which the L-TAE is defined (G dividing C, D and d_out), T > 64 above all.
+at which the L-TAE is defined (G dividing C, D and d_out), T > 64 above all,
+on ``blocks_per_item`` blocks a batch item in groups of rows, x in chunks
+of T kept on chip where it fits (``general_plan``).
 ``ltae_fused_forward.launches`` counts launches, and ``.route_launches``
 counts them per route.
 With nq = 1 (q of shape (G, d_k) or (G, 1, d_k)) out is (B, N, d_out) and
@@ -35,7 +37,7 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from crop2seg_tpu_torch.ops._build import load_library
-from crop2seg_tpu_torch.ops.ltae_pool import aligned16, blocks_per_item, general_launch_shape
+from crop2seg_tpu_torch.ops.ltae_pool import aligned16, blocks_per_item
 
 # The row-group kernels' limits; the general kernel takes the rest.
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
@@ -207,15 +209,31 @@ def launch_shape(b: int, t: int, c: int, d: int, g: int, d_out: int, nq: int,
 
 @functools.cache
 def _kernel():
-    """The C entries: (ltae_fused_fwd, ltae_fused_general_scratch_floats)."""
+    """The C entries: (ltae_fused_fwd, ltae_fused_general_scratch_floats,
+    ltae_fused_general_plan)."""
     lib = load_library("ltae_fused_fwd")
     fn, scratch = lib.ltae_fused_fwd, lib.ltae_fused_general_scratch_floats
+    plan = lib.ltae_fused_general_plan
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # x, x_is_bf16 | pe .. attn | B T N C D G DOUT NQ route S | scratch, eps, stream
     fn.argtypes = [vp, ci] + [vp] * 13 + [ci] * 10 + [vp, ctypes.c_float, vp]
-    scratch.argtypes = [ci] * 6
-    fn.restype = scratch.restype = ci
-    return fn, scratch
+    scratch.argtypes = [ci] * 8
+    plan.argtypes = [ci] * 8 + [vp]
+    fn.restype = scratch.restype = plan.restype = ci
+    return fn, scratch, plan
+
+
+def general_plan(t: int, c: int, d: int, g: int, d_out: int, nq: int,
+                 dtype: torch.dtype, need_attn: bool) -> tuple:
+    """The general kernel's plan for x of ``dtype``, from the C entry
+    (csrc/ltae_fused_fwd.cu::ge_plan): (rows a group, x resident, scores on
+    chip, W_in in shared memory, W_m in shared memory, workspace floats).
+    Builds the library, so it needs nvcc."""
+    out = (ctypes.c_int * 6)()
+    if rc := _kernel()[2](t, c, d, g, d_out, nq, int(dtype == torch.bfloat16),
+                          int(need_attn), out):
+        raise RuntimeError(f"ltae_fused_general_plan failed (error {rc})")
+    return tuple(out)
 
 
 def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
@@ -253,7 +271,7 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
     d, d_out = params["win"].shape[1], params["wm_folded"].shape[1]
     route = kernel_route(t, c, d, g, d_out, nq)
     sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    s = (general_launch_shape(b, sm_count) if route == "general"
+    s = (blocks_per_item(b, sm_count) if route == "general"
          else launch_shape(b, t, c, d, g, d_out, nq, sm_count))
     if pe.shape != (b, t, d) or pad_mask.shape != (b, t):
         raise ValueError(f"pe {tuple(pe.shape)} / pad_mask {tuple(pad_mask.shape)} "
@@ -273,9 +291,10 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
     def ptr(name):
         return f[name].data_ptr() if name in f else None
 
-    fn, scratch_floats = _kernel()
+    fn, scratch_floats, _ = _kernel()
     scratch = None
-    if route == "general" and (per := scratch_floats(t, c, d, g, d_out, nq)):
+    if route == "general" and (per := scratch_floats(
+            t, c, d, g, d_out, nq, int(x.dtype == torch.bfloat16), int(need_attn))):
         scratch = torch.empty(b * s * per, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

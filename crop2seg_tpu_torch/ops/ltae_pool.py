@@ -34,10 +34,12 @@ D <= 256: TimeUNet's training path) the forward kernel runs S =
 ``fwd_launch_shape(...)`` persistent blocks per batch item, each walking its
 ``row_ranges`` in groups of 8 rows, and writes o in one pass over x; every
 other shape at which the L-TAE is defined (G dividing C and D) takes the
-general pair (variants ``..._general``, S = ``general_launch_shape``): one
-row at a time per block, x streamed over T with an online softmax, the
-forward saving each row's GroupNorm statistics and softmax max and sum
-(B, N, 4, G) for its backward.
+general pair (variants ``..._general``): the forward one row at a time per
+block (S = ``general_launch_shape``), x streamed over T with an online
+softmax, saving each row's GroupNorm statistics and softmax max and sum (B,
+N, 4, G) for its backward; the backward one block an SM (S =
+``blocks_per_item``) in groups of rows, x in chunks of T kept on chip where
+it fits (``general_bwd_plan``).
 
 The folds and the small products around the kernels run in fp32 with
 autocast off, from fp32 parameters, as the JAX package computes them, whatever
@@ -77,7 +79,7 @@ MAX_HEADS = 16      # per-head accumulators live in registers
 MAX_D = 256         # the forward gives a thread to each (d, half of a row group);
                     # the backward holds win_f and bin_f + pe in shared memory
 EPS = 1e-5          # the input GroupNorm's epsilon
-GENERAL_BLOCKS_PER_SM = 4   # the general kernels' 256-thread blocks (kGenBlocksPerSm)
+GENERAL_BLOCKS_PER_SM = 4   # the general forward's 256-thread blocks (kGenBlocksPerSm)
 _M32 = 0xFFFFFFFF
 
 
@@ -199,12 +201,13 @@ def ltae_pool_tail_reference(z, tsc, tsh, pe, pad_mask, win_f, bin_f, u, cs,
 def _kernels():
     """The C entries of csrc/ltae_pool.cu with their argument types:
     (forward, backward, partial-sum floats per backward block, general
-    forward, general backward, general scratch floats per block)."""
+    forward, general backward, general scratch floats per block, the general
+    backward's plan)."""
     lib = load_library("ltae_pool")
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
     fwd, bwd, part = lib.ltae_pool_fwd, lib.ltae_pool_bwd, lib.ltae_pool_bwd_part_floats
     gfwd, gbwd = lib.ltae_pool_fwd_general, lib.ltae_pool_bwd_general
-    scratch = lib.ltae_pool_general_scratch_floats
+    scratch, plan = lib.ltae_pool_general_scratch_floats, lib.ltae_pool_bwd_general_plan
     # x, x_is_bf16 | tsc, tsh, bpe, win, ws, pes, o | S B T N C D G |
     # seed_mix thresh scale eps stream
     fwd.argtypes = [vp, ci] + [vp] * 7 + [ci] * 7 + [cu, cu, cf, cf, vp]
@@ -216,10 +219,11 @@ def _kernels():
     # general: ... bpe, st, dx, A, F, Dsum, E, dtsc, dtsh, part, scratch | ...
     gbwd.argtypes = [vp, ci] + [vp] * 17 + [ci] * 7 + [cu, cu, cf, cf, vp]
     part.argtypes = [ci] * 5
-    scratch.argtypes = [ci] * 5
-    for f in (fwd, bwd, part, gfwd, gbwd, scratch):
+    scratch.argtypes = [ci] * 6
+    plan.argtypes = [ci] * 5 + [vp]                # T C D G x_is_bf16 | out[4]
+    for f in (fwd, bwd, part, gfwd, gbwd, scratch, plan):
         f.restype = ci
-    return fwd, bwd, part, gfwd, gbwd, scratch
+    return fwd, bwd, part, gfwd, gbwd, scratch, plan
 
 
 def blocks_per_item(b: int, sm_count: int) -> int:
@@ -246,10 +250,21 @@ def fwd_launch_shape(b: int, t: int, c: int, d: int, g: int, sm_count: int) -> i
 
 
 def general_launch_shape(b: int, sm_count: int) -> int:
-    """S, the general kernels' blocks per batch item (the eval kernel's and
-    the pair's): GENERAL_BLOCKS_PER_SM per SM over the batch, each walking
-    ``row_ranges(N, S)[i]`` one row at a time."""
+    """S, the general forward's blocks per batch item: GENERAL_BLOCKS_PER_SM
+    per SM over the batch, each walking ``row_ranges(N, S)[i]`` one row at a
+    time. The general backward and the general eval kernel run
+    ``blocks_per_item`` blocks, one an SM, each in groups of rows."""
     return blocks_per_item(b, GENERAL_BLOCKS_PER_SM * sm_count)
+
+
+def general_bwd_plan(t: int, c: int, d: int, g: int, dtype: torch.dtype) -> tuple:
+    """The general backward's plan for x of ``dtype``, from the C entry
+    (csrc/ltae_pool.cu::gb_plan): (rows a group, x resident, steps a chunk,
+    workspace floats). Builds the library, so it needs nvcc."""
+    out = (ctypes.c_int * 4)()
+    if rc := _kernels()[6](t, c, d, g, int(dtype == torch.bfloat16), out):
+        raise RuntimeError(f"ltae_pool_bwd_general_plan failed (error {rc})")
+    return tuple(out)
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -280,11 +295,11 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _general_scratch(t, c, d, g, backward: bool, blocks: int, device):
+def _general_scratch(t, c, d, g, backward: bool, blocks: int, x):
     """The general kernel's workspace in device memory where it does not fit
     in shared memory, else None."""
-    per = _kernels()[5](t, c, d, g, int(backward))
-    return torch.empty(blocks * per, dtype=torch.float32, device=device) if per else None
+    per = _kernels()[5](t, c, d, g, int(backward), int(x.dtype == torch.bfloat16))
+    return torch.empty(blocks * per, dtype=torch.float32, device=x.device) if per else None
 
 
 def _count(tail: bool, dtype: torch.dtype, direction: str, general: bool) -> None:
@@ -322,7 +337,7 @@ class _LtaePool(torch.autograd.Function):
             if general:
                 s = general_launch_shape(b, _sm_count(x.device))
                 stats = torch.empty(b, n, 4, n_head, dtype=torch.float32, device=x.device)
-                scratch = _general_scratch(t, c, d, n_head, False, b * s, x.device)
+                scratch = _general_scratch(t, c, d, n_head, False, b * s, x)
                 rc = kernels[3](*head, stats.data_ptr(), _ptr(scratch), s, *tail_args,
                                 stream)
             else:
@@ -352,7 +367,7 @@ class _LtaePool(torch.autograd.Function):
         dtsc, dtsh = ((torch.empty(b, t, c, **f32), torch.empty(b, t, c, **f32))
                       if tail else (None, None))
         kernels = _kernels()
-        s = (general_launch_shape if general else blocks_per_item)(b, _sm_count(x.device))
+        s = blocks_per_item(b, _sm_count(x.device))
         part = torch.empty(b * s, kernels[2](t, c, d, g, int(tail)), **f32)
         args = (x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc), _ptr(tsh),
                 go.data_ptr(), win_f.data_ptr(), ws.data_ptr(), pes.data_ptr(),
@@ -363,7 +378,7 @@ class _LtaePool(torch.autograd.Function):
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             if general:
-                scratch = _general_scratch(t, c, d, g, True, b * s, x.device)
+                scratch = _general_scratch(t, c, d, g, True, b * s, x)
                 rc = kernels[4](*args, stats.data_ptr(), *sums, _ptr(scratch), s,
                                 *scalars, stream)
             else:

@@ -3,12 +3,13 @@ at a main-path shape on one card, so that two checkouts can be compared in
 turns within one call.
 
     PYTHONPATH=<checkout> python3 scripts/bench_ltae_fused_torch.py
-        [--width timeunet|utae] [--nq 1] [--iters 20]
+        [--width timeunet|utae] [--nq 1] [--iters 20] [--t 61] [--batch 10]
 
 crop2seg_tpu_torch is imported from PYTHONPATH when it is set (this
 checkout's otherwise), and its kernel is built there. Inputs and parameters
 are drawn from a seeded generator at B=10, T=61 with every other sample
-padded to 55: TimeUNet's width (N=128*128, C=d_out=64, the deferred tail
+padded to 55 (T - 6 at another --t; --t past 64 times the general kernel,
+--t 128 --batch 4 its timing shape): TimeUNet's width (N=128*128, C=d_out=64, the deferred tail
 affine, no attention) or U-TAE's (N=16*16, C=d_out=128, attention out); G=16,
 D=256, nq queries per head. Prints the card (nvidia-smi name and power
 limit), then per dtype the SM clock and power draw before and after its
@@ -42,7 +43,7 @@ WIDTHS = {"timeunet": dict(n=128 * 128, c=64, d_out=64, tail=True, attn=False),
 B, T, LENGTH, D, G, D_K = 10, 61, 55, 256, 16, 4
 
 
-def inputs(width: dict, nq: int, dev):
+def inputs(width: dict, nq: int, dev, t: int = T, b: int = B):
     gen = torch.Generator(device=dev).manual_seed(0)
     c, d_out = width["c"], width["d_out"]
 
@@ -54,11 +55,11 @@ def inputs(width: dict, nq: int, dev):
               "q": r(G, nq, D_K), "wm_folded": r(D, d_out, scale=D ** -0.5),
               "bm_folded": r(d_out, scale=0.1), "out_scale": 1 + r(d_out, scale=0.1),
               "out_bias": r(d_out, scale=0.1)}
-    pad = torch.zeros(B, T, dtype=torch.bool, device=dev)
-    pad[::2, LENGTH:] = True
+    pad = torch.zeros(b, t, dtype=torch.bool, device=dev)
+    pad[::2, t - (T - LENGTH):] = True
     valid = (~pad).float()[:, :, None]
-    tail = ((1 + r(B, T, c, scale=0.2)) * valid, r(B, T, c, scale=0.1) * valid)
-    return r(B, T, width["n"], c), r(B, T, D), pad, params, (
+    tail = ((1 + r(b, t, c, scale=0.2)) * valid, r(b, t, c, scale=0.1) * valid)
+    return r(b, t, width["n"], c), r(b, t, D), pad, params, (
         tail if width["tail"] else None)
 
 
@@ -85,6 +86,8 @@ def main() -> int:
     ap.add_argument("--width", choices=tuple(WIDTHS), default="timeunet")
     ap.add_argument("--nq", type=int, default=1)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--t", type=int, default=T)
+    ap.add_argument("--batch", type=int, default=B)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -92,7 +95,7 @@ def main() -> int:
     print(smi("name,power.limit"))
     dev = torch.device("cuda")
     width = WIDTHS[args.width]
-    x, pe, pad, params, tail = inputs(width, args.nq, dev)
+    x, pe, pad, params, tail = inputs(width, args.nq, dev, args.t, args.batch)
     for dtype in (torch.bfloat16, torch.float32):
         xd = x.to(dtype)
 
@@ -114,6 +117,7 @@ def main() -> int:
         kernel_ms, all_ms = device_ms(launch, args.iters)
         print(json.dumps({"package": os.path.dirname(os.path.dirname(lf.__file__)),
                           "width": args.width, "nq": args.nq, "dtype": str(dtype)[6:],
+                          "t": args.t, "batch": args.batch,
                           "ms": events[0].elapsed_time(events[-1]) / args.iters,
                           "median_ms": statistics.median(per_launch),
                           "kernel_ms": kernel_ms, "device_ms": all_ms}), flush=True)

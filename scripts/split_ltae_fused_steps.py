@@ -5,9 +5,12 @@ wide sibling's (ltae_fused_wide_kernel, 64 < C <= 128 with one query),
 with --kernel pool_fwd the training forward's (csrc/ltae_pool.cu::
 ltae_pool_fwd_group_kernel, all four variants) or, with --kernel
 pool_bwd_general, the general training backward's by pass
-(ltae_pool_bwd_general_kernel, tail mode, one row at a time).
+(ltae_pool_bwd_general_kernel, tail mode, groups of rows; cycles are given
+per row), or with --kernel general the general eval kernel's
+(ltae_fused_general_kernel at T = 128, B = 4, TimeUNet's width; per row).
 
-    python3 scripts/split_ltae_fused_steps.py [--kernel fused|wide|pool_fwd|pool_bwd_general]
+    python3 scripts/split_ltae_fused_steps.py
+        [--kernel fused|wide|general|pool_fwd|pool_bwd_general]
         [--launches 5]
 
 Copies this checkout's crop2seg_tpu_torch into the gitignored
@@ -25,8 +28,8 @@ drop_p 0.1), the general backward at chip_smoke.py's timing shape for it
 is the whole backward under autograd). Prints the card (nvidia-smi name and
 power limit), then per dtype (and mode) one JSON line: the instrumented
 launch's ms (CUDA events; the stamps cost a few per cent) and each step's
-cycles per row group (8 rows, 4 for the wide kernel, 1 for the general
-backward) with its share. The stamps never reach the package itself.
+cycles per row group (8 rows, 4 for the wide kernel; per row for the
+general backward, whose groups hold its plan's rows) with its share. The stamps never reach the package itself.
 """
 from __future__ import annotations
 
@@ -78,18 +81,51 @@ KERNELS = {
                 ("    // 4. o[d] = P[g(d)]", "    STAMP(3)\n"))),
     "pool_bwd_general": dict(
         lib="ltae_pool", rows=1,
-        head="ltae_pool_bwd_general_kernel(const Args a, const float* const st,",
+        head="ltae_pool_bwd_general_kernel(const Args a, const GbLayout L, const float* const st,",
         after="template <bool Tail, typename Tin>\ncudaError_t launch_general_fwd",
-        decl_after="  for (int i = tid; i < C * G; i += kGenThreads) wsp[i / G * GP + i % G]"
-                   " = a.ws[i];\n",
-        steps=("row start, Z", "pass 1: a, a_d, p1, P", "ds", "Dsum, E, F",
-               "pass 2: A, GroupNorm-backward sums", "pass 3: dx"),
-        stamps=(("    const float* st_row = st", "    STEP_T0 = clock64();\n"),
-                ("    // 1. a = exp(s - max)", "    STAMP(0)\n"),
-                ("    // 2. ds = a_d p1", "    STAMP(1)\n"),
-                ("    // 3. the row's share", "    STAMP(2)\n"),
-                ("    // 4. A += xhat^T ds", "    STAMP(3)\n"),
-                ("    // 5. dx = inv", "    STAMP(4)\n"))),
+        decl_after="  for (int k = 0; k < kGbFRegs; ++k) freg[k] = 0.f;\n",
+        end="    __syncthreads();   // the group's buffers are free",
+        steps=("group start: statistics, go", "Z", "p1's PE term", "pass 1: wait, xhat",
+               "pass 1: scores, a, a_d, p1", "pass 1: P", "ds",
+               "rows' sums of ds and a_d", "F", "E", "Dsum", "pass 2: wait, xhat",
+               "pass 2: each row's A", "group means, A", "pass 3: dx"),
+        stamps=(("    // ---- the group's statistics, go, Z", "    STEP_T0 = clock64();\n"),
+                ("    // Z[r][c, g] = sum_{d in g} W[c, d] go_r[d]", "    STAMP(0)\n"),
+                ("    // ds[r][t, g] = sum_{d in g} go_r[d] bpe[t, d]", "    STAMP(1)\n"),
+                ("    // 1. a, a_d and p1 of every step", "    STAMP(2)\n"),
+                ("      // thread (r, t, four heads): s = xhat Ws", "      STAMP(3)\n"),
+                ("      // thread (r, four heads, c): P[r][g, c]", "      STAMP(4)\n"),
+                ("    }\n\n    // 2. ds = a_d p1", "      STAMP(5)\n"),
+                ("    // per row sum_t ds and sum_t a_d", "    STAMP(6)\n"),
+                ("    // 3. the group's share of F", "    STAMP(7)\n"),
+                ("    const int npe = max(1, kGbThreads / D);", "    STAMP(8)\n"),
+                ("    // Dsum[t, g] += sum_r ds_r[t, g]", "    STAMP(9)\n"),
+                ("    // 4. each row's A_r = xhat^T ds", "    STAMP(10)\n"),
+                ("      for (int i = tid; i < rows * G4 * C; i += kGbThreads) {\n"
+                 "        const int c = i % C, k = i / C, gq = k % G4, r = k / G4;\n"
+                 "        const float* xc = xh + r * TC * CP + c;\n"
+                 "        const float* dr", "      STAMP(11)\n"),
+                ("    }\n    __syncthreads();\n    for (int i = tid; i < rows * G; i += kGbThreads) {"
+                 "   // the group means", "      STAMP(12)\n"),
+                ("    // 5. dx = inv", "    STAMP(13)\n"))),
+    "general": dict(
+        lib="ltae_fused_fwd", rows=1,
+        head="ltae_fused_general_kernel(const Args a, const GeLayout L, float* const scratch) {",
+        after="template <typename Tin>\ncudaError_t launch_general(",
+        decl_after="  const float* const wm = L.wm_on ? w + L.wm : a.wm;\n",
+        end="    __syncthreads();   // the group's buffers are free",
+        steps=("GroupNorm statistics (two passes)", "chunk: wait, normalized x",
+               "chunk: scores", "chunk: online softmax", "chunk: P, PE term",
+               "o", "MLP", "out GroupNorm, store, attention"),
+        stamps=(("    float* attn_g = a.attn != nullptr", "    STEP_T0 = clock64();\n"),
+                ("    for (int i = tid; i < rows * GP; i += kGeThreads) {\n      mx[i]",
+                 "    STAMP(0)\n"),
+                ("      // thread (r, t, four columns); column", "      STAMP(1)\n"),
+                ("      // warp (r, column), lane t: the chunk's max", "      STAMP(2)\n"),
+                ("      // thread (r, four columns, c): P[r][col, c]", "      STAMP(3)\n"),
+                ("    }\n    __syncthreads();\n\n    // 3. o[r][q, d]", "      STAMP(4)\n"),
+                ("    // 4. m[r][q] = relu", "    STAMP(5)\n"),
+                ("    // 5. out GroupNorm: head g", "    STAMP(6)\n"))),
 }
 ROW_GROUP_START = "  if (n0 >= n1) return;   // the whole block: no barrier is reached\n"
 
@@ -104,7 +140,7 @@ def instrument(src: str, spec: dict) -> str:
         raise RuntimeError(f"anchor not found in {spec['head']}: {start!r}")
     kernel = kernel.replace(
         start, start +
-        "  long long step_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+        "  long long step_acc[16] = {};\n"
         "  long long STEP_T0 = 0, step_t1 = 0;\n"
         "#define STAMP(i) step_t1 = clock64(); step_acc[i] += step_t1 - STEP_T0; "
         "STEP_T0 = step_t1;\n", 1)
@@ -112,22 +148,27 @@ def instrument(src: str, spec: dict) -> str:
         if anchor not in kernel:
             raise RuntimeError(f"anchor not found in {spec['head']}: {anchor!r}")
         kernel = kernel.replace(anchor, text + anchor, 1)
-    # the loop's end closes the last step; the kernel's end adds the sums
+    # the loop's end (or the spec's `end` anchor) closes the last step; the
+    # kernel's end adds the sums
+    last = f"    STAMP({nsteps - 1})\n"
+    if "end" in spec:
+        kernel = kernel.replace(spec["end"], last + spec["end"], 1)
+        last = ""
     tail = kernel.rindex("  }\n}\n")
-    kernel = (kernel[:tail] + f"    STAMP({nsteps - 1})\n  }}\n"
+    kernel = (kernel[:tail] + last + "  }\n"
               "  if (threadIdx.x == 0) {\n"
               f"    for (int i = 0; i < {nsteps}; ++i)\n"
               "      atomicAdd(&g_steps[i], (unsigned long long)step_acc[i]);\n"
-              f"    atomicAdd(&g_steps[7], (unsigned long long)((n1 - n0 + {spec['rows'] - 1}) / {spec['rows']}));\n"
+              f"    atomicAdd(&g_steps[15], (unsigned long long)((n1 - n0 + {spec['rows'] - 1}) / {spec['rows']}));\n"
               "  }\n}\n" + kernel[tail + len("  }\n}\n"):])
     src = src[:head] + kernel + src[body_end:]
-    src = src.replace("namespace {\n", "__device__ unsigned long long g_steps[8];\n\n"
+    src = src.replace("namespace {\n", "__device__ unsigned long long g_steps[16];\n\n"
                       "namespace {\n", 1)
     return src + """
 extern "C" int ltae_steps_read(unsigned long long* host) {
   cudaError_t e = cudaDeviceSynchronize();
   if (e == cudaSuccess) e = cudaMemcpyFromSymbol(host, g_steps, sizeof(g_steps));
-  unsigned long long z[8] = {0};
+  unsigned long long z[16] = {0};
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_steps, z, sizeof(z));
   return (int)e;
 }
@@ -141,13 +182,14 @@ def _bench(name: str):
     return mod
 
 
-def fused_launches(dev, width: str):
+def fused_launches(dev, width: str, t: int = 61, b: int = 10):
     """(label, launch) per dtype of the fused kernel at TimeUNet's or
-    U-TAE's width, as scripts/bench_ltae_fused_torch.py runs it."""
+    U-TAE's width, as scripts/bench_ltae_fused_torch.py runs it (at T = t,
+    B = b)."""
     from crop2seg_tpu_torch.ops import ltae_fused as lf
     bench = _bench("bench_ltae_fused_torch")
     w = bench.WIDTHS[width]
-    x, pe, pad, params, tail = bench.inputs(w, 1, dev)
+    x, pe, pad, params, tail = bench.inputs(w, 1, dev, t, b)
     for dtype in (torch.bfloat16, torch.float32):
         xd = x.to(dtype)
         yield str(dtype)[6:], lambda xd=xd: lf.ltae_fused_forward(
@@ -218,10 +260,11 @@ def main() -> int:
     dev = torch.device("cuda")
     read = _build.load_library(spec["lib"]).ltae_steps_read
     read.argtypes = [ctypes.c_void_p]
-    sums = (ctypes.c_ulonglong * 8)()
+    sums = (ctypes.c_ulonglong * 16)()
     nsteps = len(spec["steps"])
     runs = (pool_fwd_launches(dev) if args.kernel == "pool_fwd" else
             pool_bwd_general_launches(dev) if args.kernel == "pool_bwd_general" else
+            fused_launches(dev, "timeunet", 128, 4) if args.kernel == "general" else
             fused_launches(dev, "utae" if args.kernel == "wide" else "timeunet"))
     for label, launch in runs:
         for _ in range(2):
@@ -236,7 +279,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if read(sums) != 0:
             raise RuntimeError("reading the step sums failed")
-        cycles, groups = list(sums[:nsteps]), sums[7]
+        cycles, groups = list(sums[:nsteps]), sums[15]
         total = sum(cycles)
         print(json.dumps({
             "kernel": args.kernel, "run": label,

@@ -253,30 +253,38 @@ def test_cuda_wide_kernel_matches_plain_version(b, t, n, dtype, need_attn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,n,c,d,g,d_out,nq,tail,attn", [
-    (2, 70, 300, 64, 256, 16, 64, 1, True, False),
-    (2, 128, 77, 64, 256, 16, 64, 1, True, True),
-    (1, 190, 40, 64, 256, 16, 64, 1, False, True),
-    (2, 70, 258, 128, 256, 16, 128, 1, False, True),
-    (2, 128, 100, 128, 256, 16, 128, 3, True, True),
-    (2, 61, 90, 128, 272, 16, 128, 1, False, True),
-    (1, 61, 50, 64, 256, 32, 64, 1, True, True),
-    (1, 20, 30, 192, 256, 16, 192, 1, True, True),
-    (2, 33, 40, 12, 48, 4, 8, 2, True, True),
-    (1, 12, 20, 32, 64, 8, 16, 9, False, True),
-    (1, 40, 3, 256, 64, 32, 32, 8, True, True),
-    (140, 66, 3, 16, 32, 4, 8, 1, True, True)],
+@pytest.mark.parametrize("b,t,n,c,d,g,d_out,nq,tail,attn,path", [
+    (2, 70, 300, 64, 256, 16, 64, 1, True, False, None),
+    (2, 128, 77, 64, 256, 16, 64, 1, True, True, None),
+    (1, 190, 40, 64, 256, 16, 64, 1, False, True, None),
+    (2, 70, 258, 128, 256, 16, 128, 1, False, True, None),
+    (2, 128, 100, 128, 256, 16, 128, 3, True, True, None),
+    (2, 61, 90, 128, 272, 16, 128, 1, False, True, None),
+    (1, 61, 50, 64, 256, 32, 64, 1, True, True, None),
+    (1, 20, 30, 192, 256, 16, 192, 1, True, True, None),
+    (2, 33, 40, 12, 48, 4, 8, 2, True, True, None),
+    (1, 12, 20, 32, 64, 8, 16, 9, False, True, None),
+    (1, 40, 3, 256, 64, 32, 32, 8, True, True, "scratch"),
+    (140, 66, 3, 16, 32, 4, 8, 1, True, True, None),
+    (2, 65, 300, 64, 256, 16, 64, 1, True, True, None),
+    (2, 97, 301, 64, 256, 16, 64, 1, True, False, None),
+    (1, 600, 7, 64, 256, 16, 64, 1, True, True, "r-1"),
+    (1, 1200, 5, 64, 256, 16, 64, 1, True, False, "streamed fp32")],
     ids=["timeunet-t70", "t128", "t190", "utae-t70", "nq3-t128", "d-272", "g-32",
-         "c-192", "c-12", "nq-9", "scratch", "b-above-sms"])
+         "c-192", "c-12", "nq-9", "scratch", "b-above-sms", "t65-n300", "t97-n301",
+         "r-1", "streamed"])
 def test_cuda_general_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_out, nq,
-                                                   tail, attn):
+                                                   tail, attn, path):
     """The general eval kernel (every shape the row-group kernels do not
-    take) against its plain version on the card, with pads: T past 64 (70,
-    128, 190: chunks of 32 steps with a partial last one), U-TAE's width,
-    three queries, D = 272, G = 32, C = 192 and C = 12 (not a multiple of
-    8), nine queries, a workspace past shared memory (its scratch buffer in
-    device memory), more batch items than SMs. One launch of the general
-    route each. Tolerances as ``test_cuda_kernel_matches_plain_version``."""
+    take) against its plain version on the card, with pads: T past 64 (65,
+    70, 97, 128, 190: chunks of 32 steps with a partial last one), U-TAE's
+    width, three queries, D = 272, G = 32, C = 192 and C = 12 (not a multiple
+    of 8), nine queries, more batch items than SMs, N not a multiple of the
+    rows a group (300, 301), and the plan's edges, asserted through the C
+    entries (``general_plan`` and the scratch buffer's floats): groups of one row (T = 600), x streamed in chunks
+    rather than resident (T = 1200 in fp32), a workspace past shared memory
+    (its scratch buffer in device memory). One launch of the general route
+    each. Tolerances as ``test_cuda_kernel_matches_plain_version``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
@@ -293,6 +301,14 @@ def test_cuda_general_kernel_matches_plain_version(dtype, b, t, n, c, d, g, d_ou
     ts = ((1 + 0.2 * torch.randn(b, t, c, generator=gen)).to(dev) * valid,
           (0.1 * torch.randn(b, t, c, generator=gen)).to(dev) * valid) if tail else None
     assert tk.kernel_route(t, c, d, g, d_out, nq) == "general"
+    rows, resident = tk.general_plan(t, c, d, g, d_out, nq, dtype, attn)[:2]
+    scratch = tk._kernel()[1](t, c, d, g, d_out, nq, int(dtype == torch.bfloat16), int(attn))
+    if path == "scratch":
+        assert scratch > 0
+    elif path == "r-1":
+        assert rows == 1 and resident and scratch == 0
+    elif path == "streamed fp32" and dtype == torch.float32:
+        assert not resident and scratch == 0
     before = tk.ltae_fused_forward.route_launches["general"]
     got, got_attn = tk.ltae_fused_forward(x, pe, pad, params, n_head=g, d_k=4,
                                           need_attn=attn, tail_affine=ts)
@@ -538,24 +554,34 @@ def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
 @pytest.mark.parametrize("tail", [False, True], ids=["untailed", "tail"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
-@pytest.mark.parametrize("b,t,n,c,d,g", [(2, 70, 301, 64, 256, 16),
-                                         (1, 128, 100, 64, 256, 16),
-                                         (2, 35, 40, 72, 64, 8),
-                                         (1, 20, 33, 64, 256, 32),
-                                         (2, 61, 30, 64, 272, 16),
-                                         (1, 9, 50, 12, 24, 4),
-                                         (1, 1200, 3, 16, 32, 16),
-                                         (140, 66, 3, 16, 32, 4)],
+@pytest.mark.parametrize("b,t,n,c,d,g,path", [(2, 70, 301, 64, 256, 16, None),
+                                              (1, 128, 100, 64, 256, 16, None),
+                                              (2, 35, 40, 72, 64, 8, None),
+                                              (1, 20, 33, 64, 256, 32, None),
+                                              (2, 61, 30, 64, 272, 16, None),
+                                              (1, 9, 50, 12, 24, 4, None),
+                                              (1, 2000, 3, 16, 32, 16, "scratch"),
+                                              (140, 66, 3, 16, 32, 4, None),
+                                              (2, 65, 301, 64, 256, 16, None),
+                                              (2, 97, 45, 64, 256, 16, None),
+                                              (1, 1200, 3, 16, 32, 16, "r-1"),
+                                              (1, 1200, 9, 64, 256, 16, "streamed")],
                          ids=["timeunet-t70", "t128", "c-72", "g-32", "d-272", "c-12",
-                              "scratch", "b-above-sms"])
+                              "scratch", "b-above-sms", "t65-n301", "t97", "r-1",
+                              "streamed"])
 def test_cuda_ltae_pool_general_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
-                                                            dtype, tail):
+                                                            path, dtype, tail):
     """The general training pair (every shape the fast pair does not take)
     against the plain version under autograd on the card, as
     ``test_cuda_ltae_pool_kernels_match_plain_version`` holds the fast pair:
-    T past 64 (70, 128 and 1200, where the backward's workspace lies in
-    device memory), C = 72 and C = 12, G = 32, D = 272, more batch items
-    than SMs; one general forward and one general backward launch; o and
+    T past 64 (65, 70, 97, 128: chunks of 32 steps with a partial last one),
+    C = 72 and C = 12, G = 32, D = 272, more batch items than SMs, N not a
+    multiple of the backward's rows a group (301), and the backward plan's
+    edges, asserted through the C entries (``general_bwd_plan`` and the
+    scratch buffer's floats): groups of one row (T =
+    1200), x streamed in chunks rather than resident (T = 1200 at C = 64),
+    a workspace past shared memory (T = 2000: its scratch buffer in device
+    memory); one general forward and one general backward launch; o and
     every gradient within the same tolerances."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -574,6 +600,14 @@ def test_cuda_ltae_pool_general_kernels_match_plain_version(drop_p, b, t, n, c, 
     ts = (((1 + r(b, t, c, scale=0.2)) * valid, r(b, t, c, scale=0.1) * valid)
           if tail else ())
     assert not lp.kernel_takes(t, c, d, g)
+    rows, resident = lp.general_bwd_plan(t, c, d, g, dtype)[:2]
+    scratch = lp._kernels()[5](t, c, d, g, 1, int(dtype == torch.bfloat16))
+    if path == "scratch":
+        assert scratch > 0
+    elif path == "r-1":
+        assert rows == 1 and scratch == 0
+    elif path == "streamed":
+        assert not resident and scratch == 0
     kernel = lp.ltae_pool_tail if tail else lp.ltae_pool
     plain = lp.ltae_pool_tail_reference if tail else lp.ltae_pool_reference
     res = []
