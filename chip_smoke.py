@@ -53,7 +53,8 @@
 7. The stage-dump path: scripts/debug_ltae_stages_torch.py's run (the stage
    kernel and its plain version on that script's seeded inputs, B=1, T=61,
    N=256, C=64), one launch, each stage within tolerance and finite; then
-   both timed beside the bound.
+   both timed beside the bound, the kernel also by its device time
+   (torch.profiler), since the wrapper's call is host-bound at this size.
 8. U-TAE serving (the JAX package's default model, factory defaults,
    seeded weights): the entry forward at (1, 30, 128, 128, 10), length 27
    (one kernel launch, finite logits), then one tile through
@@ -77,7 +78,8 @@
 11. The general kernels, which take every shape past the fast kernels'
    limits (T > 64 above all): timed at T=128, B=4, TimeUNet's width (the
    eval kernel with the tail affine, the training pair in tail mode with
-   drop_p 0.1; fp32 and bf16) beside their plain versions and bounds. Then
+   drop_p 0.1, the forward also by its kernel's device time; fp32 and bf16)
+   beside their plain versions and bounds. Then
    the routes on the card, each path's counts set to 0 just before it and
    read just after: the LTAE module in eval on the kernel route at T=70 and
    T=128 (one query at C=64 with the tail, C=128 with the attention, three
@@ -855,7 +857,9 @@ def stage_bytes(b: int, t: int, n: int, c: int, d: int, g: int) -> float:
 def phase_stages(dev):
     """Kernel 4: the stage-dump path, scripts/debug_ltae_stages_torch.py's
     run, with the launch count read around it; each stage against the plain
-    version; then both timed."""
+    version; then both timed: the wrapper's call by CUDA events, the
+    kernel's device time by torch.profiler (the call is host-bound at this
+    size)."""
     spec = importlib.util.spec_from_file_location(
         "debug_ltae_stages_torch",
         Path(__file__).resolve().parent / "scripts" / "debug_ltae_stages_torch.py")
@@ -878,16 +882,19 @@ def phase_stages(dev):
     d, g = args[3].shape[1], script.N_HEAD
     work = (b, t, n, c, d, g)
     ms = cuda_ms(lambda: ls.ltae_stages(*args, n_head=g), iters=50)
+    device_ms = kernel_device_ms(lambda: ls.ltae_stages(*args, n_head=g), 50,
+                                 "ltae_stages_kernel")
     plain_ms = cuda_ms(lambda: ls.ltae_stages_reference(*args, n_head=g), iters=20)
     t_bytes = stage_bytes(*work) / HBM_BYTES_PER_S * 1e3
     t_ops = stage_flops(*work) / PEAK_FLOP_PER_S[torch.float32] * 1e3
     b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    print(f"ltae_stages B={b} T={t} N={n} C={c}: kernel {ms:.3f} ms, plain "
+    print(f"ltae_stages B={b} T={t} N={n} C={c}: kernel {ms:.4f} ms (the wrapper's "
+          f"call, CUDA events; device time {device_ms:.4f} ms, profiler), plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, "
           f"operations {t_ops:.4f} ms), "
-          f"{stage_flops(*work) / ms / 1e9:.1f} TFLOP/s", flush=True)
-    return {"launches": launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "shape": [b, t, n, c]}
+          f"{stage_flops(*work) / device_ms / 1e9:.1f} TFLOP/s in device time", flush=True)
+    return {"launches": launches, "max_abs_err": worst, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "shape": [b, t, n, c]}
 
 
 def phase_utae(model, dev):
@@ -1380,8 +1387,9 @@ def phase_general_timing(models: dict, dev):
     """The general kernels timed at T = 128, TimeUNet's width (N = 128*128,
     C = 64, D = 256), B = 4, beside their plain versions and bounds: the
     eval kernel with the tail affine and no attention (bf16 and fp32), the
-    training pair in tail mode with drop_p 0.1 (fp32 and bf16). Returns
-    {name: {dtype: (ms, plain_ms, bound_ms, bound_by)}}."""
+    training pair in tail mode with drop_p 0.1 (fp32 and bf16; the forward
+    also by its kernel's device time, torch.profiler). Returns {name:
+    {dtype: (ms, plain_ms, bound_ms, bound_by, device_ms or None)}}."""
     gen = torch.Generator(device=dev).manual_seed(15)
     model, t, b = models["timeunet"], T_GENERAL, TRAIN_B
     out = collections.defaultdict(dict)
@@ -1396,7 +1404,7 @@ def phase_general_timing(models: dict, dev):
             xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=False,
             tail_affine=tail), iters=2, warmup=1)
         b_ms, b_by = bound(b, dtype, True, False, t=t)
-        out["ltae_fused_fwd_general"][dtype] = (ms, plain_ms, b_ms, b_by)
+        out["ltae_fused_fwd_general"][dtype] = (ms, plain_ms, b_ms, b_by, None)
         print(f"ltae_fused_general_kernel {str(dtype)[6:]} B={b} T={t} N={HW} C={C}: "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by}; bytes {ltae_bytes(b, dtype, True, False, t=t) / HBM_BYTES_PER_S * 1e3:.4f}"
@@ -1419,21 +1427,26 @@ def phase_general_timing(models: dict, dev):
                 with torch.no_grad():
                     pool_apply(True, plain, leaves, pad, 99, 0.1)
             fwd_ms = cuda_ms(fwd, iters=iters, warmup=1)
+            # the forward kernel's own device time (torch.profiler)
+            fwd_device = None if plain else kernel_device_ms(
+                fwd, iters, "ltae_pool_fwd_general_kernel")
             o = pool_apply(True, plain, leaves, pad, 99, 0.1)
             god = go.to(o.dtype)
             bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, god, retain_graph=True),
                              iters=iters, warmup=1)
-            per[plain] = (fwd_ms, bwd_ms)
+            per[plain] = (fwd_ms, bwd_ms, fwd_device)
             del o, god, leaves
             torch.cuda.empty_cache()
         for i, direction in enumerate(("fwd", "bwd")):
             bwd = direction == "bwd"
             b_ms, b_by = pool_bound(b, bwd, True, dtype, t)
             name = f"ltae_pool_tail_{direction}_general"
-            out[name][dtype] = (per[False][i], per[True][i], b_ms, b_by)
+            device = None if bwd else per[False][2]
+            out[name][dtype] = (per[False][i], per[True][i], b_ms, b_by, device)
+            dev_text = "" if bwd else f" (device time {device:.3f} ms, profiler)"
             print(f"{lp.variant(True, dtype, direction, general=True)} B={b} T={t} N={HW} "
-                  f"C={C}: kernel {per[False][i]:.3f} ms, plain {per[True][i]:.3f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by}; "
+                  f"C={C}: kernel {per[False][i]:.3f} ms{dev_text}, plain "
+                  f"{per[True][i]:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
                   f"{pool_flops(b, bwd, True, t) / (b * HW) / 1e6:.3f} MFLOP per row)",
                   flush=True)
         del xd
@@ -1488,7 +1501,7 @@ def main() -> int:
                 # in shared memory (Smem = true), those the timing runs
                 (("general", dtype), fused_ptxas, f"ltae_fused_general_kernelI{tin}Lb1E"),
                 (("pool_fwd_general", dtype), pool_ptxas,
-                 f"ltae_pool_fwd_general_kernelI{tin}Lb1E"),
+                 f"ltae_pool_fwd_general_kernelI{tin}Lb1ELb1E"),
                 (("pool_bwd_general", dtype), pool_ptxas,
                  f"ltae_pool_bwd_general_kernelI{tin}Lb1ELb1E")):
             found = [v for k, v in lib.items() if mangled in k]
@@ -1632,7 +1645,7 @@ def main() -> int:
              "crop2seg_tpu/ops/ltae_pallas_train.py:457", "fwd"),
             ("ltae_pool_tail_bwd_general", "pool_bwd_general",
              "crop2seg_tpu/ops/ltae_pallas_train.py:536", "bwd")):
-        (ms, plain_ms, b_ms, b_by), (ms32, plain32, b32, b_by32) = (
+        (ms, plain_ms, b_ms, b_by, dev_ms), (ms32, plain32, b32, b_by32, dev32) = (
             gen_t[name][torch.bfloat16], gen_t[name][torch.float32])
         if errs_key == "eval":
             n_launch = gen_launches.get(name, 0)
@@ -1663,6 +1676,8 @@ def main() -> int:
             "registers_fp32": ptx[(key, torch.float32)][0],
             "spill_store_bytes_fp32": ptx[(key, torch.float32)][1],
         })
+        if dev_ms is not None:
+            general[-1].update(device_ms=dev_ms, device_ms_fp32=dev32)
     general[0].update(tile_t73_patches_per_s=year["tile_t73_patches_per_s"],
                       tile_t73_patches_per_s_fp32=year["tile_t73_patches_per_s_fp32"])
     general[2].update(reproducible=year["bwd_general_reproducible"],

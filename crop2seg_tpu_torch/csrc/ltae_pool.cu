@@ -112,15 +112,51 @@
 // with C % 8 == 0, G <= 16 and D <= 256 (TimeUNet's training path); every
 // other shape at which the L-TAE is defined (G dividing C and D; T > 64
 // above all) takes the general pair at the end of this file, with the same
-// hash dropout on the same (b, t, n, g) index, so the same mask. The
-// general forward, written to be right at any size rather than fast, runs
-// one block of 256 threads per row at a time, S blocks per batch item (four
-// an SM), x read from device memory in passes over T with an online softmax
-// (a running max and sum per head, P and the bpe term rescaled as chunks of
-// 32 steps arrive); it saves each row's GroupNorm statistics and softmax
-// max and sum, which its backward takes. Its workspace lives in shared
-// memory where it fits, else in a scratch buffer in device memory
-// (ltae_pool_general_scratch_floats).
+// hash dropout on the same (b, t, n, g) index, so the same mask.
+//
+// The general forward, ltae_pool_fwd_general_kernel<Tin, Tail, Smem>. Its
+// first design (one 256-thread block per row at a time, four an SM; x read
+// from device memory three times; the tail affine read from L2 per element;
+// runtime divisions per element; W_in and bpe[b] from L2 per row; ~15.4 ms
+// at T = 128, B = 4, TimeUNet's width) was latency-bound, as the general
+// eval kernel's was (PERF.md, section 6). This design follows that kernel's
+// (csrc/ltae_fused_fwd.cu::ltae_fused_general_kernel) without its MLP and
+// out GroupNorm:
+// - persistent blocks of 512 threads, one an SM (S = SMs / B per batch item,
+//   ops/ltae_pool.py::blocks_per_item), each walking its rows (row_ranges)
+//   in groups of R <= 4, R from the plan (gf_plan: the group's x resident in
+//   shared memory where that fits at some R, else streamed; then the most
+//   rows; then W_in in shared memory where it fits beside);
+// - x arrives in chunks of 32 steps by 16-byte cp.async behind the compute;
+//   with the group's x resident, the GroupNorm's two passes and the chunk
+//   pass read it from shared memory (x leaves device memory once), and the
+//   next group's chunk j comes in once the chunk pass is past it;
+// - in tail mode max(z tsc + tsh, 0) is applied on load, the tail affine of
+//   a thread's steps read at once (all loads in flight) and each value
+//   serving the group's rows;
+// - the GroupNorm keeps the plain version's two-pass variance; the softmax
+//   is online per (row, head), a warp per head and a lane per step of the
+//   chunk, the dropout's keep_scale unchanged;
+// - register tiles whose shared operand is the same address for a whole
+//   warp (a 128-bit load of distinct addresses costs a warp four shared-
+//   memory cycles, PERF.md section 6): a thread takes eight heads of a (row,
+//   step) for the scores (Ws rows as float4, summed over c in the order the
+//   backward recomputes them) and sixteen heads of a (row, channel) for P (e
+//   as float4);
+// - the PE term takes each bpe[b] element once per group for all its rows,
+//   a thread per (d, half of the chunk), its loads issued before the
+//   softmax so that they arrive during it; o = P W_in + PE term, each W_in
+//   element serving the group's rows;
+// - no runtime division by C, G or dv per element (head_of), and the rows'
+//   addresses advance by a step's stride rather than being computed per
+//   element;
+// - it saves each row's GroupNorm statistics and softmax max and sum (B, N,
+//   4, G), which its backward takes.
+// Where even R = 1 does not fit (very wide C or D), the workspace is a
+// scratch buffer in device memory, read and written through the same code
+// (ltae_pool_general_scratch_floats). PERF.md, section 6, has its times;
+// scripts/split_ltae_fused_steps.py --kernel pool_fwd_general splits them
+// by phase.
 //
 // The general backward, ltae_pool_bwd_general_kernel<Tin, Tail>. What held
 // its first design (one row per 256-thread block at a time, x read from
@@ -197,15 +233,19 @@ constexpr int kBwdThreads = 512;  // backward: 16 warps, warp g owns head g
 constexpr int kJ = 16;         // backward: a head's d channels per pass in registers
 constexpr int kMaxTPer = kMaxT / (kBwdThreads / kMaxC);  // t per thread, C-parallel steps
 constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a block may use
-constexpr int kGenThreads = 256;  // the general forward: threads a block
-constexpr int kGenBlocksPerSm = 4;  // the general forward: resident blocks an SM (latency)
 constexpr int kGenChunk = 32;     // the general pair: steps of x on chip at a time
+constexpr int kGfThreads = 512;   // the general forward: 16 warps, one block an SM
+constexpr int kGfMaxRows = 4;     // the general forward: rows a group at most
+constexpr int kGfMaxParts = 8;    // the general forward: parts of a split sum's inner dimension
+constexpr int kGfScoreHeads = 8;  // the general forward: heads of a thread's scores
+constexpr int kGfPoolHeads = 16;  // the general forward: heads of a thread's P
+constexpr int kGfPeSteps = kGenChunk / 2;  // the general forward: a PE item's steps (half a chunk)
 constexpr int kGbThreads = 512;   // the general backward: 16 warps, one block an SM
 constexpr int kGbMaxRows = 4;     // the general backward: rows a group at most
 constexpr int kGbHeadRegs = 16;   // the general backward: heads of Ws and Z in registers
 constexpr int kGbFRegs = 32;      // the general backward: F in registers, C * D <= 16384
 constexpr int kGbParts = 8;       // the general backward: a chunk's steps split in 8 parts
-constexpr int kLoads = 8;         // the general backward: device-memory loads in flight a thread
+constexpr int kLoads = 8;         // the general pair: device-memory loads in flight a thread
 
 struct Args {
   const void* x;      // (B, T, N, C) x's type: the input, in tail mode the raw z
@@ -1217,217 +1257,510 @@ Args make_args(int B, int T, int N, int C, int D, int G, unsigned seed_mix,
   return a;
 }
 
-// ---- every other shape: one row at a time, x streamed over T ---------------
+// ---- every other shape: persistent row groups, x streamed over T ---------
 
-// The general forward's workspace per block, in floats: in shared memory
-// where it fits, else the block's slice of a scratch buffer in device memory.
-// Per channel the GroupNorm's mean and 1/std and channel_sums' partial sums,
-// a chunk of xhat (TC, C) and its scores (TC, G), per head the running max
-// and sum and this chunk's rescale, P (G, C) and the bpe term (D).
-struct GenLayout {
-  int tc;
-  int mean, inv, red, xc, e, mx, sum, scl, p, eb;
+// Shared memory of the general forward block, in floats; regions start on
+// 16 bytes. R rows a group; the raw x of a chunk of TC steps, (TC, R, C) in
+// x's type as in device memory, fills one slot (all chunks of the group stay
+// with `resident`, else two slots take turns); xh holds a chunk's xhat (R,
+// TC, CP = C | 1: an odd row stride, so lanes on consecutive steps hit
+// distinct banks) and e its scores, then the dropped exp weights (R, TC, EP
+// = GP | 4: heads rounded up to 4, pads 0; float4 rows); per (row, head) the
+// running max and sum and this chunk's rescale (R, GP); P (R, GP, C); the
+// PE term (R, D); red the split sums of the GroupNorm statistics and of o;
+// the rows' GroupNorm means and 1/std (R, 2, G); Ws (C, WP: heads rounded
+// up to 8, zero past G); with `win` W_in (C, D), read from L2 otherwise.
+struct GfLayout {
+  int rows, tc, nch, slots, slot, gp, wp, ep, cp, px, po;
+  int resident, win_on;
+  int raw, xh, e, mx, sum, scl, p, epe, red, st, ws, win;
   int floats;
 };
 
-__host__ __device__ inline GenLayout gen_layout(int T, int C, int D, int G) {
-  GenLayout L{};
+// Threads that split a sum over `items` outputs: parts of its inner dimension.
+__host__ __device__ inline int gf_parts(int items) {
+  const int p = kGfThreads / (items > 0 ? items : 1);
+  return p < 1 ? 1 : p > kGfMaxParts ? kGfMaxParts : p;
+}
+
+__host__ __device__ inline GfLayout gf_layout(int T, int C, int D, int G, int elem_bytes,
+                                              int R, bool resident, bool win) {
+  GfLayout L{};
   int o = 0;
   auto take = [&](int n) { const int at = o; o += (n + 3) & ~3; return at; };
+  L.rows = R;
+  L.resident = resident;
+  L.win_on = win;
   L.tc = T < kGenChunk ? T : kGenChunk;
-  L.mean = take(C);
-  L.inv = take(C);
-  L.red = take(C > kGenThreads ? C : kGenThreads);
-  L.xc = take(L.tc * C);
-  L.p = take(G * C);
-  L.e = take(L.tc * G);
-  L.mx = take(G);
-  L.sum = take(G);
-  L.scl = take(G);
-  L.eb = take(D);
+  L.nch = (T + L.tc - 1) / L.tc;
+  L.slots = resident ? L.nch : 2;
+  L.slot = (L.tc * R * C * elem_bytes + 15) / 16 * 4;
+  L.gp = (G + 3) & ~3;
+  L.wp = (G + 7) & ~7;
+  L.ep = L.gp | 4;
+  L.cp = C | 1;
+  L.px = gf_parts(C);
+  L.po = gf_parts(D);
+  L.raw = take(L.slots * L.slot);
+  L.xh = take(R * L.tc * L.cp);
+  L.e = take(R * L.tc * L.ep);
+  L.mx = take(R * L.gp);
+  L.sum = take(R * L.gp);
+  L.scl = take(R * L.gp);
+  L.p = take(R * L.gp * C);
+  L.epe = take(R * D);
+  L.red = take(L.px * R * C > L.po * R * D ? L.px * R * C : L.po * R * D);
+  L.st = take(R * 2 * G);
+  L.ws = take(C * L.wp);
+  L.win = win ? take(C * D) : -1;
   L.floats = o;
   return L;
 }
 
-// x[b, t, n, c] in fp32 (in tail mode the raw z).
-template <typename Tin>
-__device__ __forceinline__ float load_raw(const Args& a, int b, int t, int n, int c) {
-  return Io<Tin>::load(static_cast<const Tin*>(a.x) +
-                       (((size_t)b * a.T + t) * a.N + n) * a.C + c);
-}
-
-// xf[b, t, n, c]: x, or in tail mode max(z * tsc + tsh, 0).
-template <typename Tin, bool Tail>
-__device__ __forceinline__ float load_xf(const Args& a, int b, int t, int n, int c) {
-  const float v = load_raw<Tin>(a, b, t, n, c);
-  if constexpr (Tail) {
-    const size_t k = ((size_t)b * a.T + t) * a.C + c;
-    return fmaxf(tail_pre(v, a.tsc[k], a.tsh[k]), 0.f);
-  }
-  return v;
-}
-
-// The sums over t < T of f(t, c) for every channel c < C, into red[c]:
-// thread (c, part) sums steps part, part + parts, ..., and the parts are
-// added in order. Every thread of the block calls it; red must be free (a
-// barrier after its last reads). Two barriers.
-template <typename F>
-__device__ void channel_sums(int T, int C, float* red, F f) {
-  const int tid = threadIdx.x;
-  if (C < kGenThreads) {
-    const int parts = kGenThreads / C, c = tid % C, part = tid / C;
-    if (part < parts) {
-      float s = 0.f;
-#pragma unroll 4
-      for (int t = part; t < T; t += parts) s += f(t, c);
-      red[part * C + c] = s;
+// The general forward's plan: the group's x resident if that fits at some
+// R, else streamed; then the most rows a group, R = 4 .. 1; then W_in in
+// shared memory if it fits beside. Where nothing fits, R = 1 streamed in a
+// scratch buffer in device memory, W_in from L2. The C entry
+// ltae_pool_fwd_general_plan returns it (tests/test_torch_general_plan.py
+// mirrors it for the CPU).
+__host__ __device__ inline GfLayout gf_plan(int T, int C, int D, int G, int elem_bytes) {
+  auto fits = [](const GfLayout& L) { return (size_t)L.floats * sizeof(float) <= kSmemLimit; };
+  for (int res = 1; res >= 0; --res)
+    for (int R = kGfMaxRows; R >= 1; --R) {
+      const GfLayout L = gf_layout(T, C, D, G, elem_bytes, R, res != 0, false);
+      if (!fits(L)) continue;
+      const GfLayout W = gf_layout(T, C, D, G, elem_bytes, R, res != 0, true);
+      return fits(W) ? W : L;
     }
-    __syncthreads();
-    if (tid < C) {   // thread c alone reads slots (k, c) and writes (0, c)
-      float s = 0.f;
-      for (int k = 0; k < parts; ++k) s += red[k * C + tid];
-      red[tid] = s;
-    }
-  } else {
-    for (int c = tid; c < C; c += kGenThreads) {
-      float s = 0.f;
-#pragma unroll 4
-      for (int t = 0; t < T; ++t) s += f(t, c);
-      red[c] = s;
-    }
-  }
-  __syncthreads();
+  return gf_layout(T, C, D, G, elem_bytes, 1, false, false);
 }
 
-// The total of channel c's GroupNorm group (its cg channels) in red.
-__device__ __forceinline__ float group_total(const float* red, int c, int cg) {
-  const int g0 = c / cg * cg;
-  float s = 0.f;
-  for (int k = 0; k < cg; ++k) s += red[g0 + k];
-  return s;
+// d / dv for 0 <= d < 2^21: (d + 0.5) / dv is at least 0.5 / dv from an
+// integer, and the float product's error stays below that there.
+__device__ __forceinline__ int head_of(int d, float inv_dv) {
+  return __float2int_rz((d + 0.5f) * inv_dv);
 }
 
-// Forward of any shape. Per row it also saves, in st (B, N, 4, G), each
-// group's GroupNorm mean and 1/std and each head's softmax max and sum, which
-// the general backward takes instead of two more passes over x.
-template <typename Tin, bool Tail>
-__global__ void __launch_bounds__(kGenThreads, kGenBlocksPerSm)
-ltae_pool_fwd_general_kernel(const Args a, float* const st, float* const scratch) {
+// Forward of any shape. Each persistent block takes its rows (row_ranges) in
+// groups of R, and each group in three passes over T in chunks of TC steps:
+// the GroupNorm's sums, its centred squares, then xhat, the scores, an online
+// softmax per (row, head) with the dropout, P and the PE term rescaled as
+// chunks arrive. Then o of the group's rows, each W_in element read once for
+// all of them. Per row it also saves, in st (B, N, 4, G), each group's
+// GroupNorm mean and 1/std and each head's softmax max and sum, which the
+// general backward takes instead of two more passes over x. Chunks arrive by
+// cp.async behind the compute: all of a group's with `resident` (the second
+// and third passes read x from shared memory; the next group's chunk j comes
+// in once the third pass is past it), else the next visit's chunk into the
+// other of two slots.
+template <typename Tin, bool Tail, bool Smem>
+__global__ void __launch_bounds__(kGfThreads, 1)
+ltae_pool_fwd_general_kernel(const Args a, const GfLayout L, float* const st_out,
+                             float* const scratch) {
   extern __shared__ __align__(16) float smem_gen_fwd[];
   const int T = a.T, C = a.C, D = a.D, G = a.G, N = a.N;
-  const int cg = C / G, dv = D / G;
-  const GenLayout L = gen_layout(T, C, D, G);
-  const int tid = threadIdx.x, b = blockIdx.y, S = gridDim.x;
-  float* const w = scratch != nullptr
-                       ? scratch + (size_t)(b * S + blockIdx.x) * L.floats : smem_gen_fwd;
-  float* __restrict__ const mean = w + L.mean;
-  float* __restrict__ const inv = w + L.inv;
-  float* __restrict__ const red = w + L.red;
-  float* __restrict__ const xc = w + L.xc;
+  const int R = L.rows, TC = L.tc, GP = L.gp, WP = L.wp, EP = L.ep, CP = L.cp;
+  const int cg = C / G, dv = D / G, G2 = 2 * G, G4S = 4 * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, S = gridDim.x;
+  // Smem: the workspace in shared memory (so the compiler addresses it as
+  // such), else this block's slice of the scratch buffer
+  float* const w = Smem ? smem_gen_fwd : scratch + (size_t)(b * S + blockIdx.x) * L.floats;
+  Tin* const raw = reinterpret_cast<Tin*>(w + L.raw);
+  const int slot_elems = L.slot * 4 / (int)sizeof(Tin);
+  float* __restrict__ const xh = w + L.xh;
   float* __restrict__ const e = w + L.e;
   float* __restrict__ const mx = w + L.mx;
   float* __restrict__ const sum = w + L.sum;
   float* __restrict__ const scl = w + L.scl;
   float* __restrict__ const p = w + L.p;
-  float* __restrict__ const eb = w + L.eb;
-  // this block's rows: a contiguous range of batch item b (row_ranges)
+  float* __restrict__ const epe = w + L.epe;
+  float* __restrict__ const red = w + L.red;
+  float* __restrict__ const gst = w + L.st;
+  float* __restrict__ const wss = w + L.ws;
   const int n0 = (int)((long long)blockIdx.x * N / S);
   const int n1 = (int)((long long)(blockIdx.x + 1) * N / S);
   const float cnt = (float)T * cg;
+  const float inv_dv = 1.f / dv;
   const float* bpe_b = a.bpe + (size_t)b * T * D;
   const float* pes_b = a.pes + (size_t)b * G * T;
+  const Tin* const x = static_cast<const Tin*>(a.x);
 
-  for (int n = n0; n < n1; ++n) {
-    float* st_row = st + ((size_t)b * N + n) * 4 * G;
-    // 1. GroupNorm statistics over (T, C/G), two passes over x
-    channel_sums(T, C, red, [&](int t, int c) { return load_xf<Tin, Tail>(a, b, t, n, c); });
-    for (int c = tid; c < C; c += kGenThreads) mean[c] = group_total(red, c, cg) / cnt;
-    __syncthreads();
-    channel_sums(T, C, red, [&](int t, int c) {
-      const float dl = load_xf<Tin, Tail>(a, b, t, n, c) - mean[c];
-      return dl * dl;
-    });
-    for (int c = tid; c < C; c += kGenThreads)
-      inv[c] = rsqrtf(group_total(red, c, cg) / cnt + a.eps);
-    for (int g = tid; g < G; g += kGenThreads) {
-      mx[g] = -CUDART_INF_F;
-      sum[g] = 0.f;
-    }
-    for (int i = tid; i < G * C; i += kGenThreads) p[i] = 0.f;
-    for (int i = tid; i < D; i += kGenThreads) eb[i] = 0.f;
-    __syncthreads();
-    for (int g = tid; g < G; g += kGenThreads) {
-      st_row[g] = mean[g * cg];
-      st_row[G + g] = inv[g * cg];
-    }
+  // Ws (zero past G), W_in where the plan holds it, and e's pad heads,
+  // which no step writes
+  for (int i = tid; i < C * WP; i += kGfThreads) {
+    const int c = i / WP, g = i - c * WP;
+    wss[i] = g < G ? a.ws[c * G + g] : 0.f;
+  }
+  if (L.win_on)
+    for (int i = tid; i < C * D; i += kGfThreads) w[L.win + i] = a.win[i];
+  const float* const win = L.win_on ? w + L.win : a.win;
+  for (int i = tid; i < R * TC * EP; i += kGfThreads)
+    if (i % EP >= G) e[i] = 0.f;
 
-    // 2. chunks of TC steps: xhat, scores, an online softmax; P and the bpe
-    //    term take the dropped weights e * keep / (1 - p), the sum takes e
-    for (int t0 = 0; t0 < T; t0 += L.tc) {
-      const int tc = min(L.tc, T - t0);
-#pragma unroll 4
-      for (int i = tid; i < tc * C; i += kGenThreads) {
-        const int t = i / C, c = i - t * C;
-        xc[i] = (load_xf<Tin, Tail>(a, b, t0 + t, n, c) - mean[c]) * inv[c];
+  // chunk j of rows [m0, m0 + rows) into slot s: 16-byte cp.async where the
+  // workspace is in shared memory and a row's C values fill whole vectors,
+  // else plain copies
+  const bool async = Smem && (C * (int)sizeof(Tin)) % 16 == 0;
+  auto load_chunk = [&](int m0, int j, int s) {
+    const int rows = min(R, n1 - m0), t0 = j * TC, tc = min(TC, T - t0), per_t = rows * C;
+    Tin* dst = raw + s * slot_elems;
+    const Tin* src = x + ((size_t)(b * T + t0) * N + m0) * C;
+    if (async) {
+      constexpr int V = 16 / sizeof(Tin);
+      const int nv = per_t / V;
+#pragma unroll 1
+      for (int i = tid; i < tc * nv; i += kGfThreads) {
+        const int t = i / nv, k = (i - t * nv) * V;
+        cp_async16(dst + t * R * C + k, src + (size_t)t * N * C + k);
       }
-      __syncthreads();
-      for (int i = tid; i < tc * G; i += kGenThreads) {
-        const int t = i / G, g = i - t * G;
-        const float* xt = xc + t * C;
-        float s = 0.f;
-#pragma unroll 4
-        for (int c = 0; c < C; ++c) s = fmaf(xt[c], __ldg(a.ws + c * G + g), s);
-        e[i] = s + pes_b[g * T + t0 + t];
+      cp_async_commit();
+    } else {
+#pragma unroll 1
+      for (int i = tid; i < tc * per_t; i += kGfThreads) {
+        const int t = i / per_t, k = i - t * per_t;
+        dst[t * R * C + k] = src[(size_t)t * N * C + k];
       }
-      __syncthreads();
-      for (int g = tid; g < G; g += kGenThreads) {
-        float mc = mx[g];
-        for (int t = 0; t < tc; ++t) mc = fmaxf(mc, e[t * G + g]);
-        const float sc = expf(mx[g] - mc);   // 0 at the first chunk
-        float sm = sum[g] * sc;
-        for (int t = 0; t < tc; ++t) {
-          const float v = expf(e[t * G + g] - mc);
-          sm += v;
-          e[t * G + g] = v * keep_scale(a, b, t0 + t, n, g);
+    }
+  };
+  // The start of a visit (pass, chunk j) of the group at m0: its chunk is in
+  // and every thread is past the last visit; the next chunk to load starts.
+  // Returns the chunk's slot.
+  int visits = 0;
+  auto begin_visit = [&](int m0, int pass, int j) -> int {
+    cp_async_wait_all();
+    __syncthreads();
+    if (L.resident) {
+      if (pass == 3 && j > 0 && m0 + R < n1) load_chunk(m0 + R, j - 1, j - 1);
+      return j;
+    }
+    int nm = m0, np = pass, nj = j + 1;
+    if (nj == L.nch) {
+      nj = 0;
+      if (++np == 4) {
+        np = 1;
+        nm += R;
+      }
+    }
+    if (nm < n1) load_chunk(nm, nj, (visits + 1) & 1);
+    return (visits++) & 1;
+  };
+  // f(t, xf[0 .. rows)) over the steps t = pt, pt + px, .. < tc of channel c
+  // of the chunk in slot rs: xf is x, or in tail mode max(z tsc + tsh, 0),
+  // the tail affine of kLoads steps loaded at once (all in flight) and each
+  // value serving the group's rows; the rows' addresses advance by a step's
+  // stride, none is computed per element
+  const int RC = R * C, step_stride = L.px * RC;
+  auto over_steps = [&](const Tin* rs, int rows, int pt, int c, int t0, int tc, auto f) {
+#pragma unroll 1
+    for (int tb = pt; tb < tc; tb += kLoads * L.px) {
+      float sc[kLoads], sh[kLoads];
+      const size_t at = ((size_t)b * T + t0 + tb) * C + c;
+      const float* qsc = a.tsc + at;
+      const float* qsh = a.tsh + at;
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        const int t = tb + k * L.px;
+        sc[k] = 1.f;
+        sh[k] = 0.f;
+        if constexpr (Tail) {
+          if (t < tc) {
+            sc[k] = __ldg(qsc);
+            sh[k] = __ldg(qsh);
+          }
+          qsc += L.px * C;
+          qsh += L.px * C;
         }
-        mx[g] = mc;
-        sum[g] = sm;
-        scl[g] = sc;
       }
-      __syncthreads();
-      for (int i = tid; i < G * C; i += kGenThreads) {
-        const int g = i / C, c = i - g * C;
-        float acc = p[i] * scl[g];
-#pragma unroll 4
-        for (int t = 0; t < tc; ++t) acc = fmaf(e[t * G + g], xc[t * C + c], acc);
-        p[i] = acc;
+      const Tin* q = rs + tb * RC + c;
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        const int t = tb + k * L.px;
+        if (t < tc) {
+          float v[kGfMaxRows];
+#pragma unroll
+          for (int r = 0; r < kGfMaxRows; ++r) {
+            v[r] = r < rows ? to_f(q[r * C]) : 0.f;
+            if constexpr (Tail) v[r] = fmaxf(tail_pre(v[r], sc[k], sh[k]), 0.f);
+          }
+          f(t, v);
+        }
+        q += step_stride;
       }
-      for (int d = tid; d < D; d += kGenThreads) {
-        const int g = d / dv;
-        float acc = eb[d] * scl[g];
-#pragma unroll 4
-        for (int t = 0; t < tc; ++t)
-          acc = fmaf(e[t * G + g], __ldg(bpe_b + (size_t)(t0 + t) * D + d), acc);
-        eb[d] = acc;
-      }
-      __syncthreads();
     }
+  };
 
-    // 3. o[d] = (P[g(d)] . W[:, d] + bpe term) / sum[g(d)]
-    Tin* orow = static_cast<Tin*>(a.o) + ((size_t)b * N + n) * D;
-    for (int d = tid; d < D; d += kGenThreads) {
-      const int g = d / dv;
-      const float* pg = p + g * C;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < C; ++c) acc = fmaf(pg[c], __ldg(a.win + (size_t)c * D + d), acc);
-      Io<Tin>::store(orow + d, (acc + eb[d]) / sum[g]);
+  if (n0 < n1) {
+    if (L.resident)
+      for (int j = 0; j < L.nch; ++j) load_chunk(n0, j, j);
+    else
+      load_chunk(n0, 0, 0);
+  }
+
+#pragma unroll 1
+  for (int m0 = n0; m0 < n1; m0 += R) {
+    const int rows = min(R, n1 - m0);
+
+    // 1. GroupNorm statistics over (T, C/G): the sums, then the centred
+    //    squares; thread (part, c) over steps part, part + px, .. of each
+    //    chunk and the group's rows, the parts added in order, then the
+    //    group's channels
+#pragma unroll 1
+    for (int pass = 1; pass <= 2; ++pass) {
+#pragma unroll 1
+      for (int j = 0; j < L.nch; ++j) {
+        const int t0 = j * TC, tc = min(TC, T - t0);
+        const Tin* rs = raw + begin_visit(m0, pass, j) * slot_elems;
+        for (int it = tid; it < L.px * C; it += kGfThreads) {
+          const int c = it % C, pt = it / C, gc = c / cg;
+          float mean[kGfMaxRows], acc[kGfMaxRows];
+#pragma unroll
+          for (int r = 0; r < kGfMaxRows; ++r) {
+            mean[r] = pass == 2 && r < rows ? gst[r * G2 + gc] : 0.f;
+            acc[r] = 0.f;
+          }
+          over_steps(rs, rows, pt, c, t0, tc, [&](int, const float* v) {
+#pragma unroll
+            for (int r = 0; r < kGfMaxRows; ++r) {
+              const float dl = v[r] - mean[r];
+              acc[r] = pass == 1 ? acc[r] + dl : fmaf(dl, dl, acc[r]);
+            }
+          });
+#pragma unroll
+          for (int r = 0; r < kGfMaxRows; ++r) {
+            if (r < rows) {
+              float* slot = red + (pt * R + r) * C + c;
+              *slot = j == 0 ? acc[r] : *slot + acc[r];
+            }
+          }
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < rows * C; i += kGfThreads) {
+        const int r = i / C, c = i - r * C;
+        float s = 0.f;
+        for (int pt = 0; pt < L.px; ++pt) s += red[(pt * R + r) * C + c];
+        red[r * C + c] = s;
+      }
+      __syncthreads();
+      for (int i = tid; i < rows * G; i += kGfThreads) {
+        const int r = i / G, g = i - r * G;
+        float s = 0.f;
+        for (int k = 0; k < cg; ++k) s += red[r * C + g * cg + k];
+        if (pass == 1) gst[r * G2 + g] = s / cnt;
+        else gst[r * G2 + G + g] = rsqrtf(s / cnt + a.eps);
+      }
     }
-    for (int g = tid; g < G; g += kGenThreads) {
-      st_row[2 * G + g] = mx[g];
-      st_row[3 * G + g] = sum[g];
+    for (int i = tid; i < R * GP; i += kGfThreads) {
+      mx[i] = -CUDART_INF_F;
+      sum[i] = 0.f;
+      scl[i] = 0.f;
+    }
+    for (int i = tid; i < R * GP * C; i += kGfThreads) p[i] = 0.f;
+    for (int i = tid; i < R * D; i += kGfThreads) epe[i] = 0.f;
+
+    // 2. chunks: xhat, the scores, an online softmax per (row, head) with
+    //    the dropout, P and the PE term rescaled to the new max
+#pragma unroll 1
+    for (int j = 0; j < L.nch; ++j) {
+      const int t0 = j * TC, tc = min(TC, T - t0);
+      const Tin* rs = raw + begin_visit(m0, 3, j) * slot_elems;
+      // thread (part, c) over steps part, part + px, .. and the group's rows
+      for (int it = tid; it < L.px * C; it += kGfThreads) {
+        const int c = it % C, pt = it / C, gc = c / cg;
+        float mean[kGfMaxRows], inv[kGfMaxRows];
+#pragma unroll
+        for (int r = 0; r < kGfMaxRows; ++r) {
+          mean[r] = r < rows ? gst[r * G2 + gc] : 0.f;
+          inv[r] = r < rows ? gst[r * G2 + G + gc] : 0.f;
+        }
+        float* const xc = xh + c;
+        const int rs_stride = TC * CP;
+        over_steps(rs, rows, pt, c, t0, tc, [&](int t, const float* v) {
+          float* xt = xc + t * CP;
+#pragma unroll
+          for (int r = 0; r < kGfMaxRows; ++r)
+            if (r < rows) xt[r * rs_stride] = (v[r] - mean[r]) * inv[r];
+        });
+      }
+      __syncthreads();
+      // thread (eight heads, r, t): s = xhat Ws + pes over c in order (as
+      // the backward recomputes it); a warp's lanes take one block of eight
+      // heads, so its two float4 loads of Ws are the same for all of them
+      {
+        const int rt = rows * tc;
+        for (int i = tid; i < (WP / kGfScoreHeads) * rt; i += kGfThreads) {
+          const int hs = i / rt, k = i - hs * rt, r = k / tc, t = k - r * tc, tt = t0 + t;
+          const int g0 = hs * kGfScoreHeads;
+          float pv[kGfScoreHeads], acc[kGfScoreHeads];
+#pragma unroll
+          for (int k2 = 0; k2 < kGfScoreHeads; ++k2) {
+            pv[k2] = g0 + k2 < G ? __ldg(pes_b + (g0 + k2) * T + tt) : 0.f;
+            acc[k2] = 0.f;
+          }
+          const float* xr = xh + (r * TC + t) * CP;
+          const float* wq = wss + g0;
+#pragma unroll 4
+          for (int c = 0; c < C; ++c) {
+            const float xv = xr[c];
+            const float4 w0 = ld4(wq + c * WP), w1 = ld4(wq + c * WP + 4);
+            acc[0] = fmaf(xv, w0.x, acc[0]);
+            acc[1] = fmaf(xv, w0.y, acc[1]);
+            acc[2] = fmaf(xv, w0.z, acc[2]);
+            acc[3] = fmaf(xv, w0.w, acc[3]);
+            acc[4] = fmaf(xv, w1.x, acc[4]);
+            acc[5] = fmaf(xv, w1.y, acc[5]);
+            acc[6] = fmaf(xv, w1.z, acc[6]);
+            acc[7] = fmaf(xv, w1.w, acc[7]);
+          }
+          float* er = e + (r * TC + t) * EP + g0;
+#pragma unroll
+          for (int k2 = 0; k2 < kGfScoreHeads; ++k2)
+            if (g0 + k2 < G) er[k2] = acc[k2] + pv[k2];
+        }
+      }
+      __syncthreads();
+      // The PE term's items: lanes l and l + 16 of a warp take the two
+      // halves of the chunk's steps for one d. The bpe values of a thread's
+      // first item are loaded now (all in flight), so that they arrive
+      // during the softmax and P
+      const int nd16 = (D + 15) & ~15, half = lane >> 4;
+      const int u0 = half * ((tc + 1) / 2), u1 = half ? tc : (tc + 1) / 2;
+      float pv[kGfPeSteps];
+      auto pe_loads = [&](int ii) {
+        const int d = (ii >> 5) * 16 + (ii & 15);
+        const float* pc = bpe_b + (size_t)(t0 + u0) * D + d;
+#pragma unroll
+        for (int k = 0; k < kGfPeSteps; ++k) {
+          pv[k] = d < D && u0 + k < u1 ? __ldg(pc) : 0.f;
+          pc += D;
+        }
+      };
+      if (tid < 2 * nd16) pe_loads(tid);
+      // warp (r, head), lane t: the chunk's max, the rescale, exp and sum; e
+      // becomes the dropped weight exp * keep / (1 - p), the sum takes exp
+      for (int k = warp; k < rows * G; k += kGfThreads / 32) {
+        const int r = k / G, g = k - r * G;
+        float* ec = e + r * TC * EP + g;
+        const float v = lane < tc ? ec[lane * EP] : -CUDART_INF_F;
+        const float old = mx[r * GP + g];
+        const float nm = fmaxf(old, warp_max(v));
+        const float sc = expf(old - nm);   // 0 at the first chunk
+        const float ev = lane < tc ? expf(v - nm) : 0.f;
+        const float tot = warp_sum(ev);
+        if (lane < tc) ec[lane * EP] = ev * keep_scale(a, b, t0 + lane, m0 + r, g);
+        if (lane == 0) {
+          mx[r * GP + g] = nm;
+          sum[r * GP + g] = fmaf(sum[r * GP + g], sc, tot);
+          scl[r * GP + g] = sc;
+        }
+      }
+      __syncthreads();
+      // P[r][g, c] = P scl + sum_t e xhat: thread (sixteen heads, r, c), a
+      // warp's lanes on one row's channels, so its float4 loads of e are the
+      // same for all of them
+      const int rc = rows * C, np = ((GP + kGfPoolHeads - 1) / kGfPoolHeads) * rc;
+      for (int i = tid; i < np; i += kGfThreads) {
+        const int hb = i / rc, k = i - hb * rc, r = k / C, c = k - r * C;
+        const int g0 = hb * kGfPoolHeads;
+        const float* xc = xh + r * TC * CP + c;
+        const float* ec = e + r * TC * EP + g0;
+        float* pc = p + (r * GP + g0) * C + c;
+        float acc[kGfPoolHeads];
+#pragma unroll
+        for (int k2 = 0; k2 < kGfPoolHeads; ++k2)
+          acc[k2] = g0 + k2 < GP ? pc[k2 * C] * scl[r * GP + g0 + k2] : 0.f;
+#pragma unroll 2
+        for (int t = 0; t < tc; ++t) {
+          const float xv = xc[t * CP];
+#pragma unroll
+          for (int q = 0; q < kGfPoolHeads / 4; ++q) {
+            if (g0 + 4 * q < GP) {
+              const float4 ev = ld4(ec + t * EP + 4 * q);
+              acc[4 * q] = fmaf(ev.x, xv, acc[4 * q]);
+              acc[4 * q + 1] = fmaf(ev.y, xv, acc[4 * q + 1]);
+              acc[4 * q + 2] = fmaf(ev.z, xv, acc[4 * q + 2]);
+              acc[4 * q + 3] = fmaf(ev.w, xv, acc[4 * q + 3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int k2 = 0; k2 < kGfPoolHeads; ++k2)
+          if (g0 + k2 < GP) pc[k2 * C] = acc[k2];
+      }
+      // the PE term, item by item over the group's rows (each bpe element
+      // read from L2 once for all of them), the halves added by a shuffle
+      for (int ii = tid; ii < 2 * nd16; ii += kGfThreads) {
+        if (ii != tid) pe_loads(ii);
+        const int d = (ii >> 5) * 16 + (ii & 15);
+        const bool valid = d < D;
+        const int g = valid ? head_of(d, inv_dv) : 0;
+        float acc[kGfMaxRows];
+#pragma unroll
+        for (int r = 0; r < kGfMaxRows; ++r)
+          acc[r] = valid && r < rows && half == 0 ? epe[r * D + d] * scl[r * GP + g] : 0.f;
+        // e of row r at step u0 + k: the rows' pointers advance by a step
+        const float* ep[kGfMaxRows];
+#pragma unroll
+        for (int r = 0; r < kGfMaxRows; ++r) ep[r] = e + (r * TC + u0) * EP + g;
+#pragma unroll
+        for (int k = 0; k < kGfPeSteps; ++k) {
+#pragma unroll
+          for (int r = 0; r < kGfMaxRows; ++r) {
+            if (r < rows && u0 + k < u1) acc[r] = fmaf(*ep[r], pv[k], acc[r]);
+            ep[r] += EP;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kGfMaxRows; ++r) {
+          acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 16);
+          if (valid && r < rows && half == 0) epe[r * D + d] = acc[r];
+        }
+      }
     }
     __syncthreads();
+
+    // 3. o[r][d] = (P[r][g(d)] . W_in[:, d] + PE term) / sum: thread (part,
+    //    d) over channels part, part + po, .. for all rows, each W_in element
+    //    serving them all; the parts added in order
+    for (int it = tid; it < L.po * D; it += kGfThreads) {
+      const int d = it % D, pt = it / D, g = head_of(d, inv_dv);
+      float acc[kGfMaxRows] = {};
+      for (int c0 = pt; c0 < C; c0 += kLoads * L.po) {   // kLoads loads in flight
+        float wv[kLoads];
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          const int c = c0 + k * L.po;
+          wv[k] = c < C ? win[(size_t)c * D + d] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          const int c = c0 + k * L.po;
+#pragma unroll
+          for (int r = 0; r < kGfMaxRows; ++r)
+            if (r < rows && c < C) acc[r] = fmaf(p[(r * GP + g) * C + c], wv[k], acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kGfMaxRows; ++r)
+        if (r < rows) red[(pt * R + r) * D + d] = acc[r];
+    }
+    __syncthreads();
+    Tin* const orow = static_cast<Tin*>(a.o) + ((size_t)b * N + m0) * D;
+    for (int i = tid; i < rows * D; i += kGfThreads) {
+      const int r = i / D, d = i - r * D, g = head_of(d, inv_dv);
+      float s = 0.f;
+      for (int pt = 0; pt < L.po; ++pt) s += red[(pt * R + r) * D + d];
+      Io<Tin>::store(orow + i, (s + epe[i]) / sum[r * GP + g]);
+    }
+    // the rows' saved statistics: mean, 1/std, softmax max and sum per head
+    float* const st_g = st_out + ((size_t)b * N + m0) * G4S;
+    for (int i = tid; i < rows * G4S; i += kGfThreads) {
+      const int r = i / G4S, k = i - r * G4S, q = k / G, g = k - q * G;
+      st_g[i] = q < 2 ? gst[r * G2 + q * G + g] : q == 2 ? mx[r * GP + g] : sum[r * GP + g];
+    }
+    __syncthreads();   // the group's buffers are free
+    if (L.resident && m0 + R < n1) load_chunk(m0 + R, L.nch - 1, L.nch - 1);
   }
 }
 
@@ -1485,7 +1818,8 @@ __host__ __device__ inline GbLayout gb_layout(int T, int C, int D, int G, int el
 // The general backward's plan: the group's x resident if that fits at some
 // R, else streamed; then the most rows a group, R = 4 .. 1. Where nothing
 // fits in shared memory, R = 1 streamed in a scratch buffer in device memory.
-// ops/ltae_pool.py::general_bwd_plan mirrors it.
+// The C entry ltae_pool_bwd_general_plan returns it
+// (tests/test_torch_general_plan.py mirrors it for the CPU).
 __host__ __device__ inline GbLayout gb_plan(int T, int C, int D, int G, int elem_bytes) {
   for (int res = 1; res >= 0; --res)
     for (int R = kGbMaxRows; R >= 1; --R) {
@@ -1493,12 +1827,6 @@ __host__ __device__ inline GbLayout gb_plan(int T, int C, int D, int G, int elem
       if ((size_t)L.floats * sizeof(float) <= kSmemLimit) return L;
     }
   return gb_layout(T, C, D, G, elem_bytes, 1, false);
-}
-
-// d / dv for 0 <= d < 2^21: (d + 0.5) / dv is at least 0.5 / dv from an
-// integer, and the float product's error stays below that there.
-__device__ __forceinline__ int head_of(int d, float inv_dv) {
-  return __float2int_rz((d + 0.5f) * inv_dv);
 }
 
 // a_d and a from the sign-coded value the first pass stores: a * scale where
@@ -2102,15 +2430,17 @@ ltae_pool_bwd_general_kernel(const Args a, const GbLayout L, const float* const 
 template <bool Tail, typename Tin>
 cudaError_t launch_general_fwd(const Args& a, float* st, float* scratch, int S,
                                cudaStream_t stream) {
-  const size_t bytes = (size_t)gen_layout(a.T, a.C, a.D, a.G).floats * sizeof(float);
+  const GfLayout L = gf_plan(a.T, a.C, a.D, a.G, sizeof(Tin));
+  const size_t bytes = (size_t)L.floats * sizeof(float);
   const bool in_smem = bytes <= kSmemLimit;
   if (S < 1 || in_smem == (scratch != nullptr)) return cudaErrorInvalidValue;
   const size_t dyn = in_smem ? bytes : 0;
-  cudaError_t err = cudaFuncSetAttribute(ltae_pool_fwd_general_kernel<Tin, Tail>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  const auto kernel = in_smem ? ltae_pool_fwd_general_kernel<Tin, Tail, true>
+                              : ltae_pool_fwd_general_kernel<Tin, Tail, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return err;
-  ltae_pool_fwd_general_kernel<Tin, Tail><<<dim3(S, a.B), kGenThreads, dyn, stream>>>(
-      a, st, scratch);
+  kernel<<<dim3(S, a.B), kGfThreads, dyn, stream>>>(a, L, st, scratch);
   return cudaGetLastError();
 }
 
@@ -2220,8 +2550,24 @@ extern "C" int ltae_pool_bwd(const void* x, int x_is_bf16, const void* tsc,
 extern "C" int ltae_pool_general_scratch_floats(int T, int C, int D, int G, int backward,
                                                 int x_is_bf16) {
   const int f = backward ? gb_plan(T, C, D, G, x_is_bf16 ? 2 : 4).floats
-                         : gen_layout(T, C, D, G).floats;
+                         : gf_plan(T, C, D, G, x_is_bf16 ? 2 : 4).floats;
   return (size_t)f * sizeof(float) <= kSmemLimit ? 0 : f;
+}
+
+// The general forward's plan for a shape (gf_plan), into out[5]: rows a
+// group, whether the group's x stays resident, whether W_in is in shared
+// memory, steps a chunk, and the workspace's floats per block (past 227 KB:
+// in the scratch buffer).
+extern "C" int ltae_pool_fwd_general_plan(int T, int C, int D, int G, int x_is_bf16,
+                                          int* out) {
+  if (T < 1 || C < 1 || G < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  const GfLayout L = gf_plan(T, C, D, G, x_is_bf16 ? 2 : 4);
+  out[0] = L.rows;
+  out[1] = L.resident;
+  out[2] = L.win_on;
+  out[3] = L.tc;
+  out[4] = L.floats;
+  return 0;
 }
 
 // The general backward's plan for a shape (gb_plan), into out[4]: rows a

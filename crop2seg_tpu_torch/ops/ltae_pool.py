@@ -34,12 +34,13 @@ D <= 256: TimeUNet's training path) the forward kernel runs S =
 ``fwd_launch_shape(...)`` persistent blocks per batch item, each walking its
 ``row_ranges`` in groups of 8 rows, and writes o in one pass over x; every
 other shape at which the L-TAE is defined (G dividing C and D) takes the
-general pair (variants ``..._general``): the forward one row at a time per
-block (S = ``general_launch_shape``), x streamed over T with an online
-softmax, saving each row's GroupNorm statistics and softmax max and sum (B,
-N, 4, G) for its backward; the backward one block an SM (S =
-``blocks_per_item``) in groups of rows, x in chunks of T kept on chip where
-it fits (``general_bwd_plan``).
+general pair (variants ``..._general``). Both of its kernels run S =
+``blocks_per_item`` persistent blocks per batch item, one an SM, each
+walking its ``row_ranges`` in groups of rows, with x in chunks of 32 steps
+kept on chip for the whole group where it fits (the plans
+``general_fwd_plan`` and ``general_bwd_plan``). The forward runs an online
+softmax over the chunks and saves each row's GroupNorm statistics and
+softmax max and sum (B, N, 4, G) for its backward.
 
 The folds and the small products around the kernels run in fp32 with
 autocast off, from fp32 parameters, as the JAX package computes them, whatever
@@ -79,7 +80,6 @@ MAX_HEADS = 16      # per-head accumulators live in registers
 MAX_D = 256         # the forward gives a thread to each (d, half of a row group);
                     # the backward holds win_f and bin_f + pe in shared memory
 EPS = 1e-5          # the input GroupNorm's epsilon
-GENERAL_BLOCKS_PER_SM = 4   # the general forward's 256-thread blocks (kGenBlocksPerSm)
 _M32 = 0xFFFFFFFF
 
 
@@ -202,12 +202,13 @@ def _kernels():
     """The C entries of csrc/ltae_pool.cu with their argument types:
     (forward, backward, partial-sum floats per backward block, general
     forward, general backward, general scratch floats per block, the general
-    backward's plan)."""
+    backward's plan, the general forward's plan)."""
     lib = load_library("ltae_pool")
     vp, ci, cf, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
     fwd, bwd, part = lib.ltae_pool_fwd, lib.ltae_pool_bwd, lib.ltae_pool_bwd_part_floats
     gfwd, gbwd = lib.ltae_pool_fwd_general, lib.ltae_pool_bwd_general
     scratch, plan = lib.ltae_pool_general_scratch_floats, lib.ltae_pool_bwd_general_plan
+    fplan = lib.ltae_pool_fwd_general_plan
     # x, x_is_bf16 | tsc, tsh, bpe, win, ws, pes, o | S B T N C D G |
     # seed_mix thresh scale eps stream
     fwd.argtypes = [vp, ci] + [vp] * 7 + [ci] * 7 + [cu, cu, cf, cf, vp]
@@ -221,9 +222,10 @@ def _kernels():
     part.argtypes = [ci] * 5
     scratch.argtypes = [ci] * 6
     plan.argtypes = [ci] * 5 + [vp]                # T C D G x_is_bf16 | out[4]
-    for f in (fwd, bwd, part, gfwd, gbwd, scratch, plan):
+    fplan.argtypes = [ci] * 5 + [vp]               # T C D G x_is_bf16 | out[5]
+    for f in (fwd, bwd, part, gfwd, gbwd, scratch, plan, fplan):
         f.restype = ci
-    return fwd, bwd, part, gfwd, gbwd, scratch, plan
+    return fwd, bwd, part, gfwd, gbwd, scratch, plan, fplan
 
 
 def blocks_per_item(b: int, sm_count: int) -> int:
@@ -249,12 +251,15 @@ def fwd_launch_shape(b: int, t: int, c: int, d: int, g: int, sm_count: int) -> i
     return blocks_per_item(b, sm_count)
 
 
-def general_launch_shape(b: int, sm_count: int) -> int:
-    """S, the general forward's blocks per batch item: GENERAL_BLOCKS_PER_SM
-    per SM over the batch, each walking ``row_ranges(N, S)[i]`` one row at a
-    time. The general backward and the general eval kernel run
-    ``blocks_per_item`` blocks, one an SM, each in groups of rows."""
-    return blocks_per_item(b, GENERAL_BLOCKS_PER_SM * sm_count)
+def general_fwd_plan(t: int, c: int, d: int, g: int, dtype: torch.dtype) -> tuple:
+    """The general forward's plan for x of ``dtype``, from the C entry
+    (csrc/ltae_pool.cu::gf_plan): (rows a group, x resident, W_in in shared
+    memory, steps a chunk, workspace floats). Builds the library, so it
+    needs nvcc."""
+    out = (ctypes.c_int * 5)()
+    if rc := _kernels()[7](t, c, d, g, int(dtype == torch.bfloat16), out):
+        raise RuntimeError(f"ltae_pool_fwd_general_plan failed (error {rc})")
+    return tuple(out)
 
 
 def general_bwd_plan(t: int, c: int, d: int, g: int, dtype: torch.dtype) -> tuple:
@@ -335,7 +340,7 @@ class _LtaePool(torch.autograd.Function):
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             if general:
-                s = general_launch_shape(b, _sm_count(x.device))
+                s = blocks_per_item(b, _sm_count(x.device))
                 stats = torch.empty(b, n, 4, n_head, dtype=torch.float32, device=x.device)
                 scratch = _general_scratch(t, c, d, n_head, False, b * s, x)
                 rc = kernels[3](*head, stats.data_ptr(), _ptr(scratch), s, *tail_args,

@@ -6,11 +6,13 @@ with --kernel pool_fwd the training forward's (csrc/ltae_pool.cu::
 ltae_pool_fwd_group_kernel, all four variants) or, with --kernel
 pool_bwd_general, the general training backward's by pass
 (ltae_pool_bwd_general_kernel, tail mode, groups of rows; cycles are given
-per row), or with --kernel general the general eval kernel's
+per row), with --kernel pool_fwd_general the general training forward's
+by phase (ltae_pool_fwd_general_kernel, tail mode, groups of rows; per
+row), or with --kernel general the general eval kernel's
 (ltae_fused_general_kernel at T = 128, B = 4, TimeUNet's width; per row).
 
     python3 scripts/split_ltae_fused_steps.py
-        [--kernel fused|wide|general|pool_fwd|pool_bwd_general]
+        [--kernel fused|wide|general|pool_fwd|pool_fwd_general|pool_bwd_general]
         [--launches 5]
 
 Copies this checkout's crop2seg_tpu_torch into the gitignored
@@ -23,13 +25,14 @@ N=128*128, C=64, D=256, G=16, d_out=64, tail affine, no attention), the
 wide kernel at its U-TAE shape (--width utae: N=16*16, C=d_out=128,
 attention out), the training forward at that of
 scripts/bench_ltae_pool_torch.py (B=4, T=61, N=128*128, C=64, D=256, G=16,
-drop_p 0.1), the general backward at chip_smoke.py's timing shape for it
-(B=4, T=128, N=128*128, C=64, D=256, G=16, tail mode, drop_p 0.1; a launch
-is the whole backward under autograd). Prints the card (nvidia-smi name and
+drop_p 0.1), the general forward and backward at chip_smoke.py's timing
+shape for them (B=4, T=128, N=128*128, C=64, D=256, G=16, tail mode,
+drop_p 0.1; a backward launch is the whole backward under autograd). Prints
+the card (nvidia-smi name and
 power limit), then per dtype (and mode) one JSON line: the instrumented
 launch's ms (CUDA events; the stamps cost a few per cent) and each step's
 cycles per row group (8 rows, 4 for the wide kernel; per row for the
-general backward, whose groups hold its plan's rows) with its share. The stamps never reach the package itself.
+general kernels, whose groups hold their plan's rows) with its share. The stamps never reach the package itself.
 """
 from __future__ import annotations
 
@@ -93,7 +96,7 @@ KERNELS = {
                 ("    // Z[r][c, g] = sum_{d in g} W[c, d] go_r[d]", "    STAMP(0)\n"),
                 ("    // ds[r][t, g] = sum_{d in g} go_r[d] bpe[t, d]", "    STAMP(1)\n"),
                 ("    // 1. a, a_d and p1 of every step", "    STAMP(2)\n"),
-                ("      // thread (r, t, four heads): s = xhat Ws", "      STAMP(3)\n"),
+                ("      // thread (eight heads, r, t): s = xhat Ws", "      STAMP(3)\n"),
                 ("      // thread (r, four heads, c): P[r][g, c]", "      STAMP(4)\n"),
                 ("    }\n\n    // 2. ds = a_d p1", "      STAMP(5)\n"),
                 ("    // per row sum_t ds and sum_t a_d", "    STAMP(6)\n"),
@@ -108,6 +111,27 @@ KERNELS = {
                 ("    }\n    __syncthreads();\n    for (int i = tid; i < rows * G; i += kGbThreads) {"
                  "   // the group means", "      STAMP(12)\n"),
                 ("    // 5. dx = inv", "    STAMP(13)\n"))),
+    "pool_fwd_general": dict(
+        lib="ltae_pool", rows=1,
+        head="ltae_pool_fwd_general_kernel(const Args a, const GfLayout L, float* const st_out,",
+        after="// ---- the general backward: persistent row groups",
+        decl_after="  const Tin* const x = static_cast<const Tin*>(a.x);\n",
+        end="    __syncthreads();   // the group's buffers are free",
+        steps=("GroupNorm statistics (two passes)", "group start: max, sum, P, PE term",
+               "chunk: wait", "chunk: xhat", "chunk: scores",
+               "chunk: PE loads issued, softmax, dropout",
+               "chunk: P, PE term", "o: products", "o: sums, store, statistics"),
+        stamps=(("    // 1. GroupNorm statistics over (T, C/G)", "    STEP_T0 = clock64();\n"),
+                ("    for (int i = tid; i < R * GP; i += kGfThreads) {\n      mx[i]",
+                 "    STAMP(0)\n"),
+                ("    // 2. chunks: xhat, the scores", "    STAMP(1)\n"),
+                ("      // thread (part, c) over steps part, part + px, .. and the group's rows",
+                 "      STAMP(2)\n"),
+                ("      // thread (eight heads, r, t): s = xhat Ws", "      STAMP(3)\n"),
+                ("      // The PE term's items: lanes l and l + 16", "      STAMP(4)\n"),
+                ("      // P[r][g, c] = P scl + sum_t e xhat: thread (sixteen heads", "      STAMP(5)\n"),
+                ("    }\n    __syncthreads();\n\n    // 3. o[r][d]", "      STAMP(6)\n"),
+                ("    Tin* const orow = static_cast<Tin*>(a.o)", "    STAMP(7)\n"))),
     "general": dict(
         lib="ltae_fused_fwd", rows=1,
         head="ltae_fused_general_kernel(const Args a, const GeLayout L, float* const scratch) {",
@@ -216,9 +240,10 @@ def pool_fwd_launches(dev):
             yield lp.variant(tail, dtype, "fwd"), launch
 
 
-def pool_bwd_general_launches(dev):
-    """(label, launch) per dtype of the general backward in tail mode at
-    T = 128, on chip_smoke.py's inputs (the seeded TimeUNet's folded L-TAE)."""
+def pool_general_launches(dev, direction: str):
+    """(label, launch) per dtype of the general forward or backward in tail
+    mode at T = 128, on chip_smoke.py's inputs (the seeded TimeUNet's folded
+    L-TAE)."""
     from crop2seg_tpu_torch.models.factory import get_model
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -229,11 +254,17 @@ def pool_bwd_general_launches(dev):
     go = torch.randn(cs.TRAIN_B, cs.HW, cs.D, generator=gen, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
         leaves = cs.pool_leaves(True, x.to(dtype), ts, pe, params)
+        label = f"ltae_pool_tail_{direction}{'_bf16' if dtype == torch.bfloat16 else ''}_general"
+        if direction == "fwd":
+            def launch(leaves=leaves):
+                with torch.no_grad():
+                    return cs.pool_apply(True, False, leaves, pad, 99, 0.1)
+            yield label, launch
+            continue
         o = cs.pool_apply(True, False, leaves, pad, 99, 0.1)
         god = go.to(o.dtype)
-        yield (f"ltae_pool_tail_bwd{'_bf16' if dtype == torch.bfloat16 else ''}_general",
-               lambda o=o, leaves=leaves, god=god: torch.autograd.grad(
-                   o, leaves, god, retain_graph=True))
+        yield label, lambda o=o, leaves=leaves, god=god: torch.autograd.grad(
+            o, leaves, god, retain_graph=True)
 
 
 def main() -> int:
@@ -263,7 +294,8 @@ def main() -> int:
     sums = (ctypes.c_ulonglong * 16)()
     nsteps = len(spec["steps"])
     runs = (pool_fwd_launches(dev) if args.kernel == "pool_fwd" else
-            pool_bwd_general_launches(dev) if args.kernel == "pool_bwd_general" else
+            pool_general_launches(dev, "bwd") if args.kernel == "pool_bwd_general" else
+            pool_general_launches(dev, "fwd") if args.kernel == "pool_fwd_general" else
             fused_launches(dev, "timeunet", 128, 4) if args.kernel == "general" else
             fused_launches(dev, "utae" if args.kernel == "wide" else "timeunet"))
     for label, launch in runs:

@@ -448,11 +448,14 @@ def test_cuda_kernel_rejects_unsupported_widths():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,n,c", [(1, 61, 256, 64), (2, 20, 77, 128)])
+@pytest.mark.parametrize("b,t,n,c", [(1, 61, 256, 64), (2, 20, 77, 128), (1, 64, 37, 128),
+                                     (3, 64, 5, 64)])
 def test_cuda_ltae_stages_matches_plain_version(b, t, n, c):
     """The stage kernel against its plain version on the card, each stage,
-    with pads, N not a multiple of the block's rows: 1e-4 of each stage's
-    largest |value| (fp32 sums in another order), attention 1e-5."""
+    with pads, at its limits (T = 64, C = 128, D = 256: W_in in two chunks
+    of 64 channels) and at odd N (its blocks take one row each, so every N
+    fills them; more batch items than one): 1e-4 of each stage's largest
+    |value| (fp32 sums in another order), attention 1e-5."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
@@ -554,35 +557,43 @@ def test_cuda_ltae_pool_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
 @pytest.mark.parametrize("tail", [False, True], ids=["untailed", "tail"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
-@pytest.mark.parametrize("b,t,n,c,d,g,path", [(2, 70, 301, 64, 256, 16, None),
-                                              (1, 128, 100, 64, 256, 16, None),
-                                              (2, 35, 40, 72, 64, 8, None),
-                                              (1, 20, 33, 64, 256, 32, None),
-                                              (2, 61, 30, 64, 272, 16, None),
-                                              (1, 9, 50, 12, 24, 4, None),
-                                              (1, 2000, 3, 16, 32, 16, "scratch"),
-                                              (140, 66, 3, 16, 32, 4, None),
-                                              (2, 65, 301, 64, 256, 16, None),
-                                              (2, 97, 45, 64, 256, 16, None),
-                                              (1, 1200, 3, 16, 32, 16, "r-1"),
-                                              (1, 1200, 9, 64, 256, 16, "streamed")],
-                         ids=["timeunet-t70", "t128", "c-72", "g-32", "d-272", "c-12",
-                              "scratch", "b-above-sms", "t65-n301", "t97", "r-1",
-                              "streamed"])
+@pytest.mark.parametrize("b,t,n,c,d,g,path,fwd", [
+    (2, 70, 301, 64, 256, 16, None, "resident"),
+    (1, 128, 100, 64, 256, 16, None, "resident"),
+    (2, 35, 40, 72, 64, 8, None, "resident"),
+    (1, 20, 33, 64, 256, 32, None, "resident"),
+    (2, 61, 30, 64, 272, 16, None, "resident"),
+    (1, 9, 50, 12, 24, 4, None, "resident"),
+    (1, 2000, 3, 16, 32, 16, "scratch", "resident"),
+    (140, 66, 3, 16, 32, 4, None, "resident"),
+    (2, 65, 301, 64, 256, 16, None, "resident"),
+    (2, 97, 45, 64, 256, 16, None, "resident"),
+    (1, 1200, 3, 16, 32, 16, "r-1", "resident"),
+    (1, 1200, 9, 64, 256, 16, "streamed", None),
+    (1, 2000, 5, 64, 256, 16, None, "streamed"),
+    (2, 33, 7, 384, 384, 16, None, "r-1"),
+    (1, 33, 5, 640, 64, 16, None, "scratch"),
+    (2, 128, 303, 64, 256, 16, None, "resident")],
+    ids=["timeunet-t70", "t128", "c-72", "g-32", "d-272", "c-12", "scratch", "b-above-sms",
+         "t65-n301", "t97", "r-1", "streamed", "fwd-streamed", "fwd-r-1", "fwd-scratch",
+         "t128-n303"])
 def test_cuda_ltae_pool_general_kernels_match_plain_version(drop_p, b, t, n, c, d, g,
-                                                            path, dtype, tail):
+                                                            path, fwd, dtype, tail):
     """The general training pair (every shape the fast pair does not take)
     against the plain version under autograd on the card, as
     ``test_cuda_ltae_pool_kernels_match_plain_version`` holds the fast pair:
     T past 64 (65, 70, 97, 128: chunks of 32 steps with a partial last one),
     C = 72 and C = 12, G = 32, D = 272, more batch items than SMs, N not a
-    multiple of the backward's rows a group (301), and the backward plan's
-    edges, asserted through the C entries (``general_bwd_plan`` and the
-    scratch buffer's floats): groups of one row (T =
-    1200), x streamed in chunks rather than resident (T = 1200 at C = 64),
-    a workspace past shared memory (T = 2000: its scratch buffer in device
-    memory); one general forward and one general backward launch; o and
-    every gradient within the same tolerances."""
+    multiple of either kernel's rows a group (301, 303: blocks of 4 and 5
+    rows in groups of 4), and the plans' edges, asserted through the C
+    entries (``general_fwd_plan``, ``general_bwd_plan`` and the scratch
+    buffer's floats). The backward (``path``): groups of one row (T = 1200),
+    x streamed in chunks rather than resident (T = 1200 at C = 64), a
+    workspace past shared memory (T = 2000: its scratch buffer in device
+    memory). The forward (``fwd``): the group's x resident, streamed (T =
+    2000 at C = 64), groups of one row (C = D = 384), a workspace past
+    shared memory (C = 640). One general forward and one general backward
+    launch; o and every gradient within the same tolerances."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -608,6 +619,16 @@ def test_cuda_ltae_pool_general_kernels_match_plain_version(drop_p, b, t, n, c, 
         assert rows == 1 and scratch == 0
     elif path == "streamed":
         assert not resident and scratch == 0
+    f_rows, f_resident = lp.general_fwd_plan(t, c, d, g, dtype)[:2]
+    f_scratch = lp._kernels()[5](t, c, d, g, 0, int(dtype == torch.bfloat16))
+    if fwd == "resident":
+        assert f_resident and f_scratch == 0
+    elif fwd == "streamed":
+        assert not f_resident and f_scratch == 0
+    elif fwd == "r-1":
+        assert f_rows == 1 and f_scratch == 0
+    elif fwd == "scratch":
+        assert f_scratch > 0
     kernel = lp.ltae_pool_tail if tail else lp.ltae_pool
     plain = lp.ltae_pool_tail_reference if tail else lp.ltae_pool_reference
     res = []
