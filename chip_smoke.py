@@ -99,6 +99,25 @@
    with pad_value=1.5 (in_conv's tail not deferred) in eval and in a
    train-mode forward: one launch of the eval kernel or of the untailed
    training forward, logits within 1e-3 of the plain L-TAE's.
+12. The train CLI (python -m crop2seg_tpu_torch.train, its main called in
+   this process) on a synthetic dataset of 16 patches at 128^2, T 27-61, in
+   a temporary directory, each run's kernel counts set to 0 just before it
+   and read just after: (a) TimeUNet_v1 at the factory defaults, --bf16
+   --use_pallas_train, batch 4, 2 epochs, T buckets [32,48,61]: exactly one
+   tail bf16 forward and backward of the training pair per train batch and
+   one eval-kernel launch (group route) per val and test batch, finite
+   metrics, the JAX CLI's output files; epoch seconds and steps/s printed;
+   (b) a resume of (a) to 3 epochs: it starts after (a)'s best epoch (the
+   checkpoint model.ckpt holds, as the JAX CLI resumes) with Adam's step
+   count restored; (f) (a) again with --device_cache: x reaches the steps
+   in bf16 and epoch 2 gathers its batches on the card, one launch of the
+   same tail bf16 pair per step; (c) --test of (a)'s folder: test loss within 1e-5
+   relative and mIoU within 1e-4 of (a)'s own test; (d) U-TAE in fp32 with
+   --add_boundary_loss --device_cache, 1 epoch: no launch of the training
+   pair, one wide eval-kernel launch per val and test batch, finite
+   boundary metrics; (e) one TimeUNet step at B=4 with remat against
+   without: gradients within the perturbation spread (as in phase 5), both
+   peak memories printed.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -1456,6 +1475,199 @@ def phase_general_timing(models: dict, dev):
     return out
 
 
+CLI_PATCHES = 16        # phase 12's synthetic dataset: 128^2, T 27-61
+CLI_FILES = ("conf.json", "Fold_1/trainlog.json", "Fold_1/all_test_metrics.json",
+             "Fold_1/all_conf_mat.pkl", "all_overall.json", "all_per_class.json")
+
+
+def cli_run(label: str, argv: list, want_pool: dict, want_eval: dict):
+    """``python -m crop2seg_tpu_torch.train`` in this process (its ``main``
+    on ``argv``), each kernel count set to 0 just before and read just
+    after: the training pair's launches by variant must be ``want_pool``
+    (None: the caller checks them) and the eval kernel's by route
+    ``want_eval``, exactly. Returns the run,
+    the counts and the seconds it took."""
+    from crop2seg_tpu_torch import train as cli
+
+    cfg = cli.parse_config(argv + ["--device", "cuda", "--display_step", "1000"])
+    lp.ltae_pool.launches.clear()                      # this path's counts
+    lf.ltae_fused_forward.launches = 0
+    lf.ltae_fused_forward.route_launches.clear()
+    start = time.perf_counter()
+    run = cli.main(cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    pool = dict(lp.ltae_pool.launches)
+    routes = dict(lf.ltae_fused_forward.route_launches)
+    print(f"train cli {label}: {seconds:.1f} s, training pair launches {pool}, "
+          f"eval kernel launches by route {routes}; test {json.dumps(run.test_metrics)}",
+          flush=True)
+    check(want_pool is None or pool == want_pool,
+          f"train cli {label}: training pair launched {pool}, not {want_pool}")
+    check(routes == want_eval, f"train cli {label}: eval kernel launched {routes}, "
+                               f"not {want_eval}")
+    check(all(np.isfinite(v) for v in run.test_metrics.values()),
+          f"train cli {label}: test metrics {run.test_metrics}")
+    for epoch, m in run.trainlog.items():
+        check(all(np.isfinite(v) for v in m.values()),
+              f"train cli {label}: epoch {epoch} metrics {m}")
+    return run, pool, routes, seconds
+
+
+def phase_train_cli(dev):
+    """Phase 12: the train CLI end to end on the card, on a synthetic
+    dataset of CLI_PATCHES patches at 128^2, T 27-61, written to a temporary
+    directory: (a) TimeUNet_v1 at the factory defaults, bf16, 2 epochs
+    (train, val, best-k checkpoints, reload, test, fold aggregation); (b) a
+    resume of (a) to epoch 3 with Adam's step count restored (from the
+    best epoch, which model.ckpt holds, as the JAX CLI resumes); (c) --test
+    of (a)'s folder, which must repeat (a)'s test; (f) (a) again with the
+    device cache (x cast to bf16 before the step: the same kernel variant
+    must run as for (a)'s fp32 x under autocast); (d) U-TAE fp32 with the
+    boundary loss and the device cache, 1 epoch; (e) one TimeUNet step at
+    B=4 with remat against without, gradients within the perturbation
+    spread, both peak memories printed."""
+    import os
+    import tempfile
+
+    from crop2seg_tpu_torch import train as cli
+    from crop2seg_tpu_torch.data import make_synthetic_dataset
+    from crop2seg_tpu_torch.learning import checkpoint as ckpt
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        start = time.perf_counter()
+        make_synthetic_dataset(data, n_patches=CLI_PATCHES)
+        sizes = [len(d) for d in cli.build_datasets(cli.parse_config(
+            ["--dataset", "synthetic", "--dataset_folder", data]))]
+        bs = 4
+        n_train, n_val, n_test = sizes[0] // bs, -(-sizes[1] // bs), -(-sizes[2] // bs)
+        print(f"train cli: synthetic dataset of {CLI_PATCHES} patches (train/val/test "
+              f"{sizes}) written in {time.perf_counter() - start:.1f} s; batches a "
+              f"train epoch {n_train}, val {n_val}, test {n_test}", flush=True)
+        common = ["--dataset", "synthetic", "--dataset_folder", data,
+                  "--batch_size", str(bs), "--t_buckets", "[32,48,61]"]
+        a_dir, b_dir, c_dir = (os.path.join(tmp, n) for n in ("a", "b", "c"))
+        tail16 = {lp.variant(True, torch.bfloat16, d): 0 for d in ("fwd", "bwd")}
+
+        def pool_want(steps):
+            return {k: steps for k in tail16} if steps else {}
+        timeunet = ["--model", "timeunet", "--bf16", "--use_pallas_train"] + common
+        run_a, pool_a, eval_a, sec_a = cli_run(
+            "(a) timeunet bf16, 2 epochs", timeunet + ["--epochs", "2", "--res_dir", a_dir],
+            pool_want(2 * n_train), {"group": 2 * n_val + n_test})
+        missing = [f for f in CLI_FILES if not os.path.exists(os.path.join(a_dir, f))]
+        check(not missing, f"train cli (a) wrote no {missing}")
+        check(os.path.exists(os.path.join(a_dir, "Fold_1", "model.ckpt")),
+              "train cli (a): no model.ckpt")
+        epochs = {e: {"seconds": m["train_epoch_time"],
+                      "steps_per_s": n_train / m["train_epoch_time"]}
+                  for e, m in run_a.trainlog.items()}
+        for e, v in epochs.items():
+            print(f"train cli (a) epoch {e}: {n_train} train steps (B={bs}, bf16) in "
+                  f"{v['seconds']:.3f} s, {v['steps_per_s']:.3f} steps/s", flush=True)
+
+        # a resume continues after the best epoch, the one model.ckpt holds
+        best = ckpt.load_state(os.path.join(a_dir, "Fold_1"))["meta"]["epoch"]
+        run_b, pool_b, eval_b, sec_b = cli_run(
+            f"(b) resume to epoch 3 from (a)'s best, epoch {best}",
+            timeunet + ["--epochs", "3", "--weight_folder", a_dir, "--res_dir", b_dir],
+            pool_want((3 - best) * n_train), {"group": (3 - best) * n_val + n_test})
+        check(run_b.start_epoch == best + 1, f"train cli (b) resumed at epoch "
+                                             f"{run_b.start_epoch}, not {best + 1}")
+        check(run_b.restored_adam_step == best * n_train and run_b.adam_step == 3 * n_train,
+              f"train cli (b): Adam step {run_b.restored_adam_step} restored, "
+              f"{run_b.adam_step} at the end, not {best * n_train} and {3 * n_train}")
+
+        run_c, pool_c, eval_c, sec_c = cli_run(
+            "(c) --test of (a)", timeunet + ["--test", "--weight_folder", a_dir,
+                                             "--res_dir", c_dir],
+            {}, {"group": n_test})
+        ta, tc = run_a.test_metrics, run_c.test_metrics
+        loss_rel = abs(tc["test_loss"] - ta["test_loss"]) / abs(ta["test_loss"])
+        miou_diff = abs(tc["test_IoU"] - ta["test_IoU"])
+        print(f"train cli (c) vs (a): test loss {tc['test_loss']!r} / {ta['test_loss']!r} "
+              f"(relative {loss_rel:.3e}), mIoU {tc['test_IoU']!r} / {ta['test_IoU']!r}",
+              flush=True)
+        check(loss_rel <= 1e-5 and miou_diff <= 1e-4,
+              f"train cli (c): --test gave loss {tc['test_loss']}, mIoU {tc['test_IoU']}; "
+              f"the run's own test {ta['test_loss']}, {ta['test_IoU']}")
+
+        # (f) (a) again with the device cache: x reaches the steps in bf16, cast
+        # before the upload; epoch 2 gathers its batches on the card (as
+        # many as the T buckets' stacks fill), and every step must launch
+        # the same tail bf16 variant as (a)'s fp32 x under autocast
+        run_f, pool_f, eval_f, sec_f = cli_run(
+            "(f) timeunet bf16, device cache, 2 epochs",
+            timeunet + ["--epochs", "2", "--device_cache", "--res_dir",
+                        os.path.join(tmp, "f")],
+            None, {"group": 2 * n_val + n_test})
+        check(n_train < run_f.adam_step <= 2 * n_train and pool_f == pool_want(
+            run_f.adam_step), f"train cli (f): {run_f.adam_step} steps launched {pool_f}")
+
+        run_d, pool_d, eval_d, sec_d = cli_run(
+            "(d) utae fp32 boundary loss, device cache",
+            ["--model", "utae", "--add_boundary_loss", "--device_cache", "--epochs", "1",
+             "--res_dir", os.path.join(tmp, "d")] + common,
+            {}, {"wide": n_val + n_test})
+        bnd = {k: v for k, v in {**run_d.trainlog[1], **run_d.test_metrics}.items()
+               if k.endswith("_b")}
+        check(len(bnd) == 6 and all(np.isfinite(v) for v in bnd.values()),
+              f"train cli (d): boundary metrics {bnd}")
+        print(f"train cli (d) boundary metrics {json.dumps(bnd)}; epoch 1 "
+              f"{run_d.trainlog[1]['train_epoch_time']:.3f} s", flush=True)
+        epochs_f = {e: {"seconds": m["train_epoch_time"]} for e, m in run_f.trainlog.items()}
+        print(f"train cli (f) epochs {json.dumps(epochs_f)}, {run_f.adam_step} steps",
+              flush=True)
+        out.update(epochs=epochs, epochs_device_cache=epochs_f,
+                   seconds={"a": sec_a, "b": sec_b, "c": sec_c, "d": sec_d, "f": sec_f},
+                   test_a=ta, test_c=tc, boundary=bnd, batches=[n_train, n_val, n_test],
+                   resumed_from_epoch=best)
+        pools = [pool_a, pool_b, pool_c, pool_d, pool_f]
+        evals = [eval_a, eval_b, eval_c, eval_d, eval_f]
+        out["launches"] = {k: sum(p.get(k, 0) for p in pools) for k in tail16}
+        out["launches"].update({f"eval_{r}": sum(e.get(r, 0) for e in evals)
+                                for r in ("group", "wide")})
+
+    # (e) remat on TimeUNet: one B=4 step's gradients with and without, and
+    # without remat with the L-TAE output perturbed, as the yardstick
+    cfg = StepConfig(num_classes=N_CLASSES, class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+    fresh = get_model({"model": "timeunet"},
+                      generator=torch.Generator().manual_seed(0)).state_dict()
+    batch = train_batch(TRAIN_B, torch.Generator(device=dev).manual_seed(4), dev)
+    grads, peaks = {}, {}
+    for name, remat, eps in (("no remat", False, 0.0), ("remat", True, 0.0),
+                             ("perturbed", False, GRAD_EPS)):
+        m = get_model({"model": "timeunet", "remat": remat}, device=dev)
+        m.load_state_dict(fresh)
+        m.train()
+        if eps:
+            noise = torch.Generator(device=dev).manual_seed(12)
+            m.temporal_encoder.register_forward_hook(
+                lambda mod, args, o: (o[0] * (1 + eps * torch.randn(
+                    o[0].shape, generator=noise, device=dev)), o[1]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        logits = m(batch["x"], batch["dates"], batch["pad_mask"],
+                   generator=torch.Generator(device=dev).manual_seed(11))
+        cross_entropy(logits, batch["y"], weight=torch.tensor(
+            cfg.class_weights, device=dev)).backward()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        grads[name] = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+        del m, logits
+        torch.cuda.empty_cache()
+    print(f"train cli (e) TimeUNet B={TRAIN_B} fp32 step: peak memory above the "
+          f"weights {peaks['no remat']:.2f} GiB without remat, {peaks['remat']:.2f} "
+          f"GiB with", flush=True)
+    out["remat_grad_worst_ratio"] = check_grads_within_spread(
+        "remat", grads["remat"], grads["no remat"], grads["perturbed"])
+    out["remat_peak_gib"] = {"no_remat": peaks["no remat"], "remat": peaks["remat"]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -1539,6 +1751,8 @@ def main() -> int:
     del utae, timeunet, models
     torch.cuda.empty_cache()
     utae_runs, remat_worst = phase_utae_train(dev)
+    torch.cuda.empty_cache()
+    cli_out = phase_train_cli(dev)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -1690,6 +1904,11 @@ def main() -> int:
                                    "timeunet_pad_value_err": {
                                        "eval": pad_value_errs[False],
                                        "train_forward": pad_value_errs[True]}}), flush=True)
+    kernel["launches_train_cli"] = cli_out["launches"]["eval_group"]
+    kernel_utae["launches_train_cli"] = cli_out["launches"]["eval_wide"]
+    for entry in pool:
+        entry["launches_train_cli"] = cli_out["launches"].get(entry["name"], 0)
+    print("train_cli " + json.dumps(cli_out), flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]

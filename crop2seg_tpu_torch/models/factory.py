@@ -43,8 +43,13 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
     ``remat_policy``, which act in training: "conv_out" by default (save each
     convolution's output, recompute the norm and ReLU tails, as
     crop2seg_tpu/models/factory.py:8-18 picks) or "full"; the model raises
-    on any other string. Both models take ``num_queries=1`` only; the
-    ``LTAE`` module takes more."""
+    on any other string. TimeUNet takes ``remat`` (the down and up blocks
+    and out_conv recomputed whole; in_conv, which the JAX TimeUNet's remat
+    also recomputes, is not: on the card ``remat`` does not lower a
+    TimeUNet step's peak memory, see models/timeunet.py);
+    ``seq_chunk`` raises (not ported).
+    Both models take ``num_queries=1`` only; the ``LTAE`` module takes
+    more."""
     cfg = config if isinstance(config, Mapping) else vars(config)
     name = cfg["model"]
     if name not in ("utae", "timeunet", "timeunet_v1"):
@@ -53,8 +58,13 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
             "U-TAE and TimeUNet_v1 only (ROADMAP.md lists the rest of the zoo)")
     if cfg.get("conv_type", "2d") != "2d" or cfg.get("add_squeeze", False):
         raise NotImplementedError(
-            "conv_type != '2d' and add_squeeze are not ported yet (slice F "
-            "of ROADMAP.md)")
+            "conv_type != '2d' and add_squeeze are not ported yet (ROADMAP.md "
+            "item M6)")
+    if cfg.get("seq_chunk") is not None:
+        raise NotImplementedError(
+            "seq_chunk (the L-TAE streamed over T) is not ported yet "
+            "(ROADMAP.md item M7); on the card the kernel pair keeps the "
+            "embed out of memory without it")
     dev = resolve_device(device)
     common = dict(
         input_dim=cfg.get("input_dim", 10),
@@ -84,7 +94,7 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
                      remat_policy=cfg.get("remat_policy", "conv_out"), **common)
     else:
         from crop2seg_tpu_torch.models.timeunet import TimeUNet
-        model = TimeUNet(**common)
+        model = TimeUNet(remat=cfg.get("remat", False), **common)
     if generator is not None:
         init_weights(model, generator)
     return model.to(dev).eval()

@@ -23,6 +23,17 @@ In training mode (``model.train()``) the L-TAE takes its training path and
 every BatchNorm uses batch statistics and updates its running ones. Under
 ``torch.autocast`` every normalization keeps fp32 statistics, and the L-TAE's
 folds and PE stay fp32.
+
+``remat`` checkpoints activations in training: the down blocks, the up
+blocks and out_conv each recompute whole in the backward pass
+(``nn/layers.py::remat``, which leaves BatchNorm's running statistics alone
+on the recompute). The JAX ``nn.remat`` also checkpoints in_conv; here in_conv
+stays outside, with the L-TAE and its kernel pair. in_conv's backward comes
+last and its activations (all B * T frames at full resolution) set the
+step's peak memory: recomputing them there rebuilds them at the moment of
+the peak, so it would cost a whole in_conv forward and save nothing. The
+blocks that are checkpointed run at B frames, so ``remat`` has no visible
+effect on the peak memory of a TimeUNet step (PERF.md).
 """
 from __future__ import annotations
 
@@ -31,7 +42,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import ConvBlock, DownConvBlock, UpConvBlock
+from crop2seg_tpu_torch.nn.layers import ConvBlock, DownConvBlock, UpConvBlock, remat
 from crop2seg_tpu_torch.nn.ltae import LTAE
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
 
@@ -46,7 +57,8 @@ class TimeUNet(nn.Module):
                  d_model: int = 256, d_k: int = 4, pad_value: float = 0.0,
                  padding_mode: str = "reflect", use_abs_rel_enc: bool = False,
                  num_queries: int = 1, use_doy: bool = False,
-                 add_linear: bool = False, defer_tail: bool | None = None):
+                 add_linear: bool = False, defer_tail: bool | None = None,
+                 remat: bool = False):
         super().__init__()
         if num_queries != 1:
             raise ValueError(
@@ -55,7 +67,7 @@ class TimeUNet(nn.Module):
                 "L-TAE output); the LTAE module alone takes num_queries > 1")
         enc_w, dec_w = tuple(encoder_widths), tuple(decoder_widths)
         n = len(enc_w)
-        self.pad_value = pad_value
+        self.pad_value, self.remat = pad_value, remat
         # None: defer on the kernel path when in_conv ends in GroupNorm + ReLU
         # and pads are zeros
         self.defer_tail = defer_tail
@@ -94,6 +106,10 @@ class TimeUNet(nn.Module):
         if fused is None:
             fused = x.is_cuda
         b, t = x.shape[:2]
+        on = self.remat and self.training and torch.is_grad_enabled()
+
+        def wrap(block):
+            return remat(block) if on else block
         defer = (fused and self._tail_deferrable if self.defer_tail is None
                  else self.defer_tail)
         if defer:
@@ -101,8 +117,7 @@ class TimeUNet(nn.Module):
                 raise NotImplementedError(
                     "the deferred tail folds pads in as zero rows: pad_value "
                     "must be 0 with defer_tail=True")
-            z, sc, sh = self.in_conv(x.reshape((b * t,) + tuple(x.shape[2:])),
-                                     defer_tail_norm=True)
+            z, sc, sh = self.in_conv(x.reshape((b * t,) + tuple(x.shape[2:])), True)
             valid = (~pad_mask).reshape(b * t, 1).to(sc.dtype)
             tail = ((sc * valid).reshape(b, t, -1), (sh * valid).reshape(b, t, -1))
             out, _ = self.temporal_encoder(
@@ -116,8 +131,8 @@ class TimeUNet(nn.Module):
                                            generator=generator)
         feature_maps = [out]
         for down in self.down_blocks:
-            feature_maps.append(down(feature_maps[-1]))
+            feature_maps.append(wrap(down)(feature_maps[-1]))
         out = feature_maps[-1]
         for i, up in enumerate(self.up_blocks):
-            out = up(out, feature_maps[-(i + 2)])
-        return self.out_conv(out)
+            out = wrap(up)(out, feature_maps[-(i + 2)])
+        return wrap(self.out_conv)(out)

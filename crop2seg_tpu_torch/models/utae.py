@@ -31,52 +31,17 @@ remat settings.
 """
 from __future__ import annotations
 
-import contextlib
-import functools
 from typing import Sequence
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import (
-    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from crop2seg_tpu_torch.nn.aggregator import temporal_aggregate
-from crop2seg_tpu_torch.nn.layers import (
-    ConvBlock, DownConvBlock, UpConvBlock, frozen_running_stats)
+from crop2seg_tpu_torch.nn.layers import ConvBlock, DownConvBlock, UpConvBlock, remat
 from crop2seg_tpu_torch.nn.ltae import LTAE
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
 
 REMAT_POLICIES = (None, "full", "conv_out")
-
-
-def _save_conv_outputs(ctx, op, *args, **kwargs):
-    """``conv_out``: keep what each convolution (and transposed convolution)
-    returns, recompute everything else."""
-    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.convolution.default
-            else CheckpointPolicy.PREFER_RECOMPUTE)
-
-
-@contextlib.contextmanager
-def _recompute(ctx):
-    with ctx, frozen_running_stats():
-        yield
-
-
-def _contexts(policy):
-    fwd, rec = ((contextlib.nullcontext(), contextlib.nullcontext())
-                if policy != "conv_out"
-                else create_selective_checkpoint_contexts(_save_conv_outputs))
-    return fwd, _recompute(rec)
-
-
-def remat(block, policy=None):
-    """``block`` under activation checkpointing (``policy``: None or "full",
-    or "conv_out")."""
-    context_fn = functools.partial(_contexts, policy)
-
-    def run(*args):
-        return checkpoint(block, *args, use_reentrant=False, context_fn=context_fn)
-    return run
 
 
 class UTAE(nn.Module):

@@ -15,11 +15,14 @@ names follow the reference's torch modules, so its state dicts load with
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -101,6 +104,37 @@ def frozen_running_stats():
         yield
     finally:
         _stats_frozen -= 1
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """``conv_out``: keep what each convolution (and transposed convolution)
+    returns, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.convolution.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _recompute(ctx):
+    with ctx, frozen_running_stats():
+        yield
+
+
+def _contexts(policy):
+    fwd, rec = ((contextlib.nullcontext(), contextlib.nullcontext())
+                if policy != "conv_out"
+                else create_selective_checkpoint_contexts(_save_conv_outputs))
+    return fwd, _recompute(rec)
+
+
+def remat(block, policy=None):
+    """``block`` under activation checkpointing (``policy``: None or "full",
+    or "conv_out"); the recompute leaves BatchNorm's running statistics
+    alone (``frozen_running_stats``)."""
+    context_fn = functools.partial(_contexts, policy)
+
+    def run(*args):
+        return checkpoint(block, *args, use_reentrant=False, context_fn=context_fn)
+    return run
 
 
 def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:

@@ -175,3 +175,74 @@ def utae_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 timeunet_state_dict_from_flax = utae_state_dict_from_flax
+
+
+def _layer_paths(paths, port, flax, layer) -> None:
+    """A ConvLayer's units (conv, [norm], [ReLU]) -> flax conv{i}/conv and
+    norm{i}, the table of ``_conv_layer`` read the other way."""
+    i = -1
+    for idx, unit in enumerate(layer.conv):
+        if isinstance(unit, torch.nn.Conv2d):
+            i += 1
+            paths[f"{port}.conv.{idx}.weight"] = f"{flax}/conv{i}/conv/kernel"
+            paths[f"{port}.conv.{idx}.bias"] = f"{flax}/conv{i}/conv/bias"
+        elif isinstance(unit, (torch.nn.GroupNorm, torch.nn.modules.batchnorm._BatchNorm)):
+            paths[f"{port}.conv.{idx}.weight"] = f"{flax}/norm{i}/scale"
+            paths[f"{port}.conv.{idx}.bias"] = f"{flax}/norm{i}/bias"
+
+
+def _ltae_paths(paths, port, flax, ltae) -> None:
+    names = {"in_norm.weight": "in_norm_scale", "in_norm.bias": "in_norm_bias",
+             "inconv.weight": "inconv/kernel", "inconv.bias": "inconv/bias",
+             "attention_head.Q": "attention/query",
+             "attention_head.fc1_k.weight": "attention/fc1_k/kernel",
+             "attention_head.fc1_k.bias": "attention/fc1_k/bias",
+             "mlp.0.weight": "mlp_dense/kernel", "mlp.0.bias": "mlp_dense/bias",
+             "mlp.2.weight": "mlp_bn/scale", "mlp.2.bias": "mlp_bn/bias",
+             "out_norm.weight": "out_norm_scale", "out_norm.bias": "out_norm_bias"}
+    for name in ("positional_encoder", "positional_encoder_abs"):
+        enc = getattr(ltae, name, None)
+        if enc is None or getattr(enc, "fc", None) is None:
+            continue
+        if type(enc).__name__ == "AbsolutePositionalEncoder":
+            names.update({f"{name}.fc.weight": f"{name}/embedding",
+                          f"{name}.fc.bias": f"{name}/bias"})
+        else:
+            names.update({f"{name}.fc.weight": f"{name}/fc/kernel",
+                          f"{name}.fc.bias": f"{name}/fc/bias"})
+    for k, v in names.items():
+        paths[f"{port}.{k}"] = f"{flax}/{v}"
+
+
+def flax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
+    """Each parameter name of the port's U-TAE or TimeUNet -> the
+    slash-joined flax path of its counterpart in the JAX model's ``params``
+    (``down_0/conv1/conv0/conv/kernel``, ``temporal_encoder/attention/query``,
+    ...): the table of ``utae_state_dict_from_flax`` read the other way.
+    Raises if a parameter has no counterpart."""
+    paths: Dict[str, str] = {}
+    _layer_paths(paths, "in_conv.conv", "in_conv/conv", model.in_conv.conv)
+    for i, block in enumerate(model.down_blocks):
+        for name in ("down", "conv1", "conv2"):
+            _layer_paths(paths, f"down_blocks.{i}.{name}", f"down_{i}/{name}",
+                         getattr(block, name))
+    for i, block in enumerate(model.up_blocks):
+        port, flax = f"up_blocks.{i}", f"up_{i}"
+        for k, v in {"up.0.weight": "up_conv/kernel", "up.0.bias": "up_conv/bias",
+                     "up.1.weight": "up_norm/scale", "up.1.bias": "up_norm/bias",
+                     "skip_conv.0.weight": "skip_conv/conv/kernel",
+                     "skip_conv.0.bias": "skip_conv/conv/bias",
+                     "skip_conv.1.weight": "skip_norm/scale",
+                     "skip_conv.1.bias": "skip_norm/bias"}.items():
+            paths[f"{port}.{k}"] = f"{flax}/{v}"
+        for name in ("conv1", "conv2"):
+            _layer_paths(paths, f"{port}.{name}", f"{flax}/{name}", getattr(block, name))
+    _ltae_paths(paths, "temporal_encoder", "temporal_encoder", model.temporal_encoder)
+    for head in ("out_conv", "boundary_conv"):
+        if getattr(model, head, None) is not None:
+            _layer_paths(paths, f"{head}.conv", f"{head}/conv", getattr(model, head).conv)
+    names = [k for k, _ in model.named_parameters()]
+    missing = [k for k in names if k not in paths]
+    if missing:
+        raise ValueError(f"parameters without a flax counterpart: {missing}")
+    return {k: paths[k] for k in names}

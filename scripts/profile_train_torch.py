@@ -12,12 +12,14 @@ GroupNorm + ReLU into the ltae_pool_tail kernels, or with ``--untailed``
 applies it in PyTorch before the untailed pair; U-TAE trains on plain ops,
 with ``--remat`` under activation checkpointing (``remat_policy="conv_out"``;
 the JAX bench's U-TAE train cell is ``--model utae --dtype bf16 --batch 16
---remat``). One synthetic batch (T=61,
+--remat``); TimeUNet with ``--remat`` checkpoints its down and up blocks and
+out_conv. One synthetic batch (T=61,
 128x128x10, lengths 61/55/43/27 repeated): two warm-up steps, then
 ``--steps`` steps under torch.profiler. Prints the card (nvidia-smi name and
 power limit), the wall time per step, the device's busy share (summed kernel
-time over wall time), and the kernels that take the most device time,
-grouped by name.
+time over wall time), the peak memory the profiled steps allocate above what
+the warm-up left (weights, Adam state, the batch), and the kernels that take
+the most device time, grouped by name.
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ def main() -> int:
     ap.add_argument("--untailed", action="store_true",
                     help="TimeUNet: do not defer in_conv's GroupNorm + ReLU into the kernels")
     ap.add_argument("--remat", action="store_true",
-                    help="U-TAE: activation checkpointing, remat_policy conv_out")
+                    help="activation checkpointing (U-TAE: remat_policy conv_out; "
+                         "TimeUNet: its down and up blocks and out_conv)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
@@ -80,19 +83,24 @@ def main() -> int:
     for _ in range(2):                                         # warm-up
         step(batch, drop)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # weights, Adam state, the batch
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         for _ in range(args.steps):
             step(batch, drop)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - start) / args.steps
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in events) / args.steps
-    route = ("untailed" if args.untailed else "tail") if args.model == "timeunet" else (
-        "remat conv_out" if args.remat else "no remat")
+    route = (("untailed" if args.untailed else "tail") + (", remat" if args.remat else "")
+             if args.model == "timeunet" else
+             ("remat conv_out" if args.remat else "no remat"))
     print(f"{args.model} train step B={b} {args.dtype} {route}: wall {wall * 1e3:.3f} ms per "
           f"step, device busy {busy_us / 1e3:.3f} ms = {busy_us / 1e4 / wall:.1f} "
-          f"% of wall")
+          f"% of wall; peak memory above the weights, Adam state and batch "
+          f"{peak:.2f} GiB")
     print(f"{'ms/step':>10} {'share':>6} {'calls':>6}  kernel")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:args.top]:
         print(f"{e.self_device_time_total / 1e3 / args.steps:10.3f} "
