@@ -3,7 +3,8 @@
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
 1. Builds the kernel sources (csrc/ltae_fused_fwd.cu, csrc/ltae_pool.cu,
-   csrc/ltae_stages.cu), one nvcc process each, started together, and prints
+   csrc/ltae_stages.cu), one nvcc process each, started together with the
+   native loader's g++ (native/loader.cpp), and prints
    ptxas's registers and spills per kernel instantiation (and on their own
    lines the wide, queries and general kernels').
 2. Holds the fused eval L-TAE kernel (at C <= 64 with one query its
@@ -117,7 +118,33 @@
    pair, one wide eval-kernel launch per val and test batch, finite
    boundary metrics; (e) one TimeUNet step at B=4 with remat against
    without: gradients within the perturbation spread (as in phase 5), both
-   peak memories printed.
+   peak memories printed. The CLI's batches come from the native C++ loader
+   (native/loader.cpp, built with g++ at first use): every BatchLoader a
+   run builds must still hold its native plan after the run (a file the
+   loader rejects drops a loader to the Python path) and batches must have
+   been decoded natively; the train BatchLoader's ms a batch is printed
+   beside the Python collate path's.
+13. Serving from disk (webapp/pipeline.py::generate_prediction, the port's
+   webapp engine): (a) one synthetic 100-patch inference cell written to a
+   temporary directory as the port's DatasetCreator saves one (float32
+   .npy patches (61, 10, 128, 128), ~4 GB, and a metadata.json with dates
+   and affines; uint16 where the disk is short), cut from a seeded tile
+   (61, 10, 1098, 1098) of reflectance-like values by
+   DatasetCreator.patchify_inference, beside a model directory (conf.json:
+   TimeUNet_v1 at the factory defaults; NORM_S2_patch.json; Fold_1/model.ckpt
+   of seeded weights); (b) generate_prediction cold with a parcel raster,
+   then the warm stream (stream_tile_inference on the same dataset; the
+   post-processing is not repeated), each run's counts set to 0 just
+   before it: proba (1098, 1098, 15) finite and summing to 1 within 1e-5,
+   classes uint8 and the argmax, exactly 10 launches of the eval kernel's
+   group route and no other L-TAE kernel; for generate_prediction every
+   cache file written and homogenized 0 outside the parcels; (c)
+   make_tile_predictor in fp32 on the same inputs (the padded tile
+   standardized as the decoder does it, rounded to bf16; patch 0 the
+   decoder's bit for bit): proba within 1e-5, classes equal wherever the
+   top-2 margin is >= 1e-4; (d) the stream's patches/s cold and warm, its
+   timeline, and the post-processing seconds (raster, polygonize, vectors)
+   on their own.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -126,6 +153,7 @@ check raises, and the exit code is then non-zero.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import copy
 import importlib.util
 import json
@@ -138,6 +166,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from crop2seg_tpu_torch import native
 from crop2seg_tpu_torch.inference.tile import make_tile_predictor
 from crop2seg_tpu_torch.learning.losses import cross_entropy
 from crop2seg_tpu_torch.learning.trainer import (
@@ -1488,20 +1517,44 @@ def cli_run(label: str, argv: list, want_pool: dict, want_eval: dict):
     ``want_eval``, exactly. Returns the run,
     the counts and the seconds it took."""
     from crop2seg_tpu_torch import train as cli
+    from crop2seg_tpu_torch.data import BatchLoader
 
     cfg = cli.parse_config(argv + ["--device", "cuda", "--display_step", "1000"])
+    # the CLI's own loaders: each one it builds, and each batch decoded natively
+    loaders, native_batches = [], []
+    init, native_batch = BatchLoader.__init__, BatchLoader._native_batch
+
+    def watch_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        loaders.append(self)
+
+    def watch_native(self, *args, **kwargs):
+        native_batches.append(1)
+        return native_batch(self, *args, **kwargs)
+
+    BatchLoader.__init__, BatchLoader._native_batch = watch_init, watch_native
     lp.ltae_pool.launches.clear()                      # this path's counts
     lf.ltae_fused_forward.launches = 0
     lf.ltae_fused_forward.route_launches.clear()
     start = time.perf_counter()
-    run = cli.main(cfg)
-    torch.cuda.synchronize()
+    try:
+        run = cli.main(cfg)
+        torch.cuda.synchronize()
+    finally:
+        BatchLoader.__init__, BatchLoader._native_batch = init, native_batch
     seconds = time.perf_counter() - start
     pool = dict(lp.ltae_pool.launches)
     routes = dict(lf.ltae_fused_forward.route_launches)
     print(f"train cli {label}: {seconds:.1f} s, training pair launches {pool}, "
-          f"eval kernel launches by route {routes}; test {json.dumps(run.test_metrics)}",
-          flush=True)
+          f"eval kernel launches by route {routes}; {len(loaders)} BatchLoaders, "
+          f"{len(native_batches)} batches decoded natively; "
+          f"test {json.dumps(run.test_metrics)}", flush=True)
+    # a file the native loader rejects drops its BatchLoader to the Python
+    # path for the rest of the run (the plan is then None)
+    check(loaders and all(ld._plan is not None for ld in loaders) and native_batches,
+          f"train cli {label}: the CLI's BatchLoaders left the native path "
+          f"({[ld._plan is not None for ld in loaders]}, {len(native_batches)} "
+          f"native batches)")
     check(want_pool is None or pool == want_pool,
           f"train cli {label}: training pair launched {pool}, not {want_pool}")
     check(routes == want_eval, f"train cli {label}: eval kernel launched {routes}, "
@@ -1512,6 +1565,31 @@ def cli_run(label: str, argv: list, want_pool: dict, want_eval: dict):
         check(all(np.isfinite(v) for v in m.values()),
               f"train cli {label}: epoch {epoch} metrics {m}")
     return run, pool, routes, seconds
+
+
+def train_loader_timing(cli, data: str, bs: int) -> dict:
+    """The train CLI's training BatchLoader on phase 12's dataset: it must
+    hold a native plan (the native C++ loader decodes its batches); one
+    epoch's batches timed natively and on the Python collate path, ms a
+    batch (the host's clock, x only, no upload)."""
+    from crop2seg_tpu_torch.data import BatchLoader
+
+    cfg = cli.parse_config(["--dataset", "synthetic", "--dataset_folder", data])
+    dt_train = cli.build_datasets(cfg)[0]
+    ms = {}
+    for name, native in (("native", True), ("python", False)):
+        loader = BatchLoader(dt_train, bs, t_buckets=(32, 48, 61), native=native)
+        if native:
+            check(loader._plan is not None, "train cli: the train BatchLoader holds no "
+                                            "native plan")
+        list(loader)                                          # warm the page cache
+        start = time.perf_counter()
+        n = sum(1 for _ in loader)
+        ms[name] = (time.perf_counter() - start) * 1e3 / n
+    print(f"train cli loader: the train BatchLoader holds a native plan; B={bs}, 128^2, "
+          f"T 27-61, {n} batches: native {ms['native']:.2f} ms a batch, Python collate "
+          f"{ms['python']:.2f} ms a batch", flush=True)
+    return {"native_ms_per_batch": ms["native"], "python_ms_per_batch": ms["python"]}
 
 
 def phase_train_cli(dev):
@@ -1546,6 +1624,7 @@ def phase_train_cli(dev):
         print(f"train cli: synthetic dataset of {CLI_PATCHES} patches (train/val/test "
               f"{sizes}) written in {time.perf_counter() - start:.1f} s; batches a "
               f"train epoch {n_train}, val {n_val}, test {n_test}", flush=True)
+        out["loader"] = train_loader_timing(cli, data, bs)
         common = ["--dataset", "synthetic", "--dataset_folder", data,
                   "--batch_size", str(bs), "--t_buckets", "[32,48,61]"]
         a_dir, b_dir, c_dir = (os.path.join(tmp, n) for n in ("a", "b", "c"))
@@ -1668,6 +1747,217 @@ def phase_train_cli(dev):
     return out
 
 
+CELL_FIELD = 64          # phase 13's tile: 64^2 fields of one spectral profile
+CELL_DATES = [int(f"2019{m:02d}{d:02d}") for m in range(1, 13) for d in (1, 7, 13, 19, 25)
+              ][:T] + [20191231] * max(0, T - 60)
+
+
+def write_serving_cell(root: str) -> dict:
+    """Phase 13 (a): one synthetic 100-patch inference cell on disk, as the
+    port's DatasetCreator saves one (float32 .npy patches (T, 10, 128, 128)
+    and a metadata.json with dates and affines), cut from a seeded
+    (T, 10, 1098, 1098) tile of reflectance-like uint16 values (fields of
+    CELL_FIELD^2 px with a profile each, plus noise) by
+    DatasetCreator.patchify_inference; the model directory beside it
+    (conf.json: TimeUNet_v1 at the factory defaults, NORM_S2_patch.json in
+    the S2TSCzCrop release format, Fold_1/model.ckpt of seeded weights).
+    Where the temporary disk cannot take the float32 patches, they are
+    saved as uint16 (the reference's format, which the loader reads)."""
+    import os
+    import shutil
+
+    from crop2seg_tpu_torch.gis.dataset_creator import DatasetCreator, patch_affines
+    from crop2seg_tpu_torch.gis.raster import Affine
+    from crop2seg_tpu_torch.learning import checkpoint as ckpt
+
+    times = {}
+    start = time.perf_counter()
+    rng = np.random.default_rng(13)
+    n_f = -(-1098 // CELL_FIELD)
+    fields = rng.integers(300, 5000, (T, 10, n_f, n_f), dtype=np.uint16)
+    tile = np.repeat(np.repeat(fields, CELL_FIELD, 2), CELL_FIELD, 3)[:, :, :1098, :1098]
+    tile = tile + rng.integers(0, 400, tile.shape, dtype=np.uint16)
+    times["generate_s"] = time.perf_counter() - start
+    start = time.perf_counter()
+    patches = DatasetCreator.patchify_inference(tile)         # (100, T, 10, 128, 128)
+    times["patchify_s"] = time.perf_counter() - start
+    cell = os.path.join(root, "cell")
+    need = patches.size * 4
+    fmt = "float32" if shutil.disk_usage(root).free > 1.2 * need else "uint16"
+    affine = Affine(10.0, 0.0, 499980.0, 0.0, -10.0, 5600040.0)
+    start = time.perf_counter()
+    dc = DatasetCreator(cell, for_inference=True)
+    affines = patch_affines(affine, 10)
+    if fmt == "float32":
+        dc._save(patches, None, np.ones(100, bool), "T33UVR", 0, CELL_DATES, 32633,
+                 affines, None, None)
+    else:
+        for i in range(100):
+            np.save(os.path.join(cell, "DATA_S2", f"S2_{i}.npy"), patches[i])
+        with open(os.path.join(cell, "metadata.json"), "w") as f:
+            json.dump([{"ID_PATCH": i, "ID_WITHIN_TILE": i, "TILE": "T33UVR",
+                        "Status": "OK", "time-series_length": T, "crs": 32633,
+                        "Fold": i % 5 + 1, "set": "",
+                        "dates-S2": {str(j): d for j, d in enumerate(CELL_DATES)},
+                        "affine": list(affines[i])} for i in range(100)], f)
+    times["write_s"] = time.perf_counter() - start
+    size = sum(os.path.getsize(os.path.join(cell, "DATA_S2", f))
+               for f in os.listdir(os.path.join(cell, "DATA_S2")))
+    print(f"serving cell: tile {tile.shape} uint16 generated in {times['generate_s']:.1f} s, "
+          f"patchified in {times['patchify_s']:.1f} s, 100 {fmt} patches written "
+          f"({size / 2 ** 30:.2f} GiB) in {times['write_s']:.1f} s", flush=True)
+
+    model_dir = os.path.join(root, "model")
+    os.makedirs(os.path.join(model_dir, "Fold_1"))
+    conf = {"model": "timeunet", "num_classes": 15, "input_dim": 10, "dtype": "bfloat16"}
+    with open(os.path.join(model_dir, "conf.json"), "w") as f:
+        json.dump(conf, f)
+    norm_rng = np.random.default_rng(14)
+    norm = {"train": {"mean": norm_rng.uniform(1500, 3000, 10).tolist(),
+                      "std": norm_rng.uniform(600, 1400, 10).tolist()}}
+    with open(os.path.join(model_dir, "NORM_S2_patch.json"), "w") as f:
+        json.dump(norm, f)
+    model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
+    ckpt.save_state(os.path.join(model_dir, "Fold_1"), model, None, 0, 0.0)
+    parcels = np.repeat(np.repeat(np.arange(n_f * n_f).reshape(n_f, n_f) + 1,
+                                  CELL_FIELD, 0), CELL_FIELD, 1)[:1098, :1098]
+    parcels[np.repeat(np.repeat(rng.random((n_f, n_f)) < 0.3, CELL_FIELD, 0),
+                      CELL_FIELD, 1)[:1098, :1098]] = 0          # background
+    return {"cell": cell, "model_dir": model_dir, "model": model, "tile": tile,
+            "format": fmt, "parcels": parcels, "times": times, "bytes": size}
+
+
+def phase_serving_from_disk(dev, train_cli: dict):
+    """Phase 13: a 100-patch cell from disk to the crop map and its GIS
+    outputs through webapp/pipeline.py::generate_prediction (TimeUNet_v1 at
+    full width, T = 61, batch 10), cold; then the warm stream alone
+    (stream_tile_inference on the same dataset and weights: the GIS
+    post-processing of the same classes is not repeated), each run's
+    counts set to 0 just before it; then the in-memory tile predictor on
+    the same inputs."""
+    import os
+    import tempfile
+
+    from crop2seg_tpu_torch.data import S2TSCZCropDataset, load_norm_values
+    from crop2seg_tpu_torch.webapp.pipeline import generate_prediction, stream_tile_inference
+
+    out = {"train_cli_loader": train_cli["loader"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        cell = write_serving_cell(tmp)
+        out.update(format=cell["format"], cell_bytes=cell["bytes"], **cell["times"])
+        # the dataset generate_prediction builds for the prediction year 2019
+        norm = load_norm_values(os.path.join(cell["model_dir"], "NORM_S2_patch.json"))
+        ds = S2TSCZCropDataset(cell["cell"], norm=True, norm_values=norm, set_type="train",
+                               for_inference=True, reference_date="2018-09-01")
+        runs = {}
+        cache = os.path.join(tmp, "cache")
+        for label in ("cold", "warm"):
+            lf.ltae_fused_forward.launches = 0               # this path's counts
+            lf.ltae_fused_forward.route_launches.clear()
+            lp.ltae_pool.launches.clear()
+            ls.ltae_stages.launches = 0
+            tl = {}
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            if label == "cold":
+                res = generate_prediction(cell["cell"], cell["model_dir"], 2019, cache,
+                                          lpis_parcels=cell["parcels"], batch_size=MAIN_B,
+                                          timeline=tl)
+            else:
+                proba, classes = stream_tile_inference(cell["model"], ds, MAIN_B, timeline=tl)
+                res = {"proba": proba, "classes": classes}
+            seconds = time.perf_counter() - start
+            routes = dict(lf.ltae_fused_forward.route_launches)
+            others = dict(lp.ltae_pool.launches)
+            stages = ls.ltae_stages.launches
+            runs[label] = {"seconds": seconds, "stream_s": tl["total"],
+                           "patches_per_s": 100 / tl["total"],
+                           "launches": lf.ltae_fused_forward.launches, "routes": routes,
+                           "timeline": tl}
+            what = (f"stream_tile_inference {seconds:.2f} s" if label == "warm" else
+                    f"generate_prediction {seconds:.2f} s; setup {tl['setup']:.2f} s")
+            print(f"serving {label}: {what}; stream {tl['total']:.3f} s = "
+                  f"{100 / tl['total']:.2f} patches/s; ltae_fused_fwd launches {routes}; "
+                  f"timeline {json.dumps(tl)}", flush=True)
+            check(routes == {"group": 10} and lf.ltae_fused_forward.launches == 10,
+                  f"serving {label}: the eval kernel launched {routes}, not 10 group")
+            check(not others and stages == 0, f"serving {label}: other L-TAE kernels "
+                                              f"launched: {others}, stages {stages}")
+            p, cls = res["proba"], res["classes"]
+            check(p.shape == (1098, 1098, 15) and p.dtype == np.float32,
+                  f"serving {label}: proba {p.shape} {p.dtype}")
+            check(bool(np.isfinite(p).all()), f"serving {label}: non-finite proba")
+            s_err = float(np.abs(p.sum(-1) - 1).max())
+            check(s_err <= 1e-5, f"serving {label}: proba sums off by {s_err}")
+            check(cls.dtype == np.uint8 and cls.shape == (1098, 1098)
+                  and bool((cls == p.argmax(-1)).all()), f"serving {label}: classes")
+            runs[label]["result"] = res
+        cold = runs["cold"]
+        cold.update(postprocess_s=cold["timeline"]["postprocess"],
+                    setup_s=cold["timeline"]["setup"],
+                    segments=int(cold["result"]["segments"].max()),
+                    polygons=len(cold["result"]["polygons"]))
+        print(f"serving cold: post-processing {cold['postprocess_s']:.2f} s "
+              f"({cold['segments']} segments, {cold['polygons']} polygons)", flush=True)
+        pred = os.path.join(cache, "prediction")
+        files = ["classes.npy", "homogenized.npy", "prediction.shp", "prediction.shx",
+                 "prediction.dbf", "prediction.geojson"]
+        missing = [f for f in files if not os.path.exists(os.path.join(pred, f))]
+        if not any(os.path.exists(os.path.join(pred, f))
+                   for f in ("prediction.tif", "prediction.npz")):
+            missing.append("prediction.tif / .npz")
+        check(not missing, f"serving: no {missing} in the cache")
+        check(bool((cold["result"]["homogenized"][cell["parcels"] == 0] == 0).all()),
+              "serving: homogenized is not 0 outside the parcels")
+
+        # (c) the in-memory path on the same inputs: the padded 1280^2 tile,
+        # standardized as the decoder does it ((x - mean) * (1 / std) in
+        # fp32, rounded to bf16), through make_tile_predictor in fp32, cropped
+        plan = ds.native_batch_plan()
+        mean = torch.tensor(plan["mean"], device=dev).view(1, 10, 1, 1)
+        inv = torch.tensor(np.float32(1) / plan["std"].astype(np.float32),
+                           device=dev).view(1, 10, 1, 1)
+        # the values are < 2**15: the int16 view holds them exactly
+        x = torch.from_numpy(cell["tile"].view(np.int16)).to(dev).float()[:, plan["reorder"]]
+        x = torch.nn.functional.pad(x, (0, 1280 - 1098, 0, 1280 - 1098))
+        x = ((x - mean) * inv).to(torch.bfloat16)
+        # patch 0 as the decoder gives it, bit for bit
+        dec, _, _ = native.load_batch([ds.light_item(0)["path"]], T, 128, 128,
+                                      reorder=plan["reorder"], mean=plan["mean"],
+                                      std=plan["std"], layout="nchw", out_dtype="bf16")
+        same = torch.equal(dec[0].to(dev).view(torch.int16),
+                           x[:, :, :128, :128].contiguous().view(torch.int16))
+        check(same, "serving: the in-memory standardization is not the decoder's")
+        x = x.float().permute(0, 2, 3, 1).contiguous()               # (T, 1280, 1280, C)
+        dates = ds.light_item(0)["dates"]
+        predict = make_tile_predictor(cell["model"], batch_size=MAIN_B)
+        lf.ltae_fused_forward.launches = 0
+        mem = predict(x, dates, T)
+        check(lf.ltae_fused_forward.launches == 10, "serving: the in-memory tile did not "
+                                                    "launch 10 times")
+        del x
+        torch.cuda.empty_cache()
+        warm = runs["warm"]["result"]
+        p_err = float(np.abs(warm["proba"] - mem["proba"]).max())
+        top2 = np.sort(mem["proba"], -1)[..., -2:]
+        sure = top2[..., 1] - top2[..., 0] >= 1e-4
+        cls_diff = int((warm["classes"] != mem["classes"])[sure].sum())
+        cold_err = float(np.abs(runs["cold"]["result"]["proba"] - warm["proba"]).max())
+        print(f"serving vs make_tile_predictor (fp32, same bf16 inputs): max |dproba| "
+              f"{p_err:.3e} (tol 1e-5), classes differing where the top-2 margin >= 1e-4: "
+              f"{cls_diff} of {int(sure.sum())}; cold vs warm max |dproba| {cold_err:.3e}",
+              flush=True)
+        check(p_err <= 1e-5, f"serving differs from make_tile_predictor by {p_err}")
+        check(cls_diff == 0, f"serving: {cls_diff} classes differ from make_tile_predictor")
+        check(cold_err <= 1e-5, f"serving: the warm stream differs from the cold run by "
+                                f"{cold_err}")
+        for r in runs.values():
+            del r["result"]
+        out.update(runs=runs, vs_tile_predictor_max_abs_err=p_err,
+                   cold_vs_warm_max_abs_err=cold_err)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -1682,8 +1972,11 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     start = time.perf_counter()
+    # the native loader (g++) builds beside the kernels (nvcc)
+    loader_build = concurrent.futures.ThreadPoolExecutor(1).submit(native.build)
     libs = _build.build_all(["ltae_fused_fwd", "ltae_pool", "ltae_stages"])
-    print(f"built {', '.join(p.name for p in libs.values())} in "
+    loader_lib = loader_build.result()
+    print(f"built {', '.join(p.name for p in libs.values())}, {loader_lib.name} in "
           f"{time.perf_counter() - start:.1f} s", flush=True)
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -1753,6 +2046,8 @@ def main() -> int:
     utae_runs, remat_worst = phase_utae_train(dev)
     torch.cuda.empty_cache()
     cli_out = phase_train_cli(dev)
+    torch.cuda.empty_cache()
+    serving = phase_serving_from_disk(dev, cli_out)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -1909,6 +2204,11 @@ def main() -> int:
     for entry in pool:
         entry["launches_train_cli"] = cli_out["launches"].get(entry["name"], 0)
     print("train_cli " + json.dumps(cli_out), flush=True)
+    kernel["launches_serving_from_disk"] = {
+        k: r["launches"] for k, r in serving["runs"].items()}
+    kernel["disk_to_map_patches_per_s"] = {
+        k: r["patches_per_s"] for k, r in serving["runs"].items()}
+    print("serving_from_disk " + json.dumps(serving), flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]

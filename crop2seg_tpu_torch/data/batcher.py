@@ -1,6 +1,5 @@
 """Batching with fixed T buckets and explicit pad masks (port of
-crop2seg_tpu/data/batcher.py, the Python path; the native C++ assembler
-comes later, ROADMAP.md M5).
+crop2seg_tpu/data/batcher.py).
 
 Every batch is padded up to the smallest bucket of ``t_buckets`` that fits
 its longest sample, so the steps see a few shapes only; the pad mask is an
@@ -8,7 +7,9 @@ input, and no model reads pads from the data values.
 
 - ``BatchLoader``: shuffle (or weighted sampling with replacement), batch,
   bucket-pad, drop the last partial batch on request; the batches of the
-  JAX ``BatchLoader(native=False)`` for the same seed.
+  JAX ``BatchLoader`` for the same seed. With ``native=True`` (the default)
+  the native C++ loader (``crop2seg_tpu_torch/native``) assembles x and the
+  pad mask wherever the dataset's ``native_batch_plan`` allows.
 - ``DeviceCacheLoader``: the batches uploaded once, to the card by default,
   then replayed from device memory (later epochs gather fresh shuffles from
   per-bucket stacks with ``index_select``).
@@ -16,12 +17,15 @@ input, and no model reads pads from the data values.
 """
 from __future__ import annotations
 
+import logging
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from crop2seg_tpu_torch.device import resolve_device
+
+log = logging.getLogger(__name__)
 
 DEFAULT_T_BUCKETS = (32, 48, 61)
 
@@ -67,12 +71,21 @@ def collate(samples: List[Dict[str, np.ndarray]],
 class BatchLoader:
     """Epoch iterator over a dataset: shuffle (or, with ``sample_weights``,
     weighted sampling with replacement), batch, bucket-pad, and with
-    ``drop_last`` drop the last partial batch."""
+    ``drop_last`` drop the last partial batch.
+
+    ``native=True`` assembles x and pad_mask with the native C++ loader
+    (npy parse, channel reorder, standardization, flip+rotate and temporal
+    dropout through gather maps, bucket pad; ``native_threads`` threads,
+    off the GIL) whenever the dataset gives a plan (``native_batch_plan``).
+    The loader is built at first use; a failed build raises. A file the
+    loader rejects mid-run makes the loader warn and take the Python path
+    for the rest of the run."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  t_buckets: Sequence[int] = DEFAULT_T_BUCKETS,
                  pad_value: float = 0.0, drop_last: bool = True,
-                 sample_weights: Optional[np.ndarray] = None, seed: int = 0):
+                 sample_weights: Optional[np.ndarray] = None, seed: int = 0,
+                 native: bool = True, native_threads: int = 4):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -80,7 +93,53 @@ class BatchLoader:
         self.pad_value = pad_value
         self.drop_last = drop_last
         self.sample_weights = sample_weights
+        self.native_threads = native_threads
         self._rng = np.random.default_rng(seed)
+        self._plan = None
+        plan_fn = getattr(dataset, "native_batch_plan", None)
+        if native and plan_fn is not None:
+            self._plan = plan_fn()
+            if self._plan is not None:
+                from crop2seg_tpu_torch import native as nat
+                nat.load_library()    # builds at first use; raises on failure
+                self._native = nat
+
+    def _native_batch(self, chunk) -> Dict[str, np.ndarray]:
+        augment = self._plan.get("augment", False)
+        if augment:
+            # the draws and the y / dates transforms in Python, in the order
+            # of __getitem__; the per-pixel work on x through the gather maps
+            metas = [self.dataset.aug_item(int(i)) for i in chunk]
+        else:
+            metas = [self.dataset.light_item(int(i)) for i in chunk]
+        tb = pick_bucket(max(m["length"] for m in metas), self.t_buckets)
+        paths = [m["path"] for m in metas]
+        shape = self._native.npy_shape(paths[0])
+        frame_maps = gathers = None
+        if augment:
+            frame_maps = np.full((len(metas), tb), -1, np.int32)
+            for i, m in enumerate(metas):
+                fi = m["frame_idx"][:tb]
+                frame_maps[i, :len(fi)] = fi
+            if metas[0]["gather"] is not None:
+                gathers = np.stack([m["gather"] for m in metas])
+        x, pad_mask, lengths = self._native.load_batch(
+            paths, tb, shape[2], shape[3], reorder=self._plan["reorder"],
+            mean=self._plan["mean"], std=self._plan["std"],
+            pad_value=self.pad_value, n_threads=self.native_threads,
+            frame_maps=frame_maps, gathers=gathers)
+        dshape = (len(metas), tb) + metas[0]["dates"].shape[1:]
+        dates = np.zeros(dshape, np.float32)
+        for i, m in enumerate(metas):
+            t = min(m["length"], tb)
+            dates[i, :t] = m["dates"][:t]
+        out = {"x": x, "dates": dates, "pad_mask": pad_mask, "lengths": lengths,
+               "ids": np.asarray([m["id"] for m in metas], np.int64)}
+        if "y" in metas[0]:
+            out["y"] = np.stack([m["y"] for m in metas]).astype(np.int32)
+        if "affine" in metas[0]:
+            out["affine"] = np.stack([m["affine"] for m in metas])
+        return out
 
     def __len__(self):
         n = len(self.dataset)
@@ -100,6 +159,16 @@ class BatchLoader:
             chunk = idx[start:start + self.batch_size]
             if len(chunk) < self.batch_size and self.drop_last:
                 return
+            if self._plan is not None:
+                try:
+                    yield self._native_batch(chunk)
+                    continue
+                except OSError as e:
+                    # a file the parser rejects (e.g. an npy dtype it does
+                    # not read): the Python path for the rest of the run
+                    log.warning("native batch load failed, using the Python "
+                                "collate path from here on: %s", e)
+                    self._plan = None
             samples = [self.dataset[int(i)] for i in chunk]
             yield collate(samples, self.t_buckets, self.pad_value)
 

@@ -11,7 +11,9 @@ crop2seg_tpu/data/s2tsczcrop.py; the same items for the same seed).
 - standardizes per channel with precomputed mean and std;
 - gives dates as days from ``reference_date`` and/or the day of the year;
 - augments training items (``Transform``) and drops frames at random
-  (``temporal_dropout``).
+  (``temporal_dropout``);
+- ``native_batch_plan``: what the native C++ loader needs to assemble the
+  batches itself, where no per-item Python work is needed.
 
 Items are channels-last with their true length T; the T buckets and pad
 masks are the batcher's (``data/batcher.py``).
@@ -176,6 +178,27 @@ class S2TSCZCropDataset:
             data = np.concatenate([data, ndvi[:, None]], axis=1)
         target = None if self.for_inference else self._target(id_patch)
         return data, target
+
+    def native_batch_plan(self):
+        """The channel reorder and standardization for the native batch
+        assembler (``crop2seg_tpu_torch/native``), or None where per-item
+        Python work (NDVI, mono-date, the RAM cache, noise or crop
+        augmentation, a custom transform) rules it out. Flip+rotate and
+        temporal dropout run natively: the draws stay in Python
+        (``aug_item``) and the loader applies the gather maps."""
+        if self.add_ndvi or self.mono_date is not None or self.cache:
+            return None
+        augment = (self.set_type == "train"
+                   and (self.transform is not None
+                        or self.temporal_dropout > 0.0))
+        if augment and self.transform is not None and (
+                not hasattr(self.transform, "index_map")
+                or getattr(self.transform, "add_noise", True)
+                or getattr(self.transform, "crop", True)):
+            return None
+        mean, std = self.norm if self.norm is not None else (None, None)
+        return {"reorder": list(self.channels_order), "mean": mean,
+                "std": std, "augment": augment}
 
     def aug_item(self, item: int) -> Dict[str, np.ndarray]:
         """``light_item`` plus the item's augmentation plan, drawn from the

@@ -14,7 +14,8 @@ for it), then:
 1. the host's loaders alone, no card: ``BatchLoader`` (read, reorder,
    standardize, pad to the T bucket) ms a batch by T bucket, and an epoch
    of ``PrefetchLoader`` (the CLI's train loader) with nothing consuming
-   it but the loop;
+   it but the loop; on the native C++ loader (the CLI's default) and on
+   the Python collate path;
 2. ``python -m crop2seg_tpu_torch.train``'s ``main`` in process from disk,
    ``--epochs`` epochs at the model's factory defaults, bf16 unless
    ``--fp32``: each epoch's seconds (trainlog.json's ``train_epoch_time``,
@@ -59,32 +60,39 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 def loaders_alone(config, batch: int) -> dict:
     """Phase 1: the host's BatchLoader ms a batch by T bucket, and one
-    PrefetchLoader epoch's seconds, with no step."""
+    PrefetchLoader epoch's seconds, with no step: on the native C++ loader
+    (the CLI's default) and on the Python collate path (``native=False``),
+    under the keys "native" and "python"."""
     dt_train = cli.build_datasets(config)[0]
-    kw = dict(t_buckets=tuple(config.t_buckets), pad_value=config.pad_value)
-    by_t: dict = {}
-    loader = BatchLoader(dt_train, batch, shuffle=True, drop_last=True, seed=1, **kw)
-    it = iter(loader)
-    while True:
+    out = {}
+    for name, native in (("native", True), ("python", False)):
+        kw = dict(t_buckets=tuple(config.t_buckets), pad_value=config.pad_value,
+                  native=native)
+        by_t: dict = {}
+        loader = BatchLoader(dt_train, batch, shuffle=True, drop_last=True, seed=1, **kw)
+        if native and loader._plan is None:
+            raise SystemExit("the train BatchLoader holds no native plan")
+        it = iter(loader)
+        while True:
+            start = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                break
+            by_t.setdefault(int(b["x"].shape[1]), []).append(
+                (time.perf_counter() - start) * 1e3)
         start = time.perf_counter()
-        try:
-            b = next(it)
-        except StopIteration:
-            break
-        by_t.setdefault(int(b["x"].shape[1]), []).append(
-            (time.perf_counter() - start) * 1e3)
-    start = time.perf_counter()
-    n = sum(1 for _ in PrefetchLoader(BatchLoader(dt_train, batch, shuffle=True,
-                                                  drop_last=True, seed=1, **kw)))
-    prefetch_s = time.perf_counter() - start
-    out = {"batch_ms_by_t": {t: float(np.mean(v)) for t, v in sorted(by_t.items())},
-           "batches_by_t": {t: len(v) for t, v in sorted(by_t.items())},
-           "batch_ms_mean": float(np.mean([x for v in by_t.values() for x in v])),
-           "prefetch_epoch_s": prefetch_s, "prefetch_batches": n}
-    print(f"loaders alone: BatchLoader ms a batch by T bucket "
-          f"{json.dumps({t: round(v, 1) for t, v in out['batch_ms_by_t'].items()})} "
-          f"(batches {json.dumps(out['batches_by_t'])}); a PrefetchLoader epoch "
-          f"with no step {prefetch_s:.3f} s for {n} batches", flush=True)
+        n = sum(1 for _ in PrefetchLoader(BatchLoader(dt_train, batch, shuffle=True,
+                                                      drop_last=True, seed=1, **kw)))
+        prefetch_s = time.perf_counter() - start
+        out[name] = {"batch_ms_by_t": {t: float(np.mean(v)) for t, v in sorted(by_t.items())},
+                     "batches_by_t": {t: len(v) for t, v in sorted(by_t.items())},
+                     "batch_ms_mean": float(np.mean([x for v in by_t.values() for x in v])),
+                     "prefetch_epoch_s": prefetch_s, "prefetch_batches": n}
+        print(f"loaders alone ({name}): BatchLoader ms a batch by T bucket "
+              f"{json.dumps({t: round(v, 1) for t, v in out[name]['batch_ms_by_t'].items()})} "
+              f"(batches {json.dumps(out[name]['batches_by_t'])}); a PrefetchLoader epoch "
+              f"with no step {prefetch_s:.3f} s for {n} batches", flush=True)
     return out
 
 

@@ -15,9 +15,17 @@ import torch
 from crop2seg_tpu import data as jdata
 from crop2seg_tpu_torch import data as tdata
 from crop2seg_tpu_torch.data.batcher import pick_bucket
+from tests.torch_port_mirror import jax_native
 
 GEN = dict(n_patches=12, t_range=(5, 11), hw=16, seed=3)
 BUCKETS = (6, 8, 11)
+
+
+@pytest.fixture(scope="module")
+def jn(tmp_path_factory):
+    """The JAX native loader built into a temporary directory, so that its
+    BatchLoader(native=True) does not build beside the JAX source."""
+    return jax_native(tmp_path_factory.mktemp("jax_native"))
 
 
 @pytest.fixture(scope="module")
@@ -119,30 +127,37 @@ def _batches(loader, epochs=2):
 
 
 @pytest.mark.parametrize("mode", ["shuffle", "weighted", "ordered"])
-def test_batch_loader_matches_jax(folder, mode):
-    """The JAX BatchLoader's Python path (native=False) against the port's,
-    two epochs, 5 train samples in batches of 2 over the T buckets."""
-    jd, td = _datasets(folder, transform=True, temporal_dropout=0.2)
-    kw = dict(batch_size=2, t_buckets=BUCKETS, pad_value=0.0, seed=11,
-              shuffle=mode != "ordered", drop_last=mode != "ordered",
-              sample_weights=np.linspace(1, 3, len(jd)) if mode == "weighted" else None)
-    want = _batches(jdata.BatchLoader(jd, native=False, **kw))
-    got = _batches(tdata.BatchLoader(td, **kw))
-    assert len(got) == len(want) > 2
-    assert len(tdata.BatchLoader(td, **kw)) == len(jdata.BatchLoader(jd, native=False, **kw))
-    for a, b in zip(want, got):
-        _assert_items_equal(a, b)
-        assert b["x"].shape[1] in BUCKETS
+def test_batch_loader_matches_jax(folder, mode, jn):
+    """The JAX BatchLoader against the port's, each on its Python path
+    (native=False) and on its native path (native=True, the default of
+    both), two epochs, 5 train samples in batches of 2 over the T buckets."""
+    for native in (False, True):
+        jd, td = _datasets(folder, transform=True, temporal_dropout=0.2)
+        kw = dict(batch_size=2, t_buckets=BUCKETS, pad_value=0.0, seed=11,
+                  shuffle=mode != "ordered", drop_last=mode != "ordered",
+                  sample_weights=np.linspace(1, 3, len(jd)) if mode == "weighted" else None,
+                  native=native)
+        want = _batches(jdata.BatchLoader(jd, **kw))
+        loader = tdata.BatchLoader(td, **kw)
+        assert (loader._plan is not None) == native
+        got = _batches(loader)
+        assert len(got) == len(want) > 2
+        assert len(tdata.BatchLoader(td, **kw)) == len(jdata.BatchLoader(jd, **kw))
+        for a, b in zip(want, got):
+            _assert_items_equal(a, b)
+            assert b["x"].shape[1] in BUCKETS
     assert pick_bucket(7, BUCKETS) == 8 and pick_bucket(99, BUCKETS) == 11
 
 
-def test_prefetch_loader_keeps_the_order(folder):
-    jd, td = _datasets(folder)
-    want = list(jdata.BatchLoader(jd, 2, t_buckets=BUCKETS, seed=1, native=False))
-    got = list(tdata.PrefetchLoader(tdata.BatchLoader(td, 2, t_buckets=BUCKETS, seed=1)))
-    assert len(got) == len(want)
-    for a, b in zip(want, got):
-        _assert_items_equal(a, b)
+def test_prefetch_loader_keeps_the_order(folder, jn):
+    for native in (False, True):
+        jd, td = _datasets(folder)
+        want = list(jdata.BatchLoader(jd, 2, t_buckets=BUCKETS, seed=1, native=native))
+        got = list(tdata.PrefetchLoader(tdata.BatchLoader(td, 2, t_buckets=BUCKETS, seed=1,
+                                                          native=native)))
+        assert len(got) == len(want)
+        for a, b in zip(want, got):
+            _assert_items_equal(a, b)
 
 
 def test_prefetch_loader_raises_the_loaders_error():
@@ -156,18 +171,19 @@ def test_prefetch_loader_raises_the_loaders_error():
 
 
 @pytest.mark.parametrize("cast", [None, "bf16"])
-def test_device_cache_loader_replays_like_jax(folder, cast):
+def test_device_cache_loader_replays_like_jax(folder, cast, jn):
     """Three epochs on device="cpu": the first streams and uploads, the
     later ones gather shuffles from the per-bucket stacks (train) or replay
-    (val); the same batches as the JAX DeviceCacheLoader for the same seed,
-    x cast to bf16 on both sides when asked."""
+    (val); the same batches as the JAX DeviceCacheLoader for the same seed
+    (both over their BatchLoader's default, native path), x cast to bf16 on
+    both sides when asked."""
     import jax.numpy as jnp
 
     jd, td = _datasets(folder)
     jv, tv = _datasets(folder, set_type="val")
     for (jds, tds, shuffle) in ((jd, td, True), (jv, tv, False)):
         kw = dict(batch_size=2, t_buckets=BUCKETS, seed=5, shuffle=shuffle, drop_last=shuffle)
-        jl = jdata.DeviceCacheLoader(jdata.BatchLoader(jds, native=False, **kw),
+        jl = jdata.DeviceCacheLoader(jdata.BatchLoader(jds, **kw),
                                      cast=jnp.bfloat16 if cast else None, shuffle=shuffle,
                                      seed=9)
         tl = tdata.DeviceCacheLoader(tdata.BatchLoader(tds, **kw),
