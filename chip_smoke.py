@@ -145,6 +145,24 @@
    top-2 margin is >= 1e-4; (d) the stream's patches/s cold and warm, its
    timeline, and the post-processing seconds (raster, polygonize, vectors)
    on their own.
+14. The conv variants and W-TAE (phase_variants), each path's counts set
+   to 0 just before it: (a) W-TAE at the factory defaults (seeded weights)
+   through phase 4's tile in bf16 and fp32 with its checks and no L-TAE
+   kernel launch (W-TAE's attention-only L-TAE has no kernel, in the JAX
+   package either); (b) W-TAE training as phase 10: 5 steps at B=4 fp32 and
+   5 at B=16 bf16 with remat conv_out, B=2 remat gradients within the
+   perturbation spread; (c) U-TAE with MBConv blocks (16 classes): an eval
+   forward at B=10, one launch of kernel 1's wide route, within 1e-3 of
+   fused=False, and one B=4 fp32 train step with remat; (d) TimeUNet with
+   depthwise-separable convs + SE and with instance norm: in_conv keeps its
+   tail, so an eval forward at B=10 launches kernel 1's group route once,
+   untailed, within 1e-3 of fused=False, and a B=4 train step in fp32 and
+   in bf16 the untailed pool pair once each way; then kernel 1 untailed
+   timed at TimeUNet's width; (e) the train CLI on phase 12's dataset:
+   W-TAE with --add_boundary_loss, 2 epochs, a resume to 3 and --test
+   (no kernel launch; finite boundary metrics; --test repeats the run's
+   test), and U-TAE --use_mbconv --remat, 1 epoch (one wide launch per val
+   and test batch).
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -157,8 +175,10 @@ import concurrent.futures
 import copy
 import importlib.util
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -724,10 +744,7 @@ def phase_train(dev):
         m.defer_tail = True
         m.train()
         if eps:
-            noise = torch.Generator(device=dev).manual_seed(12)
-            m.temporal_encoder.register_forward_hook(
-                lambda mod, args, out: (out[0] * (1 + eps * torch.randn(
-                    out[0].shape, generator=noise, device=dev)), out[1]))
+            m.temporal_encoder.register_forward_hook(perturb_hook(eps, dev))
         g2 = torch.Generator(device=dev).manual_seed(11)
         logits = m(small["x"], small["dates"], small["pad_mask"], fused=fused,
                    generator=g2)
@@ -773,10 +790,13 @@ def check_grads_within_spread(label: str, got: dict, plain: dict, perturbed: dic
     return ratio[worst]
 
 
-def phase_main_path(model, dev, label: str = ""):
+def phase_main_path(model, dev, label: str = "", kernel_launches: int = 10):
     """One tile through make_tile_predictor in bf16 and fp32 with its checks;
-    ``label`` prefixes the printed lines. Returns the bf16 tile's kernel
-    launches and patches/s in bf16 and fp32."""
+    ``label`` prefixes the printed lines. Each tile must launch the eval
+    kernel ``kernel_launches`` times and the training pair never; with
+    kernel launches two patches are held against the plain L-TAE forced.
+    Returns the bf16 tile's kernel launches, patches/s in bf16 and fp32,
+    and the bf16 / fp32 class agreement."""
     gen = torch.Generator(device=dev).manual_seed(2)
     tile = torch.randn(T, 1098, 1098, 10, generator=gen, device=dev)
     tile[LENGTH:] = 0.0
@@ -788,22 +808,22 @@ def phase_main_path(model, dev, label: str = ""):
         res = predict(t, dates, LENGTH)
         return res, time.perf_counter() - start
 
-    predict_bf16 = make_tile_predictor(model, batch_size=MAIN_B, dtype=torch.bfloat16)
-    run(predict_bf16, tile)                                 # warm-up
-    lf.ltae_fused_forward.launches = 0
-    res, secs = run(predict_bf16, tile)                     # the main path
-    launches = lf.ltae_fused_forward.launches
-    print(f"{label}tile bf16: {secs:.3f} s, {100 / secs:.2f} patches/s, "
-          f"ltae_fused_fwd launches {launches}", flush=True)
-    check(launches == 10, f"{label}bf16 tile launched the kernel {launches} times, not 10")
+    def counted(predict, name):
+        run(predict, tile)                                  # warm-up
+        lf.ltae_fused_forward.launches = 0                  # this path's counts
+        lp.ltae_pool.launches.clear()
+        res, secs = run(predict, tile)
+        launches = lf.ltae_fused_forward.launches
+        print(f"{label}tile {name}: {secs:.3f} s, {100 / secs:.2f} patches/s, "
+              f"ltae_fused_fwd launches {launches}", flush=True)
+        check(launches == kernel_launches and not lp.ltae_pool.launches,
+              f"{label}{name} tile launched the eval kernel {launches} times, not "
+              f"{kernel_launches}, and the training pair {dict(lp.ltae_pool.launches)}")
+        return res, secs, launches
 
-    predict_fp32 = make_tile_predictor(model, batch_size=MAIN_B)
-    run(predict_fp32, tile)                                 # warm-up
-    lf.ltae_fused_forward.launches = 0
-    res32, secs32 = run(predict_fp32, tile)
-    print(f"{label}tile fp32: {secs32:.3f} s, {100 / secs32:.2f} patches/s, "
-          f"ltae_fused_fwd launches {lf.ltae_fused_forward.launches}", flush=True)
-    check(lf.ltae_fused_forward.launches == 10, f"{label}fp32 tile did not launch 10 times")
+    predict_bf16 = make_tile_predictor(model, batch_size=MAIN_B, dtype=torch.bfloat16)
+    res, secs, launches = counted(predict_bf16, "bf16")     # the main path
+    res32, secs32, _ = counted(make_tile_predictor(model, batch_size=MAIN_B), "fp32")
 
     for name, r in (("bf16", res), ("fp32", res32)):
         p, cls = r["proba"], r["classes"]
@@ -818,19 +838,20 @@ def phase_main_path(model, dev, label: str = ""):
           f"{np.abs(res['proba'] - res32['proba']).max():.3e}, class agreement "
           f"{agree:.4f}", flush=True)
 
-    # two patches of the fp32 tile against the plain L-TAE forced (fp32)
-    idx = [0, 11]                          # patch 11: rows/cols 128-255
-    with torch.inference_mode():
-        xb = patchify_inference_tile(tile)[idx]
-        mask = torch.arange(T, device=dev)[None].expand(2, T) >= LENGTH
-        logits = model(xb, torch.as_tensor(dates, device=dev)[None].expand(2, T),
-                       mask, fused=False)
-        plain = torch.softmax(logits.float(), -1).cpu().numpy()
-    served = np.stack([res32["proba"][:128, :128], res32["proba"][128:256, 128:256]])
-    p_err = float(np.abs(served - plain).max())
-    print(f"{label}fp32 tile vs plain L-TAE on patches {idx}: max |dproba| {p_err:.3e} "
-          f"(tol 1e-3)", flush=True)
-    check(p_err <= 1e-3, f"{label}tile differs from the plain L-TAE path by {p_err}")
+    if kernel_launches:
+        # two patches of the fp32 tile against the plain L-TAE forced (fp32)
+        idx = [0, 11]                          # patch 11: rows/cols 128-255
+        with torch.inference_mode():
+            xb = patchify_inference_tile(tile)[idx]
+            mask = torch.arange(T, device=dev)[None].expand(2, T) >= LENGTH
+            logits = model(xb, torch.as_tensor(dates, device=dev)[None].expand(2, T),
+                           mask, fused=False)
+            plain = torch.softmax(logits.float(), -1).cpu().numpy()
+        served = np.stack([res32["proba"][:128, :128], res32["proba"][128:256, 128:256]])
+        p_err = float(np.abs(served - plain).max())
+        print(f"{label}fp32 tile vs plain L-TAE on patches {idx}: max |dproba| "
+              f"{p_err:.3e} (tol 1e-3)", flush=True)
+        check(p_err <= 1e-3, f"{label}tile differs from the plain L-TAE path by {p_err}")
 
     noisy = tile.clone()
     noisy[LENGTH:] = 10 * torch.randn(noisy[LENGTH:].shape, generator=gen, device=dev)
@@ -839,7 +860,7 @@ def phase_main_path(model, dev, label: str = ""):
     print(f"{label}pad invariance (garbage in frames {LENGTH}..{T - 1}): max |dproba| "
           f"{inv_err:.3e} (tol 1e-6)", flush=True)
     check(inv_err <= 1e-6, f"{label}pad frames leak into the output: {inv_err}")
-    return launches, 100 / secs, 100 / secs32
+    return launches, 100 / secs, 100 / secs32, agree
 
 
 def phase_kernel_utae(model, dev):
@@ -968,7 +989,7 @@ def phase_utae(model, dev):
     check(bool(torch.isfinite(logits).all()), "entry forward: non-finite logits")
     check(entry == 1, f"entry forward launched the kernel {entry} times, not 1")
     del x, logits
-    launches, pps_bf16, pps_fp32 = phase_main_path(model, dev, label="utae ")
+    launches, pps_bf16, pps_fp32, _ = phase_main_path(model, dev, label="utae ")
     return entry, launches, pps_bf16, pps_fp32
 
 
@@ -1072,21 +1093,35 @@ def phase_kernel_queries(models: dict, dev):
     return errs, timings, launches
 
 
-def phase_utae_train(dev):
-    """U-TAE training at the factory defaults: UTAE_TRAIN_RUNS through
-    make_train_step (5 steps each, warm step ms over steps 2-5, peak
-    memory), then one B=2 step's gradients with remat against those
-    without, held to the spread that perturbing the L-TAE output causes."""
+def perturb_hook(eps: float, dev):
+    """A forward hook that scales a module's output (the first of a tuple)
+    by (1 + eps * noise): the yardstick of the gradient checks."""
+    noise = torch.Generator(device=dev).manual_seed(12)
+
+    def hook(mod, args, out):
+        first = out[0] if isinstance(out, tuple) else out
+        first = first * (1 + eps * torch.randn(first.shape, generator=noise, device=dev))
+        return (first,) + tuple(out[1:]) if isinstance(out, tuple) else first
+    return hook
+
+
+def phase_plain_train(dev, name: str, stats: tuple, runs_cfg=UTAE_TRAIN_RUNS):
+    """Training of a model whose train steps run on plain ops (U-TAE, whose
+    L-TAE trains with the attention out, and W-TAE, whose L-TAE has no
+    kernel) at the factory defaults: ``runs_cfg`` through make_train_step (5
+    steps each, warm step ms over steps 2-5 by CUDA events, peak memory),
+    each with a finite, falling loss, the BatchNorm statistics ``stats``
+    changed and no launch of any kernel; then one B=2 step's gradients with
+    remat against those without, held to the spread that perturbing the
+    temporal encoder's output causes."""
     cfg = StepConfig(num_classes=N_CLASSES,
                      class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
-    model = get_model({"model": "utae"}, generator=torch.Generator().manual_seed(0))
+    model = get_model({"model": name}, generator=torch.Generator().manual_seed(0))
     fresh = {k: v.clone() for k, v in model.state_dict().items()}
     del model
-    stats = ("temporal_encoder.mlp.2.running_mean", "up_blocks.0.up.1.running_var",
-             "out_conv.conv.conv.1.running_mean")
     runs = {}
-    for label, dtype, b, remat in UTAE_TRAIN_RUNS:
-        model = get_model({"model": "utae", "remat": remat}, device=dev)
+    for label, dtype, b, remat in runs_cfg:
+        model = get_model({"model": name, "remat": remat}, device=dev)
         model.load_state_dict(fresh)
         batch = train_batch(b, torch.Generator(device=dev).manual_seed(4), dev)
         step = make_train_step(model, cfg, dtype=dtype)
@@ -1104,19 +1139,19 @@ def phase_utae_train(dev):
             torch.cuda.synchronize()
             step_ms.append(start.elapsed_time(end))
             losses.append(float(aux["loss"]))
-            print(f"utae train {label} step {i + 1}: loss {losses[-1]:.6f}, "
+            print(f"{name} train {label} step {i + 1}: loss {losses[-1]:.6f}, "
                   f"{step_ms[-1]:.3f} ms", flush=True)
-            check(np.isfinite(losses[-1]), f"utae {label} step {i + 1}: loss {losses[-1]}")
+            check(np.isfinite(losses[-1]), f"{name} {label} step {i + 1}: loss {losses[-1]}")
         launched = dict(lp.ltae_pool.launches)
         launched["ltae_fused_fwd"] = lf.ltae_fused_forward.launches
         check(not any(launched.values()),
-              f"utae {label}: the training path launched a kernel: {launched}")
-        check(losses[-1] < losses[0], f"utae {label}: loss did not fall: {losses}")
+              f"{name} {label}: the training path launched a kernel: {launched}")
+        check(losses[-1] < losses[0], f"{name} {label}: loss did not fall: {losses}")
         moved = [not torch.equal(model.state_dict()[k], fresh[k].to(dev)) for k in stats]
-        check(all(moved), f"utae {label}: BatchNorm statistics unchanged: {stats}")
+        check(all(moved), f"{name} {label}: BatchNorm statistics unchanged: {stats}")
         warm_ms = float(np.mean(step_ms[1:]))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"utae train step {label}, warm (steps 2-5): {warm_ms:.3f} ms, "
+        print(f"{name} train step {label}, warm (steps 2-5): {warm_ms:.3f} ms, "
               f"{b / warm_ms * 1e3:.2f} samples/s; peak memory {peak:.2f} GiB; "
               f"kernel launches {launched}", flush=True)
         runs[label] = {"losses": losses, "warm_ms": warm_ms, "peak_gib": peak,
@@ -1126,27 +1161,24 @@ def phase_utae_train(dev):
 
     small = train_batch(2, torch.Generator(device=dev).manual_seed(4), dev)
     grads = {}
-    for name, remat, policy, eps in (("no remat", False, "conv_out", 0.0),
-                                     ("remat conv_out", True, "conv_out", 0.0),
-                                     ("remat full", True, "full", 0.0),
-                                     ("perturbed", False, "conv_out", GRAD_EPS)):
-        m = get_model({"model": "utae", "remat": remat, "remat_policy": policy}, device=dev)
+    for label, remat, policy, eps in (("no remat", False, "conv_out", 0.0),
+                                      ("remat conv_out", True, "conv_out", 0.0),
+                                      ("remat full", True, "full", 0.0),
+                                      ("perturbed", False, "conv_out", GRAD_EPS)):
+        m = get_model({"model": name, "remat": remat, "remat_policy": policy}, device=dev)
         m.load_state_dict(fresh)
         m.train()
         if eps:
-            noise = torch.Generator(device=dev).manual_seed(12)
-            m.temporal_encoder.register_forward_hook(
-                lambda mod, args, out: (out[0] * (1 + eps * torch.randn(
-                    out[0].shape, generator=noise, device=dev)), out[1]))
+            m.temporal_encoder.register_forward_hook(perturb_hook(eps, dev))
         logits = m(small["x"], small["dates"], small["pad_mask"],
                    generator=torch.Generator(device=dev).manual_seed(11))
         cross_entropy(logits, small["y"], weight=torch.tensor(
             cfg.class_weights, device=dev)).backward()
-        grads[name] = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+        grads[label] = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
         del m, logits
         torch.cuda.empty_cache()
-    worst = {label: check_grads_within_spread(label, grads[label], grads["no remat"],
-                                              grads["perturbed"])
+    worst = {label: check_grads_within_spread(f"{name} {label}", grads[label],
+                                              grads["no remat"], grads["perturbed"])
              for label in ("remat conv_out", "remat full")}
     return runs, worst
 
@@ -1592,10 +1624,10 @@ def train_loader_timing(cli, data: str, bs: int) -> dict:
     return {"native_ms_per_batch": ms["native"], "python_ms_per_batch": ms["python"]}
 
 
-def phase_train_cli(dev):
+def phase_train_cli(dev, data: str):
     """Phase 12: the train CLI end to end on the card, on a synthetic
-    dataset of CLI_PATCHES patches at 128^2, T 27-61, written to a temporary
-    directory: (a) TimeUNet_v1 at the factory defaults, bf16, 2 epochs
+    dataset of CLI_PATCHES patches at 128^2, T 27-61, written to ``data``
+    (phase 14 trains on it too): (a) TimeUNet_v1 at the factory defaults, bf16, 2 epochs
     (train, val, best-k checkpoints, reload, test, fold aggregation); (b) a
     resume of (a) to epoch 3 with Adam's step count restored (from the
     best epoch, which model.ckpt holds, as the JAX CLI resumes); (c) --test
@@ -1605,16 +1637,12 @@ def phase_train_cli(dev):
     boundary loss and the device cache, 1 epoch; (e) one TimeUNet step at
     B=4 with remat against without, gradients within the perturbation
     spread, both peak memories printed."""
-    import os
-    import tempfile
-
     from crop2seg_tpu_torch import train as cli
     from crop2seg_tpu_torch.data import make_synthetic_dataset
     from crop2seg_tpu_torch.learning import checkpoint as ckpt
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
         start = time.perf_counter()
         make_synthetic_dataset(data, n_patches=CLI_PATCHES)
         sizes = [len(d) for d in cli.build_datasets(cli.parse_config(
@@ -1722,10 +1750,7 @@ def phase_train_cli(dev):
         m.load_state_dict(fresh)
         m.train()
         if eps:
-            noise = torch.Generator(device=dev).manual_seed(12)
-            m.temporal_encoder.register_forward_hook(
-                lambda mod, args, o: (o[0] * (1 + eps * torch.randn(
-                    o[0].shape, generator=noise, device=dev)), o[1]))
+            m.temporal_encoder.register_forward_hook(perturb_hook(eps, dev))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1763,7 +1788,6 @@ def write_serving_cell(root: str) -> dict:
     the S2TSCzCrop release format, Fold_1/model.ckpt of seeded weights).
     Where the temporary disk cannot take the float32 patches, they are
     saved as uint16 (the reference's format, which the loader reads)."""
-    import os
     import shutil
 
     from crop2seg_tpu_torch.gis.dataset_creator import DatasetCreator, patch_affines
@@ -1835,9 +1859,6 @@ def phase_serving_from_disk(dev, train_cli: dict):
     post-processing of the same classes is not repeated), each run's
     counts set to 0 just before it; then the in-memory tile predictor on
     the same inputs."""
-    import os
-    import tempfile
-
     from crop2seg_tpu_torch.data import S2TSCZCropDataset, load_norm_values
     from crop2seg_tpu_torch.webapp.pipeline import generate_prediction, stream_tile_inference
 
@@ -1958,6 +1979,246 @@ def phase_serving_from_disk(dev, train_cli: dict):
     return out
 
 
+DWS = "depthwise_separable"
+# phase 14 (d): TimeUNet variants whose in_conv cannot defer its tail
+TIMEUNET_VARIANTS = (("dws+se", {"conv_type": DWS, "add_squeeze": True}),
+                     ("instance", {"encoder_norm": "instance"}))
+# phase 14 (c), (e): U-TAE with MBConv blocks. Their GroupNorm heads need
+# widths divisible by 4 (out_conv (32, 15) fails, in the JAX package too),
+# so 16 classes, the 16th the ignored one
+MB_CLASSES = 16
+MB_CFG = {"model": "utae", "use_mbconv": True, "out_conv": [32, MB_CLASSES]}
+MB_STEP = StepConfig(num_classes=MB_CLASSES,
+                     class_weights=(1.0,) * (MB_CLASSES - 1) + (0.0,))
+VARIANT_TOL = 1e-3           # kernel route vs plain L-TAE, whole model, fp32
+
+
+def zero_counts() -> None:
+    """Every kernel count set to 0: the start of a path."""
+    lf.ltae_fused_forward.launches = 0
+    lf.ltae_fused_forward.route_launches.clear()
+    lf.ltae_fused_forward.tail_launches = 0
+    lp.ltae_pool.launches.clear()
+
+
+def kernel_counts() -> dict:
+    """The counts since ``zero_counts``: eval launches by route (and those
+    with a deferred tail), the training pair's by variant."""
+    out = {f"eval_{k}": v for k, v in lf.ltae_fused_forward.route_launches.items()}
+    if lf.ltae_fused_forward.tail_launches:
+        out["eval_tailed"] = lf.ltae_fused_forward.tail_launches
+    out.update(lp.ltae_pool.launches)
+    return out
+
+
+def timed_forward(model, batch, **kw):
+    """One warm forward of ``model`` in inference mode on ``batch``, its
+    kernel counts and its ms by CUDA events."""
+    with torch.inference_mode():
+        model(batch["x"], batch["dates"], batch["pad_mask"], **kw)         # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = model(batch["x"], batch["dates"], batch["pad_mask"], **kw)
+        end.record()
+        torch.cuda.synchronize()
+    return out, kernel_counts(), start.elapsed_time(end)
+
+
+def one_train_step(label: str, model, batch, cfg, dtype, want: dict) -> dict:
+    """One make_train_step step, its counts set to 0 just before it: the
+    launches must be ``want``, the loss finite. Returns loss, ms, peak
+    GiB and the launches."""
+    step = make_train_step(model, cfg, dtype=dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    aux = step(batch, torch.Generator(device=batch["x"].device).manual_seed(7))
+    end.record()
+    torch.cuda.synchronize()
+    got = kernel_counts()
+    res = {"loss": float(aux["loss"]), "ms": start.elapsed_time(end),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": got}
+    print(f"{label}: loss {res['loss']:.6f}, {res['ms']:.3f} ms (first step), peak "
+          f"{res['peak_gib']:.2f} GiB, kernel launches {got}", flush=True)
+    check(np.isfinite(res["loss"]), f"{label}: loss {res['loss']}")
+    check(got == want, f"{label}: launched {got}, not {want}")
+    return res
+
+
+def phase_variants(dev, data: str, tmp: str) -> dict:
+    """Phase 14: the conv variants and W-TAE. (a) W-TAE at the factory
+    defaults (seeded weights) through phase 4's tile in bf16 and fp32: no
+    L-TAE kernel launch (its attention-only L-TAE has none, as in the JAX
+    package), proba finite and summing to 1, pad invariance; patches/s and
+    the bf16 / fp32 class agreement. (b) W-TAE training as phase 10 trains
+    U-TAE: 5 steps at B=4 fp32 and 5 at B=16 bf16 with remat conv_out, then
+    B=2 remat gradients against none. (c) U-TAE with MBConv blocks: an eval
+    forward at B=10 on kernel 1's wide route against fused=False, and one
+    B=4 fp32 train step (remat conv_out: without it the MBConv in_conv's
+    activations at 4 * 61 frames of 128^2 x 256 would not fit). (d)
+    TimeUNet with depthwise-separable convs + SE, and with instance norm:
+    in_conv keeps its tail, so an eval forward at B=10 launches kernel 1's
+    group route untailed, within VARIANT_TOL of fused=False, and a B=4 train
+    step the untailed pool pair in fp32 and bf16; then kernel 1 untailed
+    timed at TimeUNet's width. (e) The train CLI on phase 12's dataset:
+    W-TAE with the boundary loss, 2-step epochs, train -> resume -> test;
+    U-TAE with MBConv, one epoch."""
+    out = {}
+    # (a) the W-TAE tile
+    wtae = get_model({"model": "wtae"}, generator=torch.Generator().manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    _, pps, pps32, agree = phase_main_path(wtae, dev, label="wtae ", kernel_launches=0)
+    out["tile"] = {"patches_per_s": pps, "patches_per_s_fp32": pps32,
+                   "class_agreement": agree,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"wtae tile: peak memory {out['tile']['peak_gib']:.2f} GiB", flush=True)
+    del wtae
+    torch.cuda.empty_cache()
+
+    # (b) W-TAE training
+    out["train"], out["remat_grad_worst_ratio"] = phase_plain_train(
+        dev, "wtae", ("up_blocks.0.up.1.running_var", "up_blocks.1.skip_conv.1.running_mean",
+                      "out_conv.conv.conv.1.running_mean"))
+    torch.cuda.empty_cache()
+
+    # (c) U-TAE with MBConv blocks
+    fresh = get_model(MB_CFG, generator=torch.Generator().manual_seed(0)).state_dict()
+    model = get_model(MB_CFG, device=dev)
+    model.load_state_dict(fresh)
+    batch = train_batch(MAIN_B, torch.Generator(device=dev).manual_seed(4), dev)
+    torch.cuda.reset_peak_memory_stats()
+    got, counts, ms = timed_forward(model, batch)
+    with torch.inference_mode():
+        want = model(batch["x"], batch["dates"], batch["pad_mask"], fused=False)
+    err = (got.float() - want.float()).abs().max().item()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"utae mbconv eval B={MAIN_B} fp32: {ms:.3f} ms, kernel launches {counts}, "
+          f"vs fused=False max |dlogit| {err:.3e} (tol {VARIANT_TOL:g}), peak {peak:.2f} GiB",
+          flush=True)
+    check(counts == {"eval_wide": 1}, f"utae mbconv eval launched {counts}")
+    check(err <= VARIANT_TOL and bool(torch.isfinite(got).all()),
+          f"utae mbconv: kernel route vs plain {err}")
+    del model, got, want, batch
+    torch.cuda.empty_cache()
+    model = get_model({**MB_CFG, "remat": True}, device=dev)
+    model.load_state_dict(fresh)
+    step = one_train_step("utae mbconv train B=4 fp32 remat conv_out", model,
+                          train_batch(TRAIN_B, torch.Generator(device=dev).manual_seed(4),
+                                      dev), MB_STEP, None, {})
+    out["utae_mbconv"] = {"eval_ms": ms, "eval_err": err, "eval_peak_gib": peak,
+                          "train_step": step, "launches": counts}
+    del model, fresh
+    torch.cuda.empty_cache()
+
+    # (d) TimeUNet variants: kernel 1 and the pool pair untailed
+    cfg = StepConfig(num_classes=N_CLASSES, class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+    eval_batch = train_batch(MAIN_B, torch.Generator(device=dev).manual_seed(4), dev)
+    batch = train_batch(TRAIN_B, torch.Generator(device=dev).manual_seed(4), dev)
+    out["timeunet"] = {}
+    for label, kw in TIMEUNET_VARIANTS:
+        fresh = get_model({"model": "timeunet", **kw},
+                          generator=torch.Generator().manual_seed(0)).state_dict()
+        model = get_model({"model": "timeunet", **kw}, device=dev)
+        model.load_state_dict(fresh)
+        check(not model._tail_deferrable, f"timeunet {label} would defer its tail")
+        got, counts, ms = timed_forward(model, eval_batch)
+        with torch.inference_mode():
+            want = model(eval_batch["x"], eval_batch["dates"], eval_batch["pad_mask"],
+                         fused=False)
+        err = (got - want).abs().max().item()
+        print(f"timeunet {label} eval B={MAIN_B} fp32: {ms:.3f} ms, kernel launches "
+              f"{counts}, vs fused=False max |dlogit| {err:.3e} (tol {VARIANT_TOL:g})",
+              flush=True)
+        check(counts == {"eval_group": 1}, f"timeunet {label} eval launched {counts}")
+        check(err <= VARIANT_TOL, f"timeunet {label}: kernel route vs plain {err}")
+        res = {"eval_ms": ms, "eval_err": err, "launches": counts}
+        del got, want
+        for dtype in (None, torch.bfloat16):
+            name = "bf16" if dtype else "fp32"
+            model.load_state_dict(fresh)
+            want_pool = {lp.variant(False, dtype or torch.float32, d): 1
+                         for d in ("fwd", "bwd")}
+            res[f"train_{name}"] = one_train_step(
+                f"timeunet {label} train B={TRAIN_B} {name}", model, batch, cfg, dtype,
+                want_pool)
+        out["timeunet"][label] = res
+        del model
+        torch.cuda.empty_cache()
+    del eval_batch, batch
+
+    # kernel 1 untailed at TimeUNet's width (the variants' route), B=10
+    timeunet = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
+    x, pe, pad, params, _ = ltae_inputs(timeunet, MAIN_B,
+                                        torch.Generator(device=dev).manual_seed(1), dev)
+    out["untailed_timing"] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        ms = cuda_ms(lambda: lf.ltae_fused_forward(
+            xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=False), iters=10)
+        plain_ms = cuda_ms(lambda: lf.ltae_fused_forward_reference(
+            xd, pe, pad, params, n_head=G, d_k=D_K, need_attn=False), iters=3, warmup=1)
+        b_ms, b_by = bound(MAIN_B, dtype, False, False)
+        out["untailed_timing"][str(dtype)[6:]] = {"ms": ms, "plain_ms": plain_ms,
+                                                 "bound_ms": b_ms, "bound_by": b_by}
+        print(f"ltae_fused_fwd untailed {str(dtype)[6:]} B={MAIN_B} T={T} N={HW} C={C}: "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})",
+              flush=True)
+        del xd
+    del x, pe, pad, params, timeunet
+    torch.cuda.empty_cache()
+
+    # (e) the train CLI on phase 12's dataset
+    from crop2seg_tpu_torch import train as cli
+    from crop2seg_tpu_torch.learning import checkpoint as ckpt
+
+    bs = 4
+    sizes = [len(d) for d in cli.build_datasets(cli.parse_config(
+        ["--dataset", "synthetic", "--dataset_folder", data]))]
+    n_train, n_val, n_test = sizes[0] // bs, -(-sizes[1] // bs), -(-sizes[2] // bs)
+    common = ["--dataset", "synthetic", "--dataset_folder", data,
+              "--batch_size", str(bs), "--t_buckets", "[32,48,61]"]
+    wtae_argv = ["--model", "wtae", "--add_boundary_loss"] + common
+    dirs = {k: os.path.join(tmp, f"variants_{k}") for k in ("w1", "w2", "w3", "mb")}
+    run1, _, _, sec1 = cli_run("(14e) wtae boundary loss, 2 epochs",
+                               wtae_argv + ["--epochs", "2", "--res_dir", dirs["w1"]], {}, {})
+    best = ckpt.load_state(os.path.join(dirs["w1"], "Fold_1"))["meta"]["epoch"]
+    run2, _, _, sec2 = cli_run(
+        f"(14e) wtae resume to epoch 3 from the best, epoch {best}",
+        wtae_argv + ["--epochs", "3", "--weight_folder", dirs["w1"], "--res_dir", dirs["w2"]],
+        {}, {})
+    check(run2.start_epoch == best + 1 and run2.restored_adam_step == best * n_train
+          and run2.adam_step == 3 * n_train,
+          f"wtae resume: epoch {run2.start_epoch}, Adam steps {run2.restored_adam_step} "
+          f"-> {run2.adam_step}")
+    run3, _, _, sec3 = cli_run(
+        "(14e) wtae --test", wtae_argv + ["--test", "--weight_folder", dirs["w1"],
+                                          "--res_dir", dirs["w3"]], {}, {})
+    t1, t3 = run1.test_metrics, run3.test_metrics
+    loss_rel = abs(t3["test_loss"] - t1["test_loss"]) / abs(t1["test_loss"])
+    bnd = {k: v for k, v in {**run1.trainlog[1], **t3}.items() if k.endswith("_b")}
+    print(f"train cli (14e) wtae: --test vs the run's own test, loss relative "
+          f"{loss_rel:.3e}; boundary metrics {json.dumps(bnd)}", flush=True)
+    check(loss_rel <= 1e-5, f"wtae --test loss {t3['test_loss']} vs {t1['test_loss']}")
+    check(len(bnd) == 6 and all(np.isfinite(v) for v in bnd.values()),
+          f"wtae boundary metrics {bnd}")
+    run_mb, _, eval_mb, sec_mb = cli_run(
+        "(14e) utae mbconv fp32 remat, 1 epoch",
+        ["--model", "utae", "--use_mbconv", "--remat", "--out_conv", f"[32,{MB_CLASSES}]",
+         "--num_classes", str(MB_CLASSES), "--epochs", "1", "--res_dir", dirs["mb"]]
+        + common, {}, {"wide": n_val + n_test})
+    out["cli"] = {"seconds": {"wtae": sec1, "wtae_resume": sec2, "wtae_test": sec3,
+                              "utae_mbconv": sec_mb},
+                  "wtae_epoch_s": {e: m["train_epoch_time"] for e, m in run1.trainlog.items()},
+                  "wtae_test": t1, "utae_mbconv_test": run_mb.test_metrics,
+                  "eval_wide_launches": eval_mb.get("wide", 0),
+                  "batches": [n_train, n_val, n_test]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -2027,7 +2288,7 @@ def main() -> int:
     model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
     errs, timings = phase_kernel(model, dev)
     pool_errs, pool_t = phase_pool_kernel(model, dev)
-    launches, pps_bf16, pps_fp32 = phase_main_path(model, dev)
+    launches, pps_bf16, pps_fp32, _ = phase_main_path(model, dev)
     del model
     torch.cuda.empty_cache()
     pool_launches, runs = phase_train(dev)
@@ -2043,11 +2304,17 @@ def main() -> int:
     gen_launches, gen_errs, gen_train, pad_value_errs, year = phase_routing(models, dev)
     del utae, timeunet, models
     torch.cuda.empty_cache()
-    utae_runs, remat_worst = phase_utae_train(dev)
+    utae_runs, remat_worst = phase_plain_train(
+        dev, "utae", ("temporal_encoder.mlp.2.running_mean", "up_blocks.0.up.1.running_var",
+                      "out_conv.conv.conv.1.running_mean"))
     torch.cuda.empty_cache()
-    cli_out = phase_train_cli(dev)
-    torch.cuda.empty_cache()
-    serving = phase_serving_from_disk(dev, cli_out)
+    with tempfile.TemporaryDirectory() as cli_tmp:
+        cli_data = os.path.join(cli_tmp, "data")
+        cli_out = phase_train_cli(dev, cli_data)
+        torch.cuda.empty_cache()
+        serving = phase_serving_from_disk(dev, cli_out)
+        torch.cuda.empty_cache()
+        variants = phase_variants(dev, cli_data, cli_tmp)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -2209,6 +2476,17 @@ def main() -> int:
     kernel["disk_to_map_patches_per_s"] = {
         k: r["patches_per_s"] for k, r in serving["runs"].items()}
     print("serving_from_disk " + json.dumps(serving), flush=True)
+    tu = variants["timeunet"]
+    kernel["launches_conv_variants"] = sum(r["launches"].get("eval_group", 0)
+                                           for r in tu.values())
+    kernel["untailed"] = variants["untailed_timing"]
+    kernel_utae["launches_mbconv"] = (variants["utae_mbconv"]["launches"]["eval_wide"]
+                                      + variants["cli"]["eval_wide_launches"])
+    for entry in pool:
+        entry["launches_conv_variants"] = sum(
+            r[f"train_{d}"]["launches"].get(entry["name"], 0)
+            for r in tu.values() for d in ("fp32", "bf16"))
+    print("variants " + json.dumps(variants), flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]

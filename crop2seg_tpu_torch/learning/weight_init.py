@@ -1,12 +1,15 @@
 """The train CLI's initialization from scratch (port of
 crop2seg_tpu/learning/weight_init.py), by module type:
 
-- Conv2d, ConvTranspose2d and Linear weights (the day-of-year encoder's fc
+- Conv2d, ConvTranspose2d and Linear weights (the day-of-year encoder's fc,
+  the depthwise and pointwise convs and the squeeze-excitation Linears
   included): Xavier-normal (gain 1);
-- Conv1d weights (the L-TAE's ``inconv``): N(0, 1);
-- every bias of those: N(0, 1);
+- Conv1d weights (the L-TAE's and LTAE4WTAE's ``inconv``): N(0, 1);
+- every bias of those (MBConv's depthwise conv has one; the
+  depthwise-separable convs and the SE Linears have none): N(0, 1);
 - BatchNorm weight N(0, 1), bias 0;
-- GroupNorm and the attention's bare query ``Q``: left as they are.
+- GroupNorm, instance norm (no parameters) and the attention's bare
+  query ``Q``: left as they are.
 
 ``models/factory.py::init_weights`` (PyTorch's default schemes) stays the
 seeded models' init; this is the recipe the JAX train CLI applies before

@@ -1,5 +1,5 @@
-"""Model factory (port of crop2seg_tpu/models/factory.py:21-69): U-TAE and
-TimeUNet_v1, with the JAX package's config keys and defaults."""
+"""Model factory (port of crop2seg_tpu/models/factory.py:21-69): U-TAE,
+TimeUNet_v1 and W-TAE, with the JAX package's config keys and defaults."""
 from __future__ import annotations
 
 import math
@@ -14,9 +14,10 @@ from crop2seg_tpu_torch.nn.ltae import MaskedLightweightAttention
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every weight from ``generator`` with PyTorch's default schemes
-    (Kaiming-uniform conv/linear weights, uniform(+-1/sqrt(fan_in)) biases)
-    and the attention's normal(sqrt(2/d_k)) query and key weights; norms
-    keep their identity initialization."""
+    (Kaiming-uniform conv/linear weights, the depthwise convs' and the
+    bias-free squeeze-excitation Linears' included, uniform(+-1/sqrt(fan_in))
+    biases) and the attention's normal(sqrt(2/d_k)) query and key weights;
+    norms keep their identity initialization."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -39,27 +40,26 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
     with the reference train.py flag names) on ``device`` (default: the CUDA
     card), in eval mode. ``generator`` draws the weights (default: PyTorch's
     global RNG). ``use_pallas`` is accepted for config parity: on the card the
-    fused kernel is the only eval path. U-TAE takes ``remat`` and
+    fused kernel is the only eval path. U-TAE and W-TAE take ``remat`` and
     ``remat_policy``, which act in training: "conv_out" by default (save each
     convolution's output, recompute the norm and ReLU tails, as
     crop2seg_tpu/models/factory.py:8-18 picks) or "full"; the model raises
-    on any other string. TimeUNet takes ``remat`` (the down and up blocks
+    on any other string. ``conv_type`` ("2d" or "depthwise_separable") and
+    ``add_squeeze`` go to every model, ``use_mbconv`` to U-TAE and W-TAE.
+    TimeUNet takes ``remat`` (the down and up blocks
     and out_conv recomputed whole; in_conv, which the JAX TimeUNet's remat
     also recomputes, is not: on the card ``remat`` does not lower a
     TimeUNet step's peak memory, see models/timeunet.py);
     ``seq_chunk`` raises (not ported).
-    Both models take ``num_queries=1`` only; the ``LTAE`` module takes
+    The models take ``num_queries=1`` only; the ``LTAE`` module takes
     more."""
     cfg = config if isinstance(config, Mapping) else vars(config)
     name = cfg["model"]
-    if name not in ("utae", "timeunet", "timeunet_v1"):
+    if name not in ("utae", "wtae", "timeunet", "timeunet_v1"):
         raise NotImplementedError(
             f"model {name!r} is not ported yet: crop2seg_tpu_torch has "
-            "U-TAE and TimeUNet_v1 only (ROADMAP.md lists the rest of the zoo)")
-    if cfg.get("conv_type", "2d") != "2d" or cfg.get("add_squeeze", False):
-        raise NotImplementedError(
-            "conv_type != '2d' and add_squeeze are not ported yet (ROADMAP.md "
-            "item M6)")
+            "U-TAE, W-TAE and TimeUNet_v1 only (ROADMAP.md M9-M10 list the "
+            "rest of the zoo)")
     if cfg.get("seq_chunk") is not None:
         raise NotImplementedError(
             "seq_chunk (the L-TAE streamed over T) is not ported yet "
@@ -80,18 +80,23 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
         d_k=cfg.get("d_k", 4),
         pad_value=cfg.get("pad_value", 0.0),
         padding_mode=cfg.get("padding_mode", "reflect"),
+        conv_type=cfg.get("conv_type", "2d"),
+        add_squeeze_excit=cfg.get("add_squeeze", False),
         use_abs_rel_enc=cfg.get("use_abs_rel_enc", False),
         num_queries=cfg.get("num_queries", 1),
         use_doy=cfg.get("use_doy", False),
         add_linear=cfg.get("add_linear", False),
     )
-    if name == "utae":
-        from crop2seg_tpu_torch.models.utae import UTAE
-        model = UTAE(agg_mode=cfg.get("agg_mode", "att_group"),
-                     use_mbconv=cfg.get("use_mbconv", False),
-                     add_boundary_loss=cfg.get("add_boundary_loss", False),
-                     remat=cfg.get("remat", False),
-                     remat_policy=cfg.get("remat_policy", "conv_out"), **common)
+    if name in ("utae", "wtae"):
+        if name == "utae":
+            from crop2seg_tpu_torch.models.utae import UTAE as cls
+        else:
+            from crop2seg_tpu_torch.models.wtae import WTAE as cls
+        model = cls(agg_mode=cfg.get("agg_mode", "att_group"),
+                    use_mbconv=cfg.get("use_mbconv", False),
+                    add_boundary_loss=cfg.get("add_boundary_loss", False),
+                    remat=cfg.get("remat", False),
+                    remat_policy=cfg.get("remat_policy", "conv_out"), **common)
     else:
         from crop2seg_tpu_torch.models.timeunet import TimeUNet
         model = TimeUNet(remat=cfg.get("remat", False), **common)

@@ -13,11 +13,19 @@ mode, the ``ltae_pool_tail`` pair in training mode (the JAX package's
 plain path (the default for a CPU input) runs in_conv through
 ``temporally_shared``, and so does the kernel path when the tail cannot be
 deferred: in_conv does not end in GroupNorm + ReLU (``encoder_norm="batch"``)
-or ``pad_value`` is not 0 (the kernels fold pads in as zero rows); the L-TAE
-then takes the untailed pair in training. ``defer_tail`` forces the
+or ``pad_value`` is not 0 (the kernels fold pads in as zero rows), and, as
+the JAX gate has it (crop2seg_tpu/models/timeunet.py:95-100), when in_conv's
+convs are depthwise-separable or it ends in a squeeze-excitation gate
+(``conv_type``, ``add_squeeze_excit``); the L-TAE then takes kernel 1 and,
+in training, the pool pair untailed. ``defer_tail`` forces the
 choice: True defers the tail on the plain path too (training mode:
 ``ltae_pool_tail``'s plain version; it raises with ``pad_value`` != 0),
 False never defers it. All routes give the same result.
+
+``return_att`` adds the L-TAE's attention (B, H, W, head, T) to the logits;
+in training that is the plain L-TAE, as in JAX, and the tail is not
+deferred. ``encoder`` returns the decoder output and its maps before
+out_conv, ``return_maps`` the logits and the maps.
 
 In training mode (``model.train()``) the L-TAE takes its training path and
 every BatchNorm uses batch statistics and updates its running ones. Under
@@ -57,7 +65,9 @@ class TimeUNet(nn.Module):
                  d_model: int = 256, d_k: int = 4, pad_value: float = 0.0,
                  padding_mode: str = "reflect", use_abs_rel_enc: bool = False,
                  num_queries: int = 1, use_doy: bool = False,
-                 add_linear: bool = False, defer_tail: bool | None = None,
+                 add_linear: bool = False, conv_type: str = "2d",
+                 add_squeeze_excit: bool = False, encoder: bool = False,
+                 return_maps: bool = False, defer_tail: bool | None = None,
                  remat: bool = False):
         super().__init__()
         if num_queries != 1:
@@ -68,16 +78,20 @@ class TimeUNet(nn.Module):
         enc_w, dec_w = tuple(encoder_widths), tuple(decoder_widths)
         n = len(enc_w)
         self.pad_value, self.remat = pad_value, remat
-        # None: defer on the kernel path when in_conv ends in GroupNorm + ReLU
-        # and pads are zeros
+        self.encoder, self.return_maps = encoder, return_maps
+        # None: defer on the kernel path when in_conv's plain convs end in
+        # GroupNorm + ReLU and pads are zeros
         self.defer_tail = defer_tail
-        self._tail_deferrable = encoder_norm == "group" and pad_value == 0
+        self._tail_deferrable = (encoder_norm == "group" and pad_value == 0
+                                 and conv_type == "2d" and not add_squeeze_excit)
         self.in_conv = ConvBlock((input_dim, enc_w[0], enc_w[0]),
-                                 norm=encoder_norm, padding_mode=padding_mode)
+                                 norm=encoder_norm, padding_mode=padding_mode,
+                                 conv_type=conv_type, add_squeeze=add_squeeze_excit)
         self.down_blocks = nn.ModuleList(
             DownConvBlock(enc_w[i], enc_w[i + 1], k=str_conv_k, s=str_conv_s,
                           p=str_conv_p, norm=encoder_norm,
-                          padding_mode=padding_mode)
+                          padding_mode=padding_mode, conv_type=conv_type,
+                          add_squeeze=add_squeeze_excit)
             for i in range(n - 1))
         self.up_blocks = nn.ModuleList(
             UpConvBlock(dec_w[i], dec_w[i - 1], enc_w[i - 1], k=str_conv_k,
@@ -94,13 +108,15 @@ class TimeUNet(nn.Module):
                                   padding_mode=padding_mode)
 
     def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,
-                pad_mask: torch.Tensor | None = None, *,
+                pad_mask: torch.Tensor | None = None, *, return_att: bool = False,
                 fused: bool | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None):
         """x (B, T, H, W, C), batch_positions (B, T), pad_mask (B, T) bool ->
-        logits (B, H, W, K). ``fused``: None picks the kernel path for a CUDA
-        input and the plain path for a CPU input; True/False force one.
-        ``generator`` draws the L-TAE's dropout masks in training mode."""
+        logits (B, H, W, K); ``return_att`` adds the attention (B, H, W,
+        head, T) (module docstring for ``encoder`` and ``return_maps``).
+        ``fused``: None picks the kernel path for a CUDA input and the plain
+        path for a CPU input; True/False force one. ``generator`` draws the
+        L-TAE's dropout masks in training mode."""
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         if fused is None:
@@ -110,8 +126,9 @@ class TimeUNet(nn.Module):
 
         def wrap(block):
             return remat(block) if on else block
-        defer = (fused and self._tail_deferrable if self.defer_tail is None
-                 else self.defer_tail)
+        defer = (fused and self._tail_deferrable
+                 and not (self.training and return_att)
+                 if self.defer_tail is None else self.defer_tail)
         if defer:
             if self.pad_value != 0:
                 raise NotImplementedError(
@@ -120,19 +137,28 @@ class TimeUNet(nn.Module):
             z, sc, sh = self.in_conv(x.reshape((b * t,) + tuple(x.shape[2:])), True)
             valid = (~pad_mask).reshape(b * t, 1).to(sc.dtype)
             tail = ((sc * valid).reshape(b, t, -1), (sh * valid).reshape(b, t, -1))
-            out, _ = self.temporal_encoder(
+            out, att = self.temporal_encoder(
                 z.reshape((b, t) + tuple(z.shape[1:])), batch_positions,
-                pad_mask, need_attn=False, tail_affine=tail, fused=fused,
+                pad_mask, need_attn=return_att, tail_affine=tail, fused=fused,
                 generator=generator)
         else:
             out = temporally_shared(self.in_conv, x, pad_mask, self.pad_value)
-            out, _ = self.temporal_encoder(out, batch_positions, pad_mask,
-                                           need_attn=False, fused=fused,
-                                           generator=generator)
+            out, att = self.temporal_encoder(out, batch_positions, pad_mask,
+                                             need_attn=return_att, fused=fused,
+                                             generator=generator)
         feature_maps = [out]
         for down in self.down_blocks:
             feature_maps.append(wrap(down)(feature_maps[-1]))
         out = feature_maps[-1]
+        maps = [out]
         for i, up in enumerate(self.up_blocks):
             out = wrap(up)(out, feature_maps[-(i + 2)])
-        return wrap(self.out_conv)(out)
+            maps.append(out)
+        if self.encoder:
+            return out, maps
+        logits = wrap(self.out_conv)(out)
+        if return_att:
+            return logits, att
+        if self.return_maps:
+            return logits, maps
+        return logits

@@ -21,6 +21,12 @@ which asks for no attention, the L-TAE takes ``ltae_pool``'s plain version.
 Every BatchNorm (the up blocks, the heads, and the encoder with
 ``encoder_norm="batch"``) uses batch statistics and updates its running ones.
 
+``conv_type="depthwise_separable"`` and ``add_squeeze_excit`` change the
+encoder's blocks (in_conv and the down blocks), as in the JAX U-TAE;
+``use_mbconv`` makes every block an MBConv one (``nn/layers.py``), whose
+GroupNorm heads need widths divisible by 4 (out_conv (32, 15) fails, in the
+JAX package too).
+
 ``remat`` checkpoints activations as the JAX ``nn.remat`` does: in_conv
 always, the down blocks with ``remat_down``, the up blocks and the heads with
 ``remat_decoder``. ``remat_policy`` None or ``"full"`` recomputes each block
@@ -37,7 +43,7 @@ import torch
 from torch import nn
 
 from crop2seg_tpu_torch.nn.aggregator import temporal_aggregate
-from crop2seg_tpu_torch.nn.layers import ConvBlock, DownConvBlock, UpConvBlock, remat
+from crop2seg_tpu_torch.nn.layers import conv_blocks, remat
 from crop2seg_tpu_torch.nn.ltae import LTAE
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
 
@@ -61,10 +67,6 @@ class UTAE(nn.Module):
                  remat: bool = False, remat_decoder: bool = True,
                  remat_down: bool = True, remat_policy: str | None = None):
         super().__init__()
-        if use_mbconv or conv_type != "2d" or add_squeeze_excit:
-            raise NotImplementedError(
-                "use_mbconv, conv_type != '2d' and add_squeeze_excit are not "
-                "ported yet (ROADMAP.md, open items)")
         if num_queries != 1:
             raise ValueError(
                 "U-TAE takes num_queries=1 only: with more queries the JAX "
@@ -81,26 +83,28 @@ class UTAE(nn.Module):
         n = len(enc_w)
         self.agg_mode, self.pad_value = agg_mode, pad_value
         self.encoder, self.return_maps = encoder, return_maps
-        self.in_conv = ConvBlock((input_dim, enc_w[0], enc_w[0]),
-                                 norm=encoder_norm, padding_mode=padding_mode)
+        in_block, down_block, up_block, out_block = conv_blocks(use_mbconv)
+        self.in_conv = in_block((input_dim, enc_w[0], enc_w[0]), norm=encoder_norm,
+                                padding_mode=padding_mode, conv_type=conv_type,
+                                add_squeeze=add_squeeze_excit)
         self.down_blocks = nn.ModuleList(
-            DownConvBlock(enc_w[i], enc_w[i + 1], k=str_conv_k, s=str_conv_s,
-                          p=str_conv_p, norm=encoder_norm,
-                          padding_mode=padding_mode)
+            down_block(enc_w[i], enc_w[i + 1], k=str_conv_k, s=str_conv_s,
+                       p=str_conv_p, norm=encoder_norm, padding_mode=padding_mode,
+                       conv_type=conv_type, add_squeeze=add_squeeze_excit)
             for i in range(n - 1))
         self.up_blocks = nn.ModuleList(
-            UpConvBlock(dec_w[i], dec_w[i - 1], enc_w[i - 1], k=str_conv_k,
-                        s=str_conv_s, p=str_conv_p, norm="batch",
-                        padding_mode=padding_mode)
+            up_block(dec_w[i], dec_w[i - 1], enc_w[i - 1], k=str_conv_k,
+                     s=str_conv_s, p=str_conv_p, norm="batch",
+                     padding_mode=padding_mode)
             for i in range(n - 1, 0, -1))
         self.temporal_encoder = LTAE(
             in_channels=enc_w[-1], d_model=d_model, n_head=n_head, d_k=d_k,
             mlp=(d_model, dec_w[-1]), use_abs_rel_enc=use_abs_rel_enc,
             num_queries=num_queries,
             use_doy=False if use_abs_rel_enc else use_doy, add_linear=add_linear)
-        self.out_conv = ConvBlock((dec_w[0],) + tuple(out_conv),
+        self.out_conv = out_block((dec_w[0],) + tuple(out_conv),
                                   padding_mode=padding_mode)
-        self.boundary_conv = (ConvBlock((dec_w[0], 32, 2), padding_mode=padding_mode)
+        self.boundary_conv = (out_block((dec_w[0], 32, 2), padding_mode=padding_mode)
                               if add_boundary_loss else None)
 
     def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,

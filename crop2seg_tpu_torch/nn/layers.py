@@ -1,4 +1,6 @@
-"""Spatial conv layers of TimeUNet (port of crop2seg_tpu/nn/layers.py:280-695).
+"""Spatial conv layers (port of crop2seg_tpu/nn/layers.py:280-836): the
+plain conv blocks, their depthwise-separable and squeeze-excitation variants,
+instance norm, and the MBConv family.
 
 Every module takes and returns channels-last NHWC tensors, as in the JAX
 package. Inside, a convolution sees the NCHW view of the same memory
@@ -33,17 +35,28 @@ def _nhwc(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+# the most elements CUDA's reflection pad takes in one call (32-bit indices)
+MAX_PAD_ELEMENTS = 2 ** 31 - 1
+
+
 class Conv2d(nn.Conv2d):
     """torch Conv2d(k, s, p, padding_mode) on NHWC: explicit reflect pad, then
-    a VALID convolution (k3/s1, k4/s2 and the 1x1 skip conv)."""
+    a VALID convolution (k3/s1, k4/s2 and the 1x1 skip conv). Where the
+    padded frames exceed MAX_PAD_ELEMENTS (MBConv's 256-wide expansion over
+    610 frames of 128^2), the frames are padded and convolved in chunks."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xc = _nchw(x)
         p = self.padding[0]
-        if p and self.padding_mode != "zeros":
-            xc = F.pad(xc, (p, p, p, p), mode=self.padding_mode)
-            p = 0
-        return _nhwc(F.conv2d(xc, self.weight, self.bias, self.stride, p))
+        if not p or self.padding_mode == "zeros":
+            return _nhwc(F.conv2d(xc, self.weight, self.bias, self.stride, p,
+                                  groups=self.groups))
+        n, c, h, w = xc.shape
+        per = max(1, MAX_PAD_ELEMENTS // (c * (h + 2 * p) * (w + 2 * p)))
+        out = [F.conv2d(F.pad(chunk, (p, p, p, p), mode=self.padding_mode),
+                        self.weight, self.bias, self.stride, groups=self.groups)
+               for chunk in xc.split(per)]
+        return _nhwc(out[0] if len(out) == 1 else torch.cat(out))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -166,6 +179,18 @@ class BatchNorm2d(nn.BatchNorm2d):
         return batch_norm(x, self)
 
 
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """InstanceNorm2d(affine=False) on NHWC: each channel of each frame
+    normalized over (H, W), two-pass fp32 statistics, no parameters (the JAX
+    ``GroupNorm(group_size=1)`` without scale or bias)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(1, 2), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
+        return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
 def make_norm(norm: str, n_groups: int = 4):
     """Normalization factory: ``norm`` -> (features -> module) or None."""
     if norm == "batch":
@@ -173,31 +198,83 @@ def make_norm(norm: str, n_groups: int = 4):
     if norm == "group":
         return lambda c: GroupNorm(n_groups, c, eps=1e-5)
     if norm == "instance":
-        raise NotImplementedError(
-            "instance norm is not ported yet (slice F of ROADMAP.md)")
+        return lambda c: InstanceNorm2d(c, eps=1e-5, affine=False)
     return None
+
+
+class DepthwiseSeparableConv2d(nn.Module):
+    """Depthwise k x k (stride s, ``padding_mode``) then pointwise 1x1, both
+    without bias (crop2seg_tpu/nn/layers.py:465-489)."""
+
+    def __init__(self, d_in: int, d_out: int, k: int = 3, s: int = 1,
+                 p: int = 1, padding_mode: str = "zeros"):
+        super().__init__()
+        self.depthwise = Conv2d(d_in, d_in, k, stride=s, padding=p, groups=d_in,
+                                bias=False, padding_mode=padding_mode)
+        self.pointwise = Conv2d(d_in, d_out, 1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x))
+
+
+class _SpatialMean(nn.Module):
+    """(N, H, W, C) -> (N, C) fp32 mean over the frame."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.float().mean(dim=(1, 2))
+
+
+class SqueezeAndExcitation(nn.Module):
+    """Channel gate x * sigmoid(W2 relu(W1 mean_hw(x))), W1 (C/r, C) and W2
+    (C, C/r) without bias, r = 16 (crop2seg_tpu/nn/layers.py:492-507). The
+    Linears are ``sae.1`` and ``sae.3``, as in the reference state dicts.
+    Below 16 channels the hidden width is 0 (the JAX package cannot
+    initialize such a gate)."""
+
+    def __init__(self, channels: int, reduction_ratio: int = 16):
+        super().__init__()
+        hidden = channels // reduction_ratio
+        self.sae = nn.Sequential(_SpatialMean(), nn.Linear(channels, hidden, bias=False),
+                                 nn.ReLU(), nn.Linear(hidden, channels, bias=False),
+                                 nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.sae(x).to(x.dtype)[:, None, None, :]
 
 
 class ConvLayer(nn.Module):
     """Stack of (conv -> norm -> ReLU) units in one ``nn.Sequential`` named
-    ``conv``, indexed like the reference (conv 3i, norm 3i+1, ReLU 3i+2).
+    ``conv``, indexed like the reference (conv 3i, norm 3i+1, ReLU 3i+2; an
+    instance norm takes its index without parameters), and with
+    ``add_squeeze`` a ``SqueezeAndExcitation`` at the next index.
     ``nkernels`` lists the widths including the input width;
-    ``last_relu=False`` drops the final ReLU."""
+    ``last_relu=False`` drops the final ReLU; ``conv_type``
+    "depthwise_separable" makes each conv a ``DepthwiseSeparableConv2d``."""
 
     def __init__(self, nkernels: Sequence[int], norm: str = "batch",
                  k: int = 3, s: int = 1, p: int = 1, n_groups: int = 4,
-                 last_relu: bool = True, padding_mode: str = "reflect"):
+                 last_relu: bool = True, padding_mode: str = "reflect",
+                 conv_type: str = "2d", add_squeeze: bool = False):
         super().__init__()
+        if conv_type not in ("2d", "depthwise_separable"):
+            raise ValueError(f"unknown conv_type {conv_type!r}: expected '2d' "
+                             "or 'depthwise_separable'")
         norm_fn = make_norm(norm, n_groups)
         layers = []
         n = len(nkernels) - 1
         for i in range(n):
-            layers.append(Conv2d(nkernels[i], nkernels[i + 1], k, stride=s,
-                                 padding=p, padding_mode=padding_mode))
+            if conv_type == "depthwise_separable":
+                layers.append(DepthwiseSeparableConv2d(
+                    nkernels[i], nkernels[i + 1], k, s, p, padding_mode))
+            else:
+                layers.append(Conv2d(nkernels[i], nkernels[i + 1], k, stride=s,
+                                     padding=p, padding_mode=padding_mode))
             if norm_fn is not None:
                 layers.append(norm_fn(nkernels[i + 1]))
             if last_relu or i < n - 1:
                 layers.append(nn.ReLU(inplace=True))
+        if add_squeeze:
+            layers.append(SqueezeAndExcitation(nkernels[-1]))
         self.conv = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor, defer_tail_norm: bool = False):
@@ -223,10 +300,12 @@ class ConvBlock(nn.Module):
     """Resolution-preserving conv block: ``conv`` is one ConvLayer."""
 
     def __init__(self, nkernels: Sequence[int], norm: str = "batch",
-                 last_relu: bool = True, padding_mode: str = "reflect"):
+                 last_relu: bool = True, padding_mode: str = "reflect",
+                 conv_type: str = "2d", add_squeeze: bool = False):
         super().__init__()
         self.conv = ConvLayer(nkernels, norm=norm, last_relu=last_relu,
-                              padding_mode=padding_mode)
+                              padding_mode=padding_mode, conv_type=conv_type,
+                              add_squeeze=add_squeeze)
 
     def forward(self, x: torch.Tensor, defer_tail_norm: bool = False):
         return self.conv(x, defer_tail_norm=defer_tail_norm)
@@ -234,42 +313,153 @@ class ConvBlock(nn.Module):
 
 class DownConvBlock(nn.Module):
     """Strided down conv + residual conv pair:
-    out = conv1(down(x)); out = out + conv2(out)."""
+    out = conv1(down(x)); out = out + conv2(out); with ``add_squeeze`` a
+    trailing ``SqueezeAndExcitation`` named ``sae``."""
 
     def __init__(self, d_in: int, d_out: int, k: int = 4, s: int = 2,
                  p: int = 1, norm: str = "batch",
-                 padding_mode: str = "reflect"):
+                 padding_mode: str = "reflect", conv_type: str = "2d",
+                 add_squeeze: bool = False):
         super().__init__()
-        self.down = ConvLayer((d_in, d_in), norm=norm, k=k, s=s, p=p,
-                              padding_mode=padding_mode)
-        self.conv1 = ConvLayer((d_in, d_out), norm=norm,
-                               padding_mode=padding_mode)
-        self.conv2 = ConvLayer((d_out, d_out), norm=norm,
-                               padding_mode=padding_mode)
+        kw = dict(norm=norm, padding_mode=padding_mode, conv_type=conv_type)
+        self.down = ConvLayer((d_in, d_in), k=k, s=s, p=p, **kw)
+        self.conv1 = ConvLayer((d_in, d_out), **kw)
+        self.conv2 = ConvLayer((d_out, d_out), **kw)
+        self.sae = SqueezeAndExcitation(d_out) if add_squeeze else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(self.down(x))
-        return x + self.conv2(x)
+        x = x + self.conv2(x)
+        return x if self.sae is None else self.sae(x)
 
 
 class UpConvBlock(nn.Module):
-    """Decoder block: deconv-up(x) ++ 1x1-conv(skip) -> conv1 -> +conv2."""
+    """Decoder block: deconv-up(x) ++ 1x1-conv(skip) -> conv1 -> +conv2; with
+    ``add_squeeze`` a trailing ``SqueezeAndExcitation`` named ``sae``."""
 
     def __init__(self, d_in: int, d_out: int, d_skip: int, k: int = 4,
                  s: int = 2, p: int = 1, norm: str = "batch",
-                 padding_mode: str = "reflect"):
+                 padding_mode: str = "reflect", conv_type: str = "2d",
+                 add_squeeze: bool = False):
         super().__init__()
         self.skip_conv = nn.Sequential(
             Conv2d(d_skip, d_skip, 1), BatchNorm2d(d_skip), nn.ReLU(inplace=True))
         self.up = nn.Sequential(
             ConvTranspose2d(d_in, d_out, k, stride=s, padding=p),
             BatchNorm2d(d_out), nn.ReLU(inplace=True))
-        self.conv1 = ConvLayer((d_out + d_skip, d_out), norm=norm,
-                               padding_mode=padding_mode)
-        self.conv2 = ConvLayer((d_out, d_out), norm=norm,
-                               padding_mode=padding_mode)
+        kw = dict(norm=norm, padding_mode=padding_mode, conv_type=conv_type)
+        self.conv1 = ConvLayer((d_out + d_skip, d_out), **kw)
+        self.conv2 = ConvLayer((d_out, d_out), **kw)
+        self.sae = SqueezeAndExcitation(d_out) if add_squeeze else None
+
+    def _merge(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.up(x), self.skip_conv(skip)], dim=-1)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        out = torch.cat([self.up(x), self.skip_conv(skip)], dim=-1)
-        out = self.conv1(out)
-        return out + self.conv2(out)
+        out = self.conv1(self._merge(x, skip))
+        out = out + self.conv2(out)
+        return out if self.sae is None else self.sae(out)
+
+
+class _ResidualAdd(nn.Module):
+    """x + block(x); the block's parameters sit under ``block``."""
+
+    def __init__(self, block: nn.Module):
+        super().__init__()
+        self.block = block
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.block(x)
+
+
+class MBConv(nn.Sequential):
+    """Inverted-residual unit (crop2seg_tpu/nn/layers.py:697-738): expand 1x1
+    -> norm -> ReLU -> depthwise 3x3 (reflect, with bias) -> norm -> ReLU ->
+    SE -> project 1x1 -> norm, plus x when d_in == d_out. The units are
+    indexed 0 .. 8 in an inner Sequential that sits at ``0.0.block`` with the
+    residual and at ``0.0.0`` without, the reference's names."""
+
+    def __init__(self, d_in: int, d_out: int, expansion: int = 4,
+                 n_groups: int = 4, norm: str = "group"):
+        norm_fn = make_norm(norm, n_groups)
+        if norm_fn is None:
+            raise ValueError(f"MBConv needs a norm (batch, group or instance), "
+                             f"got {norm!r}")
+        wide = d_in * expansion
+        units = nn.Sequential(
+            Conv2d(d_in, wide, 1), norm_fn(wide), nn.ReLU(inplace=True),
+            Conv2d(wide, wide, 3, padding=1, groups=wide, padding_mode="reflect"),
+            norm_fn(wide), nn.ReLU(inplace=True), SqueezeAndExcitation(wide),
+            Conv2d(wide, d_out, 1), norm_fn(d_out))
+        inner = _ResidualAdd(units) if d_in == d_out else nn.Sequential(units)
+        super().__init__(nn.Sequential(inner))
+
+
+class MBConvLayer(nn.Module):
+    """A stack of MBConv units in one Sequential named ``conv``."""
+
+    def __init__(self, nkernels: Sequence[int], norm: str = "group"):
+        super().__init__()
+        self.conv = nn.Sequential(*(MBConv(nkernels[i], nkernels[i + 1], norm=norm)
+                                    for i in range(len(nkernels) - 1)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class MBConvBlock(nn.Module):
+    """MBConv drop-in for ConvBlock: ``conv`` is one MBConvLayer.
+    ``padding_mode``, ``conv_type`` and ``add_squeeze`` are taken and
+    ignored, as in the JAX package: the unit pads by reflection and always
+    has its SE gate."""
+
+    def __init__(self, nkernels: Sequence[int], norm: str = "group",
+                 padding_mode: str = "reflect", conv_type: str = "2d",
+                 add_squeeze: bool = False):
+        super().__init__()
+        self.conv = MBConvLayer(nkernels, norm=norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class MBDownConvBlock(nn.Module):
+    """MBConv drop-in for DownConvBlock: the strided ConvLayer ``down``, then
+    two MBConvLayers, with no residual add (``add_squeeze`` is ignored)."""
+
+    def __init__(self, d_in: int, d_out: int, k: int = 4, s: int = 2,
+                 p: int = 1, norm: str = "batch",
+                 padding_mode: str = "reflect", conv_type: str = "2d",
+                 add_squeeze: bool = False):
+        super().__init__()
+        self.down = ConvLayer((d_in, d_in), norm=norm, k=k, s=s, p=p,
+                              padding_mode=padding_mode, conv_type=conv_type)
+        self.conv1 = MBConvLayer((d_in, d_out), norm=norm)
+        self.conv2 = MBConvLayer((d_out, d_out), norm=norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(self.down(x)))
+
+
+class MBUpConvBlock(UpConvBlock):
+    """MBConv drop-in for UpConvBlock: the same up and skip paths, then two
+    MBConvLayers with no residual add (``padding_mode`` and ``conv_type``
+    are ignored)."""
+
+    def __init__(self, d_in: int, d_out: int, d_skip: int, k: int = 4,
+                 s: int = 2, p: int = 1, norm: str = "batch",
+                 padding_mode: str = "reflect", conv_type: str = "2d"):
+        super().__init__(d_in, d_out, d_skip, k, s, p, norm=norm)
+        self.conv1 = MBConvLayer((d_out + d_skip, d_out), norm=norm)
+        self.conv2 = MBConvLayer((d_out, d_out), norm=norm)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(self._merge(x, skip)))
+
+
+def conv_blocks(use_mbconv: bool):
+    """A model's (in, down, up, out) block classes: the plain ones, or with
+    ``use_mbconv`` the MBConv family."""
+    if use_mbconv:
+        return MBConvBlock, MBDownConvBlock, MBUpConvBlock, MBConvBlock
+    return ConvBlock, DownConvBlock, UpConvBlock, ConvBlock

@@ -1,5 +1,6 @@
 """Masked lightweight temporal attention encoder, nq learnable queries per
-head (port of crop2seg_tpu/nn/ltae.py:39-352).
+head (port of crop2seg_tpu/nn/ltae.py:39-352), and W-TAE's ``LTAE4WTAE``,
+which returns the attention only (:495-548).
 
 Per pixel row, T steps, C channels:
 
@@ -118,7 +119,62 @@ class MaskedLightweightAttention(nn.Module):
         return out.reshape(b, hh, ww, -1, d), attn
 
 
-class LTAE(nn.Module):
+class _AttentionEncoder(nn.Module):
+    """What ``LTAE`` and ``LTAE4WTAE`` share: the input GroupNorm
+    (``in_norm``), the 1x1 projection C -> d_model (``inconv``, a Conv1d as
+    in the reference), the positional encoders and the attention head, and
+    ``embed``, the plain ops up to the attention."""
+
+    def __init__(self, in_channels: int, n_head: int, d_k: int, d_model: int,
+                 T: float, positional_encoding: bool, use_abs_rel_enc: bool,
+                 use_doy: bool, num_queries: int, add_linear: bool,
+                 attn_dropout: float):
+        super().__init__()
+        if d_model is None:
+            raise ValueError("the port needs d_model set")
+        self.n_head, self.d_k, self.d_model = n_head, d_k, d_model
+        self.num_queries = num_queries
+        self.attn_dropout = attn_dropout
+        self.use_abs_rel_enc = use_abs_rel_enc
+        self.in_norm = nn.GroupNorm(n_head, in_channels, eps=1e-5)
+        self.inconv = nn.Conv1d(in_channels, d_model, 1)
+        self.positional_encoder = None
+        if positional_encoding:
+            if use_doy and not add_linear:
+                self.positional_encoder = AbsolutePositionalEncoder(
+                    d_model // n_head, repeat=n_head)
+            else:
+                self.positional_encoder = PositionalEncoder(
+                    d_model // n_head, T=T, repeat=n_head, add_linear=add_linear)
+            if use_abs_rel_enc:
+                self.positional_encoder_abs = AbsolutePositionalEncoder(
+                    d_model // n_head, repeat=n_head)
+        self.attention_head = MaskedLightweightAttention(n_head, d_k, d_model,
+                                                         num_queries)
+
+    def pe(self, batch_positions: torch.Tensor) -> torch.Tensor:
+        """(B, T[, 2]) -> (B, T, d_model) fp32 positional encoding."""
+        if self.use_abs_rel_enc:
+            return (self.positional_encoder(batch_positions[..., 0])
+                    + self.positional_encoder_abs(batch_positions[..., 1]))
+        bp = batch_positions if batch_positions.dim() == 2 else batch_positions[..., 0]
+        return self.positional_encoder(bp)
+
+    def embed(self, x: torch.Tensor, batch_positions) -> torch.Tensor:
+        """GroupNorm over (T, C/G) per pixel, the projection, plus PE (taken
+        in fp32 with autocast off): (B, T, H, W, C) -> (B, T, H, W,
+        d_model)."""
+        h = _group_norm_btc(x, self.n_head, self.in_norm.weight,
+                            self.in_norm.bias, self.in_norm.eps)
+        h = F.linear(h, self.inconv.weight[:, :, 0], self.inconv.bias)
+        if self.positional_encoder is not None:
+            with torch.autocast(x.device.type, enabled=False):
+                pe = self.pe(batch_positions)
+            h = h + pe[:, :, None, None, :].to(h.dtype)
+        return h
+
+
+class LTAE(_AttentionEncoder):
     """Lightweight temporal attention encoder.
 
     Call: x (B, T, H, W, C), batch_positions (B, T) or (B, T, 2), pad_mask
@@ -142,41 +198,16 @@ class LTAE(nn.Module):
                  use_abs_rel_enc: bool = False, use_doy: bool = False,
                  num_queries: int = 1, add_linear: bool = False,
                  attn_dropout: float = 0.1):
-        super().__init__()
         if d_model is None or mlp[0] != d_model:
             raise ValueError("the port needs d_model set and mlp[0] == d_model")
-        self.n_head, self.d_k, self.d_model = n_head, d_k, d_model
-        self.num_queries = num_queries
-        self.attn_dropout = attn_dropout
-        self.use_abs_rel_enc = use_abs_rel_enc
-        self.in_norm = nn.GroupNorm(n_head, in_channels, eps=1e-5)
-        self.inconv = nn.Conv1d(in_channels, d_model, 1)
-        self.positional_encoder = None
-        if positional_encoding:
-            if use_doy and not add_linear:
-                self.positional_encoder = AbsolutePositionalEncoder(
-                    d_model // n_head, repeat=n_head)
-            else:
-                self.positional_encoder = PositionalEncoder(
-                    d_model // n_head, T=T, repeat=n_head, add_linear=add_linear)
-            if use_abs_rel_enc:
-                self.positional_encoder_abs = AbsolutePositionalEncoder(
-                    d_model // n_head, repeat=n_head)
-        self.attention_head = MaskedLightweightAttention(n_head, d_k, d_model,
-                                                         num_queries)
+        super().__init__(in_channels, n_head, d_k, d_model, T,
+                         positional_encoding, use_abs_rel_enc, use_doy,
+                         num_queries, add_linear, attn_dropout)
         # mlp.2 is the BN, as in the reference state dict; index 1 holds the
         # dropout rate only: _mlp_tail applies it after the ReLU, the JAX order
         self.mlp = nn.Sequential(nn.Linear(mlp[0], mlp[1]), nn.Dropout(dropout),
                                  nn.BatchNorm1d(mlp[1], eps=1e-5), nn.ReLU())
         self.out_norm = nn.GroupNorm(n_head, mlp[1], eps=1e-5)
-
-    def pe(self, batch_positions: torch.Tensor) -> torch.Tensor:
-        """(B, T[, 2]) -> (B, T, d_model) fp32 positional encoding."""
-        if self.use_abs_rel_enc:
-            return (self.positional_encoder(batch_positions[..., 0])
-                    + self.positional_encoder_abs(batch_positions[..., 1]))
-        bp = batch_positions if batch_positions.dim() == 2 else batch_positions[..., 0]
-        return self.positional_encoder(bp)
 
     def _mlp_tail(self, o: torch.Tensor, generator=None) -> torch.Tensor:
         """MLP -> BN -> ReLU -> Dropout -> out GroupNorm on (..., nq,
@@ -200,15 +231,9 @@ class LTAE(nn.Module):
         """The plain ops in either mode (crop2seg_tpu/nn/ltae.py:486-492); in
         training mode with attention and MLP dropout. PE is taken in fp32
         with autocast off."""
-        h = _group_norm_btc(x, self.n_head, self.in_norm.weight,
-                            self.in_norm.bias, self.in_norm.eps)
-        h = F.linear(h, self.inconv.weight[:, :, 0], self.inconv.bias)
-        if self.positional_encoder is not None:
-            with torch.autocast(x.device.type, enabled=False):
-                pe = self.pe(batch_positions)
-            h = h + pe[:, :, None, None, :].to(h.dtype)
         out, attn = self.attention_head(
-            h, pad_mask, self.attn_dropout if self.training else 0.0, generator)
+            self.embed(x, batch_positions), pad_mask,
+            self.attn_dropout if self.training else 0.0, generator)
         return self._with_query_axes(self._mlp_tail(out, generator), attn)
 
     def _fused(self, x, batch_positions, pad_mask, need_attn, tail_affine):
@@ -318,3 +343,32 @@ class LTAE(nn.Module):
                              "output and with one query")
         out, attn = self._plain(x, batch_positions, pad_mask, generator)
         return out, (attn if need_attn else None)
+
+
+class LTAE4WTAE(_AttentionEncoder):
+    """The L-TAE that returns the attention masks only (W-TAE's temporal
+    encoder; crop2seg_tpu/nn/ltae.py:495-548): GroupNorm over (T, C/G) ->
+    ``inconv`` -> + PE -> ``MaskedLightweightAttention``, plain ops in either
+    mode (the JAX package has no kernel for it). Call: x (B, T, H, W, C),
+    batch_positions (B, T) or (B, T, 2), pad_mask (B, T) bool -> attn (B, H,
+    W, head, T), or (B, H, W, head, nq, T) for nq > 1. In training mode the
+    attention is dropped after the softmax (rate ``attn_dropout``, masks from
+    ``generator``) and rescaled, as the JAX module returns it."""
+
+    def __init__(self, in_channels: int = 128, n_head: int = 16, d_k: int = 4,
+                 d_model: int = 256, T: float = 1000.0,
+                 positional_encoding: bool = True,
+                 use_abs_rel_enc: bool = False, use_doy: bool = False,
+                 num_queries: int = 1, add_linear: bool = False,
+                 attn_dropout: float = 0.1):
+        super().__init__(in_channels, n_head, d_k, d_model, T,
+                         positional_encoding, use_abs_rel_enc, use_doy,
+                         num_queries, add_linear, attn_dropout)
+
+    def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,
+                pad_mask: torch.Tensor | None = None, *,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        _, attn = self.attention_head(
+            self.embed(x, batch_positions), pad_mask,
+            self.attn_dropout if self.training else 0.0, generator)
+        return attn[..., 0, :] if self.num_queries == 1 else attn

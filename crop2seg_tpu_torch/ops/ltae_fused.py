@@ -20,8 +20,8 @@ above, "queries" for nq > 1; the "general" kernel takes every other shape
 at which the L-TAE is defined (G dividing C, D and d_out), T > 64 above all,
 on ``blocks_per_item`` blocks a batch item in groups of rows, x in chunks
 of T kept on chip where it fits (``general_plan``).
-``ltae_fused_forward.launches`` counts launches, and ``.route_launches``
-counts them per route.
+``ltae_fused_forward.launches`` counts launches, ``.route_launches``
+counts them per route, and ``.tail_launches`` those with a deferred tail.
 With nq = 1 (q of shape (G, d_k) or (G, 1, d_k)) out is (B, N, d_out) and
 attn (B, N, G, T); with nq > 1 they gain a query axis, (B, N, nq, d_out) and
 (B, N, G, nq, T), the JAX package's ranks.
@@ -309,6 +309,7 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
         raise RuntimeError(f"ltae_fused_fwd kernel launch failed ({route}): cudaError {rc}")
     ltae_fused_forward.launches += 1
     ltae_fused_forward.route_launches[route] += 1
+    ltae_fused_forward.tail_launches += tail_affine is not None
     if nq == 1:
         return out[:, :, 0], (None if attn is None else attn[:, :, :, 0])
     return out, attn
@@ -316,3 +317,4 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
 
 ltae_fused_forward.launches = 0
 ltae_fused_forward.route_launches = collections.Counter()
+ltae_fused_forward.tail_launches = 0

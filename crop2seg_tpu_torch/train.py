@@ -16,7 +16,8 @@ Fold_k/{region}_test_metrics.json, Fold_k/{region}_conf_mat.pkl and
 {region}_overall.json / {region}_per_class.json.
 
 On the card the L-TAE runs its CUDA kernels: TimeUNet's train steps the
-training pair, every model's val and test steps the eval kernel. Flags of
+training pair, U-TAE's and TimeUNet's val and test steps the eval kernel
+(W-TAE's attention-only L-TAE has no kernel, as in the JAX package). Flags of
 features not ported yet raise and name their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -41,7 +42,7 @@ log = logging.getLogger("crop2seg_tpu_torch.train")
 parser = argparse.ArgumentParser(prog="python -m crop2seg_tpu_torch.train")
 # model
 parser.add_argument("--model", default="utae", type=str,
-                    help="utae/timeunet (the rest of the zoo: ROADMAP.md M8-M10)")
+                    help="utae/wtae/timeunet (the rest of the zoo: ROADMAP.md M9-M10)")
 parser.add_argument("--encoder_widths", default="[64,64,64,128]", type=str)
 parser.add_argument("--decoder_widths", default="[32,32,64,128]", type=str)
 parser.add_argument("--out_conv", default="[32, 15]")
@@ -147,7 +148,8 @@ parser.add_argument("--device_cache", action="store_true",
                          "augmentation frozen at its epoch-1 draw)")
 
 LIST_ARGS = ("encoder_widths", "decoder_widths", "out_conv", "t_buckets")
-PORTED_MODELS = ("utae", "timeunet", "timeunet_v1")
+PORTED_MODELS = ("utae", "wtae", "timeunet", "timeunet_v1")
+BOUNDARY_MODELS = ("utae", "wtae")
 
 
 def parse_config(argv=None):
@@ -171,15 +173,12 @@ def check_ported(config) -> None:
         (config.seq_chunk is not None,
          "--seq_chunk: the L-TAE streamed over T is not ported yet (ROADMAP.md "
          "M7); on the card the kernel pair keeps the embed out of memory"),
-        (config.conv_type != "2d" or config.use_mbconv or config.add_squeeze,
-         "--conv_type/--use_mbconv/--add_squeeze: the conv variants are not "
-         "ported yet (ROADMAP.md M6)"),
         (config.model not in PORTED_MODELS,
-         f"--model {config.model}: not ported yet (ROADMAP.md M8-M10); "
+         f"--model {config.model}: not ported yet (ROADMAP.md M9-M10); "
          f"ported: {', '.join(PORTED_MODELS)}"),
-        (config.add_boundary_loss and config.model != "utae",
+        (config.add_boundary_loss and config.model not in BOUNDARY_MODELS,
          f"--add_boundary_loss: --model {config.model} has no boundary head "
-         "(U-TAE has)"),
+         "(U-TAE and W-TAE have)"),
         (config.platform is not None,
          "--platform pins a JAX device; pass --device (cuda, cpu) instead"),
     ]

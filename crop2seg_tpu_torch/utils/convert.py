@@ -1,12 +1,14 @@
-"""Weights converter: the JAX package's flax U-TAE and TimeUNet variables ->
-the port's state dict (the inverse of crop2seg_tpu/utils/torch_convert.py:44-68
-and :109-316). Leaves arrive as numpy arrays; the result loads with
-``UTAE.load_state_dict`` / ``TimeUNet.load_state_dict``.
+"""Weights converter: the JAX package's flax U-TAE, TimeUNet and W-TAE
+variables -> the port's state dict (the inverse of
+crop2seg_tpu/utils/torch_convert.py:44-441: the plain, depthwise-separable,
+squeeze-excitation and MBConv blocks). Leaves arrive as numpy arrays; the
+result loads with the models' ``load_state_dict``.
 
     flax conv kernel   (kh, kw, I, O)              -> torch (O, I, kh, kw)
     flax conv-transpose forward HWIO, pre-flipped  -> torch (I, O, kh, kw)
     flax Dense         (I, O)                      -> torch Linear (O, I)
     flax Dense C->D    (I, O)                      -> torch Conv1d (O, I, 1)
+    flax depthwise     (kh, kw, 1, C)              -> torch (C, 1, kh, kw)
     flax scale / bias / mean / var                 -> weight / bias /
                                                       running_mean / running_var
 """
@@ -53,27 +55,74 @@ def _conv(sd, prefix, params):
         sd[_j(prefix, "bias")] = params["bias"]
 
 
-def _conv_layer(sd, prefix, params, stats):
-    """ConvLayer: flax conv{i}/norm{i} -> torch Sequential ``{prefix}.conv``,
-    its indices found by scanning the units as ``nn/layers.py::ConvLayer``
-    lays them out: conv, [norm], [ReLU]. Every unit but the last has a ReLU;
-    the last one's (``last_relu``) comes after every index, so it moves
-    none. With a norm that is conv 3i, norm 3i+1; without one, conv 2i."""
+def _se(sd, prefix, params):
+    """SqueezeAndExcitation: flax fc1 / fc2 -> ``{prefix}.sae.1`` / ``.3``."""
+    sd[_j(prefix, "sae.1.weight")] = linear_weight(params["fc1"]["kernel"])
+    sd[_j(prefix, "sae.3.weight")] = linear_weight(params["fc2"]["kernel"])
+
+
+def _conv_layer(sd, prefix, params, stats, instance_norm=False):
+    """ConvLayer: flax conv{i}/norm{i}[/se] -> torch Sequential
+    ``{prefix}.conv``, its indices found by scanning the units as
+    ``nn/layers.py::ConvLayer`` lays them out: conv, [norm], [ReLU], then the
+    SE gate. Every unit but the last has a ReLU; the last one's
+    (``last_relu``) comes after every index but the SE's, which the port
+    builds with it. With a norm that is conv 3i, norm 3i+1; without one, conv
+    2i. An instance norm (``instance_norm``) takes its index but has no flax
+    parameters. A conv is a plain one (flax ``conv``) or depthwise-separable
+    (``depthwise`` / ``pointwise``, neither with a bias)."""
     for key in params:
-        if not re.fullmatch(r"(conv|norm)\d+", key):
+        if not re.fullmatch(r"(conv|norm)\d+|se", key):
             raise ValueError(f"unexpected ConvLayer entry {key!r}")
     idx = 0
     for i in range(sum(key.startswith("conv") for key in params)):
-        _conv(sd, _j(prefix, f"conv.{idx}"), params[f"conv{i}"]["conv"])
+        conv, kp = params[f"conv{i}"], _j(prefix, f"conv.{idx}")
+        if "depthwise" in conv:
+            _conv(sd, _j(kp, "depthwise"), conv["depthwise"]["conv"])
+            _conv(sd, _j(kp, "pointwise"), conv["pointwise"]["conv"])
+        else:
+            _conv(sd, kp, conv["conv"])
         idx += 1
         if f"norm{i}" in params:
             _norm(sd, _j(prefix, f"conv.{idx}"), params[f"norm{i}"],
                   stats.get(f"norm{i}"))
             idx += 1
+        elif instance_norm:
+            idx += 1
         idx += 1   # the unit's ReLU
+    if "se" in params:
+        _se(sd, _j(prefix, f"conv.{idx}"), params["se"])
+
+
+def _mbconv_layer(sd, prefix, params, stats):
+    """MBConvLayer: flax mbconv{j} -> the units at ``{prefix}.conv.{j}``,
+    each's inner Sequential at ``.0.0.block`` (with the residual, d_in ==
+    d_out) or ``.0.0.0``: 0 expand, 1 norm, 3 depthwise, 4 norm, 6 SE, 7
+    project, 8 norm (crop2seg_tpu/utils/torch_convert.py:348-380)."""
+    for j in range(len(params)):
+        p, s = params[f"mbconv{j}"], stats.get(f"mbconv{j}", {})
+        residual = p["expand"]["conv"]["kernel"].shape[2] == \
+            p["project"]["conv"]["kernel"].shape[3]
+        base = _j(prefix, f"conv.{j}.0.0." + ("block" if residual else "0"))
+        _conv(sd, f"{base}.0", p["expand"]["conv"])
+        _conv(sd, f"{base}.3", p["depthwise"]["conv"])
+        _conv(sd, f"{base}.7", p["project"]["conv"])
+        for name, idx in (("norm0", 1), ("norm1", 4), ("norm2", 8)):
+            if name in p:
+                _norm(sd, f"{base}.{idx}", p[name], s.get(name))
+        _se(sd, f"{base}.6", p["se"])
+
+
+def _layer(sd, prefix, params, stats, instance_norm=False):
+    """A ConvLayer or, where the flax entries are mbconv{j}, an MBConvLayer."""
+    if any(k.startswith("mbconv") for k in params):
+        _mbconv_layer(sd, prefix, params, stats)
+    else:
+        _conv_layer(sd, prefix, params, stats, instance_norm)
 
 
 def _ltae(sd, prefix, p, s):
+    """LTAE, or LTAE4WTAE (no MLP and no out norm)."""
     sd[_j(prefix, "in_norm.weight")] = p["in_norm_scale"]
     sd[_j(prefix, "in_norm.bias")] = p["in_norm_bias"]
     sd[_j(prefix, "inconv.weight")] = linear_weight(p["inconv"]["kernel"])[:, :, None]
@@ -82,11 +131,12 @@ def _ltae(sd, prefix, p, s):
     sd[_j(prefix, "attention_head.Q")] = att["query"]
     sd[_j(prefix, "attention_head.fc1_k.weight")] = linear_weight(att["fc1_k"]["kernel"])
     sd[_j(prefix, "attention_head.fc1_k.bias")] = att["fc1_k"]["bias"]
-    sd[_j(prefix, "mlp.0.weight")] = linear_weight(p["mlp_dense"]["kernel"])
-    sd[_j(prefix, "mlp.0.bias")] = p["mlp_dense"]["bias"]
-    _norm(sd, _j(prefix, "mlp.2"), p["mlp_bn"], s["mlp_bn"])
-    sd[_j(prefix, "out_norm.weight")] = p["out_norm_scale"]
-    sd[_j(prefix, "out_norm.bias")] = p["out_norm_bias"]
+    if "mlp_dense" in p:
+        sd[_j(prefix, "mlp.0.weight")] = linear_weight(p["mlp_dense"]["kernel"])
+        sd[_j(prefix, "mlp.0.bias")] = p["mlp_dense"]["bias"]
+        _norm(sd, _j(prefix, "mlp.2"), p["mlp_bn"], s["mlp_bn"])
+        sd[_j(prefix, "out_norm.weight")] = p["out_norm_scale"]
+        sd[_j(prefix, "out_norm.bias")] = p["out_norm_bias"]
     pe = p.get("positional_encoder", {})
     if "fc" in pe:          # sinusoidal encoder with a learned Linear
         sd[_j(prefix, "positional_encoder.fc.weight")] = linear_weight(pe["fc"]["kernel"])
@@ -98,19 +148,27 @@ def _ltae(sd, prefix, p, s):
             sd[_j(prefix, f"{name}.fc.bias")] = emb["bias"]
 
 
-def _down_block(sd, prefix, p, s):
+def _down_block(sd, prefix, p, s, instance_norm=False):
+    """DownConvBlock or MBDownConvBlock, with DownConvBlock's trailing SE
+    at ``sae``."""
     for name in ("down", "conv1", "conv2"):
-        _conv_layer(sd, _j(prefix, name), p[name], s.get(name, {}))
+        _layer(sd, _j(prefix, name), p[name], s.get(name, {}), instance_norm)
+    if "se" in p:
+        _se(sd, _j(prefix, "sae"), p["se"])
 
 
 def _up_block(sd, prefix, p, s):
+    """UpConvBlock or MBUpConvBlock, with UpConvBlock's trailing SE at
+    ``sae``."""
     sd[_j(prefix, "up.0.weight")] = conv_transpose2d_weight(p["up_conv"]["kernel"])
     sd[_j(prefix, "up.0.bias")] = p["up_conv"]["bias"]
     _norm(sd, _j(prefix, "up.1"), p["up_norm"], s["up_norm"])
     _conv(sd, _j(prefix, "skip_conv.0"), p["skip_conv"]["conv"])
     _norm(sd, _j(prefix, "skip_conv.1"), p["skip_norm"], s["skip_norm"])
     for name in ("conv1", "conv2"):
-        _conv_layer(sd, _j(prefix, name), p[name], s.get(name, {}))
+        _layer(sd, _j(prefix, name), p[name], s.get(name, {}))
+    if "se" in p:
+        _se(sd, _j(prefix, "sae"), p["se"])
 
 
 def _torch(sd) -> Dict[str, torch.Tensor]:
@@ -121,74 +179,177 @@ def _split(variables: Mapping):
     return variables["params"], variables.get("batch_stats", {})
 
 
-def conv_block_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax ConvBlock variables -> the port's ConvBlock state dict."""
+def conv_block_state_dict_from_flax(variables: Mapping, norm: str = "batch"
+                                    ) -> Dict[str, torch.Tensor]:
+    """flax ConvBlock or MBConvBlock variables -> the port's state dict of
+    the same block (``norm``: the block's, which says whether an instance
+    norm holds an index)."""
     p, s = _split(variables)
     sd: Dict[str, np.ndarray] = {}
-    _conv_layer(sd, "conv", p["conv"], s.get("conv", {}))
+    _layer(sd, "conv", p["conv"], s.get("conv", {}), norm == "instance")
     return _torch(sd)
 
 
-def down_block_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax DownConvBlock variables -> the port's DownConvBlock state dict."""
+def down_block_state_dict_from_flax(variables: Mapping, norm: str = "batch"
+                                    ) -> Dict[str, torch.Tensor]:
+    """flax DownConvBlock or MBDownConvBlock variables -> the port's state
+    dict of the same block."""
     sd: Dict[str, np.ndarray] = {}
-    _down_block(sd, "", *_split(variables))
+    _down_block(sd, "", *_split(variables), norm == "instance")
     return _torch(sd)
 
 
 def up_block_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax UpConvBlock variables -> the port's UpConvBlock state dict."""
+    """flax UpConvBlock or MBUpConvBlock variables -> the port's state dict
+    of the same block."""
     sd: Dict[str, np.ndarray] = {}
     _up_block(sd, "", *_split(variables))
     return _torch(sd)
 
 
 def ltae_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax LTAE variables -> the port's LTAE state dict."""
+    """flax LTAE or LTAE4WTAE variables -> the port's state dict of the same
+    module."""
     sd: Dict[str, np.ndarray] = {}
     _ltae(sd, "", *_split(variables))
     return _torch(sd)
 
 
-def utae_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+def _heads(sd, p, s):
+    for head in ("out_conv", "boundary_conv"):
+        if head in p:
+            _layer(sd, f"{head}.conv", p[head]["conv"], s.get(head, {}).get("conv", {}))
+
+
+def utae_state_dict_from_flax(variables: Mapping, encoder_norm: str = "group"
+                              ) -> Dict[str, torch.Tensor]:
     """flax ``{'params', 'batch_stats'}`` of crop2seg_tpu's U-TAE or TimeUNet
     (nested dicts of numpy arrays) -> the port's state dict (the inverse of
-    crop2seg_tpu/utils/torch_convert.py::convert_utae). The two models hold
-    the same modules (U-TAE's aggregator has no parameters), and U-TAE may
-    add the boundary head."""
+    crop2seg_tpu/utils/torch_convert.py::convert_utae, MBConv blocks
+    included). The two models hold the same modules (U-TAE's aggregator has
+    no parameters), and U-TAE may add the boundary head. ``encoder_norm``
+    is the model's: with "instance" the encoder's norms hold indices without
+    parameters."""
     p, s = _split(variables)
+    inst = encoder_norm == "instance"
     sd: Dict[str, np.ndarray] = {}
-    _conv_layer(sd, "in_conv.conv", p["in_conv"]["conv"],
-                s.get("in_conv", {}).get("conv", {}))
+    _layer(sd, "in_conv.conv", p["in_conv"]["conv"],
+           s.get("in_conv", {}).get("conv", {}), inst)
     i = 0
     while f"down_{i}" in p:
-        _down_block(sd, f"down_blocks.{i}", p[f"down_{i}"], s.get(f"down_{i}", {}))
+        _down_block(sd, f"down_blocks.{i}", p[f"down_{i}"], s.get(f"down_{i}", {}), inst)
         _up_block(sd, f"up_blocks.{i}", p[f"up_{i}"], s[f"up_{i}"])
         i += 1
     _ltae(sd, "temporal_encoder", p["temporal_encoder"],
           s.get("temporal_encoder", {}))
-    for head in ("out_conv", "boundary_conv"):
-        if head in p:
-            _conv_layer(sd, f"{head}.conv", p[head]["conv"],
-                        s.get(head, {}).get("conv", {}))
+    _heads(sd, p, s)
     return _torch(sd)
 
 
 timeunet_state_dict_from_flax = utae_state_dict_from_flax
 
 
+def wtae_state_dict_from_flax(variables: Mapping, encoder_norm: str = "group"
+                              ) -> Dict[str, torch.Tensor]:
+    """flax ``{'params', 'batch_stats'}`` of crop2seg_tpu's W-TAE -> the
+    port's state dict (the inverse of
+    crop2seg_tpu/utils/torch_convert.py::convert_wtae; with ``use_mbconv``
+    too, which that converter lacks): in_conv, ``spatial_reduction.{i}``,
+    the attention-only ``temporal_encoder``, ``down_blocks.{i}``,
+    ``up_blocks.{i}`` and the heads."""
+    p, s = _split(variables)
+    inst = encoder_norm == "instance"
+    sd: Dict[str, np.ndarray] = {}
+    _layer(sd, "in_conv.conv", p["in_conv"]["conv"],
+           s.get("in_conv", {}).get("conv", {}), inst)
+    i = 0
+    while f"down_{i}" in p:
+        _down_block(sd, f"spatial_reduction.{i}", p[f"spatial_reduction_{i}"],
+                    s.get(f"spatial_reduction_{i}", {}), inst)
+        _down_block(sd, f"down_blocks.{i}", p[f"down_{i}"], s.get(f"down_{i}", {}), inst)
+        _up_block(sd, f"up_blocks.{i}", p[f"up_{i}"], s[f"up_{i}"])
+        i += 1
+    _ltae(sd, "temporal_encoder", p["temporal_encoder"], {})
+    _heads(sd, p, s)
+    return _torch(sd)
+
+
+def _se_paths(paths, port, flax) -> None:
+    paths[f"{port}.sae.1.weight"] = f"{flax}/fc1/kernel"
+    paths[f"{port}.sae.3.weight"] = f"{flax}/fc2/kernel"
+
+
+def _conv_paths(paths, port, flax) -> None:
+    for name in ("weight", "bias"):
+        paths[f"{port}.{name}"] = f"{flax}/conv/" + ("kernel" if name == "weight" else name)
+
+
+def _norm_paths(paths, port, flax) -> None:
+    paths[f"{port}.weight"] = f"{flax}/scale"
+    paths[f"{port}.bias"] = f"{flax}/bias"
+
+
+def _mbconv_paths(paths, port, flax, layer) -> None:
+    """An MBConvLayer's units -> flax mbconv{j}/expand, norm0, depthwise,
+    norm1, se, project, norm2."""
+    names = {0: "expand", 3: "depthwise", 7: "project"}
+    for j, unit in enumerate(layer.conv):
+        inner = unit[0][0]
+        units, sub = ((inner.block, "0.0.block") if hasattr(inner, "block")
+                      else (inner[0], "0.0.0"))
+        for idx in range(len(units)):
+            kp, fp = f"{port}.conv.{j}.{sub}.{idx}", f"{flax}/mbconv{j}"
+            if idx in names:
+                _conv_paths(paths, kp, f"{fp}/{names[idx]}")
+            elif idx in (1, 4, 8):
+                _norm_paths(paths, kp, f"{fp}/norm{(1, 4, 8).index(idx)}")
+            elif idx == 6:
+                _se_paths(paths, kp, f"{fp}/se")
+
+
 def _layer_paths(paths, port, flax, layer) -> None:
-    """A ConvLayer's units (conv, [norm], [ReLU]) -> flax conv{i}/conv and
-    norm{i}, the table of ``_conv_layer`` read the other way."""
+    """A ConvLayer's units (conv, [norm], [ReLU], [SE]) -> flax conv{i}/conv
+    (or conv{i}/depthwise/conv and conv{i}/pointwise/conv), norm{i} and se,
+    the table of ``_conv_layer`` read the other way; an MBConvLayer's by
+    ``_mbconv_paths``."""
+    from crop2seg_tpu_torch.nn.layers import (
+        DepthwiseSeparableConv2d, MBConvLayer, SqueezeAndExcitation)
+
+    if isinstance(layer, MBConvLayer):
+        _mbconv_paths(paths, port, flax, layer)
+        return
     i = -1
     for idx, unit in enumerate(layer.conv):
+        kp = f"{port}.conv.{idx}"
         if isinstance(unit, torch.nn.Conv2d):
             i += 1
-            paths[f"{port}.conv.{idx}.weight"] = f"{flax}/conv{i}/conv/kernel"
-            paths[f"{port}.conv.{idx}.bias"] = f"{flax}/conv{i}/conv/bias"
+            _conv_paths(paths, kp, f"{flax}/conv{i}")
+        elif isinstance(unit, DepthwiseSeparableConv2d):
+            i += 1
+            for part in ("depthwise", "pointwise"):
+                _conv_paths(paths, f"{kp}.{part}", f"{flax}/conv{i}/{part}")
         elif isinstance(unit, (torch.nn.GroupNorm, torch.nn.modules.batchnorm._BatchNorm)):
-            paths[f"{port}.conv.{idx}.weight"] = f"{flax}/norm{i}/scale"
-            paths[f"{port}.conv.{idx}.bias"] = f"{flax}/norm{i}/bias"
+            _norm_paths(paths, kp, f"{flax}/norm{i}")
+        elif isinstance(unit, SqueezeAndExcitation):
+            _se_paths(paths, kp, f"{flax}/se")
+
+
+def _block_paths(paths, port, flax, block) -> None:
+    """A down or up block (plain or MBConv): its conv layers, the up
+    block's up and skip paths, and a trailing SE."""
+    if hasattr(block, "up"):
+        for k, v in {"up.0.weight": "up_conv/kernel", "up.0.bias": "up_conv/bias",
+                     "up.1.weight": "up_norm/scale", "up.1.bias": "up_norm/bias",
+                     "skip_conv.0.weight": "skip_conv/conv/kernel",
+                     "skip_conv.0.bias": "skip_conv/conv/bias",
+                     "skip_conv.1.weight": "skip_norm/scale",
+                     "skip_conv.1.bias": "skip_norm/bias"}.items():
+            paths[f"{port}.{k}"] = f"{flax}/{v}"
+    for name in ("down", "conv1", "conv2"):
+        if hasattr(block, name):
+            _layer_paths(paths, f"{port}.{name}", f"{flax}/{name}", getattr(block, name))
+    if getattr(block, "sae", None) is not None:
+        _se_paths(paths, f"{port}.sae", f"{flax}/se")
 
 
 def _ltae_paths(paths, port, flax, ltae) -> None:
@@ -215,28 +376,20 @@ def _ltae_paths(paths, port, flax, ltae) -> None:
 
 
 def flax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
-    """Each parameter name of the port's U-TAE or TimeUNet -> the
+    """Each parameter name of the port's U-TAE, TimeUNet or W-TAE -> the
     slash-joined flax path of its counterpart in the JAX model's ``params``
     (``down_0/conv1/conv0/conv/kernel``, ``temporal_encoder/attention/query``,
-    ...): the table of ``utae_state_dict_from_flax`` read the other way.
-    Raises if a parameter has no counterpart."""
+    ...): the table of ``utae_state_dict_from_flax`` and
+    ``wtae_state_dict_from_flax`` read the other way. Raises if a parameter
+    has no counterpart."""
     paths: Dict[str, str] = {}
     _layer_paths(paths, "in_conv.conv", "in_conv/conv", model.in_conv.conv)
+    for i, block in enumerate(getattr(model, "spatial_reduction", ())):
+        _block_paths(paths, f"spatial_reduction.{i}", f"spatial_reduction_{i}", block)
     for i, block in enumerate(model.down_blocks):
-        for name in ("down", "conv1", "conv2"):
-            _layer_paths(paths, f"down_blocks.{i}.{name}", f"down_{i}/{name}",
-                         getattr(block, name))
+        _block_paths(paths, f"down_blocks.{i}", f"down_{i}", block)
     for i, block in enumerate(model.up_blocks):
-        port, flax = f"up_blocks.{i}", f"up_{i}"
-        for k, v in {"up.0.weight": "up_conv/kernel", "up.0.bias": "up_conv/bias",
-                     "up.1.weight": "up_norm/scale", "up.1.bias": "up_norm/bias",
-                     "skip_conv.0.weight": "skip_conv/conv/kernel",
-                     "skip_conv.0.bias": "skip_conv/conv/bias",
-                     "skip_conv.1.weight": "skip_norm/scale",
-                     "skip_conv.1.bias": "skip_norm/bias"}.items():
-            paths[f"{port}.{k}"] = f"{flax}/{v}"
-        for name in ("conv1", "conv2"):
-            _layer_paths(paths, f"{port}.{name}", f"{flax}/{name}", getattr(block, name))
+        _block_paths(paths, f"up_blocks.{i}", f"up_{i}", block)
     _ltae_paths(paths, "temporal_encoder", "temporal_encoder", model.temporal_encoder)
     for head in ("out_conv", "boundary_conv"):
         if getattr(model, head, None) is not None:

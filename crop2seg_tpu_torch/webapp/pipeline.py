@@ -227,8 +227,9 @@ def stream_tile_inference(model, ds, batch_size: int = 10,
                           ) -> Tuple[np.ndarray, np.ndarray]:
     """Overlapped disk->crop-map inference over the patches of a cell.
 
-    ``model``: the port's TimeUNet or U-TAE (weights loaded); it is moved to
-    ``device`` (the CUDA card unless "cpu" is asked for) and set to eval.
+    ``model``: the port's TimeUNet, U-TAE or W-TAE (weights loaded); it is
+    moved to ``device`` (the CUDA card unless "cpu" is asked for) and set
+    to eval.
     ``ds``: an ``S2TSCZCropDataset(for_inference=True)`` over the cell that
     gives a native batch plan (no NDVI, RAM cache or mono-date): a dataset
     without one raises ``ValueError`` naming the option.
@@ -417,15 +418,17 @@ def generate_prediction(data_folder: str, model_dir: str, year: int,
     """Whole-cell crop map (reference prediction.py:253-355).
 
     data_folder: DatasetCreator(for_inference) output (100 patches).
-    model_dir: directory with conf.json + Fold_1/model.ckpt (the port's
-    checkpoint, or the reference's model.pth.tar) + NORM_S2_patch.json.
+    model_dir: directory with conf.json (its "model": timeunet, utae or
+    wtae) + Fold_1/model.ckpt (the port's checkpoint, or the reference's
+    model.pth.tar) + NORM_S2_patch.json.
     Returns {'proba', 'classes', 'segments', 'soft', 'polygons'} (and
     'lpis', 'homogenized' with ``lpis_parcels``) and writes classes.npy,
     the raster, the shapefile, the GeoJSON (and homogenized.npy) under
     ``cache_dir/prediction``.
 
     ``device``: the CUDA card unless "cpu" is asked for; nothing falls back
-    on its own; the L-TAE serves on the fused kernel. One card serves:
+    on its own; the L-TAE serves on the fused kernel (W-TAE's has none).
+    One card serves:
     multi-card serving is ROADMAP.md item M11. ``timeline``: the stream's
     keys (see there), plus 'setup' (conf, model, weights, dataset) and
     'postprocess' (classes.npy, raster, polygonize, soften, vectors,

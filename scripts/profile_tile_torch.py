@@ -1,9 +1,9 @@
 """Where the time of one whole tile goes in crop2seg_tpu_torch, on one card.
 
-    python3 scripts/profile_tile_torch.py [--model timeunet|utae]
+    python3 scripts/profile_tile_torch.py [--model timeunet|utae|wtae]
                                           [--dtype bf16|fp32] [--trace out.json]
 
-Runs TimeUNet_v1 (default) or U-TAE at the factory defaults (seeded random
+Runs TimeUNet_v1 (default), U-TAE or W-TAE at the factory defaults (seeded random
 weights) through make_tile_predictor on one synthetic (61, 1098, 1098, 10)
 tile, length 55, batch 10: one warm-up tile, then one tile under
 torch.profiler. Prints the
@@ -31,7 +31,7 @@ from crop2seg_tpu_torch.models.factory import get_model  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("timeunet", "utae"), default="timeunet")
+    ap.add_argument("--model", choices=("timeunet", "utae", "wtae"), default="timeunet")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     ap.add_argument("--top", type=int, default=25)
@@ -63,7 +63,8 @@ def main() -> int:
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"{args.model} tile {args.dtype}: wall {wall:.4f} s ({100 / wall:.2f} patches/s), "
-          f"device busy {busy_us / 1e6:.4f} s = {busy_us / 1e4 / wall:.1f} % of wall")
+          f"device busy {busy_us / 1e6:.4f} s = {busy_us / 1e4 / wall:.1f} % of wall, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:args.top]:
         print(f"{e.self_device_time_total / 1e3:10.3f} "

@@ -1,22 +1,24 @@
 """Where the time of one training step goes in crop2seg_tpu_torch, on one card.
 
-    python3 scripts/profile_train_torch.py [--model timeunet|utae]
+    python3 scripts/profile_train_torch.py [--model timeunet|utae|wtae]
                                            [--dtype fp32|bf16] [--untailed]
                                            [--remat] [--batch 4] [--steps 3]
                                            [--trace out.json]
 
-Runs make_train_step on TimeUNet_v1 or U-TAE at the factory defaults (seeded
-random weights, 15 classes, class 14 weighted 0, Adam lr 1e-3, dropout live;
+Runs make_train_step on TimeUNet_v1, U-TAE or W-TAE at the factory defaults
+(seeded random weights, 15 classes, class 14 weighted 0, Adam lr 1e-3, dropout live;
 fp32, or bf16 under autocast with ``--dtype bf16``). TimeUNet defers in_conv's
 GroupNorm + ReLU into the ltae_pool_tail kernels, or with ``--untailed``
 applies it in PyTorch before the untailed pair; U-TAE trains on plain ops,
 with ``--remat`` under activation checkpointing (``remat_policy="conv_out"``;
 the JAX bench's U-TAE train cell is ``--model utae --dtype bf16 --batch 16
---remat``); TimeUNet with ``--remat`` checkpoints its down and up blocks and
-out_conv. One synthetic batch (T=61,
-128x128x10, lengths 61/55/43/27 repeated): two warm-up steps, then
-``--steps`` steps under torch.profiler. Prints the card (nvidia-smi name and
-power limit), the wall time per step, the device's busy share (summed kernel
+--remat``); W-TAE trains on plain ops too, with ``--remat`` checkpointing
+in_conv, the reduction pyramid and the down blocks (``conv_out``; the JAX
+bench's W-TAE cell is ``--model wtae --dtype bf16 --batch 16 --remat``);
+TimeUNet with ``--remat`` checkpoints its down and up blocks and out_conv.
+One synthetic batch (T=61, 128x128x10, lengths 61/55/43/27 repeated): two
+warm-up steps, then ``--steps`` steps under torch.profiler. Prints the card
+(nvidia-smi name and power limit), the wall time per step, the device's busy share (summed kernel
 time over wall time), the peak memory the profiled steps allocate above what
 the warm-up left (weights, Adam state, the batch), and the kernels that take
 the most device time, grouped by name.
@@ -40,13 +42,13 @@ from crop2seg_tpu_torch.models.factory import get_model  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("timeunet", "utae"), default="timeunet")
+    ap.add_argument("--model", choices=("timeunet", "utae", "wtae"), default="timeunet")
     ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
     ap.add_argument("--untailed", action="store_true",
                     help="TimeUNet: do not defer in_conv's GroupNorm + ReLU into the kernels")
     ap.add_argument("--remat", action="store_true",
-                    help="activation checkpointing (U-TAE: remat_policy conv_out; "
-                         "TimeUNet: its down and up blocks and out_conv)")
+                    help="activation checkpointing (U-TAE, W-TAE: remat_policy "
+                         "conv_out; TimeUNet: its down and up blocks and out_conv)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")

@@ -88,11 +88,16 @@ def _shared(module, x_tcs):
     return np.transpose(y.numpy(), (0, 1, 4, 2, 3))
 
 
-@pytest.mark.parametrize("name", ["conv_block_group", "down_block", "up_block"])
+@pytest.mark.parametrize("name", ["conv_block_group", "down_block", "up_block",
+                                  "conv_block_dws", "conv_block_batch_se"])
 def test_block_goldens(name):
     arrays, sd = load_fixture(name)
     if name == "conv_block_group":
         m = tl.ConvBlock((10, 8, 8), norm="group")
+    elif name == "conv_block_dws":
+        m = tl.ConvBlock((10, 8, 8), norm="group", conv_type="depthwise_separable")
+    elif name == "conv_block_batch_se":
+        m = tl.ConvBlock((10, 32, 32), norm="batch", add_squeeze=True)
     elif name == "down_block":
         m = tl.DownConvBlock(8, 16, norm="group")
     else:
@@ -186,10 +191,11 @@ def test_defer_tail_norm_needs_group_norm_tail():
 
 
 def test_modules_are_eval_only():
-    """Only what is not ported for training stays eval-only: a conv block in
-    training mode (a new nn.Module's default) normalizes with the batch
-    statistics and updates its running ones; instance norm is still queued
-    and raises naming its slice."""
+    """No module stays eval-only: a conv block in training mode (a new
+    nn.Module's default) normalizes with the batch statistics and updates
+    its running ones; instance norm, which has neither parameters nor
+    running statistics, normalizes each channel of each frame in either
+    mode."""
     m = tl.ConvBlock((4, 8), norm="batch", last_relu=False)
     with torch.no_grad():
         m.conv.conv[0].bias.fill_(0.5)
@@ -200,5 +206,11 @@ def test_modules_are_eval_only():
                                rtol=0, atol=1e-3)
     assert bn.num_batches_tracked.item() == 1
     assert (bn.running_mean - 0.05).abs().max() < 0.05   # 0.1 * (0.5 + noise)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        tl.make_norm("instance")
+    norm = tl.make_norm("instance")(8)
+    assert not list(norm.parameters()) and not list(norm.buffers())
+    x = torch.randn(2, 6, 6, 8, generator=torch.Generator().manual_seed(1)) * 3 + 1
+    for mode in (True, False):
+        y = norm.train(mode)(x)
+        torch.testing.assert_close(y.mean(dim=(1, 2)), torch.zeros(2, 8), rtol=0, atol=1e-5)
+        torch.testing.assert_close(y.var(dim=(1, 2), unbiased=False), torch.ones(2, 8),
+                                   rtol=0, atol=1e-3)

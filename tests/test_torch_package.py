@@ -411,6 +411,55 @@ def test_cuda_timeunet_pad_value_keeps_the_tail_on_the_card(train):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cuda_timeunet_conv_variants_run_the_kernels_untailed(dtype, monkeypatch):
+    """TimeUNet with depthwise-separable convs and SE gates on the card:
+    in eval one untailed launch of kernel 1's group route, logits within
+    1e-3 of the plain L-TAE (fused=False; 1e-2 in bf16); a train step
+    launches the untailed pool pair once each way and no tailed variant;
+    in_conv is never asked to defer its tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from crop2seg_tpu_torch.models.timeunet import TimeUNet
+    from crop2seg_tpu_torch.nn import layers as tl
+
+    asked = []
+    orig = tl.ConvLayer.forward
+    monkeypatch.setattr(tl.ConvLayer, "forward", lambda self, x, defer_tail_norm=False: (
+        asked.append(defer_tail_norm), orig(self, x, defer_tail_norm))[1])
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    m = TimeUNet(input_dim=6, encoder_widths=(16, 32, 32), decoder_widths=(8, 16, 32),
+                 out_conv=(8, 5), n_head=4, d_model=32, conv_type="depthwise_separable",
+                 add_squeeze_excit=True).to(dev).eval()
+    x = torch.randn(2, 9, 16, 16, 6, generator=gen).to(dev)
+    dates = (torch.arange(9.0) * 5)[None].expand(2, -1).to(dev)
+    pad = torch.zeros(2, 9, dtype=torch.bool, device=dev)
+    pad[1, 6:] = True
+    before = (tk.ltae_fused_forward.route_launches["group"],
+              tk.ltae_fused_forward.tail_launches)
+    with torch.no_grad(), torch.autocast("cuda", dtype=dtype,
+                                         enabled=dtype == torch.bfloat16):
+        got = m(x, dates, pad)
+        after = (tk.ltae_fused_forward.route_launches["group"],
+                 tk.ltae_fused_forward.tail_launches)
+        want = m(x, dates, pad, fused=False)
+    assert after == (before[0] + 1, before[1])
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    m.train()
+    counts = lp.ltae_pool.launches.copy()
+    with torch.autocast("cuda", dtype=dtype, enabled=dtype == torch.bfloat16):
+        out = m(x, dates, pad, generator=torch.Generator(device=dev).manual_seed(0))
+    out.float().square().mean().backward()
+    new = lp.ltae_pool.launches - counts
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    assert dict(new) == {f"ltae_pool_fwd{sfx}": 1, f"ltae_pool_bwd{sfx}": 1}
+    assert all(p.grad is None or torch.isfinite(p.grad).all() for p in m.parameters())
+    assert asked and not any(asked)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_rejects_unsupported_widths():
     """C = 160 (past the row-group kernels' 128) and D = 272 (past their
     256) go to the general kernel on the card, not to the plain version;

@@ -6,6 +6,8 @@ Sizes as tests/test_ltae_pallas.py:208-214 (widths (16, 16, 32), 4 heads,
 d_model 32, B=2, T=7, 16x16, a pad); tolerance 1e-3 as there. The golden
 takes 5e-4, as tests/test_ltae_parity.py holds the JAX model to it.
 """
+import copy
+
 import jax
 import numpy as np
 import pytest
@@ -44,9 +46,14 @@ def case():
                               ).astype(np.float32), v["batch_stats"])}
     y = np.asarray(jax.jit(lambda v, x: m.apply(v, x, dates, pad_mask=pad,
                                                 train=False))(v, x))
+    att = np.asarray(jax.jit(lambda v, x: m.apply(v, x, dates, pad_mask=pad, train=False,
+                                                  return_att=True))(v, x)[1])
+    maps = jax.jit(lambda v, x: JTimeUNet(**KW, return_maps=True).apply(
+        v, x, dates, pad_mask=pad, train=False))(v, x)[1]
     model = TimeUNet(**KW).eval()
     model.load_state_dict(timeunet_state_dict_from_flax(v))
-    return dict(x=x, pad=pad, dates=dates, y=y, model=model)
+    return dict(x=x, pad=pad, dates=dates, y=y, att=att,
+                maps=[np.asarray(a) for a in maps], model=model)
 
 
 def _run(case, x=None, fused=False):
@@ -62,6 +69,46 @@ def test_matches_jax_timeunet(case, fused):
     got = _run(case, fused=fused)
     assert got.shape == (2, 16, 16, 5)
     np.testing.assert_allclose(got, case["y"], **TOL)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_att_maps_and_encoder_outputs_match_jax(case, fused):
+    """``return_att`` gives the JAX attention (1e-5) beside the logits,
+    ``return_maps`` the JAX maps (1e-3), and ``encoder`` the decoder output
+    and the same maps, whose out_conv is the logits; on the kernel route
+    the attention comes out of the same deferred-tail call."""
+    m = case["model"]
+    with torch.inference_mode():
+        args = (_t(case["x"]), _t(case["dates"]), _t(case["pad"]))
+        logits, att = m(*args, fused=fused, return_att=True)
+        try:
+            m.return_maps = True
+            _, maps = m(*args, fused=fused)
+            m.return_maps, m.encoder = False, True
+            out, maps2 = m(*args, fused=fused)
+        finally:
+            m.return_maps = m.encoder = False
+        head = m.out_conv(out)
+    np.testing.assert_allclose(logits.numpy(), case["y"], **TOL)
+    assert att.shape == (2, 16, 16, 4, 7)
+    np.testing.assert_allclose(att.numpy(), case["att"], rtol=1e-5, atol=1e-5)
+    assert [tuple(a.shape) for a in maps] == [a.shape for a in case["maps"]]
+    for g, w in zip(maps, case["maps"]):
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
+    for a, b in zip(maps, maps2):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(head, logits, rtol=0, atol=0)
+
+
+def test_train_mode_return_att_takes_the_plain_ltae(case):
+    """In training ``return_att`` takes the plain L-TAE with the attention
+    (the JAX route), so in_conv's tail is not deferred even on the kernel
+    route; the attention is the dropped one, finite, and zero at pads."""
+    m = copy.deepcopy(case["model"]).train()    # training updates BN statistics
+    logits, att = m(_t(case["x"]), _t(case["dates"]), _t(case["pad"]), fused=True,
+                    return_att=True, generator=torch.Generator().manual_seed(0))
+    assert logits.requires_grad and torch.isfinite(att).all()
+    assert att[1, ..., 5:].abs().max().item() == 0.0
 
 
 def test_deferred_tail_path_equals_temporally_shared_path(case):
@@ -114,12 +161,12 @@ def test_factory_defaults_and_seeded_weights():
                            sd3["in_conv.conv.conv.0.weight"])
 
 
-@pytest.mark.parametrize("cfg", [{"model": "utae", "use_mbconv": True},
-                                 {"model": "wtae"}, {"model": "unet3d"}],
-                         ids=["utae", "wtae", "unet3d"])
+@pytest.mark.parametrize("cfg", [{"model": "timeunet_v2"},
+                                 {"model": "convlstm"}, {"model": "unet3d"}],
+                         ids=["timeunet_v2", "convlstm", "unet3d"])
 def test_factory_other_models_point_at_roadmap(cfg):
-    """Models and options not ported yet (U-TAE's MBConv blocks) raise and
-    name ROADMAP.md."""
+    """Models not ported yet (TimeUNet_v2, the recurrent and 3D models) raise
+    and name ROADMAP.md."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg, device="cpu")
 

@@ -345,9 +345,9 @@ def test_sample_weights_fill_missing_with_one():
 
 @pytest.mark.parametrize("extra,match", [
     (["--num_devices", "2"], "M11"), (["--dataset", "pastis"], "M5"),
-    (["--seq_chunk", "8"], "M7"), (["--conv_type", "depthwise_separable"], "M6"),
-    (["--use_mbconv"], "M6"), (["--add_squeeze"], "M6"),
-    (["--add_boundary_loss"], "no boundary head"), (["--model", "wtae"], "M8-M10"),
+    (["--seq_chunk", "8"], "M7"), (["--model", "timeunet_v2"], "M9"),
+    (["--model", "unet3d"], "M10"), (["--model", "convgru"], "M10"),
+    (["--add_boundary_loss"], "no boundary head"), (["--model", "uconvlstm"], "M9-M10"),
     (["--platform", "cpu"], "--device")])
 def test_unported_flags_raise(data, tmp_path, extra, match):
     argv = _argv(data, tmp_path / "res") + extra

@@ -164,8 +164,12 @@ def test_factory_builds_utae_at_the_jax_defaults():
     assert m.out_conv.conv.conv[3].weight.shape == (15, 32, 3, 3)
     assert get_model({"model": "utae", "add_boundary_loss": True},
                      device="cpu").boundary_conv is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model({"model": "utae", "use_mbconv": True}, device="cpu")
+    mb = get_model({"model": "utae", "use_mbconv": True, "out_conv": [32, 20]},
+                   device="cpu")
+    assert type(mb.in_conv).__name__ == "MBConvBlock"
+    assert {type(b).__name__ for b in mb.down_blocks} == {"MBDownConvBlock"}
+    assert {type(b).__name__ for b in mb.up_blocks} == {"MBUpConvBlock"}
+    assert mb.out_conv.conv.conv[1][0][0][0][7].weight.shape == (20, 128, 1, 1)
 
 
 def test_training_mode_raises_naming_roadmap():
