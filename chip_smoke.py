@@ -163,6 +163,24 @@
    (no kernel launch; finite boundary metrics; --test repeats the run's
    test), and U-TAE --use_mbconv --remat, 1 epoch (one wide launch per val
    and test batch).
+15. TimeUNet_v2 and the rest of get_model's zoo (phase_zoo), each path's
+   counts set to 0 just before it and read just after; none launches an
+   L-TAE kernel (the JAX package computes them on XLA ops): (a) TimeUNet_v2
+   at the factory defaults (seeded weights) through phase 4's tile in bf16
+   and fp32 (shapes, finite, sums to 1, pad invariance within 1e-6 in fp32,
+   two patches rerun with a quarter of the classical attention's chunk rows
+   within 1e-5), patches/s beside the classical attention's bound; (b)
+   TimeUNet_v2 training: 5 steps at B=4 in fp32 and in bf16 (finite,
+   falling loss, BatchNorm statistics changed, warm step ms, peak memory),
+   then one step's gradients with the chunks checkpointed against not
+   (B=1, dropout on, the same seed) within the perturbation spread; (c)
+   UNet3D, ConvLSTM, ConvGRU, uconvlstm and U-Net naive (max_temp 61) at
+   the factory defaults: the tile in bf16 and fp32 (pad invariance for
+   uconvlstm, the one whose JAX model has it), one B=4 fp32 train step;
+   (d) the train CLI on phase 12's dataset: --model timeunet_v2 for an
+   epoch and --test of its result, --model convlstm for an epoch; a
+   ``zoo`` JSON line, and the kernels line gains
+   ``launches_timeunet_v2_and_zoo`` (0).
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -759,7 +777,8 @@ def phase_train(dev):
     return launches, runs
 
 
-def check_grads_within_spread(label: str, got: dict, plain: dict, perturbed: dict):
+def check_grads_within_spread(label: str, got: dict, plain: dict, perturbed: dict,
+                              batch: int = 2, what: str = "the L-TAE output"):
     """One step's gradients ``got`` against ``plain``, as |diff| / |plain|
     per parameter, within GRAD_FACTOR times the spread that perturbing the
     L-TAE output by GRAD_EPS causes (``perturbed``; the parameter's own, or
@@ -778,11 +797,11 @@ def check_grads_within_spread(label: str, got: dict, plain: dict, perturbed: dic
     floor = float(np.median(list(pe_.values())))
     ratio = {k: kp[k] / (GRAD_FACTOR * max(pe_[k], floor)) for k in live}
     worst = max(ratio, key=ratio.get)
-    print(f"B=2 gradients, |diff|/|plain| over {len(live)} parameters (and "
+    print(f"B={batch} gradients, |diff|/|plain| over {len(live)} parameters (and "
           f"{len(zero)} zero up to rounding, within {GRAD_ZERO:g} of the "
           f"largest on both paths): {label} vs plain median "
           f"{np.median(list(kp.values())):.3e} max {max(kp.values()):.3e}; plain "
-          f"vs plain with the L-TAE output perturbed by {GRAD_EPS:g}: median "
+          f"vs plain with {what} perturbed by {GRAD_EPS:g}: median "
           f"{floor:.3e} max {max(pe_.values()):.3e}; worst ratio to the limit "
           f"{ratio[worst]:.3f} ({worst})", flush=True)
     check(ratio[worst] <= 1.0, f"gradient of {worst}: {label} vs plain {kp[worst]:.3e}"
@@ -1105,20 +1124,11 @@ def perturb_hook(eps: float, dev):
     return hook
 
 
-def phase_plain_train(dev, name: str, stats: tuple, runs_cfg=UTAE_TRAIN_RUNS):
-    """Training of a model whose train steps run on plain ops (U-TAE, whose
-    L-TAE trains with the attention out, and W-TAE, whose L-TAE has no
-    kernel) at the factory defaults: ``runs_cfg`` through make_train_step (5
-    steps each, warm step ms over steps 2-5 by CUDA events, peak memory),
-    each with a finite, falling loss, the BatchNorm statistics ``stats``
-    changed and no launch of any kernel; then one B=2 step's gradients with
-    remat against those without, held to the spread that perturbing the
-    temporal encoder's output causes."""
-    cfg = StepConfig(num_classes=N_CLASSES,
-                     class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
-    model = get_model({"model": name}, generator=torch.Generator().manual_seed(0))
-    fresh = {k: v.clone() for k, v in model.state_dict().items()}
-    del model
+def plain_train_runs(dev, name: str, fresh: dict, stats: tuple, runs_cfg, cfg) -> dict:
+    """``runs_cfg`` (label, dtype, B, remat) through make_train_step from the
+    weights ``fresh``, 5 steps each: a finite, falling loss, the BatchNorm
+    statistics ``stats`` changed and no launch of any kernel; warm step ms
+    over steps 2-5 by CUDA events and peak memory."""
     runs = {}
     for label, dtype, b, remat in runs_cfg:
         model = get_model({"model": name, "remat": remat}, device=dev)
@@ -1158,6 +1168,24 @@ def phase_plain_train(dev, name: str, stats: tuple, runs_cfg=UTAE_TRAIN_RUNS):
                        "batch": b}
         del model, step, batch, aux
         torch.cuda.empty_cache()
+    return runs
+
+
+def phase_plain_train(dev, name: str, stats: tuple, runs_cfg=UTAE_TRAIN_RUNS):
+    """Training of a model whose train steps run on plain ops (U-TAE, whose
+    L-TAE trains with the attention out, and W-TAE, whose L-TAE has no
+    kernel) at the factory defaults: ``runs_cfg`` through make_train_step (5
+    steps each, warm step ms over steps 2-5 by CUDA events, peak memory),
+    each with a finite, falling loss, the BatchNorm statistics ``stats``
+    changed and no launch of any kernel; then one B=2 step's gradients with
+    remat against those without, held to the spread that perturbing the
+    temporal encoder's output causes."""
+    cfg = StepConfig(num_classes=N_CLASSES,
+                     class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+    model = get_model({"model": name}, generator=torch.Generator().manual_seed(0))
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    runs = plain_train_runs(dev, name, fresh, stats, runs_cfg, cfg)
 
     small = train_batch(2, torch.Generator(device=dev).manual_seed(4), dev)
     grads = {}
@@ -2219,6 +2247,240 @@ def phase_variants(dev, data: str, tmp: str) -> dict:
     return out
 
 
+# phase 15: TimeUNet_v2 (its full-resolution classical TAE2d in chunks of
+# pixel rows) and the rest of get_model's zoo, none of which reaches an
+# L-TAE kernel (the JAX package computes them on XLA ops)
+ZOO = (("unet3d", {}), ("convlstm", {}), ("convgru", {}), ("uconvlstm", {}),
+       ("unet_naive", {"max_temp": T}))
+# the zoo models whose output does not depend on the pad frames, in JAX and
+# in the port (tests/test_torch_zoo.py::PAD_INVARIANT): the recurrent
+# encoders scan the pad frames, 3-D convs and the T folding mix them in
+ZOO_PAD_INVARIANT = ("uconvlstm",)
+CHUNK_TOL = 1e-5          # a quarter of the chunk rows against the tile, fp32
+ZOO_STEP = StepConfig(num_classes=N_CLASSES,
+                      class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+
+
+def classical_flops(rows: int, t: int = T, d: int = D, h: int = G, dk: int = D_K) -> float:
+    """Operations of the classical attention (crop2seg_tpu/nn/tae2d.py:44-88)
+    on ``rows`` pixel rows: the q, k and v projections (the values n_head *
+    d wide), the scores, attention x values and fc_out, 2 per multiply-add
+    (the softmax, dropout and LayerNorm are not counted)."""
+    per_row = 2 * t * d * (2 * h * dk + h * d) + 2 * h * t * t * (dk + d) + 2 * t * h * d * d
+    return float(rows) * per_row
+
+
+def zoo_tile(model, dev, label: str, pad_invariant: bool, chunked: bool = False) -> dict:
+    """Phase 4's tile (T = 61, 1098^2, length 55) through make_tile_predictor
+    at batch 10, bf16 then fp32, each path's kernel counts set to 0 just
+    before it and read just after: no kernel launch, proba finite, summing
+    to 1, classes its argmax. ``pad_invariant``: the fp32 tile again with
+    garbage in the pad frames, within 1e-6. ``chunked`` (TimeUNet_v2): two
+    patches rerun in fp32 with a quarter of the classical attention's chunk
+    rows, within CHUNK_TOL of the tile. Returns patches/s, peak memory and
+    the launches."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tile = torch.randn(T, 1098, 1098, 10, generator=gen, device=dev)
+    tile[LENGTH:] = 0.0
+    dates = np.arange(T, dtype=np.float32) * 5 + 3
+    res, launches = {}, {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        predict = make_tile_predictor(model, batch_size=MAIN_B, dtype=dtype)
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16,
+                                                    enabled=dtype is not None):
+            xb = torch.stack([tile[:, i:i + 128, j:j + 128]         # warm-up: 4 patches
+                              for i in (0, 128) for j in (0, 128)])
+            model(xb, torch.as_tensor(dates, device=dev)[None].expand(4, T),
+                  torch.arange(T, device=dev)[None].expand(4, T) >= LENGTH)
+        del xb
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        start = time.perf_counter()
+        r = predict(tile, dates, LENGTH)
+        secs = time.perf_counter() - start
+        launches[name] = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        p, cls = r["proba"], r["classes"]
+        s_err = float(np.abs(p.sum(-1) - 1).max())
+        print(f"{label} tile {name}: {secs:.3f} s, {100 / secs:.2f} patches/s, peak "
+              f"{peak:.2f} GiB, kernel launches {launches[name]}, proba sums off by "
+              f"{s_err:.2e}", flush=True)
+        check(not launches[name], f"{label} {name} tile launched {launches[name]}")
+        check(p.shape == (1098, 1098, N_CLASSES) and cls.shape == (1098, 1098)
+              and cls.dtype == np.uint8, f"{label} {name}: shapes {p.shape} {cls.shape}")
+        check(bool(np.isfinite(p).all()), f"{label} {name}: non-finite proba")
+        check(s_err < 1e-4, f"{label} {name}: proba sums off by {s_err}")
+        check(bool((cls == p.argmax(-1)).all()), f"{label} {name}: classes != argmax")
+        res[name] = {"r": r, "patches_per_s": 100 / secs, "seconds": secs, "peak_gib": peak}
+    out = {k: {m: v for m, v in r.items() if m != "r"} for k, r in res.items()}
+    out["launches"] = launches
+    out["class_agreement"] = float((res["bf16"]["r"]["classes"]
+                                    == res["fp32"]["r"]["classes"]).mean())
+    if chunked:
+        te = model.temporal_encoder_full_resolution
+        st = te.attention_heads[0]
+        rows = classical_chunk_rows(te, T, torch.float32)
+        idx = [0, 11]                          # patch 11: rows/cols 128-255
+        te.chunk_rows = quarter = max(1, rows // 4)
+        try:
+            with torch.inference_mode():
+                xb = patchify_inference_tile(tile)[idx]
+                logits = model(xb, torch.as_tensor(dates, device=dev)[None].expand(2, T),
+                               torch.arange(T, device=dev)[None].expand(2, T) >= LENGTH)
+                again = torch.softmax(logits.float(), -1).cpu().numpy()
+        finally:
+            te.chunk_rows = None
+        served = np.stack([res["fp32"]["r"]["proba"][:128, :128],
+                           res["fp32"]["r"]["proba"][128:256, 128:256]])
+        c_err = float(np.abs(served - again).max())
+        print(f"{label} fp32 patches {idx} with {quarter} chunk rows "
+              f"(the tile's {rows}, fc_v {tuple(st.fc_v.weight.shape)}): max |dproba| "
+              f"{c_err:.3e} (tol {CHUNK_TOL:g})", flush=True)
+        check(c_err <= CHUNK_TOL, f"{label}: a quarter of the chunk rows moved proba by {c_err}")
+        out["chunk_rows"], out["quarter_chunk_err"] = rows, c_err
+    if pad_invariant:
+        noisy = tile.clone()
+        noisy[LENGTH:] = 10 * torch.randn(noisy[LENGTH:].shape, generator=gen, device=dev)
+        zero_counts()
+        r = make_tile_predictor(model, batch_size=MAIN_B)(noisy, dates, LENGTH)
+        check(not kernel_counts(), f"{label} pad-invariance tile launched {kernel_counts()}")
+        inv = float(np.abs(r["proba"] - res["fp32"]["r"]["proba"]).max())
+        print(f"{label} pad invariance fp32 (garbage in frames {LENGTH}..{T - 1}): max "
+              f"|dproba| {inv:.3e} (tol 1e-6)", flush=True)
+        check(inv <= 1e-6, f"{label}: pad frames leak into the output: {inv}")
+        out["pad_invariance_err"] = inv
+    return out
+
+
+def classical_chunk_rows(te, t: int, dtype) -> int:
+    """The chunk rows a classical TAE2d takes at T steps in ``dtype``."""
+    from crop2seg_tpu_torch.nn.tae2d import chunk_rows
+
+    st = te.attention_heads[0]
+    return chunk_rows(t, st.fc_q.in_features, te.n_head, st.d_hidden, dtype.itemsize)
+
+
+def timeunet_v2_train(dev) -> dict:
+    """TimeUNet_v2 training at the factory defaults: 5 steps at B=4 in fp32
+    and 5 in bf16 (``plain_train_runs``: finite, falling loss, BatchNorm
+    statistics changed, no kernel launch, warm step ms and peak memory);
+    then one step's gradients with the classical chunks checkpointed against
+    the same chunks not checkpointed (dropout on, the same generator seed),
+    within GRAD_FACTOR times the spread that perturbing the full-resolution
+    TAE2d's output by GRAD_EPS causes. That check runs at B=1 (a sample
+    padded from 55): without checkpoints the chunks keep ~2.6 MB of fp32
+    activations a pixel row, ~43 GB at B=1 and ~85 GB at B=2."""
+    fresh = get_model({"model": "timeunet_v2"},
+                      generator=torch.Generator().manual_seed(0)).state_dict()
+    stats = ("temporal_encoder_full_resolution.mlp.1.running_mean",
+             "temporal_encoder_low_resolution.mlp.1.running_var",
+             "up_blocks.0.up.1.running_var", "out_conv.conv.conv.1.running_mean")
+    runs = plain_train_runs(dev, "timeunet_v2", fresh, stats,
+                            (("fp32 B=4", None, TRAIN_B, False),
+                             ("bf16 B=4", torch.bfloat16, TRAIN_B, False)), ZOO_STEP)
+
+    small = {k: v[1:2] for k, v in
+             train_batch(2, torch.Generator(device=dev).manual_seed(4), dev).items()}
+    grads, peaks = {}, {}
+    for label, ckpt, eps in (("not checkpointed", False, 0.0), ("checkpointed", True, 0.0),
+                             ("perturbed", False, GRAD_EPS)):
+        m = get_model({"model": "timeunet_v2"}, device=dev)
+        m.load_state_dict(fresh)
+        m.train()
+        m.temporal_encoder_full_resolution.checkpoint_chunks = ckpt
+        if eps:
+            m.temporal_encoder_full_resolution.register_forward_hook(perturb_hook(eps, dev))
+        torch.cuda.reset_peak_memory_stats()
+        logits = m(small["x"], small["dates"], small["pad_mask"],
+                   generator=torch.Generator(device=dev).manual_seed(11))
+        cross_entropy(logits, small["y"], weight=torch.tensor(
+            ZOO_STEP.class_weights, device=dev)).backward()
+        peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        grads[label] = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+        print(f"timeunet_v2 B=1 step {label}: peak memory {peaks[label]:.2f} GiB", flush=True)
+        del m, logits
+        torch.cuda.empty_cache()
+    worst = check_grads_within_spread("timeunet_v2 checkpointed chunks", grads["checkpointed"],
+                                      grads["not checkpointed"], grads["perturbed"], batch=1,
+                                      what="the full-resolution TAE2d's output")
+    identical = all(torch.equal(grads["checkpointed"][k], grads["not checkpointed"][k])
+                    for k in grads["checkpointed"])
+    print(f"timeunet_v2 checkpointed vs not: gradients bit for bit {identical}", flush=True)
+    return {"runs": runs, "ckpt_grad_worst_ratio": worst, "ckpt_grads_identical": identical,
+            "b1_peak_gib": peaks}
+
+
+def phase_zoo(dev, data: str, tmp: str) -> dict:
+    """Phase 15: TimeUNet_v2 and the rest of get_model's zoo, none of which
+    launches an L-TAE kernel. (a) TimeUNet_v2 at the factory defaults
+    (seeded weights) through phase 4's tile in bf16 and fp32 (``zoo_tile``:
+    pad invariance in fp32, two patches with a quarter of the chunk rows),
+    patches/s beside the classical attention's bound. (b) TimeUNet_v2
+    training (``timeunet_v2_train``). (c) UNet3D, ConvLSTM, ConvGRU,
+    uconvlstm and U-Net naive (max_temp 61) at the factory defaults: the
+    tile in bf16 and fp32 (pad invariance where the JAX model has it), one
+    B=4 fp32 train step. (d) The train CLI on phase 12's dataset:
+    ``--model timeunet_v2`` for an epoch, then ``--test`` of its result
+    (which repeats the run's own test), and ``--model convlstm`` for an
+    epoch."""
+    out = {}
+    tv2 = get_model({"model": "timeunet_v2"}, generator=torch.Generator().manual_seed(0))
+    out["timeunet_v2_tile"] = zoo_tile(tv2, dev, "timeunet_v2", True, chunked=True)
+    for name in ("bf16", "fp32"):
+        dtype = torch.bfloat16 if name == "bf16" else torch.float32
+        b_s = classical_flops(100 * HW) / PEAK_FLOP_PER_S[dtype]
+        pps = out["timeunet_v2_tile"][name]["patches_per_s"]
+        out["timeunet_v2_tile"][name].update(attention_bound_s=b_s,
+                                             attention_bound_patches_per_s=100 / b_s)
+        print(f"timeunet_v2 tile {name}: {pps:.2f} patches/s; the classical attention "
+              f"alone needs >= {b_s:.3f} s a tile ({classical_flops(100 * HW) / 1e12:.1f} "
+              f"TFLOP), <= {100 / b_s:.2f} patches/s", flush=True)
+    del tv2
+    torch.cuda.empty_cache()
+    out["timeunet_v2_train"] = timeunet_v2_train(dev)
+    torch.cuda.empty_cache()
+
+    batch = train_batch(TRAIN_B, torch.Generator(device=dev).manual_seed(4), dev)
+    out["zoo"] = {}
+    for name, extra in ZOO:
+        cfg = {"model": name, **extra}
+        fresh = get_model(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+        model = get_model(cfg, device=dev)
+        model.load_state_dict(fresh)
+        res = zoo_tile(model, dev, name, name in ZOO_PAD_INVARIANT)
+        res["train_step"] = one_train_step(f"{name} train B={TRAIN_B} fp32", model, batch,
+                                           ZOO_STEP, None, {})
+        out["zoo"][name] = res
+        del model, fresh
+        torch.cuda.empty_cache()
+    del batch
+
+    bs = 4
+    common = ["--dataset", "synthetic", "--dataset_folder", data, "--batch_size", str(bs),
+              "--t_buckets", "[32,48,61]", "--epochs", "1"]
+    dirs = {k: os.path.join(tmp, f"zoo_{k}") for k in ("v2", "v2_test", "lstm")}
+    run, _, _, sec = cli_run("(15d) timeunet_v2, 1 epoch",
+                             ["--model", "timeunet_v2", "--res_dir", dirs["v2"]] + common,
+                             {}, {})
+    run_t, _, _, sec_t = cli_run("(15d) timeunet_v2 --test",
+                                 ["--model", "timeunet_v2", "--test", "--weight_folder",
+                                  dirs["v2"], "--res_dir", dirs["v2_test"]] + common, {}, {})
+    t1, t2 = run.test_metrics, run_t.test_metrics
+    loss_rel = abs(t2["test_loss"] - t1["test_loss"]) / abs(t1["test_loss"])
+    print(f"train cli (15d) timeunet_v2: --test vs the run's own test, loss relative "
+          f"{loss_rel:.3e}", flush=True)
+    check(loss_rel <= 1e-5, f"timeunet_v2 --test loss {t2['test_loss']} vs {t1['test_loss']}")
+    run_l, _, _, sec_l = cli_run("(15d) convlstm, 1 epoch",
+                                 ["--model", "convlstm", "--res_dir", dirs["lstm"]] + common,
+                                 {}, {})
+    out["cli"] = {"seconds": {"timeunet_v2": sec, "timeunet_v2_test": sec_t,
+                              "convlstm": sec_l},
+                  "timeunet_v2_test": t1, "convlstm_test": run_l.test_metrics,
+                  "test_loss_rel": loss_rel}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -2315,6 +2577,8 @@ def main() -> int:
         serving = phase_serving_from_disk(dev, cli_out)
         torch.cuda.empty_cache()
         variants = phase_variants(dev, cli_data, cli_tmp)
+        torch.cuda.empty_cache()
+        zoo = phase_zoo(dev, cli_data, cli_tmp)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -2487,6 +2751,15 @@ def main() -> int:
             r[f"train_{d}"]["launches"].get(entry["name"], 0)
             for r in tu.values() for d in ("fp32", "bf16"))
     print("variants " + json.dumps(variants), flush=True)
+    # phase 15's paths launched no kernel (zoo_tile, timeunet_v2_train and
+    # one_train_step check each path's counts; cli_run the CLI's)
+    counts = [zoo["timeunet_v2_tile"]["launches"][d] for d in ("bf16", "fp32")]
+    for z in zoo["zoo"].values():
+        counts += [z["launches"]["bf16"], z["launches"]["fp32"], z["train_step"]["launches"]]
+    zoo_launches = sum(sum(c.values()) for c in counts)
+    for entry in [kernel, kernel_utae] + pool + [kernel_stages, kernel_q] + general:
+        entry["launches_timeunet_v2_and_zoo"] = zoo_launches
+    print("zoo " + json.dumps(zoo), flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]

@@ -1,11 +1,13 @@
 """Whole-tile inference: patchify -> batched forward -> softmax -> stitch
 (port of crop2seg_tpu/inference/tile.py:24-77, single device).
 
-The model is any of the port's (TimeUNet, U-TAE, W-TAE) that returns
-logits alone. The tile is patchified on the device, the 100 patches run in
-batches of ``batch_size`` (the last one padded to the same shape), and
-softmax, stitch and argmax happen on the device; only the 1098^2 maps come
-back to the host.
+The model is any of the port's factory (models/factory.py::MODELS) that
+returns logits alone; TimeUNet_v2's full-resolution TAE2d runs in chunks
+of pixel rows (nn/tae2d.py), so a batch of 10 patches fits on one card.
+The tile is patchified on the device, the 100 patches run in batches of
+``batch_size`` (the last one padded to the same shape), and softmax,
+stitch and argmax happen on the device; only the 1098^2 maps come back to
+the host.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
-"""Model factory (port of crop2seg_tpu/models/factory.py:21-69): U-TAE,
-TimeUNet_v1 and W-TAE, with the JAX package's config keys and defaults."""
+"""Model factory (port of crop2seg_tpu/models/factory.py:21-116): every
+name the JAX package builds (U-TAE, W-TAE, TimeUNet_v1 and _v2, UNet3D,
+ConvLSTM, ConvGRU, the RecUNet ``uconvlstm`` and U-Net naive), with its
+config keys and defaults."""
 from __future__ import annotations
 
 import math
@@ -10,17 +12,25 @@ from torch import nn
 
 from crop2seg_tpu_torch.device import resolve_device
 from crop2seg_tpu_torch.nn.ltae import MaskedLightweightAttention
+from crop2seg_tpu_torch.nn.tae2d import TAE2d
+
+ZOO = ("timeunet_v2", "unet3d", "convlstm", "convgru", "uconvlstm", "unet_naive")
+MODELS = ("utae", "wtae", "timeunet", "timeunet_v1") + ZOO
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every weight from ``generator`` with PyTorch's default schemes
-    (Kaiming-uniform conv/linear weights, the depthwise convs' and the
-    bias-free squeeze-excitation Linears' included, uniform(+-1/sqrt(fan_in))
-    biases) and the attention's normal(sqrt(2/d_k)) query and key weights;
-    norms keep their identity initialization."""
+    (Kaiming-uniform conv/linear weights, 1-D, 2-D and 3-D and transposed,
+    the depthwise convs' and the bias-free squeeze-excitation Linears'
+    included, uniform(+-1/sqrt(fan_in)) biases), the attention's
+    normal(sqrt(2/d_k)) query and key weights and TAE2d's N(0, 1) cls
+    tokens; norms (GroupNorm, BatchNorm, LayerNorm) keep their identity
+    initialization."""
+    convs = (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d,
+             nn.Linear)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if isinstance(m, convs):
                 nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
                 if m.bias is not None:
                     fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
@@ -31,6 +41,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 std = math.sqrt(2.0 / m.d_k)
                 nn.init.normal_(m.Q, std=std, generator=generator)
                 nn.init.normal_(m.fc1_k.weight, std=std, generator=generator)
+            elif isinstance(m, TAE2d) and m.use_cls:
+                nn.init.normal_(m.cls_token, generator=generator)
     return model
 
 
@@ -52,14 +64,17 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
     TimeUNet step's peak memory, see models/timeunet.py);
     ``seq_chunk`` raises (not ported).
     The models take ``num_queries=1`` only; the ``LTAE`` module takes
-    more."""
+    more. TimeUNet_v2 takes the common keys but ``num_queries``,
+    ``use_doy`` and ``add_linear`` (the JAX ``common_v2``); UNet3D,
+    ConvLSTM, ConvGRU and ``uconvlstm`` (RecUNet, "lstm") take
+    ``num_classes`` (default 15), ``input_dim`` and ``pad_value`` at their
+    fixed widths, ``uconvlstm`` the head's class count from ``out_conv``'s
+    last entry where it is set; ``unet_naive`` needs ``max_temp``, the T its
+    batches are padded to (the train CLI's ``--max_temp``)."""
     cfg = config if isinstance(config, Mapping) else vars(config)
     name = cfg["model"]
-    if name not in ("utae", "wtae", "timeunet", "timeunet_v1"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet: crop2seg_tpu_torch has "
-            "U-TAE, W-TAE and TimeUNet_v1 only (ROADMAP.md M9-M10 list the "
-            "rest of the zoo)")
+    if name not in MODELS:
+        raise ValueError(f"unknown model {name!r}")
     if cfg.get("seq_chunk") is not None:
         raise NotImplementedError(
             "seq_chunk (the L-TAE streamed over T) is not ported yet "
@@ -97,9 +112,47 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
                     add_boundary_loss=cfg.get("add_boundary_loss", False),
                     remat=cfg.get("remat", False),
                     remat_policy=cfg.get("remat_policy", "conv_out"), **common)
-    else:
+    elif name in ("timeunet", "timeunet_v1"):
         from crop2seg_tpu_torch.models.timeunet import TimeUNet
         model = TimeUNet(remat=cfg.get("remat", False), **common)
+    else:
+        model = _zoo_model(name, cfg, common)
     if generator is not None:
         init_weights(model, generator)
     return model.to(dev).eval()
+
+
+def _zoo_model(name: str, cfg: Mapping[str, Any], common: dict) -> nn.Module:
+    """TimeUNet_v2 and the baselines, as crop2seg_tpu/models/factory.py:67-115
+    builds them."""
+    k = cfg.get("num_classes", 15)
+    pad_value = cfg.get("pad_value", 0.0)
+    if name == "timeunet_v2":
+        from crop2seg_tpu_torch.models.timeunet_v2 import TimeUNetV2
+        common_v2 = {key: v for key, v in common.items()
+                     if key not in ("num_queries", "use_doy", "add_linear")}
+        return TimeUNetV2(agg_mode=cfg.get("agg_mode", "att_group"), **common_v2)
+    if name == "unet3d":
+        from crop2seg_tpu_torch.models.unet3d import UNet3D
+        return UNet3D(n_classes=k, in_channel=common["input_dim"], pad_value=pad_value)
+    if name == "convlstm":
+        from crop2seg_tpu_torch.models.convlstm import ConvLSTMSeg
+        return ConvLSTMSeg(num_classes=k, input_dim=common["input_dim"], hidden_dim=160,
+                           kernel_size=3, pad_value=pad_value)
+    if name == "convgru":
+        from crop2seg_tpu_torch.models.convgru import ConvGRUSeg
+        return ConvGRUSeg(num_classes=k, input_dim=common["input_dim"], hidden_dim=180,
+                          kernel_size=3, pad_value=pad_value)
+    if name == "uconvlstm":
+        from crop2seg_tpu_torch.models.recunet import RecUNet
+        out_k = k if cfg.get("out_conv") is None else tuple(cfg["out_conv"])[-1]
+        return RecUNet(input_dim=common["input_dim"], encoder_widths=(64, 64, 64, 128),
+                       decoder_widths=(32, 32, 64, 128), out_conv=(32, out_k),
+                       temporal="lstm", hidden_dim=64, encoder_norm="group",
+                       padding_mode="zeros", pad_value=0.0)
+    from crop2seg_tpu_torch.models.unet import UnetNaive
+    if cfg.get("max_temp") is None:
+        raise ValueError("unet_naive requires max_temp (the train CLI's --max_temp), "
+                         "the T its batches are padded to")
+    return UnetNaive(input_dim=common["input_dim"], temporal_length=cfg["max_temp"],
+                     out_conv=tuple(cfg.get("out_conv", (32, 15))), pad_value=pad_value)

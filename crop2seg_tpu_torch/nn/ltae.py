@@ -76,6 +76,17 @@ def _group_norm_queries(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+def encode_positions(encoder: nn.Module, encoder_abs: nn.Module | None,
+                     batch_positions: torch.Tensor) -> torch.Tensor:
+    """(B, T[, 2]) -> (B, T, d_model): ``encoder`` on the relative dates,
+    plus ``encoder_abs`` on the days of year where there is one (dates
+    (B, T, 2): relative, day of year)."""
+    if encoder_abs is not None:
+        return encoder(batch_positions[..., 0]) + encoder_abs(batch_positions[..., 1])
+    bp = batch_positions if batch_positions.dim() == 2 else batch_positions[..., 0]
+    return encoder(bp)
+
+
 def _dropout(x: torch.Tensor, p: float, generator=None) -> torch.Tensor:
     """Inverted dropout with the mask drawn from ``generator`` (flax
     ``nn.Dropout``: kept values scaled by 1/(1-p))."""
@@ -154,11 +165,10 @@ class _AttentionEncoder(nn.Module):
 
     def pe(self, batch_positions: torch.Tensor) -> torch.Tensor:
         """(B, T[, 2]) -> (B, T, d_model) fp32 positional encoding."""
-        if self.use_abs_rel_enc:
-            return (self.positional_encoder(batch_positions[..., 0])
-                    + self.positional_encoder_abs(batch_positions[..., 1]))
-        bp = batch_positions if batch_positions.dim() == 2 else batch_positions[..., 0]
-        return self.positional_encoder(bp)
+        return encode_positions(
+            self.positional_encoder,
+            self.positional_encoder_abs if self.use_abs_rel_enc else None,
+            batch_positions)
 
     def embed(self, x: torch.Tensor, batch_positions) -> torch.Tensor:
         """GroupNorm over (T, C/G) per pixel, the projection, plus PE (taken

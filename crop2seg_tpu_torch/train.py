@@ -15,10 +15,15 @@ rest freshly initialized). It writes conf.json, Fold_k/trainlog.json,
 Fold_k/{region}_test_metrics.json, Fold_k/{region}_conf_mat.pkl and
 {region}_overall.json / {region}_per_class.json.
 
-On the card the L-TAE runs its CUDA kernels: TimeUNet's train steps the
-training pair, U-TAE's and TimeUNet's val and test steps the eval kernel
-(W-TAE's attention-only L-TAE has no kernel, as in the JAX package). Flags of
-features not ported yet raise and name their ROADMAP.md item.
+``--model`` takes every name of the JAX CLI's: utae, wtae, timeunet
+(timeunet_v1), timeunet_v2, unet3d, convlstm, convgru, uconvlstm and
+unet_naive; unet_naive needs ``--max_temp``, the T its batches are padded
+to (``--t_buckets [61] --max_temp 61``, as in the JAX package). On the card
+the L-TAE runs its CUDA kernels: TimeUNet's train steps the training pair,
+U-TAE's and TimeUNet's val and test steps the eval kernel (W-TAE's
+attention-only L-TAE, TimeUNet_v2's TAE2d and the baselines have no kernel,
+as in the JAX package). Flags of features not ported yet raise and name
+their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -37,12 +42,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from crop2seg_tpu_torch.models.factory import MODELS
+
 log = logging.getLogger("crop2seg_tpu_torch.train")
 
 parser = argparse.ArgumentParser(prog="python -m crop2seg_tpu_torch.train")
 # model
 parser.add_argument("--model", default="utae", type=str,
-                    help="utae/wtae/timeunet (the rest of the zoo: ROADMAP.md M9-M10)")
+                    help="utae/wtae/timeunet/timeunet_v2/unet3d/convlstm/convgru/"
+                         "uconvlstm/unet_naive")
 parser.add_argument("--encoder_widths", default="[64,64,64,128]", type=str)
 parser.add_argument("--decoder_widths", default="[32,32,64,128]", type=str)
 parser.add_argument("--out_conv", default="[32, 15]")
@@ -148,7 +156,6 @@ parser.add_argument("--device_cache", action="store_true",
                          "augmentation frozen at its epoch-1 draw)")
 
 LIST_ARGS = ("encoder_widths", "decoder_widths", "out_conv", "t_buckets")
-PORTED_MODELS = ("utae", "wtae", "timeunet", "timeunet_v1")
 BOUNDARY_MODELS = ("utae", "wtae")
 
 
@@ -173,9 +180,8 @@ def check_ported(config) -> None:
         (config.seq_chunk is not None,
          "--seq_chunk: the L-TAE streamed over T is not ported yet (ROADMAP.md "
          "M7); on the card the kernel pair keeps the embed out of memory"),
-        (config.model not in PORTED_MODELS,
-         f"--model {config.model}: not ported yet (ROADMAP.md M9-M10); "
-         f"ported: {', '.join(PORTED_MODELS)}"),
+        (config.model not in MODELS,
+         f"--model {config.model}: no such model; the models: {', '.join(MODELS)}"),
         (config.add_boundary_loss and config.model not in BOUNDARY_MODELS,
          f"--add_boundary_loss: --model {config.model} has no boundary head "
          "(U-TAE and W-TAE have)"),

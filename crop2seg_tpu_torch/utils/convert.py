@@ -1,11 +1,14 @@
-"""Weights converter: the JAX package's flax U-TAE, TimeUNet and W-TAE
-variables -> the port's state dict (the inverse of
-crop2seg_tpu/utils/torch_convert.py:44-441: the plain, depthwise-separable,
-squeeze-excitation and MBConv blocks). Leaves arrive as numpy arrays; the
-result loads with the models' ``load_state_dict``.
+"""Weights converter: the JAX package's flax variables of every model of
+its factory (U-TAE, TimeUNet, W-TAE, TimeUNet_v2 and its TAE2d, the U-Nets,
+the recurrent models, UNet3D) -> the port's state dict (the inverse of
+crop2seg_tpu/utils/torch_convert.py: the plain, depthwise-separable,
+squeeze-excitation and MBConv blocks included). Leaves arrive as numpy
+arrays; the result loads with the models' ``load_state_dict``.
 
     flax conv kernel   (kh, kw, I, O)              -> torch (O, I, kh, kw)
     flax conv-transpose forward HWIO, pre-flipped  -> torch (I, O, kh, kw)
+    flax 3-D conv      (kd, kh, kw, I, O)          -> torch (O, I, kd, kh, kw)
+    UNet3D's transposed conv, forward DHWIO, flipped -> torch (I, O, kd, kh, kw)
     flax Dense         (I, O)                      -> torch Linear (O, I)
     flax Dense C->D    (I, O)                      -> torch Conv1d (O, I, 1)
     flax depthwise     (kh, kw, 1, C)              -> torch (C, 1, kh, kw)
@@ -137,6 +140,11 @@ def _ltae(sd, prefix, p, s):
         _norm(sd, _j(prefix, "mlp.2"), p["mlp_bn"], s["mlp_bn"])
         sd[_j(prefix, "out_norm.weight")] = p["out_norm_scale"]
         sd[_j(prefix, "out_norm.bias")] = p["out_norm_bias"]
+    _pe(sd, prefix, p)
+
+
+def _pe(sd, prefix, p):
+    """The positional encoders' learned parameters, where they have any."""
     pe = p.get("positional_encoder", {})
     if "fc" in pe:          # sinusoidal encoder with a learned Linear
         sd[_j(prefix, "positional_encoder.fc.weight")] = linear_weight(pe["fc"]["kernel"])
@@ -146,6 +154,57 @@ def _ltae(sd, prefix, p, s):
         if "embedding" in emb:  # absolute day-of-year encoder
             sd[_j(prefix, f"{name}.fc.weight")] = linear_weight(emb["embedding"])
             sd[_j(prefix, f"{name}.fc.bias")] = emb["bias"]
+
+
+def _dense(sd, prefix, params):
+    """flax Dense -> torch Linear at ``prefix``."""
+    sd[_j(prefix, "weight")] = linear_weight(params["kernel"])
+    if "bias" in params:
+        sd[_j(prefix, "bias")] = params["bias"]
+
+
+def _tae2d(sd, prefix, p, s):
+    """TAE2d (the inverse of crop2seg_tpu/utils/torch_convert.py:444-500):
+    the classical stages ``attention_{i}`` -> ``attention_heads.{i}``, or
+    the lightweight head ``attention`` -> ``attention_heads.0``; the cls
+    tokens (nct, H, W, C) -> (nct, C, H, W) with the module's buffers
+    (position -1, never padded); the cls merges (flax Dense nct -> 1) ->
+    Conv1d(nct, 1, 1); the linear reductions -> index 1 of their
+    Sequential(AdaptiveAvgPool1d(45), Linear(45, 1)); mlp.1 the BatchNorm."""
+    sd[_j(prefix, "in_norm.weight")] = p["in_norm_scale"]
+    sd[_j(prefix, "in_norm.bias")] = p["in_norm_bias"]
+    if "inconv" in p:
+        sd[_j(prefix, "inconv.weight")] = linear_weight(p["inconv"]["kernel"])[:, :, None]
+        sd[_j(prefix, "inconv.bias")] = p["inconv"]["bias"]
+    _pe(sd, prefix, p)
+    if "cls_token" in p:
+        cls = np.transpose(p["cls_token"], (0, 3, 1, 2))
+        sd[_j(prefix, "cls_token")] = cls
+        sd[_j(prefix, "cls_position")] = np.full(cls.shape[:1], -1.0, np.float32)
+        sd[_j(prefix, "cls_pad_mask")] = np.zeros(cls.shape[:1], bool)
+    for name in ("cls_emb_conv", "cls_attn_conv"):
+        if name in p:
+            sd[_j(prefix, f"{name}.weight")] = linear_weight(p[name]["kernel"])[:, :, None]
+            sd[_j(prefix, f"{name}.bias")] = p[name]["bias"]
+    for name, port in (("emb_reduce", "linear_embedding_reduction.1"),
+                       ("attn_reduce", "linear_attention_mask_reduction.1")):
+        if name in p:
+            _dense(sd, _j(prefix, port), p[name])
+    if "attention" in p:
+        att = p["attention"]
+        sd[_j(prefix, "attention_heads.0.Q")] = att["query"]
+        _dense(sd, _j(prefix, "attention_heads.0.fc1_k"), att["fc1_k"])
+    i = 0
+    while f"attention_{i}" in p:
+        att, ap = p[f"attention_{i}"], _j(prefix, f"attention_heads.{i}")
+        for name in ("fc_q", "fc_k", "fc_v", "fc_out"):
+            _dense(sd, f"{ap}.{name}", att[name])
+        _norm(sd, f"{ap}.layer_norm", att["layer_norm"])
+        i += 1
+    _dense(sd, _j(prefix, "mlp.0"), p["mlp_dense"])
+    _norm(sd, _j(prefix, "mlp.1"), p["mlp_bn"], s["mlp_bn"])
+    sd[_j(prefix, "out_norm.weight")] = p["out_norm_scale"]
+    sd[_j(prefix, "out_norm.bias")] = p["out_norm_bias"]
 
 
 def _down_block(sd, prefix, p, s, instance_norm=False):
@@ -221,6 +280,21 @@ def _heads(sd, p, s):
             _layer(sd, f"{head}.conv", p[head]["conv"], s.get(head, {}).get("conv", {}))
 
 
+def _unet(sd, p, s, instance_norm=False):
+    """A U-Net's conv blocks: in_conv where there is one, ``down_{i}`` /
+    ``up_{i}`` -> ``down_blocks.{i}`` / ``up_blocks.{i}``, and the heads."""
+    if "in_conv" in p:
+        _layer(sd, "in_conv.conv", p["in_conv"]["conv"],
+               s.get("in_conv", {}).get("conv", {}), instance_norm)
+    i = 0
+    while f"down_{i}" in p:
+        _down_block(sd, f"down_blocks.{i}", p[f"down_{i}"], s.get(f"down_{i}", {}),
+                    instance_norm)
+        _up_block(sd, f"up_blocks.{i}", p[f"up_{i}"], s[f"up_{i}"])
+        i += 1
+    _heads(sd, p, s)
+
+
 def utae_state_dict_from_flax(variables: Mapping, encoder_norm: str = "group"
                               ) -> Dict[str, torch.Tensor]:
     """flax ``{'params', 'batch_stats'}`` of crop2seg_tpu's U-TAE or TimeUNet
@@ -231,18 +305,10 @@ def utae_state_dict_from_flax(variables: Mapping, encoder_norm: str = "group"
     is the model's: with "instance" the encoder's norms hold indices without
     parameters."""
     p, s = _split(variables)
-    inst = encoder_norm == "instance"
     sd: Dict[str, np.ndarray] = {}
-    _layer(sd, "in_conv.conv", p["in_conv"]["conv"],
-           s.get("in_conv", {}).get("conv", {}), inst)
-    i = 0
-    while f"down_{i}" in p:
-        _down_block(sd, f"down_blocks.{i}", p[f"down_{i}"], s.get(f"down_{i}", {}), inst)
-        _up_block(sd, f"up_blocks.{i}", p[f"up_{i}"], s[f"up_{i}"])
-        i += 1
+    _unet(sd, p, s, encoder_norm == "instance")
     _ltae(sd, "temporal_encoder", p["temporal_encoder"],
           s.get("temporal_encoder", {}))
-    _heads(sd, p, s)
     return _torch(sd)
 
 
@@ -271,6 +337,122 @@ def wtae_state_dict_from_flax(variables: Mapping, encoder_norm: str = "group"
         i += 1
     _ltae(sd, "temporal_encoder", p["temporal_encoder"], {})
     _heads(sd, p, s)
+    return _torch(sd)
+
+
+def tae2d_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax TAE2d variables (either attention type) -> the port's state dict
+    of the same module."""
+    sd: Dict[str, np.ndarray] = {}
+    _tae2d(sd, "", *_split(variables))
+    return _torch(sd)
+
+
+TAE2D_NAMES = ("temporal_encoder_full_resolution", "temporal_encoder_low_resolution")
+
+
+def timeunet_v2_state_dict_from_flax(variables: Mapping, encoder_norm: str = "group"
+                                     ) -> Dict[str, torch.Tensor]:
+    """flax TimeUNet_v2 variables -> the port's state dict (the inverse of
+    crop2seg_tpu/utils/torch_convert.py::convert_timeunet_v2): the U-Net's
+    blocks and the two TAE2d (``encoder_norm`` as for U-TAE)."""
+    p, s = _split(variables)
+    sd: Dict[str, np.ndarray] = {}
+    _unet(sd, p, s, encoder_norm == "instance")
+    for name in TAE2D_NAMES:
+        _tae2d(sd, name, p[name], s.get(name, {}))
+    return _torch(sd)
+
+
+def unet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax Unet or UnetNaive variables -> the port's state dict (the
+    inverse of crop2seg_tpu/utils/torch_convert.py::convert_unet_naive; the
+    plain Unet has no in_conv)."""
+    sd: Dict[str, np.ndarray] = {}
+    _unet(sd, *_split(variables))
+    return _torch(sd)
+
+
+def _cell(sd, prefix, p):
+    """A flax ConvLSTM's or ConvGRU's scanned ``cell`` (or a BConvLSTM's
+    ``forward`` / ``backward``) -> ``{prefix}.cell_list.0`` (or
+    ``{prefix}.convlstm_forward`` / ``_backward``)."""
+    if "forward" in p:
+        for d in ("forward", "backward"):
+            _cell(sd, _j(prefix, f"convlstm_{d}"), p[d])
+        return
+    for name, conv in p["cell"].items():
+        _conv(sd, _j(prefix, f"cell_list.0.{name}"), conv["conv"])
+
+
+def convlstm_seg_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ConvLSTMSeg, BConvLSTMSeg or ConvGRUSeg variables -> the port's
+    state dict (the inverse of convert_convlstm_seg, convert_bconvlstm_seg
+    and convert_convgru_seg of crop2seg_tpu/utils/torch_convert.py): the
+    encoder's cell at ``convlstm_encoder`` / ``convgru_encoder`` (the GRU's
+    has ``in_conv`` and ``out_conv``), or the two directions at the top,
+    and ``classification_layer``."""
+    p = variables["params"]
+    sd: Dict[str, np.ndarray] = {}
+    enc = p["encoder"]
+    gru = "forward" not in enc and "in_conv" in enc["cell"]
+    _cell(sd, "" if "forward" in enc else
+          ("convgru_encoder" if gru else "convlstm_encoder"), enc)
+    _conv(sd, "classification_layer", p["classifier"]["conv"])
+    return _torch(sd)
+
+
+def recunet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax RecUNet variables -> the port's state dict (the inverse of
+    crop2seg_tpu/utils/torch_convert.py::convert_recunet; "blstm"'s two
+    directions under ``temporal_encoder.convlstm_forward`` / ``_backward``)."""
+    p, s = _split(variables)
+    sd: Dict[str, np.ndarray] = {}
+    _unet(sd, p, s)
+    if "temporal_encoder" in p:
+        _cell(sd, "temporal_encoder", p["temporal_encoder"])
+        _conv(sd, "out_convlstm", p["out_convlstm"]["conv"])
+    return _torch(sd)
+
+
+def conv3d_weight(k: np.ndarray) -> np.ndarray:
+    """flax (kd, kh, kw, I, O) -> torch Conv3d (O, I, kd, kh, kw)."""
+    return np.transpose(k, (4, 3, 0, 1, 2))
+
+
+def conv_transpose3d_weight(k: np.ndarray) -> np.ndarray:
+    """The JAX ``_deconv3d``'s forward-conv DHWIO kernel, spatially flipped
+    against torch's -> torch ConvTranspose3d (I, O, kd, kh, kw), flipped back."""
+    return np.transpose(k, (3, 4, 0, 1, 2))[:, :, ::-1, ::-1, ::-1]
+
+
+# UNet3D: the JAX names (conv ``{tag}_conv``, BatchNorm ``{tag}_bn``) -> the
+# reference's Sequential indices
+UNET3D_CONVS = tuple((f"{b}{ab}", f"{b}.{3 * i}", f"{b}.{3 * i + 1}")
+                     for b in ("en3", "en4", "dc4", "dc3")
+                     for i, ab in enumerate("ab")) + (
+    ("center_in", "center_in.0", "center_in.1"),
+    ("center_mid", "center_out.0", "center_out.1"))
+UNET3D_DECONVS = (("center_out", "center_out.3", None), ("trans3", "trans3.0", "trans3.1"))
+
+
+def unet3d_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax UNet3D variables -> the port's state dict (the inverse of
+    crop2seg_tpu/utils/torch_convert.py::convert_unet3d: the transposed
+    convs' kernels flipped back)."""
+    p, s = _split(variables)
+    sd: Dict[str, np.ndarray] = {}
+    for tag, conv, bn in UNET3D_CONVS:
+        sd[f"{conv}.weight"] = conv3d_weight(p[f"{tag}_conv"]["kernel"])
+        sd[f"{conv}.bias"] = p[f"{tag}_conv"]["bias"]
+        _norm(sd, bn, p[f"{tag}_bn"], s[f"{tag}_bn"])
+    for tag, conv, bn in UNET3D_DECONVS:
+        sd[f"{conv}.weight"] = conv_transpose3d_weight(p[f"{tag}_kernel"])
+        sd[f"{conv}.bias"] = p[f"{tag}_bias"]
+        if bn is not None:
+            _norm(sd, bn, p[f"{tag}_bn"], s[f"{tag}_bn"])
+    sd["final.weight"] = conv3d_weight(p["final"]["kernel"])
+    sd["final.bias"] = p["final"]["bias"]
     return _torch(sd)
 
 
@@ -352,6 +534,29 @@ def _block_paths(paths, port, flax, block) -> None:
         _se_paths(paths, f"{port}.sae", f"{flax}/se")
 
 
+def _pe_paths(names, module) -> None:
+    """The positional encoders' learned parameters of ``module``."""
+    for name in ("positional_encoder", "positional_encoder_abs"):
+        enc = getattr(module, name, None)
+        if enc is None or getattr(enc, "fc", None) is None:
+            continue
+        if type(enc).__name__ == "AbsolutePositionalEncoder":
+            names.update({f"{name}.fc.weight": f"{name}/embedding",
+                          f"{name}.fc.bias": f"{name}/bias"})
+        else:
+            names.update({f"{name}.fc.weight": f"{name}/fc/kernel",
+                          f"{name}.fc.bias": f"{name}/fc/bias"})
+
+
+def _prefixed(paths, port, flax, names) -> None:
+    for k, v in names.items():
+        paths[f"{port}.{k}"] = f"{flax}/{v}"
+
+
+def _dense_names(names, port, flax) -> None:
+    names.update({f"{port}.weight": f"{flax}/kernel", f"{port}.bias": f"{flax}/bias"})
+
+
 def _ltae_paths(paths, port, flax, ltae) -> None:
     names = {"in_norm.weight": "in_norm_scale", "in_norm.bias": "in_norm_bias",
              "inconv.weight": "inconv/kernel", "inconv.bias": "inconv/bias",
@@ -361,39 +566,89 @@ def _ltae_paths(paths, port, flax, ltae) -> None:
              "mlp.0.weight": "mlp_dense/kernel", "mlp.0.bias": "mlp_dense/bias",
              "mlp.2.weight": "mlp_bn/scale", "mlp.2.bias": "mlp_bn/bias",
              "out_norm.weight": "out_norm_scale", "out_norm.bias": "out_norm_bias"}
-    for name in ("positional_encoder", "positional_encoder_abs"):
-        enc = getattr(ltae, name, None)
-        if enc is None or getattr(enc, "fc", None) is None:
-            continue
-        if type(enc).__name__ == "AbsolutePositionalEncoder":
-            names.update({f"{name}.fc.weight": f"{name}/embedding",
-                          f"{name}.fc.bias": f"{name}/bias"})
-        else:
-            names.update({f"{name}.fc.weight": f"{name}/fc/kernel",
-                          f"{name}.fc.bias": f"{name}/fc/bias"})
-    for k, v in names.items():
-        paths[f"{port}.{k}"] = f"{flax}/{v}"
+    _pe_paths(names, ltae)
+    _prefixed(paths, port, flax, names)
+
+
+def _tae2d_paths(paths, port, flax, tae) -> None:
+    """A TAE2d's parameters, the table of ``_tae2d`` read the other way."""
+    names = {"in_norm.weight": "in_norm_scale", "in_norm.bias": "in_norm_bias",
+             "mlp.1.weight": "mlp_bn/scale", "mlp.1.bias": "mlp_bn/bias",
+             "out_norm.weight": "out_norm_scale", "out_norm.bias": "out_norm_bias",
+             "cls_token": "cls_token", "attention_heads.0.Q": "attention/query"}
+    for port_name, flax_name in (("inconv", "inconv"), ("mlp.0", "mlp_dense"),
+                                 ("cls_emb_conv", "cls_emb_conv"),
+                                 ("cls_attn_conv", "cls_attn_conv"),
+                                 ("linear_embedding_reduction.1", "emb_reduce"),
+                                 ("linear_attention_mask_reduction.1", "attn_reduce"),
+                                 ("attention_heads.0.fc1_k", "attention/fc1_k")):
+        _dense_names(names, port_name, flax_name)
+    for i in range(len(tae.attention_heads)):
+        for part in ("fc_q", "fc_k", "fc_v", "fc_out"):
+            _dense_names(names, f"attention_heads.{i}.{part}", f"attention_{i}/{part}")
+        names.update({f"attention_heads.{i}.layer_norm.weight": f"attention_{i}/layer_norm/scale",
+                      f"attention_heads.{i}.layer_norm.bias": f"attention_{i}/layer_norm/bias"})
+    _pe_paths(names, tae)
+    _prefixed(paths, port, flax, names)
+
+
+def _cell_paths(paths, port, flax, encoder) -> None:
+    """A ConvLSTM's, ConvGRU's or BConvLSTM's cell convs -> the flax scanned
+    ``cell`` (``forward/cell``, ``backward/cell`` for the two directions)."""
+    for name, m in encoder.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            rel = name.replace("convlstm_", "").replace("cell_list.0", "cell")
+            _conv_paths(paths, f"{port}.{name}", f"{flax}/" + rel.replace(".", "/"))
+
+
+def _unet3d_paths(paths) -> None:
+    for tag, conv, bn in UNET3D_CONVS:
+        _dense_names(paths, conv, f"{tag}_conv")
+        _norm_paths(paths, bn, f"{tag}_bn")
+    for tag, conv, bn in UNET3D_DECONVS:
+        paths.update({f"{conv}.weight": f"{tag}_kernel", f"{conv}.bias": f"{tag}_bias"})
+        if bn is not None:
+            _norm_paths(paths, bn, f"{tag}_bn")
+    _dense_names(paths, "final", "final")
 
 
 def flax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
-    """Each parameter name of the port's U-TAE, TimeUNet or W-TAE -> the
+    """Each parameter name of a model of the port's factory -> the
     slash-joined flax path of its counterpart in the JAX model's ``params``
     (``down_0/conv1/conv0/conv/kernel``, ``temporal_encoder/attention/query``,
-    ...): the table of ``utae_state_dict_from_flax`` and
-    ``wtae_state_dict_from_flax`` read the other way. Raises if a parameter
-    has no counterpart."""
+    ``encoder/cell/conv/conv/kernel``, ...): the tables of the converters
+    above read the other way. Raises if a parameter has no counterpart."""
+    from crop2seg_tpu_torch.nn.ltae import LTAE, LTAE4WTAE
+
     paths: Dict[str, str] = {}
-    _layer_paths(paths, "in_conv.conv", "in_conv/conv", model.in_conv.conv)
-    for i, block in enumerate(getattr(model, "spatial_reduction", ())):
-        _block_paths(paths, f"spatial_reduction.{i}", f"spatial_reduction_{i}", block)
-    for i, block in enumerate(model.down_blocks):
-        _block_paths(paths, f"down_blocks.{i}", f"down_{i}", block)
-    for i, block in enumerate(model.up_blocks):
-        _block_paths(paths, f"up_blocks.{i}", f"up_{i}", block)
-    _ltae_paths(paths, "temporal_encoder", "temporal_encoder", model.temporal_encoder)
+    if getattr(model, "in_conv", None) is not None:
+        _layer_paths(paths, "in_conv.conv", "in_conv/conv", model.in_conv.conv)
+    for attr, flax in (("spatial_reduction", "spatial_reduction"),
+                       ("down_blocks", "down"), ("up_blocks", "up")):
+        for i, block in enumerate(getattr(model, attr, ())):
+            _block_paths(paths, f"{attr}.{i}", f"{flax}_{i}", block)
+    te = getattr(model, "temporal_encoder", None)
+    if isinstance(te, (LTAE, LTAE4WTAE)):
+        _ltae_paths(paths, "temporal_encoder", "temporal_encoder", te)
+    elif te is not None:                                  # RecUNet's recurrent one
+        _cell_paths(paths, "temporal_encoder", "temporal_encoder", te)
+    for name in TAE2D_NAMES:
+        if hasattr(model, name):
+            _tae2d_paths(paths, name, name, getattr(model, name))
     for head in ("out_conv", "boundary_conv"):
         if getattr(model, head, None) is not None:
             _layer_paths(paths, f"{head}.conv", f"{head}/conv", getattr(model, head).conv)
+    for name, flax in (("convlstm_encoder", "encoder"), ("convgru_encoder", "encoder"),
+                       ("convlstm_forward", "encoder/forward"),
+                       ("convlstm_backward", "encoder/backward")):
+        if hasattr(model, name):
+            _cell_paths(paths, name, flax, getattr(model, name))
+    for name, flax in (("classification_layer", "classifier"),
+                       ("out_convlstm", "out_convlstm")):
+        if hasattr(model, name):
+            _conv_paths(paths, name, flax)
+    if hasattr(model, "en3"):
+        _unet3d_paths(paths)
     names = [k for k, _ in model.named_parameters()]
     missing = [k for k in names if k not in paths]
     if missing:

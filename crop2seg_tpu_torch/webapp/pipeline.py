@@ -227,7 +227,7 @@ def stream_tile_inference(model, ds, batch_size: int = 10,
                           ) -> Tuple[np.ndarray, np.ndarray]:
     """Overlapped disk->crop-map inference over the patches of a cell.
 
-    ``model``: the port's TimeUNet, U-TAE or W-TAE (weights loaded); it is
+    ``model``: any model of the port's factory (weights loaded); it is
     moved to ``device`` (the CUDA card unless "cpu" is asked for) and set
     to eval.
     ``ds``: an ``S2TSCZCropDataset(for_inference=True)`` over the cell that
@@ -418,8 +418,9 @@ def generate_prediction(data_folder: str, model_dir: str, year: int,
     """Whole-cell crop map (reference prediction.py:253-355).
 
     data_folder: DatasetCreator(for_inference) output (100 patches).
-    model_dir: directory with conf.json (its "model": timeunet, utae or
-    wtae) + Fold_1/model.ckpt (the port's checkpoint, or the reference's
+    model_dir: directory with conf.json (its "model": any name of the
+    factory, models/factory.py::MODELS; unet_naive with its max_temp, the
+    series' T) + Fold_1/model.ckpt (the port's checkpoint, or the reference's
     model.pth.tar) + NORM_S2_patch.json.
     Returns {'proba', 'classes', 'segments', 'soft', 'polygons'} (and
     'lpis', 'homogenized' with ``lpis_parcels``) and writes classes.npy,
@@ -427,7 +428,8 @@ def generate_prediction(data_folder: str, model_dir: str, year: int,
     ``cache_dir/prediction``.
 
     ``device``: the CUDA card unless "cpu" is asked for; nothing falls back
-    on its own; the L-TAE serves on the fused kernel (W-TAE's has none).
+    on its own; the L-TAE of U-TAE and TimeUNet serves on the fused kernel
+    (W-TAE's, TimeUNet_v2's TAE2d and the baselines have none).
     One card serves:
     multi-card serving is ROADMAP.md item M11. ``timeline``: the stream's
     keys (see there), plus 'setup' (conf, model, weights, dataset) and

@@ -1,9 +1,11 @@
 """Where the time of one whole tile goes in crop2seg_tpu_torch, on one card.
 
-    python3 scripts/profile_tile_torch.py [--model timeunet|utae|wtae]
+    python3 scripts/profile_tile_torch.py [--model timeunet|utae|wtae|timeunet_v2|...]
                                           [--dtype bf16|fp32] [--trace out.json]
 
-Runs TimeUNet_v1 (default), U-TAE or W-TAE at the factory defaults (seeded random
+Runs TimeUNet_v1 (default) or any other model of the factory (U-TAE, W-TAE,
+TimeUNet_v2, the baselines; U-Net naive with max_temp 61) at the factory
+defaults (seeded random
 weights) through make_tile_predictor on one synthetic (61, 1098, 1098, 10)
 tile, length 55, batch 10: one warm-up tile, then one tile under
 torch.profiler. Prints the
@@ -26,12 +28,12 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from crop2seg_tpu_torch.inference.tile import make_tile_predictor  # noqa: E402
-from crop2seg_tpu_torch.models.factory import get_model  # noqa: E402
+from crop2seg_tpu_torch.models.factory import MODELS, get_model  # noqa: E402
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("timeunet", "utae", "wtae"), default="timeunet")
+    ap.add_argument("--model", choices=MODELS, default="timeunet")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     ap.add_argument("--top", type=int, default=25)
@@ -46,7 +48,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    model = get_model({"model": args.model}, generator=torch.Generator().manual_seed(0))
+    model = get_model({"model": args.model, "max_temp": 61},
+                      generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(2)
     tile = torch.randn(61, 1098, 1098, 10, generator=gen, device=dev)
     tile[55:] = 0.0

@@ -1,11 +1,12 @@
 """Where the time of one training step goes in crop2seg_tpu_torch, on one card.
 
-    python3 scripts/profile_train_torch.py [--model timeunet|utae|wtae]
+    python3 scripts/profile_train_torch.py [--model timeunet|utae|wtae|timeunet_v2|...]
                                            [--dtype fp32|bf16] [--untailed]
                                            [--remat] [--batch 4] [--steps 3]
                                            [--trace out.json]
 
-Runs make_train_step on TimeUNet_v1, U-TAE or W-TAE at the factory defaults
+Runs make_train_step on TimeUNet_v1, U-TAE, W-TAE or another model of the
+factory (TimeUNet_v2, the baselines; U-Net naive with max_temp 61) at the factory defaults
 (seeded random weights, 15 classes, class 14 weighted 0, Adam lr 1e-3, dropout live;
 fp32, or bf16 under autocast with ``--dtype bf16``). TimeUNet defers in_conv's
 GroupNorm + ReLU into the ltae_pool_tail kernels, or with ``--untailed``
@@ -37,12 +38,12 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from crop2seg_tpu_torch.learning.trainer import StepConfig, make_train_step  # noqa: E402
-from crop2seg_tpu_torch.models.factory import get_model  # noqa: E402
+from crop2seg_tpu_torch.models.factory import MODELS, get_model  # noqa: E402
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("timeunet", "utae", "wtae"), default="timeunet")
+    ap.add_argument("--model", choices=MODELS, default="timeunet")
     ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
     ap.add_argument("--untailed", action="store_true",
                     help="TimeUNet: do not defer in_conv's GroupNorm + ReLU into the kernels")
@@ -74,7 +75,7 @@ def main() -> int:
              "dates": (torch.arange(t, dtype=torch.float32, device=dev) * 5 + 3
                        )[None].expand(b, t).contiguous(),
              "y": torch.randint(0, 15, (b, 128, 128), generator=gen, device=dev)}
-    model = get_model({"model": args.model, "remat": args.remat},
+    model = get_model({"model": args.model, "remat": args.remat, "max_temp": t},
                       generator=torch.Generator().manual_seed(0))
     if args.model == "timeunet":
         model.defer_tail = False if args.untailed else None

@@ -165,10 +165,16 @@ def test_factory_defaults_and_seeded_weights():
                                  {"model": "convlstm"}, {"model": "unet3d"}],
                          ids=["timeunet_v2", "convlstm", "unet3d"])
 def test_factory_other_models_point_at_roadmap(cfg):
-    """Models not ported yet (TimeUNet_v2, the recurrent and 3D models) raise
-    and name ROADMAP.md."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg, device="cpu")
+    """The rest of the zoo (TimeUNet_v2, the recurrent and 3D models) builds
+    at the factory's defaults, in eval mode, and serves a padded series."""
+    m = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert not m.training
+    x = torch.randn(1, 4, 16, 16, 10)
+    pad = torch.tensor([[False, False, False, True]])
+    x[pad] = 0.0
+    with torch.inference_mode():
+        out = m(x, torch.arange(4.0)[None] * 10, pad)
+    assert out.shape == (1, 16, 16, 15) and torch.isfinite(out).all()
 
 
 def test_training_mode_raises_naming_slice_d():

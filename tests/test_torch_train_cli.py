@@ -345,15 +345,25 @@ def test_sample_weights_fill_missing_with_one():
 
 @pytest.mark.parametrize("extra,match", [
     (["--num_devices", "2"], "M11"), (["--dataset", "pastis"], "M5"),
-    (["--seq_chunk", "8"], "M7"), (["--model", "timeunet_v2"], "M9"),
-    (["--model", "unet3d"], "M10"), (["--model", "convgru"], "M10"),
-    (["--add_boundary_loss"], "no boundary head"), (["--model", "uconvlstm"], "M9-M10"),
-    (["--platform", "cpu"], "--device")])
+    (["--seq_chunk", "8"], "M7"), (["--add_boundary_loss"], "no boundary head"),
+    (["--model", "timeunet_v3"], "no such model"), (["--platform", "cpu"], "--device")])
 def test_unported_flags_raise(data, tmp_path, extra, match):
     argv = _argv(data, tmp_path / "res") + extra
     with pytest.raises(SystemExit, match=match):
         _run(argv)
     assert not os.path.exists(tmp_path / "res")
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("timeunet_v2", []), ("unet3d", []), ("convgru", []), ("uconvlstm", []),
+    ("convlstm", []), ("unet_naive", ["--t_buckets", "[12]", "--max_temp", "12"])])
+def test_every_model_of_the_jax_cli_trains(data, tmp_path, model, extra):
+    """Each model the JAX CLI's --model names trains for an epoch on the CPU
+    and tests with finite metrics (the baselines at their fixed widths;
+    unet_naive with --max_temp, its batches padded to that T)."""
+    run = _run(_argv(data, tmp_path / "res", "--epochs", "1", *extra, model=model))
+    assert run.adam_step == 7 // 2
+    assert all(math.isfinite(v) for v in run.test_metrics.values())
 
 
 def test_the_card_is_the_default(data, tmp_path):

@@ -1,9 +1,12 @@
 """crop2seg_tpu_torch's ``apply_reference_init`` against the JAX package's,
 parameter by parameter on converted names.
 
-For each parameter of two small models (U-TAE with batch norms in the
+For each parameter of five small models (U-TAE with batch norms in the
 encoder, the boundary head and the absolute + relative date encoders;
-TimeUNet with the learned Linear after the sinusoidal encoder), JAX's
+TimeUNet with the learned Linear after the sinusoidal encoder; TimeUNet_v2
+with its classical TAE2d and LayerNorms; UNet3D with Conv3d, BatchNorm3d
+and the transposed convs; a classical TAE2d with cls tokens, their merge
+and the linear attention reduction), JAX's
 rule is read off its own draws on variables of the model's shapes: untouched
 (equal to what it was given), zero, or a normal draw whose RMS over a few keys picks N(0, 1) or
 Xavier-normal for the parameter's shape. The port's draws, pooled over 200
@@ -20,17 +23,42 @@ import torch
 from crop2seg_tpu.learning.weight_init import apply_reference_init as japply
 from crop2seg_tpu.models import TimeUNet as JTimeUNet
 from crop2seg_tpu.models import UTAE as JUTAE
+from crop2seg_tpu.models.timeunet_v2 import TimeUNetV2 as JTimeUNetV2
+from crop2seg_tpu.models.unet3d import UNet3D as JUNet3D
+from crop2seg_tpu.nn.tae2d import TAE2d as JTAE2d
 from crop2seg_tpu_torch.learning.weight_init import apply_reference_init
 from crop2seg_tpu_torch.models.timeunet import TimeUNet
+from crop2seg_tpu_torch.models.timeunet_v2 import TimeUNetV2
+from crop2seg_tpu_torch.models.unet3d import UNet3D
 from crop2seg_tpu_torch.models.utae import UTAE
-from crop2seg_tpu_torch.utils.convert import utae_state_dict_from_flax
+from crop2seg_tpu_torch.nn.tae2d import TAE2d
+from crop2seg_tpu_torch.utils.convert import (
+    tae2d_state_dict_from_flax, timeunet_v2_state_dict_from_flax,
+    unet3d_state_dict_from_flax, utae_state_dict_from_flax)
 
 KW = dict(input_dim=10, encoder_widths=(8, 16), decoder_widths=(8, 16),
           out_conv=(8, 15), n_head=4, d_model=32, d_k=4)
+UTAE_KW = dict(encoder_norm="batch", add_boundary_loss=True, use_abs_rel_enc=True)
+# 8 cls tokens: their merge's Xavier std, sqrt(2/9), stands clear of N(0, 1)
+# in the few JAX draws that read the rule
+TAE_KW = dict(attention_type="classical", embedding_reduction="cls",
+              attention_mask_reduction="linear", num_cls_tokens=8, in_channels=16,
+              n_head=4, d_k=4, d_model=32, mlp=(32, 16))
+SEQ = (1, 3, 16, 16, 10)
+# name -> (JAX model, port model, converter, input shape, dates shape)
 CASES = {
-    "utae_batchnorm_boundary_absrel": (JUTAE, UTAE, dict(
-        encoder_norm="batch", add_boundary_loss=True, use_abs_rel_enc=True)),
-    "timeunet_linear": (JTimeUNet, TimeUNet, dict(add_linear=True)),
+    "utae_batchnorm_boundary_absrel": (
+        lambda: JUTAE(**KW, **UTAE_KW), lambda: UTAE(**KW, **UTAE_KW),
+        utae_state_dict_from_flax, SEQ, (1, 3, 2)),
+    "timeunet_linear": (
+        lambda: JTimeUNet(**KW, add_linear=True), lambda: TimeUNet(**KW, add_linear=True),
+        utae_state_dict_from_flax, SEQ, (1, 3)),
+    "timeunet_v2": (lambda: JTimeUNetV2(**KW), lambda: TimeUNetV2(**KW),
+                    timeunet_v2_state_dict_from_flax, SEQ, (1, 3)),
+    "unet3d": (lambda: JUNet3D(feats=2), lambda: UNet3D(feats=2),
+               unet3d_state_dict_from_flax, (1, 4, 16, 16, 10), (1, 4)),
+    "tae2d_cls8_linear": (lambda: JTAE2d(**TAE_KW), lambda: TAE2d(**TAE_KW, cls_hw=(4, 4)),
+                          tae2d_state_dict_from_flax, (1, 3, 4, 4, 16), (1, 3)),
 }
 JAX_KEYS, PORT_SEEDS = 4, 200
 
@@ -40,11 +68,11 @@ def _xavier_std(shape) -> float:
     return math.sqrt(2.0 / (fan_in + fan_out))
 
 
-def _jax_rules(jcls, kw):
+def _jax_rules(make, to_sd, x_shape, dates_shape):
     """port name -> ("untouched" | "zero" | "normal" | "xavier") by JAX's draws."""
-    x = np.zeros((1, 3, 16, 16, 10), np.float32)
-    dates = np.zeros((1, 3, 2) if kw.get("use_abs_rel_enc") else (1, 3), np.float32)
-    m = jcls(**KW, **kw)
+    x = np.zeros(x_shape, np.float32)
+    dates = np.zeros(dates_shape, np.float32)
+    m = make()
     # the variables' shapes, filled with N(0, 1) values: a leaf the rule
     # leaves alone keeps them, a zeroed one loses them
     shapes = jax.eval_shape(
@@ -52,14 +80,14 @@ def _jax_rules(jcls, kw):
     fill = np.random.default_rng(0)
     v = jax.tree_util.tree_map(
         lambda a: fill.standard_normal(a.shape).astype(a.dtype), shapes)
-    before = utae_state_dict_from_flax(v)
+    before = to_sd(v)
     draw = jax.jit(japply)     # the "rbg" keys compile in a third of threefry's time
-    draws = [utae_state_dict_from_flax(jax.tree_util.tree_map(
+    draws = [to_sd(jax.tree_util.tree_map(
         np.asarray, draw(v, jax.random.key(k, impl="rbg")))) for k in range(JAX_KEYS)]
     rules = {}
     for k, b in before.items():
-        if "running" in k or "num_batches" in k:
-            continue
+        if "running" in k or "num_batches" in k or k in ("cls_position", "cls_pad_mask"):
+            continue                                     # buffers
         got = torch.stack([d[k] for d in draws])
         if all(torch.equal(d[k], b) for d in draws):
             rules[k] = "untouched"
@@ -76,10 +104,10 @@ def _jax_rules(jcls, kw):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_reference_init_follows_the_jax_rules(name):
-    jcls, tcls, kw = CASES[name]
-    rules = _jax_rules(jcls, kw)
+    jax_model, port_model, to_sd, x_shape, dates_shape = CASES[name]
+    rules = _jax_rules(jax_model, to_sd, x_shape, dates_shape)
     torch.manual_seed(0)
-    model = tcls(**KW, **kw)
+    model = port_model()
     params = dict(model.named_parameters())
     assert set(rules) == set(params)
     before = {k: p.detach().clone() for k, p in params.items()}
@@ -89,7 +117,7 @@ def test_reference_init_follows_the_jax_rules(name):
         for k, p in params.items():
             pooled[k].append(p.detach().clone())
     assert {r for r in rules.values()} >= {"untouched", "normal", "xavier"}
-    if kw.get("encoder_norm") == "batch":
+    if name.startswith("utae"):
         assert rules["in_conv.conv.conv.1.bias"] == "zero"
         assert rules["in_conv.conv.conv.1.weight"] == "normal"
     for k, rule in rules.items():
