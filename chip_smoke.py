@@ -181,6 +181,25 @@
    epoch and --test of its result, --model convlstm for an epoch; a
    ``zoo`` JSON line, and the kernels line gains
    ``launches_timeunet_v2_and_zoo`` (0).
+16. PASTIS training, preprocessing on the card, the L-TAE streamed over T
+   and the modules no entry point reaches (phase_pastis), each path's counts
+   set to 0 just before it and read just after: (a) the train CLI on a
+   synthetic PASTIS folder (10 patches at 128^2, T 38-61, 20 classes, two a
+   fold), bf16, one epoch: U-TAE on fold 1 (one wide eval launch per val and
+   test batch), --test of it (repeats its test loss), TimeUNet_v1 on fold 1
+   (the tail bf16 pair once a step, one group launch per val and test
+   batch) and again with --seq_chunk 8 (the same launches; the L-TAE is
+   never streamed on the card), U-TAE over all five folds (every fold's
+   files, the overall files, the confusion matrices over all ten patches);
+   (b) preprocess_batch at B=4, T=61, 128^2 on the card against the CPU for
+   the same draws (exact but the standardized values, 1e-6); (c)
+   TimeUNet's full-width L-TAE through _chunked (seq_chunk 8 and 16)
+   against the plain train path, o, output and every gradient, fp32 and
+   bf16, beside the kernel pair: warm ms and peak memory; (d) UNetEx,
+   MLPMixer and TemporalAggregator3D at their defaults on 128^2 inputs
+   against the CPU, one UNetEx train step. A ``pastis`` JSON line; the
+   kernels line gains ``launches_pastis`` and ``launches_chunked_and_m10b``
+   (0).
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -1569,13 +1588,17 @@ CLI_FILES = ("conf.json", "Fold_1/trainlog.json", "Fold_1/all_test_metrics.json"
              "Fold_1/all_conf_mat.pkl", "all_overall.json", "all_per_class.json")
 
 
-def cli_run(label: str, argv: list, want_pool: dict, want_eval: dict):
+def cli_run(label: str, argv: list, want_pool: dict, want_eval: dict,
+            native: bool = True, all_folds: bool = False):
     """``python -m crop2seg_tpu_torch.train`` in this process (its ``main``
-    on ``argv``), each kernel count set to 0 just before and read just
+    on ``argv``; with ``all_folds`` on each fold of its ``fold_sequence``, as
+    the command does), each kernel count set to 0 just before and read just
     after: the training pair's launches by variant must be ``want_pool``
     (None: the caller checks them) and the eval kernel's by route
-    ``want_eval``, exactly. Returns the run,
-    the counts and the seconds it took."""
+    ``want_eval``, exactly; with ``native`` every BatchLoader the CLI builds
+    decodes natively (a dataset without a native plan, PASTIS, collates in
+    Python). Returns the (last fold's) run, the counts and the seconds it
+    took."""
     from crop2seg_tpu_torch import train as cli
     from crop2seg_tpu_torch.data import BatchLoader
 
@@ -1598,7 +1621,9 @@ def cli_run(label: str, argv: list, want_pool: dict, want_eval: dict):
     lf.ltae_fused_forward.route_launches.clear()
     start = time.perf_counter()
     try:
-        run = cli.main(cfg)
+        for fold in cli.fold_sequence(cfg) if all_folds else [cfg.fold]:
+            cfg.fold = fold
+            run = cli.main(cfg)
         torch.cuda.synchronize()
     finally:
         BatchLoader.__init__, BatchLoader._native_batch = init, native_batch
@@ -1611,7 +1636,8 @@ def cli_run(label: str, argv: list, want_pool: dict, want_eval: dict):
           f"test {json.dumps(run.test_metrics)}", flush=True)
     # a file the native loader rejects drops its BatchLoader to the Python
     # path for the rest of the run (the plan is then None)
-    check(loaders and all(ld._plan is not None for ld in loaders) and native_batches,
+    check(not native or (loaders and all(ld._plan is not None for ld in loaders)
+                         and native_batches),
           f"train cli {label}: the CLI's BatchLoaders left the native path "
           f"({[ld._plan is not None for ld in loaders]}, {len(native_batches)} "
           f"native batches)")
@@ -2481,6 +2507,392 @@ def phase_zoo(dev, data: str, tmp: str) -> dict:
     return out
 
 
+# phase 16: PASTIS five-fold training and seq_chunk on the card, preprocess_batch
+# on the card, TimeUNet's L-TAE streamed over T, and the modules no entry point
+# reaches (UNetEx, MLPMixer, TemporalAggregator3D)
+PASTIS_PATCHES, PASTIS_T, PASTIS_CLASSES = 10, (38, 61), 20
+# preprocess_batch on the card against the CPU for the same draws: the
+# standardized values as a share of max(1, |value|) (the same IEEE fp32
+# operations on both; the tolerance allows one rounding apart)
+PREP_TOL = 1e-6
+PREP_DROPOUT = 0.2
+SEQ_CHUNKS = (8, 16)
+# _chunked against the plain train path in fp32, ||diff|| / ||plain|| of o
+# (the pooled output before the MLP tail), the L-TAE output and every
+# gradient: fp32 sums in another order (online softmax, chunked sums over T)
+CHUNK_TOL = 1e-3
+# the modules no entry point reaches, card vs CPU on the same weights, fp32
+# with TF32 off, max |diff| / max(1, max |CPU|): whole models (ROADMAP.md)
+M10B_TOL = 1e-3
+M10B_MIXER_ROWS = 1024   # the MLP-Mixer's CPU reference: its first rows (rows are independent)
+SIDE = 128               # the patches' edge
+
+
+def pastis_cli(dev, tmp: str) -> dict:
+    """(16a) The train CLI on a synthetic PASTIS folder (PASTIS_PATCHES
+    patches at 128^2, T 38-61, 20 classes, two patches a fold), bf16, one
+    epoch: U-TAE on fold 1 (train, validate, test: one wide eval launch per
+    val and test batch, no pair launch), ``--test`` of its fold, which must
+    repeat its test loss; TimeUNet_v1 on fold 1 (the tail bf16 pair once a
+    step, one group launch per val and test batch), and again with
+    ``--seq_chunk 8``, which must launch the same and never stream the
+    L-TAE over T; then U-TAE over all five folds (no --fold): every fold's
+    files, the overall files, the confusion matrices aggregated over the ten
+    patches' pixels."""
+    from crop2seg_tpu_torch.data import make_synthetic_pastis
+    from crop2seg_tpu_torch.learning.checkpoint import aggregate_fold_cms
+
+    data = os.path.join(tmp, "pastis")
+    start = time.perf_counter()
+    make_synthetic_pastis(data, n_patches=PASTIS_PATCHES, t_range=PASTIS_T, hw=SIDE,
+                          n_classes=PASTIS_CLASSES)
+    print(f"pastis: synthetic folder of {PASTIS_PATCHES} patches ({SIDE}^2, T "
+          f"{PASTIS_T[0]}-{PASTIS_T[1]}, {PASTIS_CLASSES} classes) written in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    bs = 2
+    n_train, n_val, n_test = 6 // bs, 2 // bs, 2 // bs        # a fold: 3 / 1 / 1 folds
+    common = ["--dataset", "pastis", "--dataset_folder", data, "--batch_size", str(bs),
+              "--epochs", "1", "--num_classes", str(PASTIS_CLASSES),
+              "--out_conv", f"[32, {PASTIS_CLASSES}]", "--bf16"]
+    dirs = {k: os.path.join(tmp, f"pastis_{k}")
+            for k in ("utae", "utae_test", "timeunet", "timeunet_chunk", "five")}
+    tail16 = {lp.variant(True, torch.bfloat16, d): n_train for d in ("fwd", "bwd")}
+    fold1 = ["--fold", "1"]
+    runs, launches = {}, []
+
+    def run(name, argv, pool, evals, all_folds=False):
+        r, p, e, sec = cli_run(f"(16a) {name}", argv + common, pool, evals, native=False,
+                               all_folds=all_folds)
+        launches.append({**p, **{f"eval_{k}": v for k, v in e.items()}})
+        runs[name] = {"seconds": sec, "test": r.test_metrics,
+                      "epoch_s": [m["train_epoch_time"] for m in r.trainlog.values()]}
+        return r
+
+    r_u = run("utae fold 1", ["--model", "utae", "--res_dir", dirs["utae"]] + fold1,
+              {}, {"wide": n_val + n_test})
+    missing = [f for f in CLI_FILES if not os.path.exists(os.path.join(dirs["utae"], f))]
+    check(not missing, f"pastis utae fold 1 wrote no {missing}")
+    r_ut = run("utae fold 1 --test", ["--model", "utae", "--test", "--weight_folder",
+                                      dirs["utae"], "--res_dir", dirs["utae_test"]] + fold1,
+               {}, {"wide": n_test})
+    loss_rel = (abs(r_ut.test_metrics["test_loss"] - r_u.test_metrics["test_loss"])
+                / abs(r_u.test_metrics["test_loss"]))
+    print(f"train cli (16a) utae --test vs the run's own test: loss relative "
+          f"{loss_rel:.3e}", flush=True)
+    check(loss_rel <= 1e-5, f"pastis --test loss {r_ut.test_metrics['test_loss']} vs "
+                            f"{r_u.test_metrics['test_loss']}")
+    run("timeunet fold 1", ["--model", "timeunet", "--res_dir", dirs["timeunet"]] + fold1,
+        tail16, {"group": n_val + n_test})
+    # --seq_chunk on the card: the kernel pair takes TimeUNet's training
+    chunked_calls = []
+    chunked = LTAE._chunked
+    LTAE._chunked = lambda self, *a, **k: chunked_calls.append(1) or chunked(self, *a, **k)
+    try:
+        run("timeunet fold 1 --seq_chunk 8", ["--model", "timeunet", "--seq_chunk", "8",
+                                              "--res_dir", dirs["timeunet_chunk"]] + fold1,
+            tail16, {"group": n_val + n_test})
+    finally:
+        LTAE._chunked = chunked
+    check(not chunked_calls, f"pastis --seq_chunk: the L-TAE was streamed over T "
+                             f"{len(chunked_calls)} times on the card")
+    run("utae five folds", ["--model", "utae", "--res_dir", dirs["five"]],
+        {}, {"wide": 5 * (n_val + n_test)}, all_folds=True)
+    for f in range(1, 6):
+        missing = [n for n in ("trainlog.json", "all_test_metrics.json", "all_conf_mat.pkl",
+                               "model.ckpt")
+                   if not os.path.exists(os.path.join(dirs["five"], f"Fold_{f}", n))]
+        check(not missing, f"pastis five folds: Fold_{f} has no {missing}")
+        with open(os.path.join(dirs["five"], f"Fold_{f}", "all_test_metrics.json")) as fh:
+            loss = json.load(fh)["test_loss"]
+        check(np.isfinite(loss), f"pastis five folds: Fold_{f} test loss {loss}")
+    cm_pixels = int(aggregate_fold_cms(dirs["five"]).sum())
+    with open(os.path.join(dirs["five"], "all_overall.json")) as fh:
+        overall = json.load(fh)
+    print(f"train cli (16a) utae five folds: {cm_pixels} test pixels aggregated, overall "
+          f"{json.dumps(overall)}", flush=True)
+    check(cm_pixels == PASTIS_PATCHES * HW, f"pastis five folds aggregated {cm_pixels} "
+                                            f"pixels, not {PASTIS_PATCHES * HW}")
+    check(np.isfinite(overall["micro_IoU"]) and np.isfinite(overall["Accuracy"]),
+          f"pastis five folds overall {overall}")
+    total = collections.Counter()
+    for c in launches:
+        total.update(c)
+    return {"runs": runs, "test_loss_rel": loss_rel, "overall": overall,
+            "launches": dict(total)}
+
+
+def pastis_preprocess(dev) -> dict:
+    """(16b) preprocess_batch on the card at B=4, T=61, 128^2, 10 channels
+    (reorder, NDVI, standardization, flips and rotations, temporal dropout
+    0.2), the draws from a generator on the card, against the CPU for the
+    same draws: reorder, augmentation, y and the pad mask exactly, the
+    standardized values within PREP_TOL; its warm ms."""
+    from crop2seg_tpu_torch.ops import preprocess as pp
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    b = TRAIN_B
+    lengths = torch.tensor(TRAIN_LENGTHS, device=dev)
+    pad = torch.arange(T, device=dev)[None] >= lengths[:, None]
+    x = torch.rand(b, T, SIDE, SIDE, 10, generator=gen, device=dev) * 4000
+    y = torch.randint(0, PASTIS_CLASSES, (b, SIDE, SIDE), generator=gen, device=dev)
+    mean = torch.rand(10, generator=gen, device=dev) * 1900 + 100
+    std = torch.rand(10, generator=gen, device=dev) * 490 + 10
+    flip, rot = pp.draw_geometry(b, gen)
+    drop = pp.draw_temporal_dropout((b, T), PREP_DROPOUT, gen)
+    kw = dict(reorder=True, ndvi=True, augment=True, temporal_dropout=PREP_DROPOUT)
+    cpu = {k: v.cpu() for k, v in dict(x=x, y=y, pad=pad, mean=mean, std=std, flip=flip,
+                                       rot=rot, drop=drop).items()}
+
+    def on(t):
+        return pp.preprocess_batch(t["x"], t["mean"], t["std"], y=t["y"], pad_mask=t["pad"],
+                                   flip=t["flip"], rot=t["rot"], drop=t["drop"], **kw)
+    dev_t = dict(x=x, y=y, pad=pad, mean=mean, std=std, flip=flip, rot=rot, drop=drop)
+    got, want = on(dev_t), on(cpu)
+    ms = cuda_ms(lambda: on(dev_t), 5)
+    check(torch.equal(pp.reorder_channels(x).cpu(), pp.reorder_channels(cpu["x"])),
+          "preprocess: reorder differs on the card")
+    ax, ay = pp.augment_geometric(x, y, flip, rot)
+    cx, cy = pp.augment_geometric(cpu["x"], cpu["y"], cpu["flip"], cpu["rot"])
+    check(torch.equal(ax.cpu(), cx) and torch.equal(ay.cpu(), cy),
+          "preprocess: flips / rotations differ on the card")
+    check(torch.equal(got["y"].cpu(), want["y"]), "preprocess: y differs on the card")
+    check(torch.equal(got["pad_mask"].cpu(), want["pad_mask"]),
+          "preprocess: the pad mask differs on the card")
+    err = ((got["x"].cpu() - want["x"]).abs() / want["x"].abs().clamp_min(1.0)).max().item()
+    dropped = int((want["pad_mask"] & ~cpu["pad"]).sum())
+    print(f"preprocess (16b) B={b} T={T} {SIDE}^2x10 on the card: {ms:.3f} ms warm; flips "
+          f"{flip.tolist()}, rotations {rot.tolist()}, {dropped} frames dropped; x vs the "
+          f"CPU max |diff| / max(1, |x|) {err:.3e} (limit {PREP_TOL:g}); reorder, "
+          f"augmentation, y and pad mask exact", flush=True)
+    check(err <= PREP_TOL and torch.isfinite(got["x"]).all().item(),
+          f"preprocess: x on the card differs by {err} from the CPU")
+    return {"ms": ms, "x_err": err, "frames_dropped": dropped}
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def chunk_check(label: str, got: dict, ref: dict, yard: dict | None = None) -> float:
+    """||got - ref|| / ||ref|| for every tensor of ``ref`` (o, the output,
+    x's and every parameter's gradient): within CHUNK_TOL, or, with
+    ``yard``, within GRAD_FACTOR times yard's own distance from ``ref`` (the
+    tensor's, or the median over tensors if larger), and never tighter than
+    CHUNK_TOL. A gradient zero up to
+    rounding in ``ref`` (below GRAD_ZERO of the largest) must stay so.
+    Returns the worst ratio to its limit."""
+    grads = [k for k in ref if k.startswith("grad ")]
+    top = max(ref[k].abs().max().item() for k in grads)
+    zero = [k for k in grads if ref[k].abs().max().item() <= GRAD_ZERO * top]
+    for k in zero:
+        check(got[k].abs().max().item() <= GRAD_ZERO * top,
+              f"{label}: {k} where the plain one is 0 up to rounding")
+    live = [k for k in ref if k not in zero]
+    err = {k: _rel(got[k], ref[k]) for k in live}
+    if yard is None:
+        limit = {k: CHUNK_TOL for k in live}
+    else:
+        dist = {k: _rel(yard[k], ref[k]) for k in live}
+        floor = float(np.median(list(dist.values())))
+        limit = {k: max(GRAD_FACTOR * max(dist[k], floor), CHUNK_TOL) for k in live}
+    ratio = {k: err[k] / limit[k] for k in live}
+    worst = max(ratio, key=ratio.get)
+    print(f"{label}: ||diff|| / ||plain|| o {err['o']:.3e}, out {err['out']:.3e}, "
+          f"gradients median {np.median([err[k] for k in live if k in grads]):.3e} max "
+          f"{max(err[k] for k in live if k in grads):.3e} ({len(zero)} zero up to "
+          f"rounding); worst ratio to its limit {ratio[worst]:.3f} ({worst}, limit "
+          f"{limit[worst]:.3e})", flush=True)
+    check(ratio[worst] <= 1.0, f"{label}: {worst} differs by {err[worst]:.3e}, beyond "
+                               f"{limit[worst]:.3e}")
+    return ratio[worst]
+
+
+def chunked_ltae(dev) -> dict:
+    """(16c) TimeUNet's L-TAE at full width (B=4, T=61, N=128^2, C=64,
+    D=256, G=16, seeded weights, dropout 0, training mode) through
+    ``_chunked`` (fused=False, seq_chunk 8 and 16) against the plain train
+    path (the embed and attention ops with the attention out), o (the pooled
+    output before the MLP tail), the output and every gradient of one
+    backward from a fixed random cotangent: in fp32 within CHUNK_TOL; in
+    bf16 autocast within GRAD_FACTOR times the plain path's own bf16-to-fp32
+    distance. Each path runs twice, the second warm: its ms (forward and
+    backward, CUDA events) and its peak memory above the inputs; the kernel
+    pair (fused=True with seq_chunk set: the pair takes precedence) beside
+    them. The chunked runs launch no kernel."""
+    te = get_model({"model": "timeunet"}, device=dev,
+                   generator=torch.Generator().manual_seed(0)).temporal_encoder
+    te.train()
+    te.attn_dropout = 0.0
+    te.mlp[1].p = 0.0
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b = TRAIN_B
+    pad = torch.arange(T, device=dev)[None] >= torch.tensor(TRAIN_LENGTHS, device=dev)[:, None]
+    x = torch.randn(b, T, SIDE, SIDE, C, generator=gen, device=dev)
+    x[pad] = 0.0
+    x.requires_grad_(True)
+    dates = (torch.arange(T, dtype=torch.float32, device=dev) * 5 + 3)[None].expand(b, T)
+    dates = dates.contiguous()
+    cot = torch.randn(b, SIDE, SIDE, D_OUT, generator=gen, device=dev)
+    captured = {}
+    tail = te._mlp_tail
+
+    def capture(o, generator=None):
+        captured["o"] = o.detach().float()
+        return tail(o, generator)
+    te._mlp_tail = capture
+
+    def path(dtype, fused: bool, seq_chunk, need_attn: bool) -> dict:
+        te.seq_chunk = seq_chunk
+        for _ in range(2):                      # the second call is the warm one
+            te.zero_grad(set_to_none=True)
+            x.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            zero_counts()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            with torch.autocast("cuda", torch.bfloat16, enabled=dtype == torch.bfloat16):
+                out, _ = te(x, dates, pad, need_attn=need_attn, fused=fused)
+            (out.float() * cot).sum().backward()
+            end.record()
+            torch.cuda.synchronize()
+        res = {"o": captured["o"].reshape(b, SIDE, SIDE, -1), "out": out.detach().float(),
+               "grad x": x.grad.detach().clone()}
+        res.update({f"grad {k}": p.grad.detach().clone() for k, p in te.named_parameters()})
+        meta = {"ms": start.elapsed_time(end),
+                "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                "launches": kernel_counts()}
+        return res, meta
+
+    out, ratios = {}, {}
+    plain32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        plain, meta = path(dtype, False, None, True)
+        out[f"plain {name}"] = meta
+        check(meta["launches"] == {}, f"plain L-TAE launched {meta['launches']}")
+        for tc in SEQ_CHUNKS:
+            got, meta = path(dtype, False, tc, False)
+            out[f"seq_chunk {tc} {name}"] = meta
+            check(meta["launches"] == {}, f"_chunked launched {meta['launches']}")
+            ratios[f"{tc} {name}"] = chunk_check(
+                f"_chunked seq_chunk {tc} {name} vs plain {name}", got, plain,
+                None if dtype == torch.float32 else plain32)
+            del got
+        _, meta = path(dtype, True, SEQ_CHUNKS[0], False)
+        out[f"pair {name}"] = meta
+        check(sum(meta["launches"].values()) == 2,
+              f"the kernel pair with seq_chunk set launched {meta['launches']}")
+        if dtype == torch.float32:
+            plain32 = plain
+        del plain
+        torch.cuda.empty_cache()
+        for k in ("plain", "seq_chunk 8", "seq_chunk 16", "pair"):
+            m = out[f"{k} {name}"]
+            print(f"L-TAE (16c) B={b} T={T} {SIDE}^2 C={C} D={D} {name} {k}: forward + "
+                  f"backward {m['ms']:.3f} ms warm, peak {m['peak_gib']:.2f} GiB above the "
+                  f"inputs, launches {m['launches']}", flush=True)
+    te._mlp_tail = tail
+    del plain32
+    torch.cuda.empty_cache()
+    return {"paths": out, "worst_ratio": ratios}
+
+
+def m10b_modules(dev) -> dict:
+    """(16d) UNetEx (its defaults: base 64, 4 stages, GELU; 10 input
+    channels), MLPMixer (its defaults: 4 layers, token MLP 64, channel MLP
+    256, over TimeUNet's T = 61 tokens of C = 64) and TemporalAggregator3D
+    (att_group, 16 heads' masks at 64^2 upsampled to the 128^2 skip of C =
+    64, with pads) on 128^2 inputs at B = 2: a forward on the card against
+    the same weights on the CPU (M10B_TOL; the MLP-Mixer's rows are
+    independent, so its first M10B_MIXER_ROWS rows are run on the CPU), its
+    warm ms; then one UNetEx train step (20 classes, B = 2) with finite
+    gradients. No kernel launches."""
+    from crop2seg_tpu_torch.models import MLPMixer, UNetEx
+    from crop2seg_tpu_torch.nn.blocks3d import TemporalAggregator3D
+
+    torch.manual_seed(16)
+    g = torch.Generator().manual_seed(17)
+    b = 2
+    attn = torch.softmax(torch.randn(b, SIDE // 2, SIDE // 2, G, T, generator=g), -1)
+    pad = torch.arange(T)[None] >= torch.tensor([T, 40])[:, None]
+    cases = {
+        "unet_ex": (UNetEx(in_channels=10), (torch.randn(b, SIDE, SIDE, 10, generator=g),),
+                    None),
+        "mlp_mixer": (MLPMixer(num_tokens=T, hidden_dim=C),
+                      (torch.randn(b * HW, T, C, generator=g),), M10B_MIXER_ROWS),
+        "temporal_aggregator3d": (TemporalAggregator3D("att_group"),
+                                  (torch.randn(b, T, SIDE, SIDE, C, generator=g), attn, pad),
+                                  None),
+    }
+    out = {}
+    zero_counts()
+    for name, (model, args, rows) in cases.items():
+        model.eval()
+        with torch.no_grad():
+            for m in model.modules():      # non-trivial BatchNorm statistics
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                    m.running_mean.normal_(0, 0.5, generator=g)
+                    m.running_var.uniform_(0.5, 2.0, generator=g)
+        dev_model = copy.deepcopy(model).to(dev)
+        dev_args = tuple(a.to(dev) for a in args)
+        with torch.inference_mode():
+            got = dev_model(*dev_args)
+            ms = cuda_ms(lambda: dev_model(*dev_args), 3)
+            cpu_args = args if rows is None else (args[0][:rows],) + args[1:]
+            want = model(*cpu_args)
+        got, want = (got[0], want[0]) if isinstance(want, tuple) else (got, want)
+        got = got.cpu() if rows is None else got[:rows].cpu()
+        err = ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+        print(f"{name} (16d) B={b} {SIDE}^2 on the card: {ms:.3f} ms a forward warm, vs the "
+              f"CPU max |diff| / max(1, max |CPU|) {err:.3e} (limit {M10B_TOL:g}), output "
+              f"{tuple(got.shape)}", flush=True)
+        check(err <= M10B_TOL and torch.isfinite(got).all().item(),
+              f"{name}: the card's forward differs from the CPU's by {err}")
+        out[name] = {"ms": ms, "err": err}
+        del dev_model, dev_args
+    model = UNetEx(in_channels=10, num_classes=PASTIS_CLASSES).to(dev).train()
+    xb = torch.randn(b, SIDE, SIDE, 10, device=dev)
+    yb = torch.randint(0, PASTIS_CLASSES, (b, SIDE, SIDE), device=dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(2):                          # the second step is the warm one
+        model.zero_grad(set_to_none=True)
+        start.record()
+        loss = torch.nn.functional.cross_entropy(model(xb).permute(0, 3, 1, 2), yb)
+        loss.backward()
+        end.record()
+        torch.cuda.synchronize()
+    finite = all(torch.isfinite(p.grad).all().item() for p in model.parameters())
+    print(f"unet_ex (16d) train step B={b} {SIDE}^2 {PASTIS_CLASSES} classes: loss "
+          f"{loss.item():.6f}, {start.elapsed_time(end):.3f} ms warm, gradients finite "
+          f"{finite}", flush=True)
+    check(np.isfinite(loss.item()) and finite, "unet_ex train step: non-finite loss or grads")
+    out["unet_ex_train"] = {"loss": loss.item(), "ms": start.elapsed_time(end)}
+    launched = kernel_counts()
+    check(launched == {}, f"the M10b modules launched {launched}")
+    return out
+
+
+def phase_pastis(dev, tmp: str) -> dict:
+    """Phase 16: (a) PASTIS training through the CLI (``pastis_cli``), (b)
+    preprocess_batch on the card (``pastis_preprocess``), (c) TimeUNet's
+    L-TAE streamed over T (``chunked_ltae``), (d) UNetEx, MLPMixer and
+    TemporalAggregator3D (``m10b_modules``); each part's seconds."""
+    out, seconds = {}, {}
+    for key, fn in (("cli", lambda: pastis_cli(dev, tmp)),
+                    ("preprocess", lambda: pastis_preprocess(dev)),
+                    ("chunked", lambda: chunked_ltae(dev)),
+                    ("m10b", lambda: m10b_modules(dev))):
+        start = time.perf_counter()
+        out[key] = fn()
+        torch.cuda.empty_cache()
+        seconds[key] = time.perf_counter() - start
+        print(f"phase 16 ({key}): {seconds[key]:.1f} s", flush=True)
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -2579,6 +2991,8 @@ def main() -> int:
         variants = phase_variants(dev, cli_data, cli_tmp)
         torch.cuda.empty_cache()
         zoo = phase_zoo(dev, cli_data, cli_tmp)
+        torch.cuda.empty_cache()
+        pastis = phase_pastis(dev, cli_tmp)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -2760,6 +3174,19 @@ def main() -> int:
     for entry in [kernel, kernel_utae] + pool + [kernel_stages, kernel_q] + general:
         entry["launches_timeunet_v2_and_zoo"] = zoo_launches
     print("zoo " + json.dumps(zoo), flush=True)
+    # phase 16: the PASTIS runs' launches by route and variant; the chunked
+    # L-TAE and the M10b modules launched none (chunked_ltae and
+    # m10b_modules check it)
+    pastis_launches = pastis["cli"]["launches"]
+    kernel["launches_pastis"] = pastis_launches.get("eval_group", 0)
+    kernel_utae["launches_pastis"] = pastis_launches.get("eval_wide", 0)
+    for entry in pool:
+        entry["launches_pastis"] = pastis_launches.get(entry["name"], 0)
+    for entry in [kernel_stages, kernel_q] + general:
+        entry["launches_pastis"] = 0
+    for entry in [kernel, kernel_utae] + pool + [kernel_stages, kernel_q] + general:
+        entry["launches_chunked_and_m10b"] = 0
+    print("pastis " + json.dumps(pastis), flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]

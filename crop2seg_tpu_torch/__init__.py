@@ -2,7 +2,8 @@
 
 Serves and trains TimeUNet_v1 and U-TAE (whole tiles in memory, or a cell of
 patches from disk to the crop map and its GIS outputs through
-``webapp.pipeline``), with its own train CLI. The layout mirrors the JAX
+``webapp.pipeline``), with its own train CLI (S2TSCzCrop, synthetic data,
+PASTIS's five folds) and Sentinel-2 acquisition CLI. The layout mirrors the JAX
 package module for module; inputs are channels-last ``(B, T, H, W, C)``
 with explicit ``(B, T)`` pad masks, and parameters carry the reference's
 torch state-dict names. Entry points run on the CUDA card unless the caller

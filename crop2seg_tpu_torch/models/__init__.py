@@ -7,3 +7,5 @@ from crop2seg_tpu_torch.models.unet import Unet, UnetNaive  # noqa: F401
 from crop2seg_tpu_torch.models.unet3d import UNet3D  # noqa: F401
 from crop2seg_tpu_torch.models.utae import UTAE  # noqa: F401
 from crop2seg_tpu_torch.models.wtae import WTAE  # noqa: F401
+from crop2seg_tpu_torch.models.unet_ex import UNetEx  # noqa: F401
+from crop2seg_tpu_torch.models.mlp_mixer import MLPMixer  # noqa: F401

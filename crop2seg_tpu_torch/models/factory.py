@@ -61,8 +61,9 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
     TimeUNet takes ``remat`` (the down and up blocks
     and out_conv recomputed whole; in_conv, which the JAX TimeUNet's remat
     also recomputes, is not: on the card ``remat`` does not lower a
-    TimeUNet step's peak memory, see models/timeunet.py);
-    ``seq_chunk`` raises (not ported).
+    TimeUNet step's peak memory, see models/timeunet.py) and ``seq_chunk``
+    (its L-TAE streamed over T where no kernel takes it, see
+    models/timeunet.py).
     The models take ``num_queries=1`` only; the ``LTAE`` module takes
     more. TimeUNet_v2 takes the common keys but ``num_queries``,
     ``use_doy`` and ``add_linear`` (the JAX ``common_v2``); UNet3D,
@@ -75,11 +76,6 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
     name = cfg["model"]
     if name not in MODELS:
         raise ValueError(f"unknown model {name!r}")
-    if cfg.get("seq_chunk") is not None:
-        raise NotImplementedError(
-            "seq_chunk (the L-TAE streamed over T) is not ported yet "
-            "(ROADMAP.md item M7); on the card the kernel pair keeps the "
-            "embed out of memory without it")
     dev = resolve_device(device)
     common = dict(
         input_dim=cfg.get("input_dim", 10),
@@ -114,7 +110,8 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
                     remat_policy=cfg.get("remat_policy", "conv_out"), **common)
     elif name in ("timeunet", "timeunet_v1"):
         from crop2seg_tpu_torch.models.timeunet import TimeUNet
-        model = TimeUNet(remat=cfg.get("remat", False), **common)
+        model = TimeUNet(remat=cfg.get("remat", False),
+                         seq_chunk=cfg.get("seq_chunk"), **common)
     else:
         model = _zoo_model(name, cfg, common)
     if generator is not None:

@@ -24,7 +24,13 @@ False never defers it. All routes give the same result.
 
 ``return_att`` adds the L-TAE's attention (B, H, W, head, T) to the logits;
 in training that is the plain L-TAE, as in JAX, and the tail is not
-deferred. ``encoder`` returns the decoder output and its maps before
+deferred.
+
+``seq_chunk`` streams the L-TAE over T in chunks of that many steps
+(``nn/ltae.py::LTAE._chunked``) where no kernel takes it: on a CPU input,
+or with ``fused=False``. On the kernel path the L-TAE kernels run with or
+without it, as the JAX CLI's ``--use_pallas_train`` takes precedence over
+``--seq_chunk``. ``encoder`` returns the decoder output and its maps before
 out_conv, ``return_maps`` the logits and the maps.
 
 In training mode (``model.train()``) the L-TAE takes its training path and
@@ -68,7 +74,7 @@ class TimeUNet(nn.Module):
                  add_linear: bool = False, conv_type: str = "2d",
                  add_squeeze_excit: bool = False, encoder: bool = False,
                  return_maps: bool = False, defer_tail: bool | None = None,
-                 remat: bool = False):
+                 remat: bool = False, seq_chunk: int | None = None):
         super().__init__()
         if num_queries != 1:
             raise ValueError(
@@ -103,7 +109,7 @@ class TimeUNet(nn.Module):
             mlp=(d_model, enc_w[0]),
             use_abs_rel_enc=use_abs_rel_enc, num_queries=num_queries,
             use_doy=False if use_abs_rel_enc else use_doy,
-            add_linear=add_linear)
+            add_linear=add_linear, seq_chunk=seq_chunk)
         self.out_conv = ConvBlock((dec_w[0],) + tuple(out_conv),
                                   padding_mode=padding_mode)
 

@@ -17,39 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import batch_norm
+from crop2seg_tpu_torch.nn.blocks3d import (
+    BatchNorm3d, Conv3d, ConvTranspose3d, _ncdhw, _ndhwc)
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input
-
-
-def _ncdhw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 4, 1, 2, 3)
-
-
-def _ndhwc(y: torch.Tensor) -> torch.Tensor:
-    return y.permute(0, 2, 3, 4, 1).contiguous()
-
-
-class Conv3d(nn.Conv3d):
-    """torch Conv3d (zero padding) on (B, T, H, W, C)."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _ndhwc(F.conv3d(_ncdhw(x), self.weight, self.bias, self.stride,
-                               self.padding))
-
-
-class ConvTranspose3d(nn.ConvTranspose3d):
-    """torch ConvTranspose3d on (B, T, H, W, C)."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _ndhwc(F.conv_transpose3d(_ncdhw(x), self.weight, self.bias, self.stride,
-                                         self.padding, self.output_padding))
-
-
-class BatchNorm3d(nn.BatchNorm3d):
-    """BatchNorm3d on (B, T, H, W, C), in either mode (``nn/layers.py::batch_norm``)."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm(x, self)
 
 
 def _conv_bn(d_in: int, d_out: int):

@@ -27,6 +27,12 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of statistics and sums for tensors of ``dtype``: fp32, or
+    fp64 for fp64 tensors."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
@@ -72,7 +78,7 @@ def _apply_affine(x: torch.Tensor, sc: torch.Tensor,
     """x (N, H, W, C) * sc + sh, with sc/sh (N, C) or (C,), in fp32."""
     if sc.dim() == 2:
         sc, sh = sc[:, None, None, :], sh[:, None, None, :]
-    return torch.addcmul(sh, x.float(), sc).to(x.dtype)
+    return torch.addcmul(sh, x.to(acc_dtype(x.dtype)), sc).to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -97,9 +103,11 @@ class GroupNorm(nn.GroupNorm):
 
 
 def batchnorm_affine(bn: nn.modules.batchnorm._BatchNorm):
-    """Eval BatchNorm as ``(scale, shift)`` per channel, fp32."""
-    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    return scale, bn.bias.float() - bn.running_mean.float() * scale
+    """Eval BatchNorm as ``(scale, shift)`` per channel, fp32 (fp64 for an
+    fp64 module)."""
+    dt = acc_dtype(bn.weight.dtype)
+    scale = bn.weight.to(dt) * torch.rsqrt(bn.running_var.to(dt) + bn.eps)
+    return scale, bn.bias.to(dt) - bn.running_mean.to(dt) * scale
 
 
 _stats_frozen = 0
@@ -159,7 +167,7 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Te
     ``F.batch_norm`` would put the unbiased variance into ``running_var``."""
     if not bn.training:
         return _apply_affine(x, *batchnorm_affine(bn))
-    xf = x.float()
+    xf = x.to(acc_dtype(x.dtype))
     dims = tuple(range(x.dim() - 1))
     mean = xf.mean(dims)
     var = (xf - mean).square().mean(dims)
@@ -168,8 +176,8 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Te
             bn.running_mean.lerp_(mean, bn.momentum)
             bn.running_var.lerp_(var, bn.momentum)
             bn.num_batches_tracked.add_(1)
-    scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
-    return torch.addcmul(bn.bias.float() - mean * scale, xf, scale).to(x.dtype)
+    scale = bn.weight.to(xf.dtype) * torch.rsqrt(var + bn.eps)
+    return torch.addcmul(bn.bias.to(xf.dtype) - mean * scale, xf, scale).to(x.dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

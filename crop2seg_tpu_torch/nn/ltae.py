@@ -1,5 +1,5 @@
 """Masked lightweight temporal attention encoder, nq learnable queries per
-head (port of crop2seg_tpu/nn/ltae.py:39-352), and W-TAE's ``LTAE4WTAE``,
+head (port of crop2seg_tpu/nn/ltae.py:39-495), and W-TAE's ``LTAE4WTAE``,
 which returns the attention only (:495-548).
 
 Per pixel row, T steps, C channels:
@@ -24,6 +24,15 @@ nq > 1 the plain ops run, with attention dropout after the softmax, and the
 returned attention is the dropped, rescaled one that weighed the values (U-TAE
 aggregates its skips with it). The MLP tail runs in training mode either way.
 
+``seq_chunk`` streams T in chunks of that many steps with an online
+softmax (``LTAE._chunked``, crop2seg_tpu/nn/ltae.py:354-459), so the
+(B, T, H, W, d_model) embed never exists whole. The routing is the JAX
+``LTAE``'s order: the fused eval kernel, then the kernel pair, then
+``seq_chunk`` (no attention output, one query, no deferred tail), then the
+plain ops. On a CUDA tensor the kernels therefore take precedence (as the
+JAX CLI's ``--use_pallas_train`` does over ``--seq_chunk``): ``_chunked``
+runs on a CPU tensor, or with ``fused=False``.
+
 The kernel route (``fused``) takes every shape the module is defined at,
 as the JAX ``LTAE`` with ``use_pallas`` runs its Pallas kernel at any T:
 the wrappers send a shape their fast kernels take (``LTAE.kernel_takes``:
@@ -40,7 +49,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import batch_norm
+from torch.utils.checkpoint import checkpoint
+
+from crop2seg_tpu_torch.nn.layers import acc_dtype, batch_norm
 from crop2seg_tpu_torch.nn.positional import (
     AbsolutePositionalEncoder, PositionalEncoder)
 from crop2seg_tpu_torch.ops import ltae_fused, ltae_pool as pool_ops
@@ -51,13 +62,13 @@ from crop2seg_tpu_torch.ops.ltae_pool import (
 def _group_norm_btc(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
                     bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm of (B, T, H, W, C) with statistics over (T, C/G) per pixel,
-    fp32 two-pass; returns x.dtype."""
+    fp32 two-pass (fp64 for fp64 x); returns x.dtype."""
     b, t, h, w, c = x.shape
-    g = x.float().reshape(b, t, h, w, n_groups, c // n_groups)
+    g = x.to(acc_dtype(x.dtype)).reshape(b, t, h, w, n_groups, c // n_groups)
     mean = g.mean(dim=(1, 5), keepdim=True)
     var = (g - mean).square().mean(dim=(1, 5), keepdim=True)
     y = (g - mean) * torch.rsqrt(var + eps)
-    y = y * scale.float().reshape(n_groups, -1) + bias.float().reshape(n_groups, -1)
+    y = y * scale.to(g.dtype).reshape(n_groups, -1) + bias.to(g.dtype).reshape(n_groups, -1)
     return y.reshape(x.shape).to(x.dtype)
 
 
@@ -67,13 +78,13 @@ def _group_norm_queries(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
     the nq queries (torch GroupNorm on (N, C, nq)), fp32 two-pass; the affine
     is shared across queries."""
     *lead, nq, c = x.shape
-    g = x.float().reshape(*lead, nq, n_groups, c // n_groups).transpose(-3, -2)
+    g = x.to(acc_dtype(x.dtype)).reshape(*lead, nq, n_groups, c // n_groups).transpose(-3, -2)
     g = g.reshape(*lead, n_groups, -1)
     mean = g.mean(dim=-1, keepdim=True)
     var = (g - mean).square().mean(dim=-1, keepdim=True)
     y = ((g - mean) * torch.rsqrt(var + eps)).reshape(
         *lead, n_groups, nq, c // n_groups).transpose(-3, -2).reshape(x.shape)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    return (y * scale.to(y.dtype) + bias.to(y.dtype)).to(x.dtype)
 
 
 def encode_positions(encoder: nn.Module, encoder_abs: nn.Module | None,
@@ -121,7 +132,7 @@ class MaskedLightweightAttention(nn.Module):
         b, t, hh, ww, d = h.shape
         k = self.fc1_k(h).reshape(b, t, hh, ww, self.n_head, self.d_k)
         scores = torch.einsum("gqk,btxygk->bxygqt", self.Q.to(k.dtype), k)
-        scores = scores.float() / math.sqrt(self.d_k)
+        scores = scores.to(acc_dtype(scores.dtype)) / math.sqrt(self.d_k)
         if pad_mask is not None:
             scores = scores.masked_fill(pad_mask[:, None, None, None, None, :], -1e6)
         attn = _dropout(torch.softmax(scores, dim=-1), attn_dropout, generator)
@@ -199,6 +210,8 @@ class LTAE(_AttentionEncoder):
     uses PyTorch's global RNG.
     ``dropout`` is the MLP's rate, ``attn_dropout`` the attention's.
     ``num_queries`` > 1 adds a query axis to both outputs (module docstring).
+    ``seq_chunk`` (None or 0: off) streams T in chunks of that many steps
+    where no kernel takes the call (module docstring, ``_chunked``).
     """
 
     def __init__(self, in_channels: int = 128, n_head: int = 16, d_k: int = 4,
@@ -207,7 +220,7 @@ class LTAE(_AttentionEncoder):
                  positional_encoding: bool = True,
                  use_abs_rel_enc: bool = False, use_doy: bool = False,
                  num_queries: int = 1, add_linear: bool = False,
-                 attn_dropout: float = 0.1):
+                 attn_dropout: float = 0.1, seq_chunk: int | None = None):
         if d_model is None or mlp[0] != d_model:
             raise ValueError("the port needs d_model set and mlp[0] == d_model")
         super().__init__(in_channels, n_head, d_k, d_model, T,
@@ -218,6 +231,7 @@ class LTAE(_AttentionEncoder):
         self.mlp = nn.Sequential(nn.Linear(mlp[0], mlp[1]), nn.Dropout(dropout),
                                  nn.BatchNorm1d(mlp[1], eps=1e-5), nn.ReLU())
         self.out_norm = nn.GroupNorm(n_head, mlp[1], eps=1e-5)
+        self.seq_chunk = seq_chunk
 
     def _mlp_tail(self, o: torch.Tensor, generator=None) -> torch.Tensor:
         """MLP -> BN -> ReLU -> Dropout -> out GroupNorm on (..., nq,
@@ -309,6 +323,88 @@ class LTAE(_AttentionEncoder):
         out = self._mlp_tail(o.reshape(b, hh, ww, 1, self.d_model), generator)
         return out[:, :, :, 0], None
 
+    def _chunk(self, x, pe, mask, sc, sh, m, l, acc, seed):
+        """One chunk of T steps of ``_chunked``: x (B, tc, H, W, C) through the
+        input GroupNorm (the whole T's affine ``sc``, ``sh``), the projection
+        and PE, the masked scores, and the running max ``m``, normalizer ``l``
+        and fp32 value accumulator ``acc`` (B, H, W, G[, d_v]) moved on by the
+        chunk. ``seed`` (training with attention dropout) seeds the chunk's
+        dropout generator."""
+        b, tc, hh, ww, c = x.shape
+        g, dk = self.n_head, self.d_k
+        h = (x.to(sc.dtype).reshape(b, tc, hh, ww, g, c // g) * sc + sh).to(x.dtype)
+        h = F.linear(h.reshape(b, tc, hh, ww, c), self.inconv.weight[:, :, 0],
+                     self.inconv.bias)
+        h = h + pe[:, :, None, None, :].to(h.dtype)
+        att = self.attention_head
+        k = att.fc1_k(h).reshape(b, tc, hh, ww, g, dk)
+        scores = torch.einsum("gk,btxygk->bxygt", att.Q[:, 0].to(k.dtype), k)
+        scores = scores.to(acc.dtype) / math.sqrt(dk)
+        scores = scores.masked_fill(mask[:, None, None, None, :], -1e6)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        w = torch.exp(scores - m_new[..., None])
+        l_new = l * corr + w.sum(dim=-1)
+        if seed is not None:
+            # dropout on the normalized weights: l counts the undropped ones
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(seed)
+            w = _dropout(w, self.attn_dropout, gen)
+        v = h.reshape(b, tc, hh, ww, g, -1)
+        pv = torch.einsum("bxygt,btxygd->bxygd", w.to(v.dtype), v)
+        return m_new, l_new, acc * corr[..., None] + pv.to(acc.dtype)
+
+    def _chunked(self, x, batch_positions, pad_mask, generator=None):
+        """The L-TAE streamed over T in chunks of ``seq_chunk`` steps, one
+        query, no attention output (crop2seg_tpu/nn/ltae.py:354-459), in
+        either mode: the input GroupNorm's statistics over the whole T (pad
+        frames included, as in the plain path), then per chunk the embed,
+        the masked scores and an online softmax (``_chunk``), exact up to
+        the order of fp32 sums. The last chunk holds what T leaves (the JAX
+        path pads it to a full chunk and masks the padding out of the
+        attention and the statistics: the same sums for a sample with any
+        valid step). In training each chunk runs under
+        ``torch.utils.checkpoint`` (non-reentrant), so the backward pass
+        recomputes one chunk's embed at a time; the attention dropout masks
+        come from a generator made in the chunk from one host draw of
+        ``generator`` a forward plus the chunk's index, so the recompute
+        draws the same masks. The MLP tail runs on the whole batch."""
+        b, t, hh, ww, c = x.shape
+        g, d = self.n_head, self.d_model
+        if pad_mask is None:
+            pad_mask = torch.zeros(b, t, dtype=torch.bool, device=x.device)
+        adt = acc_dtype(x.dtype)
+        g32 = x.to(adt).reshape(b, t, hh, ww, g, c // g)
+        mean = g32.mean(dim=(1, 5), keepdim=True)
+        var = (g32 - mean).square().mean(dim=(1, 5), keepdim=True)
+        del g32
+        sc = self.in_norm.weight.to(adt).reshape(g, -1) * torch.rsqrt(var + self.in_norm.eps)
+        sh = self.in_norm.bias.to(adt).reshape(g, -1) - mean * sc
+        with torch.autocast(x.device.type, enabled=False):
+            pe = (self.pe(batch_positions) if self.positional_encoder is not None
+                  else torch.zeros(b, t, d, device=x.device))
+        seed = None
+        if self.training and self.attn_dropout > 0.0:
+            # one host draw a forward; chunk i seeds its generator with seed + i
+            seed = int(torch.randint(
+                0, 2 ** 31 - 1, (1,), generator=generator,
+                device=generator.device if generator is not None else "cpu"))
+        ckpt = self.training and torch.is_grad_enabled()
+        m = torch.full((b, hh, ww, g), -math.inf, dtype=adt, device=x.device)
+        l = torch.zeros(b, hh, ww, g, dtype=adt, device=x.device)
+        acc = torch.zeros(b, hh, ww, g, d // g, dtype=adt, device=x.device)
+        tc = int(self.seq_chunk)
+        for i, s in enumerate(range(0, t, tc)):
+            args = (x[:, s:s + tc], pe[:, s:s + tc], pad_mask[:, s:s + tc], sc, sh,
+                    m, l, acc, None if seed is None else seed + i)
+            if ckpt:
+                m, l, acc = checkpoint(self._chunk, *args, use_reentrant=False,
+                                       preserve_rng_state=False)
+            else:
+                m, l, acc = self._chunk(*args)
+        o = (acc / l[..., None]).to(x.dtype).reshape(b, hh, ww, 1, d)
+        return self._mlp_tail(o, generator)[:, :, :, 0], None
+
     def kernel_route(self, t: int, c: int) -> str:
         """The kernel that serves T steps of C channels on this mode's kernel
         route: in eval ``ops/ltae_fused.py::kernel_route`` ("group", "wide",
@@ -340,12 +436,17 @@ class LTAE(_AttentionEncoder):
                 generator: torch.Generator | None = None):
         if fused is None:
             fused = x.is_cuda
-        pair = self.training and not need_attn and self.num_queries == 1
-        if pair:
-            return self._train(x, batch_positions, pad_mask, fused, generator,
-                               tail_affine)
+        one_query = not need_attn and self.num_queries == 1
         if fused and not self.training:
             return self._fused(x, batch_positions, pad_mask, need_attn,
+                               tail_affine)
+        if fused and self.training and one_query:
+            return self._train(x, batch_positions, pad_mask, True, generator,
+                               tail_affine)
+        if self.seq_chunk and one_query and tail_affine is None:
+            return self._chunked(x, batch_positions, pad_mask, generator)
+        if self.training and one_query:
+            return self._train(x, batch_positions, pad_mask, False, generator,
                                tail_affine)
         if tail_affine is not None:
             raise ValueError("tail_affine needs a kernel path: eval with "

@@ -1,9 +1,11 @@
-"""Tile <-> patch reshaping (port of crop2seg_tpu/ops/patchify.py:19-83).
+"""Tile <-> patch reshaping (port of crop2seg_tpu/ops/patchify.py).
 
 - inference patchify: zero-pad the 1098^2 tile crop to 1280^2 and split it
   into a 10x10 grid of 128^2 patches, row-major;
 - stitch: the 10x10 grid back to 1280^2, cropped to 1098^2;
-- ``np_stitch_inference_tile``: the host (numpy) twin of the stitch.
+- ``np_stitch_inference_tile``: the host (numpy) twin of the stitch;
+- training patchify: crop the 10980^2 tile to 10496^2 at a 484 px offset
+  and split it into 82x82 = 6724 patches of 128^2.
 """
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ import torch.nn.functional as F
 INFER_TILE = 1098        # webapp tile crop edge (px @ 10 m)
 INFER_PADDED = 1280      # padded edge = 10 * 128
 PATCH = 128
+TRAIN_TILE = 10980       # full Sentinel-2 tile edge
+TRAIN_CROP = 10496       # 82 * 128
+TRAIN_OFFSET = 484       # crop offset of the training grid
 
 
 def patchify_grid(x: torch.Tensor, patch: int = PATCH) -> torch.Tensor:
@@ -61,3 +66,11 @@ def np_stitch_inference_tile(patches, out_hw: int = INFER_TILE):
     full = patches.reshape(n, n, p, p, k).transpose(0, 2, 1, 3, 4)
     full = full.reshape(n * p, n * p, k)[:out_hw, :out_hw]
     return full[..., 0] if squeeze else full
+
+
+def patchify_training_tile(tile: torch.Tensor) -> torch.Tensor:
+    """(..., 10980, 10980, C) -> (6724, ..., 128, 128, C): the 10496^2 crop
+    at the 484 px offset, split into the 82x82 grid, row-major."""
+    cropped = tile[..., TRAIN_OFFSET:TRAIN_OFFSET + TRAIN_CROP,
+                   TRAIN_OFFSET:TRAIN_OFFSET + TRAIN_CROP, :]
+    return patchify_grid(cropped, PATCH)

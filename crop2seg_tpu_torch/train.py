@@ -5,6 +5,12 @@ JAX package's train.py, with its flags and its files):
         --bf16 --epochs 2 --res_dir results       # on the CUDA card
     python -m crop2seg_tpu_torch.train ... --device cpu   # on the CPU
 
+``--dataset`` reads S2TSCzCrop (``s2tsczcrops``), a synthetic dataset in
+its layout (``synthetic``) or PASTIS (``pastis``): PASTIS runs its five-fold
+protocol, all five folds in turn (train on three, validate on one, test on
+one: ``PASTIS_FOLD_SEQUENCE``) unless ``--fold`` or ``--test`` names one,
+each normalized by its training folds' statistics.
+
 It trains, validates every ``--val_every`` epochs after ``--val_after``,
 keeps the ``--keep_ckpts`` best checkpoints by val mIoU, reloads the best,
 tests it (``--test_region``) and aggregates the test confusion matrices over
@@ -22,8 +28,11 @@ to (``--t_buckets [61] --max_temp 61``, as in the JAX package). On the card
 the L-TAE runs its CUDA kernels: TimeUNet's train steps the training pair,
 U-TAE's and TimeUNet's val and test steps the eval kernel (W-TAE's
 attention-only L-TAE, TimeUNet_v2's TAE2d and the baselines have no kernel,
-as in the JAX package). Flags of features not ported yet raise and name
-their ROADMAP.md item.
+as in the JAX package). ``--seq_chunk`` streams TimeUNet's L-TAE over T
+where no kernel takes it (on the CPU); on the card the kernel pair takes
+TimeUNet's training with or without it, as the JAX CLI's
+``--use_pallas_train`` takes precedence. Flags of features not ported yet
+raise and name their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -71,7 +80,7 @@ parser.add_argument("--add_boundary_loss", action="store_true")
 parser.add_argument("--get_affine", action="store_true")
 parser.add_argument("--max_temp", default=None, type=int)
 parser.add_argument("--dataset", default="s2tsczcrops", type=str,
-                    help="s2tsczcrops/synthetic (pastis: ROADMAP.md M5)")
+                    help="s2tsczcrops/pastis/synthetic")
 # set-up
 parser.add_argument("--test", action="store_true")
 parser.add_argument("--test_region", default="all")
@@ -140,8 +149,10 @@ parser.add_argument("--use_pallas_train", action="store_true",
                     help="accepted for parity with the JAX CLI: on the card "
                          "TimeUNet trains its L-TAE on the CUDA kernel pair")
 parser.add_argument("--seq_chunk", default=None, type=int,
-                    help="the L-TAE streamed over T: not ported yet "
-                         "(ROADMAP.md M7)")
+                    help="TimeUNet's L-TAE streamed over T in chunks of this "
+                         "many steps with an online softmax, where no kernel "
+                         "takes it (on the CPU); on the card the kernel pair "
+                         "trains it either way")
 parser.add_argument("--synthetic_patches", default=12, type=int)
 parser.add_argument("--freeze_layers", default=None, type=str,
                     help="comma-separated module-path prefixes of the JAX "
@@ -175,11 +186,6 @@ def check_ported(config) -> None:
         ((config.num_devices or 1) > 1,
          f"--num_devices {config.num_devices}: data-parallel training is not "
          "ported yet (ROADMAP.md M11)"),
-        (config.dataset == "pastis",
-         "--dataset pastis: the PASTIS reader is not ported yet (ROADMAP.md M5)"),
-        (config.seq_chunk is not None,
-         "--seq_chunk: the L-TAE streamed over T is not ported yet (ROADMAP.md "
-         "M7); on the card the kernel pair keeps the embed out of memory"),
         (config.model not in MODELS,
          f"--model {config.model}: no such model; the models: {', '.join(MODELS)}"),
         (config.add_boundary_loss and config.model not in BOUNDARY_MODELS,
@@ -193,10 +199,24 @@ def check_ported(config) -> None:
             raise SystemExit(why)
 
 
+# PASTIS's five-fold cross-validation: fold k trains on three folds,
+# validates on one and tests on one
+PASTIS_FOLD_SEQUENCE = (
+    ((1, 2, 3), (4,), (5,)),
+    ((2, 3, 4), (5,), (1,)),
+    ((3, 4, 5), (1,), (2,)),
+    ((4, 5, 1), (2,), (3,)),
+    ((5, 1, 2), (3,), (4,)),
+)
+
+
 def build_datasets(config):
-    """(train, val, test) S2TSCZCropDataset of ``config.dataset_folder``;
-    with ``--dataset synthetic`` a synthetic dataset written there (default
-    ``res_dir/synthetic_data``) unless one exists."""
+    """(train, val, test) datasets of ``config.dataset_folder``: the
+    S2TSCzCrop reader's sets, with ``--dataset synthetic`` on a synthetic
+    dataset written there (default ``res_dir/synthetic_data``) unless one
+    exists; with ``--dataset pastis`` the PASTIS reader's folds of
+    ``config.fold`` (``PASTIS_FOLD_SEQUENCE``), normalized by the training
+    folds' statistics."""
     from crop2seg_tpu_torch.data import (
         S2TSCZCropDataset, Transform, load_norm_values, make_synthetic_dataset)
 
@@ -207,18 +227,33 @@ def build_datasets(config):
             make_synthetic_dataset(folder, n_patches=config.synthetic_patches)
     norm_folder = config.norm_values_folder or folder
     norm_path = os.path.join(norm_folder, "NORM_S2_patch.json")
-    norm_values = load_norm_values(norm_path) if os.path.exists(norm_path) else None
     common = dict(
         folder=folder, reference_date=config.ref_date, mono_date=config.mono_date,
         use_doy=config.use_doy, use_abs_rel_enc=config.use_abs_rel_enc,
-        add_ndvi=config.add_ndvi, get_affine=config.get_affine,
-        cache=config.cache, seed=config.rdm_seed,
-        norm=norm_values is not None, norm_values=norm_values)
+        add_ndvi=config.add_ndvi, cache=config.cache, seed=config.rdm_seed)
     train_tr = Transform() if config.augment else None
+    if config.dataset == "pastis":
+        from crop2seg_tpu_torch.data.pastis import PASTISDataset
+
+        folds = PASTIS_FOLD_SEQUENCE[(config.fold or 1) - 1]
+        norm_values = (load_norm_values(norm_path, folds=folds[0])
+                       if os.path.exists(norm_path) else None)
+
+        def mk_pastis(set_type, fold_ids, transform=None, temporal_dropout=0.0):
+            return PASTISDataset(set_type=set_type, folds=fold_ids, transform=transform,
+                                 temporal_dropout=temporal_dropout,
+                                 norm=norm_values is not None, norm_values=norm_values,
+                                 **common)
+        return (mk_pastis("train", folds[0], train_tr, config.temporal_dropout),
+                mk_pastis("val", folds[1]), mk_pastis("test", folds[2]))
+    norm_values = load_norm_values(norm_path) if os.path.exists(norm_path) else None
 
     def mk(set_type, transform=None, temporal_dropout=0.0):
         return S2TSCZCropDataset(set_type=set_type, transform=transform,
-                                 temporal_dropout=temporal_dropout, **common)
+                                 temporal_dropout=temporal_dropout,
+                                 get_affine=config.get_affine,
+                                 norm=norm_values is not None, norm_values=norm_values,
+                                 **common)
     return (mk("train", train_tr, config.temporal_dropout), mk("val"), mk("test"))
 
 
@@ -363,6 +398,10 @@ def _run(config, dev: torch.device) -> TrainRun:
     if dev.type == "cuda" and (config.use_pallas == "false" or not config.use_pallas_train):
         log.info("on the card the L-TAE runs its CUDA kernels whatever "
                  "--use_pallas / --use_pallas_train say")
+    if dev.type == "cuda" and config.seq_chunk and config.model in ("timeunet", "timeunet_v1"):
+        log.info("--seq_chunk %d: on the card the kernel pair takes TimeUNet's "
+                 "training (and the eval kernel its val and test), so no L-TAE "
+                 "is streamed over T", config.seq_chunk)
 
     model = get_model(vars(config), device=dev)
     init_gen = torch.Generator(device=dev).manual_seed(config.rdm_seed)
@@ -496,9 +535,12 @@ def _profiler(dev: torch.device):
 
 
 def fold_sequence(config) -> List[int]:
-    """The folds to run: S2TSCzCrop and synthetic have one split (PASTIS's
-    five folds come with its reader, ROADMAP.md M5)."""
-    return [config.fold or 1]
+    """The folds to run: PASTIS all five unless ``--fold`` names one (or
+    ``--test`` tests one, fold 1 by default); S2TSCzCrop and synthetic have
+    one split."""
+    if config.test or config.dataset != "pastis":
+        return [config.fold or 1]
+    return list(range(1, 6)) if config.fold is None else [config.fold]
 
 
 def cli(argv=None) -> None:

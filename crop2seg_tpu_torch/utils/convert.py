@@ -1,6 +1,7 @@
 """Weights converter: the JAX package's flax variables of every model of
 its factory (U-TAE, TimeUNet, W-TAE, TimeUNet_v2 and its TAE2d, the U-Nets,
-the recurrent models, UNet3D) -> the port's state dict (the inverse of
+the recurrent models, UNet3D) and of the modules no factory model uses
+(the 3-D blocks, UNetEx, MLPMixer) -> the port's state dict (the inverse of
 crop2seg_tpu/utils/torch_convert.py: the plain, depthwise-separable,
 squeeze-excitation and MBConv blocks included). Leaves arrive as numpy
 arrays; the result loads with the models' ``load_state_dict``.
@@ -456,6 +457,119 @@ def unet3d_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return _torch(sd)
 
 
+def _conv_layer3d(sd, prefix, params, stats, norm):
+    """ConvLayer3D: flax conv{i}/norm{i} -> ``{prefix}.conv``, unit i at
+    index i * 3 with a norm (an instance norm takes its index without
+    parameters), i * 2 without: conv, [norm], ReLU."""
+    per_unit = 3 if norm in ("batch", "group", "instance") else 2
+    for i in range(sum(key.startswith("conv") for key in params)):
+        idx = i * per_unit
+        conv = params[f"conv{i}"]
+        sd[_j(prefix, f"conv.{idx}.weight")] = conv3d_weight(conv["kernel"])
+        sd[_j(prefix, f"conv.{idx}.bias")] = conv["bias"]
+        if f"norm{i}" in params:
+            _norm(sd, _j(prefix, f"conv.{idx + 1}"), params[f"norm{i}"],
+                  stats.get(f"norm{i}"))
+
+
+def blocks3d_state_dict_from_flax(variables: Mapping, norm: str = "batch"
+                                  ) -> Dict[str, torch.Tensor]:
+    """flax ConvLayer3D, ConvBlock3D, DownConvBlock3D or TemporalAggregator3D
+    variables (crop2seg_tpu/nn/blocks3d.py) -> the port's state dict of the
+    same module (``norm``: the blocks', which says whether a norm holds an
+    index). The aggregator's transposed conv kernel is flipped back, as
+    UNet3D's. An aggregator whose JAX module never upsampled has no
+    ``up_deconv`` / ``up_conv`` parameters: load its state dict with
+    ``strict=False``; one without parameters (no upsampling, or "mean")
+    has no flax collections at all."""
+    p, s = variables.get("params", {}), variables.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+    if "conv0" in p:                                      # a ConvLayer3D
+        _conv_layer3d(sd, "", p, s, norm)
+    for name in ("conv", "down", "conv1", "conv2"):
+        if name in p:
+            _conv_layer3d(sd, name, p[name], s.get(name, {}), norm)
+    for name, weight in (("up_deconv", conv_transpose3d_weight), ("up_conv", conv3d_weight)):
+        if name in p:
+            sd[f"{name}.weight"] = weight(p[name]["kernel"])
+            sd[f"{name}.bias"] = p[name]["bias"]
+    return _torch(sd)
+
+
+def _convmodule_ex(sd, prefix, params, stats):
+    """ConvModuleEx: the bias-free conv and its norm."""
+    sd[f"{prefix}.conv.weight"] = conv2d_weight(params["conv"]["kernel"])
+    if "norm" in params:
+        _norm(sd, f"{prefix}.norm", params["norm"], stats.get("norm"))
+
+
+def _basic_block_ex(sd, prefix, params, stats):
+    for j in range(len(params)):
+        _convmodule_ex(sd, f"{prefix}.convs.{j}", params[f"conv{j}"],
+                       stats.get(f"conv{j}", {}))
+
+
+def unet_ex_state_dict_from_flax(variables: Mapping, strides=(1, 1, 1, 1),
+                                 downsamples=(True, True, True)
+                                 ) -> Dict[str, torch.Tensor]:
+    """flax UNetEx variables -> the port's state dict (the inverse of
+    crop2seg_tpu/utils/torch_convert.py::convert_unet_ex, :538).
+    ``strides`` and ``downsamples`` as the model was built with: they say
+    which encoder stages open with a MaxPool (the block then sits at index
+    1 of the stage's Sequential). A decoder upsamples with an InterpConv
+    (``interp_upsample.1``) or, built with ``use_deconv``, a transposed
+    conv (``deconv_upsamping``: the conv at 0, its norm at 1)."""
+    p, s = _split(variables)
+    sd: Dict[str, np.ndarray] = {}
+    i = 0
+    while f"encoder_{i}" in p:
+        k = 1 if i and strides[i] == 1 and downsamples[i - 1] else 0
+        _basic_block_ex(sd, f"encoder.{i}.{k}", p[f"encoder_{i}"],
+                        s.get(f"encoder_{i}", {}))
+        i += 1
+    j = 0
+    while f"decoder_{j}" in p:
+        dp, ds = p[f"decoder_{j}"], s.get(f"decoder_{j}", {})
+        _basic_block_ex(sd, f"decoder.{j}.conv_block", dp["conv_block"],
+                        ds.get("conv_block", {}))
+        up, us = dp["upsample"], ds.get("upsample", {})
+        if "deconv" in up:
+            base = f"decoder.{j}.upsample.deconv_upsamping"
+            sd[f"{base}.0.weight"] = conv_transpose2d_weight(up["deconv"]["kernel"])
+            sd[f"{base}.0.bias"] = up["deconv"]["bias"]
+            if "norm" in up:
+                _norm(sd, f"{base}.1", up["norm"], us.get("norm"))
+        else:
+            _convmodule_ex(sd, f"decoder.{j}.upsample.interp_upsample.1", up["conv"],
+                           us.get("conv", {}))
+        j += 1
+    if "head" in p:
+        sd["head.weight"] = conv2d_weight(p["head"]["kernel"])
+        sd["head.bias"] = p["head"]["bias"]
+    return _torch(sd)
+
+
+# MLPMixerLayer: flax auto-named submodules -> the reference's names
+MIXER_NORMS = (("LayerNorm_0", "norm1"), ("LayerNorm_1", "norm2"))
+MIXER_DENSES = (("Dense_0", "token_mixer.0"), ("Dense_1", "token_mixer.3"),
+                ("Dense_2", "channel_mixer.0"), ("Dense_3", "channel_mixer.3"))
+
+
+def mlp_mixer_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax MLPMixer variables -> the port's state dict (the inverse of
+    crop2seg_tpu/utils/torch_convert.py::convert_mlp_mixer, :565)."""
+    p = variables["params"]
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(len(p)):
+        lp, base = p[f"layer_{i}"], f"layers.{i}"
+        for flax, port in MIXER_NORMS:
+            _norm(sd, f"{base}.{port}", lp[flax])
+        for flax, port in MIXER_DENSES:
+            sd[f"{base}.{port}.weight"] = linear_weight(lp[flax]["kernel"])
+            sd[f"{base}.{port}.bias"] = lp[flax]["bias"]
+    return _torch(sd)
+
+
 def _se_paths(paths, port, flax) -> None:
     paths[f"{port}.sae.1.weight"] = f"{flax}/fc1/kernel"
     paths[f"{port}.sae.3.weight"] = f"{flax}/fc2/kernel"
@@ -612,15 +726,76 @@ def _unet3d_paths(paths) -> None:
     _dense_names(paths, "final", "final")
 
 
+def _fj(flax: str, name: str) -> str:
+    return f"{flax}/{name}" if flax else name
+
+
+def _layer3d_paths(paths, port, flax, layer) -> None:
+    """A ConvLayer3D's units -> flax conv{i} (kernel, bias) and norm{i}."""
+    i = -1
+    for idx, unit in enumerate(layer.conv):
+        kp = _j(port, f"conv.{idx}")
+        if isinstance(unit, torch.nn.Conv3d):
+            i += 1
+            _dense_names(paths, kp, _fj(flax, f"conv{i}"))
+        else:
+            _norm_paths(paths, kp, _fj(flax, f"norm{i}"))
+
+
+def _convmodule_ex_paths(paths, port, flax) -> None:
+    paths[f"{port}.conv.weight"] = f"{flax}/conv/kernel"
+    _norm_paths(paths, f"{port}.norm", f"{flax}/norm")
+
+
+def _experimental_paths(paths, model) -> None:
+    """The 3-D blocks, UNetEx and MLPMixer: the tables of their converters
+    read the other way."""
+    from crop2seg_tpu_torch.models.mlp_mixer import MLPMixer
+    from crop2seg_tpu_torch.models.unet_ex import UNetEx
+    from crop2seg_tpu_torch.nn import blocks3d
+
+    if isinstance(model, blocks3d.ConvLayer3D):
+        _layer3d_paths(paths, "", "", model)
+    for name in ("conv", "down", "conv1", "conv2"):
+        if isinstance(getattr(model, name, None), blocks3d.ConvLayer3D):
+            _layer3d_paths(paths, name, name, getattr(model, name))
+    if isinstance(model, blocks3d.TemporalAggregator3D) and model.mode != "mean":
+        _dense_names(paths, "up_deconv", "up_deconv")
+        _dense_names(paths, "up_conv", "up_conv")
+    if isinstance(model, MLPMixer):
+        for i in range(len(model.layers)):
+            for flax, port in MIXER_NORMS:
+                _norm_paths(paths, f"layers.{i}.{port}", f"layer_{i}/{flax}")
+            for flax, port in MIXER_DENSES:
+                _dense_names(paths, f"layers.{i}.{port}", f"layer_{i}/{flax}")
+    if isinstance(model, UNetEx):
+        for i, stage in enumerate(model.encoder):
+            k = len(stage) - 1
+            for j in range(len(stage[k].convs)):
+                _convmodule_ex_paths(paths, f"encoder.{i}.{k}.convs.{j}",
+                                     f"encoder_{i}/conv{j}")
+        for j, dec in enumerate(model.decoder):
+            for k in range(len(dec.conv_block.convs)):
+                _convmodule_ex_paths(paths, f"decoder.{j}.conv_block.convs.{k}",
+                                     f"decoder_{j}/conv_block/conv{k}")
+            up, fup = f"decoder.{j}.upsample", f"decoder_{j}/upsample"
+            _convmodule_ex_paths(paths, f"{up}.interp_upsample.1", f"{fup}/conv")
+            _dense_names(paths, f"{up}.deconv_upsamping.0", f"{fup}/deconv")
+            _norm_paths(paths, f"{up}.deconv_upsamping.1", f"{fup}/norm")
+        _dense_names(paths, "head", "head")
+
+
 def flax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
-    """Each parameter name of a model of the port's factory -> the
-    slash-joined flax path of its counterpart in the JAX model's ``params``
+    """Each parameter name of a model of the port's factory, or of a 3-D
+    block, UNetEx or MLPMixer -> the slash-joined flax path of its
+    counterpart in the JAX model's ``params``
     (``down_0/conv1/conv0/conv/kernel``, ``temporal_encoder/attention/query``,
     ``encoder/cell/conv/conv/kernel``, ...): the tables of the converters
     above read the other way. Raises if a parameter has no counterpart."""
     from crop2seg_tpu_torch.nn.ltae import LTAE, LTAE4WTAE
 
     paths: Dict[str, str] = {}
+    _experimental_paths(paths, model)
     if getattr(model, "in_conv", None) is not None:
         _layer_paths(paths, "in_conv.conv", "in_conv/conv", model.in_conv.conv)
     for attr, flax in (("spatial_reduction", "spatial_reduction"),

@@ -344,8 +344,7 @@ def test_sample_weights_fill_missing_with_one():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--num_devices", "2"], "M11"), (["--dataset", "pastis"], "M5"),
-    (["--seq_chunk", "8"], "M7"), (["--add_boundary_loss"], "no boundary head"),
+    (["--num_devices", "2"], "M11"), (["--add_boundary_loss"], "no boundary head"),
     (["--model", "timeunet_v3"], "no such model"), (["--platform", "cpu"], "--device")])
 def test_unported_flags_raise(data, tmp_path, extra, match):
     argv = _argv(data, tmp_path / "res") + extra

@@ -334,5 +334,5 @@ def test_factory_passes_timeunet_remat_and_refuses_seq_chunk():
            "out_conv": [8, 3], "n_head": 2, "d_model": 16}
     assert get_model(dict(cfg, remat=True), device="cpu").remat
     assert not get_model(cfg, device="cpu").remat
-    with pytest.raises(NotImplementedError, match="M7"):
-        get_model(dict(cfg, seq_chunk=8), device="cpu")
+    assert get_model(dict(cfg, seq_chunk=8), device="cpu").temporal_encoder.seq_chunk == 8
+    assert get_model(cfg, device="cpu").temporal_encoder.seq_chunk is None
