@@ -187,9 +187,11 @@
    synthetic PASTIS folder (10 patches at 128^2, T 38-61, 20 classes, two a
    fold), bf16, one epoch: U-TAE on fold 1 (one wide eval launch per val and
    test batch), --test of it (repeats its test loss), TimeUNet_v1 on fold 1
-   (the tail bf16 pair once a step, one group launch per val and test
-   batch) and again with --seq_chunk 8 (the same launches; the L-TAE is
-   never streamed on the card), U-TAE over all five folds (every fold's
+   with --use_pallas_train (the tail bf16 pair once a step, one group
+   launch per val and test batch), with --seq_chunk 8 alone (each training
+   step streams the L-TAE over T, no pair launch, as the JAX CLI routes it)
+   and with both flags (the pair, nothing streamed), U-TAE over all five
+   folds (every fold's
    files, the overall files, the confusion matrices over all ten patches);
    (b) preprocess_batch at B=4, T=61, 128^2 on the card against the CPU for
    the same draws (exact but the standardized values, 1e-6); (c)
@@ -200,6 +202,30 @@
    against the CPU, one UNetEx train step. A ``pastis`` JSON line; the
    kernels line gains ``launches_pastis`` and ``launches_chunked_and_m10b``
    (0).
+
+17. Data-parallel training and patch-parallel serving (phase_data_parallel,
+   parallel/mesh.py), each path's counts set to 0 just before it and read
+   just after: (a) where two or more cards are visible, an NCCL group over
+   them running three TimeUNet bf16 steps on the kernel pair at B = 4
+   (loss and statistics held: each card's bf16 convs round at its own
+   batch size) and two fp32 steps held as (b) holds them (on one card it
+   prints that this path was not run: NCCL refuses two ranks on one
+   device); (b) TimeUNet fp32 (the tail fp32 pair once a step in
+   each rank) and (c) U-TAE with remat, over two gloo ranks on cuda:0, B =
+   2 each of the global batch of 4, dropout 0, against one process on the
+   global batch: the loss (1e-5 relative), cm and cm_top2 (exact but
+   pixels within a tie of the one process's logits), BatchNorm's running
+   statistics (1e-5), the ranks' gradients equal and within the spread of
+   the gradient check above, the ranks' step ms and a gloo all-reduce's;
+   (d) TimeUNet's tile through make_tile_predictor on one card (batch 10)
+   and with the mesh [cuda:0, cuda:0] (patch_parallel_infer, batch 20: 10 a
+   device), bf16 and fp32: probabilities within 1e-4 / 1e-5, classes equal
+   where decided, 10 eval kernel launches each, patches/s of each; (e) the CLI with --num_devices
+   2: refused on one card (trains an epoch on two or more), and on the CPU
+   over two gloo processes, whose test loss one process's --test repeats
+   within 1e-5; (f) graft_entry's entry forward (one wide launch) and
+   dryrun_multichip(1). A ``data_parallel`` JSON line; the kernels line
+   gains ``launches_data_parallel``.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -2533,10 +2559,13 @@ def pastis_cli(dev, tmp: str) -> dict:
     patches at 128^2, T 38-61, 20 classes, two patches a fold), bf16, one
     epoch: U-TAE on fold 1 (train, validate, test: one wide eval launch per
     val and test batch, no pair launch), ``--test`` of its fold, which must
-    repeat its test loss; TimeUNet_v1 on fold 1 (the tail bf16 pair once a
-    step, one group launch per val and test batch), and again with
-    ``--seq_chunk 8``, which must launch the same and never stream the
-    L-TAE over T; then U-TAE over all five folds (no --fold): every fold's
+    repeat its test loss; TimeUNet_v1 on fold 1 with ``--use_pallas_train``
+    (the tail bf16 pair once a step, one group launch per val and test
+    batch); with ``--seq_chunk 8`` and without ``--use_pallas_train``, as the
+    JAX CLI routes it: each training step streams the L-TAE over T
+    (``_chunked``), no pair launch, the eval kernel in val and test; with
+    both flags the pair's launches and no ``_chunked``; then U-TAE over all
+    five folds (no --fold): every fold's
     files, the overall files, the confusion matrices aggregated over the ten
     patches' pixels."""
     from crop2seg_tpu_torch.data import make_synthetic_pastis
@@ -2555,7 +2584,8 @@ def pastis_cli(dev, tmp: str) -> dict:
               "--epochs", "1", "--num_classes", str(PASTIS_CLASSES),
               "--out_conv", f"[32, {PASTIS_CLASSES}]", "--bf16"]
     dirs = {k: os.path.join(tmp, f"pastis_{k}")
-            for k in ("utae", "utae_test", "timeunet", "timeunet_chunk", "five")}
+            for k in ("utae", "utae_test", "timeunet", "timeunet_chunk", "timeunet_chunk_pair",
+                      "five")}
     tail16 = {lp.variant(True, torch.bfloat16, d): n_train for d in ("fwd", "bwd")}
     fold1 = ["--fold", "1"]
     runs, launches = {}, []
@@ -2581,20 +2611,32 @@ def pastis_cli(dev, tmp: str) -> dict:
           f"{loss_rel:.3e}", flush=True)
     check(loss_rel <= 1e-5, f"pastis --test loss {r_ut.test_metrics['test_loss']} vs "
                             f"{r_u.test_metrics['test_loss']}")
-    run("timeunet fold 1", ["--model", "timeunet", "--res_dir", dirs["timeunet"]] + fold1,
+    pair = ["--model", "timeunet", "--use_pallas_train"]
+    run("timeunet fold 1 --use_pallas_train", pair + ["--res_dir", dirs["timeunet"]] + fold1,
         tail16, {"group": n_val + n_test})
-    # --seq_chunk on the card: the kernel pair takes TimeUNet's training
-    chunked_calls = []
-    chunked = LTAE._chunked
-    LTAE._chunked = lambda self, *a, **k: chunked_calls.append(1) or chunked(self, *a, **k)
-    try:
-        run("timeunet fold 1 --seq_chunk 8", ["--model", "timeunet", "--seq_chunk", "8",
-                                              "--res_dir", dirs["timeunet_chunk"]] + fold1,
-            tail16, {"group": n_val + n_test})
-    finally:
-        LTAE._chunked = chunked
-    check(not chunked_calls, f"pastis --seq_chunk: the L-TAE was streamed over T "
-                             f"{len(chunked_calls)} times on the card")
+    # --seq_chunk on the card, as in the JAX CLI: without --use_pallas_train
+    # the training steps stream the L-TAE over T (no pair launch), the val
+    # and test steps run the eval kernel; with it the pair trains and
+    # nothing is streamed
+    for name, argv, want_pool, want_chunked, res in (
+            ("timeunet fold 1 --seq_chunk 8", ["--model", "timeunet"], {}, n_train,
+             "timeunet_chunk"),
+            ("timeunet fold 1 --seq_chunk 8 --use_pallas_train", pair, tail16, 0,
+             "timeunet_chunk_pair")):
+        chunked_calls = []
+        chunked = LTAE._chunked
+        LTAE._chunked = lambda self, *a, **k: chunked_calls.append(self.training) or chunked(
+            self, *a, **k)
+        try:
+            run(name, argv + ["--seq_chunk", "8", "--res_dir", dirs[res]] + fold1,
+                want_pool, {"group": n_val + n_test})
+        finally:
+            LTAE._chunked = chunked
+        print(f"train cli (16a) {name}: the L-TAE streamed over T {len(chunked_calls)} "
+              f"times (training {sum(chunked_calls)})", flush=True)
+        check(len(chunked_calls) == want_chunked and all(chunked_calls),
+              f"pastis {name}: the L-TAE was streamed over T {len(chunked_calls)} times "
+              f"(training {sum(chunked_calls)}), not {want_chunked} training steps")
     run("utae five folds", ["--model", "utae", "--res_dir", dirs["five"]],
         {}, {"wide": 5 * (n_val + n_test)}, all_folds=True)
     for f in range(1, 6):
@@ -2717,8 +2759,9 @@ def chunked_ltae(dev) -> dict:
     bf16 autocast within GRAD_FACTOR times the plain path's own bf16-to-fp32
     distance. Each path runs twice, the second warm: its ms (forward and
     backward, CUDA events) and its peak memory above the inputs; the kernel
-    pair (fused=True with seq_chunk set: the pair takes precedence) beside
-    them. The chunked runs launch no kernel."""
+    pair (``use_pallas_train`` with seq_chunk set: the pair takes
+    precedence, as in the JAX gate) beside them. The chunked runs
+    (``use_pallas_train`` off) launch no kernel."""
     te = get_model({"model": "timeunet"}, device=dev,
                    generator=torch.Generator().manual_seed(0)).temporal_encoder
     te.train()
@@ -2742,7 +2785,8 @@ def chunked_ltae(dev) -> dict:
     te._mlp_tail = capture
 
     def path(dtype, fused: bool, seq_chunk, need_attn: bool) -> dict:
-        te.seq_chunk = seq_chunk
+        # the JAX gate: _chunked without use_pallas_train, the pair with it
+        te.seq_chunk, te.use_pallas_train = seq_chunk, fused
         for _ in range(2):                      # the second call is the warm one
             te.zero_grad(set_to_none=True)
             x.grad = None
@@ -2893,6 +2937,388 @@ def phase_pastis(dev, tmp: str) -> dict:
     return out
 
 
+# phase 17: data-parallel training and patch-parallel serving (parallel/mesh.py),
+# the CLI's --num_devices and graft_entry
+DP_SEED = 17               # the global batch's and the weights' seed
+DP_B = 4                   # the global batch, as phase 4's steps
+# the group's step against the one-process step on the global batch: the
+# loss relative, the BatchNorm running statistics as a share of max(1, |x|),
+# and the tie: a prediction may differ only where the one-process logits' top
+# two (or, for the top-2 matrix, second and third) are closer than it. fp32
+# sums in another order move the logits by ~1e-6. In bf16 each card's convs
+# round at its own batch size (cuDNN takes other algorithms at B = 1 than at
+# B = 4): on four cards 447 of 65536 argmaxes moved by more than 0.03 of a
+# logit while the loss agreed to 1.7e-6 (PERF.md §6), so the bf16 case
+# holds no prediction (tie None) and the fp32 case holds them
+DP_TOL = {torch.float32: dict(loss=1e-5, stats=1e-5, tie=1e-4),
+          torch.bfloat16: dict(loss=1e-3, stats=1e-3, tie=None)}
+# the 2-rank tile against the 1-device tile: probabilities
+DP_TILE_TOL = dict(rtol=1e-4, atol=1e-5)
+DP_CASES = {
+    # name: (model config, autocast dtype, steps, launches by variant a rank a step)
+    "timeunet fp32": ({"model": "timeunet"}, None, 2,
+                      {lp.variant(True, torch.float32, d): 1 for d in ("fwd", "bwd")}),
+    "utae remat fp32": ({"model": "utae", "remat": True}, None, 2, {}),
+}
+# (a): three bf16 steps on the pair, and the fp32 steps that hold the
+# predictions and the gradients
+DP_NCCL_CASES = {
+    "timeunet bf16": ({"model": "timeunet"}, torch.bfloat16, 3,
+                      {lp.variant(True, torch.bfloat16, d): 1 for d in ("fwd", "bwd")}),
+    "timeunet fp32": DP_CASES["timeunet fp32"],
+}
+
+
+def dp_model(cfg: dict, dev):
+    """The phase's model: factory defaults, seeded weights, dropout 0 (the
+    ranks draw their own masks, so only dropout 0 compares with one
+    process)."""
+    model = get_model(cfg, device=dev, generator=torch.Generator().manual_seed(DP_SEED))
+    model.temporal_encoder.attn_dropout = 0.0
+    model.temporal_encoder.mlp[1].p = 0.0
+    return model
+
+
+def dp_step_record(model, step, batch, gen, steps: int) -> dict:
+    """``steps`` steps of ``step`` on ``batch``: the first step's loss,
+    confusion matrices, logits, gradients (before Adam) and running
+    statistics on the host, every step's loss, the last step's ms (CUDA
+    events) and the pair's launches a step."""
+    logits = {}
+    hook = model.register_forward_hook(lambda m, a, out: logits.__setitem__("v", out))
+    rec = {"losses": [], "launches": []}
+    for i in range(steps):
+        lp.ltae_pool.launches.clear()                  # this step's counts
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        aux = step(batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        rec["losses"].append(float(aux["loss"]))
+        rec["launches"].append(dict(lp.ltae_pool.launches))
+        if i == 0:
+            rec.update(
+                cm=aux["cm"].cpu(), cm_top2=aux["cm_top2"].cpu(),
+                logits=logits["v"].detach().float().cpu(),
+                grads={k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                stats={k: v.detach().cpu() for k, v in model.state_dict().items()
+                       if "running_" in k})
+    rec["ms"] = start.elapsed_time(end)
+    hook.remove()
+    return rec
+
+
+def dp_rank(rank: int, world: int, store_dir: str, backend: str, cases: list) -> dict:
+    """One rank of phase 17 (a)-(c): ``cases`` (name, model config, dtype,
+    steps) over the group, each rank its shard of the global batch of DP_B
+    on cuda:rank (NCCL) or, with gloo, on cuda:0; and the ms of a gloo or
+    NCCL all-reduce of the last model's gradient size."""
+    from crop2seg_tpu_torch.parallel import (
+        data_parallel_step, init_group, rank_seed, replicate, shard_batch)
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    group = init_group(rank, world, store_dir, dev, backend=backend)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = StepConfig(num_classes=N_CLASSES, class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+    out = {}
+    for name, model_cfg, dtype, steps in cases:
+        model = replicate(dp_model(model_cfg, dev), group)
+        batch = train_batch(DP_B, torch.Generator(device=dev).manual_seed(DP_SEED), dev)
+        step = data_parallel_step(model, cfg, device=dev, dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(rank_seed(DP_SEED, rank))
+        out[name] = dp_step_record(model, step, shard_batch(batch, group), gen, steps)
+        del model, step, batch
+        torch.cuda.empty_cache()
+    flat = torch.ones(sum(p.numel() for p in dp_model(cases[-1][1], dev).parameters()),
+                      device=dev)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(flat, group=group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["all_reduce"] = {"floats": flat.numel(), "ms_median": float(np.median(times[1:]))}
+    return out
+
+
+def dp_predictions_beyond_tie(got: torch.Tensor, ref: torch.Tensor, y, tie: float) -> tuple:
+    """The group's logits ``got`` against the one-process ``ref``: the
+    pixels whose argmax, and whose top-2 prediction, differ where the
+    reference's deciding gap exceeds ``tie``, and the pixels within a tie."""
+    from crop2seg_tpu_torch.learning.metrics import top2_prediction
+
+    top3 = ref.topk(3, dim=-1).values
+    tie1 = (top3[..., 0] - top3[..., 1]) <= tie
+    tie2 = tie1 | ((top3[..., 1] - top3[..., 2]) <= tie)
+    bad1 = (got.argmax(-1) != ref.argmax(-1)) & ~tie1
+    bad2 = (top2_prediction(got, y) != top2_prediction(ref, y)) & ~tie2
+    return int(bad1.sum()), int(bad2.sum()), int(tie2.sum())
+
+
+def dp_check(label: str, ranks: list, ref: dict, perturbed: dict, y, want_launches,
+             dtype=None) -> dict:
+    """(b)/(c)/(a): every rank's loss, confusion matrices and running
+    statistics against the one-process step ``ref`` (the matrices exact
+    unless a pixel is within a tie, ``dp_predictions_beyond_tie``), the
+    ranks' gradients equal and within the perturbation spread of ``ref``'s
+    (``perturbed``: one process with the L-TAE output scaled by 1 + GRAD_EPS
+    * noise), and each rank's pair launches a step; DP_TOL of ``dtype``
+    (bf16: the loss and statistics only). Every number is printed before
+    any check."""
+    from crop2seg_tpu_torch.learning.metrics import confusion_matrix
+
+    tol = DP_TOL[dtype or torch.float32]
+    held = tol["tie"] is not None
+    loss_rel = max(abs(r["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+                   for r in ranks)
+    stats_err = max(((r["stats"][k] - v).abs().max() / v.abs().max().clamp_min(1.0)).item()
+                    for r in ranks for k, v in ref["stats"].items()) if ref["stats"] else 0.0
+    logits = torch.cat([r["logits"] for r in ranks])
+    cm_equal = all(torch.equal(r["cm"], ref["cm"]) and torch.equal(r["cm_top2"], ref["cm_top2"])
+                   for r in ranks)
+    differ = int((logits.argmax(-1) != ref["logits"].argmax(-1)).sum())
+    bad1, bad2, ties = dp_predictions_beyond_tie(logits, ref["logits"], y, tol["tie"] or 0.0)
+    launches = [r["launches"] for r in ranks]
+    print(f"data parallel {label}: {len(ranks)} ranks, loss {ranks[0]['losses'][0]!r} vs one "
+          f"process {ref['losses'][0]!r} (relative {loss_rel:.3e}), losses a step "
+          f"{ranks[0]['losses']} vs {ref['losses']}; cm and cm_top2 "
+          f"{'equal' if cm_equal else 'differ'}: {differ} argmax pixels differ, {bad1} argmax "
+          f"and {bad2} top-2 beyond a tie of {tol['tie']} ({ties} within it); running "
+          f"statistics within {stats_err:.3e}; step ms per rank "
+          f"{[round(r['ms'], 3) for r in ranks]} (one process, B={DP_B}: {ref['ms']:.3f}); "
+          f"pair launches a step per rank {launches}", flush=True)
+    worst = None
+    if held:
+        worst = check_grads_within_spread(f"dp {label}", ranks[0]["grads"], ref["grads"],
+                                          perturbed, batch=DP_B)
+    else:
+        print(f"data parallel {label}: predictions and gradients not held in bf16 (each "
+              "card's convs round at its own batch size; the fp32 case holds them)", flush=True)
+    # the group's matrices are its logits', summed over the ranks, and its
+    # gradients the same on every rank
+    n_cls = ref["cm"].shape[0]
+    check(torch.equal(ranks[0]["cm"], confusion_matrix(logits.argmax(-1), y, n_cls)),
+          f"{label}: the group's cm is not its ranks' predictions'")
+    for r in ranks[1:]:
+        for k, g in ranks[0]["grads"].items():
+            check(torch.equal(r["grads"][k], g), f"{label}: ranks disagree on the gradient of {k}")
+    check(not held or (bad1 == 0 and bad2 == 0),
+          f"{label}: {bad1} argmax and {bad2} top-2 predictions differ from one process's "
+          f"beyond a tie of {tol['tie']}")
+    check(loss_rel <= tol["loss"], f"{label}: loss relative {loss_rel:.3e}")
+    check(stats_err <= tol["stats"], f"{label}: running statistics differ by {stats_err:.3e}")
+    for r in ranks:
+        check(all(np.isfinite(r["losses"])), f"{label}: losses {r['losses']}")
+        check(all(n == want_launches for n in r["launches"]),
+              f"{label}: a rank launched {r['launches']}, not {want_launches} a step")
+    return {"loss": ranks[0]["losses"][0], "loss_ref": ref["losses"][0], "loss_rel": loss_rel,
+            "stats_err": stats_err, "grad_worst_ratio": worst, "ties": ties,
+            "argmax_differ": differ,
+            "rank_step_ms": [r["ms"] for r in ranks], "one_process_step_ms": ref["ms"],
+            "launches_per_rank": [sum(sum(n.values()) for n in r["launches"]) for r in ranks],
+            "launches_by_variant": dict(sum((collections.Counter(n) for r in ranks
+                                             for n in r["launches"]), collections.Counter()))}
+
+
+def dp_reference(name: str, model_cfg: dict, dtype, steps: int, dev) -> tuple:
+    """One process on the global batch: the step the group must repeat, and
+    the same first step with the L-TAE output perturbed (the yardstick)."""
+    cfg = StepConfig(num_classes=N_CLASSES, class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+    out = []
+    for eps in (0.0, GRAD_EPS):
+        model = dp_model(model_cfg, dev)
+        if eps:
+            model.temporal_encoder.register_forward_hook(perturb_hook(eps, dev))
+        batch = train_batch(DP_B, torch.Generator(device=dev).manual_seed(DP_SEED), dev)
+        step = make_train_step(model, cfg, dtype=dtype)
+        out.append(dp_step_record(model, step, batch, torch.Generator(device=dev).manual_seed(
+            DP_SEED), steps if not eps else 1))
+        del model, step
+        torch.cuda.empty_cache()
+    return out[0], out[1]["grads"], batch["y"].cpu()
+
+
+def dp_tiles(dev) -> dict:
+    """(d) TimeUNet's tile through make_tile_predictor on one card (batches
+    of 10) and with the mesh [cuda:0, cuda:0] (patch_parallel_infer: batches
+    of 20, 10 a device, so that each device runs the one card's batch shape:
+    at another batch size the card's bf16 convolutions may take other
+    algorithms, ~1e-3 apart), bf16 and fp32: probabilities within
+    DP_TILE_TOL, classes equal where the 1-device run's top two
+    probabilities differ by more than 1e-5, the eval kernel 10 times each;
+    patches/s of each."""
+    from crop2seg_tpu_torch.parallel import make_mesh
+
+    model = get_model({"model": "timeunet"}, device=dev,
+                      generator=torch.Generator().manual_seed(DP_SEED))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tile = torch.randn(T, 1098, 1098, 10, generator=gen, device=dev)
+    tile[LENGTH:] = 0.0
+    dates = np.arange(T, dtype=np.float32) * 5 + 3
+    mesh = make_mesh([dev, dev])
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        res = {}
+        for label, kw, want in (("1 device", {"batch_size": MAIN_B}, 10),
+                                ("mesh", {"batch_size": 2 * MAIN_B, "mesh": mesh}, 10)):
+            predict = make_tile_predictor(model, dtype=dtype, **kw)
+            predict(tile, dates, LENGTH)                      # warm-up
+            lf.ltae_fused_forward.route_launches.clear()     # this path's counts
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[label] = predict(tile, dates, LENGTH)
+            secs = time.perf_counter() - t0
+            routes = dict(lf.ltae_fused_forward.route_launches)
+            res[label]["pps"], res[label]["launches"] = 100 / secs, routes
+            check(routes == {"group": want}, f"tile {name} {label}: eval kernel {routes}, "
+                                             f"not {want} group launches")
+        one, sh = res["1 device"], res["mesh"]
+        p_err = float(np.abs(sh["proba"] - one["proba"]).max())
+        np.testing.assert_allclose(sh["proba"], one["proba"], **DP_TILE_TOL)
+        top2 = np.sort(one["proba"], axis=-1)[..., -2:]
+        decided = (top2[..., 1] - top2[..., 0]) > 1e-5
+        differ = int(((sh["classes"] != one["classes"]) & decided).sum())
+        print(f"patch parallel tile {name}: mesh [cuda:0, cuda:0] {sh['pps']:.2f} patches/s "
+              f"vs 1 device {one['pps']:.2f}; max |dproba| {p_err:.3e}; classes differ at "
+              f"{differ} decided pixels ({int((~decided).sum())} within 1e-5); launches "
+              f"{sh['launches']} vs {one['launches']}", flush=True)
+        check(differ == 0, f"tile {name}: the mesh's classes differ at {differ} pixels")
+        out[name] = {"mesh_pps": sh["pps"], "one_device_pps": one["pps"], "max_dproba": p_err,
+                     "launches_mesh": sh["launches"]["group"],
+                     "launches_one_device": one["launches"]["group"]}
+    del model, tile
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_cli(dev, data: str, tmp: str) -> dict:
+    """(e) The train CLI with --num_devices 2: on one card it must refuse
+    (fewer cards than ranks), on two or more it trains an epoch on phase
+    12's dataset; with --device cpu it trains an epoch of a small TimeUNet
+    on a small synthetic set over two gloo processes, and one process's
+    --test of its folder repeats its test loss within 1e-5."""
+    from crop2seg_tpu_torch import train as cli
+    from crop2seg_tpu_torch.data import make_synthetic_dataset
+
+    out = {}
+    cards = torch.cuda.device_count()
+    argv = ["--dataset", "synthetic", "--dataset_folder", data, "--model", "timeunet",
+            "--bf16", "--use_pallas_train", "--batch_size", "4", "--epochs", "1",
+            "--num_devices", "2", "--res_dir", os.path.join(tmp, "dp_card")]
+    if cards < 2:
+        try:
+            cli.main(cli.parse_config(argv))
+        except SystemExit as e:
+            out["one_card_refusal"] = str(e)
+        check("cuda devices are visible" in out.get("one_card_refusal", ""),
+              f"--num_devices 2 on one card: {out.get('one_card_refusal')!r}, not the "
+              "visible-card refusal")
+        print(f"train cli (17e) --num_devices 2 on {cards} card: refused: "
+              f"{out['one_card_refusal']}", flush=True)
+    else:
+        start = time.perf_counter()
+        run = cli.main(cli.parse_config(argv))
+        out["cards_epoch_s"] = time.perf_counter() - start
+        check(all(np.isfinite(v) for v in run.test_metrics.values()),
+              f"--num_devices 2 on the cards: {run.test_metrics}")
+        print(f"train cli (17e) --num_devices 2 on the cards: {out['cards_epoch_s']:.1f} s, "
+              f"test {json.dumps(run.test_metrics)}", flush=True)
+    small = os.path.join(tmp, "dp_small")
+    make_synthetic_dataset(small, n_patches=10, t_range=(5, 12), hw=16)
+    common = ["--device", "cpu", "--dataset", "synthetic", "--dataset_folder", small,
+              "--model", "timeunet", "--encoder_widths", "[8,8]", "--decoder_widths", "[8,8]",
+              "--out_conv", "[8,15]", "--n_head", "2", "--d_model", "16",
+              "--batch_size", "2", "--t_buckets", "[8,12]", "--display_step", "1000"]
+    res = os.path.join(tmp, "dp_cpu")
+    start = time.perf_counter()
+    run = cli.main(cli.parse_config(common + ["--epochs", "1", "--num_devices", "2",
+                                              "--res_dir", res]))
+    out["cpu_seconds"] = time.perf_counter() - start
+    missing = [f for f in CLI_FILES if not os.path.exists(os.path.join(res, f))]
+    check(not missing, f"--device cpu --num_devices 2 wrote no {missing}")
+    tested = cli.main(cli.parse_config(common + ["--test", "--weight_folder", res,
+                                                 "--res_dir", os.path.join(tmp, "dp_cpu_test")]))
+    a, b = run.test_metrics["test_loss"], tested.test_metrics["test_loss"]
+    out["cpu_test_loss_rel"] = abs(a - b) / abs(a)
+    print(f"train cli (17e) --device cpu --num_devices 2: {out['cpu_seconds']:.1f} s, test "
+          f"loss {a!r}; one process's --test {b!r} (relative {out['cpu_test_loss_rel']:.3e})",
+          flush=True)
+    check(out["cpu_test_loss_rel"] <= 1e-5, f"--test of the 2-rank run: loss {b} vs {a}")
+    return out
+
+
+def dp_nccl(dev, world: int) -> tuple:
+    """(a) DP_NCCL_CASES over an NCCL group of ``world`` cards, one rank a
+    card, each against one process on the global batch (``dp_check``);
+    returns the checks and the NCCL all-reduce's ms."""
+    from crop2seg_tpu_torch.parallel import run_workers
+
+    ranks = run_workers(dp_rank, world, "nccl",
+                        [(n, c, d, s) for n, (c, d, s, _) in DP_NCCL_CASES.items()])
+    checks = {}
+    for name, (model_cfg, dtype, steps, want) in DP_NCCL_CASES.items():
+        ref, perturbed, y = dp_reference(name, model_cfg, dtype, steps, dev)
+        checks[name] = dp_check(f"(17a) nccl {name}", [r[name] for r in ranks], ref, perturbed,
+                                y, want, dtype)
+    return checks, ranks[0]["all_reduce"]
+
+
+def phase_data_parallel(dev, data: str, tmp: str) -> dict:
+    """Phase 17: (a) an NCCL group over every card (where there are two or
+    more), (b) TimeUNet and (c) U-TAE with remat over two gloo ranks on
+    cuda:0, each against one process on the global batch (``dp_check``),
+    (d) the patch-parallel tile (``dp_tiles``), (e) the CLI's --num_devices
+    (``dp_cli``), (f) graft_entry's ``entry`` and ``dryrun_multichip(1)``;
+    each part's seconds."""
+    from crop2seg_tpu_torch import graft_entry
+    from crop2seg_tpu_torch.parallel import run_workers
+
+    out, seconds = {"checks": {}}, {}
+    start = time.perf_counter()
+    cards = torch.cuda.device_count()
+    world = max(n for n in (1, 2, 4) if n <= cards and DP_B % n == 0)
+    if world >= 2:
+        checks, out["nccl_all_reduce"] = dp_nccl(dev, world)
+        out["checks"].update({"nccl " + k: v for k, v in checks.items()})
+    else:
+        print(f"data parallel (17a): the NCCL path across cards was not run: {cards} card "
+              "is visible, and NCCL refuses two ranks on one device", flush=True)
+    seconds["a"] = time.perf_counter() - start
+    start = time.perf_counter()
+    cases = [(n, c, d, s) for n, (c, d, s, _) in DP_CASES.items()]
+    ranks = run_workers(dp_rank, 2, "gloo", cases)
+    for name, (model_cfg, dtype, steps, want) in DP_CASES.items():
+        ref, perturbed, y = dp_reference(name, model_cfg, dtype, steps, dev)
+        out["checks"][name] = dp_check(f"(17{'b' if 'timeunet' in name else 'c'}) gloo {name}",
+                                       [r[name] for r in ranks], ref, perturbed, y, want, dtype)
+    out["gloo_all_reduce"] = ranks[0]["all_reduce"]
+    print(f"data parallel: gloo all-reduce of {out['gloo_all_reduce']['floats']} floats on "
+          f"cuda:0, median {out['gloo_all_reduce']['ms_median']:.3f} ms", flush=True)
+    seconds["bc"] = time.perf_counter() - start
+    start = time.perf_counter()
+    out["tiles"] = dp_tiles(dev)
+    seconds["d"] = time.perf_counter() - start
+    start = time.perf_counter()
+    out["cli"] = dp_cli(dev, data, tmp)
+    seconds["e"] = time.perf_counter() - start
+    start = time.perf_counter()
+    fn, args = graft_entry.entry()
+    lf.ltae_fused_forward.route_launches.clear()        # this path's counts
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    out["entry_launches"] = dict(lf.ltae_fused_forward.route_launches)
+    check(tuple(logits.shape) == (1, 128, 128, 15) and torch.isfinite(logits).all().item()
+          and out["entry_launches"] == {"wide": 1},
+          f"graft_entry.entry: {tuple(logits.shape)}, launches {out['entry_launches']}")
+    out["dryrun"] = graft_entry.dryrun_multichip(1)
+    seconds["f"] = time.perf_counter() - start
+    out["seconds"] = seconds
+    print(f"phase 17: seconds {json.dumps(seconds)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -2993,6 +3419,8 @@ def main() -> int:
         zoo = phase_zoo(dev, cli_data, cli_tmp)
         torch.cuda.empty_cache()
         pastis = phase_pastis(dev, cli_tmp)
+        torch.cuda.empty_cache()
+        dp = phase_data_parallel(dev, cli_data, cli_tmp)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -3187,6 +3615,19 @@ def main() -> int:
     for entry in [kernel, kernel_utae] + pool + [kernel_stages, kernel_q] + general:
         entry["launches_chunked_and_m10b"] = 0
     print("pastis " + json.dumps(pastis), flush=True)
+    # phase 17: the eval kernel's tile launches (one card and the mesh), U-TAE's
+    # entry forward, the ranks' pair launches (their counts sent back)
+    kernel["launches_data_parallel"] = sum(
+        t["launches_mesh"] + t["launches_one_device"] for t in dp["tiles"].values())
+    kernel_utae["launches_data_parallel"] = dp["entry_launches"].get("wide", 0)
+    by_variant = collections.Counter()
+    for c in dp["checks"].values():
+        by_variant.update(c["launches_by_variant"])
+    for entry in pool:
+        entry["launches_data_parallel"] = by_variant.get(entry["name"], 0)
+    for entry in [kernel_stages, kernel_q] + general:
+        entry["launches_data_parallel"] = 0
+    print("data_parallel " + json.dumps(dp), flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]

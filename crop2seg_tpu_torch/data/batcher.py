@@ -9,7 +9,9 @@ input, and no model reads pads from the data values.
   bucket-pad, drop the last partial batch on request; the batches of the
   JAX ``BatchLoader`` for the same seed. With ``native=True`` (the default)
   the native C++ loader (``crop2seg_tpu_torch/native``) assembles x and the
-  pad mask wherever the dataset's ``native_batch_plan`` allows.
+  pad mask wherever the dataset's ``native_batch_plan`` allows. With
+  ``shard=(rank, world)`` (a data-parallel rank) it yields that rank's rows
+  of every global batch.
 - ``DeviceCacheLoader``: the batches uploaded once, to the card by default,
   then replayed from device memory (later epochs gather fresh shuffles from
   per-bucket stacks with ``index_select``).
@@ -79,13 +81,28 @@ class BatchLoader:
     off the GIL) whenever the dataset gives a plan (``native_batch_plan``).
     The loader is built at first use; a failed build raises. A file the
     loader rejects mid-run makes the loader warn and take the Python path
-    for the rest of the run."""
+    for the rest of the run.
+
+    ``shard=(rank, world)``: ``batch_size`` is the global batch, and each
+    rank yields rows ``rank * b / world`` to ``(rank + 1) * b / world`` of
+    every global batch of the one-process loader with the same seed (the
+    same samples in the same order, the same augmentation draws, the T
+    bucket of the whole global batch). On the native path a rank decodes
+    only its rows' series (every rank draws the whole batch's augmentation
+    plans); on the Python collate path every rank assembles the whole
+    global batch, whose items draw their augmentation as they load, and
+    keeps its rows. A last global batch short of ``batch_size`` (without
+    ``drop_last``) is padded with copies of its first sample whose targets
+    are ``ignore_label`` (the JAX CLI's ``to_host_batch(pad_to=...)``): the
+    loss gives them weight 0 and the metrics drop the ignore class."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  t_buckets: Sequence[int] = DEFAULT_T_BUCKETS,
                  pad_value: float = 0.0, drop_last: bool = True,
                  sample_weights: Optional[np.ndarray] = None, seed: int = 0,
-                 native: bool = True, native_threads: int = 4):
+                 native: bool = True, native_threads: int = 4,
+                 shard: Optional[Sequence[int]] = None,
+                 ignore_label: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -95,6 +112,16 @@ class BatchLoader:
         self.sample_weights = sample_weights
         self.native_threads = native_threads
         self._rng = np.random.default_rng(seed)
+        self.shard = None if shard is None else (int(shard[0]), int(shard[1]))
+        if self.shard is not None:
+            rank, world = self.shard
+            if batch_size % world or not 0 <= rank < world:
+                raise ValueError(f"shard {shard}: the global batch {batch_size} must "
+                                 "divide over the ranks")
+            if not drop_last and ignore_label is None:
+                raise ValueError("a sharded loader without drop_last pads its last "
+                                 "batch: pass ignore_label")
+        self.ignore_label = ignore_label
         self._plan = None
         plan_fn = getattr(dataset, "native_batch_plan", None)
         if native and plan_fn is not None:
@@ -104,7 +131,9 @@ class BatchLoader:
                 nat.load_library()    # builds at first use; raises on failure
                 self._native = nat
 
-    def _native_batch(self, chunk) -> Dict[str, np.ndarray]:
+    def _native_batch(self, chunk, rows: slice = slice(None)) -> Dict[str, np.ndarray]:
+        """The batch of ``chunk``'s samples, or its ``rows`` (the bucket and
+        the augmentation draws of the whole chunk either way)."""
         augment = self._plan.get("augment", False)
         if augment:
             # the draws and the y / dates transforms in Python, in the order
@@ -113,6 +142,7 @@ class BatchLoader:
         else:
             metas = [self.dataset.light_item(int(i)) for i in chunk]
         tb = pick_bucket(max(m["length"] for m in metas), self.t_buckets)
+        metas = metas[rows]
         paths = [m["path"] for m in metas]
         shape = self._native.npy_shape(paths[0])
         frame_maps = gathers = None
@@ -159,18 +189,33 @@ class BatchLoader:
             chunk = idx[start:start + self.batch_size]
             if len(chunk) < self.batch_size and self.drop_last:
                 return
+            real, rows = len(chunk), slice(None)
+            if self.shard is not None:
+                rank, world = self.shard
+                chunk = np.concatenate([chunk, np.repeat(chunk[:1], self.batch_size - real)])
+                per = self.batch_size // world
+                rows = slice(rank * per, (rank + 1) * per)
+            batch = None
             if self._plan is not None:
                 try:
-                    yield self._native_batch(chunk)
-                    continue
+                    batch = self._native_batch(chunk, rows)
                 except OSError as e:
                     # a file the parser rejects (e.g. an npy dtype it does
                     # not read): the Python path for the rest of the run
                     log.warning("native batch load failed, using the Python "
                                 "collate path from here on: %s", e)
                     self._plan = None
-            samples = [self.dataset[int(i)] for i in chunk]
-            yield collate(samples, self.t_buckets, self.pad_value)
+            if batch is None:
+                samples = [self.dataset[int(i)] for i in chunk]
+                batch = {k: v[rows] for k, v in collate(
+                    samples, self.t_buckets, self.pad_value).items()}
+            if real < len(chunk) and "y" in batch:
+                # the padding rows of this rank's share: targets ignored
+                first = rows.start or 0
+                pad = np.arange(first, first + len(batch["y"])) >= real
+                batch["y"] = batch["y"].copy()
+                batch["y"][pad] = self.ignore_label
+            yield batch
 
 
 class DeviceCacheLoader:

@@ -1,5 +1,6 @@
 """Whole-tile inference: patchify -> batched forward -> softmax -> stitch
-(port of crop2seg_tpu/inference/tile.py:24-77, single device).
+(port of crop2seg_tpu/inference/tile.py:24-77), on one device or split
+over a patch-parallel mesh (``parallel/mesh.py::patch_parallel_infer``).
 
 The model is any of the port's factory (models/factory.py::MODELS) that
 returns logits alone; TimeUNet_v2's full-resolution TAE2d runs in chunks
@@ -23,7 +24,7 @@ from crop2seg_tpu_torch.ops.patchify import (
 
 
 def make_tile_predictor(model: torch.nn.Module, batch_size: int = 10,
-                        device=None, dtype: torch.dtype | None = None):
+                        device=None, dtype: torch.dtype | None = None, mesh=None):
     """Returns predict(tile_ts, dates, length) ->
     {'proba': (1098, 1098, K) float32, 'classes': (1098, 1098) uint8}.
 
@@ -31,10 +32,23 @@ def make_tile_predictor(model: torch.nn.Module, batch_size: int = 10,
     dates: (T,) day offsets; length: valid series length. ``device``: the
     CUDA card unless "cpu" is asked for; the model is moved there and set to
     eval. ``dtype``: compute dtype under autocast (e.g. torch.bfloat16);
-    None runs float32.
+    None runs float32. ``mesh``: a list of devices (``parallel/mesh.py::
+    make_mesh``) over which each batch's patches split, the model copied to
+    each once; the tile lives on the first, which replaces ``device``, and
+    ``batch_size`` is rounded up to a multiple of the mesh's size, as
+    crop2seg_tpu/inference/tile.py:34-40 rounds it.
     """
-    dev = resolve_device(device)
-    model = model.to(dev).eval()
+    if mesh is None:
+        dev = resolve_device(device)
+        model = model.to(dev).eval()
+        forward = model
+    else:
+        from crop2seg_tpu_torch.parallel.mesh import make_mesh, patch_parallel_infer
+
+        mesh = make_mesh(mesh)
+        dev = resolve_device(mesh[0])
+        batch_size += -batch_size % len(mesh)
+        forward = patch_parallel_infer(model, mesh)
     amp = dtype is not None and dtype != torch.float32
 
     def predict(tile_ts, dates, length) -> Dict[str, np.ndarray]:
@@ -55,7 +69,7 @@ def make_tile_predictor(model: torch.nn.Module, batch_size: int = 10,
                 nb = xb.shape[0]
                 if nb < batch_size:  # pad the final batch to the same shape
                     xb = torch.cat([xb, xb.new_zeros((batch_size - nb,) + xb.shape[1:])])
-                logits = model(xb, db, mb)
+                logits = forward(xb, db, mb)
                 probs.append(torch.softmax(logits.float(), dim=-1)[:nb])
             proba = stitch_inference_tile(torch.cat(probs))
             classes = proba.argmax(dim=-1).to(torch.uint8)

@@ -26,12 +26,18 @@ S2TSCZ_CLASS_PROPORTIONS = (
 
 def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
                   weight: torch.Tensor | None = None,
-                  label_smoothing: float = 0.0) -> torch.Tensor:
+                  label_smoothing: float = 0.0, total=None) -> torch.Tensor:
     """torch.nn.CrossEntropyLoss(weight, label_smoothing) semantics.
 
     Per pixel n with target y: q = (1-eps)*onehot(y) + eps/K;
     loss_n = -w[y] * sum_c q_c log p_c; reduction = sum(loss) / sum(w[y]).
-    An ignore class is expressed as weight 0. Computed in fp32."""
+    An ignore class is expressed as weight 0. Computed in fp32.
+
+    ``total`` (a data-parallel step's sum over the ranks, no gradient) turns
+    the denominator into the global batch's: each rank returns its share of
+    the global loss, and the shares' gradients add up to the global loss's
+    (a mean of per-rank means would weigh ranks with few counted pixels
+    wrong)."""
     k = logits.shape[-1]
     eps = label_smoothing
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -45,9 +51,18 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
         per_pixel = (1.0 - eps) * wy * nll
         if eps > 0.0:
             per_pixel = per_pixel + eps / k * (-(wc * logp).sum(-1))
-        return per_pixel.sum() / wy.sum().clamp_min(1e-12)
+        return per_pixel.sum() / _total(wy.sum(), total).clamp_min(1e-12)
     per_pixel = nll if eps == 0.0 else (1.0 - eps) * nll + eps * (-logp.mean(-1))
-    return per_pixel.mean()
+    if total is None:
+        return per_pixel.mean()
+    return per_pixel.sum() / _total(per_pixel.new_tensor(float(per_pixel.numel())), total)
+
+
+def _total(local: torch.Tensor, total) -> torch.Tensor:
+    """A loss's denominator: ``local``, or ``total(local)`` summed over the
+    ranks of a data-parallel step, without gradient."""
+    local = local.detach()
+    return local if total is None else total(local)
 
 
 def _weights(weight, k: int, like: torch.Tensor) -> torch.Tensor:
@@ -67,9 +82,10 @@ def soft_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor,
 
 def focal_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
                         gamma: float = 2.0, ignore_index: int = -100,
-                        weight: torch.Tensor | None = None) -> torch.Tensor:
+                        weight: torch.Tensor | None = None, total=None) -> torch.Tensor:
     """Focal cross entropy -(1 - p_y)^gamma log p_y (times w[y] with
-    ``weight``), the mean over pixels whose target is not ``ignore_index``."""
+    ``weight``), the mean over pixels whose target is not ``ignore_index``;
+    ``total`` as in ``cross_entropy``."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     target = target.long()
     safe_t = torch.where(target == ignore_index, 0, target)
@@ -78,7 +94,7 @@ def focal_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     if weight is not None:
         loss = loss * _weights(weight, logits.shape[-1], logp)[safe_t]
     keep = (target != ignore_index).float()
-    return (loss * keep).sum() / keep.sum().clamp_min(1.0)
+    return (loss * keep).sum() / _total(keep.sum(), total).clamp_min(1.0)
 
 
 def smooth_cross_entropy_2d(

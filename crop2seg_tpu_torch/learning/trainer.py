@@ -12,6 +12,15 @@ loss on the label map's boundary classes (``loss_b``, ``cm_b``);
 ``create_train_state`` takes the prefixes of frozen parameters
 (``freeze_labels``), and ``run_epoch`` runs an epoch of steps, keeping the
 loss and the confusion matrices on the device until its flushes.
+
+With ``group`` (a ``torch.distributed`` process group; parallel/mesh.py's
+``data_parallel_step`` and ``data_parallel_eval``) each rank runs its equal
+shard of a global batch and the step is the global batch's, as the JAX
+package's mesh step is the one-device step on the global arrays: the loss
+denominators are summed over the ranks, the gradients summed (not
+averaged), BatchNorm takes the global batch's statistics
+(``nn/layers.py::global_batch_stats``), and the loss and the confusion
+matrices in ``aux`` are the global ones, the same on every rank.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from crop2seg_tpu_torch.device import resolve_device
 from crop2seg_tpu_torch.learning.losses import cross_entropy, focal_cross_entropy
 from crop2seg_tpu_torch.learning.metrics import (
     IoUMeter, confusion_matrix, top2_prediction)
+from crop2seg_tpu_torch.nn.layers import global_batch_stats
 from crop2seg_tpu_torch.ops.boundary import boundary_mask
 
 
@@ -99,15 +109,34 @@ def _split_heads(cfg: StepConfig, out):
     return out, None
 
 
+def _group_total(group):
+    """The sum of a tensor over ``group``'s ranks (None: the tensor)."""
+    if group is None:
+        return None
+
+    def total(t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+    return total
+
+
 def _metrics(cfg: StepConfig, out, y: torch.Tensor, weight: torch.Tensor | None,
-             want_pred: bool = False) -> Dict[str, torch.Tensor]:
+             want_pred: bool = False, group=None) -> Dict[str, torch.Tensor]:
+    """The loss (this rank's share of the global one under ``group``) and
+    the confusion matrices of this rank's rows."""
     logits, logits_b = _split_heads(cfg, out)
     logits = logits.float()
-    loss = cross_entropy(logits, y, weight=weight, label_smoothing=cfg.label_smoothing)
+    total = _group_total(group)
+    loss = cross_entropy(logits, y, weight=weight, label_smoothing=cfg.label_smoothing,
+                         total=total)
     aux = {}
     if logits_b is not None:
         y_b = boundary_mask(y, cfg.num_classes)
-        loss_b = focal_cross_entropy(logits_b.float(), y_b, gamma=cfg.boundary_gamma)
+        loss_b = focal_cross_entropy(logits_b.float(), y_b, gamma=cfg.boundary_gamma,
+                                     total=total)
         loss = loss + loss_b
         aux["loss_b"] = loss_b.detach()
         aux["cm_b"] = confusion_matrix(logits_b.detach().argmax(-1), y_b, 2)
@@ -121,6 +150,40 @@ def _metrics(cfg: StepConfig, out, y: torch.Tensor, weight: torch.Tensor | None,
     if want_pred:
         aux["pred"] = pred
     return aux
+
+
+_REDUCED = ("loss", "loss_b", "cm", "cm_top2", "cm_b")
+
+
+def _sum_over_group(aux: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The losses and confusion matrices of ``aux`` summed over ``group``'s
+    ranks (the ranks' loss shares add up to the global loss)."""
+    if group is None:
+        return aux
+    import torch.distributed as dist
+
+    for k in _REDUCED:
+        if k in aux:
+            aux[k] = aux[k].detach().clone()
+            dist.all_reduce(aux[k], group=group)
+    return aux
+
+
+def _sum_grads(params, group) -> None:
+    """Each gradient summed over ``group``'s ranks, in one all-reduce.
+    Every rank's model takes the same routes, so the same parameters hold
+    gradients on every rank."""
+    import torch.distributed as dist
+
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
 
 
 def _weight(cfg: StepConfig, dev: torch.device) -> torch.Tensor | None:
@@ -137,7 +200,8 @@ def _autocast(dev: torch.device, dtype: torch.dtype | None):
 
 def make_train_step(model: torch.nn.Module, cfg: StepConfig,
                     optimizer: torch.optim.Optimizer | None = None,
-                    device=None, dtype: torch.dtype | None = None) -> Callable:
+                    device=None, dtype: torch.dtype | None = None,
+                    group=None) -> Callable:
     """Returns ``step(batch, generator) -> aux``: one training step of
     ``model`` (moved to ``device``, the CUDA card unless "cpu" is asked for,
     and set to training mode at each step). ``batch`` holds x (B, T, H, W, C), dates
@@ -149,7 +213,9 @@ def make_train_step(model: torch.nn.Module, cfg: StepConfig,
     ``dtype``: the forward's compute dtype under autocast (torch.bfloat16);
     None runs fp32. ``aux`` holds the loss and the (K, K) confusion matrices
     ``cm`` and ``cm_top2`` of the step's forward, and with the boundary loss
-    ``loss_b`` and the (2, 2) ``cm_b``, all on the device."""
+    ``loss_b`` and the (2, 2) ``cm_b``, all on the device. ``group``: the
+    step of a data-parallel group, ``batch`` this rank's shard of the global
+    batch (module docstring)."""
     dev = resolve_device(device)
     model.to(dev)
     if optimizer is None:
@@ -160,13 +226,16 @@ def make_train_step(model: torch.nn.Module, cfg: StepConfig,
         model.train()
         b = _to(batch, dev)
         model.zero_grad(set_to_none=True)
-        with _autocast(dev, dtype):
-            out = model(b["x"], b["dates"], b["pad_mask"], generator=generator)
-        aux = _metrics(cfg, out, b["y"], weight)
-        aux["loss"].backward()
+        with global_batch_stats(group):
+            with _autocast(dev, dtype):
+                out = model(b["x"], b["dates"], b["pad_mask"], generator=generator)
+            aux = _metrics(cfg, out, b["y"], weight, group=group)
+            aux["loss"].backward()
+        if group is not None:
+            _sum_grads(model.parameters(), group)
         optimizer.step()
         aux["loss"] = aux["loss"].detach()
-        return aux
+        return _sum_over_group(aux, group)
 
     step.optimizer = optimizer
     return step
@@ -174,12 +243,15 @@ def make_train_step(model: torch.nn.Module, cfg: StepConfig,
 
 def make_eval_step(model: torch.nn.Module, cfg: StepConfig,
                    device=None, dtype: torch.dtype | None = None,
-                   return_pred: bool = False) -> Callable:
+                   return_pred: bool = False, group=None) -> Callable:
     """Returns ``step(batch) -> aux`` (loss, cm, cm_top2; with the boundary
     loss also loss_b and cm_b) of ``model`` in eval mode on ``device``: the
-    served path, so on the card the fused eval L-TAE kernel runs. ``dtype``
-    as in ``make_train_step``. ``return_pred`` adds the (B, H, W) argmax
-    ``pred`` of the same forward."""
+    served path, so on the card the fused eval L-TAE kernel runs (with the
+    model's ``use_pallas``). ``dtype`` as in ``make_train_step``.
+    ``return_pred`` adds the (B, H, W) argmax ``pred`` of the same forward
+    (this rank's rows). ``group`` as in ``make_train_step``: a ragged last
+    batch is padded to the global batch with rows the loss ignores
+    (``data/batcher.py``)."""
     dev = resolve_device(device)
     weight = _weight(cfg, dev)
 
@@ -189,7 +261,8 @@ def make_eval_step(model: torch.nn.Module, cfg: StepConfig,
         with torch.inference_mode():
             with _autocast(dev, dtype):
                 out = model(b["x"], b["dates"], b["pad_mask"])
-            return _metrics(cfg, out, b["y"], weight, want_pred=return_pred)
+            aux = _metrics(cfg, out, b["y"], weight, want_pred=return_pred, group=group)
+            return _sum_over_group(aux, group)
 
     return step
 

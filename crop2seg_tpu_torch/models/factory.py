@@ -46,13 +46,36 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+def resolve_use_pallas(value, device) -> bool:
+    """A kernel flag as the JAX CLI's ``resolve_use_pallas`` reads it
+    (train.py:269-281): True / "true" / "1" on, False / None / "false" /
+    "0" / "none" off, "auto" on for a CUDA ``device`` and off for the CPU."""
+    if isinstance(value, bool):
+        return value
+    val = str(value).lower()
+    if val in ("true", "1"):
+        return True
+    if val in ("false", "0", "none"):
+        return False
+    if val != "auto":
+        raise ValueError(f"a kernel flag is a bool, 'auto', 'true' or 'false', not {value!r}")
+    return torch.device(device).type == "cuda"
+
+
 def get_model(config: Mapping[str, Any] | Any, device=None,
               generator: torch.Generator | None = None) -> nn.Module:
     """Build the model named by ``config['model']`` (a dict or namespace
     with the reference train.py flag names) on ``device`` (default: the CUDA
     card), in eval mode. ``generator`` draws the weights (default: PyTorch's
-    global RNG). ``use_pallas`` is accepted for config parity: on the card the
-    fused kernel is the only eval path. U-TAE and W-TAE take ``remat`` and
+    global RNG). ``use_pallas`` (U-TAE, TimeUNet) and ``use_pallas_train``
+    (TimeUNet) choose the L-TAE's routes as crop2seg_tpu/models/factory.py:52,
+    :66-67 pass them (``nn/ltae.py::LTAE.route``). Both default to True here,
+    where the JAX factory's default is False: the port's serving and
+    training paths stay on the kernels on the card unless the caller turns
+    them off (the JAX callers that serve pass ``use_pallas=True``
+    themselves; the train CLI passes both flags as the JAX CLI does). A
+    string flag ("auto", "true", "false", as in a conf.json) is resolved by
+    ``resolve_use_pallas`` on ``device``. U-TAE and W-TAE take ``remat`` and
     ``remat_policy``, which act in training: "conv_out" by default (save each
     convolution's output, recompute the norm and ReLU tails, as
     crop2seg_tpu/models/factory.py:8-18 picks) or "full"; the model raises
@@ -62,7 +85,7 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
     and out_conv recomputed whole; in_conv, which the JAX TimeUNet's remat
     also recomputes, is not: on the card ``remat`` does not lower a
     TimeUNet step's peak memory, see models/timeunet.py) and ``seq_chunk``
-    (its L-TAE streamed over T where no kernel takes it, see
+    (its L-TAE streamed over T where no kernel route takes it, see
     models/timeunet.py).
     The models take ``num_queries=1`` only; the ``LTAE`` module takes
     more. TimeUNet_v2 takes the common keys but ``num_queries``,
@@ -98,20 +121,26 @@ def get_model(config: Mapping[str, Any] | Any, device=None,
         use_doy=cfg.get("use_doy", False),
         add_linear=cfg.get("add_linear", False),
     )
+    use_pallas = resolve_use_pallas(cfg.get("use_pallas", True), dev)
     if name in ("utae", "wtae"):
+        kw = dict(agg_mode=cfg.get("agg_mode", "att_group"),
+                  use_mbconv=cfg.get("use_mbconv", False),
+                  add_boundary_loss=cfg.get("add_boundary_loss", False),
+                  remat=cfg.get("remat", False),
+                  remat_policy=cfg.get("remat_policy", "conv_out"), **common)
         if name == "utae":
-            from crop2seg_tpu_torch.models.utae import UTAE as cls
+            from crop2seg_tpu_torch.models.utae import UTAE
+            model = UTAE(use_pallas=use_pallas, **kw)
         else:
-            from crop2seg_tpu_torch.models.wtae import WTAE as cls
-        model = cls(agg_mode=cfg.get("agg_mode", "att_group"),
-                    use_mbconv=cfg.get("use_mbconv", False),
-                    add_boundary_loss=cfg.get("add_boundary_loss", False),
-                    remat=cfg.get("remat", False),
-                    remat_policy=cfg.get("remat_policy", "conv_out"), **common)
+            from crop2seg_tpu_torch.models.wtae import WTAE
+            model = WTAE(**kw)
     elif name in ("timeunet", "timeunet_v1"):
         from crop2seg_tpu_torch.models.timeunet import TimeUNet
-        model = TimeUNet(remat=cfg.get("remat", False),
-                         seq_chunk=cfg.get("seq_chunk"), **common)
+        model = TimeUNet(
+            remat=cfg.get("remat", False), seq_chunk=cfg.get("seq_chunk"),
+            use_pallas=use_pallas,
+            use_pallas_train=resolve_use_pallas(cfg.get("use_pallas_train", True), dev),
+            **common)
     else:
         model = _zoo_model(name, cfg, common)
     if generator is not None:

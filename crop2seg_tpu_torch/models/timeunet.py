@@ -4,12 +4,22 @@
     --L-TAE at full resolution--> (B,H,W,64)      # collapses T before the UNet
     --plain UNet encoder/decoder--> logits (B,H,W,K)
 
-On the kernel path (``fused``, the default for a CUDA input) in_conv defers
-its last GroupNorm + ReLU: it returns the raw conv output with the per-frame
-affine ``(sc, sh)``, the pad mask is folded in as zeroed rows, and the L-TAE
-kernels apply ``max(z * sc + sh, 0)`` on load: the fused eval kernel in eval
-mode, the ``ltae_pool_tail`` pair in training mode (the JAX package's
-``use_pallas_train`` path, crop2seg_tpu/models/timeunet.py:89-120). The
+``use_pallas`` and ``use_pallas_train`` go to the L-TAE and choose its
+route as the JAX TimeUNet's fields do (``nn/ltae.py::LTAE.route``): the eval
+kernel in eval with ``use_pallas``; the kernel pair with
+``use_pallas_train`` and no attention output; else ``_chunked`` with
+``seq_chunk``, else the plain ops. Both default to True (the JAX module's
+default is False; the port's factory and the train CLI pass the flags as
+the JAX factory and CLI do), so a TimeUNet built bare serves and trains on
+the kernels on the card.
+
+On a kernel route (the eval kernel or the pair, crop2seg_tpu/models/
+timeunet.py:89-92) run by the kernels (``fused``, the default for a CUDA
+input) in_conv defers its last GroupNorm + ReLU: it returns the raw conv
+output with the per-frame affine ``(sc, sh)``, the pad mask is folded in as
+zeroed rows, and the L-TAE kernels apply ``max(z * sc + sh, 0)`` on load:
+the fused eval kernel in eval mode, the ``ltae_pool_tail`` pair on the
+pair's route. ``_chunked`` and the plain ops never take a deferred tail. The
 plain path (the default for a CPU input) runs in_conv through
 ``temporally_shared``, and so does the kernel path when the tail cannot be
 deferred: in_conv does not end in GroupNorm + ReLU (``encoder_norm="batch"``)
@@ -17,20 +27,20 @@ or ``pad_value`` is not 0 (the kernels fold pads in as zero rows), and, as
 the JAX gate has it (crop2seg_tpu/models/timeunet.py:95-100), when in_conv's
 convs are depthwise-separable or it ends in a squeeze-excitation gate
 (``conv_type``, ``add_squeeze_excit``); the L-TAE then takes kernel 1 and,
-in training, the pool pair untailed. ``defer_tail`` forces the
-choice: True defers the tail on the plain path too (training mode:
-``ltae_pool_tail``'s plain version; it raises with ``pad_value`` != 0),
-False never defers it. All routes give the same result.
+on the pair's route, the pool pair untailed. ``defer_tail`` forces the
+choice: True defers the tail on the plain path too (the pair's route:
+``ltae_pool_tail``'s plain version; it raises with ``pad_value`` != 0, and
+on a route without a kernel), False never defers it. All routes give the
+same result.
 
 ``return_att`` adds the L-TAE's attention (B, H, W, head, T) to the logits;
 in training that is the plain L-TAE, as in JAX, and the tail is not
 deferred.
 
 ``seq_chunk`` streams the L-TAE over T in chunks of that many steps
-(``nn/ltae.py::LTAE._chunked``) where no kernel takes it: on a CPU input,
-or with ``fused=False``. On the kernel path the L-TAE kernels run with or
-without it, as the JAX CLI's ``--use_pallas_train`` takes precedence over
-``--seq_chunk``. ``encoder`` returns the decoder output and its maps before
+(``nn/ltae.py::LTAE._chunked``) where neither kernel route takes it:
+training without ``use_pallas_train``, eval without either flag, as in the
+JAX TimeUNet. ``encoder`` returns the decoder output and its maps before
 out_conv, ``return_maps`` the logits and the maps.
 
 In training mode (``model.train()``) the L-TAE takes its training path and
@@ -74,7 +84,8 @@ class TimeUNet(nn.Module):
                  add_linear: bool = False, conv_type: str = "2d",
                  add_squeeze_excit: bool = False, encoder: bool = False,
                  return_maps: bool = False, defer_tail: bool | None = None,
-                 remat: bool = False, seq_chunk: int | None = None):
+                 remat: bool = False, seq_chunk: int | None = None,
+                 use_pallas: bool = True, use_pallas_train: bool = True):
         super().__init__()
         if num_queries != 1:
             raise ValueError(
@@ -109,7 +120,8 @@ class TimeUNet(nn.Module):
             mlp=(d_model, enc_w[0]),
             use_abs_rel_enc=use_abs_rel_enc, num_queries=num_queries,
             use_doy=False if use_abs_rel_enc else use_doy,
-            add_linear=add_linear, seq_chunk=seq_chunk)
+            add_linear=add_linear, seq_chunk=seq_chunk, use_pallas=use_pallas,
+            use_pallas_train=use_pallas_train)
         self.out_conv = ConvBlock((dec_w[0],) + tuple(out_conv),
                                   padding_mode=padding_mode)
 
@@ -120,9 +132,9 @@ class TimeUNet(nn.Module):
         """x (B, T, H, W, C), batch_positions (B, T), pad_mask (B, T) bool ->
         logits (B, H, W, K); ``return_att`` adds the attention (B, H, W,
         head, T) (module docstring for ``encoder`` and ``return_maps``).
-        ``fused``: None picks the kernel path for a CUDA input and the plain
-        path for a CPU input; True/False force one. ``generator`` draws the
-        L-TAE's dropout masks in training mode."""
+        ``fused``: None runs a kernel route by the kernels for a CUDA input
+        and by the plain versions for a CPU input; True/False force one.
+        ``generator`` draws the L-TAE's dropout masks in training mode."""
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         if fused is None:
@@ -132,8 +144,8 @@ class TimeUNet(nn.Module):
 
         def wrap(block):
             return remat(block) if on else block
-        defer = (fused and self._tail_deferrable
-                 and not (self.training and return_att)
+        kernel_route = self.temporal_encoder.route(need_attn=return_att) in ("eval", "pair")
+        defer = (fused and self._tail_deferrable and kernel_route
                  if self.defer_tail is None else self.defer_tail)
         if defer:
             if self.pad_value != 0:

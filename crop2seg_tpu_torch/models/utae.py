@@ -6,18 +6,20 @@
     head: out_conv -> logits (B,H,W,K) [+ boundary head (B,H,W,2)]
 
 The L-TAE runs at the lowest resolution with C = encoder_widths[-1] (128 at
-the factory defaults): on a CUDA input it takes the fused eval kernel with
-its attention output (``fused``, as in ``TimeUNet``), on a CPU input the
-plain ops. in_conv feeds a convolution, not the L-TAE, so no GroupNorm tail
+the factory defaults): in eval with ``use_pallas`` (True by default; the JAX
+module's default is False, and its serving callers pass True) on a CUDA
+input it takes the fused eval kernel with its attention output (``fused``,
+as in ``TimeUNet``), on a CPU input the plain ops; without ``use_pallas``
+the plain ops. in_conv feeds a convolution, not the L-TAE, so no GroupNorm tail
 is deferred on this path. Every tensor is channels-last; pad frames of each
 shared block's output hold ``pad_value``, and every cross-T consumer masks
 them.
 
 In training mode (``model.train()``) the L-TAE takes its plain path, as the
-JAX U-TAE does (it has no ``use_pallas_train``), whatever ``fused`` says:
-attention dropout after the softmax, and the skips aggregate the dropped
-attention. No kernel runs there, in JAX either; with ``agg_mode="mean"`` too,
-which asks for no attention, the L-TAE takes ``ltae_pool``'s plain version.
+JAX U-TAE does (it has no ``use_pallas_train``: its L-TAE is built without
+the pair), whatever ``fused`` says: attention dropout after the softmax, and
+the skips aggregate the dropped attention. No kernel runs there, in JAX
+either; with ``agg_mode="mean"`` too, which asks for no attention.
 Every BatchNorm (the up blocks, the heads, and the encoder with
 ``encoder_norm="batch"``) uses batch statistics and updates its running ones.
 
@@ -65,7 +67,8 @@ class UTAE(nn.Module):
                  num_queries: int = 1, use_doy: bool = False,
                  add_linear: bool = False, add_boundary_loss: bool = False,
                  remat: bool = False, remat_decoder: bool = True,
-                 remat_down: bool = True, remat_policy: str | None = None):
+                 remat_down: bool = True, remat_policy: str | None = None,
+                 use_pallas: bool = True):
         super().__init__()
         if num_queries != 1:
             raise ValueError(
@@ -101,7 +104,8 @@ class UTAE(nn.Module):
             in_channels=enc_w[-1], d_model=d_model, n_head=n_head, d_k=d_k,
             mlp=(d_model, dec_w[-1]), use_abs_rel_enc=use_abs_rel_enc,
             num_queries=num_queries,
-            use_doy=False if use_abs_rel_enc else use_doy, add_linear=add_linear)
+            use_doy=False if use_abs_rel_enc else use_doy, add_linear=add_linear,
+            use_pallas=use_pallas, use_pallas_train=False)
         self.out_conv = out_block((dec_w[0],) + tuple(out_conv),
                                   padding_mode=padding_mode)
         self.boundary_conv = (out_block((dec_w[0], 32, 2), padding_mode=padding_mode)
@@ -115,9 +119,10 @@ class UTAE(nn.Module):
         (B, T) bool -> logits (B, H, W, K); with the boundary head also its
         (B, H, W, 2) logits; ``return_att`` adds the attention (B, h, w,
         head, T), ``return_maps`` the decoder maps; ``encoder`` returns
-        (decoder output, maps) before the head. ``fused`` (eval mode): None
-        picks the kernel for a CUDA input and the plain L-TAE for a CPU
-        input; True/False force one. Training takes the plain L-TAE.
+        (decoder output, maps) before the head. ``fused`` (eval mode with
+        ``use_pallas``): None picks the kernel for a CUDA input and the plain
+        L-TAE for a CPU input; True/False force one. Training takes the
+        plain L-TAE.
         ``generator`` (training) draws the L-TAE's dropout masks."""
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
@@ -134,7 +139,7 @@ class UTAE(nn.Module):
         out, att = self.temporal_encoder(
             feature_maps[-1], batch_positions, pad_mask,
             need_attn=return_att or self.agg_mode != "mean",
-            fused=False if self.training else fused, generator=generator)
+            fused=fused, generator=generator)
         maps = [out]
         for i, up in enumerate(self.up_blocks):
             skip = temporal_aggregate(feature_maps[-(i + 2)], attn=att,

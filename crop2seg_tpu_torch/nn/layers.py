@@ -10,7 +10,9 @@ Normalizations are per-channel affines on the NHWC tensor, with statistics in
 fp32. In training mode BatchNorm normalizes with the batch statistics and
 updates its running ones as flax ``BatchNorm(momentum=0.9)`` does (see
 ``batch_norm``), except inside ``frozen_running_stats`` (the recompute of an
-activation-checkpointed block); GroupNorm is the same in both modes. Module and parameter
+activation-checkpointed block); inside ``global_batch_stats`` (a
+data-parallel step) its batch statistics are the global batch's, summed over
+the ranks. GroupNorm is the same in both modes. Module and parameter
 names follow the reference's torch modules, so its state dicts load with
 ``load_state_dict``.
 """
@@ -127,6 +129,57 @@ def frozen_running_stats():
         _stats_frozen -= 1
 
 
+_stats_group = None
+
+
+@contextlib.contextmanager
+def global_batch_stats(group):
+    """Train-mode BatchNorm inside takes its batch statistics over the
+    global batch of ``group``'s ranks (a ``torch.distributed`` process group,
+    each rank holding an equal shard): the sums are added across the ranks
+    by an all-reduce that autograd differentiates, as the JAX package's
+    data-parallel step computes them on the global batch. None leaves the
+    statistics local. The context must also cover the backward pass, whose
+    activation-checkpointed recompute runs the same all-reduces again (every
+    rank recomputes the same blocks in the same order)."""
+    global _stats_group
+    outer, _stats_group = _stats_group, group
+    try:
+        yield
+    finally:
+        _stats_group = outer
+
+
+class _GroupSum(torch.autograd.Function):
+    """The sum of a tensor over the ranks of a group, differentiable: the
+    gradient of every rank's input is the sum of every rank's output
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GroupSum.apply(grad, ctx.group), None
+
+
+def _global_moments(xf: torch.Tensor, dims: tuple, group):
+    """The global batch's mean and biased variance per channel, two-pass, the
+    sums all-reduced over ``group``; every rank holds as many rows."""
+    import torch.distributed as dist
+
+    count = xf.numel() // xf.shape[-1] * dist.get_world_size(group)
+    mean = _GroupSum.apply(xf.sum(dims), group) / count
+    var = _GroupSum.apply((xf - mean).square().sum(dims), group) / count
+    return mean, var
+
+
 def _save_conv_outputs(ctx, op, *args, **kwargs):
     """``conv_out``: keep what each convolution (and transposed convolution)
     returns, recompute everything else."""
@@ -164,13 +217,17 @@ def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Te
     biased batch variance in fp32, for the output and for the running update
     ``r = (1 - momentum) * r + momentum * batch`` (flax's ``BatchNorm(
     momentum=0.9)`` with torch's ``momentum=0.1``). torch's own
-    ``F.batch_norm`` would put the unbiased variance into ``running_var``."""
+    ``F.batch_norm`` would put the unbiased variance into ``running_var``.
+    Inside ``global_batch_stats`` the batch is the global one."""
     if not bn.training:
         return _apply_affine(x, *batchnorm_affine(bn))
     xf = x.to(acc_dtype(x.dtype))
     dims = tuple(range(x.dim() - 1))
-    mean = xf.mean(dims)
-    var = (xf - mean).square().mean(dims)
+    if _stats_group is None:
+        mean = xf.mean(dims)
+        var = (xf - mean).square().mean(dims)
+    else:
+        mean, var = _global_moments(xf, dims, _stats_group)
     if not _stats_frozen:
         with torch.no_grad():
             bn.running_mean.lerp_(mean, bn.momentum)

@@ -15,31 +15,41 @@ GroupNorm over (C/G, T) sees the zero pad frames). Outputs have the JAX
 layouts: out (B, H, W, d_out) and attn (B, H, W, head, T) for one query,
 out (B, nq, H, W, d_out) and attn (B, H, W, head, nq, T) for nq > 1.
 
-Eval mode: a CUDA tensor runs the fused eval kernel (ops/ltae_fused.py), any
-nq; a CPU tensor the plain PyTorch ops below. Training mode, as the JAX
-``LTAE`` routes it: with one query and no attention output the pooling runs
-through ``ops/ltae_pool.py`` (its kernel pair on a CUDA tensor, the JAX
-``_fused_train``) and returns ``(out, None)``; with the attention output or
-nq > 1 the plain ops run, with attention dropout after the softmax, and the
+Eval mode with ``use_pallas``: a CUDA tensor runs the fused eval kernel
+(ops/ltae_fused.py), any nq; a CPU tensor the plain PyTorch ops below.
+Training mode, as the JAX ``LTAE`` routes it: with ``use_pallas_train``, one
+query and no attention output the pooling runs through ``ops/ltae_pool.py``
+(its kernel pair on a CUDA tensor, the JAX ``_fused_train``) and returns
+``(out, None)``; otherwise ``_chunked`` (with ``seq_chunk``) or the plain
+ops run, with attention dropout after the softmax, and the
 returned attention is the dropped, rescaled one that weighed the values (U-TAE
 aggregates its skips with it). The MLP tail runs in training mode either way.
 
 ``seq_chunk`` streams T in chunks of that many steps with an online
 softmax (``LTAE._chunked``, crop2seg_tpu/nn/ltae.py:354-459), so the
-(B, T, H, W, d_model) embed never exists whole. The routing is the JAX
-``LTAE``'s order: the fused eval kernel, then the kernel pair, then
-``seq_chunk`` (no attention output, one query, no deferred tail), then the
-plain ops. On a CUDA tensor the kernels therefore take precedence (as the
-JAX CLI's ``--use_pallas_train`` does over ``--seq_chunk``): ``_chunked``
-runs on a CPU tensor, or with ``fused=False``.
+(B, T, H, W, d_model) embed never exists whole.
+
+The route follows the JAX ``LTAE``'s flags in its gate order
+(crop2seg_tpu/nn/ltae.py:471-485, ``LTAE.route``): the eval kernel when
+``use_pallas`` and not training; the kernel pair when ``use_pallas_train``
+with one query and no attention output, in training and in eval alike (the
+JAX gate has no training condition); ``_chunked`` when ``seq_chunk`` is set
+(one query, no attention output); else the plain ops. On a CUDA tensor a
+kernel route launches the CUDA kernels. On a CPU tensor (``fused`` None or
+False) the eval kernel's route runs the plain ops and the pair's route its
+plain version ``ltae_pool_reference``; ``fused=True`` on a CPU tensor calls
+the kernel wrappers, which run their plain versions there. Both flags
+default to True here (the JAX module's default False): the port's models
+serve and train on the kernels on the card unless a caller turns them off,
+as the JAX callers that serve pass ``use_pallas=True`` themselves.
 
 The kernel route (``fused``) takes every shape the module is defined at,
 as the JAX ``LTAE`` with ``use_pallas`` runs its Pallas kernel at any T:
 the wrappers send a shape their fast kernels take (``LTAE.kernel_takes``:
 T <= 64, C <= 128 in eval and C <= 64 in training, ...) to those, and any
 other (T > 64 above all) to their general kernels. The producer's deferred
-GroupNorm affine (``tail_affine``) is taken in eval on the kernel path only,
-in training on either.
+GroupNorm affine (``tail_affine``) is taken on the eval kernel's route
+with ``fused`` only, on the pair's route either way.
 """
 from __future__ import annotations
 
@@ -199,19 +209,23 @@ class LTAE(_AttentionEncoder):
     """Lightweight temporal attention encoder.
 
     Call: x (B, T, H, W, C), batch_positions (B, T) or (B, T, 2), pad_mask
-    (B, T) bool. ``fused`` picks the path: None means the kernel for a CUDA
-    tensor and the plain ops for a CPU tensor; True/False force one (the
-    tests and chip_smoke.py compare the two). The kernel route takes any
-    shape: a fast kernel where ``kernel_takes``, a general one elsewhere.
+    (B, T) bool. ``use_pallas`` and ``use_pallas_train`` choose the route as
+    the JAX module's fields do (``route``; both True by default, module
+    docstring). ``fused`` picks how a kernel route runs: None means the
+    kernel for a CUDA tensor and the plain version for a CPU tensor;
+    True/False force one (the tests and chip_smoke.py compare the two). The
+    kernel route takes any shape: a fast kernel where ``kernel_takes``, a
+    general one elsewhere.
     ``tail_affine`` is the producer's deferred GroupNorm affine ``(sc, sh)``
-    of shape (B, T, C), applied as ``max(x * sc + sh, 0)`` (fused path in
-    eval mode; in training mode ``ltae_pool_tail``, or its plain version when
-    not fused). ``generator`` (training only) draws the dropout masks; None
+    of shape (B, T, C), applied as ``max(x * sc + sh, 0)`` (the eval
+    kernel's route with ``fused``; the pair's route through
+    ``ltae_pool_tail``, or its plain version when not fused; any other route
+    raises). ``generator`` (training only) draws the dropout masks; None
     uses PyTorch's global RNG.
     ``dropout`` is the MLP's rate, ``attn_dropout`` the attention's.
     ``num_queries`` > 1 adds a query axis to both outputs (module docstring).
     ``seq_chunk`` (None or 0: off) streams T in chunks of that many steps
-    where no kernel takes the call (module docstring, ``_chunked``).
+    where no kernel route takes the call (module docstring, ``_chunked``).
     """
 
     def __init__(self, in_channels: int = 128, n_head: int = 16, d_k: int = 4,
@@ -220,7 +234,8 @@ class LTAE(_AttentionEncoder):
                  positional_encoding: bool = True,
                  use_abs_rel_enc: bool = False, use_doy: bool = False,
                  num_queries: int = 1, add_linear: bool = False,
-                 attn_dropout: float = 0.1, seq_chunk: int | None = None):
+                 attn_dropout: float = 0.1, seq_chunk: int | None = None,
+                 use_pallas: bool = True, use_pallas_train: bool = True):
         if d_model is None or mlp[0] != d_model:
             raise ValueError("the port needs d_model set and mlp[0] == d_model")
         super().__init__(in_channels, n_head, d_k, d_model, T,
@@ -232,6 +247,7 @@ class LTAE(_AttentionEncoder):
                                  nn.BatchNorm1d(mlp[1], eps=1e-5), nn.ReLU())
         self.out_norm = nn.GroupNorm(n_head, mlp[1], eps=1e-5)
         self.seq_chunk = seq_chunk
+        self.use_pallas, self.use_pallas_train = use_pallas, use_pallas_train
 
     def _mlp_tail(self, o: torch.Tensor, generator=None) -> torch.Tensor:
         """MLP -> BN -> ReLU -> Dropout -> out GroupNorm on (..., nq,
@@ -295,11 +311,12 @@ class LTAE(_AttentionEncoder):
 
     def _train(self, x, batch_positions, pad_mask, fused, generator,
                tail_affine):
-        """Training path without the attention output, one query
-        (crop2seg_tpu/nn/ltae.py:279-338): ``ltae_pool``, or ``ltae_pool_tail``
-        with the deferred tail. PE and the folds are taken in fp32 with
-        autocast off, as the JAX package takes them from its fp32
-        parameters."""
+        """The kernel pair's route, one query, no attention output
+        (crop2seg_tpu/nn/ltae.py:279-338, the JAX ``_fused_train``):
+        ``ltae_pool``, or ``ltae_pool_tail`` with the deferred tail; in eval
+        mode without dropout and with the MLP tail's running statistics. PE
+        and the folds are taken in fp32 with autocast off, as the JAX package
+        takes them from its fp32 parameters."""
         b, t, hh, ww, c = x.shape
         with torch.autocast(x.device.type, enabled=False):
             pe = (self.pe(batch_positions) if self.positional_encoder is not None
@@ -307,13 +324,13 @@ class LTAE(_AttentionEncoder):
             params = self.pool_params()
         if pad_mask is None:
             pad_mask = torch.zeros(b, t, dtype=torch.bool, device=x.device)
-        seed = 0
-        if self.attn_dropout > 0.0:
+        seed, drop_p = 0, self.attn_dropout if self.training else 0.0
+        if drop_p > 0.0:
             seed = int(torch.randint(
                 0, 2 ** 31 - 1, (1,), generator=generator,
                 device=generator.device if generator is not None else "cpu"))
         rows = x.reshape(b, t, hh * ww, c)
-        kw = dict(n_head=self.n_head, drop_p=self.attn_dropout)
+        kw = dict(n_head=self.n_head, drop_p=drop_p)
         if tail_affine is None:
             pool = ltae_pool if fused else ltae_pool_reference
             o = pool(rows, pe, pad_mask, *params, seed, **kw)
@@ -430,28 +447,38 @@ class LTAE(_AttentionEncoder):
             return False
         return True
 
+    def route(self, need_attn: bool = True) -> str:
+        """The JAX ``LTAE``'s gate (crop2seg_tpu/nn/ltae.py:471-485) in this
+        mode: "eval" (the eval kernel), "pair" (the kernel pair, in either
+        mode), "chunked" (``_chunked``) or "plain"."""
+        one_query = not need_attn and self.num_queries == 1
+        if self.use_pallas and not self.training:
+            return "eval"
+        if self.use_pallas_train and one_query:
+            return "pair"
+        if self.seq_chunk and one_query:
+            return "chunked"
+        return "plain"
+
     def forward(self, x: torch.Tensor, batch_positions: torch.Tensor | None = None,
                 pad_mask: torch.Tensor | None = None, *, need_attn: bool = True,
                 tail_affine=None, fused: bool | None = None,
                 generator: torch.Generator | None = None):
         if fused is None:
             fused = x.is_cuda
-        one_query = not need_attn and self.num_queries == 1
-        if fused and not self.training:
+        route = self.route(need_attn)
+        if tail_affine is not None and not (route == "pair" or (route == "eval" and fused)):
+            raise ValueError(
+                "tail_affine needs a kernel path: the eval kernel's route with "
+                f"fused, or the kernel pair's route; this call takes {route!r}")
+        if route == "eval" and fused:
             return self._fused(x, batch_positions, pad_mask, need_attn,
                                tail_affine)
-        if fused and self.training and one_query:
-            return self._train(x, batch_positions, pad_mask, True, generator,
+        if route == "pair":
+            return self._train(x, batch_positions, pad_mask, fused, generator,
                                tail_affine)
-        if self.seq_chunk and one_query and tail_affine is None:
+        if route == "chunked":
             return self._chunked(x, batch_positions, pad_mask, generator)
-        if self.training and one_query:
-            return self._train(x, batch_positions, pad_mask, False, generator,
-                               tail_affine)
-        if tail_affine is not None:
-            raise ValueError("tail_affine needs a kernel path: eval with "
-                             "fused, or training without the attention "
-                             "output and with one query")
         out, attn = self._plain(x, batch_positions, pad_mask, generator)
         return out, (attn if need_attn else None)
 

@@ -1,0 +1,188 @@
+"""Data-parallel training and patch-parallel serving over cards (port of
+crop2seg_tpu/parallel/mesh.py:1-111).
+
+The JAX package jits its one-device step on global arrays over a device
+mesh, and GSPMD inserts the all-reduces. Here the same math runs in
+``torch.distributed``'s idiom: one process per card (NCCL), or per CPU
+worker (gloo), each holding a replica of the model and an equal shard of
+every global batch.
+
+- ``run_workers`` starts N processes (spawn) in one group, rendezvous
+  through a ``FileStore`` in a temporary directory (no TCP port), and
+  returns each rank's result; ``init_group`` joins a process to the group.
+- ``replicate`` broadcasts rank 0's parameters and buffers;
+  ``shard_batch`` cuts a rank's rows out of a global batch.
+- ``data_parallel_step`` / ``data_parallel_eval``: the train and eval steps
+  over the group (``learning/trainer.py``: the loss denominators and the
+  gradients summed over the ranks, BatchNorm on the global batch's
+  statistics, the loss and confusion matrices global). N ranks give the
+  loss, confusion matrices, gradients and BatchNorm statistics of one
+  process on the concatenated batch, up to the order of sums. Dropout
+  differs: each rank draws from its own generator (``rank_seed``), so no two
+  ranks draw the same masks or the same attention-dropout hash seed;
+  comparisons of N ranks against one process set every dropout rate to 0.
+- ``make_mesh`` / ``patch_parallel_infer``: one process, a list of devices
+  (duplicates allowed: two replicas on one card run the same split); the
+  patch axis of a tile's batch splits evenly over them.
+
+The 2-D (data, space) mesh of the JAX module (``shard_batch_2d``,
+``data_space_parallel_step``) is not here (ROADMAP.md M11b).
+"""
+from __future__ import annotations
+
+import copy
+import os
+import shutil
+import tempfile
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from crop2seg_tpu_torch.learning.trainer import make_eval_step, make_train_step
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The dropout generator's seed of ``rank`` in a run seeded ``seed``:
+    ``seed`` itself on rank 0, distinct on every other rank."""
+    return int(seed) + 1_000_003 * int(rank)
+
+
+def init_group(rank: int, world_size: int, store_dir: str, device,
+               backend: Optional[str] = None):
+    """Join this process to the group of ``world_size`` ranks as ``rank``,
+    through a ``FileStore`` in ``store_dir`` (shared by the ranks). The
+    backend is NCCL for a CUDA ``device`` (made the current one) and gloo
+    for the CPU, unless ``backend`` says (gloo on a CUDA device lets ranks
+    share one card). The ranks are one host's: gloo talks over the loopback
+    device unless ``GLOO_SOCKET_IFNAME`` names another. A failed init
+    raises. Returns the group (``torch.distributed.group.WORLD``)."""
+    dev = torch.device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "gloo":
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    store = dist.FileStore(os.path.join(store_dir, "store"), world_size)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
+    return dist.group.WORLD
+
+
+def barrier(group=None) -> None:
+    """Wait for every rank of ``group``; NCCL on this process's card."""
+    group = group or dist.group.WORLD
+    if dist.get_backend(group) == "nccl":
+        dist.barrier(group, device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier(group)
+
+
+def _worker(rank: int, fn: Callable, world_size: int, store_dir: str,
+            threads: Optional[int], args: tuple) -> None:
+    if threads is not None:
+        torch.set_num_threads(threads)
+    try:
+        result = fn(rank, world_size, store_dir, *args)
+        torch.save(result, os.path.join(store_dir, f"result_{rank}.pt"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_workers(fn: Callable, world_size: int, *args, base_dir: Optional[str] = None,
+                threads: Optional[int] = None) -> List:
+    """Run ``fn(rank, world_size, store_dir, *args)`` in ``world_size``
+    spawned processes and return their results by rank (each picklable by
+    ``torch.save``). ``fn`` joins the group itself (``init_group(rank,
+    world_size, store_dir, ...)``). ``store_dir`` is a temporary directory
+    under ``base_dir`` (default: the system's), removed at the end.
+    ``threads``: each worker's ``torch.set_num_threads``. A worker that
+    raises ends the others, and the error is raised here."""
+    import torch.multiprocessing as mp
+
+    store_dir = tempfile.mkdtemp(prefix="dp_", dir=base_dir)
+    try:
+        mp.start_processes(_worker, args=(fn, world_size, store_dir, threads, args),
+                           nprocs=world_size, join=True, start_method="spawn")
+        return [torch.load(os.path.join(store_dir, f"result_{r}.pt"), weights_only=False)
+                for r in range(world_size)]
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def replicate(model: torch.nn.Module, group=None) -> torch.nn.Module:
+    """Rank 0's parameters and buffers (BatchNorm's running statistics)
+    broadcast to every rank of ``group``, in place; returns ``model``."""
+    group = group or dist.group.WORLD
+    src = dist.get_global_rank(group, 0)
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            dist.broadcast(t.data, src=src, group=group)
+    return model
+
+
+def shard_batch(batch: Mapping, group=None) -> Dict:
+    """This rank's rows of every array of a global ``batch`` (the JAX
+    ``shard_batch``, placed by the caller's step); ValueError unless the
+    ranks divide the batch."""
+    group = group or dist.group.WORLD
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    n = len(batch["x"])
+    if n % world:
+        raise ValueError(f"batch {n} must divide over {world} ranks")
+    per = n // world
+    return {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+
+
+def data_parallel_step(model: torch.nn.Module, cfg, group=None, **kw) -> Callable:
+    """``make_train_step(model, cfg, **kw)`` over ``group`` (default: the
+    whole group): ``step(shard, generator)`` takes this rank's shard of the
+    global batch and returns the global loss and confusion matrices.
+    Call ``replicate`` first so that every rank starts from the same
+    parameters; Adam's state then stays equal on every rank, since the
+    gradients are."""
+    return make_train_step(model, cfg, group=group or dist.group.WORLD, **kw)
+
+
+def data_parallel_eval(model: torch.nn.Module, cfg, group=None, **kw) -> Callable:
+    """``make_eval_step(model, cfg, **kw)`` over ``group``: the global
+    batch's loss and confusion matrices from each rank's shard."""
+    return make_eval_step(model, cfg, group=group or dist.group.WORLD, **kw)
+
+
+def make_mesh(devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The devices of a patch-parallel mesh: ``devices`` (names or
+    ``torch.device``; one may repeat), by default every visible card."""
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    mesh = [torch.device(d) for d in devices]
+    if not mesh:
+        raise ValueError("a mesh needs at least one device; no card is visible")
+    return mesh
+
+
+def patch_parallel_infer(model: torch.nn.Module, mesh: Sequence) -> Callable:
+    """Whole-tile inference split over ``mesh`` (a list of devices,
+    ``make_mesh``): a copy of ``model`` in eval mode on each device, made
+    now. Returns ``fwd(x, *per_row)``: x (B, ...) and every per-row tensor
+    (dates, pad mask) split evenly along B, each device's share run (all
+    shares issued before any is gathered), the outputs gathered back onto
+    the first device in order (``model`` returns one tensor, as the tile
+    predictors' models do). ValueError when B does not divide over the mesh
+    (crop2seg_tpu/parallel/mesh.py:102-109)."""
+    devices = make_mesh(mesh)
+    replicas = [copy.deepcopy(model).to(d).eval() for d in devices]
+
+    def fwd(x: torch.Tensor, *per_row: torch.Tensor):
+        n, b = len(devices), x.shape[0]
+        if b % n:
+            raise ValueError(f"patch batch {b} must divide over {n} devices")
+        per = b // n
+        outs = []
+        for i, (dev, m) in enumerate(zip(devices, replicas)):
+            rows = slice(i * per, (i + 1) * per)
+            outs.append(m(*(a[rows].to(dev, non_blocking=True) for a in (x,) + per_row)))
+        return torch.cat([o.to(devices[0]) for o in outs])
+
+    return fwd

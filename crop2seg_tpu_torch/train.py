@@ -24,15 +24,25 @@ Fold_k/{region}_test_metrics.json, Fold_k/{region}_conf_mat.pkl and
 ``--model`` takes every name of the JAX CLI's: utae, wtae, timeunet
 (timeunet_v1), timeunet_v2, unet3d, convlstm, convgru, uconvlstm and
 unet_naive; unet_naive needs ``--max_temp``, the T its batches are padded
-to (``--t_buckets [61] --max_temp 61``, as in the JAX package). On the card
-the L-TAE runs its CUDA kernels: TimeUNet's train steps the training pair,
-U-TAE's and TimeUNet's val and test steps the eval kernel (W-TAE's
-attention-only L-TAE, TimeUNet_v2's TAE2d and the baselines have no kernel,
-as in the JAX package). ``--seq_chunk`` streams TimeUNet's L-TAE over T
-where no kernel takes it (on the CPU); on the card the kernel pair takes
-TimeUNet's training with or without it, as the JAX CLI's
-``--use_pallas_train`` takes precedence. Flags of features not ported yet
-raise and name their ROADMAP.md item.
+to (``--t_buckets [61] --max_temp 61``, as in the JAX package).
+
+The L-TAE's routes follow ``--use_pallas`` and ``--use_pallas_train`` as in
+the JAX CLI: ``--use_pallas auto`` (the default) is on for ``--device cuda``
+and off for the CPU, and U-TAE's and TimeUNet's val and test steps then run
+the eval kernel; ``--use_pallas_train`` (off unless given) trains
+TimeUNet's L-TAE on the kernel pair, and without it TimeUNet trains on the
+plain ops, or streamed over T with ``--seq_chunk`` (``LTAE._chunked``), as
+the JAX CLI trains on XLA ops. W-TAE's attention-only L-TAE, TimeUNet_v2's
+TAE2d and the baselines have no kernel, as in the JAX package.
+
+``--num_devices N`` (N > 1) trains data-parallel: N worker processes (spawn)
+in one ``torch.distributed`` group, one a card (``cuda:r``, NCCL) or, with
+``--device cpu``, N CPU processes (gloo), rendezvous through a ``FileStore``
+in a temporary directory under ``--res_dir``. Each rank reads its rows of
+every global batch of ``--batch_size`` (``data/batcher.py``), the step is
+the global batch's (``parallel/mesh.py``), and rank 0 alone writes the
+run's files and logs. The CUDA sources are built before the workers start.
+Flags of features not ported yet raise and name their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from crop2seg_tpu_torch.models.factory import MODELS
 
@@ -133,8 +144,8 @@ parser.add_argument("--remat_policy", default="conv_out",
                     help="U-TAE with --remat: 'conv_out' keeps each "
                          "convolution's output, 'full' recomputes everything")
 parser.add_argument("--num_devices", default=None, type=int,
-                    help="data-parallel over N cards: not ported yet "
-                         "(ROADMAP.md M11); 1 or unset")
+                    help="data-parallel over N processes: N cards (NCCL), or "
+                         "N CPU processes with --device cpu (gloo)")
 parser.add_argument("--platform", default=None, type=str,
                     help="the JAX package's device pin; here --device")
 parser.add_argument("--profile", default=None, type=str, metavar="DIR",
@@ -142,17 +153,17 @@ parser.add_argument("--profile", default=None, type=str, metavar="DIR",
                          "into DIR")
 parser.add_argument("--use_pallas", default="auto", type=str,
                     choices=("auto", "true", "false"),
-                    help="accepted for parity with the JAX CLI: on the card "
-                         "the eval L-TAE runs its CUDA kernel, on the CPU "
-                         "its plain ops")
+                    help="the eval L-TAE kernel on the val and test steps "
+                         "(U-TAE, TimeUNet); 'auto' = on for --device cuda, "
+                         "off for the CPU")
 parser.add_argument("--use_pallas_train", action="store_true",
-                    help="accepted for parity with the JAX CLI: on the card "
-                         "TimeUNet trains its L-TAE on the CUDA kernel pair")
+                    help="TimeUNet trains its L-TAE on the kernel pair; "
+                         "without it on the plain ops (or --seq_chunk)")
 parser.add_argument("--seq_chunk", default=None, type=int,
                     help="TimeUNet's L-TAE streamed over T in chunks of this "
                          "many steps with an online softmax, where no kernel "
-                         "takes it (on the CPU); on the card the kernel pair "
-                         "trains it either way")
+                         "route takes it (training without "
+                         "--use_pallas_train)")
 parser.add_argument("--synthetic_patches", default=12, type=int)
 parser.add_argument("--freeze_layers", default=None, type=str,
                     help="comma-separated module-path prefixes of the JAX "
@@ -179,13 +190,22 @@ def parse_config(argv=None):
     return config
 
 
+def model_config(config, dev: torch.device) -> dict:
+    """The factory's config of a run: the CLI's flags with ``--use_pallas``
+    resolved on ``dev`` (``models/factory.py::resolve_use_pallas``, the JAX
+    CLI's ``resolve_use_pallas``) and ``--use_pallas_train`` as given."""
+    from crop2seg_tpu_torch.models.factory import resolve_use_pallas
+
+    cfg = dict(vars(config))
+    cfg["use_pallas"] = resolve_use_pallas(config.use_pallas, dev)
+    cfg["use_pallas_train"] = bool(config.use_pallas_train)
+    return cfg
+
+
 def check_ported(config) -> None:
     """Raise SystemExit, naming the ROADMAP.md item, for every flag whose
     feature the port does not have yet."""
     refusals = [
-        ((config.num_devices or 1) > 1,
-         f"--num_devices {config.num_devices}: data-parallel training is not "
-         "ported yet (ROADMAP.md M11)"),
         (config.model not in MODELS,
          f"--model {config.model}: no such model; the models: {', '.join(MODELS)}"),
         (config.add_boundary_loss and config.model not in BOUNDARY_MODELS,
@@ -210,6 +230,17 @@ PASTIS_FOLD_SEQUENCE = (
 )
 
 
+def ensure_synthetic(config) -> str:
+    """The synthetic dataset's folder (default ``res_dir/synthetic_data``),
+    written there unless one exists."""
+    from crop2seg_tpu_torch.data import make_synthetic_dataset
+
+    folder = config.dataset_folder or os.path.join(config.res_dir, "synthetic_data")
+    if not os.path.exists(os.path.join(folder, "metadata.json")):
+        make_synthetic_dataset(folder, n_patches=config.synthetic_patches)
+    return folder
+
+
 def build_datasets(config):
     """(train, val, test) datasets of ``config.dataset_folder``: the
     S2TSCzCrop reader's sets, with ``--dataset synthetic`` on a synthetic
@@ -217,14 +248,10 @@ def build_datasets(config):
     exists; with ``--dataset pastis`` the PASTIS reader's folds of
     ``config.fold`` (``PASTIS_FOLD_SEQUENCE``), normalized by the training
     folds' statistics."""
-    from crop2seg_tpu_torch.data import (
-        S2TSCZCropDataset, Transform, load_norm_values, make_synthetic_dataset)
+    from crop2seg_tpu_torch.data import S2TSCZCropDataset, Transform, load_norm_values
 
-    folder = config.dataset_folder
-    if config.dataset == "synthetic":
-        folder = folder or os.path.join(config.res_dir, "synthetic_data")
-        if not os.path.exists(os.path.join(folder, "metadata.json")):
-            make_synthetic_dataset(folder, n_patches=config.synthetic_patches)
+    folder = ensure_synthetic(config) if config.dataset == "synthetic" else \
+        config.dataset_folder
     norm_folder = config.norm_values_folder or folder
     norm_path = os.path.join(norm_folder, "NORM_S2_patch.json")
     common = dict(
@@ -320,8 +347,52 @@ def main(config) -> TrainRun:
 
     check_ported(config)
     dev = resolve_device(config.device)
+    n = config.num_devices or 1
+    if n > 1:
+        return _main_data_parallel(config, dev, n)
     with _repeatable_backends():
         return _run(config, dev)
+
+
+def _main_data_parallel(config, dev: torch.device, n: int) -> TrainRun:
+    """``--num_devices n``: n spawned workers in one group (``_dp_worker``),
+    rank 0's run returned. Refuses, as the JAX CLI does, fewer visible cards
+    than n and a batch that does not divide; builds the CUDA sources and
+    the native loader, and writes the synthetic dataset, before the workers
+    start."""
+    from crop2seg_tpu_torch import native
+    from crop2seg_tpu_torch.ops import _build
+    from crop2seg_tpu_torch.parallel import run_workers
+
+    if dev.type == "cuda" and torch.cuda.device_count() < n:
+        raise SystemExit(f"--num_devices {n} but only {torch.cuda.device_count()} "
+                         "cuda devices are visible")
+    if config.batch_size % n:
+        raise SystemExit("--batch_size must be divisible by --num_devices")
+    if dev.type == "cuda":
+        _build.build_all(["ltae_fused_fwd", "ltae_pool"])
+    native.load_library()
+    if config.dataset == "synthetic":
+        ensure_synthetic(config)
+    os.makedirs(config.res_dir, exist_ok=True)
+    threads = max(1, torch.get_num_threads() // n) if dev.type == "cpu" else None
+    runs = run_workers(_dp_worker, n, config, dev.type, log.getEffectiveLevel(),
+                       base_dir=config.res_dir, threads=threads)
+    return runs[0]
+
+
+def _dp_worker(rank: int, world: int, store_dir: str, config, dev_type: str,
+               level: int) -> TrainRun:
+    """One rank of ``--num_devices``: card ``cuda:rank`` (NCCL) or the CPU
+    (gloo); rank 0 logs at the parent's level, the others warnings only."""
+    from crop2seg_tpu_torch.parallel import init_group
+
+    logging.basicConfig(level=level if rank == 0 else logging.WARNING,
+                        format=f"%(asctime)s [rank {rank}] %(message)s", force=True)
+    dev = torch.device(f"cuda:{rank}" if dev_type == "cuda" else "cpu")
+    group = init_group(rank, world, store_dir, dev)
+    with _repeatable_backends():
+        return _run(config, dev, group)
 
 
 @contextlib.contextmanager
@@ -342,7 +413,10 @@ def _repeatable_backends():
             setattr(owner, name, value)
 
 
-def _run(config, dev: torch.device) -> TrainRun:
+def _run(config, dev: torch.device, group=None) -> TrainRun:
+    """One run (a fold) on ``dev``; with ``group`` one rank of a
+    data-parallel run: its rows of every batch, the group's steps, and the
+    files written by rank 0 alone."""
     from crop2seg_tpu_torch.data import BatchLoader, DeviceCacheLoader, PrefetchLoader
     from crop2seg_tpu_torch.learning import checkpoint as ckpt
     from crop2seg_tpu_torch.learning.trainer import (
@@ -350,6 +424,11 @@ def _run(config, dev: torch.device) -> TrainRun:
         make_train_step, run_epoch)
     from crop2seg_tpu_torch.learning.weight_init import apply_reference_init
     from crop2seg_tpu_torch.models.factory import get_model
+    from crop2seg_tpu_torch.parallel import barrier, rank_seed, replicate
+
+    rank = dist.get_rank(group) if group is not None else 0
+    world = dist.get_world_size(group) if group is not None else 1
+    writer = rank == 0
 
     random.seed(config.rdm_seed)
     np.random.seed(config.rdm_seed)
@@ -368,14 +447,21 @@ def _run(config, dev: torch.device) -> TrainRun:
                     setattr(config, k, v)
         check_ported(config)
 
-    os.makedirs(config.res_dir, exist_ok=True)
-    fold_dir = ckpt.prepare_output(config.res_dir, fold)
-    ckpt.save_conf(config.res_dir, vars(config))
+    fold_dir = os.path.join(config.res_dir, f"Fold_{fold}")
+    if writer:
+        os.makedirs(config.res_dir, exist_ok=True)
+        ckpt.prepare_output(config.res_dir, fold)
+        ckpt.save_conf(config.res_dir, vars(config))
 
     dt_train, dt_val, dt_test = build_datasets(config)
     log.info("train/val/test sizes: %d/%d/%d", len(dt_train), len(dt_val), len(dt_test))
 
     loader_kw = dict(t_buckets=tuple(config.t_buckets), pad_value=config.pad_value)
+    if group is not None:
+        # each rank its rows of every global batch; a ragged eval batch
+        # padded with ignored rows (the JAX CLI's to_host_batch(pad_to=...))
+        loader_kw.update(shard=(rank, world),
+                         ignore_label=config.ignore_index % config.num_classes)
     weights_s = sample_weights(dt_train) if config.use_weighted_sampling else None
     train_loader = PrefetchLoader(BatchLoader(
         dt_train, config.batch_size, shuffle=True, drop_last=True,
@@ -385,7 +471,10 @@ def _run(config, dev: torch.device) -> TrainRun:
     test_loader = BatchLoader(dt_test, config.batch_size, shuffle=False,
                               drop_last=False, **loader_kw)
     dtype = torch.bfloat16 if config.bf16 else None
-    if config.device_cache:
+    if config.device_cache and group is not None:
+        log.warning("--device_cache is single-device only; ignoring it for the "
+                    "%d-rank data-parallel run", world)
+    elif config.device_cache:
         if config.augment:
             log.warning("--device_cache freezes augmentation at its epoch-1 "
                         "draw; leave it off for augmented runs")
@@ -395,15 +484,7 @@ def _run(config, dev: torch.device) -> TrainRun:
         train_loader = DeviceCacheLoader(train_loader, cast=dtype, shuffle=True,
                                          seed=config.rdm_seed, device=dev)
         val_loader = DeviceCacheLoader(val_loader, cast=dtype, shuffle=False, device=dev)
-    if dev.type == "cuda" and (config.use_pallas == "false" or not config.use_pallas_train):
-        log.info("on the card the L-TAE runs its CUDA kernels whatever "
-                 "--use_pallas / --use_pallas_train say")
-    if dev.type == "cuda" and config.seq_chunk and config.model in ("timeunet", "timeunet_v1"):
-        log.info("--seq_chunk %d: on the card the kernel pair takes TimeUNet's "
-                 "training (and the eval kernel its val and test), so no L-TAE "
-                 "is streamed over T", config.seq_chunk)
-
-    model = get_model(vars(config), device=dev)
+    model = get_model(model_config(config, dev), device=dev)
     init_gen = torch.Generator(device=dev).manual_seed(config.rdm_seed)
     start_epoch, best_miou, trainlog = 1, 0.0, {}
     resume_opt = None
@@ -438,6 +519,8 @@ def _run(config, dev: torch.device) -> TrainRun:
             model.load_state_dict(loaded)
     else:
         apply_reference_init(model, init_gen)
+    if group is not None:
+        replicate(model, group)
 
     weights = [1.0] * config.num_classes
     weights[config.ignore_index] = 0.0
@@ -463,15 +546,16 @@ def _run(config, dev: torch.device) -> TrainRun:
             log.warning("checkpoint carries no optimizer state (weights "
                         "saved alone); Adam starts fresh")
 
-    train_step = make_train_step(model, step_cfg, optimizer, device=dev, dtype=dtype)
-    eval_step = make_eval_step(model, step_cfg, device=dev, dtype=dtype)
-    generator = torch.Generator(device=dev).manual_seed(config.rdm_seed)
+    train_step = make_train_step(model, step_cfg, optimizer, device=dev, dtype=dtype,
+                                 group=group)
+    eval_step = make_eval_step(model, step_cfg, device=dev, dtype=dtype, group=group)
+    generator = torch.Generator(device=dev).manual_seed(rank_seed(config.rdm_seed, rank))
 
     if not is_test_run:
-        ckptr = ckpt.StateCheckpointer(fold_dir, keep=config.keep_ckpts)
+        ckptr = ckpt.StateCheckpointer(fold_dir, keep=config.keep_ckpts) if writer else None
         for epoch in range(start_epoch, config.epochs + 1):
             log.info("EPOCH %d/%d", epoch, config.epochs)
-            profiling = config.profile and epoch == start_epoch
+            profiling = config.profile and epoch == start_epoch and writer
             with (_profiler(dev) if profiling else contextlib.nullcontext()) as prof:
                 train_metrics, _ = run_epoch(
                     train_step, train_loader, step_cfg, mode="train",
@@ -492,14 +576,18 @@ def _run(config, dev: torch.device) -> TrainRun:
                 log.info("Loss %.4f, Acc %.2f, IoU %.4f", val_metrics["val_loss"],
                          val_metrics["val_accuracy"], val_metrics["val_IoU"])
                 trainlog[epoch] = {**train_metrics, **val_metrics}
-                ckpt.checkpoint_log(fold_dir, trainlog)
                 if val_metrics["val_IoU"] >= best_miou:
                     best_miou = val_metrics["val_IoU"]
-                    ckptr.save(model, optimizer, epoch, best_miou)
+                    if writer:
+                        ckptr.save(model, optimizer, epoch, best_miou)
             else:
                 trainlog[epoch] = dict(train_metrics)
+            if writer:
                 ckpt.checkpoint_log(fold_dir, trainlog)
-        ckptr.wait()
+        if writer:
+            ckptr.wait()
+        if group is not None:
+            barrier(group)      # rank 0's checkpoints are on disk for every rank
         # reload the best (a resumed run that added no better epoch keeps
         # the restored weights)
         if ckpt.has_state(fold_dir):
@@ -510,17 +598,18 @@ def _run(config, dev: torch.device) -> TrainRun:
         num_classes=config.num_classes, ignore_index=config.ignore_index,
         class_weights=tuple(weights), label_smoothing=config.label_smoothing,
         add_boundary_loss=config.add_boundary_loss, test_region=config.test_region)
-    test_step = make_eval_step(model, test_cfg, device=dev, dtype=dtype)
+    test_step = make_eval_step(model, test_cfg, device=dev, dtype=dtype, group=group)
     test_metrics, cms = run_epoch(test_step, test_loader, test_cfg, mode="test",
                                   log_fn=log.info)
     log.info("test metrics: %s", test_metrics)
-    ckpt.save_results(fold_dir, test_metrics, cms, region=config.test_region)
-    # aggregate over every Fold_k finished so far
-    cm = ckpt.aggregate_fold_cms(config.res_dir, region=config.test_region)
-    ign = config.ignore_index % config.num_classes
-    cm[:, ign] = 0
-    cm[ign, :] = 0
-    ckpt.overall_performance(config.res_dir, cm, region=config.test_region)
+    if writer:
+        ckpt.save_results(fold_dir, test_metrics, cms, region=config.test_region)
+        # aggregate over every Fold_k finished so far
+        cm = ckpt.aggregate_fold_cms(config.res_dir, region=config.test_region)
+        ign = config.ignore_index % config.num_classes
+        cm[:, ign] = 0
+        cm[ign, :] = 0
+        ckpt.overall_performance(config.res_dir, cm, region=config.test_region)
     return TrainRun(test_metrics, trainlog, start_epoch, restored_step,
                     adam_step(optimizer))
 

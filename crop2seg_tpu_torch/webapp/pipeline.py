@@ -223,13 +223,16 @@ def _no_plan_reason(ds) -> str:
 
 
 def stream_tile_inference(model, ds, batch_size: int = 10,
-                          timeline: Optional[dict] = None, device=None
+                          timeline: Optional[dict] = None, device=None, mesh=None
                           ) -> Tuple[np.ndarray, np.ndarray]:
     """Overlapped disk->crop-map inference over the patches of a cell.
 
     ``model``: any model of the port's factory (weights loaded); it is
     moved to ``device`` (the CUDA card unless "cpu" is asked for) and set
-    to eval.
+    to eval. ``mesh``: a list of devices (``parallel/mesh.py::make_mesh``)
+    over which each chunk's patches split (``patch_parallel_infer``; the
+    model copied to each once; ``batch_size`` must divide over them); the
+    chunks land on the first, which replaces ``device``.
     ``ds``: an ``S2TSCZCropDataset(for_inference=True)`` over the cell that
     gives a native batch plan (no NDVI, RAM cache or mono-date): a dataset
     without one raises ``ValueError`` naming the option.
@@ -273,8 +276,18 @@ def stream_tile_inference(model, ds, batch_size: int = 10,
         raise ValueError(
             "stream_tile_inference decodes with the native loader, and the "
             f"dataset gives it no plan: build it without {_no_plan_reason(ds)}")
-    dev = resolve_device(device)
-    model = model.to(dev).eval()
+    if mesh is None:
+        dev = resolve_device(device)
+        forward = model.to(dev).eval()
+    else:
+        from crop2seg_tpu_torch.parallel.mesh import make_mesh, patch_parallel_infer
+
+        mesh = make_mesh(mesh)
+        if batch_size % len(mesh):
+            raise ValueError(f"batch_size {batch_size} must divide over the "
+                             f"{len(mesh)} devices of the mesh")
+        dev = resolve_device(mesh[0])
+        forward = patch_parallel_infer(model, mesh)
     n = len(ds)
     meta0 = ds.light_item(0)
     t, dates = meta0["length"], meta0["dates"]
@@ -339,7 +352,7 @@ def stream_tile_inference(model, ds, batch_size: int = 10,
     producer.start()
     probs = []
     try:
-        _consume(q, free_q, model, dev, pinned, dates_d, mask_d, probs, tl)
+        _consume(q, free_q, forward, dev, pinned, dates_d, mask_d, probs, tl)
     finally:
         stop.set()
         producer.join()
@@ -413,7 +426,8 @@ def _load_weights(model, fold_dir: str) -> None:
 def generate_prediction(data_folder: str, model_dir: str, year: int,
                         cache_dir: str,
                         lpis_parcels: Optional[np.ndarray] = None,
-                        batch_size: int = 10, device=None, timeline: Optional[dict] = None
+                        batch_size: int = 10, device=None, timeline: Optional[dict] = None,
+                        use_pallas: bool = True, mesh=None
                         ) -> Dict[str, np.ndarray]:
     """Whole-cell crop map (reference prediction.py:253-355).
 
@@ -428,10 +442,14 @@ def generate_prediction(data_folder: str, model_dir: str, year: int,
     ``cache_dir/prediction``.
 
     ``device``: the CUDA card unless "cpu" is asked for; nothing falls back
-    on its own; the L-TAE of U-TAE and TimeUNet serves on the fused kernel
-    (W-TAE's, TimeUNet_v2's TAE2d and the baselines have none).
-    One card serves:
-    multi-card serving is ROADMAP.md item M11. ``timeline``: the stream's
+    on its own. ``use_pallas`` goes into the model's conf, as
+    crop2seg_tpu/webapp/pipeline.py:508 sets it: the L-TAE of U-TAE and
+    TimeUNet serves on the fused kernel (W-TAE's, TimeUNet_v2's TAE2d and the
+    baselines have none). ``mesh``: None serves on one device; a list of
+    devices splits each chunk's patches over them (``stream_tile_inference``);
+    "auto" means every visible card when there is more than one, else None
+    (crop2seg_tpu/webapp/pipeline.py:526-535). ``batch_size`` is rounded up
+    to a multiple of the mesh's size. ``timeline``: the stream's
     keys (see there), plus 'setup' (conf, model, weights, dataset) and
     'postprocess' (classes.npy, raster, polygonize, soften, vectors,
     homogenization), in seconds.
@@ -467,6 +485,7 @@ def generate_prediction(data_folder: str, model_dir: str, year: int,
         # the trained 0-400 range — the stored ref_date must not win here.
         stored.pop("ref_date", None)
         conf.update(stored)
+    conf["use_pallas"] = use_pallas
     model = get_model({**conf, "out_conv": conf.get("out_conv", [32, 15])}, device=dev)
     _load_weights(model, os.path.join(model_dir, "Fold_1"))
 
@@ -474,9 +493,20 @@ def generate_prediction(data_folder: str, model_dir: str, year: int,
     ds = S2TSCZCropDataset(data_folder, norm=True, norm_values=norm,
                            set_type="train", for_inference=True,
                            reference_date=conf["ref_date"])
+    if mesh is not None:
+        from crop2seg_tpu_torch.parallel.mesh import make_mesh
+
+        if mesh == "auto":
+            many = dev.type == "cuda" and torch.cuda.device_count() > 1
+            mesh = make_mesh() if many else None
+        else:
+            mesh = make_mesh(mesh)
+    if mesh is not None:
+        batch_size += -batch_size % len(mesh)
     setup_s = _time.perf_counter() - t_setup
     tl = {}
-    proba, classes = stream_tile_inference(model, ds, batch_size, timeline=tl, device=dev)
+    proba, classes = stream_tile_inference(model, ds, batch_size, timeline=tl, device=dev,
+                                           mesh=mesh)
     t_post = _time.perf_counter()
     out = {"proba": proba, "classes": classes}
 

@@ -47,8 +47,11 @@ def _jltae(seq_chunk=None):
 
 
 def _ltae(seq_chunk=None, attn_dropout=0.0):
+    """The port's twin of ``_jltae``: both kernel flags off, as the JAX
+    module's defaults have them."""
     return LTAE(in_channels=C, d_model=DM, mlp=(DM, 16), n_head=8, d_k=4, dropout=0.0,
-                attn_dropout=attn_dropout, seq_chunk=seq_chunk)
+                attn_dropout=attn_dropout, seq_chunk=seq_chunk, use_pallas=False,
+                use_pallas_train=False)
 
 
 def _t(a):
@@ -163,9 +166,12 @@ def test_checkpointed_chunks_recompute_their_dropout(monkeypatch):
 
 
 def test_routing_follows_the_jax_order(monkeypatch):
-    """Eval kernel, then the kernel pair, then seq_chunk (one query, no
-    attention output, no deferred tail), then the plain ops; on the CPU
-    ``fused=True`` reaches the kernel wrappers (their plain versions)."""
+    """The flags' gate order (crop2seg_tpu/nn/ltae.py:471-485): the eval
+    kernel (``use_pallas``, eval), then the kernel pair (``use_pallas_train``,
+    one query, no attention output, in eval too), then seq_chunk (one query,
+    no attention output), then the plain ops; on the CPU ``fused=True``
+    reaches the kernel wrappers (their plain versions), and the eval kernel's
+    route without it runs the plain ops."""
     x, dates, mask = _inputs(3)
     m = _ltae(4)
     seen = []
@@ -173,22 +179,36 @@ def test_routing_follows_the_jax_order(monkeypatch):
         fn = getattr(m, name)
         monkeypatch.setattr(m, name, lambda *a, _n=name, _f=fn, **k: seen.append(_n) or _f(*a, **k))
     args = (_t(x), _t(dates), _t(mask))
-    cases = [(False, True, False, "_fused"), (True, True, False, "_train"),
-             (False, False, False, "_chunked"), (True, False, False, "_chunked"),
-             (False, False, True, "_plain"), (True, False, True, "_plain")]
-    for training, fused, need_attn, want in cases:
+    # (use_pallas, use_pallas_train, training, fused, need_attn, want)
+    cases = [(True, True, False, True, False, "_fused"),
+             (True, True, True, True, False, "_train"),
+             (False, True, False, True, False, "_train"),
+             (True, True, False, False, False, "_plain"),
+             (True, True, True, False, False, "_train"),
+             (False, False, False, True, False, "_chunked"),
+             (True, False, True, True, False, "_chunked"),
+             (False, False, True, False, False, "_chunked"),
+             (False, True, False, True, True, "_plain"),
+             (True, True, True, True, True, "_plain")]
+    for use_pallas, use_pallas_train, training, fused, need_attn, want in cases:
         seen.clear()
+        m.use_pallas, m.use_pallas_train = use_pallas, use_pallas_train
         m.train(training)
         with torch.no_grad():
             m(*args, need_attn=need_attn, fused=fused)
-        assert seen == [want], (training, fused, need_attn, seen)
-    # a deferred tail keeps the pair's plain version: seq_chunk takes no tail
+        assert seen == [want], (use_pallas, use_pallas_train, training, fused, need_attn, seen)
+    # a deferred tail keeps the pair's plain version; seq_chunk and the plain
+    # ops take no tail
     seen.clear()
     m.train()
+    m.use_pallas_train = True
     tail = (torch.ones(B, T, C), torch.zeros(B, T, C))
     with torch.no_grad():
         m(*args, need_attn=False, fused=False, tail_affine=tail)
     assert seen == ["_train"]
+    m.use_pallas_train = False
+    with pytest.raises(ValueError), torch.no_grad():
+        m(*args, need_attn=False, fused=False, tail_affine=tail)
 
 
 @pytest.fixture(scope="module")
@@ -211,11 +231,11 @@ def timeunet_case():
 
 
 def test_timeunet_with_seq_chunk_matches_jax(timeunet_case, monkeypatch):
-    """TimeUNet(seq_chunk=4) on the CPU streams its L-TAE (``_chunked``)
-    and gives the JAX TimeUNet's logits (1e-3, whole model); a train-mode
+    """TimeUNet(seq_chunk=4) with both kernel flags off (the JAX TimeUNet's
+    defaults) streams its L-TAE (``_chunked``) in eval and training, and gives the JAX TimeUNet's logits (1e-3, whole model); a train-mode
     step from it is finite."""
     c = timeunet_case
-    m = TimeUNet(seq_chunk=4, **c["kw"]).eval()
+    m = TimeUNet(seq_chunk=4, use_pallas=False, use_pallas_train=False, **c["kw"]).eval()
     m.load_state_dict(timeunet_state_dict_from_flax(c["v"]))
     calls = []
     chunked = m.temporal_encoder._chunked

@@ -5,8 +5,7 @@ general kernels serve it).
 
 - U-TAE trains its L-TAE on plain ops whatever ``fused`` says, as the JAX
   U-TAE (no ``use_pallas_train``) does: with ``agg_mode="mean"`` at its
-  bottleneck's C = 128 it takes ``ltae_pool``'s plain version, never the
-  kernel pair (which stops at C = 64).
+  bottleneck's C = 128 it takes the plain ops, never the kernel pair.
 - LTAE and TimeUNet at T = 70, past the fast kernels' T <= 64: the kernel
   route takes the shape (``LTAE.kernel_takes``, the general kernels; also at
   T = 65, 128, 190, G = 32 and C = 192), ``fused=True`` calls the kernel
@@ -128,11 +127,11 @@ def utae_case():
 def test_utae_mean_aggregation_trains_on_the_plain_pool_at_c128(utae_case,
                                                                 no_kernel_route):
     """U-TAE with agg_mode="mean" asks its L-TAE for no attention, so in
-    training a fused one-query L-TAE would take the kernel pair, which stops
-    at C = 64. U-TAE trains its L-TAE on plain ops, as the JAX U-TAE does:
-    with fused=True it takes ltae_pool's plain version (the pair's wrappers
-    raise here); loss, gradients and statistics equal fused=False's and
-    match the JAX U-TAE's train-mode step."""
+    training an L-TAE with ``use_pallas_train`` would take the kernel pair.
+    U-TAE builds its L-TAE without it and trains on plain ops, as the JAX
+    U-TAE does: with fused=True too (the pair's wrappers raise here); loss,
+    gradients and statistics equal fused=False's and match the JAX U-TAE's
+    train-mode step."""
     c = utae_case
     runs = {}
     for fused in (True, False):

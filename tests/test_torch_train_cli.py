@@ -344,7 +344,10 @@ def test_sample_weights_fill_missing_with_one():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--num_devices", "2"], "M11"), (["--add_boundary_loss"], "no boundary head"),
+    # --num_devices is ported (parallel/mesh.py); what it still refuses, as
+    # the JAX CLI does, is a batch the ranks do not divide
+    pytest.param(["--num_devices", "3"], "divisible by --num_devices", id="extra0-M11"),
+    (["--add_boundary_loss"], "no boundary head"),
     (["--model", "timeunet_v3"], "no such model"), (["--platform", "cpu"], "--device")])
 def test_unported_flags_raise(data, tmp_path, extra, match):
     argv = _argv(data, tmp_path / "res") + extra

@@ -288,8 +288,12 @@ def test_generate_prediction_reads_a_reference_checkpoint(cell16, tmp_path):
 
 def test_serving_device_and_mesh_contract(cell16, tmp_path):
     """The card by default (here none: it raises, never falls back to the
-    CPU); device="cpu" serves on one device. The port takes no mesh (one
-    card serves; multi-card serving is ROADMAP.md M11)."""
+    CPU); device="cpu" serves on one device. A mesh (a list of devices,
+    crop2seg_tpu/webapp/pipeline.py:526-535) splits each chunk's patches
+    over its devices and gives the one device's maps (here two CPU
+    replicas); a chunk that does not divide over it raises;
+    generate_prediction's "auto" is one device here (no two cards) and a
+    mesh's maps are the one device's."""
     from crop2seg_tpu_torch.webapp.pipeline import generate_prediction, stream_tile_inference
 
     ds, _ = _datasets(cell16["cell"])
@@ -298,10 +302,19 @@ def test_serving_device_and_mesh_contract(cell16, tmp_path):
             generate_prediction(cell16["cell"], cell16["port_dir"], 2019, str(tmp_path / "a"))
         with pytest.raises(RuntimeError, match="device='cpu'"):
             stream_tile_inference(cell16["model"], ds)
-    proba, _ = stream_tile_inference(cell16["model"], ds, device="cpu")
+    proba, classes = stream_tile_inference(cell16["model"], ds, device="cpu")
     assert proba.shape == (128, 128, 15)
-    with pytest.raises(TypeError, match="mesh"):
-        stream_tile_inference(cell16["model"], ds, mesh="auto", device="cpu")
+    p2, c2 = stream_tile_inference(cell16["model"], ds, mesh=["cpu", "cpu"])
+    np.testing.assert_allclose(p2, proba, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(c2, classes)
+    with pytest.raises(ValueError, match="divide"):
+        stream_tile_inference(cell16["model"], ds, batch_size=9, mesh=["cpu", "cpu"])
+    one = generate_prediction(cell16["cell"], cell16["port_dir"], 2019, str(tmp_path / "b"),
+                              device="cpu", mesh="auto")
+    two = generate_prediction(cell16["cell"], cell16["port_dir"], 2019, str(tmp_path / "c"),
+                              device="cpu", mesh=["cpu", "cpu"], batch_size=9)
+    np.testing.assert_allclose(two["proba"], one["proba"], rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(two["classes"], one["classes"])
 
 
 def test_generate_prediction_keeps_the_prediction_years_ref_date(cell16, tmp_path, monkeypatch):
