@@ -226,6 +226,21 @@
    within 1e-5; (f) graft_entry's entry forward (one wide launch) and
    dryrun_multichip(1). A ``data_parallel`` JSON line; the kernels line
    gains ``launches_data_parallel``.
+18. The 2-D data x space training mesh (phase_space_parallel,
+   parallel/mesh.py), each path's counts set to 0 just before it and read
+   just after: on a (2, 2) mesh (rank d * 2 + s: samples 2d, 2d + 1 of
+   phase 17's global batch of 4, rows 64s to 64s + 63 of each frame), (a)
+   NCCL a card a rank where four cards are visible (else it prints that
+   this path was not run), (b) TimeUNet fp32 on the tail pair, (c) U-TAE
+   fp32 with remat and (d) TimeUNet bf16 (the loss and statistics held)
+   over four gloo ranks on cuda:0, each held against phase 17's
+   one-process step as phase 17 holds its group (the logits reassembled
+   from the ranks' rows), each rank launching its pair once a step; a
+   rank's step ms beside one process's and the median ms of a halo
+   exchange at in_conv's width; (e) graft_entry.dryrun_multichip(2) with
+   its two 2-D blocks, on two cards or, where one is visible, over gloo
+   processes on the CPU. A ``space_parallel`` JSON line; the kernels line
+   gains ``launches_space_parallel``.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -3057,15 +3072,16 @@ def dp_predictions_beyond_tie(got: torch.Tensor, ref: torch.Tensor, y, tie: floa
 
 
 def dp_check(label: str, ranks: list, ref: dict, perturbed: dict, y, want_launches,
-             dtype=None) -> dict:
+             dtype=None, logits=None) -> dict:
     """(b)/(c)/(a): every rank's loss, confusion matrices and running
     statistics against the one-process step ``ref`` (the matrices exact
     unless a pixel is within a tie, ``dp_predictions_beyond_tie``), the
     ranks' gradients equal and within the perturbation spread of ``ref``'s
     (``perturbed``: one process with the L-TAE output scaled by 1 + GRAD_EPS
     * noise), and each rank's pair launches a step; DP_TOL of ``dtype``
-    (bf16: the loss and statistics only). Every number is printed before
-    any check."""
+    (bf16: the loss and statistics only). ``logits``: the group's logits of
+    the global batch (default: the ranks' concatenated along B). Every
+    number is printed before any check."""
     from crop2seg_tpu_torch.learning.metrics import confusion_matrix
 
     tol = DP_TOL[dtype or torch.float32]
@@ -3074,7 +3090,8 @@ def dp_check(label: str, ranks: list, ref: dict, perturbed: dict, y, want_launch
                    for r in ranks)
     stats_err = max(((r["stats"][k] - v).abs().max() / v.abs().max().clamp_min(1.0)).item()
                     for r in ranks for k, v in ref["stats"].items()) if ref["stats"] else 0.0
-    logits = torch.cat([r["logits"] for r in ranks])
+    if logits is None:
+        logits = torch.cat([r["logits"] for r in ranks])
     cm_equal = all(torch.equal(r["cm"], ref["cm"]) and torch.equal(r["cm_top2"], ref["cm_top2"])
                    for r in ranks)
     differ = int((logits.argmax(-1) != ref["logits"].argmax(-1)).sum())
@@ -3121,9 +3138,15 @@ def dp_check(label: str, ranks: list, ref: dict, perturbed: dict, y, want_launch
                                              for n in r["launches"]), collections.Counter()))}
 
 
+DP_REFS = {}
+
+
 def dp_reference(name: str, model_cfg: dict, dtype, steps: int, dev) -> tuple:
     """One process on the global batch: the step the group must repeat, and
-    the same first step with the L-TAE output perturbed (the yardstick)."""
+    the same first step with the L-TAE output perturbed (the yardstick);
+    kept by ``name`` for phase 18, which holds its mesh to the same steps."""
+    if name in DP_REFS:
+        return DP_REFS[name]
     cfg = StepConfig(num_classes=N_CLASSES, class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
     out = []
     for eps in (0.0, GRAD_EPS):
@@ -3136,7 +3159,8 @@ def dp_reference(name: str, model_cfg: dict, dtype, steps: int, dev) -> tuple:
             DP_SEED), steps if not eps else 1))
         del model, step
         torch.cuda.empty_cache()
-    return out[0], out[1]["grads"], batch["y"].cpu()
+    DP_REFS[name] = out[0], out[1]["grads"], batch["y"].cpu()
+    return DP_REFS[name]
 
 
 def dp_tiles(dev) -> dict:
@@ -3319,6 +3343,127 @@ def phase_data_parallel(dev, data: str, tmp: str) -> dict:
     return out
 
 
+# phase 18: the 2-D data x space training mesh (parallel/mesh.py) on phase
+# 17's global batch, each case against phase 17's one-process step
+SP_MESH = (2, 2)           # (data, space): 2 samples and 64 of the 128 rows a rank
+SP_LEVELS = 4              # the factory's TimeUNet and U-TAE: 128^2 down to 16^2
+SP_CASES = {
+    # name: (model config, autocast dtype, steps, launches by variant a rank a
+    # step, the name of phase 17's reference)
+    "timeunet fp32": ({"model": "timeunet"}, None, 2,
+                      {lp.variant(True, torch.float32, d): 1 for d in ("fwd", "bwd")},
+                      "timeunet fp32"),
+    "utae remat conv_out fp32": ({"model": "utae", "remat": True}, None, 2, {},
+                                 "utae remat fp32"),
+    "timeunet bf16": ({"model": "timeunet"}, torch.bfloat16, 2,
+                      {lp.variant(True, torch.bfloat16, d): 1 for d in ("fwd", "bwd")},
+                      "timeunet bf16"),
+}
+SP_HALO = (2 * T, 64, 128, 64)     # in_conv's second conv input on a rank: B_d * T frames
+
+
+def sp_rank(rank: int, world: int, store_dir: str, backend: str, cases: list) -> dict:
+    """One rank of phase 18: ``cases`` (name, model config, dtype, steps)
+    on the SP_MESH mesh, each rank its shard_batch_2d of phase 17's global
+    batch on cuda:rank (NCCL) or, with gloo, on cuda:0 (``dp_step_record``);
+    and the ms of a halo exchange of in_conv's width (one row each way)."""
+    from crop2seg_tpu_torch.nn.layers import space_halo
+    from crop2seg_tpu_torch.parallel import (
+        data_space_parallel_step, init_group, make_mesh_2d, rank_seed, replicate,
+        shard_batch_2d)
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    group = init_group(rank, world, store_dir, dev, backend=backend)
+    mesh = make_mesh_2d(*SP_MESH, group)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = StepConfig(num_classes=N_CLASSES, class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+    out = {}
+    for name, model_cfg, dtype, steps in cases:
+        model = replicate(dp_model(model_cfg, dev), group)
+        batch = train_batch(DP_B, torch.Generator(device=dev).manual_seed(DP_SEED), dev)
+        step = data_space_parallel_step(model, cfg, mesh, device=dev, dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(rank_seed(DP_SEED, rank))
+        out[name] = dp_step_record(model, step, shard_batch_2d(batch, mesh, SP_LEVELS), gen,
+                                   steps)
+        del model, step, batch
+        torch.cuda.empty_cache()
+    x = torch.randn(SP_HALO, device=dev)
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        space_halo(x, 1, mesh.space_group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["halo"] = {"shape": list(SP_HALO), "ms_median": float(np.median(times[1:]))}
+    return out
+
+
+def sp_logits(ranks: list) -> torch.Tensor:
+    """The global batch's logits from the ranks' (rank d * S + s holds rows
+    d of B and s of H)."""
+    data, space = SP_MESH
+    return torch.cat([torch.cat([ranks[d * space + s]["logits"] for s in range(space)], 1)
+                      for d in range(data)])
+
+
+def sp_cases(dev, backend: str, label: str) -> tuple:
+    """SP_CASES over four ranks (gloo on cuda:0, or NCCL a card), each
+    against phase 17's one-process step (``dp_check``); the checks and a
+    rank's halo exchange ms."""
+    from crop2seg_tpu_torch.parallel import run_workers
+
+    world = SP_MESH[0] * SP_MESH[1]
+    ranks = run_workers(sp_rank, world, backend,
+                        [(n, c, d, s) for n, (c, d, s, _, _) in SP_CASES.items()])
+    checks = {}
+    for name, (model_cfg, dtype, steps, want, ref_name) in SP_CASES.items():
+        ref, perturbed, y = dp_reference(ref_name, model_cfg, dtype, steps, dev)
+        got = [r[name] for r in ranks]
+        checks[name] = dp_check(f"(18{label}) {backend} {SP_MESH} {name}", got, ref, perturbed,
+                                y, want, dtype, logits=sp_logits(got))
+    halo = [r["halo"]["ms_median"] for r in ranks]
+    print(f"data x space (18{label}): halo exchange of {list(SP_HALO)} fp32 (one row each "
+          f"way), median ms per rank {[round(h, 3) for h in halo]}", flush=True)
+    return checks, {"shape": list(SP_HALO), "ms_median_per_rank": halo}
+
+
+def phase_space_parallel(dev) -> dict:
+    """Phase 18: the 2-D data x space mesh. (a) NCCL, a card a rank, where
+    four cards are visible; (b) TimeUNet fp32 on the kernel pair, (c) U-TAE
+    fp32 with remat conv_out and (d) TimeUNet bf16 (the loss and statistics)
+    over four gloo ranks on cuda:0, each rank launching its pair once a
+    step, against phase 17's one-process steps; (e) ``dryrun_multichip(2)``
+    (its two 2-D blocks on a (1, 2) mesh), on two cards, or on the CPU's
+    gloo processes where one card is visible. Each part's seconds."""
+    from crop2seg_tpu_torch import graft_entry
+
+    out, seconds = {"checks": {}}, {}
+    start = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        checks, out["nccl_halo"] = sp_cases(dev, "nccl", "a")
+        out["checks"].update({"nccl " + k: v for k, v in checks.items()})
+    else:
+        print(f"data x space (18a): the NCCL mesh across cards was not run: {cards} card "
+              "is visible, and NCCL refuses two ranks on one device", flush=True)
+    seconds["a"] = time.perf_counter() - start
+    start = time.perf_counter()
+    checks, out["gloo_halo"] = sp_cases(dev, "gloo", "b-d")
+    out["checks"].update(checks)
+    seconds["bcd"] = time.perf_counter() - start
+    start = time.perf_counter()
+    where = "cuda" if cards >= 2 else "cpu"
+    print(f"data x space (18e): dryrun_multichip(2) on the {where}", flush=True)
+    out["dryrun"] = graft_entry.dryrun_multichip(2, device=where)
+    check("dp_sp_losses" in out["dryrun"] and "pair_sp_losses" in out["dryrun"],
+          f"dryrun_multichip(2) ran no 2-D block: {sorted(out['dryrun'])}")
+    seconds["e"] = time.perf_counter() - start
+    out["seconds"] = seconds
+    print(f"phase 18: seconds {json.dumps(seconds)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -3421,6 +3566,8 @@ def main() -> int:
         pastis = phase_pastis(dev, cli_tmp)
         torch.cuda.empty_cache()
         dp = phase_data_parallel(dev, cli_data, cli_tmp)
+        torch.cuda.empty_cache()
+        sp = phase_space_parallel(dev)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -3628,6 +3775,15 @@ def main() -> int:
     for entry in [kernel_stages, kernel_q] + general:
         entry["launches_data_parallel"] = 0
     print("data_parallel " + json.dumps(dp), flush=True)
+    # phase 18: the ranks' pair launches on the 2-D mesh (their counts sent back)
+    by_variant = collections.Counter()
+    for c in sp["checks"].values():
+        by_variant.update(c["launches_by_variant"])
+    for entry in pool:
+        entry["launches_space_parallel"] = by_variant.get(entry["name"], 0)
+    for entry in [kernel, kernel_utae, kernel_stages, kernel_q] + general:
+        entry["launches_space_parallel"] = 0
+    print("space_parallel " + json.dumps(sp), flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]

@@ -64,9 +64,16 @@ def _global_batch(seed: int, b: int, rng=None) -> dict:
             "y": rng.integers(0, 15, (b, hw, hw)).astype(np.int64)}
 
 
+def _no_dropout(model):
+    """``model`` with its L-TAE's dropout rates at 0."""
+    model.temporal_encoder.attn_dropout = 0.0
+    model.temporal_encoder.mlp[1].p = 0.0
+    return model
+
+
 def _dryrun_worker(rank: int, world: int, store_dir: str, dev_type: str) -> dict:
     """One rank of ``dryrun_multichip``: the blocks of
-    __graft_entry__.py:38-249 but the two on the 2-D mesh; rank 0 prints."""
+    __graft_entry__.py:38-249; rank 0 prints."""
     from crop2seg_tpu_torch.learning import checkpoint as ckpt
     from crop2seg_tpu_torch.learning.trainer import (
         StepConfig, create_train_state, run_epoch)
@@ -75,8 +82,9 @@ def _dryrun_worker(rank: int, world: int, store_dir: str, dev_type: str) -> dict
     from crop2seg_tpu_torch.models.factory import init_weights
     from crop2seg_tpu_torch.ops.patchify import np_stitch_inference_tile
     from crop2seg_tpu_torch.parallel import (
-        barrier, data_parallel_eval, data_parallel_step, init_group, make_mesh,
-        patch_parallel_infer, rank_seed, replicate, shard_batch)
+        barrier, data_parallel_eval, data_parallel_step, data_space_parallel_step,
+        init_group, make_mesh, make_mesh_2d, patch_parallel_infer, rank_seed, replicate,
+        shard_batch, shard_batch_2d)
 
     dev = torch.device(f"cuda:{rank}" if dev_type == "cuda" else "cpu")
     group = init_group(rank, world, store_dir, dev)
@@ -102,6 +110,7 @@ def _dryrun_worker(rank: int, world: int, store_dir: str, dev_type: str) -> dict
 
     model = apply_reference_init(_flagship(small=True, seed=2),
                                  torch.Generator().manual_seed(3))
+    utae_state = {k: v.clone() for k, v in model.state_dict().items()}
     replicate(model.to(dev), group)
     step = data_parallel_step(model, cfg, device=dev)
     aux = step(shard, gen(4))
@@ -110,17 +119,50 @@ def _dryrun_worker(rank: int, world: int, store_dir: str, dev_type: str) -> dict
     assert int(aux["cm"].sum()) == b * hw * hw, int(aux["cm"].sum())
     out["dp_loss"] = loss
     say(f"dp loss={loss:.4f} OK")
-    say("dp x sp (the 2-D data x space mesh) waits for ROADMAP.md M11b")
+
+    mesh2 = make_mesh_2d(world // 2, 2, group) if world % 2 == 0 else None
+
+    def two_d(build, state: dict, seed: int) -> list:
+        """A 2-D block of __graft_entry__.py: the losses of a step of
+        ``build()`` from ``state`` on the 1-D mesh and on the (n / 2, 2)
+        mesh, dropout 0 on both (within 1e-3), and on the 2-D mesh with
+        dropout (finite)."""
+        losses = []
+        for on_2d, dropout in ((False, False), (True, False), (True, True)):
+            m = build().to(dev)
+            m.load_state_dict(state)
+            if not dropout:
+                _no_dropout(m)
+            replicate(m, group)
+            if on_2d:
+                st = data_space_parallel_step(m, cfg, mesh2, device=dev)
+                part = shard_batch_2d(batch, mesh2, len(SMALL["encoder_widths"]))
+            else:
+                st, part = data_parallel_step(m, cfg, device=dev), shard
+            losses.append(float(st(part, gen(seed))["loss"]))
+        one, two, dropped = losses
+        assert abs(two - one) < 1e-3 and math.isfinite(dropped), losses
+        return losses
+
+    if mesh2 is not None:
+        out["dp_sp_losses"] = one, two, dropped = two_d(
+            lambda: _flagship(small=True), utae_state, 4)
+        say(f"dp x sp loss={two:.4f} (1-D mesh {one:.4f}, dropout 0; with dropout "
+            f"{dropped:.4f}) OK")
 
     # the kernel pair's training route over the group
-    tu_ker = init_weights(TimeUNet(use_pallas=False, use_pallas_train=True, **SMALL),
-                          torch.Generator().manual_seed(5)).to(dev)
+    def tu_pair():
+        return TimeUNet(use_pallas=False, use_pallas_train=True, **SMALL)
+    tu_ker = init_weights(tu_pair(), torch.Generator().manual_seed(5)).to(dev)
     tu_state = {k: v.clone() for k, v in tu_ker.state_dict().items()}
     replicate(tu_ker, group)
     aux_k = data_parallel_step(tu_ker, cfg, device=dev)(shard, gen(6))
     assert math.isfinite(float(aux_k["loss"])), aux_k["loss"]
     out["pair_train_loss"] = float(aux_k["loss"])
-    say("pallas-train pool (the kernel pair) on data x space mesh waits for ROADMAP.md M11b")
+    if mesh2 is not None:
+        out["pair_sp_losses"] = one, two, dropped = two_d(tu_pair, tu_state, 6)
+        say(f"pallas-train pool on data x space mesh loss={two:.4f} (1-D mesh "
+            f"{one:.4f}, dropout 0; with dropout {dropped:.4f}) OK")
 
     wt = init_weights(WTAE(**SMALL), torch.Generator().manual_seed(7)).to(dev)
     replicate(wt, group)
@@ -205,13 +247,19 @@ def _dryrun_worker(rank: int, world: int, store_dir: str, dev_type: str) -> dict
 def dryrun_multichip(n_devices: int, device=None) -> dict:
     """One train step, eval and epoch of every data-parallel path over a
     group of ``n_devices`` processes at small widths (__graft_entry__.py:
-    38-249 but its two 2-D mesh blocks, which wait for ROADMAP.md M11b): the
-    U-TAE step (finite loss, ``cm`` summing to B*H*W), TimeUNet's step on
-    the kernel pair, W-TAE's step, the eval loss of the pair's route against
+    38-249): the U-TAE step (finite loss, ``cm`` summing to B*H*W), and for
+    an even ``n_devices`` its step on the (n / 2, 2) data x space mesh
+    within 1e-3 of the 1-D mesh's loss, TimeUNet's step on the kernel pair,
+    and the same 2-D block for it, W-TAE's step, the eval loss of the pair's
+    route against
     the plain ops (1e-4), the patch-parallel tile against one device's
     (1e-4 / 1e-5, the stitched classes equal), ``run_epoch`` train and val,
     and a rank-0 checkpoint whose resumed continuation equals the direct one
-    (1e-6). On the card (``device`` None or "cuda") one process a card over
+    (1e-6). The 2-D blocks hold their loss with the dropout rates at 0 on
+    both meshes: a 2-D rank draws the masks of its own rows from its own
+    generator, so with dropout the two meshes drop other values (their step
+    with dropout must be finite); without, they differ by the order of fp32
+    sums. On the card (``device`` None or "cuda") one process a card over
     NCCL, and it raises when fewer than ``n_devices`` are visible; with
     ``device="cpu"`` gloo processes. Returns rank 0's numbers."""
     from crop2seg_tpu_torch.device import resolve_device

@@ -20,7 +20,10 @@ package's mesh step is the one-device step on the global arrays: the loss
 denominators are summed over the ranks, the gradients summed (not
 averaged), BatchNorm takes the global batch's statistics
 (``nn/layers.py::global_batch_stats``), and the loss and the confusion
-matrices in ``aux`` are the global ones, the same on every rank.
+matrices in ``aux`` are the global ones, the same on every rank. With
+``space_group`` as well (parallel/mesh.py's ``data_space_parallel_step``,
+a 2-D data x space mesh) the shard is also a slice of H, and the forward
+and backward run inside ``nn/layers.py::space_shards``.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from crop2seg_tpu_torch.device import resolve_device
 from crop2seg_tpu_torch.learning.losses import cross_entropy, focal_cross_entropy
 from crop2seg_tpu_torch.learning.metrics import (
     IoUMeter, confusion_matrix, top2_prediction)
-from crop2seg_tpu_torch.nn.layers import global_batch_stats
+from crop2seg_tpu_torch.nn.layers import global_batch_stats, space_shards
 from crop2seg_tpu_torch.ops.boundary import boundary_mask
 
 
@@ -201,7 +204,7 @@ def _autocast(dev: torch.device, dtype: torch.dtype | None):
 def make_train_step(model: torch.nn.Module, cfg: StepConfig,
                     optimizer: torch.optim.Optimizer | None = None,
                     device=None, dtype: torch.dtype | None = None,
-                    group=None) -> Callable:
+                    group=None, space_group=None) -> Callable:
     """Returns ``step(batch, generator) -> aux``: one training step of
     ``model`` (moved to ``device``, the CUDA card unless "cpu" is asked for,
     and set to training mode at each step). ``batch`` holds x (B, T, H, W, C), dates
@@ -215,7 +218,9 @@ def make_train_step(model: torch.nn.Module, cfg: StepConfig,
     ``cm`` and ``cm_top2`` of the step's forward, and with the boundary loss
     ``loss_b`` and the (2, 2) ``cm_b``, all on the device. ``group``: the
     step of a data-parallel group, ``batch`` this rank's shard of the global
-    batch (module docstring)."""
+    batch (module docstring). ``space_group``: the group of ranks among
+    which ``group``'s shard of the batch is cut along H (this rank's slice
+    of every frame and label map)."""
     dev = resolve_device(device)
     model.to(dev)
     if optimizer is None:
@@ -226,7 +231,7 @@ def make_train_step(model: torch.nn.Module, cfg: StepConfig,
         model.train()
         b = _to(batch, dev)
         model.zero_grad(set_to_none=True)
-        with global_batch_stats(group):
+        with global_batch_stats(group), space_shards(space_group):
             with _autocast(dev, dtype):
                 out = model(b["x"], b["dates"], b["pad_mask"], generator=generator)
             aux = _metrics(cfg, out, b["y"], weight, group=group)

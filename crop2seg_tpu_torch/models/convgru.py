@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import Conv2d
+from crop2seg_tpu_torch.nn.layers import Conv2d, refuse_space_shards
 
 
 class ConvGRUCell(nn.Module):
@@ -69,5 +69,6 @@ class ConvGRUSeg(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
+        refuse_space_shards("ConvGRUSeg")
         _, h_t = self.convgru_encoder(x, keep_outputs=False)
         return self.classification_layer(h_t)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import Conv2d
+from crop2seg_tpu_torch.nn.layers import Conv2d, refuse_space_shards
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input
 
 
@@ -101,6 +101,7 @@ class ConvLSTMSeg(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
+        refuse_space_shards("ConvLSTMSeg")
         _, (_, c_t) = self.convlstm_encoder(x, keep_outputs=False)
         return self.classification_layer(c_t)
 
@@ -117,6 +118,7 @@ class BConvLSTMSeg(BConvLSTM):
 
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
+        refuse_space_shards("BConvLSTMSeg")
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         return self.classification_layer(self.encode(x, pad_mask))

@@ -21,7 +21,8 @@ from torch import nn
 
 from crop2seg_tpu_torch.models.convlstm import BConvLSTM, ConvLSTM
 from crop2seg_tpu_torch.nn.aggregator import temporal_aggregate
-from crop2seg_tpu_torch.nn.layers import Conv2d, ConvBlock, DownConvBlock, UpConvBlock
+from crop2seg_tpu_torch.nn.layers import (
+    Conv2d, ConvBlock, DownConvBlock, UpConvBlock, refuse_space_shards)
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
 
 
@@ -64,6 +65,7 @@ class RecUNet(nn.Module):
                 generator=None):
         """x (B, T, H, W, C), pad_mask (B, T) bool -> logits (B, H, W, K);
         with ``encoder`` the decoder output and its maps instead."""
+        refuse_space_shards("RecUNet")
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         feature_maps = [temporally_shared(self.in_conv, x, pad_mask, self.pad_value)]

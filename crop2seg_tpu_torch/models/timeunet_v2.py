@@ -21,7 +21,8 @@ import torch
 from torch import nn
 
 from crop2seg_tpu_torch.nn.aggregator import temporal_aggregate
-from crop2seg_tpu_torch.nn.layers import ConvBlock, DownConvBlock, UpConvBlock
+from crop2seg_tpu_torch.nn.layers import (
+    ConvBlock, DownConvBlock, UpConvBlock, refuse_space_shards)
 from crop2seg_tpu_torch.nn.tae2d import TAE2d
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
 
@@ -70,6 +71,7 @@ class TimeUNetV2(nn.Module):
                 generator: torch.Generator | None = None):
         """x (B, T, H, W, C), batch_positions (B, T) or (B, T, 2), pad_mask
         (B, T) bool -> logits (B, H, W, K)."""
+        refuse_space_shards("TimeUNetV2")
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         out = temporally_shared(self.in_conv, x, pad_mask, self.pad_value)

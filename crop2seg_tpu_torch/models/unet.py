@@ -14,7 +14,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import ConvBlock, DownConvBlock, UpConvBlock
+from crop2seg_tpu_torch.nn.layers import (
+    ConvBlock, DownConvBlock, UpConvBlock, refuse_space_shards)
 
 
 class _UNetBody(nn.Module):
@@ -67,6 +68,7 @@ class Unet(_UNetBody):
 
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
+        refuse_space_shards("Unet")
         return self.body(x, self.encoder)
 
 
@@ -94,6 +96,7 @@ class UnetNaive(_UNetBody):
 
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
+        refuse_space_shards("UnetNaive")
         b, t, h, w, c = x.shape
         if t != self.temporal_length:
             raise ValueError(f"unet_naive needs batches padded to exactly "

@@ -19,6 +19,7 @@ from torch import nn
 
 from crop2seg_tpu_torch.nn.blocks3d import (
     BatchNorm3d, Conv3d, ConvTranspose3d, _ncdhw, _ndhwc)
+from crop2seg_tpu_torch.nn.layers import refuse_space_shards
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input
 
 
@@ -54,6 +55,7 @@ class UNet3D(nn.Module):
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
         """x (B, T, H, W, C), pad_mask (B, T) bool -> logits (B, H, W, K)."""
+        refuse_space_shards("UNet3D")
         if pad_mask is None and self.pad_value is not None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         en3 = self.en3(x)

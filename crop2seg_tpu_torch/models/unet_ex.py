@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import ConvTranspose2d, _nchw, _nhwc, make_norm
+from crop2seg_tpu_torch.nn.layers import (
+    ConvTranspose2d, _nchw, _nhwc, make_norm, refuse_space_shards)
 
 
 def _act(name: str) -> nn.Module:
@@ -178,6 +179,7 @@ class UNetEx(nn.Module):
                      if num_classes is not None else None)
 
     def forward(self, x: torch.Tensor):
+        refuse_space_shards("UNetEx")
         enc_outs = []
         for stage in self.encoder:
             x = stage(x)

@@ -12,23 +12,45 @@ As in the JAX package the attention is resampled in x's dtype (bf16 under
 autocast) and the weighted sum accumulates in fp32; the result has x's
 dtype. The upsampled masks are the largest tensor on this path: at U-TAE's
 128^2 skip and B=10, T=61 they take 10*16*128^2*61*4 B = 640 MB in fp32.
+
+Inside ``nn/layers.py::space_shards`` the maps hold this rank's rows of H,
+and the bilinear upsample takes one row of its neighbours' attention on each
+side (``space_halo``; at the global edges the edge row repeated, which is
+``F.interpolate``'s clamp), so each rank computes its rows of the whole
+map's resample.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from crop2seg_tpu_torch.nn.layers import space_group, space_halo
+
 
 def _resample_attn(a: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(N, K, h_a, w_a) -> (N, K, h, w): bilinear with half-pixel centres
     (align_corners=False) when upsampling, average pooling with kernel
-    w_a // w when downsampling."""
+    w_a // w when downsampling. Inside ``space_shards`` h_a and h are this
+    rank's rows: the upsample interpolates (h_a + 2) * f rows from the rows
+    with their halo and keeps the middle h, the pooling needs h_a = k * h."""
     ha, wa = a.shape[-2:]
     if (h, w) == (ha, wa):
         return a
+    group = space_group()
     if h > ha:
-        return F.interpolate(a, size=(h, w), mode="bilinear", align_corners=False)
+        if group is None:
+            return F.interpolate(a, size=(h, w), mode="bilinear", align_corners=False)
+        f = h // ha
+        if h != f * ha:
+            raise ValueError(f"space shards upsample by whole factors, not {ha} -> {h} rows")
+        a, top, bottom = space_halo(a, 1, group, dim=2)
+        a = F.pad(a, (0, 0, top, bottom), mode="replicate")
+        up = F.interpolate(a, size=((ha + 2) * f, w), mode="bilinear", align_corners=False)
+        return up[:, :, f:f + h]
     k = wa // w
+    if group is not None and ha != k * h:
+        raise ValueError(f"space shards of {ha} attention rows do not pool by {k} "
+                         f"into {h} rows")
     return F.avg_pool2d(a, kernel_size=k, stride=k)
 
 

@@ -15,11 +15,19 @@ data-parallel step) its batch statistics are the global batch's, summed over
 the ranks. GroupNorm is the same in both modes. Module and parameter
 names follow the reference's torch modules, so its state dicts load with
 ``load_state_dict``.
+
+Inside ``space_shards`` (the step of a 2-D data x space mesh) each rank
+holds a slice of H of every frame: a convolution, a transposed convolution
+or a resample that reads across H first takes its neighbours' edge rows
+(``space_halo``, differentiable), and GroupNorm, InstanceNorm and the
+squeeze-excitation gate's mean sum their statistics over the space shards,
+so every rank computes its rows of the one-device result.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Sequence
 
 import torch
@@ -51,28 +59,55 @@ class Conv2d(nn.Conv2d):
     """torch Conv2d(k, s, p, padding_mode) on NHWC: explicit reflect pad, then
     a VALID convolution (k3/s1, k4/s2 and the 1x1 skip conv). Where the
     padded frames exceed MAX_PAD_ELEMENTS (MBConv's 256-wide expansion over
-    610 frames of 128^2), the frames are padded and convolved in chunks."""
+    610 frames of 128^2), the frames are padded and convolved in chunks.
+    Inside ``space_shards`` H is padded with the neighbours' p rows
+    (``space_halo``, once for all chunks), and by reflection or zeros only
+    at the global top and bottom; the convolution must keep the grid
+    (k = 2p + s, the shard's height a multiple of s)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xc = _nchw(x)
         p = self.padding[0]
-        if not p or self.padding_mode == "zeros":
-            return _nhwc(F.conv2d(xc, self.weight, self.bias, self.stride, p,
+        group = _space_group if p else None
+        if group is None and (not p or self.padding_mode == "zeros"):
+            return _nhwc(F.conv2d(_nchw(x), self.weight, self.bias, self.stride, p,
                                   groups=self.groups))
+        top = bottom = p
+        if group is not None:
+            k, s = self.kernel_size[0], self.stride[0]
+            if k != 2 * p + s or x.shape[1] % s:
+                raise ValueError(f"a space-sharded conv needs k = 2p + s and shards of a "
+                                 f"multiple of s rows: k {k}, s {s}, p {p}, {x.shape[1]} rows")
+            x, top, bottom = space_halo(x, p, group)
+        xc = _nchw(x)
+        mode = "constant" if self.padding_mode == "zeros" else self.padding_mode
         n, c, h, w = xc.shape
-        per = max(1, MAX_PAD_ELEMENTS // (c * (h + 2 * p) * (w + 2 * p)))
-        out = [F.conv2d(F.pad(chunk, (p, p, p, p), mode=self.padding_mode),
+        per = max(1, MAX_PAD_ELEMENTS // (c * (h + top + bottom) * (w + 2 * p)))
+        out = [F.conv2d(F.pad(chunk, (p, p, top, bottom), mode=mode),
                         self.weight, self.bias, self.stride, groups=self.groups)
                for chunk in xc.split(per)]
         return _nhwc(out[0] if len(out) == 1 else torch.cat(out))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """torch-exact ConvTranspose2d on NHWC (the decoder's k4/s2/p1 up-conv)."""
+    """torch-exact ConvTranspose2d on NHWC (the decoder's k4/s2/p1 up-conv).
+    Inside ``space_shards`` the input takes m rows of halo on each side
+    (zeros at the global edges: no input there), and the output is cropped
+    back to the s * h rows this rank owns."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _nhwc(F.conv_transpose2d(_nchw(x), self.weight, self.bias,
-                                        self.stride, self.padding))
+        if _space_group is None:
+            return _nhwc(F.conv_transpose2d(_nchw(x), self.weight, self.bias,
+                                            self.stride, self.padding))
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        if k != 2 * p + s:
+            raise ValueError(f"a space-sharded transposed conv needs k = 2p + s: "
+                             f"k {k}, s {s}, p {p}")
+        h = x.shape[1]
+        m = max(-(-(k - 1 - p) // s), (s - 1 + p) // s)   # input rows that reach ours
+        x, top, bottom = space_halo(x, m, _space_group)
+        x = F.pad(x, (0, 0, 0, 0, top, bottom))
+        y = F.conv_transpose2d(_nchw(x), self.weight, self.bias, self.stride, self.padding)
+        return _nhwc(y[:, :, s * m:s * (m + h)])
 
 
 def _apply_affine(x: torch.Tensor, sc: torch.Tensor,
@@ -88,11 +123,12 @@ class GroupNorm(nn.GroupNorm):
 
     def frame_affine(self, x: torch.Tensor):
         """Per-frame affine ``(sc, sh)``, each (N, C) fp32, such that
-        ``x * sc + sh`` is the normalized frame."""
+        ``x * sc + sh`` is the normalized frame (the whole frame's moments
+        inside ``space_shards``)."""
         n, h, w, c = x.shape
         g = x.float().reshape(n, h * w, self.num_groups, c // self.num_groups)
-        mean = g.mean(dim=(1, 3), keepdim=True)
-        var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
+        mean = frame_mean(g, (1, 3))
+        var = frame_mean((g - mean).square(), (1, 3))
         inv = torch.rsqrt(var + self.eps)                   # (N, 1, G, 1)
         sc = (self.weight.float().reshape(1, self.num_groups, -1)
               * inv[:, 0]).reshape(n, c)
@@ -148,6 +184,132 @@ def global_batch_stats(group):
         yield
     finally:
         _stats_group = outer
+
+
+_space_group = None
+
+
+@contextlib.contextmanager
+def space_shards(group):
+    """The layers inside take frames cut along H over ``group``'s ranks (a
+    ``torch.distributed`` process group, rank s holding the s-th of equal
+    slices of H): convolutions exchange halo rows with the neighbours, and
+    the per-frame statistics are summed over the group (module docstring).
+    A group of one rank, or None, leaves the layers as they are. Every rank
+    runs the same layers in the same order; like ``global_batch_stats`` the
+    context must also cover the backward pass, whose halo exchanges and
+    activation-checkpointed recompute talk to the neighbours too."""
+    import torch.distributed as dist
+
+    global _space_group
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    outer, _space_group = _space_group, group
+    try:
+        yield
+    finally:
+        _space_group = outer
+
+
+def space_group():
+    """The group of the ``space_shards`` context around the call, or None."""
+    return _space_group
+
+
+def refuse_space_shards(model: str) -> None:
+    """Raise inside ``space_shards``: ``model`` has no space-sharded step."""
+    if _space_group is not None:
+        raise NotImplementedError(
+            f"{model} does not run on the space axis of a 2-D mesh: TimeUNet, U-TAE "
+            "and W-TAE do (ROADMAP.md M11c queues the others)")
+
+
+def _exchange(buf: torch.Tensor, group) -> None:
+    """Each rank's rows of ``buf`` (zeros elsewhere) to every rank of
+    ``group``: an all-reduce of the raw bytes, exact for any dtype since
+    each byte has one writer (gloo's CUDA tensors take all-reduce and no
+    point-to-point op)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(buf.view(-1).view(torch.uint8), group=group)
+
+
+def _boundaries(x: torch.Tensor, k: int, dim: int, n: int) -> torch.Tensor:
+    """Zeros of shape (n - 1, 2, ...x with k rows along ``dim``): a slot
+    for each way across each of the n - 1 shard boundaries. Boundary b lies
+    between ranks b and b + 1; [b, 0] carries rows down from rank b to
+    b + 1, [b, 1] rows up from b + 1 to b."""
+    shape = list(x.shape)
+    shape[dim] = k
+    return x.new_zeros([n - 1, 2] + shape)
+
+
+class _Halo(torch.autograd.Function):
+    """x extended along ``dim`` by the k rows before it (from rank s - 1 of
+    the group) and after it (from rank s + 1); the global edges get none.
+    The backward pass returns each halo row's gradient to the rank that
+    owns the row, which adds it to its edge rows."""
+
+    @staticmethod
+    def forward(ctx, x, k, dim, group):
+        import torch.distributed as dist
+
+        s, n = dist.get_rank(group), dist.get_world_size(group)
+        ctx.k, ctx.dim, ctx.group, ctx.s, ctx.n = k, dim, group, s, n
+        buf = _boundaries(x, k, dim, n)
+        if s > 0:
+            buf[s - 1, 1] = x.narrow(dim, 0, k)
+        if s < n - 1:
+            buf[s, 0] = x.narrow(dim, x.shape[dim] - k, k)
+        _exchange(buf, group)
+        parts = (([buf[s - 1, 0]] if s > 0 else []) + [x]
+                 + ([buf[s, 1]] if s < n - 1 else []))
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        k, dim, s, n = ctx.k, ctx.dim, ctx.s, ctx.n
+        top = k if s > 0 else 0
+        h = grad.shape[dim] - top - (k if s < n - 1 else 0)
+        gx = grad.narrow(dim, top, h).clone(memory_format=torch.contiguous_format)
+        # the halo's gradients go back the way its rows came
+        buf = _boundaries(gx, k, dim, n)
+        if s > 0:
+            buf[s - 1, 0] = grad.narrow(dim, 0, k)
+        if s < n - 1:
+            buf[s, 1] = grad.narrow(dim, top + h, k)
+        _exchange(buf, ctx.group)
+        if s > 0:
+            gx.narrow(dim, 0, k).add_(buf[s - 1, 1])
+        if s < n - 1:
+            gx.narrow(dim, h - k, k).add_(buf[s, 0])
+        return gx, None, None, None
+
+
+def space_halo(x: torch.Tensor, k: int, group, dim: int = 1):
+    """``x`` (this rank's slice of H along ``dim``: 1 for NHWC) with the k
+    rows of its space neighbours on each side (differentiable). Returns the
+    extended tensor and the rows still missing at the global top and bottom
+    (k on the first and last shard, else 0), which the caller pads."""
+    import torch.distributed as dist
+
+    if x.shape[dim] < k:
+        raise ValueError(f"a halo of {k} rows needs shards of as many rows, not "
+                         f"{x.shape[dim]}")
+    s, n = dist.get_rank(group), dist.get_world_size(group)
+    return _Halo.apply(x, k, dim, group), (k if s == 0 else 0), (k if s == n - 1 else 0)
+
+
+def frame_mean(t: torch.Tensor, dims: tuple) -> torch.Tensor:
+    """``t.mean(dims, keepdim=True)``, the frame's mean: inside
+    ``space_shards`` the dims hold this rank's rows and the sum is taken over
+    the group (differentiable), divided by the whole frame's count."""
+    if _space_group is None:
+        return t.mean(dim=dims, keepdim=True)
+    import torch.distributed as dist
+
+    count = math.prod(t.shape[d] for d in dims) * dist.get_world_size(_space_group)
+    return _GroupSum.apply(t.sum(dim=dims, keepdim=True), _space_group) / count
 
 
 class _GroupSum(torch.autograd.Function):
@@ -251,8 +413,8 @@ class InstanceNorm2d(nn.InstanceNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(1, 2), keepdim=True)
-        var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
+        mean = frame_mean(xf, (1, 2))
+        var = frame_mean((xf - mean).square(), (1, 2))
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
@@ -283,10 +445,10 @@ class DepthwiseSeparableConv2d(nn.Module):
 
 
 class _SpatialMean(nn.Module):
-    """(N, H, W, C) -> (N, C) fp32 mean over the frame."""
+    """(N, H, W, C) -> (N, C) fp32 mean over the frame (``frame_mean``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.float().mean(dim=(1, 2))
+        return frame_mean(x.float(), (1, 2))[:, 0, 0]
 
 
 class SqueezeAndExcitation(nn.Module):

@@ -9,9 +9,16 @@ from __future__ import annotations
 
 import torch
 
+from crop2seg_tpu_torch.nn.layers import space_group
+
 
 def pad_mask_from_input(x: torch.Tensor, pad_value: float = 0.0) -> torch.Tensor:
-    """(B, T, H, W, C) -> bool (B, T), True where the frame is all pad."""
+    """(B, T, H, W, C) -> bool (B, T), True where the frame is all pad.
+    Inside ``nn/layers.py::space_shards`` x is a slice of each frame, which
+    cannot decide for the frame: ValueError (pass the batch's pad mask)."""
+    if space_group() is not None:
+        raise ValueError("a space shard cannot tell a pad frame from its rows alone: "
+                         "pass the batch's pad_mask")
     return (x == pad_value).flatten(2).all(dim=-1)
 
 

@@ -1,8 +1,11 @@
-"""Data-parallel training and patch-parallel serving (``mesh.py``)."""
+"""Data-parallel and data x space training, patch-parallel serving
+(``mesh.py``)."""
 from crop2seg_tpu_torch.parallel.mesh import (
-    barrier, data_parallel_eval, data_parallel_step, init_group, make_mesh,
-    patch_parallel_infer, rank_seed, replicate, run_workers, shard_batch)
+    Mesh2D, barrier, data_parallel_eval, data_parallel_step, data_space_parallel_step,
+    init_group, make_mesh, make_mesh_2d, patch_parallel_infer, rank_seed, replicate,
+    run_workers, shard_batch, shard_batch_2d)
 
-__all__ = ["barrier", "data_parallel_eval", "data_parallel_step", "init_group", "make_mesh",
-           "patch_parallel_infer", "rank_seed", "replicate", "run_workers",
-           "shard_batch"]
+__all__ = ["Mesh2D", "barrier", "data_parallel_eval", "data_parallel_step",
+           "data_space_parallel_step", "init_group", "make_mesh", "make_mesh_2d",
+           "patch_parallel_infer", "rank_seed", "replicate", "run_workers", "shard_batch",
+           "shard_batch_2d"]

@@ -24,9 +24,15 @@ every global batch.
 - ``make_mesh`` / ``patch_parallel_infer``: one process, a list of devices
   (duplicates allowed: two replicas on one card run the same split); the
   patch axis of a tile's batch splits evenly over them.
-
-The 2-D (data, space) mesh of the JAX module (``shard_batch_2d``,
-``data_space_parallel_step``) is not here (ROADMAP.md M11b).
+- ``make_mesh_2d`` / ``shard_batch_2d`` / ``data_space_parallel_step``: the
+  2-D (data, space) training mesh. Rank (d, s) holds the d-th slice of the
+  global batch and the s-th slice of H of its frames and labels. GSPMD
+  inserts the halo exchanges of the JAX step; here the layers exchange
+  their neighbours' rows themselves inside ``nn/layers.py::space_shards``
+  and sum GroupNorm's statistics over the space shards, and the loss, the
+  gradients, BatchNorm and the confusion matrices are summed over every
+  rank. The step gives what the 1-D step gives on the global batch, for
+  TimeUNet, U-TAE and W-TAE; other models raise (ROADMAP.md M11c).
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ import copy
 import os
 import shutil
 import tempfile
-from typing import Callable, Dict, List, Mapping, Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -149,6 +156,78 @@ def data_parallel_eval(model: torch.nn.Module, cfg, group=None, **kw) -> Callabl
     """``make_eval_step(model, cfg, **kw)`` over ``group``: the global
     batch's loss and confusion matrices from each rank's shard."""
     return make_eval_step(model, cfg, group=group or dist.group.WORLD, **kw)
+
+
+@dataclass(frozen=True)
+class Mesh2D:
+    """A (data, space) mesh over a group: ``group`` (every rank: the loss,
+    the gradients, BatchNorm and the confusion matrices), ``space_group``
+    (this rank's row of the mesh, which splits H), the mesh's shape
+    ``data`` x ``space`` and this rank's place ``(d, s)``."""
+    group: Any
+    space_group: Any
+    data: int
+    space: int
+    d: int
+    s: int
+
+
+def make_mesh_2d(data: int, space: int, group=None) -> Mesh2D:
+    """The ``data`` x ``space`` mesh over ``group`` (default: the whole
+    group), its ranks in row-major order: rank r is (r // space, r % space),
+    as the JAX mesh reshapes its devices. Every rank of the default group
+    must call it, since every rank makes every row's group, in order.
+    ValueError unless data * space is the group's size."""
+    group = group or dist.group.WORLD
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if data < 1 or space < 1 or data * space != world:
+        raise ValueError(f"a {data} x {space} mesh needs {data * space} ranks, not {world}")
+    ranks = dist.get_process_group_ranks(group)
+    rows = [dist.new_group([ranks[d * space + s] for s in range(space)]) for d in range(data)]
+    return Mesh2D(group, rows[rank // space], data, space, rank // space, rank % space)
+
+
+def shard_batch_2d(batch: Mapping, mesh: Mesh2D, levels: int) -> Dict:
+    """This rank's part of a global ``batch`` on ``mesh`` (the JAX
+    ``shard_batch_2d``): every array's rows of the data axis, and of x (B,
+    T, H, W, C) and y (B, H, W) also the rows of H of the space axis.
+    ``levels``: the model's resolutions (len(encoder_widths)). ValueError
+    unless the data ranks divide B and the space ranks H, each shard's
+    height is a multiple of 2 ** (levels - 1) (every strided conv keeps its
+    grid) and the bottleneck's shard has 2 rows or more (reflect padding
+    has a row to mirror)."""
+    n, h = len(batch["x"]), batch["x"].shape[2]
+    if n % mesh.data or h % mesh.space:
+        raise ValueError(f"batch {n} x H {h} must divide over the {mesh.data} x "
+                         f"{mesh.space} mesh")
+    rows, align = h // mesh.space, 2 ** (levels - 1)
+    if rows % align or rows // align < 2:
+        raise ValueError(f"space shards of {rows} rows: {levels} levels need a multiple "
+                         f"of {align} rows and {2 * align} at least")
+    per = n // mesh.data
+    batch_rows = slice(mesh.d * per, (mesh.d + 1) * per)
+    space_rows = slice(mesh.s * rows, (mesh.s + 1) * rows)
+    out = {k: v[batch_rows] for k, v in batch.items()}
+    out["x"] = out["x"][:, :, space_rows]
+    out["y"] = out["y"][:, space_rows]
+    return out
+
+
+def data_space_parallel_step(model: torch.nn.Module, cfg, mesh: Mesh2D, **kw) -> Callable:
+    """``make_train_step(model, cfg, **kw)`` over ``mesh``: ``step(shard,
+    generator)`` takes this rank's ``shard_batch_2d`` of the global batch
+    and returns the global loss and confusion matrices. The loss
+    denominators, the gradients, BatchNorm and the matrices are summed over
+    the whole group, and the forward and backward run inside
+    ``space_shards(mesh.space_group)``. Call ``replicate`` first. Each rank
+    draws its dropout masks from its own generator (``rank_seed``), so only
+    dropout 0 compares with one process. The boundary loss and
+    ``test_region`` (label boundaries across the shards) are not here:
+    NotImplementedError (ROADMAP.md M11c)."""
+    if cfg.add_boundary_loss or cfg.test_region != "all":
+        raise NotImplementedError("the boundary loss and test_region do not run on the "
+                                  "space axis of a 2-D mesh (ROADMAP.md M11c)")
+    return make_train_step(model, cfg, group=mesh.group, space_group=mesh.space_group, **kw)
 
 
 def make_mesh(devices: Optional[Sequence] = None) -> List[torch.device]:
