@@ -241,6 +241,21 @@
    its two 2-D blocks, on two cards or, where one is visible, over gloo
    processes on the CPU. A ``space_parallel`` JSON line; the kernels line
    gains ``launches_space_parallel``.
+19. The rest of the zoo on the 2-D mesh (phase_space_zoo): on the (2, 2)
+   mesh, (a) NCCL a card a rank where four cards are visible (else it
+   prints that this path was not run), (b) four gloo ranks on cuda:0:
+   TimeUNet_v2, UNet3D, ConvLSTM, BConvLSTM, ConvGRU, uconvlstm and U-Net
+   naive at the factory's widths (T = 61), U-TAE with its boundary head and
+   the boundary loss, TimeUNet on the tail pair with test_region
+   "boundary", fp32 and dropout 0, each held against one process's step on
+   phase 17's global batch as phase 17 holds its group (the boundary
+   head's loss and matrix too; the gradients within GRAD_FACTOR times the
+   spread that perturbing the case's named module causes), one step a
+   case (TimeUNet two, launching its pair once a step in each rank); the
+   one-process steps run first and are freed before the ranks start; a
+   rank's step ms beside one process's and the median ms of a halo
+   exchange at each model's widest conv. A ``space_zoo`` JSON line; the
+   kernels line gains ``launches_space_zoo``.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -251,6 +266,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import copy
+import dataclasses
 import importlib.util
 import json
 import os
@@ -2997,8 +3013,9 @@ def dp_model(cfg: dict, dev):
 def dp_step_record(model, step, batch, gen, steps: int) -> dict:
     """``steps`` steps of ``step`` on ``batch``: the first step's loss,
     confusion matrices, logits, gradients (before Adam) and running
-    statistics on the host, every step's loss, the last step's ms (CUDA
-    events) and the pair's launches a step."""
+    statistics on the host (with a boundary head also its logits, loss_b
+    and cm_b), every step's loss, the last step's ms (CUDA events) and the
+    pair's launches a step."""
     logits = {}
     hook = model.register_forward_hook(lambda m, a, out: logits.__setitem__("v", out))
     rec = {"losses": [], "launches": []}
@@ -3012,9 +3029,13 @@ def dp_step_record(model, step, batch, gen, steps: int) -> dict:
         rec["losses"].append(float(aux["loss"]))
         rec["launches"].append(dict(lp.ltae_pool.launches))
         if i == 0:
+            out = logits["v"] if isinstance(logits["v"], tuple) else (logits["v"],)
+            if len(out) > 1:
+                rec.update(logits_b=out[1].detach().float().cpu(), cm_b=aux["cm_b"].cpu(),
+                           loss_b=float(aux["loss_b"]))
             rec.update(
                 cm=aux["cm"].cpu(), cm_top2=aux["cm_top2"].cpu(),
-                logits=logits["v"].detach().float().cpu(),
+                logits=out[0].detach().float().cpu(),
                 grads={k: p.grad.detach().cpu() for k, p in model.named_parameters()},
                 stats={k: v.detach().cpu() for k, v in model.state_dict().items()
                        if "running_" in k})
@@ -3072,16 +3093,17 @@ def dp_predictions_beyond_tie(got: torch.Tensor, ref: torch.Tensor, y, tie: floa
 
 
 def dp_check(label: str, ranks: list, ref: dict, perturbed: dict, y, want_launches,
-             dtype=None, logits=None) -> dict:
+             dtype=None, logits=None, what: str = "the L-TAE output") -> dict:
     """(b)/(c)/(a): every rank's loss, confusion matrices and running
     statistics against the one-process step ``ref`` (the matrices exact
     unless a pixel is within a tie, ``dp_predictions_beyond_tie``), the
     ranks' gradients equal and within the perturbation spread of ``ref``'s
     (``perturbed``: one process with the L-TAE output scaled by 1 + GRAD_EPS
-    * noise), and each rank's pair launches a step; DP_TOL of ``dtype``
-    (bf16: the loss and statistics only). ``logits``: the group's logits of
-    the global batch (default: the ranks' concatenated along B). Every
-    number is printed before any check."""
+    * noise; ``what`` names the perturbed output), and each rank's pair
+    launches a step; DP_TOL of ``dtype`` (bf16: the loss and statistics
+    only). ``logits``: the group's logits of the global batch (default: the
+    ranks' concatenated along B). Every number is printed before any
+    check."""
     from crop2seg_tpu_torch.learning.metrics import confusion_matrix
 
     tol = DP_TOL[dtype or torch.float32]
@@ -3108,7 +3130,7 @@ def dp_check(label: str, ranks: list, ref: dict, perturbed: dict, y, want_launch
     worst = None
     if held:
         worst = check_grads_within_spread(f"dp {label}", ranks[0]["grads"], ref["grads"],
-                                          perturbed, batch=DP_B)
+                                          perturbed, batch=DP_B, what=what)
     else:
         print(f"data parallel {label}: predictions and gradients not held in bf16 (each "
               "card's convs round at its own batch size; the fp32 case holds them)", flush=True)
@@ -3346,7 +3368,6 @@ def phase_data_parallel(dev, data: str, tmp: str) -> dict:
 # phase 18: the 2-D data x space training mesh (parallel/mesh.py) on phase
 # 17's global batch, each case against phase 17's one-process step
 SP_MESH = (2, 2)           # (data, space): 2 samples and 64 of the 128 rows a rank
-SP_LEVELS = 4              # the factory's TimeUNet and U-TAE: 128^2 down to 16^2
 SP_CASES = {
     # name: (model config, autocast dtype, steps, launches by variant a rank a
     # step, the name of phase 17's reference)
@@ -3383,7 +3404,7 @@ def sp_rank(rank: int, world: int, store_dir: str, backend: str, cases: list) ->
         batch = train_batch(DP_B, torch.Generator(device=dev).manual_seed(DP_SEED), dev)
         step = data_space_parallel_step(model, cfg, mesh, device=dev, dtype=dtype)
         gen = torch.Generator(device=dev).manual_seed(rank_seed(DP_SEED, rank))
-        out[name] = dp_step_record(model, step, shard_batch_2d(batch, mesh, SP_LEVELS), gen,
+        out[name] = dp_step_record(model, step, shard_batch_2d(batch, mesh, model), gen,
                                    steps)
         del model, step, batch
         torch.cuda.empty_cache()
@@ -3461,6 +3482,212 @@ def phase_space_parallel(dev) -> dict:
     seconds["e"] = time.perf_counter() - start
     out["seconds"] = seconds
     print(f"phase 18: seconds {json.dumps(seconds)}", flush=True)
+    return out
+
+
+# phase 19: the rest of the zoo on the 2-D data x space mesh (parallel/mesh.py),
+# the boundary loss and test_region, on phase 17's global batch, each case
+# against one process's step on the global batch, run first and freed before
+# the ranks start
+SZ_CFG = StepConfig(num_classes=N_CLASSES, class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
+SZ_CASES = {
+    # name: (model config, steps, launches by variant a rank a step, StepConfig,
+    # T, the modules whose outputs the gradient yardstick perturbs (every
+    # recurrent conv, at each cell step: one stream's alone leaves the other's
+    # gradients unmoved), the widest conv's input on a rank (its halo timed:
+    # shape, H axis))
+    "timeunet_v2": ({"model": "timeunet_v2"}, 1, {}, SZ_CFG, T,
+                    ("temporal_encoder_full_resolution",), ((2 * T, 64, 128, 64), 1)),
+    "unet3d": ({"model": "unet3d"}, 1, {}, SZ_CFG, T, ("en3",), ((2, T, 64, 128, 32), 2)),
+    "convlstm": ({"model": "convlstm"}, 1, {}, SZ_CFG, T,
+                 ("convlstm_encoder.cell_list.0.conv",), ((2, 64, 128, 170), 1)),
+    "bconvlstm": ({"model": "bconvlstm"}, 1, {}, SZ_CFG, T,
+                  ("convlstm_forward.cell_list.0.conv", "convlstm_backward.cell_list.0.conv"),
+                  ((2, 64, 128, 170), 1)),
+    "convgru": ({"model": "convgru"}, 1, {}, SZ_CFG, T,
+                ("convgru_encoder.cell_list.0.in_conv", "convgru_encoder.cell_list.0.out_conv"),
+                ((2, 64, 128, 190), 1)),
+    "uconvlstm": ({"model": "uconvlstm"}, 1, {}, SZ_CFG, T,
+                  ("temporal_encoder.cell_list.0.conv",), ((2 * T, 64, 128, 64), 1)),
+    "unet_naive": ({"model": "unet_naive", "max_temp": T}, 1, {}, SZ_CFG, T, ("in_conv",),
+                   ((2, 64, 128, 10 * T), 1)),
+    "utae boundary loss": ({"model": "utae", "add_boundary_loss": True}, 1, {},
+                           dataclasses.replace(SZ_CFG, add_boundary_loss=True), T,
+                           ("temporal_encoder",), ((2 * T, 64, 128, 64), 1)),
+    "timeunet test_region boundary": (
+        {"model": "timeunet"}, 2, {lp.variant(True, torch.float32, d): 1 for d in ("fwd", "bwd")},
+        dataclasses.replace(SZ_CFG, test_region="boundary"), T, ("temporal_encoder",),
+        ((2 * T, 64, 128, 64), 1)),
+}
+
+
+def sz_model(model_cfg: dict, dev):
+    """A phase 19 model: the factory's defaults (BConvLSTMSeg, which no
+    factory name builds, at ConvLSTM's widths), weights drawn from DP_SEED,
+    every dropout rate at 0 (the ranks draw their own masks)."""
+    from crop2seg_tpu_torch.models import BConvLSTMSeg
+    from crop2seg_tpu_torch.nn.tae2d import TAE2d
+
+    gen = torch.Generator().manual_seed(DP_SEED)
+    if model_cfg["model"] == "bconvlstm":
+        model = init_weights(BConvLSTMSeg(N_CLASSES, 10, 160), gen).to(dev)
+    else:
+        model = get_model(model_cfg, device=dev, generator=gen)
+    for m in model.modules():
+        if isinstance(m, LTAE):
+            m.attn_dropout = 0.0
+            m.mlp[1].p = 0.0
+        elif isinstance(m, TAE2d):
+            m.dropout = m.attn_dropout = 0.0
+            for stage in m.attention_heads:
+                if hasattr(stage, "dropout"):
+                    stage.dropout = 0.0
+    return model
+
+
+def sz_reference(case: tuple, dev) -> tuple:
+    """One process's first step on the global batch, the same step with the
+    case's modules' outputs perturbed by GRAD_EPS (the yardstick), and the
+    global labels as the step scores them (``test_region``'s relabelling)."""
+    from crop2seg_tpu_torch.learning.trainer import region_target
+
+    model_cfg, steps, _, cfg, t, hooked, _ = case
+    out = []
+    for eps in (0.0, GRAD_EPS):
+        model = sz_model(model_cfg, dev)
+        for name in hooked if eps else ():
+            model.get_submodule(name).register_forward_hook(perturb_hook(eps, dev))
+        batch = train_batch(DP_B, torch.Generator(device=dev).manual_seed(DP_SEED), dev, t)
+        step = make_train_step(model, cfg)
+        out.append(dp_step_record(model, step, batch, torch.Generator(device=dev).manual_seed(
+            DP_SEED), steps if not eps else 1))
+        del model, step
+        torch.cuda.empty_cache()
+    y = batch["y"]
+    return out[0], out[1]["grads"], region_target(cfg, y).cpu(), y.cpu()
+
+
+def sz_rank(rank: int, world: int, store_dir: str, backend: str, cases: list) -> dict:
+    """One rank of phase 19: ``cases`` (name, model config, steps,
+    StepConfig, T) on the SP_MESH mesh, each rank its shard_batch_2d of
+    phase 17's global batch (T steps) on cuda:rank (NCCL) or, with gloo, on
+    cuda:0 (``dp_step_record``); and per case the ms of a halo exchange (one
+    row each way) of its widest conv's input."""
+    from crop2seg_tpu_torch.nn.layers import space_halo
+    from crop2seg_tpu_torch.parallel import (
+        data_space_parallel_step, init_group, make_mesh_2d, rank_seed, replicate,
+        shard_batch_2d)
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    group = init_group(rank, world, store_dir, dev, backend=backend)
+    mesh = make_mesh_2d(*SP_MESH, group)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, model_cfg, steps, cfg, t, (shape, axis) in cases:
+        model = replicate(sz_model(model_cfg, dev), group)
+        batch = train_batch(DP_B, torch.Generator(device=dev).manual_seed(DP_SEED), dev, t)
+        step = data_space_parallel_step(model, cfg, mesh, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(rank_seed(DP_SEED, rank))
+        out[name] = dp_step_record(model, step, shard_batch_2d(batch, mesh, model), gen, steps)
+        del model, step, batch
+        torch.cuda.empty_cache()
+        x = torch.randn(shape, device=dev)
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            space_halo(x, 1, mesh.space_group, axis)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name]["halo"] = {"shape": list(shape), "ms_median": float(np.median(times[1:]))}
+        del x
+    return out
+
+
+def sz_boundary_check(label: str, ranks: list, ref: dict, logits_b, y) -> dict:
+    """The boundary head's loss and matrix: every rank's loss_b within the
+    fp32 tolerance of one process's, cm_b its logits' and equal to one
+    process's but where the one-process boundary logits' top two are within
+    the tie (fp32 sums in another order)."""
+    from crop2seg_tpu_torch.learning.metrics import confusion_matrix
+    from crop2seg_tpu_torch.ops.boundary import boundary_mask
+
+    tol = DP_TOL[torch.float32]
+    y_b = boundary_mask(y, N_CLASSES)
+    loss_rel = max(abs(r["loss_b"] - ref["loss_b"]) / abs(ref["loss_b"]) for r in ranks)
+    top = ref["logits_b"].topk(2, dim=-1).values
+    tie = (top[..., 0] - top[..., 1]) <= tol["tie"]
+    bad = int(((logits_b.argmax(-1) != ref["logits_b"].argmax(-1)) & ~tie).sum())
+    equal = all(torch.equal(r["cm_b"], ref["cm_b"]) for r in ranks)
+    print(f"data x space (19) {label}: loss_b {ranks[0]['loss_b']!r} vs one process "
+          f"{ref['loss_b']!r} (relative {loss_rel:.3e}); cm_b {'equal' if equal else 'differs'}, "
+          f"{bad} boundary argmax pixels differ beyond a tie of {tol['tie']} "
+          f"({int(tie.sum())} within it)", flush=True)
+    check(torch.equal(ranks[0]["cm_b"], confusion_matrix(logits_b.argmax(-1), y_b, 2)),
+          f"{label}: the group's cm_b is not its ranks' boundary predictions'")
+    check(bad == 0, f"{label}: {bad} boundary predictions differ beyond a tie")
+    check(loss_rel <= tol["loss"], f"{label}: loss_b relative {loss_rel:.3e}")
+    return {"loss_b": ranks[0]["loss_b"], "loss_b_rel": loss_rel, "cm_b_equal": equal}
+
+
+def sz_cases(dev, backend: str, label: str) -> tuple:
+    """SZ_CASES over four ranks (gloo on cuda:0, or NCCL a card), each
+    against one process's step on the global batch (``dp_check``, and
+    ``sz_boundary_check`` for the boundary head); the one-process steps run
+    first, and are freed before the ranks start. The checks and each case's
+    halo exchange ms per rank."""
+    from crop2seg_tpu_torch.parallel import run_workers
+
+    refs = {name: sz_reference(case, dev) for name, case in SZ_CASES.items()}
+    torch.cuda.empty_cache()
+    world = SP_MESH[0] * SP_MESH[1]
+    ranks = run_workers(sz_rank, world, backend,
+                        [(n, c[0], c[1], c[3], c[4], c[6]) for n, c in SZ_CASES.items()])
+    checks, halos = {}, {}
+    for name, (model_cfg, steps, want, cfg, t, hooked, _) in SZ_CASES.items():
+        ref, perturbed, y_m, y = refs[name]
+        got = [r[name] for r in ranks]
+        res = dp_check(f"(19{label}) {backend} {SP_MESH} {name}", got, ref, perturbed, y_m,
+                       want, logits=sp_logits(got), what=" and ".join(hooked) + "'s outputs")
+        if "logits_b" in ref:
+            res.update(sz_boundary_check(name, got, ref, sp_logits(
+                [{"logits": r["logits_b"]} for r in got]), y))
+        res.update(t=t, perturbed=list(hooked))
+        checks[name] = res
+        halos[name] = {"shape": got[0]["halo"]["shape"],
+                       "ms_median_per_rank": [r["halo"]["ms_median"] for r in got]}
+        print(f"data x space (19{label}) {name}: halo exchange of {halos[name]['shape']} fp32 "
+              f"(one row each way), median ms per rank "
+              f"{[round(h, 3) for h in halos[name]['ms_median_per_rank']]}", flush=True)
+    return checks, halos
+
+
+def phase_space_zoo(dev) -> dict:
+    """Phase 19: the rest of the zoo on the 2-D data x space mesh, the
+    boundary loss and test_region. (a) NCCL, a card a rank, where four cards
+    are visible; (b) over four gloo ranks on cuda:0: TimeUNet_v2, UNet3D,
+    ConvLSTM, BConvLSTM, ConvGRU, uconvlstm and U-Net naive at the factory's
+    widths, U-TAE with its boundary head and the boundary loss, and
+    TimeUNet on the tail pair with test_region "boundary" (each rank
+    launching the pair once a step), fp32, dropout 0, each against one
+    process's step on phase 17's global batch (``sz_cases``). Each part's
+    seconds."""
+    out, seconds = {"checks": {}}, {}
+    start = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        checks, out["nccl_halo"] = sz_cases(dev, "nccl", "a")
+        out["checks"].update({"nccl " + k: v for k, v in checks.items()})
+    else:
+        print(f"data x space (19a): the NCCL mesh across cards was not run: {cards} card "
+              "is visible, and NCCL refuses two ranks on one device", flush=True)
+    seconds["a"] = time.perf_counter() - start
+    start = time.perf_counter()
+    checks, out["gloo_halo"] = sz_cases(dev, "gloo", "b")
+    out["checks"].update(checks)
+    seconds["b"] = time.perf_counter() - start
+    out["seconds"] = seconds
+    print(f"phase 19: seconds {json.dumps(seconds)}", flush=True)
     return out
 
 
@@ -3568,6 +3795,8 @@ def main() -> int:
         dp = phase_data_parallel(dev, cli_data, cli_tmp)
         torch.cuda.empty_cache()
         sp = phase_space_parallel(dev)
+        torch.cuda.empty_cache()
+        sz = phase_space_zoo(dev)
 
     ms, plain_ms, b_ms, b_by = timings[torch.bfloat16]
     ms32, plain32, b32, b_by32 = timings[torch.float32]
@@ -3784,6 +4013,16 @@ def main() -> int:
     for entry in [kernel, kernel_utae, kernel_stages, kernel_q] + general:
         entry["launches_space_parallel"] = 0
     print("space_parallel " + json.dumps(sp), flush=True)
+    # phase 19: the ranks' pair launches on the zoo's 2-D mesh (their counts
+    # sent back; only TimeUNet's test_region case reaches the pair)
+    by_variant = collections.Counter()
+    for c in sz["checks"].values():
+        by_variant.update(c["launches_by_variant"])
+    for entry in pool:
+        entry["launches_space_zoo"] = by_variant.get(entry["name"], 0)
+    for entry in [kernel, kernel_utae, kernel_stages, kernel_q] + general:
+        entry["launches_space_zoo"] = 0
+    print("space_zoo " + json.dumps(sz), flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]

@@ -136,7 +136,7 @@ def _dryrun_worker(rank: int, world: int, store_dir: str, dev_type: str) -> dict
             replicate(m, group)
             if on_2d:
                 st = data_space_parallel_step(m, cfg, mesh2, device=dev)
-                part = shard_batch_2d(batch, mesh2, len(SMALL["encoder_widths"]))
+                part = shard_batch_2d(batch, mesh2, m)
             else:
                 st, part = data_parallel_step(m, cfg, device=dev), shard
             losses.append(float(st(part, gen(seed))["loss"]))

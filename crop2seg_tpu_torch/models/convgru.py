@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import Conv2d, refuse_space_shards
+from crop2seg_tpu_torch.models.convlstm import SPACE_ROWS
+from crop2seg_tpu_torch.nn.layers import Conv2d
 
 
 class ConvGRUCell(nn.Module):
@@ -66,9 +67,9 @@ class ConvGRUSeg(nn.Module):
         super().__init__()
         self.convgru_encoder = ConvGRU(input_dim, hidden_dim, kernel_size)
         self.classification_layer = Conv2d(hidden_dim, num_classes, kernel_size, padding=1)
+        self.space_rows = SPACE_ROWS
 
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
-        refuse_space_shards("ConvGRUSeg")
         _, h_t = self.convgru_encoder(x, keep_outputs=False)
         return self.classification_layer(h_t)

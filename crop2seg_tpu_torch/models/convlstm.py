@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import Conv2d, refuse_space_shards
+from crop2seg_tpu_torch.nn.layers import Conv2d
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input
 
 
@@ -85,6 +85,11 @@ class BConvLSTM(nn.Module):
         return self.encode(x, pad_mask)
 
 
+# space shards (parallel/mesh.py::shard_batch_2d) of any height: every conv
+# is a zero-padded k x k at full resolution, with a row to send
+SPACE_ROWS = (1, 1)
+
+
 def _classifier(d_in: int, num_classes: int, kernel_size: int) -> Conv2d:
     return Conv2d(d_in, num_classes, kernel_size, padding=1)
 
@@ -98,10 +103,10 @@ class ConvLSTMSeg(nn.Module):
         super().__init__()
         self.convlstm_encoder = ConvLSTM(input_dim, hidden_dim, kernel_size)
         self.classification_layer = _classifier(hidden_dim, num_classes, kernel_size)
+        self.space_rows = SPACE_ROWS
 
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
-        refuse_space_shards("ConvLSTMSeg")
         _, (_, c_t) = self.convlstm_encoder(x, keep_outputs=False)
         return self.classification_layer(c_t)
 
@@ -115,10 +120,10 @@ class BConvLSTMSeg(BConvLSTM):
         super().__init__(input_dim, hidden_dim, kernel_size)
         self.pad_value = pad_value
         self.classification_layer = _classifier(2 * hidden_dim, num_classes, kernel_size)
+        self.space_rows = SPACE_ROWS
 
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
-        refuse_space_shards("BConvLSTMSeg")
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         return self.classification_layer(self.encode(x, pad_mask))

@@ -22,7 +22,7 @@ from torch import nn
 from crop2seg_tpu_torch.models.convlstm import BConvLSTM, ConvLSTM
 from crop2seg_tpu_torch.nn.aggregator import temporal_aggregate
 from crop2seg_tpu_torch.nn.layers import (
-    Conv2d, ConvBlock, DownConvBlock, UpConvBlock, refuse_space_shards)
+    Conv2d, ConvBlock, DownConvBlock, UpConvBlock, unet_space_rows)
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
 
 
@@ -44,6 +44,9 @@ class RecUNet(nn.Module):
         enc_w, dec_w = tuple(encoder_widths), tuple(decoder_widths)
         n = len(enc_w)
         self.temporal, self.encoder, self.pad_value = temporal, encoder, pad_value
+        # in_conv mirrors a row at full resolution whatever the padding mode
+        align, least = unet_space_rows(n, str_conv_s, padding_mode == "reflect")
+        self.space_rows = (align, max(2, least))
         self.in_conv = ConvBlock((input_dim, enc_w[0], enc_w[0]), norm=encoder_norm)
         self.down_blocks = nn.ModuleList(
             DownConvBlock(enc_w[i], enc_w[i + 1], k=str_conv_k, s=str_conv_s,
@@ -65,7 +68,6 @@ class RecUNet(nn.Module):
                 generator=None):
         """x (B, T, H, W, C), pad_mask (B, T) bool -> logits (B, H, W, K);
         with ``encoder`` the decoder output and its maps instead."""
-        refuse_space_shards("RecUNet")
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         feature_maps = [temporally_shared(self.in_conv, x, pad_mask, self.pad_value)]

@@ -66,7 +66,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import ConvBlock, DownConvBlock, UpConvBlock, remat
+from crop2seg_tpu_torch.nn.layers import (
+    ConvBlock, DownConvBlock, UpConvBlock, remat, unet_space_rows)
 from crop2seg_tpu_torch.nn.ltae import LTAE
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
 
@@ -96,6 +97,7 @@ class TimeUNet(nn.Module):
         n = len(enc_w)
         self.pad_value, self.remat = pad_value, remat
         self.encoder, self.return_maps = encoder, return_maps
+        self.space_rows = unet_space_rows(n, str_conv_s, padding_mode == "reflect")
         # None: defer on the kernel path when in_conv's plain convs end in
         # GroupNorm + ReLU and pads are zeros
         self.defer_tail = defer_tail

@@ -22,7 +22,7 @@ from torch import nn
 
 from crop2seg_tpu_torch.nn.aggregator import temporal_aggregate
 from crop2seg_tpu_torch.nn.layers import (
-    ConvBlock, DownConvBlock, UpConvBlock, refuse_space_shards)
+    ConvBlock, DownConvBlock, UpConvBlock, unet_space_rows)
 from crop2seg_tpu_torch.nn.tae2d import TAE2d
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
 
@@ -42,6 +42,7 @@ class TimeUNetV2(nn.Module):
         enc_w, dec_w = tuple(encoder_widths), tuple(decoder_widths)
         n = len(enc_w)
         self.pad_value, self.agg_mode = pad_value, agg_mode
+        self.space_rows = unet_space_rows(n, str_conv_s, padding_mode == "reflect")
         conv_kw = dict(padding_mode=padding_mode, conv_type=conv_type,
                        add_squeeze=add_squeeze_excit)
         self.in_conv = ConvBlock((input_dim, enc_w[0], enc_w[0]), norm=encoder_norm,
@@ -71,7 +72,6 @@ class TimeUNetV2(nn.Module):
                 generator: torch.Generator | None = None):
         """x (B, T, H, W, C), batch_positions (B, T) or (B, T, 2), pad_mask
         (B, T) bool -> logits (B, H, W, K)."""
-        refuse_space_shards("TimeUNetV2")
         if pad_mask is None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         out = temporally_shared(self.in_conv, x, pad_mask, self.pad_value)

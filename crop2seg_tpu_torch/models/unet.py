@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from crop2seg_tpu_torch.nn.layers import (
-    ConvBlock, DownConvBlock, UpConvBlock, refuse_space_shards)
+    ConvBlock, DownConvBlock, UpConvBlock, unet_space_rows)
 
 
 class _UNetBody(nn.Module):
@@ -36,6 +36,7 @@ class _UNetBody(nn.Module):
                         norm="batch", padding_mode=padding_mode)
             for i in range(n - 1, 0, -1))
         self.out_conv = ConvBlock(tuple(out_conv), padding_mode=padding_mode)
+        self.space_rows = unet_space_rows(n, s, padding_mode == "reflect")
 
     def body(self, out: torch.Tensor, encoder: bool = False):
         feature_maps = [out]
@@ -68,7 +69,6 @@ class Unet(_UNetBody):
 
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
-        refuse_space_shards("Unet")
         return self.body(x, self.encoder)
 
 
@@ -96,7 +96,6 @@ class UnetNaive(_UNetBody):
 
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
-        refuse_space_shards("UnetNaive")
         b, t, h, w, c = x.shape
         if t != self.temporal_length:
             raise ValueError(f"unet_naive needs batches padded to exactly "

@@ -19,7 +19,6 @@ from torch import nn
 
 from crop2seg_tpu_torch.nn.blocks3d import (
     BatchNorm3d, Conv3d, ConvTranspose3d, _ncdhw, _ndhwc)
-from crop2seg_tpu_torch.nn.layers import refuse_space_shards
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input
 
 
@@ -42,6 +41,10 @@ class UNet3D(nn.Module):
         super().__init__()
         f = feats
         self.pad_value = pad_value
+        # space shards (parallel/mesh.py::shard_batch_2d): two max-pools of H
+        # by 2 need shards of a multiple of 4 rows, the bottleneck's 3-D convs
+        # a row to send to a neighbour
+        self.space_rows = (4, 4)
         self.en3 = nn.Sequential(*_conv_bn(in_channel, f * 4), *_conv_bn(f * 4, f * 4))
         self.en4 = nn.Sequential(*_conv_bn(f * 4, f * 8), *_conv_bn(f * 8, f * 8))
         self.center_in = nn.Sequential(*_conv_bn(f * 8, f * 16))
@@ -55,7 +58,6 @@ class UNet3D(nn.Module):
     def forward(self, x: torch.Tensor, batch_positions=None, pad_mask=None, *,
                 generator=None):
         """x (B, T, H, W, C), pad_mask (B, T) bool -> logits (B, H, W, K)."""
-        refuse_space_shards("UNet3D")
         if pad_mask is None and self.pad_value is not None:
             pad_mask = pad_mask_from_input(x, self.pad_value)
         en3 = self.en3(x)

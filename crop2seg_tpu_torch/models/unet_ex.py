@@ -5,48 +5,54 @@ standalone 2-D segmentation backbone that no model of the factory uses:
 bias-free convs, exact-erf GELU by default, a MaxPool entry on each
 stride-1 downsampled stage, and a decoder that returns every resolution.
 
-Channels-last NHWC like the rest of the port. Module names follow the
-reference's state dict (``encoder.{i}.{0|1}.convs.{j}.conv`` / ``.norm``,
-``decoder.{j}.upsample.interp_upsample.1`` / ``deconv_upsamping``,
-``decoder.{j}.conv_block.convs.{k}``), so its state dicts load with
-``load_state_dict``.
+Channels-last NHWC like the rest of the port. Inside
+``nn/layers.py::space_shards`` each rank holds a slice of H: the convs
+(dilated ones included) and the transposed conv take their neighbours'
+rows, the bilinear upsample too, the MaxPool pools whole windows on each
+shard (an even number of rows at every pooled stage) and BatchNorm takes
+the global batch's statistics under ``global_batch_stats``. Module names
+follow the reference's state dict (``encoder.{i}.{0|1}.convs.{j}.conv`` /
+``.norm``, ``decoder.{j}.upsample.interp_upsample.1`` /
+``deconv_upsamping``, ``decoder.{j}.conv_block.convs.{k}``), so its state
+dicts load with ``load_state_dict``.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from crop2seg_tpu_torch.nn.layers import (
-    ConvTranspose2d, _nchw, _nhwc, make_norm, refuse_space_shards)
+    Conv2d, ConvTranspose2d, _nchw, _nhwc, make_norm, space_group, upsample_rows)
 
 
 def _act(name: str) -> nn.Module:
     return nn.GELU() if name == "gelu" else nn.ReLU()  # GELU: exact erf
 
 
-class _NHWCConv2d(nn.Conv2d):
-    """torch Conv2d (zero padding, dilation) on NHWC."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _nhwc(super().forward(_nchw(x)))
+class _NHWCConv2d(Conv2d):
+    """torch Conv2d (zero padding, dilation) on NHWC (``nn/layers.py::
+    Conv2d``, which halos inside ``space_shards``)."""
 
 
 class _MaxPool2d(nn.MaxPool2d):
-    """MaxPool2d(2) on NHWC: a stage's entry."""
+    """MaxPool2d(2) on NHWC: a stage's entry. Inside ``space_shards`` each
+    shard pools its own rows, in whole windows."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if space_group() is not None and x.shape[1] % self.kernel_size:
+            raise ValueError(f"space shards of {x.shape[1]} rows do not pool by "
+                             f"{self.kernel_size}")
         return _nhwc(super().forward(_nchw(x)))
 
 
 class _Upsample(nn.Module):
-    """Bilinear x2 upsampling, align_corners=False, on NHWC."""
+    """Bilinear x2 upsampling, align_corners=False, on NHWC
+    (``nn/layers.py::upsample_rows``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _nhwc(F.interpolate(_nchw(x), scale_factor=2, mode="bilinear",
-                                   align_corners=False))
+        return _nhwc(upsample_rows(_nchw(x), 2 * x.shape[1], 2 * x.shape[2]))
 
 
 class ConvModuleEx(nn.Module):
@@ -179,7 +185,6 @@ class UNetEx(nn.Module):
                      if num_classes is not None else None)
 
     def forward(self, x: torch.Tensor):
-        refuse_space_shards("UNetEx")
         enc_outs = []
         for stage in self.encoder:
             x = stage(x)

@@ -32,7 +32,7 @@ from torch import nn
 
 from crop2seg_tpu_torch.models.utae import REMAT_POLICIES
 from crop2seg_tpu_torch.nn.aggregator import temporal_aggregate
-from crop2seg_tpu_torch.nn.layers import conv_blocks, remat
+from crop2seg_tpu_torch.nn.layers import conv_blocks, remat, unet_space_rows
 from crop2seg_tpu_torch.nn.ltae import LTAE4WTAE
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_input, temporally_shared
 
@@ -66,6 +66,9 @@ class WTAE(nn.Module):
         n = len(enc_w)
         self.agg_mode, self.pad_value = agg_mode, pad_value
         self.encoder, self.return_maps = encoder, return_maps
+        # MBConv units pad by reflection whatever padding_mode says
+        self.space_rows = unet_space_rows(n, str_conv_s,
+                                          padding_mode == "reflect" or use_mbconv)
         in_block, down_block, up_block, out_block = conv_blocks(use_mbconv)
         down_kw = dict(k=str_conv_k, s=str_conv_s, p=str_conv_p, norm=encoder_norm,
                        padding_mode=padding_mode, add_squeeze=add_squeeze_excit)

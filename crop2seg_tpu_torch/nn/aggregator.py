@@ -24,31 +24,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from crop2seg_tpu_torch.nn.layers import space_group, space_halo
+from crop2seg_tpu_torch.nn.layers import space_group, upsample_rows
 
 
 def _resample_attn(a: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(N, K, h_a, w_a) -> (N, K, h, w): bilinear with half-pixel centres
-    (align_corners=False) when upsampling, average pooling with kernel
+    (align_corners=False) when upsampling (``nn/layers.py::upsample_rows``,
+    which halos inside ``space_shards``), average pooling with kernel
     w_a // w when downsampling. Inside ``space_shards`` h_a and h are this
-    rank's rows: the upsample interpolates (h_a + 2) * f rows from the rows
-    with their halo and keeps the middle h, the pooling needs h_a = k * h."""
+    rank's rows, and the pooling needs h_a = k * h."""
     ha, wa = a.shape[-2:]
     if (h, w) == (ha, wa):
         return a
-    group = space_group()
     if h > ha:
-        if group is None:
-            return F.interpolate(a, size=(h, w), mode="bilinear", align_corners=False)
-        f = h // ha
-        if h != f * ha:
-            raise ValueError(f"space shards upsample by whole factors, not {ha} -> {h} rows")
-        a, top, bottom = space_halo(a, 1, group, dim=2)
-        a = F.pad(a, (0, 0, top, bottom), mode="replicate")
-        up = F.interpolate(a, size=((ha + 2) * f, w), mode="bilinear", align_corners=False)
-        return up[:, :, f:f + h]
+        return upsample_rows(a, h, w)
     k = wa // w
-    if group is not None and ha != k * h:
+    if space_group() is not None and ha != k * h:
         raise ValueError(f"space shards of {ha} attention rows do not pool by {k} "
                          f"into {h} rows")
     return F.avg_pool2d(a, kernel_size=k, stride=k)

@@ -13,7 +13,12 @@ upsampling of the attention masks (port of crop2seg_tpu/nn/blocks3d.py).
   temporal mean.
 
 Layout (B, T, H, W, C), depth = time. The modules no entry point of the
-JAX package reaches; they are kept for its component inventory.
+JAX package reaches; they are kept for its component inventory. Inside
+``nn/layers.py::space_shards`` each rank holds a slice of H (dim 2): the
+3-D convolutions and transposed convolutions halo along it; GroupNorm3d
+and InstanceNorm3d fold T into H, whose moments ``frame_mean`` sums over
+the shards; the attention masks' learned upsampling halos too, and their
+pooling needs whole windows on each shard.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from crop2seg_tpu_torch.nn.layers import GroupNorm, InstanceNorm2d, batch_norm
+from crop2seg_tpu_torch.nn.layers import (
+    GroupNorm, InstanceNorm2d, batch_norm, conv_rows, space_group, transposed_conv_rows)
 
 
 def _ncdhw(x: torch.Tensor) -> torch.Tensor:
@@ -35,19 +41,41 @@ def _ndhwc(y: torch.Tensor) -> torch.Tensor:
 
 
 class Conv3d(nn.Conv3d):
-    """torch Conv3d (zero padding) on (B, T, H, W, C)."""
+    """torch Conv3d (zero padding) on (B, T, H, W, C). Inside
+    ``nn/layers.py::space_shards`` H (dim 2) takes its neighbours' rows
+    (``conv_rows``) and zeros only at the global top and bottom."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _ndhwc(F.conv3d(_ncdhw(x), self.weight, self.bias, self.stride,
-                               self.padding))
+        group = space_group()
+        if group is None:
+            return _ndhwc(F.conv3d(_ncdhw(x), self.weight, self.bias, self.stride,
+                                   self.padding, self.dilation, self.groups))
+        pt, ph, pw = self.padding
+        x, top, bottom = conv_rows(x, self.kernel_size[1], self.stride[1], ph,
+                                   self.dilation[1], group, dim=2)
+        return _ndhwc(F.conv3d(F.pad(_ncdhw(x), (pw, pw, top, bottom, pt, pt)), self.weight,
+                               self.bias, self.stride, 0, self.dilation, self.groups))
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
-    """torch ConvTranspose3d on (B, T, H, W, C)."""
+    """torch ConvTranspose3d on (B, T, H, W, C). Inside
+    ``nn/layers.py::space_shards`` H (dim 2) takes the neighbours' rows that
+    reach this rank's output rows (``transposed_conv_rows``), and the output
+    is cropped back to the rows this rank owns."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _ndhwc(F.conv_transpose3d(_ncdhw(x), self.weight, self.bias, self.stride,
-                                         self.padding, self.output_padding))
+        group = space_group()
+        if group is None:
+            return _ndhwc(F.conv_transpose3d(_ncdhw(x), self.weight, self.bias, self.stride,
+                                             self.padding, self.output_padding, self.groups,
+                                             self.dilation))
+        s, h = self.stride[1], x.shape[2]
+        op_t, op_h, op_w = self.output_padding
+        x, m = transposed_conv_rows(x, self.kernel_size[1], s, self.padding[1], op_h,
+                                    self.dilation[1], group, dim=2)
+        y = F.conv_transpose3d(_ncdhw(x), self.weight, self.bias, self.stride, self.padding,
+                               (op_t, 0, op_w), self.groups, self.dilation)
+        return _ndhwc(y[:, :, :, s * m:s * (m + h)])
 
 
 class BatchNorm3d(nn.BatchNorm3d):
@@ -180,6 +208,9 @@ class TemporalAggregator3D(nn.Module):
             a = torch.softmax(self.up_conv(self.up_deconv(a)), dim=1)
         elif ha > h:
             k = ha // h
+            if space_group() is not None and ha != k * h:
+                raise ValueError(f"space shards of {ha} attention rows do not pool by {k} "
+                                 f"into {h} rows")
             a = _ndhwc(F.avg_pool3d(_ncdhw(a), (1, k, k), (1, k, k)))
         a = a[..., 0].reshape(b, streams, t, h, w).movedim(2, 4)   # (B, s, H, W, T)
         if self.mode == "att_mean":

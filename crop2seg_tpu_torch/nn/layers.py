@@ -17,11 +17,15 @@ names follow the reference's torch modules, so its state dicts load with
 ``load_state_dict``.
 
 Inside ``space_shards`` (the step of a 2-D data x space mesh) each rank
-holds a slice of H of every frame: a convolution, a transposed convolution
-or a resample that reads across H first takes its neighbours' edge rows
-(``space_halo``, differentiable), and GroupNorm, InstanceNorm and the
+holds a slice of H of every frame: a convolution (``conv_rows``: any
+kernel, stride, padding and dilation that keep the grid), a transposed
+convolution (``transposed_conv_rows``, output padding included) or a
+bilinear upsample (``upsample_rows``) that reads across H first takes its
+neighbours' edge rows (``space_halo``, differentiable; integer label maps
+through ``space_label_rows``), and GroupNorm, InstanceNorm and the
 squeeze-excitation gate's mean sum their statistics over the space shards,
-so every rank computes its rows of the one-device result.
+so every rank computes its rows of the one-device result. The 3-D
+convolutions of ``nn/blocks3d.py`` take the same halos along their H axis.
 """
 from __future__ import annotations
 
@@ -56,57 +60,55 @@ MAX_PAD_ELEMENTS = 2 ** 31 - 1
 
 
 class Conv2d(nn.Conv2d):
-    """torch Conv2d(k, s, p, padding_mode) on NHWC: explicit reflect pad, then
-    a VALID convolution (k3/s1, k4/s2 and the 1x1 skip conv). Where the
-    padded frames exceed MAX_PAD_ELEMENTS (MBConv's 256-wide expansion over
-    610 frames of 128^2), the frames are padded and convolved in chunks.
-    Inside ``space_shards`` H is padded with the neighbours' p rows
-    (``space_halo``, once for all chunks), and by reflection or zeros only
-    at the global top and bottom; the convolution must keep the grid
-    (k = 2p + s, the shard's height a multiple of s)."""
+    """torch Conv2d(k, s, p, padding_mode, dilation) on NHWC: explicit
+    reflect pad, then a VALID convolution (k3/s1, k4/s2, the 1x1 skip conv,
+    the dilated zero-pad convs). Where the padded frames exceed
+    MAX_PAD_ELEMENTS (MBConv's 256-wide expansion over 610 frames of
+    128^2), the frames are padded and convolved in chunks. Inside
+    ``space_shards`` H takes the rows its neighbours hold that the
+    convolution reads (``conv_rows``, once for all chunks), and is padded
+    by reflection or zeros only at the global top and bottom."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        p = self.padding[0]
-        group = _space_group if p else None
-        if group is None and (not p or self.padding_mode == "zeros"):
-            return _nhwc(F.conv2d(_nchw(x), self.weight, self.bias, self.stride, p,
-                                  groups=self.groups))
-        top = bottom = p
+        ph, pw = self.padding
+        group = _space_group
+        if group is None and (not (ph or pw) or self.padding_mode == "zeros"):
+            return _nhwc(F.conv2d(_nchw(x), self.weight, self.bias, self.stride,
+                                  self.padding, self.dilation, self.groups))
+        top = bottom = ph
         if group is not None:
-            k, s = self.kernel_size[0], self.stride[0]
-            if k != 2 * p + s or x.shape[1] % s:
-                raise ValueError(f"a space-sharded conv needs k = 2p + s and shards of a "
-                                 f"multiple of s rows: k {k}, s {s}, p {p}, {x.shape[1]} rows")
-            x, top, bottom = space_halo(x, p, group)
+            x, top, bottom = conv_rows(x, self.kernel_size[0], self.stride[0], ph,
+                                       self.dilation[0], group)
+            if not (top or bottom or pw):
+                return _nhwc(F.conv2d(_nchw(x), self.weight, self.bias, self.stride, 0,
+                                      self.dilation, self.groups))
         xc = _nchw(x)
         mode = "constant" if self.padding_mode == "zeros" else self.padding_mode
         n, c, h, w = xc.shape
-        per = max(1, MAX_PAD_ELEMENTS // (c * (h + top + bottom) * (w + 2 * p)))
-        out = [F.conv2d(F.pad(chunk, (p, p, top, bottom), mode=mode),
-                        self.weight, self.bias, self.stride, groups=self.groups)
+        per = max(1, MAX_PAD_ELEMENTS // (c * (h + top + bottom) * (w + 2 * pw)))
+        out = [F.conv2d(F.pad(chunk, (pw, pw, top, bottom), mode=mode),
+                        self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
                for chunk in xc.split(per)]
         return _nhwc(out[0] if len(out) == 1 else torch.cat(out))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """torch-exact ConvTranspose2d on NHWC (the decoder's k4/s2/p1 up-conv).
-    Inside ``space_shards`` the input takes m rows of halo on each side
-    (zeros at the global edges: no input there), and the output is cropped
-    back to the s * h rows this rank owns."""
+    Inside ``space_shards`` the input takes the rows that reach this rank's
+    output rows from its neighbours (``transposed_conv_rows``: zeros at the
+    global edges, no input there), and the output is cropped back to the
+    s * h rows this rank owns."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if _space_group is None:
-            return _nhwc(F.conv_transpose2d(_nchw(x), self.weight, self.bias,
-                                            self.stride, self.padding))
-        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
-        if k != 2 * p + s:
-            raise ValueError(f"a space-sharded transposed conv needs k = 2p + s: "
-                             f"k {k}, s {s}, p {p}")
-        h = x.shape[1]
-        m = max(-(-(k - 1 - p) // s), (s - 1 + p) // s)   # input rows that reach ours
-        x, top, bottom = space_halo(x, m, _space_group)
-        x = F.pad(x, (0, 0, 0, 0, top, bottom))
-        y = F.conv_transpose2d(_nchw(x), self.weight, self.bias, self.stride, self.padding)
+            return _nhwc(F.conv_transpose2d(_nchw(x), self.weight, self.bias, self.stride,
+                                            self.padding, self.output_padding, self.groups,
+                                            self.dilation))
+        s, h = self.stride[0], x.shape[1]
+        x, m = transposed_conv_rows(x, self.kernel_size[0], s, self.padding[0],
+                                    self.output_padding[0], self.dilation[0], _space_group)
+        y = F.conv_transpose2d(_nchw(x), self.weight, self.bias, self.stride, self.padding,
+                               (0, self.output_padding[1]), self.groups, self.dilation)
         return _nhwc(y[:, :, s * m:s * (m + h)])
 
 
@@ -119,20 +121,22 @@ def _apply_affine(x: torch.Tensor, sc: torch.Tensor,
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm over each NHWC frame, two-pass fp32 statistics."""
+    """GroupNorm over each NHWC frame, two-pass fp32 statistics (fp64 for
+    fp64 frames)."""
 
     def frame_affine(self, x: torch.Tensor):
-        """Per-frame affine ``(sc, sh)``, each (N, C) fp32, such that
-        ``x * sc + sh`` is the normalized frame (the whole frame's moments
-        inside ``space_shards``)."""
+        """Per-frame affine ``(sc, sh)``, each (N, C) fp32 (fp64 for fp64
+        frames), such that ``x * sc + sh`` is the normalized frame (the
+        whole frame's moments inside ``space_shards``)."""
         n, h, w, c = x.shape
-        g = x.float().reshape(n, h * w, self.num_groups, c // self.num_groups)
+        dt = acc_dtype(x.dtype)
+        g = x.to(dt).reshape(n, h * w, self.num_groups, c // self.num_groups)
         mean = frame_mean(g, (1, 3))
         var = frame_mean((g - mean).square(), (1, 3))
         inv = torch.rsqrt(var + self.eps)                   # (N, 1, G, 1)
-        sc = (self.weight.float().reshape(1, self.num_groups, -1)
+        sc = (self.weight.to(dt).reshape(1, self.num_groups, -1)
               * inv[:, 0]).reshape(n, c)
-        sh = self.bias.float() - (mean[:, 0] * sc.reshape(
+        sh = self.bias.to(dt) - (mean[:, 0] * sc.reshape(
             n, self.num_groups, -1)).reshape(n, c)
         return sc, sh
 
@@ -216,14 +220,6 @@ def space_group():
     return _space_group
 
 
-def refuse_space_shards(model: str) -> None:
-    """Raise inside ``space_shards``: ``model`` has no space-sharded step."""
-    if _space_group is not None:
-        raise NotImplementedError(
-            f"{model} does not run on the space axis of a 2-D mesh: TimeUNet, U-TAE "
-            "and W-TAE do (ROADMAP.md M11c queues the others)")
-
-
 def _exchange(buf: torch.Tensor, group) -> None:
     """Each rank's rows of ``buf`` (zeros elsewhere) to every rank of
     ``group``: an all-reduce of the raw bytes, exact for any dtype since
@@ -234,56 +230,69 @@ def _exchange(buf: torch.Tensor, group) -> None:
     dist.all_reduce(buf.view(-1).view(torch.uint8), group=group)
 
 
-def _boundaries(x: torch.Tensor, k: int, dim: int, n: int) -> torch.Tensor:
-    """Zeros of shape (n - 1, 2, ...x with k rows along ``dim``): a slot
-    for each way across each of the n - 1 shard boundaries. Boundary b lies
-    between ranks b and b + 1; [b, 0] carries rows down from rank b to
-    b + 1, [b, 1] rows up from b + 1 to b."""
+def _place(group) -> tuple:
+    """(this rank's index, the ranks) in ``group``."""
+    import torch.distributed as dist
+
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _halo_rows(x: torch.Tensor, before: int, after: int, dim: int, group) -> torch.Tensor:
+    """x extended along ``dim`` by the ``before`` rows that precede it (the
+    last rows of rank s - 1 of the group) and the ``after`` rows that follow
+    it (the first rows of rank s + 1); the global edges get none. One
+    exchange: boundary b between ranks b and b + 1 has a slot of before +
+    after rows, the first ``before`` carried down from b, the rest carried
+    up from b + 1."""
+    s, n = _place(group)
+    h = x.shape[dim]
+    if h < max(before, after):
+        raise ValueError(f"a halo of {max(before, after)} rows needs shards of as many "
+                         f"rows, not {h}")
     shape = list(x.shape)
-    shape[dim] = k
-    return x.new_zeros([n - 1, 2] + shape)
+    shape[dim] = before + after
+    buf = x.new_zeros([n - 1] + shape)
+    if s > 0:
+        buf[s - 1].narrow(dim, before, after).copy_(x.narrow(dim, 0, after))
+    if s < n - 1:
+        buf[s].narrow(dim, 0, before).copy_(x.narrow(dim, h - before, before))
+    _exchange(buf, group)
+    parts = (([buf[s - 1].narrow(dim, 0, before)] if s > 0 else []) + [x]
+             + ([buf[s].narrow(dim, before, after)] if s < n - 1 else []))
+    return torch.cat(parts, dim)
 
 
 class _Halo(torch.autograd.Function):
-    """x extended along ``dim`` by the k rows before it (from rank s - 1 of
-    the group) and after it (from rank s + 1); the global edges get none.
-    The backward pass returns each halo row's gradient to the rank that
-    owns the row, which adds it to its edge rows."""
+    """``_halo_rows``, differentiable: the backward pass returns each halo
+    row's gradient to the rank that owns the row, which adds it to its edge
+    rows."""
 
     @staticmethod
-    def forward(ctx, x, k, dim, group):
-        import torch.distributed as dist
-
-        s, n = dist.get_rank(group), dist.get_world_size(group)
-        ctx.k, ctx.dim, ctx.group, ctx.s, ctx.n = k, dim, group, s, n
-        buf = _boundaries(x, k, dim, n)
-        if s > 0:
-            buf[s - 1, 1] = x.narrow(dim, 0, k)
-        if s < n - 1:
-            buf[s, 0] = x.narrow(dim, x.shape[dim] - k, k)
-        _exchange(buf, group)
-        parts = (([buf[s - 1, 0]] if s > 0 else []) + [x]
-                 + ([buf[s, 1]] if s < n - 1 else []))
-        return torch.cat(parts, dim)
+    def forward(ctx, x, before, after, dim, group):
+        ctx.before, ctx.after, ctx.dim, ctx.group = before, after, dim, group
+        return _halo_rows(x, before, after, dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        k, dim, s, n = ctx.k, ctx.dim, ctx.s, ctx.n
-        top = k if s > 0 else 0
-        h = grad.shape[dim] - top - (k if s < n - 1 else 0)
+        before, after, dim = ctx.before, ctx.after, ctx.dim
+        s, n = _place(ctx.group)
+        top = before if s > 0 else 0
+        h = grad.shape[dim] - top - (after if s < n - 1 else 0)
         gx = grad.narrow(dim, top, h).clone(memory_format=torch.contiguous_format)
         # the halo's gradients go back the way its rows came
-        buf = _boundaries(gx, k, dim, n)
+        shape = list(gx.shape)
+        shape[dim] = before + after
+        buf = gx.new_zeros([n - 1] + shape)
         if s > 0:
-            buf[s - 1, 0] = grad.narrow(dim, 0, k)
+            buf[s - 1].narrow(dim, 0, before).copy_(grad.narrow(dim, 0, before))
         if s < n - 1:
-            buf[s, 1] = grad.narrow(dim, top + h, k)
+            buf[s].narrow(dim, before, after).copy_(grad.narrow(dim, top + h, after))
         _exchange(buf, ctx.group)
         if s > 0:
-            gx.narrow(dim, 0, k).add_(buf[s - 1, 1])
+            gx.narrow(dim, 0, after).add_(buf[s - 1].narrow(dim, before, after))
         if s < n - 1:
-            gx.narrow(dim, h - k, k).add_(buf[s, 0])
-        return gx, None, None, None
+            gx.narrow(dim, h - before, before).add_(buf[s].narrow(dim, 0, before))
+        return gx, None, None, None, None
 
 
 def space_halo(x: torch.Tensor, k: int, group, dim: int = 1):
@@ -291,13 +300,87 @@ def space_halo(x: torch.Tensor, k: int, group, dim: int = 1):
     rows of its space neighbours on each side (differentiable). Returns the
     extended tensor and the rows still missing at the global top and bottom
     (k on the first and last shard, else 0), which the caller pads."""
-    import torch.distributed as dist
+    s, n = _place(group)
+    return _Halo.apply(x, k, k, dim, group), (k if s == 0 else 0), (k if s == n - 1 else 0)
 
-    if x.shape[dim] < k:
-        raise ValueError(f"a halo of {k} rows needs shards of as many rows, not "
-                         f"{x.shape[dim]}")
-    s, n = dist.get_rank(group), dist.get_world_size(group)
-    return _Halo.apply(x, k, dim, group), (k if s == 0 else 0), (k if s == n - 1 else 0)
+
+def conv_rows(x: torch.Tensor, k: int, s: int, p: int, d: int, group, dim: int = 1):
+    """``x`` (this rank's rows along ``dim``) with the rows of its space
+    neighbours that a convolution of kernel k, stride s, padding p and
+    dilation d along that axis reads: p rows before, d (k - 1) - p - s + 1
+    after. Returns the tensor and the padding rows still to add at the
+    global top and bottom (p on the first and on the last shard, else 0).
+    The sharded convolution keeps the grid (s x the output's rows in, so
+    that each rank's output rows are the one-device output's): 2p - d (k -
+    1) lies in [1 - s, 0] and the shard's rows are a multiple of s; else
+    ValueError."""
+    span = d * (k - 1)
+    if not 1 - s <= 2 * p - span <= 0 or x.shape[dim] % s:
+        raise ValueError(f"a space-sharded conv keeps the grid only where 2p - d(k - 1) "
+                         f"lies in [1 - s, 0] on shards of a multiple of s rows: k {k}, "
+                         f"s {s}, p {p}, d {d}, {x.shape[dim]} rows")
+    after = span - p - s + 1
+    if p or after:
+        x = _Halo.apply(x, p, after, dim, group)
+    rank, n = _place(group)
+    return x, (p if rank == 0 else 0), (p if rank == n - 1 else 0)
+
+
+def transposed_conv_rows(x: torch.Tensor, k: int, s: int, p: int, op: int, d: int, group,
+                         dim: int = 1):
+    """``x`` (this rank's h rows along ``dim``) with the m rows on each side
+    that reach this rank's output rows through a transposed convolution of
+    kernel k, stride s, padding p, output padding op and dilation d (zeros
+    beyond the global edges, where there is no input). Returns the tensor
+    and m: rows s m .. s (m + h) of the transposed convolution of it (its
+    output padding 0 along ``dim``) are this rank's. ValueError unless the
+    convolution maps H rows to s H (d (k - 1) + 1 + op = 2p + s)."""
+    span = d * (k - 1) + 1
+    if span + op != 2 * p + s:
+        raise ValueError(f"a space-sharded transposed conv needs d(k - 1) + 1 + op = 2p + s: "
+                         f"k {k}, s {s}, p {p}, op {op}, d {d}")
+    m = max(-(-(span - 1 - p) // s), (s - 1 + p) // s, -(-op // s))
+    x, top, bottom = space_halo(x, m, group, dim)
+    return F.pad(x, [0, 0] * (x.dim() - 1 - dim) + [top, bottom]), m
+
+
+def space_label_rows(y: torch.Tensor, k: int, group, fill: int) -> torch.Tensor:
+    """(B, h, W) integer labels of this rank with the k label rows of each
+    space neighbour and ``fill`` in the k rows beyond the global top and
+    bottom: (B, h + 2k, W). Not differentiable (``_exchange`` moves the
+    bytes of any dtype)."""
+    s, n = _place(group)
+    y = _halo_rows(y, k, k, 1, group)
+    return F.pad(y, (0, 0, k if s == 0 else 0, k if s == n - 1 else 0), value=fill)
+
+
+def upsample_rows(a: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Bilinear upsampling (align_corners=False) of (N, K, h_a, w_a) to (N,
+    K, h, w). Inside ``space_shards`` h_a and h are this rank's rows, h a
+    whole multiple f of h_a: the rows take one row of each neighbour (the
+    edge row repeated at the global edges, which is ``F.interpolate``'s
+    clamp), (h_a + 2) f rows are interpolated and the middle h kept, which
+    are this rank's rows of the one-device upsample."""
+    if _space_group is None:
+        return F.interpolate(a, size=(h, w), mode="bilinear", align_corners=False)
+    ha = a.shape[-2]
+    f = h // ha
+    if h != f * ha:
+        raise ValueError(f"space shards upsample by whole factors, not {ha} -> {h} rows")
+    a, top, bottom = space_halo(a, 1, _space_group, dim=2)
+    a = F.pad(a, (0, 0, top, bottom), mode="replicate")
+    up = F.interpolate(a, size=((ha + 2) * f, w), mode="bilinear", align_corners=False)
+    return up[:, :, f:f + h]
+
+
+def unet_space_rows(levels: int, stride: int, reflect: bool) -> tuple:
+    """(multiple, least): the rows of a U-Net's space shard, for ``levels``
+    resolutions each cut by ``stride``. Every level keeps its grid (a
+    multiple of stride ** (levels - 1) rows), and the bottleneck's shard has
+    two rows, one to mirror, where its convolutions pad by reflection, one
+    to send to a neighbour where they pad with zeros."""
+    multiple = stride ** (levels - 1)
+    return multiple, multiple * (2 if reflect else 1)
 
 
 def frame_mean(t: torch.Tensor, dims: tuple) -> torch.Tensor:
@@ -408,11 +491,12 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class InstanceNorm2d(nn.InstanceNorm2d):
     """InstanceNorm2d(affine=False) on NHWC: each channel of each frame
-    normalized over (H, W), two-pass fp32 statistics, no parameters (the JAX
-    ``GroupNorm(group_size=1)`` without scale or bias)."""
+    normalized over (H, W), two-pass fp32 statistics (fp64 for fp64 frames),
+    no parameters (the JAX ``GroupNorm(group_size=1)`` without scale or
+    bias)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(acc_dtype(x.dtype))
         mean = frame_mean(xf, (1, 2))
         var = frame_mean((xf - mean).square(), (1, 2))
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)

@@ -10,12 +10,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from crop2seg_tpu_torch.nn.layers import space_group, space_label_rows
+
 
 def dilate_classes(target: torch.Tensor, n_classes: int,
                    connectivity: int = 4) -> torch.Tensor:
     """(B, H, W) int labels -> (B, H, W, K) int32 0/1 dilated class masks.
     Labels outside [0, K) have no class. connectivity 4 uses the plus-shaped
-    element {self, up, down, left, right}, 8 the full 3x3 square."""
+    element {self, up, down, left, right}, 8 the full 3x3 square. Inside
+    ``nn/layers.py::space_shards`` H holds this rank's rows: they take one
+    label row of each neighbour, and a row of label K (no class, as the
+    -inf padding adds none) beyond the global edges."""
+    group = space_group()
+    if group is None:
+        return _dilate(target, n_classes, connectivity)
+    rows = space_label_rows(target, 1, group, fill=n_classes)
+    return _dilate(rows, n_classes, connectivity)[:, 1:-1]
+
+
+def _dilate(target: torch.Tensor, n_classes: int, connectivity: int) -> torch.Tensor:
     classes = torch.arange(n_classes, device=target.device)
     onehot = (target.long()[:, None] == classes[None, :, None, None]).float()
     if connectivity == 8:

@@ -32,7 +32,8 @@ every global batch.
   and sum GroupNorm's statistics over the space shards, and the loss, the
   gradients, BatchNorm and the confusion matrices are summed over every
   rank. The step gives what the 1-D step gives on the global batch, for
-  TimeUNet, U-TAE and W-TAE; other models raise (ROADMAP.md M11c).
+  every model of ``models/factory.py::get_model`` (and BConvLSTMSeg), with
+  the boundary loss and ``test_region`` too.
 """
 from __future__ import annotations
 
@@ -187,23 +188,26 @@ def make_mesh_2d(data: int, space: int, group=None) -> Mesh2D:
     return Mesh2D(group, rows[rank // space], data, space, rank // space, rank % space)
 
 
-def shard_batch_2d(batch: Mapping, mesh: Mesh2D, levels: int) -> Dict:
+def shard_batch_2d(batch: Mapping, mesh: Mesh2D, model: torch.nn.Module) -> Dict:
     """This rank's part of a global ``batch`` on ``mesh`` (the JAX
     ``shard_batch_2d``): every array's rows of the data axis, and of x (B,
     T, H, W, C) and y (B, H, W) also the rows of H of the space axis.
-    ``levels``: the model's resolutions (len(encoder_widths)). ValueError
-    unless the data ranks divide B and the space ranks H, each shard's
-    height is a multiple of 2 ** (levels - 1) (every strided conv keeps its
-    grid) and the bottleneck's shard has 2 rows or more (reflect padding
-    has a row to mirror)."""
+    ``model``'s ``space_rows`` (multiple, least), which each model sets
+    beside its layers, says which shards its layers take: a U-Net's keep
+    every level's grid and give its bottleneck a row to mirror or to send
+    (``nn/layers.py::unet_space_rows``), UNet3D's pool twice, the recurrent
+    baselines' take any height. ValueError unless the data ranks divide B
+    and the space ranks H, and each shard's height is a multiple of the
+    first and at least the second."""
     n, h = len(batch["x"]), batch["x"].shape[2]
     if n % mesh.data or h % mesh.space:
         raise ValueError(f"batch {n} x H {h} must divide over the {mesh.data} x "
                          f"{mesh.space} mesh")
-    rows, align = h // mesh.space, 2 ** (levels - 1)
-    if rows % align or rows // align < 2:
-        raise ValueError(f"space shards of {rows} rows: {levels} levels need a multiple "
-                         f"of {align} rows and {2 * align} at least")
+    rows = h // mesh.space
+    multiple, least = model.space_rows
+    if rows % multiple or rows < least:
+        raise ValueError(f"space shards of {rows} rows: {type(model).__name__} needs a "
+                         f"multiple of {multiple} rows and {least} at least")
     per = n // mesh.data
     batch_rows = slice(mesh.d * per, (mesh.d + 1) * per)
     space_rows = slice(mesh.s * rows, (mesh.s + 1) * rows)
@@ -216,17 +220,13 @@ def shard_batch_2d(batch: Mapping, mesh: Mesh2D, levels: int) -> Dict:
 def data_space_parallel_step(model: torch.nn.Module, cfg, mesh: Mesh2D, **kw) -> Callable:
     """``make_train_step(model, cfg, **kw)`` over ``mesh``: ``step(shard,
     generator)`` takes this rank's ``shard_batch_2d`` of the global batch
-    and returns the global loss and confusion matrices. The loss
-    denominators, the gradients, BatchNorm and the matrices are summed over
-    the whole group, and the forward and backward run inside
-    ``space_shards(mesh.space_group)``. Call ``replicate`` first. Each rank
-    draws its dropout masks from its own generator (``rank_seed``), so only
-    dropout 0 compares with one process. The boundary loss and
-    ``test_region`` (label boundaries across the shards) are not here:
-    NotImplementedError (ROADMAP.md M11c)."""
-    if cfg.add_boundary_loss or cfg.test_region != "all":
-        raise NotImplementedError("the boundary loss and test_region do not run on the "
-                                  "space axis of a 2-D mesh (ROADMAP.md M11c)")
+    and returns the global loss and confusion matrices, the boundary loss's
+    and ``test_region``'s included (``ops/boundary.py`` takes a label row of
+    each neighbour). The loss denominators, the gradients, BatchNorm and the
+    matrices are summed over the whole group, and the forward and backward
+    run inside ``space_shards(mesh.space_group)``. Call ``replicate``
+    first. Each rank draws its dropout masks from its own generator
+    (``rank_seed``), so only dropout 0 compares with one process."""
     return make_train_step(model, cfg, group=mesh.group, space_group=mesh.space_group, **kw)
 
 

@@ -26,8 +26,8 @@ once for all of its cases: 2 ranks and 4 ranks.
   ``_assert_model_grads`` allows; under x64 it is within 9e-5 of the
   port's float64 step.
 - The refusals: an H that does not divide, a misaligned shard, a
-  bottleneck shard of one row, a mesh of the wrong size, a model outside
-  the slice, the boundary loss and a missing pad mask each raise.
+  bottleneck shard of one row, a mesh of the wrong size and a missing pad
+  mask each raise.
 """
 import concurrent.futures
 import contextlib
@@ -185,10 +185,7 @@ def test_data_space_step_matches_the_global_batch(runs, name, world):
 
 @pytest.mark.parametrize("refusal", ["H does not divide", "misaligned shard",
                                      "bottleneck of one row", "mesh shape",
-                                     "model outside the slice", "boundary loss",
                                      "missing pad_mask"])
 def test_the_mesh_refuses(runs, refusal):
-    want = "NotImplementedError" if refusal in ("model outside the slice",
-                                                "boundary loss") else "ValueError"
     for r in runs[1][2]:
-        assert r["refusals"][refusal] == want, r["refusals"]
+        assert r["refusals"][refusal] == "ValueError", r["refusals"]
