@@ -8,7 +8,9 @@ of pixel rows (nn/tae2d.py), so a batch of 10 patches fits on one card.
 The tile is patchified on the device, the 100 patches run in batches of
 ``batch_size`` (the last one padded to the same shape), and softmax,
 stitch and argmax happen on the device; only the 1098^2 maps come back to
-the host.
+the host. The stages are spans (``utils/profiling.py``): ``tile.predict``
+around ``tile.patchify``, each batch's ``tile.forward``, ``tile.stitch`` and
+``tile.fetch``; the counter ``tile.patches`` counts the tile's patches.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from crop2seg_tpu_torch.device import resolve_device
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_lengths
 from crop2seg_tpu_torch.ops.patchify import (
     patchify_inference_tile, stitch_inference_tile)
+from crop2seg_tpu_torch.utils.profiling import count, span
 
 
 def make_tile_predictor(model: torch.nn.Module, batch_size: int = 10,
@@ -52,27 +55,32 @@ def make_tile_predictor(model: torch.nn.Module, batch_size: int = 10,
     amp = dtype is not None and dtype != torch.float32
 
     def predict(tile_ts, dates, length) -> Dict[str, np.ndarray]:
-        with torch.inference_mode(), torch.autocast(dev.type, dtype=dtype,
-                                                    enabled=amp):
-            tile = torch.as_tensor(tile_ts, dtype=torch.float32, device=dev)
-            t = tile.shape[0]
-            patches = patchify_inference_tile(tile)       # (100, T, 128, 128, C)
-            del tile
+        with span("tile.predict"), torch.inference_mode(), torch.autocast(
+                dev.type, dtype=dtype, enabled=amp):
+            with span("tile.patchify"):
+                tile = torch.as_tensor(tile_ts, dtype=torch.float32, device=dev)
+                t = tile.shape[0]
+                patches = patchify_inference_tile(tile)       # (100, T, 128, 128, C)
+                del tile
             n_patches = patches.shape[0]
+            count("tile.patches", n_patches)
             db = torch.as_tensor(dates, dtype=torch.float32,
                                  device=dev)[None].expand(batch_size, t)
             mb = pad_mask_from_lengths(
                 torch.tensor([int(length)], device=dev), t).expand(batch_size, t)
             probs = []
             for start in range(0, n_patches, batch_size):
-                xb = patches[start:start + batch_size]
-                nb = xb.shape[0]
-                if nb < batch_size:  # pad the final batch to the same shape
-                    xb = torch.cat([xb, xb.new_zeros((batch_size - nb,) + xb.shape[1:])])
-                logits = forward(xb, db, mb)
-                probs.append(torch.softmax(logits.float(), dim=-1)[:nb])
-            proba = stitch_inference_tile(torch.cat(probs))
-            classes = proba.argmax(dim=-1).to(torch.uint8)
-            return {"proba": proba.cpu().numpy(), "classes": classes.cpu().numpy()}
+                with span("tile.forward"):
+                    xb = patches[start:start + batch_size]
+                    nb = xb.shape[0]
+                    if nb < batch_size:  # pad the final batch to the same shape
+                        xb = torch.cat([xb, xb.new_zeros((batch_size - nb,) + xb.shape[1:])])
+                    logits = forward(xb, db, mb)
+                    probs.append(torch.softmax(logits.float(), dim=-1)[:nb])
+            with span("tile.stitch"):
+                proba = stitch_inference_tile(torch.cat(probs))
+                classes = proba.argmax(dim=-1).to(torch.uint8)
+            with span("tile.fetch"):      # waits for the device's work
+                return {"proba": proba.cpu().numpy(), "classes": classes.cpu().numpy()}
 
     return predict

@@ -24,6 +24,11 @@ matrices in ``aux`` are the global ones, the same on every rank. With
 ``space_group`` as well (parallel/mesh.py's ``data_space_parallel_step``,
 a 2-D data x space mesh) the shard is also a slice of H, and the forward
 and backward run inside ``nn/layers.py::space_shards``.
+
+A train step's stages are spans (``utils/profiling.py``): ``step`` around
+``step.forward`` (under autocast), ``step.loss``, ``step.backward``,
+``step.grad_sum`` (with ``group``) and ``step.optimizer``; the counter
+``step.samples`` counts the rows of the step's batch (this rank's shard).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from crop2seg_tpu_torch.learning.metrics import (
     IoUMeter, confusion_matrix, top2_prediction)
 from crop2seg_tpu_torch.nn.layers import global_batch_stats, space_shards
 from crop2seg_tpu_torch.ops.boundary import boundary_mask
+from crop2seg_tpu_torch.utils.profiling import count, span
 
 
 @dataclass(frozen=True)
@@ -228,19 +234,25 @@ def make_train_step(model: torch.nn.Module, cfg: StepConfig,
     weight = _weight(cfg, dev)
 
     def step(batch: Mapping, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        model.train()
-        b = _to(batch, dev)
-        model.zero_grad(set_to_none=True)
-        with global_batch_stats(group), space_shards(space_group):
-            with _autocast(dev, dtype):
-                out = model(b["x"], b["dates"], b["pad_mask"], generator=generator)
-            aux = _metrics(cfg, out, b["y"], weight, group=group)
-            aux["loss"].backward()
-        if group is not None:
-            _sum_grads(model.parameters(), group)
-        optimizer.step()
-        aux["loss"] = aux["loss"].detach()
-        return _sum_over_group(aux, group)
+        with span("step"):
+            model.train()
+            b = _to(batch, dev)
+            count("step.samples", b["x"].shape[0])
+            model.zero_grad(set_to_none=True)
+            with global_batch_stats(group), space_shards(space_group):
+                with span("step.forward"), _autocast(dev, dtype):
+                    out = model(b["x"], b["dates"], b["pad_mask"], generator=generator)
+                with span("step.loss"):
+                    aux = _metrics(cfg, out, b["y"], weight, group=group)
+                with span("step.backward"):
+                    aux["loss"].backward()
+            if group is not None:
+                with span("step.grad_sum"):
+                    _sum_grads(model.parameters(), group)
+            with span("step.optimizer"):
+                optimizer.step()
+            aux["loss"] = aux["loss"].detach()
+            return _sum_over_group(aux, group)
 
     step.optimizer = optimizer
     return step

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from crop2seg_tpu_torch.nn.layers import space_group, upsample_rows
+from crop2seg_tpu_torch.utils.profiling import span
 
 
 def _resample_attn(a: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -61,25 +62,26 @@ def temporal_aggregate(x: torch.Tensor, attn: torch.Tensor | None = None,
     """Collapse (B, T, H, W, C) skips to (B, H, W, C).
 
     attn: (B, h_a, w_a, head, T) attention masks from the L-TAE; pad_mask:
-    (B, T) bool, True at padded dates."""
-    b, t, h, w, c = x.shape
-    valid = None if pad_mask is None else (~pad_mask).to(x.dtype)
-    with torch.autocast(x.device.type, enabled=False):
-        if mode in ("att_group", "att_mean"):
-            a = attn if mode == "att_group" else attn.mean(dim=3, keepdim=True)
-            k = a.shape[3]
-            a = a.permute(0, 4, 3, 1, 2).to(x.dtype)          # (B, T, K, ha, wa)
-            a = _resample_attn(a.reshape((b * t, k) + a.shape[3:]), h, w)
-            a = a.reshape(b, t, k, h, w).permute(0, 1, 3, 4, 2)  # (B, T, H, W, K)
-            if valid is not None:
-                a = a * valid[:, :, None, None, None]
-            out = _weighted_sum(a, x.reshape(b, t, h, w, k, c // k))
-            return out.reshape(b, h, w, c).to(x.dtype)
-        if mode == "mean":
-            if valid is None:
-                return x.mean(dim=1)
-            num = _weighted_sum(valid[:, :, None, None, None].expand(b, t, h, w, 1),
-                                x[..., None, :])
-            den = valid.float().sum(dim=1)[:, None, None, None, None]
-            return (num / den).reshape(b, h, w, c).to(x.dtype)
-    raise ValueError(f"unknown aggregation mode {mode!r}")
+    (B, T) bool, True at padded dates. The call is the span ``aggregate``."""
+    with span("aggregate"):
+        b, t, h, w, c = x.shape
+        valid = None if pad_mask is None else (~pad_mask).to(x.dtype)
+        with torch.autocast(x.device.type, enabled=False):
+            if mode in ("att_group", "att_mean"):
+                a = attn if mode == "att_group" else attn.mean(dim=3, keepdim=True)
+                k = a.shape[3]
+                a = a.permute(0, 4, 3, 1, 2).to(x.dtype)          # (B, T, K, ha, wa)
+                a = _resample_attn(a.reshape((b * t, k) + a.shape[3:]), h, w)
+                a = a.reshape(b, t, k, h, w).permute(0, 1, 3, 4, 2)  # (B, T, H, W, K)
+                if valid is not None:
+                    a = a * valid[:, :, None, None, None]
+                out = _weighted_sum(a, x.reshape(b, t, h, w, k, c // k))
+                return out.reshape(b, h, w, c).to(x.dtype)
+            if mode == "mean":
+                if valid is None:
+                    return x.mean(dim=1)
+                num = _weighted_sum(valid[:, :, None, None, None].expand(b, t, h, w, 1),
+                                    x[..., None, :])
+                den = valid.float().sum(dim=1)[:, None, None, None, None]
+                return (num / den).reshape(b, h, w, c).to(x.dtype)
+        raise ValueError(f"unknown aggregation mode {mode!r}")

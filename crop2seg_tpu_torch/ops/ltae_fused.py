@@ -38,6 +38,7 @@ import torch
 
 from crop2seg_tpu_torch.ops._build import load_library
 from crop2seg_tpu_torch.ops.ltae_pool import aligned16, blocks_per_item
+from crop2seg_tpu_torch.utils.profiling import span
 
 # The row-group kernels' limits; the general kernel takes the rest.
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
@@ -251,68 +252,70 @@ def ltae_fused_forward(x: torch.Tensor, pe: torch.Tensor,
     for nq = 1; (B, N, nq, d_out) and (B, N, G, nq, T) for nq > 1.
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     of ``kernel_route``. A shape where G does not divide C, D and d_out
-    raises on either.
+    raises on either. The call is the span ``ltae.eval`` on either device
+    (its host time: the checks, the folds, the aligned copies, the launch).
     """
-    nq = _query(params, n_head).shape[1]
-    _check_defined(x.shape[-1], params["win"].shape[1], n_head,
-                   params["wm_folded"].shape[1])
-    if x.device.type == "cpu":
-        return ltae_fused_forward_reference(
-            x, pe, pad_mask, params, n_head=n_head, d_k=d_k, eps=eps,
-            need_attn=need_attn, tail_affine=tail_affine)
-    if x.device.type != "cuda":
-        raise ValueError(f"ltae_fused_forward runs on cuda or cpu, got {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("x must be a contiguous, 16-byte aligned (B, T, N, C) tensor")
-    b, t, n, c = x.shape
-    g = n_head
-    d, d_out = params["win"].shape[1], params["wm_folded"].shape[1]
-    route = kernel_route(t, c, d, g, d_out, nq)
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    s = (blocks_per_item(b, sm_count) if route == "general"
-         else launch_shape(b, t, c, d, g, d_out, nq, sm_count))
-    if pe.shape != (b, t, d) or pad_mask.shape != (b, t):
-        raise ValueError(f"pe {tuple(pe.shape)} / pad_mask {tuple(pad_mask.shape)} "
-                         f"do not match x {tuple(x.shape)}, D={d}")
-    with torch.autocast(x.device.type, enabled=False):
-        f = _fold(pe, pad_mask, params, g, d_k)
-        if tail_affine is not None:
-            tsc, tsh = (a.float() for a in tail_affine)
-            if tsc.shape != (b, t, c) or tsh.shape != (b, t, c):
-                raise ValueError(f"tail_affine must be (B, T, C) = {(b, t, c)}")
-            f["tsc"], f["tsh"] = tsc, tsh
-    f = {k: aligned16(v.to(x.device).contiguous()) for k, v in f.items()}
-    out = torch.empty(b, n, nq, d_out, dtype=x.dtype, device=x.device)
-    attn = (torch.empty(b, n, g, nq, t, dtype=torch.float32, device=x.device)
-            if need_attn else None)
+    with span("ltae.eval"):
+        nq = _query(params, n_head).shape[1]
+        _check_defined(x.shape[-1], params["win"].shape[1], n_head,
+                       params["wm_folded"].shape[1])
+        if x.device.type == "cpu":
+            return ltae_fused_forward_reference(
+                x, pe, pad_mask, params, n_head=n_head, d_k=d_k, eps=eps,
+                need_attn=need_attn, tail_affine=tail_affine)
+        if x.device.type != "cuda":
+            raise ValueError(f"ltae_fused_forward runs on cuda or cpu, got {x.device}")
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+        if x.dim() != 4 or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError("x must be a contiguous, 16-byte aligned (B, T, N, C) tensor")
+        b, t, n, c = x.shape
+        g = n_head
+        d, d_out = params["win"].shape[1], params["wm_folded"].shape[1]
+        route = kernel_route(t, c, d, g, d_out, nq)
+        sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+        s = (blocks_per_item(b, sm_count) if route == "general"
+             else launch_shape(b, t, c, d, g, d_out, nq, sm_count))
+        if pe.shape != (b, t, d) or pad_mask.shape != (b, t):
+            raise ValueError(f"pe {tuple(pe.shape)} / pad_mask {tuple(pad_mask.shape)} "
+                             f"do not match x {tuple(x.shape)}, D={d}")
+        with torch.autocast(x.device.type, enabled=False):
+            f = _fold(pe, pad_mask, params, g, d_k)
+            if tail_affine is not None:
+                tsc, tsh = (a.float() for a in tail_affine)
+                if tsc.shape != (b, t, c) or tsh.shape != (b, t, c):
+                    raise ValueError(f"tail_affine must be (B, T, C) = {(b, t, c)}")
+                f["tsc"], f["tsh"] = tsc, tsh
+        f = {k: aligned16(v.to(x.device).contiguous()) for k, v in f.items()}
+        out = torch.empty(b, n, nq, d_out, dtype=x.dtype, device=x.device)
+        attn = (torch.empty(b, n, g, nq, t, dtype=torch.float32, device=x.device)
+                if need_attn else None)
 
-    def ptr(name):
-        return f[name].data_ptr() if name in f else None
+        def ptr(name):
+            return f[name].data_ptr() if name in f else None
 
-    fn, scratch_floats, _ = _kernel()
-    scratch = None
-    if route == "general" and (per := scratch_floats(
-            t, c, d, g, d_out, nq, int(x.dtype == torch.bfloat16), int(need_attn))):
-        scratch = torch.empty(b * s * per, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                ptr("pe"), ptr("win"), ptr("bin"), ptr("ws"), ptr("pes"),
-                ptr("wm"), ptr("bm"), ptr("osc"), ptr("obi"),
-                ptr("tsc"), ptr("tsh"), out.data_ptr(),
-                None if attn is None else attn.data_ptr(),
-                b, t, n, c, d, g, d_out, nq, ROUTES.index(route), s,
-                None if scratch is None else scratch.data_ptr(), eps, stream)
-    if rc != 0:
-        raise RuntimeError(f"ltae_fused_fwd kernel launch failed ({route}): cudaError {rc}")
-    ltae_fused_forward.launches += 1
-    ltae_fused_forward.route_launches[route] += 1
-    ltae_fused_forward.tail_launches += tail_affine is not None
-    if nq == 1:
-        return out[:, :, 0], (None if attn is None else attn[:, :, :, 0])
-    return out, attn
+        fn, scratch_floats, _ = _kernel()
+        scratch = None
+        if route == "general" and (per := scratch_floats(
+                t, c, d, g, d_out, nq, int(x.dtype == torch.bfloat16), int(need_attn))):
+            scratch = torch.empty(b * s * per, dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                    ptr("pe"), ptr("win"), ptr("bin"), ptr("ws"), ptr("pes"),
+                    ptr("wm"), ptr("bm"), ptr("osc"), ptr("obi"),
+                    ptr("tsc"), ptr("tsh"), out.data_ptr(),
+                    None if attn is None else attn.data_ptr(),
+                    b, t, n, c, d, g, d_out, nq, ROUTES.index(route), s,
+                    None if scratch is None else scratch.data_ptr(), eps, stream)
+        if rc != 0:
+            raise RuntimeError(f"ltae_fused_fwd kernel launch failed ({route}): cudaError {rc}")
+        ltae_fused_forward.launches += 1
+        ltae_fused_forward.route_launches[route] += 1
+        ltae_fused_forward.tail_launches += tail_affine is not None
+        if nq == 1:
+            return out[:, :, 0], (None if attn is None else attn[:, :, :, 0])
+        return out, attn
 
 
 ltae_fused_forward.launches = 0

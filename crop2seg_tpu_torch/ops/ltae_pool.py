@@ -27,7 +27,9 @@ autograd for a CPU tensor and the kernel pair of ``csrc/ltae_pool.cu`` (a
 ``torch.autograd.Function``) for a CUDA tensor, with x (z) in fp32 or bf16; o
 and dx come back in x's dtype, every other gradient in fp32.
 ``ltae_pool.launches_fwd`` / ``.launches_bwd`` count the kernels' launches,
-and ``ltae_pool.launches`` counts them per variant (``variant``).
+and ``ltae_pool.launches`` counts them per variant (``variant``). The pair's
+wrappers are the spans ``ltae.pool.fwd`` and ``ltae.pool.bwd``, the second
+on autograd's backward thread.
 
 Routes: where ``kernel_takes`` (T <= 64, C <= 64 with C % 8 == 0, G <= 16,
 D <= 256: TimeUNet's training path) the forward kernel runs S =
@@ -72,6 +74,7 @@ import functools
 import torch
 
 from crop2seg_tpu_torch.ops._build import load_library
+from crop2seg_tpu_torch.utils.profiling import span
 
 # The fast pair's limits; the general pair takes the rest.
 MAX_T = 64          # one warp holds a row's scores: lanes own t and t + 32
@@ -325,78 +328,80 @@ class _LtaePool(torch.autograd.Function):
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, x, tsc, tsh, pe, pad_mask, win_f, bin_f, u, cs, seed,
                 n_head, drop_p):
-        b, t, n, c = x.shape
-        d = win_f.shape[1]
-        with torch.autocast("cuda", enabled=False):
-            ws, bpe, pes = _folds(pe, pad_mask, win_f, bin_f, u, cs)
-        o = torch.empty(b, n, d, dtype=x.dtype, device=x.device)
-        general = not kernel_takes(t, c, d, n_head)
-        stats = None
-        head = (x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc), _ptr(tsh),
-                bpe.data_ptr(), win_f.data_ptr(), ws.data_ptr(), pes.data_ptr(),
-                o.data_ptr())
-        tail_args = (b, t, n, c, d, n_head, *_scalars(seed, drop_p), EPS)
-        kernels = _kernels()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            if general:
-                s = blocks_per_item(b, _sm_count(x.device))
-                stats = torch.empty(b, n, 4, n_head, dtype=torch.float32, device=x.device)
-                scratch = _general_scratch(t, c, d, n_head, False, b * s, x)
-                rc = kernels[3](*head, stats.data_ptr(), _ptr(scratch), s, *tail_args,
-                                stream)
-            else:
-                s = fwd_launch_shape(b, t, c, d, n_head, _sm_count(x.device))
-                rc = kernels[0](*head, s, *tail_args, stream)
-        if rc != 0:
-            raise RuntimeError(f"ltae_pool_fwd{'_general' if general else ''} kernel "
-                               f"launch failed: cudaError {rc}")
-        _count(tsc is not None, x.dtype, "fwd", general)
-        ctx.save_for_backward(x, tsc, tsh, win_f, u, ws, bpe, pes, stats)
-        ctx.seed, ctx.n_head, ctx.drop_p = seed, n_head, drop_p
-        return o
+        with span("ltae.pool.fwd"):
+            b, t, n, c = x.shape
+            d = win_f.shape[1]
+            with torch.autocast("cuda", enabled=False):
+                ws, bpe, pes = _folds(pe, pad_mask, win_f, bin_f, u, cs)
+            o = torch.empty(b, n, d, dtype=x.dtype, device=x.device)
+            general = not kernel_takes(t, c, d, n_head)
+            stats = None
+            head = (x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc), _ptr(tsh),
+                    bpe.data_ptr(), win_f.data_ptr(), ws.data_ptr(), pes.data_ptr(),
+                    o.data_ptr())
+            tail_args = (b, t, n, c, d, n_head, *_scalars(seed, drop_p), EPS)
+            kernels = _kernels()
+            with torch.cuda.device(x.device):
+                stream = torch.cuda.current_stream(x.device).cuda_stream
+                if general:
+                    s = blocks_per_item(b, _sm_count(x.device))
+                    stats = torch.empty(b, n, 4, n_head, dtype=torch.float32, device=x.device)
+                    scratch = _general_scratch(t, c, d, n_head, False, b * s, x)
+                    rc = kernels[3](*head, stats.data_ptr(), _ptr(scratch), s, *tail_args,
+                                    stream)
+                else:
+                    s = fwd_launch_shape(b, t, c, d, n_head, _sm_count(x.device))
+                    rc = kernels[0](*head, s, *tail_args, stream)
+            if rc != 0:
+                raise RuntimeError(f"ltae_pool_fwd{'_general' if general else ''} kernel "
+                                   f"launch failed: cudaError {rc}")
+            _count(tsc is not None, x.dtype, "fwd", general)
+            ctx.save_for_backward(x, tsc, tsh, win_f, u, ws, bpe, pes, stats)
+            ctx.seed, ctx.n_head, ctx.drop_p = seed, n_head, drop_p
+            return o
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, go):
-        x, tsc, tsh, win_f, u, ws, bpe, pes, stats = ctx.saved_tensors
-        general = stats is not None
-        tail = tsc is not None
-        b, t, n, c = x.shape
-        d, g = win_f.shape[1], ctx.n_head
-        go = go.to(x.dtype).contiguous()
-        dx = torch.empty_like(x)
-        f32 = dict(dtype=torch.float32, device=x.device)
-        acc_a, acc_f = torch.empty(c, g, **f32), torch.empty(c, d, **f32)
-        dsum, acc_e = torch.empty(b, t, g, **f32), torch.empty(b, t, d, **f32)
-        dtsc, dtsh = ((torch.empty(b, t, c, **f32), torch.empty(b, t, c, **f32))
-                      if tail else (None, None))
-        kernels = _kernels()
-        s = blocks_per_item(b, _sm_count(x.device))
-        part = torch.empty(b * s, kernels[2](t, c, d, g, int(tail)), **f32)
-        args = (x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc), _ptr(tsh),
-                go.data_ptr(), win_f.data_ptr(), ws.data_ptr(), pes.data_ptr(),
-                bpe.data_ptr())
-        sums = (dx.data_ptr(), acc_a.data_ptr(), acc_f.data_ptr(), dsum.data_ptr(),
-                acc_e.data_ptr(), _ptr(dtsc), _ptr(dtsh), part.data_ptr())
-        scalars = (b, t, n, c, d, g, *_scalars(ctx.seed, ctx.drop_p), EPS)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            if general:
-                scratch = _general_scratch(t, c, d, g, True, b * s, x)
-                rc = kernels[4](*args, stats.data_ptr(), *sums, _ptr(scratch), s,
-                                *scalars, stream)
-            else:
-                rc = kernels[1](*args, *sums, s, *scalars, stream)
-        if rc != 0:
-            raise RuntimeError(f"ltae_pool_bwd{'_general' if general else ''} kernel "
-                               f"launch failed: cudaError {rc}")
-        _count(tail, x.dtype, "bwd", general)
-        with torch.autocast("cuda", enabled=False):
-            dpe, dwin, dbin, du, dcs = _finish_backward(acc_a, acc_f, dsum, acc_e,
-                                                        win_f, u, bpe)
-        return (dx, dtsc, dtsh, dpe, None, dwin, dbin, du, dcs, None, None,
-                None)
+        with span("ltae.pool.bwd"):
+            x, tsc, tsh, win_f, u, ws, bpe, pes, stats = ctx.saved_tensors
+            general = stats is not None
+            tail = tsc is not None
+            b, t, n, c = x.shape
+            d, g = win_f.shape[1], ctx.n_head
+            go = go.to(x.dtype).contiguous()
+            dx = torch.empty_like(x)
+            f32 = dict(dtype=torch.float32, device=x.device)
+            acc_a, acc_f = torch.empty(c, g, **f32), torch.empty(c, d, **f32)
+            dsum, acc_e = torch.empty(b, t, g, **f32), torch.empty(b, t, d, **f32)
+            dtsc, dtsh = ((torch.empty(b, t, c, **f32), torch.empty(b, t, c, **f32))
+                          if tail else (None, None))
+            kernels = _kernels()
+            s = blocks_per_item(b, _sm_count(x.device))
+            part = torch.empty(b * s, kernels[2](t, c, d, g, int(tail)), **f32)
+            args = (x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(tsc), _ptr(tsh),
+                    go.data_ptr(), win_f.data_ptr(), ws.data_ptr(), pes.data_ptr(),
+                    bpe.data_ptr())
+            sums = (dx.data_ptr(), acc_a.data_ptr(), acc_f.data_ptr(), dsum.data_ptr(),
+                    acc_e.data_ptr(), _ptr(dtsc), _ptr(dtsh), part.data_ptr())
+            scalars = (b, t, n, c, d, g, *_scalars(ctx.seed, ctx.drop_p), EPS)
+            with torch.cuda.device(x.device):
+                stream = torch.cuda.current_stream(x.device).cuda_stream
+                if general:
+                    scratch = _general_scratch(t, c, d, g, True, b * s, x)
+                    rc = kernels[4](*args, stats.data_ptr(), *sums, _ptr(scratch), s,
+                                    *scalars, stream)
+                else:
+                    rc = kernels[1](*args, *sums, s, *scalars, stream)
+            if rc != 0:
+                raise RuntimeError(f"ltae_pool_bwd{'_general' if general else ''} kernel "
+                                   f"launch failed: cudaError {rc}")
+            _count(tail, x.dtype, "bwd", general)
+            with torch.autocast("cuda", enabled=False):
+                dpe, dwin, dbin, du, dcs = _finish_backward(acc_a, acc_f, dsum, acc_e,
+                                                            win_f, u, bpe)
+            return (dx, dtsc, dtsh, dpe, None, dwin, dbin, du, dcs, None, None,
+                    None)
 
 
 def _finish_backward(acc_a, acc_f, dsum, acc_e, win_f, u, bpe):

@@ -66,6 +66,11 @@ from crop2seg_tpu_torch.models.factory import MODELS
 
 log = logging.getLogger("crop2seg_tpu_torch.train")
 
+# --profile's window over the first epoch's train steps: the first step (the
+# kernels' build, cuDNN's first use) skipped, one step of the profiler's
+# warm-up, then the steps traced (fewer where the epoch ends first)
+PROFILE_SKIP, PROFILE_WARMUP, PROFILE_STEPS = 1, 1, 5
+
 parser = argparse.ArgumentParser(prog="python -m crop2seg_tpu_torch.train")
 # model
 parser.add_argument("--model", default="utae", type=str,
@@ -149,8 +154,12 @@ parser.add_argument("--num_devices", default=None, type=int,
 parser.add_argument("--platform", default=None, type=str,
                     help="the JAX package's device pin; here --device")
 parser.add_argument("--profile", default=None, type=str, metavar="DIR",
-                    help="write a torch.profiler trace of the first epoch "
-                         "into DIR")
+                    help=f"trace train steps {PROFILE_SKIP + PROFILE_WARMUP + 1}-"
+                         f"{PROFILE_SKIP + PROFILE_WARMUP + PROFILE_STEPS} of the "
+                         "first epoch with torch.profiler (step 1 builds the "
+                         "kernels and meets cuDNN's first use, step 2 starts the "
+                         "profiler): the chrome trace into DIR/trace.json, "
+                         "the program's spans and counters into DIR/spans.json")
 parser.add_argument("--use_pallas", default="auto", type=str,
                     choices=("auto", "true", "false"),
                     help="the eval L-TAE kernel on the val and test steps "
@@ -556,16 +565,13 @@ def _run(config, dev: torch.device, group=None) -> TrainRun:
         for epoch in range(start_epoch, config.epochs + 1):
             log.info("EPOCH %d/%d", epoch, config.epochs)
             profiling = config.profile and epoch == start_epoch and writer
-            with (_profiler(dev) if profiling else contextlib.nullcontext()) as prof:
+            with (_profiler(dev, config.profile) if profiling
+                  else contextlib.nullcontext()) as prof:
                 train_metrics, _ = run_epoch(
-                    train_step, train_loader, step_cfg, mode="train",
+                    train_step if prof is None else _profiled(train_step, prof),
+                    train_loader, step_cfg, mode="train",
                     generator=generator, display_step=config.display_step,
                     log_fn=log.info)
-            if profiling:
-                os.makedirs(config.profile, exist_ok=True)
-                path = os.path.join(config.profile, f"epoch_{epoch}.json")
-                prof.export_chrome_trace(path)
-                log.info("profiler trace written to %s", path)
             n_steps = len(train_loader)
             log.info("epoch %d: %d train steps in %.3f s (%.3f steps/s)", epoch,
                      n_steps, train_metrics["train_epoch_time"],
@@ -614,13 +620,36 @@ def _run(config, dev: torch.device, group=None) -> TrainRun:
                     adam_step(optimizer))
 
 
-def _profiler(dev: torch.device):
-    from torch.profiler import ProfilerActivity, profile
+def _profiler(dev: torch.device, out_dir: str):
+    """torch.profiler over --profile's window (PROFILE_*); when the window
+    ends, the chrome trace and the spans' table go to ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from crop2seg_tpu_torch.utils.profiling import reset_spans, span_table
+
+    def write(prof):
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+        with open(os.path.join(out_dir, "spans.json"), "w") as f:
+            json.dump(span_table(), f, indent=1)
+        log.info("profiler trace and spans written to %s", out_dir)
 
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities)
+    reset_spans()
+    return profile(activities=activities, on_trace_ready=write,
+                   schedule=schedule(skip_first=PROFILE_SKIP, wait=0, warmup=PROFILE_WARMUP,
+                                     active=PROFILE_STEPS, repeat=1))
+
+
+def _profiled(step, prof):
+    """``step`` followed by the profiler's step count."""
+    def profiled(batch, generator):
+        aux = step(batch, generator)
+        prof.step()
+        return aux
+    return profiled
 
 
 def fold_sequence(config) -> List[int]:

@@ -260,16 +260,22 @@ def stream_tile_inference(model, ds, batch_size: int = 10,
     'dispatch' (issuing the forward), 'fetch' (the end of the device work,
     the stitch, and the copy of the maps to the host), plus 'bytes_up' and
     'total'; and 'decode_busy', the seconds the decoder thread itself spent
-    decoding (overlapped with the loop).
+    decoding (overlapped with the loop). The stages are the spans
+    ``stream`` ('total'), ``stream.wait``, ``stream.upload``,
+    ``stream.dispatch``, ``stream.fetch`` and, on the decoder thread,
+    ``stream.decode``, with the counter ``stream.bytes_up``
+    (``utils/profiling.py``); the timeline is what a ``collect()`` scope
+    around this call holds of them.
     """
+    import contextlib
     import queue as _queue
-    import time as _time
     from threading import Event, Thread
 
     from crop2seg_tpu_torch import native as nat
     from crop2seg_tpu_torch.device import resolve_device
     from crop2seg_tpu_torch.nn.temporal import pad_mask_from_lengths
     from crop2seg_tpu_torch.ops.patchify import INFER_TILE, stitch_inference_tile
+    from crop2seg_tpu_torch.utils.profiling import collect, span
 
     plan = ds.native_batch_plan()
     if plan is None:
@@ -296,7 +302,6 @@ def stream_tile_inference(model, ds, batch_size: int = 10,
     # buffers travel between the threads as (buffer, event): the event is
     # recorded behind the buffer's last host->device copy
     free_q: "_queue.Queue" = _queue.Queue()
-    busy = {"decode": 0.0}
     stop = Event()      # set when the consumer leaves early
 
     def wait(op, *args):
@@ -319,13 +324,12 @@ def stream_tile_inference(model, ds, batch_size: int = 10,
             buf, ev = wait(free_q.get)
             if ev is not None:
                 ev.synchronize()    # the buffer's last copy has finished
-            t0 = _time.perf_counter()
-            nat.load_batch(chunk, t, h, w, reorder=plan["reorder"],
-                           mean=plan["mean"], std=plan["std"],
-                           layout="nchw", out_dtype="bf16", out=buf[:len(chunk)])
-            if len(chunk) < batch_size:
-                buf[len(chunk):] = 0
-            busy["decode"] += _time.perf_counter() - t0
+            with span("stream.decode"):
+                nat.load_batch(chunk, t, h, w, reorder=plan["reorder"],
+                               mean=plan["mean"], std=plan["std"],
+                               layout="nchw", out_dtype="bf16", out=buf[:len(chunk)])
+                if len(chunk) < batch_size:
+                    buf[len(chunk):] = 0
             yield buf, len(chunk)
 
     def produce(q):
@@ -344,65 +348,68 @@ def stream_tile_inference(model, ds, batch_size: int = 10,
     dates_d = torch.as_tensor(dates, dtype=torch.float32,
                               device=dev)[None].expand(batch_size, t)
     mask_d = pad_mask_from_lengths(torch.tensor([t], device=dev), t).expand(batch_size, t)
-    tl = {"decode": 0.0, "upload": 0.0, "dispatch": 0.0, "fetch": 0.0,
-          "bytes_up": 0, "total": 0.0}
-    t_run = _time.perf_counter()
-    q: "_queue.Queue" = _queue.Queue(maxsize=2)
-    producer = Thread(target=produce, args=(q,), daemon=True)
-    producer.start()
-    probs = []
-    try:
-        _consume(q, free_q, forward, dev, pinned, dates_d, mask_d, probs, tl)
-    finally:
-        stop.set()
-        producer.join()
-    t0 = _time.perf_counter()
-    with torch.inference_mode():
-        proba = stitch_inference_tile(torch.cat(probs), INFER_TILE)
-        classes = proba.argmax(dim=-1).to(torch.uint8)
-        proba, classes = proba.cpu().numpy(), classes.cpu().numpy()
-    tl["fetch"] += _time.perf_counter() - t0
-    tl["total"] = _time.perf_counter() - t_run
-    tl["decode_busy"] = busy["decode"]
+    with (collect() if timeline is not None else contextlib.nullcontext()) as table:
+        with span("stream"):
+            q: "_queue.Queue" = _queue.Queue(maxsize=2)
+            producer = Thread(target=produce, args=(q,), daemon=True)
+            producer.start()
+            probs = []
+            try:
+                _consume(q, free_q, forward, dev, pinned, dates_d, mask_d, probs)
+            finally:
+                stop.set()
+                producer.join()
+            with span("stream.fetch"), torch.inference_mode():
+                proba = stitch_inference_tile(torch.cat(probs), INFER_TILE)
+                classes = proba.argmax(dim=-1).to(torch.uint8)
+                proba, classes = proba.cpu().numpy(), classes.cpu().numpy()
     if timeline is not None:
-        timeline.update(tl)
+        timeline.update(_timeline(table))
     return np.ascontiguousarray(proba), np.ascontiguousarray(classes)
 
 
-def _consume(q, free_q, model, dev, pinned, dates_d, mask_d, probs, tl) -> None:
+def _timeline(table: dict) -> dict:
+    """The stream's timeline from its ``collect()`` table."""
+    def seconds(name):
+        return table["spans"].get(name, {}).get("host_s", 0.0)
+
+    return {"decode": seconds("stream.wait"), "upload": seconds("stream.upload"),
+            "dispatch": seconds("stream.dispatch"), "fetch": seconds("stream.fetch"),
+            "bytes_up": table["counters"].get("stream.bytes_up", 0),
+            "total": seconds("stream"), "decode_busy": seconds("stream.decode")}
+
+
+def _consume(q, free_q, model, dev, pinned, dates_d, mask_d, probs) -> None:
     """The stream's main loop: each decoded chunk to the card, its buffer
     back to the free-list behind an event, the forward, softmax."""
-    import time as _time
+    from crop2seg_tpu_torch.utils.profiling import count, span
 
     with torch.inference_mode():
         while True:
-            t0 = _time.perf_counter()
-            item = q.get()
-            tl["decode"] += _time.perf_counter() - t0
+            with span("stream.wait"):
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, Exception):
                 raise item
             xb, nb = item
-            t0 = _time.perf_counter()
-            xd = xb.to(dev, non_blocking=pinned)
-            ev = None
-            if pinned:
-                ev = torch.cuda.Event()
-                ev.record()
-            tl["upload"] += _time.perf_counter() - t0
-            tl["bytes_up"] += xb.numel() * xb.element_size()
-            t0 = _time.perf_counter()
-            # planar (B, T, C, H, W) -> channels-last, fp32
-            xd = xd.permute(0, 1, 3, 4, 2).to(torch.float32,
-                                              memory_format=torch.contiguous_format)
-            # on the CPU ``xb.to(dev)`` is xb itself: the buffer is free once
-            # the fp32 copy above is made; on the card once the event behind
-            # its host->device copy has completed
-            free_q.put((xb, ev))
-            logits = model(xd, dates_d, mask_d)
-            probs.append(torch.softmax(logits.float(), dim=-1)[:nb])
-            tl["dispatch"] += _time.perf_counter() - t0
+            with span("stream.upload"):
+                xd = xb.to(dev, non_blocking=pinned)
+                ev = None
+                if pinned:
+                    ev = torch.cuda.Event()
+                    ev.record()
+            count("stream.bytes_up", xb.numel() * xb.element_size())
+            with span("stream.dispatch"):
+                # planar (B, T, C, H, W) -> channels-last, fp32
+                xd = xd.permute(0, 1, 3, 4, 2).to(torch.float32,
+                                                  memory_format=torch.contiguous_format)
+                # on the CPU ``xb.to(dev)`` is xb itself: the buffer is free once
+                # the fp32 copy above is made; on the card once the event behind
+                # its host->device copy has completed
+                free_q.put((xb, ev))
+                logits = model(xd, dates_d, mask_d)
+                probs.append(torch.softmax(logits.float(), dim=-1)[:nb])
 
 
 def _load_weights(model, fold_dir: str) -> None:

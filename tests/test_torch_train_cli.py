@@ -331,7 +331,11 @@ def test_utae_with_boundary_loss_frozen_layers_device_cache_bf16(data, tmp_path,
                    boundary=True)
     assert any(r.getMessage().startswith("freezing ") for r in caplog.records)
     assert run.adam_step == 2 * (7 // 2)
-    assert os.listdir(tmp_path / "trace") == ["epoch_1.json"]   # --profile: epoch 1
+    # --profile: epoch 1's third step, after the skipped one and the profiler's warm-up
+    assert sorted(os.listdir(tmp_path / "trace")) == ["spans.json", "trace.json"]
+    with open(tmp_path / "trace" / "spans.json") as f:
+        spans = json.load(f)
+    assert spans["spans"]["step"]["calls"] == 1 and spans["counters"]["step.samples"] == 2
 
 
 def test_sample_weights_fill_missing_with_one():
