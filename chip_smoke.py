@@ -3,7 +3,10 @@
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
 1. Builds the kernel sources (csrc/ltae_fused_fwd.cu, csrc/ltae_pool.cu,
-   csrc/ltae_stages.cu), one nvcc process each, started together with the
+   csrc/ltae_stages.cu, csrc/temporal_aggregate.cu: the skip aggregator's
+   pair, which the models below that aggregate skips launch and
+   tests/test_torch_aggregate_kernel.py holds against its plain version),
+   one nvcc process each, started together with the
    native loader's g++ (native/loader.cpp), and prints
    ptxas's registers and spills per kernel instantiation (and on their own
    lines the wide, queries and general kernels').
@@ -59,7 +62,17 @@
 8. U-TAE serving (the JAX package's default model, factory defaults,
    seeded weights): the entry forward at (1, 30, 128, 128, 10), length 27
    (one kernel launch, finite logits), then one tile through
-   make_tile_predictor in bf16 and fp32 with the checks of phase 4.
+   make_tile_predictor in bf16 and fp32 with the checks of phase 4; the
+   bf16 tile launches the skip aggregator's forward (counter
+   ``aggregate.kernel``) exactly 30 times, three skips a batch of ten.
+   Then the aggregator's pair (csrc/temporal_aggregate.cu) at U-TAE's three
+   skips (128^2, 64^2, 32^2, T=61, C=64, K=16, the attention resampled
+   from 16^2) at B=16 (lengths 27-61) and B=10, bf16 and fp32, forward and
+   backward against the loop of per-date ops: out and dx bit for bit, dw
+   within 1e-6 of its products' magnitudes and in bf16 one rounding
+   besides; then the pair, the loop and one torch.einsum timed at B=16,
+   128^2 beside the bytes bound (``temporal_aggregate_fwd`` / ``_bwd`` on
+   the kernels line, ``library_ms`` the einsum's).
 9. The fused eval L-TAE kernel with three queries per head (nq = 3: the
    queries row-group kernel, ltae_fused_queries_kernel), at U-TAE's
    bottleneck width (N=16*16, C=d_out=128) and TimeUNet's (N=128*128,
@@ -73,8 +86,9 @@
    make_train_step, 5 steps at B=4
    in fp32 without remat and 5 at B=16 in bf16 with remat="conv_out" (the
    JAX bench's core train cell), each with a finite, falling loss, changed
-   BatchNorm statistics and no launch of any kernel (the JAX U-TAE trains
-   on plain ops too); then one B=2 step's gradients with remat ("conv_out"
+   BatchNorm statistics, no launch of any L-TAE kernel (the JAX U-TAE
+   trains its L-TAE on plain ops too) and 15 launches each way of the
+   aggregator's pair (three skips a step); then one B=2 step's gradients with remat ("conv_out"
    and "full") against those without, within the measured spread.
 11. The general kernels, which take every shape past the fast kernels'
    limits (T > 64 above all): timed at T=128, B=4, TimeUNet's width (the
@@ -286,13 +300,16 @@ from crop2seg_tpu_torch.learning.losses import cross_entropy
 from crop2seg_tpu_torch.learning.trainer import (
     StepConfig, make_eval_step, make_train_step)
 from crop2seg_tpu_torch.models.factory import get_model, init_weights
+from crop2seg_tpu_torch.nn import aggregator
 from crop2seg_tpu_torch.nn.ltae import LTAE
 from crop2seg_tpu_torch.nn.temporal import pad_mask_from_lengths
 from crop2seg_tpu_torch.ops import _build
+from crop2seg_tpu_torch.ops import aggregate as ag
 from crop2seg_tpu_torch.ops import ltae_fused as lf
 from crop2seg_tpu_torch.ops import ltae_pool as lp
 from crop2seg_tpu_torch.ops import ltae_stages as ls
 from crop2seg_tpu_torch.ops.patchify import patchify_inference_tile
+from crop2seg_tpu_torch.utils.profiling import collect
 
 # H100 SXM data-sheet peaks (dense): device memory and per-type math rates
 HBM_BYTES_PER_S = 3.35e12
@@ -885,13 +902,17 @@ def check_grads_within_spread(label: str, got: dict, plain: dict, perturbed: dic
     return ratio[worst]
 
 
-def phase_main_path(model, dev, label: str = "", kernel_launches: int = 10):
+def phase_main_path(model, dev, label: str = "", kernel_launches: int = 10,
+                    aggregate_launches: int | None = 0):
     """One tile through make_tile_predictor in bf16 and fp32 with its checks;
     ``label`` prefixes the printed lines. Each tile must launch the eval
     kernel ``kernel_launches`` times and the training pair never; with
     kernel launches two patches are held against the plain L-TAE forced.
-    Returns the bf16 tile's kernel launches, patches/s in bf16 and fp32,
-    and the bf16 / fp32 class agreement."""
+    The bf16 tile runs inside a ``collect()`` scope, whose counter
+    ``aggregate.kernel`` (the skip aggregator's forward launches) must read
+    ``aggregate_launches`` where that is given. Returns the bf16 tile's
+    kernel launches, patches/s in bf16 and fp32, the bf16 / fp32 class
+    agreement and the bf16 tile's aggregator launches."""
     gen = torch.Generator(device=dev).manual_seed(2)
     tile = torch.randn(T, 1098, 1098, 10, generator=gen, device=dev)
     tile[LENGTH:] = 0.0
@@ -907,18 +928,23 @@ def phase_main_path(model, dev, label: str = "", kernel_launches: int = 10):
         run(predict, tile)                                  # warm-up
         lf.ltae_fused_forward.launches = 0                  # this path's counts
         lp.ltae_pool.launches.clear()
-        res, secs = run(predict, tile)
+        with collect() as table:
+            res, secs = run(predict, tile)
         launches = lf.ltae_fused_forward.launches
+        agg = table["counters"].get("aggregate.kernel", 0)
         print(f"{label}tile {name}: {secs:.3f} s, {100 / secs:.2f} patches/s, "
-              f"ltae_fused_fwd launches {launches}", flush=True)
+              f"ltae_fused_fwd launches {launches}, aggregate launches {agg}", flush=True)
         check(launches == kernel_launches and not lp.ltae_pool.launches,
               f"{label}{name} tile launched the eval kernel {launches} times, not "
               f"{kernel_launches}, and the training pair {dict(lp.ltae_pool.launches)}")
-        return res, secs, launches
+        check(aggregate_launches is None or agg == aggregate_launches,
+              f"{label}{name} tile launched the aggregator's forward {agg} times, not "
+              f"{aggregate_launches}")
+        return res, secs, launches, agg
 
     predict_bf16 = make_tile_predictor(model, batch_size=MAIN_B, dtype=torch.bfloat16)
-    res, secs, launches = counted(predict_bf16, "bf16")     # the main path
-    res32, secs32, _ = counted(make_tile_predictor(model, batch_size=MAIN_B), "fp32")
+    res, secs, launches, agg = counted(predict_bf16, "bf16")     # the main path
+    res32, secs32, _, _ = counted(make_tile_predictor(model, batch_size=MAIN_B), "fp32")
 
     for name, r in (("bf16", res), ("fp32", res32)):
         p, cls = r["proba"], r["classes"]
@@ -955,7 +981,7 @@ def phase_main_path(model, dev, label: str = "", kernel_launches: int = 10):
     print(f"{label}pad invariance (garbage in frames {LENGTH}..{T - 1}): max |dproba| "
           f"{inv_err:.3e} (tol 1e-6)", flush=True)
     check(inv_err <= 1e-6, f"{label}pad frames leak into the output: {inv_err}")
-    return launches, 100 / secs, 100 / secs32, agree
+    return launches, 100 / secs, 100 / secs32, agree, agg
 
 
 def phase_kernel_utae(model, dev):
@@ -1084,8 +1110,119 @@ def phase_utae(model, dev):
     check(bool(torch.isfinite(logits).all()), "entry forward: non-finite logits")
     check(entry == 1, f"entry forward launched the kernel {entry} times, not 1")
     del x, logits
-    launches, pps_bf16, pps_fp32, _ = phase_main_path(model, dev, label="utae ")
-    return entry, launches, pps_bf16, pps_fp32
+    # three skips a forward, ten batches of ten patches a tile
+    launches, pps_bf16, pps_fp32, _, agg = phase_main_path(
+        model, dev, label="utae ", aggregate_launches=3 * 100 // MAIN_B)
+    return entry, launches, pps_bf16, pps_fp32, agg
+
+
+def agg_script():
+    """scripts/bench_aggregate_torch.py as a module: U-TAE's skip shapes,
+    their lengths, the pair's bytes and the same sum by one library call."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_aggregate_torch",
+        Path(__file__).resolve().parent / "scripts" / "bench_aggregate_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script
+
+
+def agg_inputs(script, b: int, side: int, dtype, gen, dev):
+    """A U-TAE skip as the aggregator hands it to the pair: x (B, T, side,
+    side, C), the L-TAE's softmaxed attention on its 16^2 grid resampled to
+    the skip (``nn/aggregator.py::_resample_attn``) as (B, T, K, side,
+    side), the pad mask of the script's lengths, and an upstream gradient."""
+    t, c, k = script.T, script.C, script.K
+    x = torch.randn(b, t, side, side, c, generator=gen, device=dev).to(dtype)
+    logits = torch.randn(b, 16, 16, k, t, generator=gen, device=dev)
+    a = torch.softmax(logits, -1).to(dtype).permute(0, 4, 3, 1, 2)
+    w = aggregator._resample_attn(a.reshape(b * t, k, 16, 16), side, side)
+    pad = pad_mask_from_lengths(torch.tensor(script.lengths(b), device=dev), t)
+    dout = torch.randn(b, side, side, c, generator=gen, device=dev).to(dtype)
+    return x, w.reshape(b, t, k, side, side), pad, dout
+
+
+def phase_aggregate(dev):
+    """The skip aggregator's kernel pair (csrc/temporal_aggregate.cu) at the
+    shapes U-TAE's cells give it: the three skips (128^2, 64^2, 32^2, T=61,
+    C=64 in K=16 heads) at B=16 (lengths 27-61) and B=10 (27 and 61 in
+    turn), bf16 and fp32, forward and backward against the loop of per-date
+    ops (``ops/aggregate.py::weighted_sum_reference``): out and dx bit for
+    bit, dw within 1e-6 of its products' magnitudes (the loop's dw of |x| and
+    |dout|) and in bf16 one rounding (2^-7 of the value) besides. Then the
+    pair, the loop and the same sum by one library call
+    (``weighted_sum_library``: torch.einsum) timed at the training cell's
+    level-0 skip (B=16, 128^2, bf16). Returns the largest errors and the
+    timings."""
+    script = agg_script()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    worst = {"out": 0.0, "dx": 0.0, "dw": 0.0, "dw_ratio": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (16, 10):
+            for side in script.SIDES:
+                x, w, pad, dout = agg_inputs(script, b, side, dtype, gen, dev)
+                got = []
+                for fn, xi, di in ((ag.weighted_sum, x, dout),
+                                   (ag.weighted_sum_reference, x, dout),
+                                   (ag.weighted_sum_reference, x.float().abs(),
+                                    dout.float().abs())):
+                    xl = xi.detach().requires_grad_(True)
+                    wl = w.detach().to(xi.dtype).requires_grad_(True)
+                    out = fn(xl, wl, pad)
+                    got.append((out.detach(),) + torch.autograd.grad(out, [xl, wl], di))
+                    del out, xl, wl
+                (out_k, dx_k, dw_k), (out_r, dx_r, dw_r), (_, _, mag) = got
+                del got
+                dw_k, dw_r = dw_k.float(), dw_r.float()
+                bound = mag * 1e-6 + 1e-12
+                if dtype == torch.bfloat16:
+                    bound = bound + dw_r.abs() * 2.0 ** -7
+                err = {"out": (out_k.float() - out_r.float()).abs().max().item(),
+                       "dx": (dx_k.float() - dx_r.float()).abs().max().item(),
+                       "dw": (dw_k - dw_r).abs().max().item(),
+                       "dw_ratio": ((dw_k - dw_r).abs() / bound).max().item()}
+                label = f"aggregate pair {str(dtype)[6:]} B={b} {side}^2"
+                print(f"{label} vs the loop: out max |err| {err['out']:.3e}, dx "
+                      f"{err['dx']:.3e}, dw {err['dw']:.3e} (worst ratio to its bound "
+                      f"{err['dw_ratio']:.3f}); padded dates' dx zero "
+                      f"{bool((dx_k[pad] == 0).all())}", flush=True)
+                check(torch.equal(out_k, out_r), f"{label}: out differs from the loop's")
+                check(torch.equal(dx_k, dx_r), f"{label}: dx differs from the loop's")
+                check(bool((dx_k[pad] == 0).all()), f"{label}: dx nonzero at padded dates")
+                check(err["dw_ratio"] <= 1.0, f"{label}: dw beyond its bound")
+                worst = {k: max(v, err[k]) for k, v in worst.items()}
+                del x, w, pad, dout, out_k, dx_k, dw_k, out_r, dx_r, dw_r, mag, bound
+                torch.cuda.empty_cache()
+
+    b, side, dtype = 16, script.SIDES[0], torch.bfloat16
+    x, w, pad, dout = agg_inputs(script, b, side, dtype, gen, dev)
+    fb, bb = script.pair_bytes(x, w, pad)
+    timings = {}
+    for name, fn, iters in (("pair", ag.weighted_sum, 20),
+                            ("library", script.weighted_sum_library, 5),
+                            ("plain", ag.weighted_sum_reference, 3)):
+        xl = x.detach().requires_grad_(True)
+        wl = w.detach().requires_grad_(True)
+
+        def forward():
+            with torch.no_grad():
+                fn(x, w, pad)
+        fwd_ms = cuda_ms(forward, iters=iters)
+        out = fn(xl, wl, pad)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, [xl, wl], dout, retain_graph=True),
+                         iters=iters)
+        timings[name] = (fwd_ms, bwd_ms)
+        print(f"aggregate {name} B={b} T={script.T} {side}^2 C={script.C} K={script.K} "
+              f"bf16: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms", flush=True)
+        del xl, wl, out
+        torch.cuda.empty_cache()
+    bound = (1e3 * fb / HBM_BYTES_PER_S, 1e3 * bb / HBM_BYTES_PER_S)
+    print(f"aggregate pair bound (bytes at {HBM_BYTES_PER_S / 1e12:g} TB/s): forward "
+          f"{bound[0]:.3f} ms, backward {bound[1]:.3f} ms", flush=True)
+    del x, w, pad, dout
+    torch.cuda.empty_cache()
+    return {"worst": worst, "timings": timings, "bound_ms": bound,
+            "shape": [b, script.T, side, side, script.C], "k": script.K}
 
 
 def phase_kernel_queries(models: dict, dev):
@@ -1200,11 +1337,15 @@ def perturb_hook(eps: float, dev):
     return hook
 
 
-def plain_train_runs(dev, name: str, fresh: dict, stats: tuple, runs_cfg, cfg) -> dict:
+def plain_train_runs(dev, name: str, fresh: dict, stats: tuple, runs_cfg, cfg,
+                     aggregate_per_step: int | None = None) -> dict:
     """``runs_cfg`` (label, dtype, B, remat) through make_train_step from the
     weights ``fresh``, 5 steps each: a finite, falling loss, the BatchNorm
-    statistics ``stats`` changed and no launch of any kernel; warm step ms
-    over steps 2-5 by CUDA events and peak memory."""
+    statistics ``stats`` changed and no launch of any L-TAE kernel; warm
+    step ms over steps 2-5 by CUDA events and peak memory. The steps run in
+    a ``collect()`` scope: the skip aggregator's forward launches (counter
+    ``aggregate.kernel``) and backward launches (span ``aggregate.bwd``)
+    must each read 5 * ``aggregate_per_step`` where that is given."""
     runs = {}
     for label, dtype, b, remat in runs_cfg:
         model = get_model({"model": name, "remat": remat}, device=dev)
@@ -1217,17 +1358,26 @@ def plain_train_runs(dev, name: str, fresh: dict, stats: tuple, runs_cfg, cfg) -
         lp.ltae_pool.launches.clear()                  # this path's counts
         lf.ltae_fused_forward.launches = 0
         losses, step_ms = [], []
-        for i in range(5):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            aux = step(batch, gen)
-            end.record()
-            torch.cuda.synchronize()
-            step_ms.append(start.elapsed_time(end))
-            losses.append(float(aux["loss"]))
-            print(f"{name} train {label} step {i + 1}: loss {losses[-1]:.6f}, "
-                  f"{step_ms[-1]:.3f} ms", flush=True)
-            check(np.isfinite(losses[-1]), f"{name} {label} step {i + 1}: loss {losses[-1]}")
+        with collect() as table:
+            for i in range(5):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                aux = step(batch, gen)
+                end.record()
+                torch.cuda.synchronize()
+                step_ms.append(start.elapsed_time(end))
+                losses.append(float(aux["loss"]))
+                print(f"{name} train {label} step {i + 1}: loss {losses[-1]:.6f}, "
+                      f"{step_ms[-1]:.3f} ms", flush=True)
+                check(np.isfinite(losses[-1]),
+                      f"{name} {label} step {i + 1}: loss {losses[-1]}")
+        agg = (table["counters"].get("aggregate.kernel", 0),
+               table["spans"].get("aggregate.bwd", {}).get("calls", 0))
+        print(f"{name} train {label}: aggregate launches over 5 steps, forward {agg[0]}, "
+              f"backward {agg[1]}", flush=True)
+        if aggregate_per_step is not None:
+            check(agg == (5 * aggregate_per_step,) * 2, f"{name} {label}: the aggregator "
+                  f"launched {agg}, not {5 * aggregate_per_step} each way")
         launched = dict(lp.ltae_pool.launches)
         launched["ltae_fused_fwd"] = lf.ltae_fused_forward.launches
         check(not any(launched.values()),
@@ -1241,27 +1391,29 @@ def plain_train_runs(dev, name: str, fresh: dict, stats: tuple, runs_cfg, cfg) -
               f"{b / warm_ms * 1e3:.2f} samples/s; peak memory {peak:.2f} GiB; "
               f"kernel launches {launched}", flush=True)
         runs[label] = {"losses": losses, "warm_ms": warm_ms, "peak_gib": peak,
-                       "batch": b}
+                       "batch": b, "aggregate_launches": list(agg)}
         del model, step, batch, aux
         torch.cuda.empty_cache()
     return runs
 
 
-def phase_plain_train(dev, name: str, stats: tuple, runs_cfg=UTAE_TRAIN_RUNS):
-    """Training of a model whose train steps run on plain ops (U-TAE, whose
+def phase_plain_train(dev, name: str, stats: tuple, runs_cfg=UTAE_TRAIN_RUNS,
+                      aggregate_per_step: int | None = None):
+    """Training of a model whose L-TAE trains on plain ops (U-TAE, whose
     L-TAE trains with the attention out, and W-TAE, whose L-TAE has no
     kernel) at the factory defaults: ``runs_cfg`` through make_train_step (5
     steps each, warm step ms over steps 2-5 by CUDA events, peak memory),
     each with a finite, falling loss, the BatchNorm statistics ``stats``
-    changed and no launch of any kernel; then one B=2 step's gradients with
-    remat against those without, held to the spread that perturbing the
-    temporal encoder's output causes."""
+    changed, no launch of any L-TAE kernel and ``aggregate_per_step`` launches
+    each way of the aggregator's pair a step (``plain_train_runs``); then one
+    B=2 step's gradients with remat against those without, held to the
+    spread that perturbing the temporal encoder's output causes."""
     cfg = StepConfig(num_classes=N_CLASSES,
                      class_weights=(1.0,) * (N_CLASSES - 1) + (0.0,))
     model = get_model({"model": name}, generator=torch.Generator().manual_seed(0))
     fresh = {k: v.clone() for k, v in model.state_dict().items()}
     del model
-    runs = plain_train_runs(dev, name, fresh, stats, runs_cfg, cfg)
+    runs = plain_train_runs(dev, name, fresh, stats, runs_cfg, cfg, aggregate_per_step)
 
     small = train_batch(2, torch.Generator(device=dev).manual_seed(4), dev)
     grads = {}
@@ -2182,7 +2334,8 @@ def phase_variants(dev, data: str, tmp: str) -> dict:
     # (a) the W-TAE tile
     wtae = get_model({"model": "wtae"}, generator=torch.Generator().manual_seed(0))
     torch.cuda.reset_peak_memory_stats()
-    _, pps, pps32, agree = phase_main_path(wtae, dev, label="wtae ", kernel_launches=0)
+    _, pps, pps32, agree, _ = phase_main_path(wtae, dev, label="wtae ", kernel_launches=0,
+                                              aggregate_launches=None)
     out["tile"] = {"patches_per_s": pps, "patches_per_s_fp32": pps32,
                    "class_agreement": agree,
                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -3707,7 +3860,8 @@ def main() -> int:
     start = time.perf_counter()
     # the native loader (g++) builds beside the kernels (nvcc)
     loader_build = concurrent.futures.ThreadPoolExecutor(1).submit(native.build)
-    libs = _build.build_all(["ltae_fused_fwd", "ltae_pool", "ltae_stages"])
+    libs = _build.build_all(["ltae_fused_fwd", "ltae_pool", "ltae_stages",
+                             "temporal_aggregate"])
     loader_lib = loader_build.result()
     print(f"built {', '.join(p.name for p in libs.values())}, {loader_lib.name} in "
           f"{time.perf_counter() - start:.1f} s", flush=True)
@@ -3760,14 +3914,15 @@ def main() -> int:
     model = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
     errs, timings = phase_kernel(model, dev)
     pool_errs, pool_t = phase_pool_kernel(model, dev)
-    launches, pps_bf16, pps_fp32, _ = phase_main_path(model, dev)
+    launches, pps_bf16, pps_fp32, _, _ = phase_main_path(model, dev)
     del model
     torch.cuda.empty_cache()
     pool_launches, runs = phase_train(dev)
     utae = get_model({"model": "utae"}, generator=torch.Generator().manual_seed(0))
     utae_errs, utae_t = phase_kernel_utae(utae, dev)
     stages = phase_stages(dev)
-    entry_launches, utae_launches, utae_pps, utae_pps32 = phase_utae(utae, dev)
+    entry_launches, utae_launches, utae_pps, utae_pps32, agg_launches = phase_utae(utae, dev)
+    agg = phase_aggregate(dev)
     timeunet = get_model({"model": "timeunet"}, generator=torch.Generator().manual_seed(0))
     models = {"utae": utae, "timeunet": timeunet}
     q_errs, q_t, q_launches = phase_kernel_queries(models, dev)
@@ -3778,7 +3933,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     utae_runs, remat_worst = phase_plain_train(
         dev, "utae", ("temporal_encoder.mlp.2.running_mean", "up_blocks.0.up.1.running_var",
-                      "out_conv.conv.conv.1.running_mean"))
+                      "out_conv.conv.conv.1.running_mean"), aggregate_per_step=3)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as cli_tmp:
         cli_data = os.path.join(cli_tmp, "data")
@@ -3867,6 +4022,26 @@ def main() -> int:
         "bound_by_fp32": b_by32, "device_ms": device_ms, "device_ms_fp32": device32,
         "tile_patches_per_s": utae_pps, "tile_patches_per_s_fp32": utae_pps32,
     }
+    # the skip aggregator's pair: the port's own kernels (the JAX package
+    # sums the skips in XLA), launched by U-TAE's tile (phase 6) and its
+    # training runs (phase 12)
+    aggregate = []
+    for i, direction in enumerate(("fwd", "bwd")):
+        aggregate.append({
+            "name": f"temporal_aggregate_{direction}", "route": "cuda",
+            "source": "crop2seg_tpu_torch/csrc/temporal_aggregate.cu",
+            "replaces": "crop2seg_tpu_torch/ops/aggregate.py::weighted_sum_reference",
+            "kernel": f"agg_{direction}_vec<Tin, L> (agg_{direction}_gen off the vector route)",
+            "launches": agg_launches if direction == "fwd" else 0,
+            "launches_train": {k: r["aggregate_launches"][i] for k, r in utae_runs.items()},
+            "max_abs_err": agg["worst"]["out" if direction == "fwd" else "dw"],
+            "ms": agg["timings"]["pair"][i], "plain_ms": agg["timings"]["plain"][i],
+            "bound_ms": agg["bound_ms"][i], "bound_by": "bytes",
+            "library_ms": agg["timings"]["library"][i],
+            "dtype": "bfloat16", "shape": agg["shape"], "k": agg["k"],
+        })
+    aggregate[1].update(max_abs_err_dx=agg["worst"]["dx"],
+                        dw_worst_ratio_to_bound=agg["worst"]["dw_ratio"])
     kernel_stages = {
         "name": "ltae_stages", "route": "cuda",
         "source": "crop2seg_tpu_torch/csrc/ltae_stages.cu",
@@ -4026,7 +4201,7 @@ def main() -> int:
     print(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s, the build included",
           flush=True)
     print(json.dumps({"kernels": [kernel, kernel_utae] + pool + [kernel_stages, kernel_q]
-                      + general}), flush=True)
+                      + general + aggregate}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

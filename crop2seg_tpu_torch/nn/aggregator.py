@@ -10,8 +10,13 @@ Modes:
 
 As in the JAX package the attention is resampled in x's dtype (bf16 under
 autocast) and the weighted sum accumulates in fp32; the result has x's
-dtype. The upsampled masks are the largest tensor on this path: at U-TAE's
-128^2 skip and B=10, T=61 they take 10*16*128^2*61*4 B = 640 MB in fp32.
+dtype. The sum is ``ops/aggregate.py::weighted_sum``: on the card a CUDA C++
+kernel pair that reads the resampled attention by its strides as (B, T, K,
+H, W), applies the pad mask itself and saves only x and the attention for
+its backward; on the CPU the loop of per-date ops, its plain version. The
+upsampled masks are the largest tensor on this path besides x: at U-TAE's
+128^2 skip and B=10, T=61 they take 10*16*128^2*61*2 B = 320 MB in bf16
+(640 MB in fp32).
 
 Inside ``nn/layers.py::space_shards`` the maps hold this rank's rows of H,
 and the bilinear upsample takes one row of its neighbours' attention on each
@@ -25,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from crop2seg_tpu_torch.nn.layers import space_group, upsample_rows
+from crop2seg_tpu_torch.ops.aggregate import weighted_sum
 from crop2seg_tpu_torch.utils.profiling import span
 
 
@@ -46,16 +52,6 @@ def _resample_attn(a: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return F.avg_pool2d(a, kernel_size=k, stride=k)
 
 
-def _weighted_sum(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """sum_t a[:, t] * x[:, t] in fp32. a (B, T, H, W, K), x (B, T, H, W, K,
-    C/K); returns (B, H, W, K, C/K) fp32."""
-    out = torch.zeros(x.shape[:1] + x.shape[2:], dtype=torch.float32,
-                      device=x.device)
-    for t in range(x.shape[1]):
-        out += a[:, t, ..., None].float() * x[:, t]
-    return out
-
-
 def temporal_aggregate(x: torch.Tensor, attn: torch.Tensor | None = None,
                        pad_mask: torch.Tensor | None = None,
                        mode: str = "att_group") -> torch.Tensor:
@@ -65,23 +61,17 @@ def temporal_aggregate(x: torch.Tensor, attn: torch.Tensor | None = None,
     (B, T) bool, True at padded dates. The call is the span ``aggregate``."""
     with span("aggregate"):
         b, t, h, w, c = x.shape
-        valid = None if pad_mask is None else (~pad_mask).to(x.dtype)
         with torch.autocast(x.device.type, enabled=False):
             if mode in ("att_group", "att_mean"):
                 a = attn if mode == "att_group" else attn.mean(dim=3, keepdim=True)
                 k = a.shape[3]
                 a = a.permute(0, 4, 3, 1, 2).to(x.dtype)          # (B, T, K, ha, wa)
                 a = _resample_attn(a.reshape((b * t, k) + a.shape[3:]), h, w)
-                a = a.reshape(b, t, k, h, w).permute(0, 1, 3, 4, 2)  # (B, T, H, W, K)
-                if valid is not None:
-                    a = a * valid[:, :, None, None, None]
-                out = _weighted_sum(a, x.reshape(b, t, h, w, k, c // k))
-                return out.reshape(b, h, w, c).to(x.dtype)
+                return weighted_sum(x, a.reshape(b, t, k, h, w), pad_mask)
             if mode == "mean":
-                if valid is None:
+                if pad_mask is None:
                     return x.mean(dim=1)
-                num = _weighted_sum(valid[:, :, None, None, None].expand(b, t, h, w, 1),
-                                    x[..., None, :])
-                den = valid.float().sum(dim=1)[:, None, None, None, None]
-                return (num / den).reshape(b, h, w, c).to(x.dtype)
+                valid = (~pad_mask).to(x.dtype)
+                return weighted_sum(x, valid[:, :, None, None, None].expand(b, t, 1, h, w),
+                                    pad_mask, valid.float().sum(dim=1))
         raise ValueError(f"unknown aggregation mode {mode!r}")
